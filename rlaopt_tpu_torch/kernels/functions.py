@@ -1,0 +1,90 @@
+"""Closed-form kernel tile formulas.
+
+Port of ``rlaopt_tpu/kernels/functions.py``: RBF, Laplace and Matérn 1/2,
+3/2, 5/2 on dense tiles of pre-scaled inputs, in the input dtype (float32 or
+float64). Squared distances use the expansion ``‖x‖² + ‖y‖² − 2·x·yᵀ``,
+clamped at zero before any square root; the Laplace (L1) distance has no
+matmul form and is a feature-chunked broadcast reduction.
+"""
+
+from typing import Callable, Dict
+
+import torch
+
+
+__all__ = [
+    "KERNEL_KINDS",
+    "kernel_tile",
+    "sqdist_tile",
+    "l1dist_tile",
+    "scale_inputs",
+]
+
+_SQRT3 = 3.0**0.5
+_SQRT5 = 5.0**0.5
+
+
+def scale_inputs(X: torch.Tensor, lengthscale) -> torch.Tensor:
+    """X / ℓ with a float or ARD (d,) lengthscale."""
+    return X / torch.as_tensor(lengthscale, dtype=X.dtype, device=X.device)
+
+
+def sqdist_tile(Xs: torch.Tensor, Ys: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distances ‖xᵢ−yⱼ‖² via the matmul expansion, ≥ 0."""
+    xn = torch.sum(Xs * Xs, dim=1)[:, None]
+    yn = torch.sum(Ys * Ys, dim=1)[None, :]
+    return torch.clamp(xn + yn - 2.0 * (Xs @ Ys.T), min=0.0)
+
+
+def l1dist_tile(Xs: torch.Tensor, Ys: torch.Tensor, chunk: int = 16):
+    """Pairwise L1 distances Σ_d |xᵢd − yⱼd| by feature-chunked broadcast."""
+    acc = torch.zeros((Xs.shape[0], Ys.shape[0]), dtype=Xs.dtype, device=Xs.device)
+    for f in range(0, Xs.shape[1], chunk):
+        xs, ys = Xs[:, f : f + chunk], Ys[:, f : f + chunk]
+        acc += torch.sum(torch.abs(xs[:, None, :] - ys[None, :, :]), dim=-1)
+    return acc
+
+
+def _rbf(Xs, Ys):
+    return torch.exp(-0.5 * sqdist_tile(Xs, Ys))
+
+
+def _laplace(Xs, Ys):
+    return torch.exp(-l1dist_tile(Xs, Ys))
+
+
+def _matern12(Xs, Ys):
+    return torch.exp(-torch.sqrt(sqdist_tile(Xs, Ys)))
+
+
+def _matern32(Xs, Ys):
+    D = torch.sqrt(sqdist_tile(Xs, Ys))
+    return (1.0 + _SQRT3 * D) * torch.exp(-_SQRT3 * D)
+
+
+def _matern52(Xs, Ys):
+    D2 = sqdist_tile(Xs, Ys)
+    D = torch.sqrt(D2)
+    return (1.0 + _SQRT5 * D + (5.0 / 3.0) * D2) * torch.exp(-_SQRT5 * D)
+
+
+_KERNELS: Dict[str, Callable] = {
+    "rbf": _rbf,
+    "laplace": _laplace,
+    "matern12": _matern12,
+    "matern32": _matern32,
+    "matern52": _matern52,
+}
+
+KERNEL_KINDS = tuple(_KERNELS)
+
+
+def kernel_tile(kind: str, Xs: torch.Tensor, Ys: torch.Tensor) -> torch.Tensor:
+    """Evaluate the (pre-scaled) kernel tile k(Xs, Ys) of shape (m, n)."""
+    try:
+        fn = _KERNELS[kind]
+    except KeyError:
+        raise ValueError(
+            f"Unknown kernel kind {kind!r}; expected one of {KERNEL_KINDS}"
+        ) from None
+    return fn(Xs, Ys)

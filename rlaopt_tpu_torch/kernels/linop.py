@@ -1,0 +1,143 @@
+"""Kernel Gram linear operators (single device).
+
+Port of ``rlaopt_tpu/kernels/linop.py``. The operator holds the data (X1,
+X2), the lengthscale and the scale; its applies stream kernel tiles through
+:func:`rlaopt_tpu_torch.ops.kernel_dispatch.kernel_matmat` (the CUDA kernels
+for CUDA tensors, the plain versions for CPU tensors). K is never
+materialized, except by :meth:`KernelLinOp.blk_dense` for a block.
+"""
+
+from typing import Optional
+
+import torch
+
+from .configs import KernelConfig, _is_kernel_config
+from .functions import kernel_tile, scale_inputs
+from ..linops.base import TwoSidedLinOp
+from ..ops.kernel_dispatch import (
+    check_compute_dtype,
+    kernel_matmat,
+    kernel_matmat_compensated,
+)
+from ..utils.checkers import _is_tensor
+
+
+__all__ = ["KernelLinOp"]
+
+
+class KernelLinOp(TwoSidedLinOp):
+    """Matrix-free Gram operator K[i,j] = c·k(A1[i], A2[j]).
+
+    ``compute_dtype`` must be None (exact tier): the bf16 tiers are not
+    ported yet. On a card the Laplace family raises NotImplementedError
+    until its kernel is ported.
+    """
+
+    def __init__(
+        self,
+        A1: torch.Tensor,
+        A2: torch.Tensor,
+        kernel_config: KernelConfig,
+        kind: str,
+        compute_dtype=None,
+    ):
+        self._check_inputs(A1, A2, kernel_config)
+        check_compute_dtype(compute_dtype)
+        self.kind = kind
+        self.compute_dtype = compute_dtype
+        self._kernel_config = kernel_config
+        self._X1, self._X2 = A1, A2
+        self._ls = kernel_config.lengthscale_tensor(A1.dtype, A1.device)
+        # The compensated apply divides by the lengthscale in float64.
+        self._ls64 = kernel_config.lengthscale_tensor(torch.float64, A1.device)
+        self._c = float(kernel_config.const_scaling)
+        # One data set on both sides: the apply may take the triangle kernel.
+        symmetric = A1 is A2
+
+        def mv(v):
+            return kernel_matmat(
+                kind, A1, A2, v, self._ls, self._c, symmetric=symmetric
+            )
+
+        def rmv(v):
+            # k is symmetric in its arguments: Kᵀ = k(X2, X1)
+            return kernel_matmat(
+                kind, A2, A1, v, self._ls, self._c, symmetric=symmetric
+            )
+
+        super().__init__(
+            shape=(A1.shape[0], A2.shape[0]),
+            matvec=mv,
+            rmatvec=rmv,
+            matmat=mv,
+            rmatmat=rmv,
+            dtype=A1.dtype,
+            device=A1.device,
+        )
+
+    @property
+    def A1(self) -> torch.Tensor:
+        return self._X1
+
+    @property
+    def A2(self) -> torch.Tensor:
+        return self._X2
+
+    @property
+    def kernel_config(self) -> KernelConfig:
+        return self._kernel_config
+
+    @property
+    def lengthscale(self) -> torch.Tensor:
+        return self._ls
+
+    def _check_inputs(self, A1, A2, kernel_config):
+        _is_tensor(A1, "A1")
+        _is_tensor(A2, "A2")
+        if A1.ndim != 2:
+            raise ValueError(f"A1 must be a 2D tensor, got {A1.ndim}D tensor.")
+        if A2.ndim != 2:
+            raise ValueError(f"A2 must be a 2D tensor, got {A2.ndim}D tensor.")
+        if A1.dtype != A2.dtype:
+            raise ValueError("A1 and A2 must have the same dtype.")
+        if A1.device != A2.device:
+            raise ValueError("A1 and A2 must be on the same device.")
+        _is_kernel_config(kernel_config, "kernel_config")
+
+    def matmat_compensated(self, V: torch.Tensor):
+        """``K @ V`` as a compensated ``(hi, lo)`` pair (add ``lo`` last).
+
+        The ground truth of residual checks: the lengthscale division, the
+        kernel values and each column tile's partial are taken in float64.
+        """
+        hi, lo = kernel_matmat_compensated(
+            self.kind, self._X1, self._X2, V, self._ls64, self._c
+        )
+        return self._apply_scale(hi), self._apply_scale(lo)
+
+    def _submatrix(
+        self,
+        idx1: Optional[torch.Tensor] = None,
+        idx2: Optional[torch.Tensor] = None,
+    ) -> "KernelLinOp":
+        """Operator over gathered subsets of the data points."""
+        A1 = self._X1 if idx1 is None else self._X1[idx1]
+        A2 = self._X2 if idx2 is None else self._X2[idx2]
+        return KernelLinOp(
+            A1, A2, self._kernel_config, self.kind, self.compute_dtype
+        )
+
+    def row_oracle(self, blk: torch.Tensor) -> "KernelLinOp":
+        """K[blk, :] as an operator."""
+        return self._submatrix(idx1=blk)
+
+    def blk_oracle(self, blk: torch.Tensor) -> "KernelLinOp":
+        """K[blk, blk] as an operator."""
+        return self._submatrix(idx1=blk, idx2=blk)
+
+    def blk_dense(self, blk: torch.Tensor) -> torch.Tensor:
+        """K[blk, blk] materialized as a dense (|blk|, |blk|) tensor, in the
+        payload dtype (a small dense tile, outside the Gram kernels)."""
+        Xs = scale_inputs(self._X1[blk], self._ls)
+        Ys = scale_inputs(self._X2[blk], self._ls)
+        return self._apply_scale(kernel_tile(self.kind, Xs, Ys) * self._c)

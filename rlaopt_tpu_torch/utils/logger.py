@@ -1,0 +1,58 @@
+"""Iteration logger with wall-clock timing.
+
+Port of ``rlaopt_tpu/utils/logger.py``: frequency-gated logging with
+per-round and cumulative wall-clock time. The timer synchronizes the CUDA
+device before it reads the clock, so the times are device time and not
+enqueue time. wandb logging is not ported yet.
+"""
+
+import time
+from typing import Any, Callable
+
+import torch
+
+
+__all__ = ["Logger"]
+
+
+class Logger:
+    """Frequency-gated metrics logger.
+
+    Args:
+        log_freq: Log every ``log_freq`` iterations.
+        log_fn: Called as ``log_fn(w)``; returns the metrics dict.
+    """
+
+    def __init__(self, log_freq: int, log_fn: Callable):
+        self.log_freq = log_freq
+        self.log_fn = log_fn
+        self.start_time = time.time()
+        self.iter_time = 0.0
+        self.cum_time = 0.0
+
+    def _reset_timer(self):
+        self.start_time = time.time()
+
+    def _update_cum_time(self):
+        self.iter_time = time.time() - self.start_time
+        self.cum_time += self.iter_time
+
+    def _compute_log(self, i: int, *args: Any, force: bool = False, **kwargs: Any):
+        """The log dict for iteration ``i`` (None off-frequency).
+
+        ``force=True`` logs regardless of frequency, for the final iteration
+        when ``max_iters`` is not a multiple of ``log_freq``.
+        """
+        if i % self.log_freq != 0 and not force:
+            return None
+        if args and isinstance(args[0], torch.Tensor) and args[0].is_cuda:
+            torch.cuda.synchronize(args[0].device)
+        self._update_cum_time()
+        metrics = self.log_fn(*args, **kwargs)
+        log_dict = {"iter_time": self.iter_time, "cum_time": self.cum_time}
+        log_dict["metrics"] = metrics
+        self._reset_timer()
+        return log_dict
+
+    def _terminate(self):
+        pass
