@@ -1,31 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on a CUDA card and check it.
+"""Drive the PyTorch port's main paths once on a CUDA card and check them.
 
     python3 chip_smoke.py
 
 Needs one CUDA card and ``nvcc`` (the kernels are built from
-``rlaopt_tpu_torch/csrc/gram.cu`` into ``build/`` on first use). It runs
+``rlaopt_tpu_torch/csrc/*.cu`` into ``build/`` on first use). It runs
 straight through and exits non-zero at the first failure:
 
 1. device: the card's name and power limit, the two TF32 flags (set off);
 2. build of the Gram kernels, timed;
-3. each kernel against its plain PyTorch version in float64 on the card, at
-   the main path's shapes (HIGGS-100k: n = 100,000, d = 28) and at a ragged
-   shape for every family; kernel and plain float32 timed (median of 5,
-   CUDA events), and beside K1c the plain float32 TwoSum version of the JAX
-   package's compensated contract;
-4. the slice: RBF kernel ridge regression, Nyström-PCG (rank 500) through
-   ``LinSys.solve`` with k = 1 and then k = 10 right-hand sides; every kernel
-   must have launched, the residual must fall, and every logged residual
-   must agree within 1% with an independent float64 one;
-5. one more solve of each under ``torch.profiler``: the card's busy time
+3. each kernel against its plain PyTorch version on the card, at the main
+   paths' shapes (HIGGS-100k: n = 100,000, d = 28) and at a ragged shape
+   for every family: K1, K1c, K2 against float64; K1b and K2b on both bf16
+   tiers against the plain version of the same tier and against float64;
+   K7 and K8, all five families, against the float64 plain version; kernel
+   and plain version timed (median of 5, CUDA events);
+4. slice 1, config 3 whole: RBF kernel ridge regression, Nyström-PCG (rank
+   500) through ``LinSys.solve`` with k = 1 and k = 10 right-hand sides,
+   then the k = 1 solve again with two float64 refinement rounds; every
+   kernel of the path must have launched, the residual must fall, every
+   logged residual must agree within 1% with an independent float64 one,
+   and the refined residual must clear 1e-6 and agree with its own;
+5. one more solve of each k under ``torch.profiler``: the card's busy time
    and each kernel's share (where the time goes);
-6. the kernels' JSON line, the card line, and the result line last.
+6. slice 2, config 6: the n = 1,000,000 north-star solve on the bf16x3
+   operator with update-mode refinement and the sampled certificate, under
+   ``torch.profiler``; the certificate, a full float64 sweep of the
+   delivered solution and an independent sampled float64 residual (plain
+   version, other rows) must all put it at or under 1e-6; then K1b (k =
+   500), K2b, K1c, K7 and K8 against their plain versions at the path's
+   n = m = 1,000,000, on those 4,096 rows;
+7. the kernels' JSON line, the card line, and the result line last.
 
 It imports nothing of JAX.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -34,14 +45,67 @@ import time
 import numpy as np
 
 N, D, RANK, ITERS, FREQ = 100_000, 28, 500, 20, 10
-SOURCE = "rlaopt_tpu_torch/csrc/gram.cu"
+# Config 6 (benchmarks/run.py::config6_northstar_1m_pcg), with callback_freq
+# 10 in place of the 3 that the TPU's execution watchdog forced there.
+N6, ITERS6, FREQ6 = 1_000_000, 60, 10
+SOURCES = {
+    "gram": "rlaopt_tpu_torch/csrc/gram.cu",
+    "tier": "rlaopt_tpu_torch/csrc/gram_tier.cu",
+    "f64": "rlaopt_tpu_torch/csrc/gram_f64.cu",
+}
 PALLAS = "rlaopt_tpu/ops/kernel_pallas.py"
+VALUE64 = "rlaopt_tpu/ops/kernel_value64.py"
 # K1 and K2 are held to the exact f32 tier's contract with room for fp32
-# atomics; K1c works in float64 inside a tile, so it is held to 1e-10.
+# atomics; K1c, K7 and K8 work in float64 inside a tile, so they are held to
+# 1e-10 of the float64 plain version.
 K_BOUND, COMP_BOUND = 2e-5, 1e-10
+# K1b and K2b against the plain version of their tier: the same bf16
+# roundings, so only the order of the f32 sums and expf differ. Where the
+# one-pass tier re-rounds float32 kernel values to bf16 (the "fast"
+# contraction at k > 16, the mirror rows at k >= 3), a value that differs
+# from the plain version's in its last float bit now and then rounds the
+# other way, 2^-8 of that product: held to 5e-4 there.
+TIER_BOUND, REROUND_BOUND = 1e-5, 5e-4
+# bf16x3 against float64 at the HIGGS shape.
+BF16X3_F64_BOUND = 2e-5
+# The JAX package's Pallas tiers in interpret mode against the float64
+# product (max abs error / max|ref|), on the data of each check, measured on
+# the CPU by tests/test_torch_tiers.py. K1b and K2b are held to 3x these
+# against float64 where no fixed bound is set. "gen" is
+# kernel_matmat_pallas, "sym" kernel_matvec_symmetric (tile 512). Ragged:
+# ragged_data(); HIGGS: synthetic_higgs(1024) with itself at lengthscale
+# sqrt(28), the size the interpreter runs in seconds.
+JAX_TIER_ERR = {
+    ("ragged", "bf16x3", "gen", "rbf"): 6.5e-6,
+    ("ragged", "bf16x3", "gen", "matern12"): 2.1e-5,
+    ("ragged", "bf16x3", "gen", "matern32"): 7.6e-6,
+    ("ragged", "bf16x3", "gen", "matern52"): 6.2e-6,
+    ("ragged", "bf16x3", "sym", "rbf"): 1.4e-5,
+    ("ragged", "bf16x3", "sym", "matern12"): 1.2e-3,
+    ("ragged", "bf16x3", "sym", "matern32"): 2.9e-5,
+    ("ragged", "bf16x3", "sym", "matern52"): 1.8e-5,
+    ("ragged", "bfloat16", "gen", "rbf"): 2.8e-3,
+    ("ragged", "bfloat16", "gen", "matern12"): 1.2e-2,
+    ("ragged", "bfloat16", "gen", "matern32"): 3.5e-3,
+    ("ragged", "bfloat16", "gen", "matern52"): 3.1e-3,
+    ("ragged", "bfloat16", "sym", "rbf"): 4.0e-3,
+    ("ragged", "bfloat16", "sym", "matern12"): 2.2e-2,
+    ("ragged", "bfloat16", "sym", "matern32"): 5.4e-3,
+    ("ragged", "bfloat16", "sym", "matern52"): 4.0e-3,
+    ("higgs", "bfloat16", "gen", 1): 7.8e-4,
+    ("higgs", "bfloat16", "gen", 10): 5.4e-4,
+    ("higgs", "bfloat16", "sym", 1): 7.8e-4,
+    ("higgs", "bfloat16", "sym", 10): 2.2e-3,
+}
+# The interpreter runs the one-pass "fast" contraction of k > 16 in full
+# float32 (a DEFAULT-precision dot off the TPU), so at k = 500 the bfloat16
+# bound adds that contraction's own rounding, 2^-8 (K and V each rounded).
+FAST_CONTRACTION = 2.0**-8
 # Rows (or columns) per streamed tile of the plain versions on the card:
 # 2^26 elements, so that launch overhead does not dominate their times.
 BLOCK = (1 << 26) // N
+SQDIST_KINDS = ("rbf", "matern12", "matern32", "matern52")
+TIERS = ("bf16x3", "bfloat16")
 
 
 def check(ok: bool, what: str):
@@ -57,6 +121,17 @@ def synthetic_higgs(n: int, seed: int = 0):
     w = rng.standard_normal(D).astype(np.float32)
     y = np.tanh(X @ w) + 0.1 * rng.standard_normal(n).astype(np.float32)
     return X, y.astype(np.float32)
+
+
+def ragged_data():
+    """The ragged check shape: X1 (1000, 3), X2 (777, 3), right-hand sides
+    W (777, 7) for X2 and S (1000, 7) for X1; lengthscale 1.3, c = 0.9."""
+    rng = np.random.default_rng(2)
+    A1 = rng.standard_normal((1000, 3)).astype(np.float32)
+    A2 = rng.standard_normal((777, 3)).astype(np.float32)
+    W = rng.standard_normal((777, 7)).astype(np.float32)
+    S = rng.standard_normal((1000, 7)).astype(np.float32)
+    return A1, A2, W, S
 
 
 def extra_targets(X: np.ndarray, k: int, seed: int = 1):
@@ -93,34 +168,210 @@ def plain_twosum_f32(kind, X, V, ls):
     return hi, lo
 
 
+# csrc/gram_common.cuh's Mode template argument, last of the narrow and
+# triangle kernels' arguments: EXACT 0, COMP 1, F64 2, TIER1 3, TIER3 4.
+_NARROW = {0: "gram_matmat", 1: "gram_matmat_comp", 2: "gram_matmat_f64",
+           3: "gram_matmat_tier", 4: "gram_matmat_tier"}
+_TRIANGLE = {0: "gram_matvec_symmetric", 2: "gram_matvec_symmetric_f64",
+             3: "gram_matvec_symmetric_tier", 4: "gram_matvec_symmetric_tier"}
+
+
+def _kernel_group(name: str) -> str:
+    m = re.search(r"(gram_\w+)<([^>]*)>", name)
+    if m is None:
+        return "other"
+    fn, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
+    if fn == "gram_matmat_wide":
+        return "gram_matmat"
+    if fn == "gram_matmat_tier_wide":
+        return "gram_matmat_tier"
+    table = _NARROW if fn == "gram_matmat_narrow" else _TRIANGLE
+    try:
+        return table.get(int(args[-1]), "other")
+    except ValueError:
+        return "other"
+
+
 def device_breakdown(prof) -> dict:
     """Card busy time (ms) and each Gram kernel's time and launches, from the
     device events of a ``torch.profiler`` run. Empty if no device event was
     recorded."""
     from torch.autograd import DeviceType
 
-    groups = {"gram_matvec_symmetric": [0.0, 0], "gram_matmat_comp": [0.0, 0],
-              "gram_matmat": [0.0, 0], "other": [0.0, 0]}
+    groups = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        name = e.name
-        if "gram_matvec_symmetric" in name:
-            key = "gram_matvec_symmetric"
-        elif "gram_matmat_narrow" in name and "true>" in name:
-            key = "gram_matmat_comp"
-        elif "gram_matmat" in name:
-            key = "gram_matmat"
-        else:
-            key = "other"
-        groups[key][0] += e.time_range.elapsed_us() / 1e3
-        groups[key][1] += 1
+        g = groups.setdefault(_kernel_group(e.name), [0.0, 0])
+        g[0] += e.time_range.elapsed_us() / 1e3
+        g[1] += 1
     busy = sum(g[0] for g in groups.values())
     if busy == 0:
         return {"device": "not measured: the profiler recorded no device event"}
     return {
         "busy_ms": busy,
-        "kernels": {key: {"ms": g[0], "events": g[1]} for key, g in groups.items()},
+        "kernels": {key: {"ms": g[0], "events": g[1]} for key, g in sorted(groups.items())},
+    }
+
+
+def cuda_ms(fn, reps=5):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def int_keys(log):
+    return sorted(i for i in log if isinstance(i, int))
+
+
+def north_star(dev, profile_run, compare):
+    """Config 6 through the entry points a user calls; returns its record.
+
+    Everything from the data to the delivered W64 runs inside the counted
+    window (the caller reads the launch counts just after); the checks
+    after it launch outside it: a full float64 sweep through K7, an
+    independent sampled float64 residual through the plain version, and
+    every kernel of the path held against its plain version at the path's
+    shapes (n = m = 1,000,000; ``compare`` records each).
+    """
+    import torch
+
+    from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp
+    from rlaopt_tpu_torch.models import LinSys
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+    from rlaopt_tpu_torch.ops.kernel_tiers import TierOperand, tier_operand
+    from rlaopt_tpu_torch.preconditioners import NystromConfig
+    from rlaopt_tpu_torch.solvers import PCGConfig
+
+    t0 = time.perf_counter()
+    Xn, yn = synthetic_higgs(N6)
+    X = torch.from_numpy(Xn).to(dev)
+    y = torch.from_numpy(yn).to(dev)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    reg = 1e-4 * N6
+    ls = D**0.5
+    kernel_cuda.reset_launch_counts()
+    with profile_run() as prof:
+        t0 = time.perf_counter()
+        K = RBFLinOp(X, X, KernelConfig(lengthscale=ls), compute_dtype="bf16x3")
+        sys_ = LinSys(K, y, reg=reg)
+        cfg = PCGConfig(max_iters=ITERS6, rtol=1e-6,
+                        precond_config=NystromConfig(rank=RANK, rho=reg))
+        W64, log = sys_.solve(
+            cfg, torch.zeros((N6, 1), device=dev), callback_freq=FREQ6, key=0,
+            f64_refine_rounds=2, f64_refine_device="accel",
+            f64_refine_residual="update", f64_refine_certify="sampled",
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    used = kernel_cuda.launch_counts()
+    ref = log["f64_refine"]
+    its = int_keys(log)
+    iters = its[-1]
+    base_rel = float(log[iters]["metrics"]["internal_metrics"]["rel_res"][0])
+    for i in its:
+        m = log[i]["metrics"]["internal_metrics"]
+        print(f"config6 iter {i}: rel_res {m['rel_res'].tolist()} "
+              f"source {m.get('source')} stalled {m.get('stalled', False)}")
+    claim = ref["rel_res_f64"][-1][0]
+    print(f"config6: wall {wall:.3f} s phase_walls {sys_.phase_walls} "
+          f"base iters {iters} base s/iter {sys_.phase_walls['train'] / iters:.4f} "
+          f"stalled {sys_.stalled}")
+    print("config6 refine " + json.dumps(ref))
+    print(f"config6 launches {used}")
+    check(W64.dtype == torch.float64 and W64.device == X.device and W64.shape == (N6, 1),
+          "config 6 delivers float64 W on the card")
+    check(bool(torch.all(torch.isfinite(W64))), "config 6 W is finite")
+    for kname in ("gram_matmat_tier", "gram_matvec_symmetric_tier",
+                  "gram_matvec_symmetric_f64", "gram_matmat_f64"):
+        check(used[kname] > 0, f"config 6 launched {kname}")
+    cert = ref.get("sampled_certificate")
+    if cert is None or cert.get("refreshed"):
+        print("config6: the sampled certificate was not accepted; the claim "
+              f"rests on a full evaluation: {ref['residual_sources']}")
+    check(claim <= 1e-6, f"config 6 certified rel_res_f64 {claim:.3e} <= 1e-6")
+
+    # post-hoc full float64 sweep of the delivered W64 through K7
+    t0 = time.perf_counter()
+    y64 = y.double()[:, None]
+    KW = kernel_cuda.gram_matvec_symmetric_f64("rbf", X, W64, ls)
+    full = (torch.linalg.norm(y64 - (KW + reg * W64)) / torch.linalg.norm(y64)).item()
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    check(full <= 1e-6, f"config 6 full float64 sweep {full:.3e} <= 1e-6")
+
+    # independent sampled float64 residual: other rows (seed 7, as
+    # benchmarks/run.py), the plain float64 version on the card
+    s = min(4096, N6)
+    idx = torch.as_tensor(np.sort(np.random.default_rng(7).choice(N6, s, replace=False)),
+                          device=dev)
+    t0 = time.perf_counter()
+    Kr = kernel_plain.gram_matmat_f64("rbf", X[idx], X, W64, ls)
+    r = y64[idx] - (Kr + reg * W64[idx])
+    indep = ((torch.linalg.norm(r) / s**0.5) / (torch.linalg.norm(y64) / N6**0.5)).item()
+    torch.cuda.synchronize()
+    indep_s = time.perf_counter() - t0
+    sigma_indep = indep / (2.0 * s) ** 0.5
+    sigma_claim = claim * (cert["rel_stderr"] if cert and not cert.get("refreshed") else 0.0)
+    gap = abs(indep - claim)
+    sigma = (sigma_indep**2 + sigma_claim**2) ** 0.5
+    print(f"config6 checks: claim {claim:.6e} full float64 sweep {full:.6e} "
+          f"({full_s:.3f} s) independent sampled {indep:.6e} ± {sigma_indep:.2e} "
+          f"({indep_s:.3f} s); gap {gap:.3e} = {gap / sigma:.2f} sigma")
+    check(gap <= 5 * sigma, "config 6 independent sampled residual within 5 sigma")
+
+    # The path's kernels against their plain versions at its shapes, on
+    # the same s rows (a full plain product at n = 1M takes hours): K7's
+    # sweep and K8 against the plain float64 rows above; K1b at the
+    # sketch's k = 500 and K2b at the matvec's k = 1 on the bf16x3 parts of
+    # all 1M points; K1c at k = 1.
+    t0 = time.perf_counter()
+    shape = f"config 6 rows {s} of n=m={N6} d={D}"
+    compare("gram_matvec_symmetric_f64", KW[idx], Kr, f"{shape} k=1", COMP_BOUND)
+    compare("gram_matmat_f64", kernel_cuda.gram_matmat_f64("rbf", X[idx], X, W64, ls),
+            Kr, f"{shape} k=1", COMP_BOUND)
+    del KW, Kr
+    P = tier_operand(X / ls, "bf16x3")
+    Pr = TierOperand(P.hi[idx], P.lo[idx], P.sq[idx])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for k in (RANK, 1):
+        V = torch.randn((N6, k), generator=gen, device=dev)
+        ref64 = kernel_plain.gram_matmat_f64("rbf", X[idx], X, V, ls, row_block=256)
+        tier_ref = kernel_plain.gram_matmat_tier("rbf", Pr, P, V, row_block=256)
+        if k == RANK:
+            got = kernel_cuda.gram_matmat_tier("rbf", Pr, P, V)
+            kname = "gram_matmat_tier"
+        else:
+            got = kernel_cuda.gram_matvec_symmetric_tier("rbf", P, V)[idx]
+            kname = "gram_matvec_symmetric_tier"
+        compare(kname, got, tier_ref, f"bf16x3 {shape} k={k} vs its tier", TIER_BOUND)
+        compare(kname, got, ref64, f"bf16x3 {shape} k={k} vs float64", BF16X3_F64_BOUND)
+        if k == 1:
+            hi, lo = kernel_cuda.gram_matmat_comp("rbf", X[idx], X, V, ls)
+            compare("gram_matmat_comp", hi.double() + lo.double(), ref64,
+                    f"{shape} k=1 (hi+lo)", COMP_BOUND)
+        del V, got, tier_ref, ref64
+    print(f"config6 kernel checks at the path's shapes: {time.perf_counter() - t0:.3f} s")
+    return {
+        "n": N6, "wall_s": wall, "data_s": data_s, "phase_walls": sys_.phase_walls,
+        "base_iters": iters, "base_s_per_iter": sys_.phase_walls["train"] / iters,
+        "base_rel_res": base_rel, "refine_phase_walls": ref["phase_walls"],
+        "residual_sources": ref["residual_sources"], "rel_res_f64": ref["rel_res_f64"],
+        "sampled_certificate": cert, "full_sweep_rel": full, "full_sweep_s": full_s,
+        "independent_rel": indep, "independent_stderr": sigma_indep,
+        "launches": used, "profile": device_breakdown(prof) if prof else None,
     }
 
 
@@ -133,9 +384,11 @@ def main() -> int:
     from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp
     from rlaopt_tpu_torch.models import LinSys
     from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
     from rlaopt_tpu_torch.preconditioners import NystromConfig
     from rlaopt_tpu_torch.solvers import PCGConfig
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
 
@@ -161,112 +414,213 @@ def main() -> int:
     Xn, yn = synthetic_higgs(N)
     X = torch.from_numpy(Xn).to(dev)
     ls = D**0.5
-    X64 = X.double()
     gen = torch.Generator(device=dev).manual_seed(1)
     Vs = {k: torch.randn((N, k), generator=gen, device=dev) for k in (1, 10, 16, 500)}
     refs = {
-        k: kernel_plain.gram_matmat("rbf", X64, X64, Vs[k].double(), ls, row_block=BLOCK)
+        k: kernel_plain.gram_matmat_f64("rbf", X, X, Vs[k], ls, row_block=BLOCK)
         for k in (1, 10, 500)
     }
-    errors = {"gram_matmat": [], "gram_matmat_comp": [], "gram_matvec_symmetric": []}
+    names = ("gram_matmat", "gram_matmat_comp", "gram_matvec_symmetric",
+             "gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_matmat_f64",
+             "gram_matvec_symmetric_f64")
+    # (kernel, "plain" or "float64") -> [(max abs err, relative)]; "plain"
+    # is the kernel's own plain version (float64 for all but the tiers)
+    errors = {(kname, versus): [] for kname in names for versus in ("plain", "float64")}
 
-    def compare(kernel, got, ref, what):
+    def compare(kernel, got, ref, what, bound):
         torch.cuda.synchronize()
-        diff = (got.double() - ref).abs().max().item()
-        rel = diff / ref.abs().max().item()
-        errors[kernel].append((diff, rel))
-        print(f"check {kernel} {what}: max_abs_err={diff:.3e} rel={rel:.3e}")
+        diff = (got.double() - ref.double()).abs().max().item()
+        rel = diff / ref.double().abs().max().item()
+        versus = "float64" if what.endswith("vs float64") else "plain"
+        errors[(kernel, versus)].append((diff, rel))
+        print(f"check {kernel} {what}: max_abs_err={diff:.3e} rel={rel:.3e} (bound {bound:.1e})")
+        check(rel <= bound, f"{kernel} {what} within {bound:.1e}")
         return rel
 
     for k in refs:
-        V = Vs[k]
-        rel = compare("gram_matmat", kernel_cuda.gram_matmat("rbf", X, X, V, ls),
-                      refs[k], f"n=m={N} d={D} k={k}")
-        check(rel <= K_BOUND, f"gram_matmat k={k} within {K_BOUND}")
-        if k == 1:
-            rel_k1 = rel
+        compare("gram_matmat", kernel_cuda.gram_matmat("rbf", X, X, Vs[k], ls),
+                refs[k], f"n=m={N} d={D} k={k}", K_BOUND)
     for k in (1, 10):
-        rel = compare("gram_matvec_symmetric",
-                      kernel_cuda.gram_matvec_symmetric("rbf", X, Vs[k], ls),
-                      refs[k], f"n={N} d={D} k={k}")
-        check(rel <= K_BOUND, f"gram_matvec_symmetric k={k} within {K_BOUND}")
+        compare("gram_matvec_symmetric",
+                kernel_cuda.gram_matvec_symmetric("rbf", X, Vs[k], ls),
+                refs[k], f"n={N} d={D} k={k}", K_BOUND)
+    rel_k1 = errors[("gram_matmat", "plain")][0][1]
     hi, lo = kernel_cuda.gram_matmat_comp("rbf", X, X, Vs[1], ls)
     rel = compare("gram_matmat_comp", hi.double() + lo.double(), refs[1],
-                  f"n=m={N} d={D} k=1 (hi+lo)")
-    check(rel <= COMP_BOUND and rel <= rel_k1,
-          f"gram_matmat_comp within {COMP_BOUND} and no worse than gram_matmat")
+                  f"n=m={N} d={D} k=1 (hi+lo)", COMP_BOUND)
+    check(rel <= rel_k1, "gram_matmat_comp no worse than gram_matmat")
     jhi, jlo = plain_twosum_f32("rbf", X, Vs[1], ls)
     diff = (jhi.double() + jlo.double() - refs[1]).abs().max().item()
     twosum_f32_rel = diff / refs[1].abs().max().item()
     print(f"check plain f32 TwoSum (the JAX package's compensated contract) "
           f"n=m={N} d={D} k=1 (hi+lo): max_abs_err={diff:.3e} rel={twosum_f32_rel:.3e}")
 
-    rng = np.random.default_rng(2)
-    A1 = torch.from_numpy(rng.standard_normal((1000, 3)).astype(np.float32)).to(dev)
-    A2 = torch.from_numpy(rng.standard_normal((777, 3)).astype(np.float32)).to(dev)
-    W7 = torch.from_numpy(rng.standard_normal((777, 7)).astype(np.float32)).to(dev)
-    S7 = torch.from_numpy(rng.standard_normal((1000, 7)).astype(np.float32)).to(dev)
-    for kind in ("rbf", "matern12", "matern32", "matern52"):
-        ref = kernel_plain.gram_matmat(kind, A1.double(), A2.double(), W7.double(), 1.3, 0.9)
+    # the bf16 tiers at the HIGGS shape: K1b at k = 1, 10, 500; K2b at 1, 10
+    parts = {cd: tier_operand(X / ls, cd) for cd in TIERS}
+    for cd in TIERS:
+        P = parts[cd]
+        for k in (1, 10, 500):
+            what = f"{cd} n=m={N} d={D} k={k}"
+            got = kernel_cuda.gram_matmat_tier("rbf", P, P, Vs[k])
+            reround = cd == "bfloat16" and k > 16
+            compare("gram_matmat_tier", got,
+                    kernel_plain.gram_matmat_tier("rbf", P, P, Vs[k], row_block=BLOCK),
+                    what + " vs its tier", REROUND_BOUND if reround else TIER_BOUND)
+            if cd == "bf16x3":
+                bound = BF16X3_F64_BOUND
+            else:
+                bound = 3 * JAX_TIER_ERR[("higgs", cd, "gen", min(k, 10))]
+                bound += FAST_CONTRACTION if k > 16 else 0.0
+            compare("gram_matmat_tier", got, refs[k], what + " vs float64", bound)
+            if k > 16:
+                continue
+            got = kernel_cuda.gram_matvec_symmetric_tier("rbf", P, Vs[k])
+            reround = cd == "bfloat16" and k >= 3
+            compare("gram_matvec_symmetric_tier", got,
+                    kernel_plain.gram_matvec_symmetric_tier("rbf", P, Vs[k], row_block=BLOCK),
+                    f"{cd} n={N} d={D} k={k} vs its tier",
+                    REROUND_BOUND if reround else TIER_BOUND)
+            bound = (BF16X3_F64_BOUND if cd == "bf16x3"
+                     else 3 * JAX_TIER_ERR[("higgs", cd, "sym", k)])
+            compare("gram_matvec_symmetric_tier", got, refs[k],
+                    f"{cd} n={N} d={D} k={k} vs float64", bound)
+    # the float64 kernels at the HIGGS shape, k = 1 and 10
+    for k in (1, 10):
+        V64 = Vs[k].double()
+        ref = kernel_plain.gram_matmat_f64("rbf", X, X, V64, ls, row_block=BLOCK)
+        compare("gram_matmat_f64", kernel_cuda.gram_matmat_f64("rbf", X, X, V64, ls),
+                ref, f"n=m={N} d={D} k={k}", COMP_BOUND)
+        compare("gram_matvec_symmetric_f64",
+                kernel_cuda.gram_matvec_symmetric_f64("rbf", X, V64, ls),
+                ref, f"n={N} d={D} k={k}", COMP_BOUND)
+
+    # every family at the ragged shape
+    A1, A2, W7, S7 = (torch.from_numpy(a).to(dev) for a in ragged_data())
+    for kind in SQDIST_KINDS:
+        ref = kernel_plain.gram_matmat_f64(kind, A1, A2, W7, 1.3, 0.9)
         rel = compare("gram_matmat", kernel_cuda.gram_matmat(kind, A1, A2, W7, 1.3, 0.9),
-                      ref, f"{kind} n=1000 m=777 d=3 k=7")
-        check(rel <= K_BOUND, f"gram_matmat {kind} ragged within {K_BOUND}")
+                      ref, f"{kind} n=1000 m=777 d=3 k=7", K_BOUND)
         hi, lo = kernel_cuda.gram_matmat_comp(kind, A1, A2, W7, 1.3, 0.9)
         rel_c = compare("gram_matmat_comp", hi.double() + lo.double(), ref,
-                        f"{kind} n=1000 m=777 d=3 k=7 (hi+lo)")
-        check(rel_c <= COMP_BOUND and rel_c <= rel,
-              f"gram_matmat_comp {kind} ragged within {COMP_BOUND}")
-        ref = kernel_plain.gram_matmat(kind, A1.double(), A1.double(), S7.double(), 1.3, 0.9)
-        rel = compare("gram_matvec_symmetric",
-                      kernel_cuda.gram_matvec_symmetric(kind, A1, S7, 1.3, 0.9),
-                      ref, f"{kind} n=1000 d=3 k=7")
-        check(rel <= K_BOUND, f"gram_matvec_symmetric {kind} ragged within {K_BOUND}")
+                        f"{kind} n=1000 m=777 d=3 k=7 (hi+lo)", COMP_BOUND)
+        check(rel_c <= rel, f"gram_matmat_comp {kind} ragged no worse than gram_matmat")
+        ref_s = kernel_plain.gram_matmat_f64(kind, A1, A1, S7, 1.3, 0.9)
+        compare("gram_matvec_symmetric",
+                kernel_cuda.gram_matvec_symmetric(kind, A1, S7, 1.3, 0.9),
+                ref_s, f"{kind} n=1000 d=3 k=7", K_BOUND)
+        for cd in TIERS:
+            P1, P2 = tier_operand(A1 / 1.3, cd), tier_operand(A2 / 1.3, cd)
+            what = f"{cd} {kind} n=1000 m=777 d=3 k=7"
+            got = kernel_cuda.gram_matmat_tier(kind, P1, P2, W7, 0.9)
+            compare("gram_matmat_tier", got,
+                    kernel_plain.gram_matmat_tier(kind, P1, P2, W7, 0.9),
+                    what + " vs its tier", TIER_BOUND)
+            compare("gram_matmat_tier", got, ref, what + " vs float64",
+                    3 * JAX_TIER_ERR[("ragged", cd, "gen", kind)])
+            what = f"{cd} {kind} n=1000 d=3 k=7"
+            got = kernel_cuda.gram_matvec_symmetric_tier(kind, P1, S7, 0.9)
+            bound = REROUND_BOUND if cd == "bfloat16" else TIER_BOUND
+            # Matérn-1/2's cusp: on the diagonal of a symmetric product the
+            # tier's squared distance is a cancelled float sum, ~2^-17 |x|^2
+            # (bf16x3), whose square root the two summation orders put
+            # apart by up to the tier's own error there. The whole product
+            # is held to that; the rows whose own row of the right-hand
+            # side is zero hold no diagonal value, and are held to the
+            # tier's bound (even rows, then odd rows).
+            compare("gram_matvec_symmetric_tier", got,
+                    kernel_plain.gram_matvec_symmetric_tier(kind, P1, S7, 0.9),
+                    what + " vs its tier",
+                    JAX_TIER_ERR[("ragged", cd, "sym", kind)] if kind == "matern12" else bound)
+            if kind == "matern12":
+                for parity in (0, 1):
+                    rows = torch.arange(A1.shape[0], device=dev) % 2 == parity
+                    Sz = torch.where(rows[:, None], 0.0, S7)
+                    compare("gram_matvec_symmetric_tier",
+                            kernel_cuda.gram_matvec_symmetric_tier(kind, P1, Sz, 0.9)[rows],
+                            kernel_plain.gram_matvec_symmetric_tier(kind, P1, Sz, 0.9)[rows],
+                            what + f" rows {parity}::2 off the diagonal vs its tier", bound)
+            compare("gram_matvec_symmetric_tier", got,
+                    kernel_plain.gram_matmat_f64(kind, A1, A1, S7, 1.3, 0.9),
+                    what + " vs float64", 3 * JAX_TIER_ERR[("ragged", cd, "sym", kind)])
+    for kind in SQDIST_KINDS + ("laplace",):
+        compare("gram_matmat_f64",
+                kernel_cuda.gram_matmat_f64(kind, A1, A2, W7.double(), 1.3, 0.9),
+                kernel_plain.gram_matmat_f64(kind, A1, A2, W7, 1.3, 0.9),
+                f"{kind} n=1000 m=777 d=3 k=7", COMP_BOUND)
+        compare("gram_matvec_symmetric_f64",
+                kernel_cuda.gram_matvec_symmetric_f64(kind, A1, S7.double(), 1.3, 0.9),
+                kernel_plain.gram_matmat_f64(kind, A1, A1, S7, 1.3, 0.9),
+                f"{kind} n=1000 d=3 k=7", COMP_BOUND)
     del refs
 
-    def cuda_ms(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     # The first shape of each kernel is the one its JSON entry reports.
-    timings = {}
-    for kernel, k in (
-        ("gram_matmat", 500), ("gram_matmat", 1), ("gram_matmat", 10),
-        ("gram_matmat", 16),
-        ("gram_matvec_symmetric", 1), ("gram_matvec_symmetric", 10),
-        ("gram_matvec_symmetric", 16),
-        ("gram_matmat_comp", 1), ("gram_matmat_comp", 10),
-    ):
+    def kernel_and_plain(kernel, k, cd=None):
         V = Vs[k]
-        if kernel == "gram_matvec_symmetric":
-            fn = lambda: kernel_cuda.gram_matvec_symmetric("rbf", X, V, ls)
-            plain = lambda: kernel_plain.gram_matvec_symmetric("rbf", X, V, ls, row_block=BLOCK)
-        elif kernel == "gram_matmat":
-            fn = lambda: kernel_cuda.gram_matmat("rbf", X, X, V, ls)
-            plain = lambda: kernel_plain.gram_matmat("rbf", X, X, V, ls, row_block=BLOCK)
+        P = parts.get(cd)
+        V64 = V.double()
+        return {
+            "gram_matmat": (lambda: kernel_cuda.gram_matmat("rbf", X, X, V, ls),
+                            lambda: kernel_plain.gram_matmat("rbf", X, X, V, ls, row_block=BLOCK)),
+            "gram_matvec_symmetric": (
+                lambda: kernel_cuda.gram_matvec_symmetric("rbf", X, V, ls),
+                lambda: kernel_plain.gram_matvec_symmetric("rbf", X, V, ls, row_block=BLOCK)),
+            "gram_matmat_comp": (
+                lambda: kernel_cuda.gram_matmat_comp("rbf", X, X, V, ls),
+                lambda: kernel_plain.gram_matmat_comp("rbf", X, X, V, ls, col_block=BLOCK)),
+            "gram_matmat_tier": (
+                lambda: kernel_cuda.gram_matmat_tier("rbf", P, P, V),
+                lambda: kernel_plain.gram_matmat_tier("rbf", P, P, V, row_block=BLOCK)),
+            "gram_matvec_symmetric_tier": (
+                lambda: kernel_cuda.gram_matvec_symmetric_tier("rbf", P, V),
+                lambda: kernel_plain.gram_matvec_symmetric_tier("rbf", P, V, row_block=BLOCK)),
+            "gram_matmat_f64": (
+                lambda: kernel_cuda.gram_matmat_f64("rbf", X, X, V64, ls),
+                lambda: kernel_plain.gram_matmat_f64("rbf", X, X, V64, ls, row_block=BLOCK)),
+            "gram_matvec_symmetric_f64": (
+                lambda: kernel_cuda.gram_matvec_symmetric_f64("rbf", X, V64, ls),
+                lambda: kernel_plain.gram_matvec_symmetric_f64("rbf", X, V64, ls,
+                                                               row_block=BLOCK)),
+        }[kernel]
+
+    timings = {}
+    # K7's plain version is K8's on (X, X), the same call: timed once per k
+    # (13.5 s a run at this shape), for both rows.
+    plain_f64_ms = {}
+    for kernel, k, cd in (
+        ("gram_matmat", 500, None), ("gram_matmat", 1, None), ("gram_matmat", 10, None),
+        ("gram_matmat", 16, None),
+        ("gram_matvec_symmetric", 1, None), ("gram_matvec_symmetric", 10, None),
+        ("gram_matvec_symmetric", 16, None),
+        ("gram_matmat_comp", 1, None), ("gram_matmat_comp", 10, None),
+        ("gram_matmat_tier", 500, "bf16x3"), ("gram_matmat_tier", 1, "bf16x3"),
+        ("gram_matmat_tier", 10, "bf16x3"), ("gram_matmat_tier", 500, "bfloat16"),
+        ("gram_matmat_tier", 1, "bfloat16"), ("gram_matmat_tier", 10, "bfloat16"),
+        ("gram_matvec_symmetric_tier", 1, "bf16x3"),
+        ("gram_matvec_symmetric_tier", 10, "bf16x3"),
+        ("gram_matvec_symmetric_tier", 1, "bfloat16"),
+        ("gram_matvec_symmetric_tier", 10, "bfloat16"),
+        ("gram_matvec_symmetric_f64", 1, None), ("gram_matvec_symmetric_f64", 10, None),
+        ("gram_matmat_f64", 1, None), ("gram_matmat_f64", 10, None),
+    ):
+        fn, plain = kernel_and_plain(kernel, k, cd)
+        ms = cuda_ms(fn)
+        if kernel.endswith("_f64"):
+            if k not in plain_f64_ms:
+                plain_f64_ms[k] = cuda_ms(plain)
+            plain_ms = plain_f64_ms[k]
         else:
-            fn = lambda: kernel_cuda.gram_matmat_comp("rbf", X, X, V, ls)
-            plain = lambda: kernel_plain.gram_matmat_comp("rbf", X, X, V, ls, col_block=BLOCK)
-        ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
-        shape = f"n={N} d={D} k={k}"
+            plain_ms = cuda_ms(plain)
+        shape = f"n={N} d={D} k={k}" + (f" {cd}" if cd else "")
         entry = {"shape": shape, "ms": ms, "plain_ms": plain_ms}
         line = f"time {kernel} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
         if kernel == "gram_matmat_comp":
-            entry["plain_f32_twosum_ms"] = cuda_ms(lambda: plain_twosum_f32("rbf", X, V, ls))
+            entry["plain_f32_twosum_ms"] = cuda_ms(lambda: plain_twosum_f32("rbf", X, Vs[k], ls))
             line += f", plain f32 TwoSum {entry['plain_f32_twosum_ms']:.3f} ms"
         timings.setdefault(kernel, []).append(entry)
         print(line)
+    print(f"phase: kernel checks and times done at {time.perf_counter() - t_start:.1f} s")
 
-    # 4. the slice, through the entry points a user calls
+    # 4. slice 1, config 3 whole, through the entry points a user calls
     reg = 1e-4 * N
     K = RBFLinOp(X, X, KernelConfig(lengthscale=ls))
     cfg = PCGConfig(
@@ -291,7 +645,18 @@ def main() -> int:
         wall = time.perf_counter() - t0
         after = kernel_cuda.launch_counts()
         solves.append((k, iterates, log, sys_, wall, {n_: after[n_] - before[n_] for n_ in after}))
-    counts = kernel_cuda.launch_counts()
+    before = kernel_cuda.launch_counts()
+    sys_r = LinSys(K, Y1, reg=reg)
+    t0 = time.perf_counter()
+    W64, log_r = sys_r.solve(
+        cfg, torch.zeros((N, 1), device=dev), callback_freq=FREQ, key=0,
+        f64_refine_rounds=2, f64_refine_device="accel",
+    )
+    torch.cuda.synchronize()
+    wall_r = time.perf_counter() - t0
+    after = kernel_cuda.launch_counts()
+    counts_slice1 = kernel_cuda.launch_counts()
+    used_r = {n_: after[n_] - before[n_] for n_ in after}
 
     for k, iterates, log, sys_, wall, used in solves:
         iters = max(log)
@@ -313,9 +678,9 @@ def main() -> int:
         for i, Wi in zip(sorted(log), iterates):
             if i == 0:
                 continue
-            W64 = Wi.double()
-            KW = kernel_plain.gram_matmat("rbf", X64, X64, W64, ls, row_block=BLOCK)
-            R64 = B64 - (KW + reg * W64)
+            W64i = Wi.double()
+            KW = kernel_plain.gram_matmat_f64("rbf", X, X, W64i, ls, row_block=BLOCK)
+            R64 = B64 - (KW + reg * W64i)
             rel64 = torch.linalg.norm(R64, dim=0).cpu().numpy() / b_norms
             gaps = np.abs(np.array(hist[i]) - rel64) / rel64
             print(f"slice k={k} iter {i}: independent float64 rel_res "
@@ -324,14 +689,36 @@ def main() -> int:
                   f"k={k} rel_res at iteration {i} within 1% of float64")
         print("slice " + json.dumps({"k": k, "iters": iters, "s_per_iter": s_iter}))
 
+    # the refined k = 1 solve (config 3's two rounds, evaluate/full)
+    ref_r = log_r["f64_refine"]
+    iters_r = int_keys(log_r)[-1]
+    base_r = float(log_r[iters_r]["metrics"]["internal_metrics"]["rel_res"][0])
+    final_r = ref_r["rel_res_f64"][-1][0]
+    y64 = Y1.double()[:, None]
+    KW = kernel_plain.gram_matmat_f64("rbf", X, X, W64, ls, row_block=BLOCK)
+    indep_r = (torch.linalg.norm(y64 - (KW + reg * W64)) / torch.linalg.norm(y64)).item()
+    print(f"slice k=1 refined: wall {wall_r:.3f} s phase_walls {sys_r.phase_walls} "
+          f"base rel_res {base_r:.6e} refine {json.dumps(ref_r)} "
+          f"independent float64 rel_res {indep_r:.6e} launches {used_r}")
+    check(W64.dtype == torch.float64 and W64.is_cuda, "refined W is float64 on the card")
+    check(final_r < base_r and final_r <= 1e-6,
+          f"refined rel_res_f64 {final_r:.3e} below the base {base_r:.3e} and 1e-6")
+    check(abs(final_r - indep_r) <= 0.01 * indep_r,
+          "refined rel_res_f64 within 1% of the independent float64 residual")
+    check(used_r["gram_matvec_symmetric_f64"] > 0, "refinement ran through K7")
+    print(f"phase: slice 1 done at {time.perf_counter() - t_start:.1f} s")
+
     # 5. where the time goes: one more solve of each, profiled
+    def profiled():
+        return torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA],
+        )
+
     for B in (Y1, Y10):
         k = 1 if B.ndim == 1 else B.shape[1]
         sys_ = LinSys(K, B, reg=reg)
-        with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA],
-        ) as prof:
+        with profiled() as prof:
             t0 = time.perf_counter()
             sys_.solve(cfg, torch.zeros((N, k), device=dev), callback_freq=FREQ, key=0)
             torch.cuda.synchronize()
@@ -339,30 +726,47 @@ def main() -> int:
         profile = {"k": k, "wall_s": wall, "phase_walls": sys_.phase_walls}
         profile.update(device_breakdown(prof))
         print("profile " + json.dumps(profile))
+    del K, parts, Vs, X
+    torch.cuda.empty_cache()
 
-    # 6. result lines
+    # 6. slice 2, config 6: the n = 1M north star, counted and profiled
+    ns = north_star(dev, profiled, compare)
+    print("config6 " + json.dumps(ns))
+    print(f"phase: config 6 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 7. result lines
     kernels = []
     comp = timings["gram_matmat_comp"][0]
     comp["plain_f32_twosum_rel_err"] = twosum_f32_rel
-    for kname, replaces in (
-        ("gram_matmat", f"{PALLAS}:733"),
-        ("gram_matmat_comp", f"{PALLAS}:733"),
-        ("gram_matvec_symmetric", f"{PALLAS}:1366"),
+    for kname, source, replaces in (
+        ("gram_matmat", SOURCES["gram"], f"{PALLAS}:733"),
+        ("gram_matmat_comp", SOURCES["gram"], f"{PALLAS}:733"),
+        ("gram_matvec_symmetric", SOURCES["gram"], f"{PALLAS}:1366"),
+        ("gram_matmat_tier", SOURCES["tier"], f"{PALLAS}:733"),
+        ("gram_matvec_symmetric_tier", SOURCES["tier"], f"{PALLAS}:1366"),
+        ("gram_matvec_symmetric_f64", SOURCES["f64"], f"{VALUE64}:467"),
+        ("gram_matmat_f64", SOURCES["f64"], f"{VALUE64}:684"),
     ):
         main_t = timings[kname][0]
+        vs_f64 = errors[(kname, "float64")]
+        by_path = {"slice1": counts_slice1[kname], "config6": ns["launches"][kname]}
         kernels.append({
             "name": kname,
             "route": "cuda",
-            "source": SOURCE,
+            "source": source,
             "replaces": replaces,
-            "launches": counts[kname],
-            "max_abs_err": max(e[0] for e in errors[kname]),
-            "max_rel_err": max(e[1] for e in errors[kname]),
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(e[0] for e in errors[(kname, "plain")]),
+            "max_rel_err": max(e[1] for e in errors[(kname, "plain")]),
             "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"],
             "shape": main_t["shape"],
             "timings": timings[kname],
         })
+        if vs_f64:
+            kernels[-1]["max_rel_err_vs_float64"] = max(e[1] for e in vs_f64)
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

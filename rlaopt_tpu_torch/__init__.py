@@ -3,8 +3,9 @@
 Same module layout and names as the JAX package, in PyTorch idiom: plain
 classes on tensors, an explicit ``device``, ``torch.Generator`` in place of
 PRNG keys and Python loops in place of ``jit``/``lax.scan``. The Gram
-products of the kernel operators run through hand-written CUDA kernels
-(``csrc/gram.cu``) for CUDA tensors and through their plain PyTorch versions
+products of the kernel operators (exact tier, bf16 tiers, and the float64
+route of refinement) run through hand-written CUDA kernels (``csrc/*.cu``)
+for CUDA tensors and through their plain PyTorch versions
 (``ops/kernel_plain.py``) for CPU tensors.
 
 This package never imports ``jax``.

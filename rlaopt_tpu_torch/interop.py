@@ -32,14 +32,17 @@ def _t(a, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def kernel_operator(X, ls, scale, kind: str, device="cpu") -> KernelLinOp:
+def kernel_operator(
+    X, ls, scale, kind: str, device="cpu", compute_dtype=None
+) -> KernelLinOp:
     """``k(X, X)`` operator from the payload of a JAX ``KernelLinOp``
-    (``op._data["X1"]``, ``["ls"]``, ``["scale"]`` and ``op.kind``)."""
+    (``op._data["X1"]``, ``["ls"]``, ``["scale"]``, ``op.kind`` and
+    ``op.compute_dtype``)."""
     X_t = _t(X, device)
     ls_np = np.asarray(ls)
     lengthscale = float(ls_np) if ls_np.ndim == 0 else _t(ls_np, device, X_t.dtype)
     cfg = KernelConfig(lengthscale=lengthscale, const_scaling=float(np.asarray(scale)))
-    return KernelLinOp(X_t, X_t, cfg, kind)
+    return KernelLinOp(X_t, X_t, cfg, kind, compute_dtype=compute_dtype)
 
 
 def nystrom_preconditioner(

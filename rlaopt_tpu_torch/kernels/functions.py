@@ -15,6 +15,7 @@ import torch
 __all__ = [
     "KERNEL_KINDS",
     "kernel_tile",
+    "kernel_from_sqdist",
     "sqdist_tile",
     "l1dist_tile",
     "scale_inputs",
@@ -45,46 +46,54 @@ def l1dist_tile(Xs: torch.Tensor, Ys: torch.Tensor, chunk: int = 16):
     return acc
 
 
-def _rbf(Xs, Ys):
-    return torch.exp(-0.5 * sqdist_tile(Xs, Ys))
+def _rbf(D2):
+    return torch.exp(-0.5 * D2)
 
 
-def _laplace(Xs, Ys):
-    return torch.exp(-l1dist_tile(Xs, Ys))
+def _matern12(D2):
+    return torch.exp(-torch.sqrt(D2))
 
 
-def _matern12(Xs, Ys):
-    return torch.exp(-torch.sqrt(sqdist_tile(Xs, Ys)))
-
-
-def _matern32(Xs, Ys):
-    D = torch.sqrt(sqdist_tile(Xs, Ys))
+def _matern32(D2):
+    D = torch.sqrt(D2)
     return (1.0 + _SQRT3 * D) * torch.exp(-_SQRT3 * D)
 
 
-def _matern52(Xs, Ys):
-    D2 = sqdist_tile(Xs, Ys)
+def _matern52(D2):
     D = torch.sqrt(D2)
     return (1.0 + _SQRT5 * D + (5.0 / 3.0) * D2) * torch.exp(-_SQRT5 * D)
 
 
-_KERNELS: Dict[str, Callable] = {
+# The squared-distance families, as functions of the squared distance.
+_OF_SQDIST: Dict[str, Callable] = {
     "rbf": _rbf,
-    "laplace": _laplace,
     "matern12": _matern12,
     "matern32": _matern32,
     "matern52": _matern52,
 }
 
-KERNEL_KINDS = tuple(_KERNELS)
+KERNEL_KINDS = ("rbf", "laplace", "matern12", "matern32", "matern52")
+
+
+def kernel_from_sqdist(kind: str, D2: torch.Tensor) -> torch.Tensor:
+    """Kernel values of a squared-distance family (RBF, Matérn) from squared
+    distances ``D2 ≥ 0`` of pre-scaled points."""
+    try:
+        fn = _OF_SQDIST[kind]
+    except KeyError:
+        raise ValueError(
+            f"kernel kind {kind!r} is not a function of the squared distance; "
+            f"expected one of {tuple(_OF_SQDIST)}"
+        ) from None
+    return fn(D2)
 
 
 def kernel_tile(kind: str, Xs: torch.Tensor, Ys: torch.Tensor) -> torch.Tensor:
     """Evaluate the (pre-scaled) kernel tile k(Xs, Ys) of shape (m, n)."""
-    try:
-        fn = _KERNELS[kind]
-    except KeyError:
+    if kind not in KERNEL_KINDS:
         raise ValueError(
             f"Unknown kernel kind {kind!r}; expected one of {KERNEL_KINDS}"
-        ) from None
-    return fn(Xs, Ys)
+        )
+    if kind == "laplace":
+        return torch.exp(-l1dist_tile(Xs, Ys))
+    return kernel_from_sqdist(kind, sqdist_tile(Xs, Ys))

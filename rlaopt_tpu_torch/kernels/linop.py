@@ -4,7 +4,10 @@ Port of ``rlaopt_tpu/kernels/linop.py``. The operator holds the data (X1,
 X2), the lengthscale and the scale; its applies stream kernel tiles through
 :func:`rlaopt_tpu_torch.ops.kernel_dispatch.kernel_matmat` (the CUDA kernels
 for CUDA tensors, the plain versions for CPU tensors). K is never
-materialized, except by :meth:`KernelLinOp.blk_dense` for a block.
+materialized, except by :meth:`KernelLinOp.blk_dense` for a block. A bf16
+``compute_dtype`` keeps the tier parts of the points (bf16 hi/lo and norm
+vectors, :mod:`rlaopt_tpu_torch.ops.kernel_tiers`) on the operator, made
+once when it is built.
 """
 
 from typing import Optional
@@ -15,10 +18,11 @@ from .configs import KernelConfig, _is_kernel_config
 from .functions import kernel_tile, scale_inputs
 from ..linops.base import TwoSidedLinOp
 from ..ops.kernel_dispatch import (
-    check_compute_dtype,
     kernel_matmat,
     kernel_matmat_compensated,
+    kernel_matmat_tier,
 )
+from ..ops.kernel_tiers import normalize_compute_dtype, tier_operand
 from ..utils.checkers import _is_tensor
 
 
@@ -28,9 +32,12 @@ __all__ = ["KernelLinOp"]
 class KernelLinOp(TwoSidedLinOp):
     """Matrix-free Gram operator K[i,j] = c·k(A1[i], A2[j]).
 
-    ``compute_dtype`` must be None (exact tier): the bf16 tiers are not
-    ported yet. On a card the Laplace family raises NotImplementedError
-    until its kernel is ported.
+    ``compute_dtype``: None (exact f32 tier), ``"bf16x3"`` or
+    ``"bfloat16"`` (any spelling :func:`normalize_compute_dtype` takes). The
+    tiers apply to float32 points of the squared-distance families; float64
+    points and Laplace take the exact tier, as in the JAX package off the
+    TPU. On a card the Laplace family raises NotImplementedError until its
+    f32 kernels are ported.
     """
 
     def __init__(
@@ -42,7 +49,7 @@ class KernelLinOp(TwoSidedLinOp):
         compute_dtype=None,
     ):
         self._check_inputs(A1, A2, kernel_config)
-        check_compute_dtype(compute_dtype)
+        compute_dtype = normalize_compute_dtype(compute_dtype)
         self.kind = kind
         self.compute_dtype = compute_dtype
         self._kernel_config = kernel_config
@@ -53,14 +60,25 @@ class KernelLinOp(TwoSidedLinOp):
         self._c = float(kernel_config.const_scaling)
         # One data set on both sides: the apply may take the triangle kernel.
         symmetric = A1 is A2
+        self._tier = None  # (parts of X1, parts of X2) on a bf16 tier
+        if compute_dtype is not None and kind != "laplace" and A1.dtype == torch.float32:
+            P1 = tier_operand(scale_inputs(A1, self._ls), compute_dtype)
+            P2 = P1 if symmetric else tier_operand(scale_inputs(A2, self._ls), compute_dtype)
+            self._tier = (P1, P2)
 
         def mv(v):
+            if self._tier is not None:
+                P1, P2 = self._tier
+                return kernel_matmat_tier(kind, P1, P2, v, self._c, symmetric)
             return kernel_matmat(
                 kind, A1, A2, v, self._ls, self._c, symmetric=symmetric
             )
 
         def rmv(v):
             # k is symmetric in its arguments: Kᵀ = k(X2, X1)
+            if self._tier is not None:
+                P1, P2 = self._tier
+                return kernel_matmat_tier(kind, P2, P1, v, self._c, symmetric)
             return kernel_matmat(
                 kind, A2, A1, v, self._ls, self._c, symmetric=symmetric
             )
@@ -90,6 +108,16 @@ class KernelLinOp(TwoSidedLinOp):
     @property
     def lengthscale(self) -> torch.Tensor:
         return self._ls
+
+    @property
+    def lengthscale64(self) -> torch.Tensor:
+        """The lengthscale in float64, as the float64 route takes it."""
+        return self._ls64
+
+    @property
+    def const_scaling(self) -> float:
+        """c of ``c·k``: the config's scale times the operator's (``op * c``)."""
+        return self._c * float(self._scale)
 
     def _check_inputs(self, A1, A2, kernel_config):
         _is_tensor(A1, "A1")

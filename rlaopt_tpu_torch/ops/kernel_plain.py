@@ -6,29 +6,71 @@ kernel, with the same signature as its wrapper in
 
 * :func:`gram_matmat` (K1) streams row blocks of K = k(X1, X2) and
   contracts each with V at once, as ``kernel_matmat_xla`` does; peak memory
-  is one (row_block, m) tile. Any dtype, all five kernel families.
+  is one (row_block, m) tile. All five kernel families, in the dtype of
+  the points (the dispatcher sends float64 points to
+  :func:`gram_matmat_f64`).
 * :func:`gram_matmat_comp` (K1c) loops over column tiles of X2 and
   TwoSum-adds each tile's partial into a ``(hi, lo)`` pair. As in the CUDA
   kernel, the inputs are divided by the lengthscale, and a tile's kernel
   values and its partial (times the constant) are taken, in float64; the
   partial is split into a pair of the input dtype before the TwoSum.
 * :func:`gram_matvec_symmetric` (K2) is K1 on ``(X, X)``.
+* :func:`gram_matmat_tier` (K1b) and :func:`gram_matvec_symmetric_tier`
+  (K2b): the bf16 tiers of :mod:`rlaopt_tpu_torch.ops.kernel_tiers`, cross
+  term from the bf16 parts, kernel values and contraction in float32. The
+  contraction takes K1b's engine: float32 for k ≤ 16, the tier-matched
+  bf16 passes for k > 16 (``"split"``, three passes of hi/lo for bf16x3;
+  ``"fast"``, one bf16 pass, for bfloat16). The triangle reproduces K2b's
+  schedule: row tile I contracts the tiles J ≥ I forward in float32 and
+  serves the rows of every tile J > I through the mirror, which at k ≥ 3
+  takes the tier-matched contraction (``_sym_mirror_mode``).
+* :func:`gram_matmat_f64` (K8) and :func:`gram_matvec_symmetric_f64` (K7):
+  row blocks of K in float64 from the float64 casts of the points, the one
+  float64 plain product. The expansion ``‖x‖² + ‖y‖² − 2·x·y`` cancels to
+  ~1e-16 at coincident points: RBF keeps that as it is and takes the matmul
+  form, while the Matérn family's square root would lift it to ~1e-8 on
+  the diagonal of a symmetric product, so Matérn (and Laplace, which has
+  no matmul form) sums the distances directly (``torch.cdist`` without the
+  matmul form), as the kernels do.
 
-The dispatcher sends CPU tensors here; ``chip_smoke.py`` runs them on the
-card only to check and time the kernels.
+The dispatcher sends CPU tensors here (float64 points to the float64
+product); ``chip_smoke.py`` runs them on the card only to check and time
+the kernels.
 """
 
 from typing import Optional
 
 import torch
 
-from ..kernels.functions import kernel_tile, scale_inputs
+from ..kernels.functions import kernel_from_sqdist, kernel_tile, scale_inputs
+from .kernel_tiers import (
+    TierOperand,
+    finish_dot,
+    norms_and_operands,
+    split_bf16,
+    tier_products,
+)
 
 
-__all__ = ["gram_matmat", "gram_matmat_comp", "gram_matvec_symmetric"]
+__all__ = [
+    "gram_matmat",
+    "gram_matmat_comp",
+    "gram_matvec_symmetric",
+    "gram_matmat_tier",
+    "gram_matvec_symmetric_tier",
+    "gram_matmat_f64",
+    "gram_matvec_symmetric_f64",
+    "tier_contract",
+    "SYMMETRIC_TILE",
+    "NARROW_MAX_K",
+]
 
 # Elements in one streamed tile, the JAX package's budget (kernel_xla.py).
 _TILE_ELEMENTS = 1 << 23
+# Rows of the CUDA triangle kernels' tiles (csrc/gram_common.cuh kTile).
+SYMMETRIC_TILE = 64
+# Widest right-hand side contracted in float32 by the tier kernels.
+NARROW_MAX_K = 16
 
 
 def _block(requested: Optional[int], other: int) -> int:
@@ -120,3 +162,123 @@ def gram_matvec_symmetric(
 ) -> torch.Tensor:
     """``c·k(X, X) @ V``: the plain version is K1 on ``(X, X)``."""
     return gram_matmat(kind, X, X, V, lengthscale, const_scaling, row_block)
+
+
+def tier_contract(K: torch.Tensor, V: torch.Tensor, mode: str) -> torch.Tensor:
+    """``K @ V`` (float32) by one of the tier contractions: ``"f32"``,
+    ``"split"`` (hi·hi + hi·lo + lo·hi of both operands' bf16 parts) or
+    ``"fast"`` (one pass of bf16 values); the products of bf16 values are
+    exact in float32."""
+    if mode == "f32":
+        return K @ V
+    if mode == "fast":
+        return K.to(torch.bfloat16).float() @ V.to(torch.bfloat16).float()
+    kh, kl = split_bf16(K)
+    vh, vl = split_bf16(V)
+    return kh @ vh + kh @ vl + kl @ vh
+
+
+def _tier_values(kind, A: TierOperand, B: TierOperand, rows=slice(None)):
+    scale, hx, hy = norms_and_operands(kind, A, B)
+    Ar = TierOperand(A.hi[rows], None if A.lo is None else A.lo[rows], A.sq[rows])
+    return finish_dot(kind, scale * tier_products(Ar, B), hx[rows], hy)
+
+
+def _wide_mode(A: TierOperand) -> str:
+    return "split" if A.passes == 3 else "fast"
+
+
+def gram_matmat_tier(
+    kind: str,
+    A: TierOperand,
+    B: TierOperand,
+    V: torch.Tensor,
+    const_scaling=1.0,
+    row_block: Optional[int] = None,
+) -> torch.Tensor:
+    """K1b: ``c·k(X1, X2) @ V`` on a bf16 tier, from the parts of X1 (A) and
+    X2 (B), with float32 V."""
+    V, squeeze = _as_2d(V)
+    n, k = A.hi.shape[0], V.shape[1]
+    mode = "f32" if k <= NARROW_MAX_K else _wide_mode(A)
+    bm = _block(row_block, B.hi.shape[0])
+    out = torch.empty((n, k), dtype=torch.float32, device=V.device)
+    for s in range(0, n, bm):
+        out[s : s + bm] = tier_contract(_tier_values(kind, A, B, slice(s, s + bm)), V, mode)
+    out = out * const_scaling
+    return out[:, 0] if squeeze else out
+
+
+def gram_matvec_symmetric_tier(
+    kind: str,
+    A: TierOperand,
+    V: torch.Tensor,
+    const_scaling=1.0,
+    tile: int = SYMMETRIC_TILE,
+    row_block: Optional[int] = None,
+) -> torch.Tensor:
+    """K2b: ``c·k(X, X) @ V`` (k ≤ 16) on a bf16 tier with K2b's schedule
+    at tile ``tile``: entry (i, j) of the Gram matrix is evaluated with row
+    operand i where tile(i) ≤ tile(j); the forward contraction is float32,
+    the mirror one float32 at k ≤ 2 and tier-matched at k ≥ 3."""
+    V, squeeze = _as_2d(V)
+    n, k = A.hi.shape[0], V.shape[1]
+    mirror_mode = "f32" if k <= 2 else _wide_mode(A)
+    bm = max(tile, _block(row_block, n) // tile * tile)
+    tiles = torch.arange(n, device=V.device) // tile
+    out = torch.zeros((n, k), dtype=torch.float32, device=V.device)
+    for s in range(0, n, bm):
+        Kb = _tier_values(kind, A, A, slice(s, s + bm))
+        rt = tiles[s : s + bm, None]
+        forward = torch.where(tiles[None, :] >= rt, Kb, 0.0)
+        out[s : s + bm] += forward @ V
+        upper = torch.where(tiles[None, :] > rt, Kb, 0.0)
+        out += tier_contract(upper.T.contiguous(), V[s : s + bm], mirror_mode)
+    out = out * const_scaling
+    return out[:, 0] if squeeze else out
+
+
+def _f64_tile(kind: str, Xs: torch.Tensor, Ys: torch.Tensor) -> torch.Tensor:
+    """Float64 kernel tile of pre-scaled points: the matmul expansion for
+    RBF, directly summed distances for Laplace and the Matérn family."""
+    if kind == "rbf":
+        return kernel_tile(kind, Xs, Ys)
+    if kind == "laplace":
+        return torch.exp(-torch.cdist(Xs, Ys, p=1))
+    r = torch.cdist(Xs, Ys, p=2, compute_mode="donot_use_mm_for_euclid_dist")
+    return kernel_from_sqdist(kind, r * r)
+
+
+def gram_matmat_f64(
+    kind: str,
+    X1: torch.Tensor,
+    X2: torch.Tensor,
+    V: torch.Tensor,
+    lengthscale,
+    const_scaling=1.0,
+    row_block: Optional[int] = None,
+) -> torch.Tensor:
+    """K8: ``c·k(X1, X2) @ V`` in float64 from float32 (or float64) points
+    and a float64 lengthscale; float64 out."""
+    V, squeeze = _as_2d(V.double())
+    ls = torch.as_tensor(lengthscale, dtype=torch.float64, device=X1.device)
+    Xs = X1.double() / ls
+    Ys = X2.double() / ls
+    bm = _block(row_block, X2.shape[0])
+    out = torch.empty((X1.shape[0], V.shape[1]), dtype=torch.float64, device=V.device)
+    for s in range(0, X1.shape[0], bm):
+        out[s : s + bm] = _f64_tile(kind, Xs[s : s + bm], Ys) @ V
+    out = out * const_scaling
+    return out[:, 0] if squeeze else out
+
+
+def gram_matvec_symmetric_f64(
+    kind: str,
+    X: torch.Tensor,
+    V: torch.Tensor,
+    lengthscale,
+    const_scaling=1.0,
+    row_block: Optional[int] = None,
+) -> torch.Tensor:
+    """K7: ``c·k(X, X) @ V`` in float64; the plain version is K8 on (X, X)."""
+    return gram_matmat_f64(kind, X, X, V, lengthscale, const_scaling, row_block)

@@ -7,15 +7,17 @@ chain is used. Call :func:`seed` for reproducibility of the implicit path.
 
 Generators live on the CPU. :func:`device_generator` derives a generator on
 another device from one draw of a CPU generator, so large random draws are
-made where they are used.
+made where they are used. :func:`fold_in` derives a generator from another
+and an integer without drawing from it (``jax.random.fold_in``).
 """
 
 import threading
 
+import numpy as np
 import torch
 
 
-__all__ = ["seed", "next_generator", "device_generator"]
+__all__ = ["seed", "next_generator", "device_generator", "fold_in"]
 
 _lock = threading.Lock()
 _state = {"gen": None}
@@ -46,3 +48,11 @@ def device_generator(gen: torch.Generator, device) -> torch.Generator:
         return gen
     s = int(torch.randint(_SEED_BOUND, (1,), generator=gen))
     return torch.Generator(device=device).manual_seed(s)
+
+
+def fold_in(gen: torch.Generator, data: int) -> torch.Generator:
+    """A new CPU generator determined by ``gen``'s seed and ``data``; ``gen``
+    is not advanced, so equal inputs give equal streams."""
+    words = np.random.SeedSequence([gen.initial_seed(), int(data)]).generate_state(2)
+    s = (int(words[0]) << 32 | int(words[1])) % _SEED_BOUND
+    return torch.Generator().manual_seed(s)

@@ -53,3 +53,35 @@ def test_mid_solve_state_continues_in_the_port(low_precision_path):
     for name in ("W", "R", "Z", "P_", "RZ"):
         assert _rel(getattr(ts, name), getattr(js, name)) <= 1e-9, name
     assert np.array_equal(ts.ok.numpy(), np.asarray(js.ok))
+
+
+@pytest.mark.parametrize("cd", ["bf16x3", "bfloat16"])
+def test_tier_operator_applies_like_jax(cd):
+    """A bf16 tier operator carried across from the JAX package (its payload
+    and ``compute_dtype``) applies like the JAX tier: the port's triangle
+    (k = 3, through the operator) against ``kernel_matvec_symmetric`` in
+    interpret mode at n = 2T, where both schedules mirror the same tile.
+    The tier tolerance is float32 summation order: 3e-6 for bf16x3's split
+    mirror, 1e-6 for bfloat16."""
+    from rlaopt_tpu.ops.kernel_pallas import kernel_matvec_symmetric
+
+    rng = np.random.default_rng(23)
+    X = jnp.asarray(rng.standard_normal((128, 28)).astype(np.float32))
+    V = rng.standard_normal((128, 3)).astype(np.float32)
+    jA = JRBFLinOp(X, X, JKernelConfig(lengthscale=5.0, const_scaling=0.7),
+                   compute_dtype=cd)
+    d_ = jA._data
+    tA = interop.kernel_operator(d_["X1"], d_["ls"], d_["scale"], jA.kind,
+                                 compute_dtype=jA.compute_dtype)
+    assert tA.compute_dtype == cd and tA._tier is not None
+    import rlaopt_tpu_torch.ops.kernel_plain as kp
+
+    ref = kernel_matvec_symmetric(
+        "rbf", X, jnp.asarray(V), d_["ls"], d_["scale"], compute_dtype=cd,
+        tile=64, interpret=True,
+    )
+    # the operator's apply takes K2b's schedule at its own tile (64): at
+    # n = 2T = 128 it mirrors the same tile as the JAX triangle at T = 64
+    assert kp.SYMMETRIC_TILE == 64
+    got = tA @ torch.from_numpy(V)
+    assert _rel(got, ref) <= (3e-6 if cd == "bf16x3" else 1e-6)

@@ -17,6 +17,7 @@ from rlaopt_tpu.ops.kernel_xla import kernel_matmat_xla
 from rlaopt_tpu_torch.kernels.functions import KERNEL_KINDS, kernel_tile
 from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
 from rlaopt_tpu_torch.ops.kernel_dispatch import kernel_matmat
+from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
 
 SQDIST_KINDS = ("rbf", "matern12", "matern32", "matern52")
 
@@ -133,12 +134,10 @@ def test_compensated_divides_by_the_lengthscale_in_float64(kind):
     X1, X2, V = _data(10, 30, 500, 7, 2, np.float32)
     ls, c = 28**0.5, 0.9
     t1, t2, tv = map(torch.from_numpy, (X1, X2, V))
-    ref = kernel_plain.gram_matmat(kind, t1.double(), t2.double(), tv.double(), ls, c)
+    ref = kernel_plain.gram_matmat_f64(kind, t1, t2, tv, ls, c)
     hi, lo = kernel_plain.gram_matmat_comp(kind, t1, t2, tv, ls, c, col_block=64)
     assert _rel(hi.double() + lo.double(), ref) < 1e-12
-    prescaled = kernel_plain.gram_matmat(
-        kind, (t1 / ls).double(), (t2 / ls).double(), tv.double(), 1.0, c
-    )
+    prescaled = kernel_plain.gram_matmat_f64(kind, t1 / ls, t2 / ls, tv, 1.0, c)
     assert _rel(prescaled, ref) > 1e-10
 
 
@@ -163,7 +162,7 @@ def test_compensated_gap_to_jax_at_the_slice_lengthscale():
     t1, t2, tv = map(torch.from_numpy, (X1, X2, V))
     hi, lo = kernel_plain.gram_matmat_comp("rbf", t1, t2, tv, ls, col_block=128)
     port = hi.double() + lo.double()
-    ref = kernel_plain.gram_matmat("rbf", t1.double(), t2.double(), tv.double(), ls)
+    ref = kernel_plain.gram_matmat_f64("rbf", t1, t2, tv, ls)
     assert _rel(port, ref) < 1e-12
     jax_err = _rel(jax_comp, ref)
     assert 1e-7 < jax_err < 1e-6
@@ -178,6 +177,10 @@ def test_dispatch_sends_cpu_to_plain_and_counts_nothing():
     out = kernel_matmat("rbf", t1, t1, tv, 1.0, symmetric=True)
     ref = kernel_plain.gram_matmat("rbf", t1, t1, tv, 1.0)
     assert torch.equal(out, ref)
+    # float64 points take the one float64 plain product
+    t64, v64 = t1.double(), tv.double()
+    out = kernel_matmat("matern32", t64, t64, v64, 1.0, symmetric=True)
+    assert torch.equal(out, kernel_plain.gram_matmat_f64("matern32", t64, t64, v64, 1.0))
     assert set(kernel_cuda.launch_counts().values()) == {0}
 
 
@@ -187,8 +190,15 @@ def test_cuda_wrappers_refuse_what_they_cannot_take():
         kernel_cuda.gram_matmat("rbf", t, t, t[:, :1], 1.0)
     with pytest.raises(NotImplementedError, match="_laplace_matmat"):
         kernel_cuda.gram_matmat("laplace", t, t, t[:, :1], 1.0)
-    with pytest.raises(NotImplementedError, match="#1b"):
-        kernel_matmat("rbf", t, t, t, 1.0, compute_dtype="bf16x3")
+    parts = tier_operand(t, "bf16x3")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel_cuda.gram_matmat_tier("rbf", parts, parts, t[:, :1], 1.0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel_cuda.gram_matmat_f64("rbf", t, t, t[:, :1].double(), 1.0)
+    from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp
+
+    with pytest.raises(ValueError, match="unsupported compute_dtype"):
+        RBFLinOp(t, t, KernelConfig(lengthscale=1.0), compute_dtype="fp8")
     assert set(kernel_cuda.launch_counts().values()) == {0}
 
 

@@ -175,7 +175,7 @@ def test_not_yet_ported_paths_raise():
     sys_ = LinSys(RBFLinOp(Xt, Xt, KernelConfig(lengthscale=LS)), torch.from_numpy(y), REG)
     cfg = PCGConfig(max_iters=2, precond_config=NystromConfig(rank=4, rho=REG))
     W0 = torch.zeros((N, 1), dtype=Xt.dtype)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        sys_.solve(cfg, W0, f64_refine_rounds=1)
+    with pytest.raises(NotImplementedError, match="wandb"):
+        sys_.solve(cfg, W0, log_in_wandb=True, wandb_init_kwargs={})
     with pytest.raises(NotImplementedError, match="checkpoint"):
         sys_.solve(cfg, W0, checkpoint_dir="unused")
