@@ -30,11 +30,23 @@ straight through and exits non-zero at the first failure:
    version, other rows) must all put it at or under 1e-6; then K1b (k =
    500), K2b, K1c, K7 and K8 against their plain versions at the path's
    n = m = 1,000,000, on those 4,096 rows;
-7. the kernels' JSON line, the card line, and the result line last.
+7. slice 3: the Laplace kernels K3, K3c and K5 against the float64 plain
+   version at the HIGGS shape (on 4,096 rows) and the ragged one, timed;
+   path B, Nyström-PCG on ``LaplaceLinOp`` at the HIGGS-100k shape (k = 1,
+   k = 10, k = 1 refined), every logged residual within 1% of a float64 one;
+   path A, ASkotch (SAP) on ``LaplaceLinOp`` at config 4's n = 1,000,000,
+   d = 50, and path A', config 4 as written (bf16x3 RBF), both under
+   ``torch.profiler`` with sampled metrics, each sampled estimate within
+   5 sigma of an independent float64 residual on other rows; then K3, K3c,
+   K1b and K1c at the paths' block-oracle shape (10,000 x 1,000,000),
+   checked on 4,096 rows, and the dense block's peak memory;
+8. the kernels' JSON line (each with its bound, ``bound_ms``), the card
+   line, and the result line last.
 
 It imports nothing of JAX.
 """
 
+import contextlib
 import json
 import re
 import statistics
@@ -48,8 +60,20 @@ N, D, RANK, ITERS, FREQ = 100_000, 28, 500, 20, 10
 # Config 6 (benchmarks/run.py::config6_northstar_1m_pcg), with callback_freq
 # 10 in place of the 3 that the TPU's execution watchdog forced there.
 N6, ITERS6, FREQ6 = 1_000_000, 60, 10
+# Config 4 (benchmarks/run.py::config4_askotch_1m): n = 1M, d = 50, blocks of
+# n/100, Nyström rank 100, sampled metrics every 100 iterations. Path A runs
+# it on the Laplace kernel, path A' as written, each for 200 iterations
+# (config 4 runs 1000): SAP's residual norm first rises, and at 100 the
+# bf16x3 RBF solve's had not come back below the start's 1.
+N4, D4, ITERS4, FREQ4 = 1_000_000, 50, 200, 100
+BLK4, RANK4, REG4 = N4 // 100, 100, 1e-2
+# Laplace lengthscales: the mean L1 distance of the data (2·sqrt(d/pi) for
+# config 4's rows, 2d/sqrt(pi) for d standard-normal features), where kernel
+# values sit near e^-1.
+LS_A, LS_B = 8.0, 32.0
 SOURCES = {
     "gram": "rlaopt_tpu_torch/csrc/gram.cu",
+    "laplace": "rlaopt_tpu_torch/csrc/gram_laplace.cu",
     "tier": "rlaopt_tpu_torch/csrc/gram_tier.cu",
     "f64": "rlaopt_tpu_torch/csrc/gram_f64.cu",
 }
@@ -106,6 +130,56 @@ FAST_CONTRACTION = 2.0**-8
 BLOCK = (1 << 26) // N
 SQDIST_KINDS = ("rbf", "matern12", "matern32", "matern52")
 TIERS = ("bf16x3", "bfloat16")
+# The least time the card could take (bound_ms): NVIDIA's data sheet of the
+# H100 SXM, dense rates at 700 W: 67 TFLOP/s float32 outside the tensor
+# cores, 34 TFLOP/s float64 outside them, 989 TFLOP/s bf16 on the tensor
+# cores, 3.35 TB/s of HBM. An FMA counts two operations, any other one.
+PEAK = {"fp32": 67e12, "fp64": 34e12, "bf16_tc": 989e12}
+HBM_BYTES_PER_S = 3.35e12
+COMP_KERNELS = ("gram_matmat_comp", "laplace_matmat_comp")
+F64_KERNELS = ("gram_matmat_f64", "gram_matvec_symmetric_f64")
+TIER_KERNELS = ("gram_matmat_tier", "gram_matvec_symmetric_tier")
+
+
+def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None):
+    """``(ms, "bytes" or "operations")``: the least time of one call at these
+    shapes, the larger of the bytes it must move (each input read once, each
+    output written once) over the HBM rate and its operations over the peak
+    of their unit. Per kernel value: a subtraction and an FMA per feature
+    (the squared distance) or a subtraction and an add (Laplace's L1), in
+    float32 or, for K1c, K3c, K7 and K8, float64 (the lengthscale's
+    division is O((n + m) d) work and not counted), one operation for the
+    exponential; 2k for the contraction. The triangle kernels evaluate each
+    of the n^2/2 values of a pair of tiles once and contract it both ways.
+    The tiers: the cross term on the tensor cores (2 operations per feature
+    of d, per pass), four float32 operations of epilogue per value, the
+    contraction in float32 up to 16 columns and on the tensor cores (per
+    pass) past that; their points are read as d bf16 parts (two with
+    bf16x3) and a float32 norm each."""
+    sym = "symmetric" in kernel
+    if sym:
+        m = n
+    values = n * n / 2 if sym else float(n) * m
+    contraction = 2.0 * k * n * m
+    per_feature = 2 if kind == "laplace" else 3
+    ops = {}
+    if kernel in COMP_KERNELS or kernel in F64_KERNELS:
+        ops["fp64"] = values * (per_feature * d + 1) + contraction
+        vb = 8 if kernel in F64_KERNELS else 4
+        outs = 1 if kernel in F64_KERNELS else 2
+        nbytes = 4 * (n + (0 if sym else m)) * d + vb * m * k + vb * outs * n * k
+    elif kernel in TIER_KERNELS:
+        passes = 3 if cd == "bf16x3" else 1
+        ops["bf16_tc"] = values * 2 * d * passes + (contraction * passes if k > 16 else 0)
+        ops["fp32"] = values * 4 + (contraction if k <= 16 else 0)
+        parts = 2 * d * (2 if passes == 3 else 1) + 4
+        nbytes = parts * (n + (0 if sym else m)) + 4 * m * k + 4 * n * k
+    else:
+        ops["fp32"] = values * (per_feature * d + 1) + contraction
+        nbytes = 4 * (n + (0 if sym else m)) * d + 4 * m * k + 4 * n * k
+    t_ops = max(v / PEAK[unit] for unit, v in ops.items())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def check(ok: bool, what: str):
@@ -168,28 +242,35 @@ def plain_twosum_f32(kind, X, V, ls):
     return hi, lo
 
 
-# csrc/gram_common.cuh's Mode template argument, last of the narrow and
-# triangle kernels' arguments: EXACT 0, COMP 1, F64 2, TIER1 3, TIER3 4.
+# csrc/gram_common.cuh's template arguments: the family first (LAPLACE is 4),
+# the Mode last (EXACT 0, COMP 1, F64 2, TIER1 3, TIER3 4).
 _NARROW = {0: "gram_matmat", 1: "gram_matmat_comp", 2: "gram_matmat_f64",
            3: "gram_matmat_tier", 4: "gram_matmat_tier"}
 _TRIANGLE = {0: "gram_matvec_symmetric", 2: "gram_matvec_symmetric_f64",
              3: "gram_matvec_symmetric_tier", 4: "gram_matvec_symmetric_tier"}
+_LAPLACE = {"gram_matmat": "laplace_matmat", "gram_matmat_comp": "laplace_matmat_comp",
+            "gram_matvec_symmetric": "laplace_matvec_symmetric"}
+LAPLACE_CODE = 4
 
 
 def _kernel_group(name: str) -> str:
+    if "sum_splits" in name:
+        return "sum_splits"
     m = re.search(r"(gram_\w+)<([^>]*)>", name)
     if m is None:
         return "other"
     fn, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
-    if fn == "gram_matmat_wide":
-        return "gram_matmat"
-    if fn == "gram_matmat_tier_wide":
-        return "gram_matmat_tier"
-    table = _NARROW if fn == "gram_matmat_narrow" else _TRIANGLE
     try:
-        return table.get(int(args[-1]), "other")
+        family, mode = int(args[0]), int(args[-1])
     except ValueError:
         return "other"
+    if fn == "gram_matmat_wide":
+        group = "gram_matmat"
+    elif fn == "gram_matmat_tier_wide":
+        group = "gram_matmat_tier"
+    else:
+        group = (_NARROW if fn == "gram_matmat_narrow" else _TRIANGLE).get(mode, "other")
+    return _LAPLACE.get(group, group) if family == LAPLACE_CODE else group
 
 
 def device_breakdown(prof) -> dict:
@@ -214,10 +295,26 @@ def device_breakdown(prof) -> dict:
     }
 
 
-def cuda_ms(fn, reps=5):
+@contextlib.contextmanager
+def one_pass():
+    """K1 and K3 walk all of m in one pass (no column splits) inside."""
+    from rlaopt_tpu_torch.ops import kernel_cuda
+
+    real = kernel_cuda.column_splits
+    kernel_cuda.column_splits = lambda *a: 1
+    try:
+        yield
+    finally:
+        kernel_cuda.column_splits = real
+
+
+def cuda_ms(fn, reps=5, warm=True):
+    """Median of ``reps`` CUDA-event timings of ``fn``, after one warm-up
+    run unless ``warm`` is False (plain versions that take seconds)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -375,6 +472,353 @@ def north_star(dev, profile_run, compare):
     }
 
 
+def sampled_rows(n: int, s: int, seed: int) -> np.ndarray:
+    return np.sort(np.random.default_rng(seed).choice(n, s, replace=False))
+
+
+def timing_entry(kernel, shape, ms, plain_ms, n, m, d, k, kind="rbf", cd=None, **extra):
+    """One timed shape of a kernel, with its bound at that shape."""
+    bound, by = bound_ms(kernel, n, m, d, k, kind, cd)
+    return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "n": n, "m": m, "d": d, "k": k, "kind": kind, **extra}
+
+
+def laplace_kernels(dev, X, compare, timings):
+    """K3, K3c and K5 against the float64 plain version at the HIGGS shape
+    (lengthscale 32, on 4,096 rows of each full product) and at the ragged
+    shape, then each kernel and its plain version timed at the HIGGS shape.
+    The plain versions sum distances directly, seconds a call here: one
+    timed run each, without a warm-up."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+
+    n = X.shape[0]
+    idx = torch.as_tensor(sampled_rows(n, 4096, 5), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    Vs = {k: torch.randn((n, k), generator=gen, device=dev) for k in (1, 10, RANK)}
+    cols = {1: slice(0, 1), 10: slice(1, 11), RANK: slice(11, 11 + RANK)}
+    t0 = time.perf_counter()
+    ref = kernel_plain.gram_matmat_f64(
+        "laplace", X[idx], X, torch.cat([Vs[1], Vs[10], Vs[RANK]], 1), LS_B, row_block=512
+    )
+    torch.cuda.synchronize()
+    print(f"laplace float64 reference, 4096 rows: {time.perf_counter() - t0:.3f} s")
+    shape = f"rows 4096 of n=m={n} d={D}"
+    for k in (1, 10, RANK):
+        compare("laplace_matmat", kernel_cuda.laplace_matmat(X, X, Vs[k], LS_B)[idx],
+                ref[:, cols[k]], f"{shape} k={k}", K_BOUND)
+    for k in (1, 10):
+        compare("laplace_matvec_symmetric",
+                kernel_cuda.laplace_matvec_symmetric(X, Vs[k], LS_B)[idx],
+                ref[:, cols[k]], f"{shape} k={k}", K_BOUND)
+    hi, lo = kernel_cuda.laplace_matmat_comp(X, X, Vs[1], LS_B)
+    compare("laplace_matmat_comp", (hi.double() + lo.double())[idx], ref[:, cols[1]],
+            f"{shape} k=1 (hi+lo)", COMP_BOUND)
+    del ref, hi, lo
+    A1, A2, W7, S7 = (torch.from_numpy(a).to(dev) for a in ragged_data())
+    ref = kernel_plain.gram_matmat_f64("laplace", A1, A2, W7, 1.3, 0.9)
+    rel = compare("laplace_matmat", kernel_cuda.laplace_matmat(A1, A2, W7, 1.3, 0.9), ref,
+                  "n=1000 m=777 d=3 k=7", K_BOUND)
+    hi, lo = kernel_cuda.laplace_matmat_comp(A1, A2, W7, 1.3, 0.9)
+    rel_c = compare("laplace_matmat_comp", hi.double() + lo.double(), ref,
+                    "n=1000 m=777 d=3 k=7 (hi+lo)", COMP_BOUND)
+    check(rel_c <= rel, "laplace_matmat_comp ragged no worse than laplace_matmat")
+    compare("laplace_matvec_symmetric", kernel_cuda.laplace_matvec_symmetric(A1, S7, 1.3, 0.9),
+            kernel_plain.gram_matmat_f64("laplace", A1, A1, S7, 1.3, 0.9), "n=1000 d=3 k=7",
+            K_BOUND)
+
+    # K5's plain version is K3's on (X, X), the same call: timed once per k
+    plain_ms = {}
+    for kernel, k in (("laplace_matmat", RANK), ("laplace_matmat", 1), ("laplace_matmat", 10),
+                      ("laplace_matvec_symmetric", 1), ("laplace_matvec_symmetric", 10),
+                      ("laplace_matmat_comp", 1)):
+        V = Vs[k]
+        if kernel == "laplace_matmat_comp":
+            ms = cuda_ms(lambda: kernel_cuda.laplace_matmat_comp(X, X, V, LS_B))
+            p_ms = cuda_ms(lambda: kernel_plain.gram_matmat_comp(
+                "laplace", X, X, V, LS_B, col_block=BLOCK), reps=1, warm=False)
+        else:
+            if kernel == "laplace_matmat":
+                ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(X, X, V, LS_B))
+            else:
+                ms = cuda_ms(lambda: kernel_cuda.laplace_matvec_symmetric(X, V, LS_B))
+            if k not in plain_ms:
+                plain_ms[k] = cuda_ms(lambda: kernel_plain.gram_matmat(
+                    "laplace", X, X, V, LS_B, row_block=BLOCK), reps=1, warm=False)
+            p_ms = plain_ms[k]
+        what = f"n={n} d={D} k={k}"
+        timings.setdefault(kernel, []).append(
+            timing_entry(kernel, what, ms, p_ms, n, n, D, k, "laplace"))
+        print(f"time {kernel} {what}: kernel {ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"bound {timings[kernel][-1]['bound_ms']:.3f} ms")
+
+
+def slice3(dev, X, Xn, y):
+    """Path B: Nyström-PCG on the Laplace operator at the HIGGS-100k shape,
+    through the entry points a user calls: k = 1, k = 10, then k = 1 with
+    two float64 refinement rounds (evaluate/full). Counted as one window;
+    then every logged residual against a float64 one of the same iterate
+    (one plain float64 sweep over all of them), and the refined claim
+    against a full K7 sweep. Returns the launch counts."""
+    import torch
+
+    from rlaopt_tpu_torch.kernels import KernelConfig, LaplaceLinOp
+    from rlaopt_tpu_torch.models import LinSys
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+    from rlaopt_tpu_torch.preconditioners import NystromConfig
+    from rlaopt_tpu_torch.solvers import PCGConfig
+
+    n = X.shape[0]
+    reg = 1e-4 * n
+    Y10 = torch.cat([y[:, None], torch.from_numpy(extra_targets(Xn, 10)).to(dev)], 1)
+    cfg = PCGConfig(max_iters=ITERS, rtol=1e-6,
+                    precond_config=NystromConfig(rank=RANK, rho=reg))
+    kernel_cuda.reset_launch_counts()
+    K = LaplaceLinOp(X, X, KernelConfig(lengthscale=LS_B))
+    solves = []
+    for B in (y, Y10):
+        before = kernel_cuda.launch_counts()
+        sys_ = LinSys(K, B, reg=reg)
+        k = 1 if B.ndim == 1 else B.shape[1]
+        iterates = []
+        t0 = time.perf_counter()
+        _, log = sys_.solve(cfg, torch.zeros((n, k), device=dev), callback_freq=FREQ, key=0,
+                            callback_fn=lambda w, _model: iterates.append(w.clone()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = kernel_cuda.launch_counts()
+        solves.append((k, iterates, log, sys_, wall, {c: after[c] - before[c] for c in after}))
+    before = kernel_cuda.launch_counts()
+    sys_r = LinSys(K, y, reg=reg)
+    t0 = time.perf_counter()
+    W64, log_r = sys_r.solve(cfg, torch.zeros((n, 1), device=dev), callback_freq=FREQ, key=0,
+                             f64_refine_rounds=2, f64_refine_device="accel")
+    torch.cuda.synchronize()
+    wall_r = time.perf_counter() - t0
+    counts = kernel_cuda.launch_counts()
+    used_r = {c: counts[c] - before[c] for c in counts}
+
+    # every logged iterate's float64 residual in one plain sweep
+    W64s, B64s, where = [], [], []
+    for k, iterates, log, sys_, _, _ in solves:
+        for i, Wi in zip(sorted(log), iterates):
+            if i > 0:
+                where.append((k, i, len(W64s)))
+                W64s.append(Wi.double())
+                B64s.append(sys_.B.double())
+    t0 = time.perf_counter()
+    Bst, Wst = torch.cat(B64s, 1), torch.cat(W64s, 1)
+    R64 = Bst - (kernel_plain.gram_matmat_f64("laplace", X, X, Wst, LS_B, row_block=BLOCK)
+                 + reg * Wst)
+    rel64 = (torch.linalg.norm(R64, dim=0) / torch.linalg.norm(Bst, dim=0)).cpu().numpy()
+    del R64, Wst
+    print(f"slice3 float64 residuals of {len(W64s)} iterates: {time.perf_counter() - t0:.3f} s")
+    col = np.cumsum([0] + [w.shape[1] for w in W64s])
+    for k, iterates, log, sys_, wall, used in solves:
+        iters = max(log)
+        hist = {i: log[i]["metrics"]["internal_metrics"]["rel_res"].tolist() for i in sorted(log)}
+        s_iter = sys_.phase_walls["train"] / iters
+        print(f"slice3 k={k}: phase_walls {sys_.phase_walls} wall {wall:.3f} s "
+              f"s/iter {s_iter:.4f} launches {used}")
+        first, last = np.array(hist[0]), np.array(hist[iters])
+        check(np.all(np.isfinite(last)) and np.all(last < first), f"slice3 k={k} rel_res falls")
+        check(used["laplace_matmat"] > 0, f"slice3 k={k} sketch ran through laplace_matmat")
+        check(used["laplace_matmat_comp"] >= len(log),
+              f"slice3 k={k} every boundary ran through laplace_matmat_comp")
+        check(used["laplace_matvec_symmetric"] >= iters,
+              f"slice3 k={k} every PCG step ran through laplace_matvec_symmetric")
+        gaps = {}
+        for kk, i, j in where:
+            if kk == k:
+                r64 = rel64[col[j]:col[j + 1]]
+                gaps[i] = (np.abs(np.array(hist[i]) - r64) / r64).tolist()
+                print(f"slice3 k={k} iter {i}: rel_res {hist[i]} float64 {r64.tolist()} "
+                      f"gaps {gaps[i]}")
+                check(max(gaps[i]) <= 0.01, f"slice3 k={k} rel_res at {i} within 1% of float64")
+        print("slice3 " + json.dumps({"k": k, "iters": iters, "s_per_iter": s_iter, "wall_s": wall,
+                                      "phase_walls": sys_.phase_walls, "rel_res": hist,
+                                      "gaps": gaps, "launches": used}))
+    ref_r = log_r["f64_refine"]
+    iters_r = int_keys(log_r)[-1]
+    base_r = float(log_r[iters_r]["metrics"]["internal_metrics"]["rel_res"][0])
+    final_r = ref_r["rel_res_f64"][-1][0]
+    t0 = time.perf_counter()
+    y64 = y.double()[:, None]
+    KW = kernel_cuda.gram_matvec_symmetric_f64("laplace", X, W64, LS_B)
+    k7 = (torch.linalg.norm(y64 - (KW + reg * W64)) / torch.linalg.norm(y64)).item()
+    k7_s = time.perf_counter() - t0
+    print("slice3 refined " + json.dumps({
+        "wall_s": wall_r, "phase_walls": sys_r.phase_walls, "base_rel_res": base_r,
+        "refine": ref_r, "k7_sweep_rel": k7, "k7_sweep_s": k7_s, "launches": used_r}))
+    check(W64.dtype == torch.float64 and W64.is_cuda, "slice3 refined W is float64 on the card")
+    check(np.isfinite(final_r) and final_r < base_r,
+          f"slice3 refined rel_res_f64 {final_r:.3e} below the base {base_r:.3e}")
+    check(abs(final_r - k7) <= 0.01 * k7, "slice3 refined rel_res_f64 within 1% of a K7 sweep")
+    check(used_r["gram_matvec_symmetric_f64"] > 0, "slice3 refinement ran through K7")
+    return counts
+
+
+def config4(dev, X, y, profile_run, compare, timings, laplace):
+    """Path A (``laplace``: ASkotch on the Laplace operator) or A' (config 4
+    as written: bf16x3 RBF), ITERS4 iterations each, through the
+    entry points a user calls, counted and profiled; then the sampled
+    estimates against an independent float64 residual on other rows, and
+    the block-oracle shape's kernels checked on those rows and timed.
+    Returns the path's record (launch counts under ``"launches"``)."""
+    import torch
+
+    from rlaopt_tpu_torch.kernels import KernelConfig, LaplaceLinOp, RBFLinOp
+    from rlaopt_tpu_torch.models import LinSys
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+    from rlaopt_tpu_torch.preconditioners import NystromConfig
+    from rlaopt_tpu_torch.solvers import SAPAccelConfig, SAPConfig
+
+    name = "config4_laplace" if laplace else "config4"
+    kind, ls = ("laplace", LS_A) if laplace else ("rbf", 1.0)
+    iters = ITERS4
+    iterates = []
+    kernel_cuda.reset_launch_counts()
+    with profile_run() as prof:
+        t0 = time.perf_counter()
+        if laplace:
+            K = LaplaceLinOp(X, X, KernelConfig(lengthscale=LS_A))
+        else:
+            K = RBFLinOp(X, X, KernelConfig(lengthscale=1.0), compute_dtype="bf16x3")
+        sys_ = LinSys(K, y, reg=REG4, A_row_oracle=K.row_oracle, A_blk_oracle=K.blk_oracle)
+        cfg = SAPConfig(
+            max_iters=iters, rtol=1e-6, blk_sz=BLK4,
+            precond_config=NystromConfig(rank=RANK4, rho=REG4), accel=True,
+            accel_config=SAPAccelConfig(mu=REG4, nu=100.0), power_iters=10,
+        )
+        _, log = sys_.solve(cfg, torch.zeros((N4, 1), device=dev), callback_freq=FREQ4, key=0,
+                            metrics="sampled",
+                            callback_fn=lambda w, _model: iterates.append(w.clone()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    used = kernel_cuda.launch_counts()
+    keys = int_keys(log)
+    hist = {i: log[i]["metrics"]["internal_metrics"] for i in keys}
+    for i in keys:
+        print(f"{name} iter {i}: rel_res {hist[i]['rel_res'].tolist()} "
+              f"source {hist[i].get('source')}")
+    check(keys[-1] == iters, f"{name} ran {iters} iterations")
+    final = float(hist[iters]["rel_res"][0])
+    check(hist[iters].get("source") is None and np.isfinite(final) and final < 1.0,
+          f"{name} final true rel_res {final:.4e} finite and below 1")
+    if laplace:
+        check(used["laplace_matmat"] >= iters, f"{name}: every iteration ran through K3")
+        check(used["laplace_matmat_comp"] >= 1, f"{name}: the final residual ran through K3c")
+    else:
+        check(used["gram_matmat_tier"] >= iters, f"{name}: every iteration ran through K1b")
+        check(used["gram_matmat_comp"] >= 1, f"{name}: the final residual ran through K1c")
+
+    # independent float64 residuals on other rows (seed 7) of every logged
+    # iterate past 0, by the plain version, in one sweep with a random
+    # column for the kernel checks below (an iterate's product cancels:
+    # its error against max|ref| says little of the kernel's)
+    s = min(4096, BLK4 // 2)
+    idx = torch.as_tensor(sampled_rows(N4, s, 7), device=dev)
+    y64 = y.double()[:, None]
+    Vr = torch.randn((N4, 1), generator=torch.Generator(device=dev).manual_seed(12), device=dev)
+    t0 = time.perf_counter()
+    W64 = torch.cat([w.double() for w in iterates[1:]], 1)
+    KW = kernel_plain.gram_matmat_f64(kind, X[idx], X, torch.cat([W64, Vr.double()], 1), ls,
+                                      row_block=256)
+    R = y64[idx] - (KW[:, :-1] + REG4 * W64[idx])
+    indep = (torch.linalg.norm(R, dim=0) * (N4 / s) ** 0.5 / torch.linalg.norm(y64)).cpu().numpy()
+    indep_s = time.perf_counter() - t0
+    checks = {}
+    for j, i in enumerate(keys[1:]):
+        est = float(hist[i]["rel_res"][0])
+        sigma_i = indep[j] / (2.0 * s) ** 0.5
+        sigma_e = est * hist[i].get("rel_stderr_est", 0.0)
+        sigma = (sigma_i**2 + sigma_e**2) ** 0.5
+        checks[i] = {"logged": est, "source": hist[i].get("source"), "independent": float(indep[j]),
+                     "sigmas": abs(est - indep[j]) / sigma}
+        print(f"{name} iter {i}: logged {est:.6e} ({hist[i].get('source') or 'true'}) "
+              f"independent float64 {indep[j]:.6e} ± {sigma_i:.2e}: "
+              f"{checks[i]['sigmas']:.2f} sigma")
+        check(abs(est - indep[j]) <= 5 * sigma, f"{name} iter {i} within 5 sigma of float64")
+
+    # the block-oracle shape: a block of BLK4 rows holding the s rows above,
+    # checked on those rows against the float64 ones
+    rest = np.setdiff1d(np.arange(N4), idx.cpu().numpy())
+    more = np.random.default_rng(11).choice(rest, BLK4 - s, replace=False)
+    blk = torch.cat([idx, torch.as_tensor(more, device=dev)])
+    Wf = Vr
+    ref = KW[:, -1:]
+    shape = f"rows {s} of the row oracle n={BLK4} m={N4} d={D4} k=1"
+    Xb = X[blk]
+    record = {}
+    if laplace:
+        splits = kernel_cuda.column_splits(BLK4, N4, 1, dev)
+        compare("laplace_matmat", kernel_cuda.laplace_matmat(Xb, X, Wf, ls)[:s], ref,
+                f"{shape} splits {splits}", K_BOUND)
+        hi, lo = kernel_cuda.laplace_matmat_comp(X[idx], X, Wf, ls)
+        compare("laplace_matmat_comp", hi.double() + lo.double(), ref, f"{shape} (hi+lo)",
+                COMP_BOUND)
+        ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(Xb, X, Wf, ls))
+        with one_pass():
+            compare("laplace_matmat", kernel_cuda.laplace_matmat(Xb, X, Wf, ls)[:s], ref,
+                    f"{shape} one pass", K_BOUND)
+            ms1 = cuda_ms(lambda: kernel_cuda.laplace_matmat(Xb, X, Wf, ls))
+        p_ms = cuda_ms(lambda: kernel_plain.gram_matmat("laplace", Xb, X, Wf, ls, row_block=64),
+                       reps=1, warm=False)
+        what = f"row oracle n={BLK4} m={N4} d={D4} k=1"
+        timings.setdefault("laplace_matmat", []).insert(0, timing_entry(
+            "laplace_matmat", f"{what} splits {splits}", ms, p_ms, BLK4, N4, D4, 1, "laplace",
+            splits=splits, one_pass_ms=ms1))
+        print(f"time laplace_matmat {what}: splits {splits} {ms:.3f} ms, one pass {ms1:.3f} ms, "
+              f"plain {p_ms:.3f} ms, bound {timings['laplace_matmat'][0]['bound_ms']:.3f} ms")
+        record["row_oracle_ms"] = {"splits": splits, "ms": ms, "one_pass_ms": ms1, "plain_ms": p_ms}
+        # the dense block of SAP's block preconditioner (blk_dense)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        Kb = K.blk_dense(blk)
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        record["blk_dense"] = {"s": dense_s, "peak_bytes": peak,
+                               "tile_bytes": Kb.numel() * Kb.element_size()}
+        print(f"{name} blk_dense at blk {BLK4}: {dense_s:.3f} s, peak {peak} bytes above the "
+              f"operands, the tile itself {Kb.numel() * Kb.element_size()} bytes")
+        del Kb
+    else:
+        P = K._tier[0]
+        Pb = P.rows(blk)
+        got = kernel_cuda.gram_matmat_tier("rbf", Pb, P, Wf)[:s]
+        compare("gram_matmat_tier", got, kernel_plain.gram_matmat_tier(
+            "rbf", P.rows(idx), P, Wf, row_block=256), f"bf16x3 {shape} vs its tier", TIER_BOUND)
+        compare("gram_matmat_tier", got, ref, f"bf16x3 {shape} vs float64", BF16X3_F64_BOUND)
+        hi, lo = kernel_cuda.gram_matmat_comp("rbf", X[idx], X, Wf, ls)
+        compare("gram_matmat_comp", hi.double() + lo.double(), ref, f"{shape} (hi+lo)",
+                COMP_BOUND)
+        ms = cuda_ms(lambda: kernel_cuda.gram_matmat_tier("rbf", Pb, P, Wf))
+        p_ms = cuda_ms(lambda: kernel_plain.gram_matmat_tier("rbf", Pb, P, Wf, row_block=256),
+                       reps=1)
+        what = f"row oracle n={BLK4} m={N4} d={D4} k=1 bf16x3"
+        timings.setdefault("gram_matmat_tier", []).append(timing_entry(
+            "gram_matmat_tier", what, ms, p_ms, BLK4, N4, D4, 1, "rbf", "bf16x3"))
+        print(f"time gram_matmat_tier {what}: kernel {ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"bound {timings['gram_matmat_tier'][-1]['bound_ms']:.3f} ms")
+        record["row_oracle_ms"] = {"ms": ms, "plain_ms": p_ms}
+    profile = device_breakdown(prof) if prof else {}
+    busy = profile.get("busy_ms")
+    record.update({
+        "n": N4, "d": D4, "kind": kind, "lengthscale": ls, "iters": iters, "wall_s": wall,
+        "phase_walls": sys_.phase_walls, "s_per_iter": sys_.phase_walls["train"] / iters,
+        "rel_res": {i: hist[i]["rel_res"].tolist() for i in keys},
+        "sources": {i: hist[i].get("source") for i in keys}, "checks": checks,
+        "independent_s": indep_s, "launches": used, "profile": profile,
+        "busy_share": None if busy is None else busy / 1e3 / wall,
+    })
+    print(name + " " + json.dumps(record))
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -422,7 +866,8 @@ def main() -> int:
     }
     names = ("gram_matmat", "gram_matmat_comp", "gram_matvec_symmetric",
              "gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_matmat_f64",
-             "gram_matvec_symmetric_f64")
+             "gram_matvec_symmetric_f64", "laplace_matmat", "laplace_matmat_comp",
+             "laplace_matvec_symmetric")
     # (kernel, "plain" or "float64") -> [(max abs err, relative)]; "plain"
     # is the kernel's own plain version (float64 for all but the tiers)
     errors = {(kname, versus): [] for kname in names for versus in ("plain", "float64")}
@@ -611,13 +1056,20 @@ def main() -> int:
         else:
             plain_ms = cuda_ms(plain)
         shape = f"n={N} d={D} k={k}" + (f" {cd}" if cd else "")
-        entry = {"shape": shape, "ms": ms, "plain_ms": plain_ms}
-        line = f"time {kernel} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+        entry = timing_entry(kernel, shape, ms, plain_ms, N, N, D, k, "rbf", cd)
+        line = (f"time {kernel} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {entry['bound_ms']:.3f} ms")
         if kernel == "gram_matmat_comp":
             entry["plain_f32_twosum_ms"] = cuda_ms(lambda: plain_twosum_f32("rbf", X, Vs[k], ls))
             line += f", plain f32 TwoSum {entry['plain_f32_twosum_ms']:.3f} ms"
         timings.setdefault(kernel, []).append(entry)
         print(line)
+    # K1b at k = 500 once more, a minute after its first timing: the spread
+    # within one run
+    again = cuda_ms(kernel_and_plain("gram_matmat_tier", 500, "bf16x3")[0])
+    timings["gram_matmat_tier"][0]["ms_again"] = again
+    print(f"time gram_matmat_tier n={N} d={D} k=500 bf16x3 again: kernel {again:.3f} ms")
+    laplace_kernels(dev, X, compare, timings)
     print(f"phase: kernel checks and times done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. slice 1, config 3 whole, through the entry points a user calls
@@ -708,6 +1160,10 @@ def main() -> int:
     check(used_r["gram_matvec_symmetric_f64"] > 0, "refinement ran through K7")
     print(f"phase: slice 1 done at {time.perf_counter() - t_start:.1f} s")
 
+    # path B: Nyström-PCG on the Laplace operator at the same shape
+    counts_slice3 = slice3(dev, X, Xn, Y1)
+    print(f"phase: slice 3 path B done at {time.perf_counter() - t_start:.1f} s")
+
     # 5. where the time goes: one more solve of each, profiled
     def profiled():
         return torch.profiler.profile(
@@ -734,10 +1190,25 @@ def main() -> int:
     print("config6 " + json.dumps(ns))
     print(f"phase: config 6 done at {time.perf_counter() - t_start:.1f} s")
 
-    # 7. result lines
+    # 7. slice 3, paths A and A': config 4's data (numpy, seed 0), made once
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    X4 = torch.from_numpy(
+        (rng.standard_normal((N4, D4), dtype=np.float32) / np.float32(D4**0.5))).to(dev)
+    y4 = torch.from_numpy(rng.standard_normal(N4, dtype=np.float32)).to(dev)
+    torch.cuda.synchronize()
+    print(f"config4 data: {time.perf_counter() - t0:.3f} s")
+    rec_a = config4(dev, X4, y4, profiled, compare, timings, laplace=True)
+    print(f"phase: slice 3 path A done at {time.perf_counter() - t_start:.1f} s")
+    rec_a2 = config4(dev, X4, y4, profiled, compare, timings, laplace=False)
+    print(f"phase: slice 3 path A' done at {time.perf_counter() - t_start:.1f} s")
+
+    # 8. result lines
     kernels = []
     comp = timings["gram_matmat_comp"][0]
     comp["plain_f32_twosum_rel_err"] = twosum_f32_rel
+    paths = {"slice1": counts_slice1, "config6": ns["launches"], "slice3": counts_slice3,
+             "config4_laplace": rec_a["launches"], "config4": rec_a2["launches"]}
     for kname, source, replaces in (
         ("gram_matmat", SOURCES["gram"], f"{PALLAS}:733"),
         ("gram_matmat_comp", SOURCES["gram"], f"{PALLAS}:733"),
@@ -746,10 +1217,13 @@ def main() -> int:
         ("gram_matvec_symmetric_tier", SOURCES["tier"], f"{PALLAS}:1366"),
         ("gram_matvec_symmetric_f64", SOURCES["f64"], f"{VALUE64}:467"),
         ("gram_matmat_f64", SOURCES["f64"], f"{VALUE64}:684"),
+        ("laplace_matmat", SOURCES["laplace"], f"{PALLAS}:592"),
+        ("laplace_matmat_comp", SOURCES["laplace"], f"{PALLAS}:592"),
+        ("laplace_matvec_symmetric", SOURCES["laplace"], f"{PALLAS}:1930"),
     ):
         main_t = timings[kname][0]
         vs_f64 = errors[(kname, "float64")]
-        by_path = {"slice1": counts_slice1[kname], "config6": ns["launches"][kname]}
+        by_path = {path: counts[kname] for path, counts in paths.items()}
         kernels.append({
             "name": kname,
             "route": "cuda",
@@ -761,6 +1235,10 @@ def main() -> int:
             "max_rel_err": max(e[1] for e in errors[(kname, "plain")]),
             "ms": main_t["ms"],
             "plain_ms": main_t["plain_ms"],
+            "bound_ms": main_t["bound_ms"],
+            "bound_by": main_t["bound_by"],
+            # no single PyTorch call computes c·k(X1, X2) @ V
+            "library_ms": None,
             "shape": main_t["shape"],
             "timings": timings[kname],
         })

@@ -18,6 +18,7 @@ from . import linops  # noqa: F401
 from . import ops  # noqa: F401
 from . import kernels  # noqa: F401
 from . import sketches  # noqa: F401
+from . import spectral_estimators  # noqa: F401
 from . import preconditioners  # noqa: F401
 from . import solvers  # noqa: F401
 from . import models  # noqa: F401

@@ -5,7 +5,8 @@
 // wrapper divides, as rlaopt_tpu/ops/kernel_pallas.py does before its
 // pallas_call); K1c takes them unscaled, with the inverse lengthscale.
 // Families: rbf, matern12, matern32, matern52 (the squared-distance family;
-// Laplace has float64 kernels only, in gram_f64.cu). Float32 only, exact tier. The tile generators,
+// Laplace has its own entry points, in gram_laplace.cu). Float32 only, exact
+// tier. The tile generators,
 // the narrow contraction and the triangle schedule are shared with the bf16
 // tiers (gram_tier.cu) and the float64 kernels (gram_f64.cu) through
 // gram_common.cuh.
@@ -69,103 +70,16 @@
 
 namespace {
 
-// K1 for k > 16: block (bx, by) owns rows 64*bx.. and right-hand-side
-// columns 64*by..; thread (ty, tx) owns rows 4*ty.. and columns 4*tx.. .
-template <int KIND>
-__global__ void __launch_bounds__(kThreads)
-    gram_matmat_wide(const float* __restrict__ X1, const float* __restrict__ X2,
-                     const float* __restrict__ V, float* __restrict__ out, int n,
-                     int m, int d, int k, double c) {
-  __shared__ TileSmem<float> sm;
-  __shared__ __align__(16) float vs[kTile][kWide];
-  const int row0 = blockIdx.x * kTile;
-  const int c0 = blockIdx.y * kWide;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int col0 = 0; col0 < m; col0 += kTile) {
-    stage_v<float, kWide>(V, m, k, col0, c0, vs);
-    kernel_tile<KIND, false>(X1, X2, nullptr, n, m, d, row0, col0, sm);
-    float p[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p[i][j] = 0.0f;
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sm.k[ty * 4 + i][j];
-      const float4 b4 = *reinterpret_cast<const float4*>(&vs[j][tx * 4]);
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jc = 0; jc < 4; ++jc) p[i][jc] = fmaf(a[i], b[jc], p[i][jc]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += p[i][j];
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = row0 + ty * 4 + i;
-    if (gr >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gc = c0 + tx * 4 + j;
-      if (gc < k) out[(size_t)gr * k + gc] = (float)(acc[i][j] * c);
-    }
-  }
-}
-
-template <int KIND, bool COMPENSATED>
-void launch_matmat(const GramArgs& a, cudaStream_t s) {
-  if (!COMPENSATED && a.k > 16) {
-    const dim3 grid((a.n + kTile - 1) / kTile, (a.k + kWide - 1) / kWide);
-    gram_matmat_wide<KIND><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(a.X1), static_cast<const float*>(a.X2),
-        static_cast<const float*>(a.V), static_cast<float*>(a.out), a.n, a.m,
-        a.d, a.k, a.c);
-  } else {
-    launch_narrow_by_k<KIND, COMPENSATED ? COMP : EXACT>(a, s);
-  }
-}
-
 template <bool COMPENSATED>
-int matmat_by_kind(int kind, const GramArgs& a, cudaStream_t s) {
+int matmat_by_kind(int kind, const GramArgs& a, cudaStream_t s, int splits) {
   switch (kind) {
-    case RBF: launch_matmat<RBF, COMPENSATED>(a, s); break;
-    case MATERN12: launch_matmat<MATERN12, COMPENSATED>(a, s); break;
-    case MATERN32: launch_matmat<MATERN32, COMPENSATED>(a, s); break;
-    case MATERN52: launch_matmat<MATERN52, COMPENSATED>(a, s); break;
+    case RBF: launch_matmat<RBF, COMPENSATED>(a, s, splits); break;
+    case MATERN12: launch_matmat<MATERN12, COMPENSATED>(a, s, splits); break;
+    case MATERN32: launch_matmat<MATERN32, COMPENSATED>(a, s, splits); break;
+    case MATERN52: launch_matmat<MATERN52, COMPENSATED>(a, s, splits); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-GramArgs points_args(const void* X1, const void* X2, const void* inv_ls,
-                     const void* V, void* out, void* out_lo, int n, int m,
-                     int d, int k, double c) {
-  GramArgs a{};
-  a.X1 = static_cast<const float*>(X1);
-  a.X2 = static_cast<const float*>(X2);
-  a.inv_ls = static_cast<const double*>(inv_ls);
-  a.V = V;
-  a.out = out;
-  a.out_lo = out_lo;
-  a.n = n;
-  a.m = m;
-  a.d = d;
-  a.k = k;
-  a.c = c;
-  return a;
 }
 
 }  // namespace
@@ -176,11 +90,15 @@ GramArgs points_args(const void* X1, const void* X2, const void* inv_ls,
 // contiguous float32 on one device; n, m, d, k >= 1.
 
 // K1: out = c * k(X1, X2) @ V, X1 and X2 pre-scaled by the lengthscale.
+// splits > 1 (k <= 16): the m axis in that many runs on blockIdx.z, their
+// partials in part (splits * n * k floats), summed in a second launch.
 extern "C" int rl_gram_matmat(int kind, const void* X1, const void* X2,
-                              const void* V, void* out, int n, int m, int d,
-                              int k, double c, void* stream) {
-  const GramArgs a = points_args(X1, X2, nullptr, V, out, nullptr, n, m, d, k, c);
-  return matmat_by_kind<false>(kind, a, static_cast<cudaStream_t>(stream));
+                              const void* V, void* out, void* part, int n,
+                              int m, int d, int k, int splits, double c,
+                              void* stream) {
+  GramArgs a = points_args(X1, X2, nullptr, V, out, nullptr, n, m, d, k, c);
+  a.part = static_cast<float*>(part);
+  return matmat_by_kind<false>(kind, a, static_cast<cudaStream_t>(stream), splits);
 }
 
 // K1c: the same product as out + out_lo (out_lo added last), from unscaled
@@ -190,7 +108,7 @@ extern "C" int rl_gram_matmat_comp(int kind, const void* X1, const void* X2,
                                    void* out, void* out_lo, int n, int m,
                                    int d, int k, double c, void* stream) {
   const GramArgs a = points_args(X1, X2, inv_ls, V, out, out_lo, n, m, d, k, c);
-  return matmat_by_kind<true>(kind, a, static_cast<cudaStream_t>(stream));
+  return matmat_by_kind<true>(kind, a, static_cast<cudaStream_t>(stream), 1);
 }
 
 // K2: X (n, d), V (n, k) with k <= 16, out (n, k); out is zeroed here first.

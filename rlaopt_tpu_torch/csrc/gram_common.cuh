@@ -1,9 +1,10 @@
-// Shared pieces of the fused Gram-matrix kernels (gram.cu, gram_tier.cu,
-// gram_f64.cu): the tile generators, the narrow (k <= 16) contraction and the
-// triangle schedule, each templated on the kernel family and on a MODE:
+// Shared pieces of the fused Gram-matrix kernels (gram.cu, gram_laplace.cu,
+// gram_tier.cu, gram_f64.cu): the tile generators, the narrow (k <= 16) and
+// wide contractions and the triangle schedule, each templated on the kernel
+// family and on a MODE:
 //
-//   EXACT  K1, K2    f32 points pre-scaled by the lengthscale, f32 values
-//   COMP   K1c       unscaled f32 points, float64 inside a tile, f32 (hi, lo)
+//   EXACT  K1, K2, K3, K5  f32 points pre-scaled by the lengthscale, f32 values
+//   COMP   K1c, K3c  unscaled f32 points, float64 inside a tile, f32 (hi, lo)
 //   F64    K7, K8    K1c's tile, carried to float64 end to end (V and out too)
 //   TIER1  K1b, K2b  bf16 parts, one tensor-core pass (bfloat16 tier)
 //   TIER3  K1b, K2b  bf16 hi/lo parts, three tensor-core passes (bf16x3)
@@ -42,6 +43,8 @@ __host__ __device__ constexpr bool is_tier(int mode) { return mode == TIER1 || m
 // padded depth, lo parts null on TIER1, and the norm vectors hx (n), hy (m)
 // of _norms_and_operands. V (m, k) and out (n, k) are float, or double for
 // F64; out_lo is K1c's lo part. The triangle kernels pass X2 = X1, m = n.
+// part and m_split: the narrow kernel's column splits (see
+// launch_narrow_by_k); part holds (gridDim.z, n, k) float partials.
 struct GramArgs {
   const float* X1;
   const float* X2;
@@ -55,7 +58,9 @@ struct GramArgs {
   const void* V;
   void* out;
   void* out_lo;
+  float* part;
   int n, m, d, k;
+  int m_split;
   double c;
 };
 
@@ -226,7 +231,11 @@ __device__ __forceinline__ void kernel_tile(
             }
           } else {
             const float diff = a[i] - b[j];
-            acc[i][j] = fmaf(diff, diff, acc[i][j]);
+            if constexpr (KIND == LAPLACE) {
+              acc[i][j] += fabsf(diff);
+            } else {
+              acc[i][j] = fmaf(diff, diff, acc[i][j]);
+            }
           }
         }
     }
@@ -389,11 +398,13 @@ __device__ __forceinline__ float tier_mul(float a, float b) {
   }
 }
 
-// K1 / K1c / K1b / K8 for KC <= 16 right-hand-side columns, those from
+// K1 / K1c / K1b / K3 / K8 for KC <= 16 right-hand-side columns, those from
 // KC * blockIdx.y on. Thread t owns output row t/4 and the columns
 // j = 16*(t%4) .. +15 of each tile. With COMP the tile partial is completed
 // across the quad and scaled by c in double, then split into a float pair and
-// TwoSum-added. F64 contracts and accumulates in double.
+// TwoSum-added. F64 contracts and accumulates in double. Block z walks the
+// columns [z * m_split, (z + 1) * m_split); with more than one split (EXACT
+// only) it writes its unscaled float partial to part[z] for sum_splits.
 template <int KIND, int KC, int MODE>
 __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a) {
   using Tr = ModeTraits<MODE>;
@@ -406,6 +417,8 @@ __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a)
   const int row0 = blockIdx.x * kTile;
   const int c0 = blockIdx.y * KC;
   const int r = threadIdx.x / 4, q = threadIdx.x % 4;
+  const int col_begin = blockIdx.z * a.m_split;
+  const int col_end = min(a.m, col_begin + a.m_split);
   Acc acc[KC];
   float lo[KC];
 #pragma unroll
@@ -414,7 +427,7 @@ __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a)
     lo[i] = 0.0f;
   }
 
-  for (int col0 = 0; col0 < a.m; col0 += kTile) {
+  for (int col0 = col_begin; col0 < col_end; col0 += kTile) {
     stage_v<VT, KC>(V, a.m, a.k, col0, c0, vs);
     make_tile<KIND, MODE>(a, row0, col0, sm);
     Val p[KC];
@@ -455,6 +468,12 @@ __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a)
         if constexpr (MODE == COMP) {
           out[(size_t)gr * a.k + gc] = acc[i];
           static_cast<float*>(a.out_lo)[(size_t)gr * a.k + gc] = lo[i];
+        } else if constexpr (MODE == EXACT) {
+          if (gridDim.z > 1) {
+            a.part[((size_t)blockIdx.z * a.n + gr) * a.k + gc] = acc[i];
+          } else {
+            out[(size_t)gr * a.k + gc] = (VT)(acc[i] * a.c);
+          }
         } else {
           out[(size_t)gr * a.k + gc] = (VT)(acc[i] * a.c);
         }
@@ -548,22 +567,144 @@ void launch_narrow(dim3 grid, const GramArgs& a, cudaStream_t s) {
   gram_matmat_narrow<KIND, KC, MODE><<<grid, kThreads, 0, s>>>(a);
 }
 
-// The narrow kernel at the smallest KC that holds k <= 16 columns, or 16
-// columns per blockIdx.y past that (COMP, F64).
-template <int KIND, int MODE>
-void launch_narrow_by_k(const GramArgs& a, cudaStream_t s) {
-  const unsigned rows = (a.n + kTile - 1) / kTile;
-  if (a.k > 8) {
-    launch_narrow<KIND, 16, MODE>(dim3(rows, (a.k + 15) / 16), a, s);
-  } else if (a.k > 4) {
-    launch_narrow<KIND, 8, MODE>(dim3(rows), a, s);
-  } else if (a.k > 2) {
-    launch_narrow<KIND, 4, MODE>(dim3(rows), a, s);
-  } else if (a.k > 1) {
-    launch_narrow<KIND, 2, MODE>(dim3(rows), a, s);
-  } else {
-    launch_narrow<KIND, 1, MODE>(dim3(rows), a, s);
+// out[i] = c * (part[0][i] + part[1][i] + ...), in that order: the splits'
+// partials summed in a fixed order, so the result does not change from run
+// to run.
+__global__ void __launch_bounds__(kThreads)
+    sum_splits(const float* __restrict__ part, float* __restrict__ out,
+               int splits, size_t count, double c) {
+  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < count;
+       i += (size_t)gridDim.x * kThreads) {
+    float s = 0.0f;
+    for (int z = 0; z < splits; ++z) s += part[(size_t)z * count + i];
+    out[i] = (float)(s * c);
   }
+}
+
+// The narrow kernel at the smallest KC that holds k <= 16 columns, or 16
+// columns per blockIdx.y past that (COMP, F64). splits > 1 (EXACT, k <= 16,
+// a.part holding splits * n * k floats) cuts the m axis into that many runs
+// of whole column tiles on blockIdx.z, for grid fill when n is small (a
+// 10,000-row block oracle is 157 row tiles on 132 SMs), and sums the
+// partials with sum_splits.
+template <int KIND, int MODE>
+void launch_narrow_by_k(const GramArgs& args, cudaStream_t s, int splits = 1) {
+  GramArgs a = args;
+  const int tiles = (a.m + kTile - 1) / kTile;
+  if (MODE != EXACT || splits < 1 || a.part == nullptr) splits = 1;
+  if (splits > tiles) splits = tiles;
+  a.m_split = ((tiles + splits - 1) / splits) * kTile;
+  splits = (a.m + a.m_split - 1) / a.m_split;
+  const unsigned rows = (a.n + kTile - 1) / kTile;
+  const unsigned z = splits;
+  if (a.k > 8) {
+    launch_narrow<KIND, 16, MODE>(dim3(rows, (a.k + 15) / 16, z), a, s);
+  } else if (a.k > 4) {
+    launch_narrow<KIND, 8, MODE>(dim3(rows, 1, z), a, s);
+  } else if (a.k > 2) {
+    launch_narrow<KIND, 4, MODE>(dim3(rows, 1, z), a, s);
+  } else if (a.k > 1) {
+    launch_narrow<KIND, 2, MODE>(dim3(rows, 1, z), a, s);
+  } else {
+    launch_narrow<KIND, 1, MODE>(dim3(rows, 1, z), a, s);
+  }
+  if (splits > 1) {
+    const size_t count = (size_t)a.n * a.k;
+    size_t blocks = (count + kThreads - 1) / kThreads;
+    if (blocks > 4096) blocks = 4096;
+    sum_splits<<<(unsigned)blocks, kThreads, 0, s>>>(a.part, static_cast<float*>(a.out),
+                                           splits, count, a.c);
+  }
+}
+
+// K1 and K3 for k > 16: block (bx, by) owns rows 64*bx.. and right-hand-side
+// columns 64*by..; thread (ty, tx) owns rows 4*ty.. and columns 4*tx.. .
+template <int KIND>
+__global__ void __launch_bounds__(kThreads)
+    gram_matmat_wide(const float* __restrict__ X1, const float* __restrict__ X2,
+                     const float* __restrict__ V, float* __restrict__ out, int n,
+                     int m, int d, int k, double c) {
+  __shared__ TileSmem<float> sm;
+  __shared__ __align__(16) float vs[kTile][kWide];
+  const int row0 = blockIdx.x * kTile;
+  const int c0 = blockIdx.y * kWide;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int col0 = 0; col0 < m; col0 += kTile) {
+    stage_v<float, kWide>(V, m, k, col0, c0, vs);
+    kernel_tile<KIND, false>(X1, X2, nullptr, n, m, d, row0, col0, sm);
+    float p[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[i][j] = 0.0f;
+#pragma unroll 4
+    for (int j = 0; j < kTile; ++j) {
+      float a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = sm.k[ty * 4 + i][j];
+      const float4 b4 = *reinterpret_cast<const float4*>(&vs[j][tx * 4]);
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jc = 0; jc < 4; ++jc) p[i][jc] = fmaf(a[i], b[jc], p[i][jc]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += p[i][j];
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gr = row0 + ty * 4 + i;
+    if (gr >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gc = c0 + tx * 4 + j;
+      if (gc < k) out[(size_t)gr * k + gc] = (float)(acc[i][j] * c);
+    }
+  }
+}
+
+// K1 / K3 (wide past 16 columns, narrow with column splits up to 16) and
+// K1c (narrow, 16 columns per blockIdx.y past 16).
+template <int KIND, bool COMPENSATED>
+void launch_matmat(const GramArgs& a, cudaStream_t s, int splits) {
+  if (!COMPENSATED && a.k > 16) {
+    const dim3 grid((a.n + kTile - 1) / kTile, (a.k + kWide - 1) / kWide);
+    gram_matmat_wide<KIND><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(a.X1), static_cast<const float*>(a.X2),
+        static_cast<const float*>(a.V), static_cast<float*>(a.out), a.n, a.m,
+        a.d, a.k, a.c);
+  } else {
+    launch_narrow_by_k<KIND, COMPENSATED ? COMP : EXACT>(a, s, COMPENSATED ? 1 : splits);
+  }
+}
+
+// The operands of a launch on points (K1, K1c, K3, K3c, K2, K5, K7, K8).
+GramArgs points_args(const void* X1, const void* X2, const void* inv_ls,
+                     const void* V, void* out, void* out_lo, int n, int m,
+                     int d, int k, double c) {
+  GramArgs a{};
+  a.X1 = static_cast<const float*>(X1);
+  a.X2 = static_cast<const float*>(X2);
+  a.inv_ls = static_cast<const double*>(inv_ls);
+  a.V = V;
+  a.out = out;
+  a.out_lo = out_lo;
+  a.n = n;
+  a.m = m;
+  a.d = d;
+  a.k = k;
+  a.c = c;
+  return a;
 }
 
 // The triangle kernel at the smallest KC that holds k <= MAX_KC columns, or

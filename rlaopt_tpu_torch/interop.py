@@ -8,7 +8,12 @@ the two packages to the same iterates):
   ``(X, ls, scale, kind)``, built on one data set (``X1 is X2``);
 * :func:`nystrom_preconditioner` — a built :class:`Nystrom` from
   ``NystromFactors(U, S)``, ``rho`` and the low-precision factor ``L``;
-* :func:`pcg_state` — a :class:`PCGState` from ``(W, R, Z, P_, RZ, ok)``.
+* :func:`pcg_state` — a :class:`PCGState` from ``(W, R, Z, P_, RZ, ok)``;
+* :func:`newton_preconditioner` — a built :class:`Newton` from its factor
+  ``L`` and ``rho``;
+* :func:`sap_state` — a :class:`SAPState` from ``(W, V, Y, t)`` (the JAX
+  state's key has no counterpart: the port's solver draws from its own
+  generator).
 
 Nothing here imports ``jax``: callers convert with ``numpy.asarray``.
 """
@@ -20,12 +25,20 @@ import torch
 
 from .kernels.configs import KernelConfig
 from .kernels.linop import KernelLinOp
-from .preconditioners.configs import NystromConfig
+from .preconditioners.configs import NewtonConfig, NystromConfig
+from .preconditioners.newton import Newton
 from .preconditioners.nystrom import Nystrom
 from .solvers.pcg import PCGState
+from .solvers.sap import SAPState
 
 
-__all__ = ["kernel_operator", "nystrom_preconditioner", "pcg_state"]
+__all__ = [
+    "kernel_operator",
+    "nystrom_preconditioner",
+    "newton_preconditioner",
+    "pcg_state",
+    "sap_state",
+]
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -78,4 +91,19 @@ def pcg_state(W, R, Z, P_, RZ, ok, device="cpu") -> PCGState:
         P_=_t(P_, device),
         RZ=_t(RZ, device),
         ok=_t(ok, device, torch.bool),
+    )
+
+
+def newton_preconditioner(L, rho, device="cpu") -> Newton:
+    """A built Newton preconditioner from the JAX package's ``Newton.L``."""
+    P = Newton(NewtonConfig(rho=float(np.asarray(rho))))
+    P.L = _t(L, device)
+    return P
+
+
+def sap_state(W, V, Y, t, device="cpu") -> SAPState:
+    """A :class:`SAPState` from the fields of the JAX package's SAPState
+    (its iteration counter ``t`` included; its key is not carried)."""
+    return SAPState(
+        W=_t(W, device), V=_t(V, device), Y=_t(Y, device), t=int(np.asarray(t))
     )

@@ -7,7 +7,7 @@ for CUDA tensors, the plain versions for CPU tensors). K is never
 materialized, except by :meth:`KernelLinOp.blk_dense` for a block. A bf16
 ``compute_dtype`` keeps the tier parts of the points (bf16 hi/lo and norm
 vectors, :mod:`rlaopt_tpu_torch.ops.kernel_tiers`) on the operator, made
-once when it is built.
+once when it is built; the row and block oracles gather theirs from it.
 """
 
 from typing import Optional
@@ -36,8 +36,7 @@ class KernelLinOp(TwoSidedLinOp):
     ``"bfloat16"`` (any spelling :func:`normalize_compute_dtype` takes). The
     tiers apply to float32 points of the squared-distance families; float64
     points and Laplace take the exact tier, as in the JAX package off the
-    TPU. On a card the Laplace family raises NotImplementedError until its
-    f32 kernels are ported.
+    TPU.
     """
 
     def __init__(
@@ -47,7 +46,10 @@ class KernelLinOp(TwoSidedLinOp):
         kernel_config: KernelConfig,
         kind: str,
         compute_dtype=None,
+        _tier=None,
     ):
+        """``_tier``: the tier parts of (A1, A2), gathered by the oracles
+        from their parent's; None makes them here."""
         self._check_inputs(A1, A2, kernel_config)
         compute_dtype = normalize_compute_dtype(compute_dtype)
         self.kind = kind
@@ -60,8 +62,9 @@ class KernelLinOp(TwoSidedLinOp):
         self._c = float(kernel_config.const_scaling)
         # One data set on both sides: the apply may take the triangle kernel.
         symmetric = A1 is A2
-        self._tier = None  # (parts of X1, parts of X2) on a bf16 tier
-        if compute_dtype is not None and kind != "laplace" and A1.dtype == torch.float32:
+        self._tier = _tier  # (parts of X1, parts of X2) on a bf16 tier
+        if (_tier is None and compute_dtype is not None and kind != "laplace"
+                and A1.dtype == torch.float32):
             P1 = tier_operand(scale_inputs(A1, self._ls), compute_dtype)
             P2 = P1 if symmetric else tier_operand(scale_inputs(A2, self._ls), compute_dtype)
             self._tier = (P1, P2)
@@ -148,11 +151,19 @@ class KernelLinOp(TwoSidedLinOp):
         idx1: Optional[torch.Tensor] = None,
         idx2: Optional[torch.Tensor] = None,
     ) -> "KernelLinOp":
-        """Operator over gathered subsets of the data points."""
+        """Operator over gathered subsets of the data points; on a bf16 tier
+        its parts are the rows of the parent's, not a new split."""
         A1 = self._X1 if idx1 is None else self._X1[idx1]
         A2 = self._X2 if idx2 is None else self._X2[idx2]
+        tier = None
+        if self._tier is not None:
+            P1, P2 = self._tier
+            tier = (
+                P1 if idx1 is None else P1.rows(idx1),
+                P2 if idx2 is None else P2.rows(idx2),
+            )
         return KernelLinOp(
-            A1, A2, self._kernel_config, self.kind, self.compute_dtype
+            A1, A2, self._kernel_config, self.kind, self.compute_dtype, _tier=tier
         )
 
     def row_oracle(self, blk: torch.Tensor) -> "KernelLinOp":

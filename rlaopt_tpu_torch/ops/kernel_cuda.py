@@ -1,8 +1,9 @@
 """Hand-written CUDA Gram kernels: build, ctypes binding, checked wrappers.
 
 Counterpart of ``rlaopt_tpu/ops/kernel_pallas.py`` (exact f32 tier,
-compensated tier, bf16 tiers) and ``rlaopt_tpu/ops/kernel_value64.py``
-(float64 route). The kernels live in ``csrc/gram.cu`` (K1, K1c, K2),
+compensated tier, bf16 tiers, the Laplace kernels) and
+``rlaopt_tpu/ops/kernel_value64.py`` (float64 route). The kernels live in
+``csrc/gram.cu`` (K1, K1c, K2), ``csrc/gram_laplace.cu`` (K3, K3c, K5),
 ``csrc/gram_tier.cu`` (K1b, K2b) and ``csrc/gram_f64.cu`` (K8, K7), with
 their shared pieces in ``csrc/gram_common.cuh`` (see the note at the top of
 each). :func:`build` compiles each source with ``nvcc`` for ``sm_90a`` in
@@ -41,21 +42,25 @@ __all__ = [
     "gram_matvec_symmetric_tier",
     "gram_matmat_f64",
     "gram_matvec_symmetric_f64",
+    "laplace_matmat",
+    "laplace_matmat_comp",
+    "laplace_matvec_symmetric",
+    "column_splits",
     "launch_counts",
     "reset_launch_counts",
     "KIND_CODES",
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("gram.cu", "gram_tier.cu", "gram_f64.cu")
+SOURCES = ("gram.cu", "gram_laplace.cu", "gram_tier.cu", "gram_f64.cu")
 _HEADERS = ("gram_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c",
 )
-# Kernel family codes of csrc/gram_common.cuh. Laplace has float64 kernels
-# only (K7, K8); its f32 kernels are still to port.
+# Kernel family codes of csrc/gram_common.cuh. The float32 Laplace kernels
+# have wrappers of their own (laplace_*); the float64 ones take the code.
 KIND_CODES = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3, "laplace": 4}
 SYMMETRIC_MAX_K = 16
 
@@ -64,7 +69,9 @@ _lib = {"handle": None, "path": None}
 
 _vp, _ci, _cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
-    "rl_gram_matmat": [_ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
+    "rl_gram_matmat": [
+        _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
+    ],
     "rl_gram_matmat_comp": [
         _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
@@ -82,6 +89,11 @@ _SIGNATURES = {
     "rl_gram_matvec_symmetric_f64": [
         _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _cd, _vp,
     ],
+    "rl_laplace_matmat": [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cd, _vp],
+    "rl_laplace_matmat_comp": [
+        _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
+    ],
+    "rl_laplace_matvec_symmetric": [_vp, _vp, _vp, _ci, _ci, _ci, _cd, _vp],
 }
 
 
@@ -156,12 +168,16 @@ def build() -> Path:
 
 
 def _code(kind: str, laplace: bool = False) -> int:
+    """The family code; the squared-distance kernels (K1, K1c, K2 and the
+    tiers) refuse Laplace, whose float32 kernels are the laplace_* wrappers."""
     if kind not in KIND_CODES:
         raise ValueError(f"Unknown kernel kind {kind!r}")
     if kind == "laplace" and not laplace:
         raise NotImplementedError(
-            "the Laplace family has float64 CUDA kernels only "
-            "(port of kernel_pallas.py::_laplace_matmat)"
+            "this kernel sums squared distances: the Laplace family takes "
+            "laplace_matmat, laplace_matmat_comp or laplace_matvec_symmetric "
+            "(the port of kernel_pallas.py::_laplace_matmat), or the float64 "
+            "kernels"
         )
     return KIND_CODES[kind]
 
@@ -222,23 +238,45 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def gram_matmat(kind, X1, X2, V, lengthscale, const_scaling=1.0):
-    """K1: ``c·k(X1, X2) @ V`` (n, k) on the card, exact f32 tier."""
-    code = _code(kind)
+def column_splits(n: int, m: int, k: int, device) -> int:
+    """Runs of the m axis for the narrow kernel of K1 and K3 (k ≤ 16): when
+    the 64-row tiles of n give fewer than four blocks per SM, enough runs
+    for four, each of at least 16 column tiles; 1 otherwise."""
+    if k > SYMMETRIC_MAX_K:
+        return 1
+    rows, tiles = -(-n // 64), -(-m // 64)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-4 * sms // rows), tiles // 16))
+
+
+def _matmat_launch(entry, lead, X1, X2, V, lengthscale, const_scaling):
+    """K1 or K3: check, scale, launch with its column splits; the output.
+    ``lead``: the entry point's arguments before the pointers (K1's family
+    code)."""
     _check_tensors((torch.float32,) * 3, X1, X2, V)
     V2, squeeze = _check_shapes(X1, X2, V)
     Xs, Ys = _scaled(X1, X2, lengthscale)
     build()
     (n, d), (m, k) = Xs.shape, V2.shape
+    splits = column_splits(n, m, k, Xs.device)
     out = torch.empty((n, k), dtype=torch.float32, device=Xs.device)
+    part = torch.empty((splits, n, k), dtype=torch.float32, device=Xs.device) if splits > 1 else None
     with torch.cuda.device(Xs.device):
-        err = _lib["handle"].rl_gram_matmat(
-            code, Xs.data_ptr(), Ys.data_ptr(), V2.data_ptr(), out.data_ptr(),
-            n, m, d, k, float(const_scaling), _stream(Xs),
+        err = getattr(_lib["handle"], entry)(
+            *lead, Xs.data_ptr(), Ys.data_ptr(), V2.data_ptr(), out.data_ptr(),
+            _ptr(part), n, m, d, k, int(splits), float(const_scaling), _stream(Xs),
         )
-    _raise_on(err, "gram_matmat")
-    gram_matmat.launches += 1
+    _raise_on(err, entry)
     return out[:, 0] if squeeze else out
+
+
+def gram_matmat(kind, X1, X2, V, lengthscale, const_scaling=1.0):
+    """K1: ``c·k(X1, X2) @ V`` (n, k) on the card, exact f32 tier; the m
+    axis in :func:`column_splits` runs."""
+    out = _matmat_launch("rl_gram_matmat", (_code(kind),), X1, X2, V, lengthscale,
+                         const_scaling)
+    gram_matmat.launches += 1
+    return out
 
 
 def gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling=1.0):
@@ -398,6 +436,60 @@ def gram_matvec_symmetric_f64(kind, X, V, lengthscale, const_scaling=1.0):
     return out[:, 0] if squeeze else out
 
 
+def laplace_matmat(X1, X2, V, lengthscale, const_scaling=1.0):
+    """K3: ``c·exp(−‖x − y‖₁/ℓ) @ V`` (n, k) on the card, float32; K1's
+    schedule and column splits (:func:`gram_matmat`)."""
+    out = _matmat_launch("rl_laplace_matmat", (), X1, X2, V, lengthscale,
+                         const_scaling)
+    laplace_matmat.launches += 1
+    return out
+
+
+def laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling=1.0):
+    """K3c: the Laplace product as ``(hi, lo)`` (add ``lo`` last), K1c's
+    contract: unscaled points, the lengthscale taken in float64."""
+    _check_tensors((torch.float32,) * 3, X1, X2, V)
+    V2, squeeze = _check_shapes(X1, X2, V)
+    A1 = X1.contiguous()
+    A2 = A1 if X2 is X1 else X2.contiguous()
+    (n, d), (m, k) = A1.shape, V2.shape
+    inv_ls = _inv_lengthscale(lengthscale, d, A1.device)
+    build()
+    out = torch.empty((n, k), dtype=torch.float32, device=A1.device)
+    lo = torch.empty_like(out)
+    with torch.cuda.device(A1.device):
+        err = _lib["handle"].rl_laplace_matmat_comp(
+            A1.data_ptr(), A2.data_ptr(), V2.data_ptr(), inv_ls.data_ptr(),
+            out.data_ptr(), lo.data_ptr(), n, m, d, k, float(const_scaling),
+            _stream(A1),
+        )
+    _raise_on(err, "laplace_matmat_comp")
+    laplace_matmat_comp.launches += 1
+    return (out[:, 0], lo[:, 0]) if squeeze else (out, lo)
+
+
+def laplace_matvec_symmetric(X, V, lengthscale, const_scaling=1.0):
+    """K5: the Laplace ``c·k(X, X) @ V`` for at most 16 columns, each tile
+    pair once (K2's schedule)."""
+    _check_tensors((torch.float32,) * 2, X, V)
+    V2, squeeze = _check_shapes(X, X, V)
+    Xs, _ = _scaled(X, X, lengthscale)
+    n, d = Xs.shape
+    k = V2.shape[1]
+    if k > SYMMETRIC_MAX_K:
+        raise ValueError(f"the triangle kernel takes k <= 16 columns (got {k})")
+    build()
+    out = torch.empty((n, k), dtype=torch.float32, device=Xs.device)
+    with torch.cuda.device(Xs.device):
+        err = _lib["handle"].rl_laplace_matvec_symmetric(
+            Xs.data_ptr(), V2.data_ptr(), out.data_ptr(), n, d, k,
+            float(const_scaling), _stream(Xs),
+        )
+    _raise_on(err, "laplace_matvec_symmetric")
+    laplace_matvec_symmetric.launches += 1
+    return out[:, 0] if squeeze else out
+
+
 _WRAPPERS = (
     gram_matmat,
     gram_matmat_comp,
@@ -406,6 +498,9 @@ _WRAPPERS = (
     gram_matvec_symmetric_tier,
     gram_matmat_f64,
     gram_matvec_symmetric_f64,
+    laplace_matmat,
+    laplace_matmat_comp,
+    laplace_matvec_symmetric,
 )
 
 

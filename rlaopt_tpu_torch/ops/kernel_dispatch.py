@@ -10,7 +10,9 @@ Which kernel, on a card:
 
 * exact tier (:func:`kernel_matmat`): the triangle kernel K2 when the
   operator was built on one data set (``symmetric``) and ``k ≤ 16``, the
-  general kernel K1 otherwise;
+  general kernel K1 otherwise; for the Laplace family K5 and K3 by the same
+  rule (the JAX package's gate without its VMEM window);
+* compensated (:func:`kernel_matmat_compensated`): K1c, or K3c for Laplace;
 * bf16 tiers (:func:`kernel_matmat_tier`): the same rule between K2b and
   K1b, on the tier parts of :mod:`rlaopt_tpu_torch.ops.kernel_tiers` that
   the operator keeps;
@@ -56,10 +58,15 @@ def kernel_matmat(
             )
         return kernel_plain.gram_matmat(kind, X1, X2, V, lengthscale, const_scaling)
     k = 1 if V.ndim == 1 else V.shape[1]
+    laplace = kind == "laplace"
     if symmetric and X1.shape[0] == X2.shape[0] and k <= kernel_cuda.SYMMETRIC_MAX_K:
+        if laplace:
+            return kernel_cuda.laplace_matvec_symmetric(X1, V, lengthscale, const_scaling)
         return kernel_cuda.gram_matvec_symmetric(
             kind, X1, V, lengthscale, const_scaling
         )
+    if laplace:
+        return kernel_cuda.laplace_matmat(X1, X2, V, lengthscale, const_scaling)
     return kernel_cuda.gram_matmat(kind, X1, X2, V, lengthscale, const_scaling)
 
 
@@ -99,6 +106,8 @@ def kernel_matmat_compensated(
         return kernel_plain.gram_matmat_comp(
             kind, X1, X2, V, lengthscale, const_scaling
         )
+    if kind == "laplace":
+        return kernel_cuda.laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling)
     return kernel_cuda.gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling)
 
 

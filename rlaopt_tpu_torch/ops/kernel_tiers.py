@@ -82,6 +82,12 @@ class TierOperand:
     def passes(self) -> int:
         return 1 if self.lo is None else 3
 
+    def rows(self, idx: torch.Tensor) -> "TierOperand":
+        """The parts of the points ``idx``: the split is taken point by point,
+        so these are the parts a split of those points would give."""
+        lo = None if self.lo is None else self.lo[idx]
+        return TierOperand(self.hi[idx], lo, self.sq[idx])
+
 
 def tier_operand(Xs: torch.Tensor, compute_dtype) -> TierOperand:
     """The parts of float32 points ``Xs`` (already divided by the

@@ -1,8 +1,9 @@
-"""Randomized preconditioners: Identity and Nyström."""
+"""Randomized preconditioners: Identity, Newton and Nyström."""
 
 from .base import Preconditioner  # noqa: F401
 from .configs import (  # noqa: F401
     IdentityConfig,
+    NewtonConfig,
     NystromConfig,
     PreconditionerConfig,
     _is_precond_config,
@@ -10,6 +11,7 @@ from .configs import (  # noqa: F401
 from .enums import _DampingMode  # noqa: F401
 from .factory import CONFIG_TO_PRECONDITIONER, _get_precond  # noqa: F401
 from .identity import Identity  # noqa: F401
+from .newton import Newton, newton_apply, newton_apply_inv, newton_update  # noqa: F401
 from .nystrom import (  # noqa: F401
     Nystrom,
     NystromFactors,
@@ -24,11 +26,16 @@ __all__ = [
     "Preconditioner",
     "PreconditionerConfig",
     "IdentityConfig",
+    "NewtonConfig",
     "NystromConfig",
     "CONFIG_TO_PRECONDITIONER",
     "Identity",
+    "Newton",
     "Nystrom",
     "NystromFactors",
+    "newton_update",
+    "newton_apply",
+    "newton_apply_inv",
     "nystrom_update",
     "nystrom_apply",
     "nystrom_apply_inv",

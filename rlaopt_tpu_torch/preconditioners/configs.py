@@ -1,8 +1,7 @@
 """Preconditioner configuration dataclasses.
 
 Port of ``rlaopt_tpu/preconditioners/configs.py`` for the preconditioners
-ported so far (Identity, Nyström). Newton and SkPre come with the SAP and
-LSQR slices.
+ported so far (Identity, Newton, Nyström). SkPre comes with the LSQR slice.
 """
 
 from abc import ABC
@@ -16,6 +15,7 @@ from ..utils.checkers import _is_nonneg_float, _is_pos_int, _is_str
 __all__ = [
     "PreconditionerConfig",
     "IdentityConfig",
+    "NewtonConfig",
     "NystromConfig",
     "_is_precond_config",
 ]
@@ -36,6 +36,20 @@ class PreconditionerConfig(ABC):
 @dataclass(kw_only=True, frozen=False)
 class IdentityConfig(PreconditionerConfig):
     """Configuration for the Identity preconditioner (no parameters)."""
+
+
+@dataclass(kw_only=True, frozen=False)
+class NewtonConfig(PreconditionerConfig):
+    """Configuration for the Newton preconditioner.
+
+    Attributes:
+        rho: damping added to the diagonal before Cholesky.
+    """
+
+    rho: float
+
+    def __post_init__(self):
+        _is_nonneg_float(self.rho, "rho")
 
 
 @dataclass(kw_only=True, frozen=False)

@@ -3,11 +3,13 @@
 from .base import Preconditioner
 from .configs import (
     IdentityConfig,
+    NewtonConfig,
     NystromConfig,
     PreconditionerConfig,
     _is_precond_config,
 )
 from .identity import Identity
+from .newton import Newton
 from .nystrom import Nystrom
 
 
@@ -16,6 +18,7 @@ __all__ = ["_get_precond", "CONFIG_TO_PRECONDITIONER"]
 
 CONFIG_TO_PRECONDITIONER = {
     IdentityConfig: Identity,
+    NewtonConfig: Newton,
     NystromConfig: Nystrom,
 }
 

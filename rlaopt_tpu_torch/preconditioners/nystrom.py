@@ -7,7 +7,9 @@ Port of ``rlaopt_tpu/preconditioners/nystrom.py``, keeping:
   ``ρ·diag(S⁻¹) + UᵀU``, taken whenever the operator dtype is not float64,
 * the S floor at eps·ρ in that Cholesky (S entries at the max(σ²−shift, 0)
   floor would make ρ·S⁻¹ infinite),
-* adaptive damping ``ρ ← baseline + S[-1]``.
+* adaptive damping ``ρ ← baseline + S[-1]``,
+* NaN factors, not an error, when a factorization fails (as
+  ``jnp.linalg.cholesky`` gives), so that SAP skips a degenerate block.
 
 The sketch product ``Y = A @ Ω`` is the one Gram product here: on a card
 it runs through the general CUDA kernel (Ω has ``rank`` columns).
@@ -23,7 +25,13 @@ from .configs import NystromConfig
 from .enums import _DampingMode
 from ..sketches.embeddings import right_embedding
 from ..utils.checkers import _as_generator
-from ..utils.linalg import as_matmat, hmm, solve_tri_lower, solve_tri_upper
+from ..utils.linalg import (
+    as_matmat,
+    cholesky_or_nan,
+    hmm,
+    solve_tri_lower,
+    solve_tri_upper,
+)
 
 
 __all__ = [
@@ -82,14 +90,18 @@ def nystrom_update(
     Core = hmm(Omega.T, Y)  # (r, r)
     eps = torch.finfo(dtype).eps
     shift = eps * torch.trace(Core)
-    Core = Core + shift * torch.eye(rank, dtype=dtype, device=Core.device)
-    L = torch.linalg.cholesky(Core)
+    eye = torch.eye(rank, dtype=dtype, device=Core.device)
+    L = cholesky_or_nan(Core + shift * eye)
     B = solve_tri_lower(L, Y.T)  # (r, n)
+    # eigh and svd raise on NaN: factor a stand-in and return NaN factors
+    ok = torch.all(torch.isfinite(B))
+    B = torch.where(ok, B, torch.zeros_like(B))
+    nan = torch.tensor(float("nan"), dtype=dtype, device=Core.device)
     use_eigh = n > 64 * rank if _route is None else _route == "eigh"
     if use_eigh:
         # B Bᵀ = V diag(σ²) Vᵀ  ⇒  U = Bᵀ V diag(1/σ): one (r, r) eigh and
         # one extra (n, r) product instead of an (n, r) SVD.
-        evals, V = torch.linalg.eigh(hmm(B, B.T))  # ascending
+        evals, V = torch.linalg.eigh(hmm(B, B.T) + torch.where(ok, 0.0, 1.0) * eye)
         evals = torch.flip(evals, (0,))
         V = torch.flip(V, (1,))
         sig = torch.sqrt(torch.clamp(evals, min=0.0))
@@ -98,10 +110,10 @@ def nystrom_update(
         )
         U = hmm(B.T, V * inv_sig[None, :])
         S = torch.clamp(evals - shift, min=0.0)
-        return NystromFactors(U=U, S=S)
+        return NystromFactors(U=torch.where(ok, U, nan), S=torch.where(ok, S, nan))
     U, Svals, _ = torch.linalg.svd(B.T, full_matrices=False)
     S = torch.clamp(Svals**2 - shift, min=0.0)
-    return NystromFactors(U=U, S=S)
+    return NystromFactors(U=torch.where(ok, U, nan), S=torch.where(ok, S, nan))
 
 
 def nystrom_damping(S: torch.Tensor, rho, baseline_rho, adaptive: bool):
@@ -118,7 +130,7 @@ def nystrom_inv_chol(U: torch.Tensor, S: torch.Tensor, rho) -> torch.Tensor:
     floor = finfo.eps * torch.clamp(rho_t, min=finfo.tiny)
     S_safe = torch.maximum(S, floor)
     M = rho_t * torch.diag(S_safe**-1.0) + hmm(U.T, U)
-    return torch.linalg.cholesky(M)
+    return cholesky_or_nan(M)
 
 
 def nystrom_apply(f: NystromFactors, rho, x: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,16 @@
-"""Iteration engines: PCG (SAP/ASkotch and LSQR are not ported yet)."""
+"""Iteration engines: PCG and SAP/ASkotch (LSQR is not ported yet)."""
 
 from .configs import (  # noqa: F401
     LSQRConfig,
     PCGConfig,
+    SAPAccelConfig,
     SAPConfig,
     SolverConfig,
     _is_solver_config,
 )
 from .solver import Solver  # noqa: F401
 from .pcg import PCG, PCGState, pcg_init, pcg_step  # noqa: F401
+from .sap import SAP, SAPState, sap_accel_from_pilot  # noqa: F401
 from .factory import _get_solver  # noqa: F401
 
 __all__ = [
@@ -16,9 +18,13 @@ __all__ = [
     "SolverConfig",
     "PCGConfig",
     "SAPConfig",
+    "SAPAccelConfig",
     "LSQRConfig",
     "PCG",
     "PCGState",
     "pcg_init",
     "pcg_step",
+    "SAP",
+    "SAPState",
+    "sap_accel_from_pilot",
 ]

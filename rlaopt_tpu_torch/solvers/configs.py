@@ -1,29 +1,66 @@
 """Solver configuration dataclasses.
 
-Port of ``rlaopt_tpu/solvers/configs.py``: the same fields and checks. Only
-``PCGConfig`` has a solver in the port so far; ``SAPConfig`` and
-``LSQRConfig`` are bare, so that the factory can name what is missing.
+Port of ``rlaopt_tpu/solvers/configs.py``: the same fields and checks.
+``PCGConfig`` and ``SAPConfig`` have solvers in the port; ``LSQRConfig`` is
+bare, so that the factory can name what is missing.
 """
 
 from abc import ABC
 from dataclasses import asdict, dataclass, field
-from typing import Any
+from typing import Any, Optional
 
 from ..preconditioners import (
     IdentityConfig,
     PreconditionerConfig,
     _is_precond_config,
 )
-from ..utils.checkers import _is_nonneg_float, _is_pos_int
+from ..utils.checkers import _is_bool, _is_nonneg_float, _is_pos_float, _is_pos_int
 
 
 __all__ = [
+    "SAPAccelConfig",
     "SolverConfig",
     "PCGConfig",
     "SAPConfig",
     "LSQRConfig",
     "_is_solver_config",
 ]
+
+
+@dataclass(kw_only=True, frozen=False)
+class SAPAccelConfig:
+    """Nesterov-type acceleration parameters for SAP (mu ≤ nu, mu·nu ≤ 1)."""
+
+    mu: float
+    nu: float
+
+    def __post_init__(self):
+        _is_pos_float(self.mu, "mu")
+        _is_pos_float(self.nu, "nu")
+        if self.mu > self.nu:
+            raise ValueError("mu must be less than or equal to nu")
+        if self.mu * self.nu > 1:
+            raise ValueError("mu * nu must be less than or equal to 1")
+        if self.mu * self.nu == 1:
+            import warnings
+
+            # gamma = 1/sqrt(mu·nu) = 1 keeps V = Y = W from a common start,
+            # so the method is plain SAP.
+            warnings.warn(
+                "mu * nu == 1 makes the SAP acceleration recurrence exactly "
+                "inert (gamma=1 keeps V=Y=W): the method reduces to plain "
+                "SAP. Pick mu * nu < 1 for genuine acceleration.",
+                UserWarning,
+                stacklevel=2,
+            )
+
+
+def _is_sap_accel_config(param: Any, param_name: str):
+    if not isinstance(param, SAPAccelConfig):
+        raise TypeError(
+            f"{param_name} is of type {type(param).__name__}, "
+            "but expected type SAPAccelConfig"
+        )
 
 
 @dataclass(kw_only=True, frozen=False)
@@ -72,7 +109,48 @@ class PCGConfig(SolverConfig):
 
 @dataclass(kw_only=True, frozen=False)
 class SAPConfig(SolverConfig):
-    """SAP / ASkotch: not ported yet; its fields come with the solver."""
+    """SAP / ASkotch randomized block-coordinate solver.
+
+    Attributes:
+        blk_sz: coordinate block size per iteration.
+        accel: use Nesterov-type acceleration.
+        accel_config: (mu, nu) parameters; required when accel=True.
+        power_iters: power-iteration count for the stepsize estimate.
+        blk_dense: materialize the block kernel tile once per iteration
+            and reuse it for the preconditioner sketch and every power
+            iteration (kernel operators only). None = auto: on when the
+            block oracle exposes a dense materialization and the tile fits
+            512 MiB; False = never; True = require (raises if the oracle
+            cannot materialize).
+        sampling: where the uniform without-replacement block indices are
+            drawn: "device" (a permutation on the iterate's device),
+            "host" (numpy, one upload per logging chunk) or "auto" (host
+            when n >= 2**17).
+    """
+
+    blk_sz: int
+    accel: bool = True
+    accel_config: Optional[SAPAccelConfig] = None
+    power_iters: int = 10
+    blk_dense: Optional[bool] = None
+    sampling: str = "auto"
+
+    def __post_init__(self):
+        super().__post_init__()
+        _is_pos_int(self.blk_sz, "blk_sz")
+        _is_bool(self.accel, "accel")
+        if self.accel:
+            if self.accel_config is None:
+                raise ValueError("accel_config must be specified if accel is True")
+            _is_sap_accel_config(self.accel_config, "accel_config")
+        _is_pos_int(self.power_iters, "power_iters")
+        if self.blk_dense is not None:
+            _is_bool(self.blk_dense, "blk_dense")
+        if self.sampling not in ("auto", "device", "host"):
+            raise ValueError(
+                "sampling must be one of 'auto', 'device', 'host', "
+                f"but received {self.sampling!r}"
+            )
 
 
 @dataclass(kw_only=True, frozen=False)

@@ -6,6 +6,7 @@ import torch
 
 from .configs import LSQRConfig, PCGConfig, SAPConfig, SolverConfig
 from .pcg import PCG
+from .sap import SAP
 
 if TYPE_CHECKING:
     from ..models import Model
@@ -24,7 +25,8 @@ def _get_solver(
     """Instantiate the solver matching the config class.
 
     ``preconditioner`` (optional): an already-built preconditioner for the
-    same operator and regularization; the solver skips its own sketch.
+    same operator and regularization; PCG skips its own sketch. SAP builds
+    a preconditioner per block every iteration and cannot take one.
     """
     cls = solver_config.__class__
     if cls is PCGConfig:
@@ -36,8 +38,22 @@ def _get_solver(
             preconditioner=preconditioner,
         )
     if cls is SAPConfig:
-        raise NotImplementedError(
-            "SAP/ASkotch is not ported yet (ROADMAP Queue 1, item 10)"
+        if preconditioner is not None:
+            raise ValueError(
+                "SAP factors a fresh per-block preconditioner every "
+                "iteration; a prebuilt preconditioner cannot be supplied"
+            )
+        return SAP(
+            system=model,
+            W_init=W_init,
+            precond_config=solver_config.precond_config,
+            blk_sz=solver_config.blk_sz,
+            accel=solver_config.accel,
+            accel_config=solver_config.accel_config,
+            power_iters=solver_config.power_iters,
+            key=key,
+            blk_dense=solver_config.blk_dense,
+            sampling=solver_config.sampling,
         )
     if cls is LSQRConfig:
         raise NotImplementedError(

@@ -1,7 +1,14 @@
 """Validation, RNG, small linear algebra and logging helpers."""
 
 from .rng import seed, next_generator  # noqa: F401
-from .linalg import hmm, as_matmat, solve_tri_lower, solve_tri_upper  # noqa: F401
+from .linalg import (  # noqa: F401
+    hmm,
+    as_matmat,
+    densify,
+    cholesky_or_nan,
+    solve_tri_lower,
+    solve_tri_upper,
+)
 from .logger import Logger  # noqa: F401
 
 __all__ = [
@@ -9,6 +16,8 @@ __all__ = [
     "next_generator",
     "hmm",
     "as_matmat",
+    "densify",
+    "cholesky_or_nan",
     "solve_tri_lower",
     "solve_tri_upper",
     "Logger",

@@ -8,7 +8,14 @@ stays False (PyTorch's default); the port never turns it on.
 import torch
 
 
-__all__ = ["hmm", "as_matmat", "solve_tri_lower", "solve_tri_upper"]
+__all__ = [
+    "hmm",
+    "as_matmat",
+    "densify",
+    "cholesky_or_nan",
+    "solve_tri_lower",
+    "solve_tri_upper",
+]
 
 
 def hmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -23,6 +30,27 @@ def as_matmat(A):
     if isinstance(A, LinOp):
         return lambda X: A @ X
     return lambda X: hmm(A, X)
+
+
+def densify(A, dtype=None) -> torch.Tensor:
+    """A dense matrix or LinOp as a dense tensor (``A @ I`` for a LinOp)."""
+    from ..linops.base import LinOp
+
+    if isinstance(A, LinOp):
+        return A @ torch.eye(A.shape[1], dtype=dtype or A.dtype, device=A.device)
+    return A
+
+
+def cholesky_or_nan(M: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of M, all NaN where the factorization fails.
+
+    ``jnp.linalg.cholesky`` returns NaN on a matrix that is not positive
+    definite, and SAP relies on that to skip a degenerate block;
+    ``torch.linalg.cholesky`` raises instead. ``cholesky_ex`` reports the
+    failure in a tensor, so the test stays on the device.
+    """
+    L, info = torch.linalg.cholesky_ex(M)
+    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
 
 
 def solve_tri_lower(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

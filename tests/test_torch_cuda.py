@@ -104,6 +104,7 @@ def test_cuda_launch_counts_and_refusals(cuda_device):
         "gram_matmat": 1, "gram_matmat_comp": 1, "gram_matvec_symmetric": 0,
         "gram_matmat_tier": 0, "gram_matvec_symmetric_tier": 0,
         "gram_matmat_f64": 0, "gram_matvec_symmetric_f64": 0,
+        "laplace_matmat": 0, "laplace_matmat_comp": 0, "laplace_matvec_symmetric": 0,
     }
     with pytest.raises(ValueError, match="k <= 16"):
         kernel_cuda.gram_matvec_symmetric("rbf", X, V, 1.0)
@@ -207,3 +208,67 @@ def test_cuda_refinement_certifies(cuda_device):
     for name in ("gram_matmat_tier", "gram_matvec_symmetric_tier",
                  "gram_matvec_symmetric_f64", "gram_matmat_f64"):
         assert counts[name] > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 16, 17, 500])
+def test_cuda_laplace_matches_plain(cuda_device, k, monkeypatch):
+    """K3 (with the default column splits and in one pass over m) and K3c
+    against the float64 plain version at a ragged shape, d = 50 (three full
+    16-feature stages and a ragged one), scalar and ARD lengthscales: K3
+    2e-5, K3c 1e-10 of max|ref|, as K1 and K1c."""
+    X1, X2, V = _data(14, 1000, 777, 50, k)
+    X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
+    ard = torch.linspace(6.0, 10.0, 50, device=cuda_device)
+    for ls in (8.0, ard):
+        ref = kernel_plain.gram_matmat_f64("laplace", X1, X2, V, ls, 0.9)
+        got = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9)
+        with monkeypatch.context() as mp:
+            mp.setattr(kernel_cuda, "column_splits", lambda *a: 1)
+            one = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9)
+        ls64 = ls.double() if torch.is_tensor(ls) else ls
+        hi, lo = kernel_cuda.laplace_matmat_comp(X1, X2, V, ls64, 0.9)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= 2e-5
+        assert _rel(one, ref) <= 2e-5
+        assert _rel(hi.double() + lo.double(), ref) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 5, 16])
+def test_cuda_laplace_symmetric_matches_plain(cuda_device, k):
+    """K5 against the float64 plain version: 2e-5, as K2 (fp32 atomics)."""
+    rng = np.random.default_rng(15)
+    X = torch.from_numpy(rng.standard_normal((1300, 28)).astype(np.float32)).to(cuda_device)
+    V = torch.from_numpy(rng.standard_normal((1300, k)).astype(np.float32)).to(cuda_device)
+    ref = kernel_plain.gram_matmat_f64("laplace", X, X, V, 32.0, 1.1)
+    got = kernel_cuda.laplace_matvec_symmetric(X, V, 32.0, 1.1)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rbf", "laplace"])
+def test_cuda_column_splits(cuda_device, kind, monkeypatch):
+    """A few rows against many points: the narrow kernel cuts m into runs
+    (column_splits) and sums their partials in a fixed order. Both the
+    split and the one-pass product against float64: 2e-5; the split one
+    gives the same bits twice."""
+    rng = np.random.default_rng(16)
+    X1 = torch.from_numpy(rng.standard_normal((300, 8)).astype(np.float32)).to(cuda_device)
+    X2 = torch.from_numpy(rng.standard_normal((200_000, 8)).astype(np.float32)).to(cuda_device)
+    V = torch.from_numpy(rng.standard_normal((200_000, 2)).astype(np.float32)).to(cuda_device)
+    assert kernel_cuda.column_splits(300, 200_000, 2, cuda_device) > 1
+    ls = 3.0 if kind == "rbf" else 9.0
+    if kind == "rbf":
+        fn = lambda: kernel_cuda.gram_matmat("rbf", X1, X2, V, ls)  # noqa: E731
+    else:
+        fn = lambda: kernel_cuda.laplace_matmat(X1, X2, V, ls)  # noqa: E731
+    ref = kernel_plain.gram_matmat_f64(kind, X1, X2, V, ls)
+    split, again = fn(), fn()
+    monkeypatch.setattr(kernel_cuda, "column_splits", lambda *a: 1)
+    one = fn()
+    torch.cuda.synchronize()
+    assert torch.equal(split, again)
+    assert _rel(split, ref) <= 2e-5
+    assert _rel(one, ref) <= 2e-5

@@ -85,3 +85,53 @@ def test_tier_operator_applies_like_jax(cd):
     assert kp.SYMMETRIC_TILE == 64
     got = tA @ torch.from_numpy(V)
     assert _rel(got, ref) <= (3e-6 if cd == "bf16x3" else 1e-6)
+
+
+def test_mid_solve_sap_state_continues_in_the_port():
+    """A JAX SAP solve (accelerated, Newton blocks at rho = reg: the exact
+    step) stopped after 6 steps continues in the port from
+    ``interop.sap_state``, with ``interop.newton_preconditioner`` applying
+    the JAX factor of one block, and both run 6 more steps on one schedule:
+    W, V and Y to 1e-10."""
+    from rlaopt_tpu.preconditioners import Newton as JNewton
+    from rlaopt_tpu.preconditioners import NewtonConfig as JNewtonConfig
+    from rlaopt_tpu.models import LinSys as JLinSys
+    from rlaopt_tpu.solvers import SAP as JSAP
+    from rlaopt_tpu.solvers import SAPAccelConfig as JSAPAccelConfig
+    from rlaopt_tpu_torch.models import LinSys
+    from rlaopt_tpu_torch.preconditioners import NewtonConfig
+    from rlaopt_tpu_torch.solvers import SAP, SAPAccelConfig
+
+    rng = np.random.default_rng(25)
+    n, d, k, reg, blk_sz = 120, 4, 2, 0.1, 30
+    X = rng.standard_normal((n, d))
+    B = rng.standard_normal((n, k))
+    sched = np.stack([rng.choice(n, blk_sz, replace=False) for _ in range(12)])
+    jA = JRBFLinOp(jnp.asarray(X), jnp.asarray(X), JKernelConfig(lengthscale=1.2))
+    jsys = JLinSys(jA, jnp.asarray(B), reg, jA.row_oracle, jA.blk_oracle)
+    kw = dict(blk_sz=blk_sz, accel=True, power_iters=5, _block_schedule=sched)
+    js = JSAP(jsys, jnp.zeros((n, k)), JNewtonConfig(rho=reg),
+              accel_config=JSAPAccelConfig(mu=0.05, nu=4.0), key=0, **kw)
+    js._run_chunk(6)
+
+    d_ = jA._data
+    tA = interop.kernel_operator(d_["X1"], d_["ls"], d_["scale"], jA.kind)
+    tsys = LinSys(tA, torch.from_numpy(B), reg, tA.row_oracle, tA.blk_oracle)
+    ts = SAP(tsys, torch.zeros((n, k), dtype=torch.float64), NewtonConfig(rho=reg),
+             accel_config=SAPAccelConfig(mu=0.05, nu=4.0), key=0, **kw)
+    ts.state = interop.sap_state(*(np.asarray(f) for f in (js.state.W, js.state.V,
+                                                           js.state.Y, js.state.t)))
+    assert ts.state.t == 6
+
+    blk = sched[6]
+    jP = JNewton(JNewtonConfig(rho=reg))
+    jP._update(jA.blk_dense(jnp.asarray(blk)))
+    tP = interop.newton_preconditioner(jP.L, reg)
+    R = rng.standard_normal((blk_sz, k))
+    assert _rel(tP._inverse_matmul(torch.from_numpy(R)), jP._inverse_matmul(jnp.asarray(R))) <= 1e-12
+    assert _rel(tP @ torch.from_numpy(R), jP @ jnp.asarray(R)) <= 1e-12
+
+    js._run_chunk(6)
+    ts._run_chunk(6)
+    for name in ("W", "V", "Y"):
+        assert _rel(getattr(ts.state, name), getattr(js.state, name)) <= 1e-10, name

@@ -1,6 +1,7 @@
 """The port's first slice, whole, against the JAX package on the CPU:
 ``LinSys(RBFLinOp(X, X), y, reg).solve(PCGConfig(... Nyström ...))`` with the
-same data and the same injected sketch in both packages."""
+same data and the same injected sketch in both packages; and the third
+slice's Nyström-PCG path on ``LaplaceLinOp``."""
 
 import os
 import subprocess
@@ -12,12 +13,13 @@ import pytest
 import torch
 
 from rlaopt_tpu.kernels import KernelConfig as JKernelConfig
+from rlaopt_tpu.kernels import LaplaceLinOp as JLaplaceLinOp
 from rlaopt_tpu.kernels import RBFLinOp as JRBFLinOp
 from rlaopt_tpu.models import LinSys as JLinSys
 from rlaopt_tpu.preconditioners import NystromConfig as JNystromConfig
 from rlaopt_tpu.preconditioners import nystrom as j_nys
 from rlaopt_tpu.solvers import PCGConfig as JPCGConfig
-from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp
+from rlaopt_tpu_torch.kernels import KernelConfig, LaplaceLinOp, RBFLinOp
 from rlaopt_tpu_torch.models import LinSys
 from rlaopt_tpu_torch.preconditioners import Nystrom, NystromConfig
 from rlaopt_tpu_torch.solvers import PCGConfig
@@ -25,6 +27,9 @@ from rlaopt_tpu_torch.solvers import PCGConfig
 N, D, RANK, ITERS = 512, 8, 32, 30
 REG = 1e-4 * N
 LS = D**0.5
+# Laplace: the mean L1 distance of D standard-normal features, 2D/√π
+LS_LAPLACE = 2 * D / np.pi**0.5
+OPS = {"rbf": (JRBFLinOp, RBFLinOp, LS), "laplace": (JLaplaceLinOp, LaplaceLinOp, LS_LAPLACE)}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -39,14 +44,15 @@ def _data(dtype):
 
 
 def _solve_both(dtype, monkeypatch, metrics="auto", rtol=1e-12, iters=ITERS,
-                freq=10):
+                freq=10, kind="rbf"):
     """One solve in each package; ``metrics="sampled"`` adds row oracles."""
     X, y, Omega = _data(dtype)
+    jcls, tcls, ls = OPS[kind]
     monkeypatch.setattr(
         j_nys, "right_embedding", lambda *a, **k: jnp.asarray(Omega)
     )
     Xj = jnp.asarray(X)
-    jK = JRBFLinOp(Xj, Xj, JKernelConfig(lengthscale=LS))
+    jK = jcls(Xj, Xj, JKernelConfig(lengthscale=ls))
     joracles = (jK.row_oracle, jK.blk_oracle) if metrics == "sampled" else (None, None)
     jsys = JLinSys(jK, jnp.asarray(y), REG, *joracles)
     jcfg = JPCGConfig(
@@ -59,7 +65,7 @@ def _solve_both(dtype, monkeypatch, metrics="auto", rtol=1e-12, iters=ITERS,
     )
 
     Xt = torch.from_numpy(X)
-    K = RBFLinOp(Xt, Xt, KernelConfig(lengthscale=LS))
+    K = tcls(Xt, Xt, KernelConfig(lengthscale=ls))
     tcfg = PCGConfig(
         max_iters=iters, rtol=rtol,
         precond_config=NystromConfig(rank=RANK, rho=REG),
@@ -99,6 +105,20 @@ def test_slice_matches_jax_f64(monkeypatch):
     assert np.abs(tW.numpy() - jW).max() <= 1e-8 * np.abs(jW).max()
     assert tsys.stalled is False
     assert set(tsys.phase_walls) == {"solver_init", "train"}
+
+
+def test_slice_laplace_matches_jax_f64(monkeypatch):
+    """The third slice's path B at a small size: Nyström-PCG on the Laplace
+    operator (the K5 matvec, the K3 sketch and K3c residuals on a card),
+    rel_res at every boundary and W to 1e-8, as the RBF slice."""
+    (jW, jlog, _), (tW, tlog, tsys) = _solve_both(np.float64, monkeypatch, kind="laplace")
+    assert sorted(tlog) == sorted(jlog) == [0, 10, 20, 30]
+    jr, tr = _rel_res(jlog), _rel_res(tlog)
+    for i in jr:
+        np.testing.assert_allclose(tr[i], jr[i], rtol=1e-8, atol=1e-8)
+    assert tr[30][0] < 1e-2 * tr[0][0]
+    jW = np.asarray(jW)
+    assert np.abs(tW.numpy() - jW).max() <= 1e-8 * np.abs(jW).max()
 
 
 def test_slice_matches_jax_f32(monkeypatch):
@@ -167,6 +187,20 @@ def test_port_import_leaves_jax_out():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_no_port_source_imports_jax_or_the_jax_package():
+    """Every module of the port and ``chip_smoke.py``, read as text: no
+    ``import jax``/``from jax`` and no import of ``rlaopt_tpu`` (the JAX
+    package), at any indentation."""
+    import re
+    from pathlib import Path
+
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|rlaopt_tpu)(\.|\s|$)", re.M)
+    files = sorted(Path(REPO, "rlaopt_tpu_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+    assert len(files) > 40
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
 
 
 def test_not_yet_ported_paths_raise():

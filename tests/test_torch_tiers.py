@@ -179,3 +179,35 @@ def test_jax_tier_error_behind_the_card_bound(key):
     err = _rel(got, _f64_ref(kind, A1, X2, V, ls, c))
     const = SMOKE.JAX_TIER_ERR[key]
     assert const / 2 <= err <= const
+
+
+@pytest.mark.parametrize("cd", TIERS)
+def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
+    """The row and block oracles of a tier operator take the rows of the
+    operator's parts, and split nothing anew (SAP calls the row oracle every
+    iteration; a split of all of X2 there is O(n·d) work a step). The split
+    is point by point, so the gathered parts are the parts of the gathered
+    points: the oracles' products equal those of operators built on the
+    gathered points exactly, and the row oracle's equals the operator's
+    apply restricted to ``blk`` to the float32 order of the triangle's sums
+    (2e-6 of max|ref|; k = 2, below the tier-matched mirror of k ≥ 3)."""
+    import rlaopt_tpu_torch.kernels.linop as linop
+    from rlaopt_tpu_torch.kernels import KernelConfig, KernelLinOp, RBFLinOp
+
+    rng = np.random.default_rng(31)
+    X = torch.from_numpy(rng.standard_normal((300, D)).astype(np.float32))
+    W = torch.from_numpy(rng.standard_normal((300, 2)).astype(np.float32))
+    cfg = KernelConfig(lengthscale=LS)
+    K = RBFLinOp(X, X, cfg, compute_dtype=cd)
+    splits = []
+    real = linop.tier_operand
+    monkeypatch.setattr(linop, "tier_operand", lambda *a: splits.append(1) or real(*a))
+    blk = torch.from_numpy(rng.choice(300, 70, replace=False))
+    R, Bk = K.row_oracle(blk), K.blk_oracle(blk)
+    assert splits == []
+    assert R._tier[1] is K._tier[1]
+    got = R @ W
+    assert torch.equal(got, KernelLinOp(X[blk], X, cfg, "rbf", cd) @ W)
+    assert torch.equal(Bk @ W[blk], KernelLinOp(X[blk], X[blk], cfg, "rbf", cd) @ W[blk])
+    assert len(splits) == 4  # the two reference operators split both their sides
+    assert _rel(got, (K @ W)[blk]) <= 2e-6
