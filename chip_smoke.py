@@ -40,7 +40,14 @@ straight through and exits non-zero at the first failure:
    5 sigma of an independent float64 residual on other rows; then K3, K3c,
    K1b and K1c at the paths' block-oracle shape (10,000 x 1,000,000),
    checked on 4,096 rows, and the dense block's peak memory;
-8. the kernels' JSON line (each with its bound, ``bound_ms``), the card
+8. slice 4: path S, ``LstSq(SparseCSRTensor(A), b)`` with LSQR and the
+   sparse SkPre sketch on a 2^20 x 1,024 CSR operand with 16 nonzeros a row
+   (k = 1, k = 10), every logged rel_res against scipy's float64 one, the
+   launches of #9 (``csr_spmv``, ``csr_spmm``) against the path's count, the
+   sketch's peak memory; #9 against its float64 plain version at the path's
+   shapes and a ragged one, timed beside its plain version and cuSPARSE; a
+   k = 1 solve profiled; then path C', config 2 as written (dense, SRHT);
+9. the kernels' JSON line (each with its bound, ``bound_ms``), the card
    line, and the result line last.
 
 It imports nothing of JAX.
@@ -71,14 +78,25 @@ BLK4, RANK4, REG4 = N4 // 100, 100, 1e-2
 # config 4's rows, 2d/sqrt(pi) for d standard-normal features), where kernel
 # values sit near e^-1.
 LS_A, LS_B = 8.0, 32.0
+# Slice 4, path S: the operand of bench.py::make_sparse_tallskinny (2^20 rows,
+# 1,024 columns, 16 nonzeros a row, numpy seed 5) with its columns scaled by
+# logspace(0, -4) as config 2 scales its columns; LSQR with SkPre at config
+# 2's settings (sketch 4n, rho 0, 100 iterations, rtol 1e-6, callback_freq
+# 5), k = 1 and k = 10. Path C': config 2 as written
+# (benchmarks/run.py::config2_srht_lsqr), its data from numpy seed 0.
+S_ROWS, S_COLS, S_WIDTH = 1 << 20, 1024, 16
+S_SKETCH, S_ITERS, S_FREQ, S_RTOL = 4 * S_COLS, 100, 5, 1e-6
+C2_M, C2_N = 100_000, 1_000
 SOURCES = {
     "gram": "rlaopt_tpu_torch/csrc/gram.cu",
     "laplace": "rlaopt_tpu_torch/csrc/gram_laplace.cu",
     "tier": "rlaopt_tpu_torch/csrc/gram_tier.cu",
     "f64": "rlaopt_tpu_torch/csrc/gram_f64.cu",
+    "spmv": "rlaopt_tpu_torch/csrc/spmv.cu",
 }
 PALLAS = "rlaopt_tpu/ops/kernel_pallas.py"
 VALUE64 = "rlaopt_tpu/ops/kernel_value64.py"
+LANED = "rlaopt_tpu/sparse/laned.py"
 # K1 and K2 are held to the exact f32 tier's contract with room for fp32
 # atomics; K1c, K7 and K8 work in float64 inside a tile, so they are held to
 # 1e-10 of the float64 plain version.
@@ -136,12 +154,28 @@ TIERS = ("bf16x3", "bfloat16")
 # cores, 3.35 TB/s of HBM. An FMA counts two operations, any other one.
 PEAK = {"fp32": 67e12, "fp64": 34e12, "bf16_tc": 989e12}
 HBM_BYTES_PER_S = 3.35e12
+# #9 (csr_spmv, csr_spmm) against the float64 plain version. In float64 a
+# row's sum of L products is off by ~sqrt(L)·2^-53 of its size (1.4e-14 at
+# L = 16,384): held to 1e-12. In float32 the row is summed by 32 lanes (a
+# warp) or 256 threads (a block), each over L/32 or L/256 terms in order,
+# then added in a tree, or (k > 16) by one lane over all L terms in order:
+# at worst-typical sqrt(L)·2^-24 = 7.6e-6 of max|ref| for the adjoint's L =
+# 16,384, 6.6x under the bound.
+CSR_F64_BOUND, CSR_F32_BOUND = 1e-12, 5e-5
+# Paths S and C': each logged rel_res (the float32 normal residual
+# ‖Aᵀ(b − AW)‖/‖Aᵀb‖, through #9 on S, cuBLAS on C') against the float64 one
+# of the same iterate (scipy or numpy on the host): within 1% above 1e-5;
+# below it within RES_ABS absolute. Near the solution ‖Aᵀr‖ ≪ Σ|a||r|, and
+# what remains of the float32 sums' rounding is a fixed share of ‖Aᵀb‖: up
+# to 1.07e-7 measured on an H100 (config 2; 5.2e-8 on S), held to 5x that.
+RES_REL, RES_ABS, RES_ABOVE = 0.01, 5e-7, 1e-5
 COMP_KERNELS = ("gram_matmat_comp", "laplace_matmat_comp")
 F64_KERNELS = ("gram_matmat_f64", "gram_matvec_symmetric_f64")
 TIER_KERNELS = ("gram_matmat_tier", "gram_matvec_symmetric_tier")
+CSR_KERNELS = ("csr_spmv", "csr_spmm")
 
 
-def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None):
+def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     """``(ms, "bytes" or "operations")``: the least time of one call at these
     shapes, the larger of the bytes it must move (each input read once, each
     output written once) over the HBM rate and its operations over the peak
@@ -155,7 +189,16 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None):
     of d, per pass), four float32 operations of epilogue per value, the
     contraction in float32 up to 16 columns and on the tensor cores (per
     pass) past that; their points are read as d bf16 parts (two with
-    bf16x3) and a float32 norm each."""
+    bf16x3) and a float32 norm each. The CSR product (``csr_spmv``,
+    ``csr_spmm``; n rows, m columns, ``nnz`` nonzeros, values of type ``cd``,
+    float32 by default): each nonzero's index and value, the int64 indptr,
+    X (m, k) and Y (n, k) once; an FMA per nonzero and column."""
+    if kernel in CSR_KERNELS:
+        vb = 8 if cd == "float64" else 4
+        nbytes = nnz * (4 + vb) + 8 * (n + 1) + vb * k * (m + n)
+        t_ops = 2.0 * nnz * k / PEAK["fp64" if vb == 8 else "fp32"]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
     sym = "symmetric" in kernel
     if sym:
         m = n
@@ -256,6 +299,8 @@ LAPLACE_CODE = 4
 def _kernel_group(name: str) -> str:
     if "sum_splits" in name:
         return "sum_splits"
+    if "csr_spmm" in name:
+        return "csr_spmm"
     m = re.search(r"(gram_\w+)<([^>]*)>", name)
     if m is None:
         return "other"
@@ -476,9 +521,10 @@ def sampled_rows(n: int, s: int, seed: int) -> np.ndarray:
     return np.sort(np.random.default_rng(seed).choice(n, s, replace=False))
 
 
-def timing_entry(kernel, shape, ms, plain_ms, n, m, d, k, kind="rbf", cd=None, **extra):
+def timing_entry(kernel, shape, ms, plain_ms, n, m, d, k, kind="rbf", cd=None, nnz=None,
+                 **extra):
     """One timed shape of a kernel, with its bound at that shape."""
-    bound, by = bound_ms(kernel, n, m, d, k, kind, cd)
+    bound, by = bound_ms(kernel, n, m, d, k, kind, cd, nnz)
     return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "n": n, "m": m, "d": d, "k": k, "kind": kind, **extra}
 
@@ -819,6 +865,319 @@ def config4(dev, X, y, profile_run, compare, timings, laplace):
     return record
 
 
+def sparse_operand():
+    """Path S's data, made with numpy: bench.py::make_sparse_tallskinny's
+    buffers (standard-normal float32 values, uniform column indices, a row
+    may repeat a column, indptr 16·arange) with each column j scaled by
+    logspace(0, -4, 1024)[j]; then b and the ten columns of B10 from the
+    same generator."""
+    rng = np.random.default_rng(5)
+    nnz = S_WIDTH * S_ROWS
+    values = rng.standard_normal(nnz).astype(np.float32)
+    indices = rng.integers(0, S_COLS, nnz).astype(np.int32)
+    indptr = S_WIDTH * np.arange(S_ROWS + 1, dtype=np.int64)
+    values *= np.logspace(0, -4, S_COLS, dtype=np.float32)[indices]
+    b = rng.standard_normal(S_ROWS).astype(np.float32)
+    B10 = rng.standard_normal((S_ROWS, 10)).astype(np.float32)
+    return values, indices, indptr, b, B10
+
+
+def ragged_csr(seed=21, n_rows=3000, n_cols=700):
+    """The ragged CSR of the card tests: rows of 0 to 40 entries, every
+    seventh empty, every 500th of 300 to 1,200 (longer than a block), each
+    row's first column repeated; float64 values."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 41, n_rows)
+    lengths[::7] = 0
+    lengths[3::500] = rng.integers(300, 1201, len(lengths[3::500]))
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    indices = rng.integers(0, n_cols, indptr[-1]).astype(np.int32)
+    starts = indptr[:-1][lengths >= 2]
+    indices[starts + 1] = indices[starts]
+    return rng.standard_normal(indptr[-1]), indices, indptr, n_cols
+
+
+def library_csr(values, indptr, indices, n_rows, n_cols):
+    """The yardstick: torch's CSR tensor on the card, whose product with a
+    dense operand is cuSPARSE's. Timed beside #9 here; the port never calls
+    it."""
+    import torch
+
+    return torch.sparse_csr_tensor(indptr.int(), indices, values, (n_rows, n_cols))
+
+
+def sparse_kernels(dev, A, compare, timings):
+    """#9 against the float64 plain version on path S's operand A (its CSR
+    and the cached CSR of Aᵀ), on random right-hand sides: the forward and
+    adjoint SpMV, the SpMM at k = 10 both ways, the adjoint SpMM at the
+    sketch's k = 4,096 (checked on 256 columns), and the ragged CSR in both
+    schedules; two launches give the same bits. Each path shape timed
+    (median of 5): kernel, plain version (float32) and cuSPARSE."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda
+    from rlaopt_tpu_torch.sparse import ops as sops
+
+    fwd = A._csr_buffers()
+    adj = A.T._csr_buffers()
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def case(kernel, bufs, n_rows, n_cols, X, what, cols=None):
+        values, indices, indptr = bufs
+        fn = getattr(kernel_cuda, kernel)
+        v64 = values.double()
+        Xc = X if cols is None else X[:, :cols].contiguous()
+        ref = sops._plain(v64, indptr, indices, Xc.double(), n_rows, False)
+        got = fn(values, indptr, indices, X, n_rows)
+        again = fn(values, indptr, indices, X, n_rows)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{kernel} {what}: two launches give the same bits")
+        compare(kernel, got if cols is None else got[:, :cols], ref, f"{what} float32",
+                CSR_F32_BOUND)
+        compare(kernel, fn(v64, indptr, indices, Xc.double(), n_rows), ref,
+                f"{what} float64", CSR_F64_BOUND)
+        del ref, again
+        lib = library_csr(values, indptr, indices, n_rows, n_cols)
+        ms = cuda_ms(lambda: fn(values, indptr, indices, X, n_rows))
+        p_ms = cuda_ms(lambda: sops._plain(values, indptr, indices, X, n_rows, False))
+        l_ms = cuda_ms(lambda: lib @ X)
+        entry = timing_entry(kernel, what, ms, p_ms, n_rows, n_cols, 0, X.shape[1],
+                             cd="float32", nnz=values.numel(), library_ms=l_ms)
+        timings.setdefault(kernel, []).append(entry)
+        print(f"time {kernel} {what}: kernel {ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"cuSPARSE {l_ms:.3f} ms, bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+
+    shape = f"n={S_ROWS} m={S_COLS} nnz={A.nnz}"
+    t0 = time.perf_counter()
+    # csr_spmm's first entry (its JSON line) is the sketch's
+    X = torch.randn((S_ROWS, S_SKETCH), generator=gen, device=dev)
+    case("csr_spmm", adj, S_COLS, S_ROWS, X, f"adjoint {shape} k={S_SKETCH} (the sketch)",
+         cols=256)
+    del X
+    torch.cuda.empty_cache()
+    case("csr_spmv", fwd, S_ROWS, S_COLS, torch.randn((S_COLS, 1), generator=gen, device=dev),
+         f"forward {shape} k=1")
+    case("csr_spmv", adj, S_COLS, S_ROWS, torch.randn((S_ROWS, 1), generator=gen, device=dev),
+         f"adjoint {shape} k=1")
+    case("csr_spmm", fwd, S_ROWS, S_COLS, torch.randn((S_COLS, 10), generator=gen, device=dev),
+         f"forward {shape} k=10")
+    case("csr_spmm", adj, S_COLS, S_ROWS, torch.randn((S_ROWS, 10), generator=gen, device=dev),
+         f"adjoint {shape} k=10")
+
+    # the ragged CSR, both schedules of k <= 16 (a warp or a block a row)
+    values, indices, indptr, n_cols = ragged_csr()
+    n_rows = len(indptr) - 1
+    v64 = torch.from_numpy(values).to(dev)
+    p, c = torch.from_numpy(indptr).to(dev), torch.from_numpy(indices).to(dev)
+    real = kernel_cuda.spmm_block_rows
+    try:
+        for block in (False, True):
+            kernel_cuda.spmm_block_rows = lambda *a, block=block: block
+            for k in (1, 10, 300):
+                kernel = "csr_spmv" if k == 1 else "csr_spmm"
+                fn = getattr(kernel_cuda, kernel)
+                X = torch.randn((n_cols, k), generator=gen, device=dev, dtype=torch.float64)
+                ref = sops._plain(v64, p, c, X, n_rows, False)
+                what = f"ragged n={n_rows} m={n_cols} k={k} {'block' if block else 'warp'} rows"
+                v32, X32 = v64.float(), X.float()
+                got = fn(v32, p, c, X32, n_rows)
+                check(torch.equal(got, fn(v32, p, c, X32, n_rows)),
+                      f"{kernel} {what}: two launches give the same bits")
+                compare(kernel, got, ref, what + " float32", CSR_F32_BOUND)
+                compare(kernel, fn(v64, p, c, X, n_rows), ref, what + " float64", CSR_F64_BOUND)
+                lib = library_csr(v32, p, c, n_rows, n_cols)
+                entry = timing_entry(
+                    kernel, what, cuda_ms(lambda: fn(v32, p, c, X32, n_rows)),
+                    cuda_ms(lambda: sops._plain(v32, p, c, X32, n_rows, False)), n_rows,
+                    n_cols, 0, k, cd="float32", nnz=v32.numel(),
+                    library_ms=cuda_ms(lambda: lib @ X32))
+                timings[kernel].append(entry)
+                print(f"time {kernel} {what}: kernel {entry['ms']:.3f} ms, plain "
+                      f"{entry['plain_ms']:.3f} ms, cuSPARSE {entry['library_ms']:.3f} ms")
+    finally:
+        kernel_cuda.spmm_block_rows = real
+    print(f"slice4 kernel checks and times: {time.perf_counter() - t0:.3f} s")
+
+
+def host_normal_residuals(A64, AT64, B, iterates):
+    """scipy's float64 ‖Aᵀ(B − AW)‖ / ‖AᵀB‖ per column of each iterate."""
+    B64 = np.asarray(B, np.float64).reshape(B.shape[0], -1)
+    atb = np.linalg.norm(AT64 @ B64, axis=0)
+    return [np.linalg.norm(AT64 @ (B64 - A64 @ W.double().cpu().numpy()), axis=0) / atb
+            for W in iterates]
+
+
+def residual_checks(name, log, rel64):
+    """Each logged rel_res against its float64 value: within RES_REL while
+    above RES_ABOVE, within RES_ABS absolute below it. Returns the last
+    logged values and the largest gaps (relative above, absolute below)."""
+    worst = {"rel_gap_above": 0.0, "abs_gap_below": 0.0}
+    for i, r64 in zip(sorted(log), rel64):
+        logged = log[i]["metrics"]["internal_metrics"]["rel_res"].cpu().numpy()
+        gap = np.abs(logged - r64)
+        above = r64 > RES_ABOVE
+        print(f"{name} iter {i}: rel_res {logged.tolist()} float64 {r64.tolist()}")
+        if above.any():
+            worst["rel_gap_above"] = max(worst["rel_gap_above"],
+                                         float(np.max(gap[above] / r64[above])))
+        if (~above).any():
+            worst["abs_gap_below"] = max(worst["abs_gap_below"], float(np.max(gap[~above])))
+        check(np.all(gap[above] <= RES_REL * r64[above]),
+              f"{name} rel_res at {i} within {RES_REL:.0%} of float64 above {RES_ABOVE:.0e}")
+        check(np.all(gap[~above] <= RES_ABS),
+              f"{name} rel_res at {i} within {RES_ABS:.0e} of float64 below {RES_ABOVE:.0e}")
+    return {"last_logged": logged.tolist(), "last_float64": r64.tolist(), **worst}
+
+
+def stop_check(name, stopped, logged, float64):
+    """Stopped on rtol within the iterations: float32 reaches rtol 1e-6 on
+    both paths (its float64 value is held by residual_checks)."""
+    print(f"{name}: last rel_res {logged.tolist()}, float64 {float64.tolist()}")
+    check(stopped, f"{name} stopped on rtol {S_RTOL:g} within {S_ITERS} iterations")
+
+
+def lstsq_solve(dev, A, B, cfg, key=0):
+    """One LstSq solve through the entry points a user calls, with every
+    logged iterate kept; returns (model, log, iterates, wall s)."""
+    import torch
+
+    from rlaopt_tpu_torch.models import LstSq
+
+    model = LstSq(A, B)
+    iterates = []
+    t0 = time.perf_counter()
+    _, log = model.solve(cfg, torch.zeros((A.shape[1], 1 if B.ndim == 1 else B.shape[1]),
+                                          device=dev),
+                         callback_freq=S_FREQ, key=key,
+                         callback_fn=lambda w, _model: iterates.append(w.clone()))
+    torch.cuda.synchronize()
+    return model, log, iterates, time.perf_counter() - t0
+
+
+def slice4(dev, profiled, compare, timings):
+    """Path S, counted: ``LstSq(SparseCSRTensor(A, device), b)`` with LSQR +
+    SkPre at k = 1 and k = 10; then each logged rel_res against scipy's
+    float64 one, the launches against the path's count, the sketch's peak
+    memory, #9 against its plain version, one more k = 1 solve profiled.
+    Returns the path's record (launch counts under ``"launches"``)."""
+    import scipy.sparse as sps
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda
+    from rlaopt_tpu_torch.preconditioners import SkPreConfig
+    from rlaopt_tpu_torch.solvers import LSQRConfig
+    from rlaopt_tpu_torch.sparse import SparseCSRTensor
+
+    t0 = time.perf_counter()
+    values, indices, indptr, b, B10 = sparse_operand()
+    data_s = time.perf_counter() - t0
+    cfg = LSQRConfig(max_iters=S_ITERS, rtol=S_RTOL, precond_config=SkPreConfig(
+        sketch_size=S_SKETCH, rho=0.0, sketch="sparse"))
+    solves = []
+    kernel_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    A = SparseCSRTensor(values, indices, indptr, (S_ROWS, S_COLS), device=dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    for B in (b, B10):
+        Bt = torch.from_numpy(B).to(dev)
+        before = kernel_cuda.launch_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model, log, iterates, wall = lstsq_solve(dev, A, Bt, cfg)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        after = kernel_cuda.launch_counts()
+        solves.append((B, model, log, iterates, wall, peak,
+                       {c: after[c] - before[c] for c in after}))
+    counts = kernel_cuda.launch_counts()
+
+    A64 = sps.csr_matrix((values.astype(np.float64), indices, indptr), shape=(S_ROWS, S_COLS))
+    AT64 = A64.T.tocsr()
+    record = {"data_s": data_s, "upload_s": upload_s, "solves": []}
+    for B, model, log, iterates, wall, peak, used in solves:
+        k = 1 if B.ndim == 1 else B.shape[1]
+        name = f"slice4 k={k}"
+        iters = max(log)
+        t0 = time.perf_counter()
+        rel64 = host_normal_residuals(A64, AT64, B, iterates)
+        host_s = time.perf_counter() - t0
+        gaps = residual_checks(name, log, rel64)
+        last = np.array(gaps["last_logged"])
+        stopped = bool(np.all(last <= S_RTOL)) and iters < S_ITERS
+        expect = 1 + 2 * iters + 2 * len(log) + 1  # init, steps, boundaries, Aᵀ @ B
+        want = {"csr_spmv": expect if k == 1 else 0,
+                "csr_spmm": 1 + (0 if k == 1 else expect)}  # + the sketch
+        s_iter = model.phase_walls["train"] / iters
+        print(f"{name}: phase_walls {model.phase_walls} wall {wall:.3f} s iters {iters} "
+              f"s/iter {s_iter:.5f} stopped on rtol {stopped} launches {used} "
+              f"(want {want}) peak {peak} bytes above the operator; host float64 {host_s:.3f} s")
+        for kname, n_want in want.items():
+            check(used[kname] == n_want, f"{name} launched {kname} {used[kname]} times, "
+                  f"the path's count {n_want}")
+        stop_check(name, stopped, last, rel64[-1])
+        check(peak <= 18e9, f"{name} peak {peak} bytes across the sketch within 18 GB")
+        record["solves"].append({
+            "k": k, "iters": iters, "stopped_on_rtol": stopped, "wall_s": wall,
+            "phase_walls": model.phase_walls, "s_per_iter": s_iter, "peak_bytes": peak,
+            "launches": used, "residuals": gaps, "host_float64_s": host_s})
+
+    sparse_kernels(dev, A, compare, timings)
+    with profiled() as prof:
+        model, log, _, wall = lstsq_solve(dev, A, torch.from_numpy(b).to(dev), cfg)
+    profile = {"k": 1, "wall_s": wall, "phase_walls": model.phase_walls, "iters": max(log)}
+    profile.update(device_breakdown(prof))
+    if "busy_ms" in profile:
+        profile["busy_share"] = profile["busy_ms"] / 1e3 / wall
+        profile["kernel_shares"] = {g: v["ms"] / profile["busy_ms"]
+                                    for g, v in profile["kernels"].items()}
+    record["profile"] = profile
+    record["launches"] = counts
+    print("slice4 " + json.dumps(record))
+    return record
+
+
+def config2(dev, profiled):
+    """Path C': config 2 as written (dense 100,000 x 1,000 A, columns scaled
+    by logspace(0, -4), SRHT sketch of 4,000 rows through the butterfly
+    FWHT, LSQR rtol 1e-6, callback_freq 5), its data from numpy seed 0;
+    every logged rel_res against numpy's float64 one; counted (it runs no
+    TPU kernel) and profiled."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda
+    from rlaopt_tpu_torch.preconditioners import SkPreConfig
+    from rlaopt_tpu_torch.solvers import LSQRConfig
+
+    rng = np.random.default_rng(0)
+    An = rng.standard_normal((C2_M, C2_N), dtype=np.float32)
+    An *= np.logspace(0, -4, C2_N, dtype=np.float32)
+    bn = rng.standard_normal(C2_M, dtype=np.float32)
+    A, b = torch.from_numpy(An).to(dev), torch.from_numpy(bn).to(dev)
+    cfg = LSQRConfig(max_iters=S_ITERS, rtol=S_RTOL, precond_config=SkPreConfig(
+        sketch_size=4 * C2_N, rho=0.0, sketch="srht"))
+    kernel_cuda.reset_launch_counts()
+    with profiled() as prof:
+        model, log, iterates, wall = lstsq_solve(dev, A, b, cfg)
+    used = kernel_cuda.launch_counts()
+    A64 = An.astype(np.float64)
+    iters = max(log)
+    rel64 = host_normal_residuals(A64, A64.T, bn, iterates)
+    gaps = residual_checks("config2", log, rel64)
+    last = np.array(gaps["last_logged"])
+    stopped = bool(np.all(last <= S_RTOL)) and iters < S_ITERS
+    profile = device_breakdown(prof)
+    busy = profile.get("busy_ms")
+    record = {"m": C2_M, "n": C2_N, "iters": iters, "stopped_on_rtol": stopped, "wall_s": wall,
+              "phase_walls": model.phase_walls,
+              "s_per_iter": model.phase_walls["train"] / iters, "residuals": gaps,
+              "launches": used, "profile": profile,
+              "busy_share": None if busy is None else busy / 1e3 / wall}
+    print("config2 " + json.dumps(record))
+    stop_check("config2", stopped, last, rel64[-1])
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -867,7 +1226,7 @@ def main() -> int:
     names = ("gram_matmat", "gram_matmat_comp", "gram_matvec_symmetric",
              "gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_matmat_f64",
              "gram_matvec_symmetric_f64", "laplace_matmat", "laplace_matmat_comp",
-             "laplace_matvec_symmetric")
+             "laplace_matvec_symmetric", "csr_spmv", "csr_spmm")
     # (kernel, "plain" or "float64") -> [(max abs err, relative)]; "plain"
     # is the kernel's own plain version (float64 for all but the tiers)
     errors = {(kname, versus): [] for kname in names for versus in ("plain", "float64")}
@@ -1202,13 +1561,23 @@ def main() -> int:
     print(f"phase: slice 3 path A done at {time.perf_counter() - t_start:.1f} s")
     rec_a2 = config4(dev, X4, y4, profiled, compare, timings, laplace=False)
     print(f"phase: slice 3 path A' done at {time.perf_counter() - t_start:.1f} s")
+    del X4, y4
+    torch.cuda.empty_cache()
 
-    # 8. result lines
+    # 8. slice 4: path S (sparse LSQR + SkPre through #9), then path C'
+    rec_s = slice4(dev, profiled, compare, timings)
+    torch.cuda.empty_cache()
+    print(f"phase: slice 4 path S done at {time.perf_counter() - t_start:.1f} s")
+    rec_c2 = config2(dev, profiled)
+    print(f"phase: slice 4 path C' (config 2) done at {time.perf_counter() - t_start:.1f} s")
+
+    # 9. result lines
     kernels = []
     comp = timings["gram_matmat_comp"][0]
     comp["plain_f32_twosum_rel_err"] = twosum_f32_rel
     paths = {"slice1": counts_slice1, "config6": ns["launches"], "slice3": counts_slice3,
-             "config4_laplace": rec_a["launches"], "config4": rec_a2["launches"]}
+             "config4_laplace": rec_a["launches"], "config4": rec_a2["launches"],
+             "slice4_sparse": rec_s["launches"], "config2": rec_c2["launches"]}
     for kname, source, replaces in (
         ("gram_matmat", SOURCES["gram"], f"{PALLAS}:733"),
         ("gram_matmat_comp", SOURCES["gram"], f"{PALLAS}:733"),
@@ -1220,6 +1589,8 @@ def main() -> int:
         ("laplace_matmat", SOURCES["laplace"], f"{PALLAS}:592"),
         ("laplace_matmat_comp", SOURCES["laplace"], f"{PALLAS}:592"),
         ("laplace_matvec_symmetric", SOURCES["laplace"], f"{PALLAS}:1930"),
+        ("csr_spmv", SOURCES["spmv"], f"{LANED}:136"),
+        ("csr_spmm", SOURCES["spmv"], f"{LANED}:136"),
     ):
         main_t = timings[kname][0]
         vs_f64 = errors[(kname, "float64")]
@@ -1237,8 +1608,8 @@ def main() -> int:
             "plain_ms": main_t["plain_ms"],
             "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"],
-            # no single PyTorch call computes c·k(X1, X2) @ V
-            "library_ms": None,
+            # cuSPARSE for #9; no single PyTorch call computes c·k(X1, X2) @ V
+            "library_ms": main_t.get("library_ms"),
             "shape": main_t["shape"],
             "timings": timings[kname],
         })

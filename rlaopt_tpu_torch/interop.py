@@ -13,7 +13,13 @@ the two packages to the same iterates):
   ``L`` and ``rho``;
 * :func:`sap_state` — a :class:`SAPState` from ``(W, V, Y, t)`` (the JAX
   state's key has no counterpart: the port's solver draws from its own
-  generator).
+  generator);
+* :func:`sparse_tensor` — a sparse CSR/CSC tensor from its numpy buffers
+  ``(values, indices, indptr)``, shape and layout;
+* :func:`skpre_preconditioner` — a built :class:`SkPre` from its factor
+  ``L``;
+* :func:`lsqr_state` — an :class:`LSQRState` from ``(Y, U, V, W, alpha,
+  phibar, rhobar)``.
 
 Nothing here imports ``jax``: callers convert with ``numpy.asarray``.
 """
@@ -25,11 +31,14 @@ import torch
 
 from .kernels.configs import KernelConfig
 from .kernels.linop import KernelLinOp
-from .preconditioners.configs import NewtonConfig, NystromConfig
+from .preconditioners.configs import NewtonConfig, NystromConfig, SkPreConfig
 from .preconditioners.newton import Newton
 from .preconditioners.nystrom import Nystrom
+from .preconditioners.skpre import SkPre
+from .solvers.lsqr import LSQRState
 from .solvers.pcg import PCGState
 from .solvers.sap import SAPState
+from .sparse.sparse_tensor import _Layout, _SparseTensor
 
 
 __all__ = [
@@ -38,6 +47,9 @@ __all__ = [
     "newton_preconditioner",
     "pcg_state",
     "sap_state",
+    "sparse_tensor",
+    "skpre_preconditioner",
+    "lsqr_state",
 ]
 
 
@@ -107,3 +119,26 @@ def sap_state(W, V, Y, t, device="cpu") -> SAPState:
     return SAPState(
         W=_t(W, device), V=_t(V, device), Y=_t(Y, device), t=int(np.asarray(t))
     )
+
+
+def sparse_tensor(values, indices, indptr, shape, layout="csr", device="cpu") -> _SparseTensor:
+    """A sparse tensor from the buffers of the JAX package's ``_SparseTensor``
+    (``.values``, ``.indices``, ``.indptr``, ``.shape``; ``layout`` "csr" or
+    "csc", the lower-case name of its ``.layout``)."""
+    return _SparseTensor(
+        np.asarray(values), np.asarray(indices), np.asarray(indptr), shape,
+        _Layout[layout.upper()], device,
+    )
+
+
+def skpre_preconditioner(L, config: Optional[SkPreConfig] = None, device="cpu") -> SkPre:
+    """A built SkPre from the JAX package's factor ``SkPre.L``."""
+    L_t = _t(L, device)
+    P = SkPre(config or SkPreConfig(sketch_size=L_t.shape[0], rho=0.0))
+    P.L = L_t
+    return P
+
+
+def lsqr_state(Y, U, V, W, alpha, phibar, rhobar, device="cpu") -> LSQRState:
+    """An :class:`LSQRState` from the fields of the JAX package's LSQRState."""
+    return LSQRState(*(_t(a, device) for a in (Y, U, V, W, alpha, phibar, rhobar)))

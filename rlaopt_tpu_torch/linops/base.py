@@ -230,8 +230,16 @@ def _compose(A: LinOp, B: LinOp) -> LinOp:
     return LinOp(shape, mv, matmat=mv, dtype=A.dtype, device=A.device)
 
 
-def aslinop(M: torch.Tensor) -> TwoSidedLinOp:
-    """Wrap a dense matrix as a two-sided operator."""
+def aslinop(M) -> TwoSidedLinOp:
+    """Wrap a dense matrix, or a sparse CSR/CSC tensor, as a two-sided
+    operator; sparse tensors go to
+    :func:`rlaopt_tpu_torch.sparse.linop.sparse_aslinop`."""
+    from ..sparse.sparse_tensor import _SparseTensor
+
+    if isinstance(M, _SparseTensor):
+        from ..sparse.linop import sparse_aslinop
+
+        return sparse_aslinop(M)
     if M.ndim != 2:
         raise ValueError(f"expected a 2D matrix, got {M.ndim}D")
     return TwoSidedLinOp(

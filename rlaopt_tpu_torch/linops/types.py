@@ -20,7 +20,11 @@ def is_linop(obj: Any) -> bool:
 def _is_linop_or_tensor(param: Any, param_name: str):
     if isinstance(param, (LinOp, torch.Tensor)):
         return
+    from ..sparse.sparse_tensor import _SparseTensor
+
+    if isinstance(param, _SparseTensor):
+        return
     raise TypeError(
         f"{param_name} is of type {type(param).__name__}, "
-        "but expected type LinOpType or torch.Tensor"
+        "but expected type LinOpType, torch.Tensor, or a sparse tensor"
     )

@@ -28,7 +28,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from .model import Model
+from .model import Model, _wrap_sparse
 from ..linops.base import LinOp
 from ..linops.types import _is_linop_or_tensor
 from ..solvers import Solver, _get_solver, _is_solver_config
@@ -95,14 +95,14 @@ class LinSys(Model):
         A_blk_oracle: Optional[Callable] = None,
     ):
         """Args:
-        A: LinOp or dense matrix.
+        A: LinOp, dense matrix or sparse tensor (wrapped as an operator).
         B: right-hand side (n,) or (n, k).
         reg: nonnegative ridge regularization.
         A_row_oracle: ``blk → K[blk, :]`` operator; paired with A_blk_oracle.
         A_blk_oracle: ``blk → K[blk, blk]`` operator.
         """
         self._check_inputs(A, B, reg, A_row_oracle, A_blk_oracle)
-        self._A = A
+        self._A = _wrap_sparse(A)
         self._B = B[:, None] if B.ndim == 1 else B
         self._reg = reg
         self._A_row_oracle = A_row_oracle

@@ -16,6 +16,19 @@ from ..utils.logger import Logger
 __all__ = ["Model"]
 
 
+def _wrap_sparse(A):
+    """A sparse tensor as a matrix-free operator
+    (:func:`rlaopt_tpu_torch.sparse.linop.sparse_aslinop`), anything else
+    as it is: models take sparse data matrices as they come."""
+    from ..sparse.sparse_tensor import _SparseTensor
+
+    if isinstance(A, _SparseTensor):
+        from ..linops.base import aslinop
+
+        return aslinop(A)
+    return A
+
+
 class Model(ABC):
     def __init__(self, *args, **kwargs):
         pass

@@ -1,22 +1,24 @@
-"""Hand-written CUDA Gram kernels: build, ctypes binding, checked wrappers.
+"""Hand-written CUDA kernels: build, ctypes binding, checked wrappers.
 
 Counterpart of ``rlaopt_tpu/ops/kernel_pallas.py`` (exact f32 tier,
-compensated tier, bf16 tiers, the Laplace kernels) and
-``rlaopt_tpu/ops/kernel_value64.py`` (float64 route). The kernels live in
+compensated tier, bf16 tiers, the Laplace kernels),
+``rlaopt_tpu/ops/kernel_value64.py`` (float64 route) and
+``rlaopt_tpu/sparse/laned.py`` (the sparse CSR product). The kernels live in
 ``csrc/gram.cu`` (K1, K1c, K2), ``csrc/gram_laplace.cu`` (K3, K3c, K5),
-``csrc/gram_tier.cu`` (K1b, K2b) and ``csrc/gram_f64.cu`` (K8, K7), with
-their shared pieces in ``csrc/gram_common.cuh`` (see the note at the top of
-each). :func:`build` compiles each source with ``nvcc`` for ``sm_90a`` in
-parallel and links them into one shared library with a plain C interface,
-cached under ``build/`` at the repository root by a hash of the sources and
-the flags. Nothing is compiled or loaded on import.
+``csrc/gram_tier.cu`` (K1b, K2b), ``csrc/gram_f64.cu`` (K8, K7), with
+their shared pieces in ``csrc/gram_common.cuh``, and ``csrc/spmv.cu`` (the
+CSR SpMV/SpMM; see the note at the top of each). :func:`build` compiles
+each source with ``nvcc`` for ``sm_90a`` in parallel and links them into
+one shared library with a plain C interface, cached under ``build/`` at the
+repository root by a hash of the sources and the flags. Nothing is compiled
+or loaded on import.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises if
 the launch reports an error, and adds one to its ``launches`` counter. It
-takes CUDA tensors only: everything else raises (the dispatcher in
-:mod:`rlaopt_tpu_torch.ops.kernel_dispatch` sends CPU tensors to the plain
-versions).
+takes CUDA tensors only: everything else raises (the dispatchers in
+:mod:`rlaopt_tpu_torch.ops.kernel_dispatch` and
+:mod:`rlaopt_tpu_torch.sparse.ops` send CPU tensors to the plain versions).
 """
 
 import ctypes
@@ -45,14 +47,17 @@ __all__ = [
     "laplace_matmat",
     "laplace_matmat_comp",
     "laplace_matvec_symmetric",
+    "csr_spmv",
+    "csr_spmm",
     "column_splits",
+    "spmm_block_rows",
     "launch_counts",
     "reset_launch_counts",
     "KIND_CODES",
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("gram.cu", "gram_laplace.cu", "gram_tier.cu", "gram_f64.cu")
+SOURCES = ("gram.cu", "gram_laplace.cu", "gram_tier.cu", "gram_f64.cu", "spmv.cu")
 _HEADERS = ("gram_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -63,6 +68,8 @@ COMPILE_FLAGS = (
 # have wrappers of their own (laplace_*); the float64 ones take the code.
 KIND_CODES = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3, "laplace": 4}
 SYMMETRIC_MAX_K = 16
+# csrc/spmv.cu keeps up to 16 right-hand sides of a row in registers.
+CSR_NARROW_MAX_K = 16
 
 _lock = threading.Lock()
 _lib = {"handle": None, "path": None}
@@ -94,6 +101,7 @@ _SIGNATURES = {
         _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_laplace_matvec_symmetric": [_vp, _vp, _vp, _ci, _ci, _ci, _cd, _vp],
+    "rl_csr_spmm": [_ci, _vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, _ci, _ci, _vp],
 }
 
 
@@ -490,6 +498,76 @@ def laplace_matvec_symmetric(X, V, lengthscale, const_scaling=1.0):
     return out[:, 0] if squeeze else out
 
 
+def spmm_block_rows(n_rows: int, nnz: int, k: int) -> bool:
+    """Whether the CSR kernel gives each row a block of 256 threads (k ≤ 16
+    and rows of 256 entries or more on average, where a warp would walk a
+    row in 8 passes or more); otherwise a warp takes a row (k ≤ 16) or a
+    row's column tile (k > 16)."""
+    return k <= CSR_NARROW_MAX_K and nnz >= 256 * max(n_rows, 1)
+
+
+def _csr_launch(values, indptr, indices, X, n_rows: int) -> torch.Tensor:
+    """#9: ``Y = A @ X`` (n_rows, k) for CSR A on the card; X 2-D."""
+    if not (values.is_cuda and X.is_cuda):
+        raise ValueError("the CUDA CSR kernel takes CUDA tensors only")
+    dev = values.device
+    for t in (indptr, indices, X):
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+    if values.dtype not in (torch.float32, torch.float64) or X.dtype != values.dtype:
+        raise NotImplementedError(
+            f"the CUDA CSR kernel takes float32 or float64 values and an operand "
+            f"of the same type, got {values.dtype} and {X.dtype}"
+        )
+    if indices.dtype != torch.int32 or indptr.dtype != torch.int64:
+        raise NotImplementedError(
+            f"the CUDA CSR kernel takes int32 indices and an int64 indptr, got "
+            f"{indices.dtype} and {indptr.dtype}"
+        )
+    if values.ndim != 1 or indices.shape != values.shape or indptr.shape != (n_rows + 1,):
+        raise ValueError(
+            f"CSR buffers of shapes {tuple(values.shape)}, {tuple(indices.shape)}, "
+            f"{tuple(indptr.shape)} for {n_rows} rows"
+        )
+    if not (values.is_contiguous() and indices.is_contiguous() and indptr.is_contiguous()):
+        raise ValueError("the CSR buffers must be contiguous")
+    X2 = X.contiguous()
+    k = X2.shape[1]
+    if k < 1:
+        raise ValueError("empty operand")
+    build()
+    out = torch.empty((n_rows, k), dtype=values.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib["handle"].rl_csr_spmm(
+            0 if values.dtype == torch.float32 else 1, indptr.data_ptr(),
+            indices.data_ptr(), values.data_ptr(), X2.data_ptr(), out.data_ptr(),
+            int(n_rows), int(k), int(spmm_block_rows(n_rows, values.numel(), k)),
+            _stream(X2),
+        )
+    _raise_on(err, "csr_spmm")
+    return out
+
+
+def csr_spmv(values, indptr, indices, x, n_rows: int):
+    """#9 at one right-hand side: ``y = A @ x`` for CSR A, x of shape
+    (n_cols,) or (n_cols, 1); y of the same rank."""
+    squeeze = x.ndim == 1
+    if not squeeze and (x.ndim != 2 or x.shape[1] != 1):
+        raise ValueError(f"csr_spmv takes one right-hand side, got {tuple(x.shape)}")
+    out = _csr_launch(values, indptr, indices, x[:, None] if squeeze else x, n_rows)
+    csr_spmv.launches += 1
+    return out[:, 0] if squeeze else out
+
+
+def csr_spmm(values, indptr, indices, X, n_rows: int):
+    """#9 at k ≥ 1 right-hand sides: ``Y = A @ X`` for CSR A, X (n_cols, k)."""
+    if X.ndim != 2:
+        raise ValueError(f"csr_spmm takes a 2-D operand, got {tuple(X.shape)}")
+    out = _csr_launch(values, indptr, indices, X, n_rows)
+    csr_spmm.launches += 1
+    return out
+
+
 _WRAPPERS = (
     gram_matmat,
     gram_matmat_comp,
@@ -501,6 +579,8 @@ _WRAPPERS = (
     laplace_matmat,
     laplace_matmat_comp,
     laplace_matvec_symmetric,
+    csr_spmv,
+    csr_spmm,
 )
 
 

@@ -1,4 +1,4 @@
-"""Randomized preconditioners: Identity, Newton and Nyström."""
+"""Randomized preconditioners: Identity, Newton, Nyström and SkPre."""
 
 from .base import Preconditioner  # noqa: F401
 from .configs import (  # noqa: F401
@@ -6,6 +6,7 @@ from .configs import (  # noqa: F401
     NewtonConfig,
     NystromConfig,
     PreconditionerConfig,
+    SkPreConfig,
     _is_precond_config,
 )
 from .enums import _DampingMode  # noqa: F401
@@ -21,6 +22,7 @@ from .nystrom import (  # noqa: F401
     nystrom_inv_chol,
     nystrom_update,
 )
+from .skpre import SkPre, skpre_apply, skpre_apply_inv, skpre_update  # noqa: F401
 
 __all__ = [
     "Preconditioner",
@@ -28,10 +30,12 @@ __all__ = [
     "IdentityConfig",
     "NewtonConfig",
     "NystromConfig",
+    "SkPreConfig",
     "CONFIG_TO_PRECONDITIONER",
     "Identity",
     "Newton",
     "Nystrom",
+    "SkPre",
     "NystromFactors",
     "newton_update",
     "newton_apply",
@@ -41,4 +45,7 @@ __all__ = [
     "nystrom_apply_inv",
     "nystrom_damping",
     "nystrom_inv_chol",
+    "skpre_update",
+    "skpre_apply",
+    "skpre_apply_inv",
 ]

@@ -1,7 +1,7 @@
 """Preconditioner configuration dataclasses.
 
-Port of ``rlaopt_tpu/preconditioners/configs.py`` for the preconditioners
-ported so far (Identity, Newton, Nyström). SkPre comes with the LSQR slice.
+Port of ``rlaopt_tpu/preconditioners/configs.py``: Identity, Newton,
+Nyström and SkPre, with the same fields and checks.
 """
 
 from abc import ABC
@@ -17,6 +17,7 @@ __all__ = [
     "IdentityConfig",
     "NewtonConfig",
     "NystromConfig",
+    "SkPreConfig",
     "_is_precond_config",
 ]
 
@@ -73,6 +74,25 @@ class NystromConfig(PreconditionerConfig):
         _is_nonneg_float(self.rho, "rho")
         _is_str(self.sketch, "sketch")
         self.damping_mode = _DampingMode._from_str(self.damping_mode, "damping_mode")
+
+
+@dataclass(kw_only=True, frozen=False)
+class SkPreConfig(PreconditionerConfig):
+    """Configuration for the sketch-and-precondition preconditioner.
+
+    Attributes:
+        sketch_size: number of sketch rows s.
+        rho: damping added to the sketched Gram diagonal.
+        sketch: sketch family ("sparse" default, as in the reference).
+    """
+
+    sketch_size: int
+    rho: float
+    sketch: str = "sparse"
+
+    def __post_init__(self):
+        _is_pos_int(self.sketch_size, "sketch_size")
+        _is_nonneg_float(self.rho, "rho")
 
 
 def _is_precond_config(param: Any, param_name: str):

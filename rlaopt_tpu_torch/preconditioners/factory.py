@@ -6,11 +6,13 @@ from .configs import (
     NewtonConfig,
     NystromConfig,
     PreconditionerConfig,
+    SkPreConfig,
     _is_precond_config,
 )
 from .identity import Identity
 from .newton import Newton
 from .nystrom import Nystrom
+from .skpre import SkPre
 
 
 __all__ = ["_get_precond", "CONFIG_TO_PRECONDITIONER"]
@@ -20,6 +22,7 @@ CONFIG_TO_PRECONDITIONER = {
     IdentityConfig: Identity,
     NewtonConfig: Newton,
     NystromConfig: Nystrom,
+    SkPreConfig: SkPre,
 }
 
 

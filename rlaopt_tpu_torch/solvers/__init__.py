@@ -1,4 +1,4 @@
-"""Iteration engines: PCG and SAP/ASkotch (LSQR is not ported yet)."""
+"""Iteration engines: PCG, SAP/ASkotch and LSQR."""
 
 from .configs import (  # noqa: F401
     LSQRConfig,
@@ -11,6 +11,7 @@ from .configs import (  # noqa: F401
 from .solver import Solver  # noqa: F401
 from .pcg import PCG, PCGState, pcg_init, pcg_step  # noqa: F401
 from .sap import SAP, SAPState, sap_accel_from_pilot  # noqa: F401
+from .lsqr import LSQR, LSQRState  # noqa: F401
 from .factory import _get_solver  # noqa: F401
 
 __all__ = [
@@ -27,4 +28,6 @@ __all__ = [
     "SAP",
     "SAPState",
     "sap_accel_from_pilot",
+    "LSQR",
+    "LSQRState",
 ]

@@ -1,8 +1,7 @@
 """Solver configuration dataclasses.
 
-Port of ``rlaopt_tpu/solvers/configs.py``: the same fields and checks.
-``PCGConfig`` and ``SAPConfig`` have solvers in the port; ``LSQRConfig`` is
-bare, so that the factory can name what is missing.
+Port of ``rlaopt_tpu/solvers/configs.py``: the same fields and checks for
+``PCGConfig``, ``SAPConfig`` and ``LSQRConfig``.
 """
 
 from abc import ABC
@@ -155,7 +154,16 @@ class SAPConfig(SolverConfig):
 
 @dataclass(kw_only=True, frozen=False)
 class LSQRConfig(SolverConfig):
-    """Preconditioned LSQR: not ported yet; its fields come with the solver."""
+    """Preconditioned LSQR for min ‖Ax − b‖² (+ damping).
+
+    Pair with ``SkPreConfig`` for sketch-and-precondition least squares.
+    """
+
+    damp: float = 0.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        _is_nonneg_float(self.damp, "damp")
 
 
 def _is_solver_config(param: Any, param_name: str):

@@ -5,6 +5,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from .configs import LSQRConfig, PCGConfig, SAPConfig, SolverConfig
+from .lsqr import LSQR
 from .pcg import PCG
 from .sap import SAP
 
@@ -25,8 +26,9 @@ def _get_solver(
     """Instantiate the solver matching the config class.
 
     ``preconditioner`` (optional): an already-built preconditioner for the
-    same operator and regularization; PCG skips its own sketch. SAP builds
-    a preconditioner per block every iteration and cannot take one.
+    same operator and regularization; PCG and LSQR skip their own sketch.
+    SAP builds a preconditioner per block every iteration and cannot take
+    one.
     """
     cls = solver_config.__class__
     if cls is PCGConfig:
@@ -56,7 +58,12 @@ def _get_solver(
             sampling=solver_config.sampling,
         )
     if cls is LSQRConfig:
-        raise NotImplementedError(
-            "LSQR is not ported yet (ROADMAP Queue 1, item 11)"
+        return LSQR(
+            system=model,
+            W_init=W_init,
+            precond_config=solver_config.precond_config,
+            damp=solver_config.damp,
+            key=key,
+            preconditioner=preconditioner,
         )
     raise ValueError(f"No solver registered for config {cls.__name__}")

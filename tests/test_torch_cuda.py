@@ -1,6 +1,7 @@
-"""The hand-written CUDA Gram kernels against their plain PyTorch versions
-(float64) on a card. Marked ``cuda``: they skip without one. This file
-imports no JAX, so it also runs where only PyTorch is installed:
+"""The hand-written CUDA kernels (Gram products and the CSR SpMV/SpMM)
+against their plain PyTorch versions (float64) on a card. Marked ``cuda``:
+they skip without one. This file imports no JAX, so it also runs where only
+PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -9,7 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from rlaopt_tpu_torch import interop
+from rlaopt_tpu_torch.models import LstSq
 from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+from rlaopt_tpu_torch.preconditioners import SkPreConfig
+from rlaopt_tpu_torch.solvers import LSQRConfig
+from rlaopt_tpu_torch.sparse import SparseCSRTensor
+from rlaopt_tpu_torch.sparse import ops as tops
 
 SQDIST_KINDS = ("rbf", "matern12", "matern32", "matern52")
 
@@ -105,6 +112,7 @@ def test_cuda_launch_counts_and_refusals(cuda_device):
         "gram_matmat_tier": 0, "gram_matvec_symmetric_tier": 0,
         "gram_matmat_f64": 0, "gram_matvec_symmetric_f64": 0,
         "laplace_matmat": 0, "laplace_matmat_comp": 0, "laplace_matvec_symmetric": 0,
+        "csr_spmv": 0, "csr_spmm": 0,
     }
     with pytest.raises(ValueError, match="k <= 16"):
         kernel_cuda.gram_matvec_symmetric("rbf", X, V, 1.0)
@@ -272,3 +280,107 @@ def test_cuda_column_splits(cuda_device, kind, monkeypatch):
     assert torch.equal(split, again)
     assert _rel(split, ref) <= 2e-5
     assert _rel(one, ref) <= 2e-5
+
+
+def _ragged_csr(seed=21, n_rows=3000, n_cols=700):
+    """Rows of 0 to 40 entries, every seventh empty, every 500th of 300 to
+    1,200 (longer than a block), each row's first column repeated once."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 41, n_rows)
+    lengths[::7] = 0
+    lengths[3::500] = rng.integers(300, 1201, len(lengths[3::500]))
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    indices = rng.integers(0, n_cols, indptr[-1]).astype(np.int32)
+    starts = indptr[:-1][lengths >= 2]
+    indices[starts + 1] = indices[starts]
+    values = rng.standard_normal(indptr[-1])
+    return values, indices, indptr, n_cols
+
+
+def _csr_on(device, values, indices, indptr, dtype):
+    return (torch.from_numpy(values).to(device, dtype), torch.from_numpy(indptr).to(device),
+            torch.from_numpy(indices).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["auto", "warp", "block"])
+@pytest.mark.parametrize("k", [1, 3, 10, 40, 300])
+def test_cuda_csr_matches_plain(cuda_device, k, schedule, monkeypatch):
+    """#9 on a ragged CSR (empty rows, repeated columns, rows longer than a
+    block) in both schedules of k ≤ 16: float64 against the float64 plain
+    version to 1e-12, float32 to 5e-5 of it (sums of up to 1,200 terms),
+    and the same bits from two launches."""
+    values, indices, indptr, n_cols = _ragged_csr()
+    n_rows = len(indptr) - 1
+    if schedule != "auto":
+        monkeypatch.setattr(kernel_cuda, "spmm_block_rows", lambda *a: schedule == "block")
+    X = torch.from_numpy(np.random.default_rng(22).standard_normal((n_cols, k)))
+    v64, p, c = _csr_on(cuda_device, values, indices, indptr, torch.float64)
+    ref = tops._plain(v64, p, c, X.to(cuda_device), n_rows, False)
+    fn = kernel_cuda.csr_spmv if k == 1 else kernel_cuda.csr_spmm
+    for dtype, bound in ((torch.float64, 1e-12), (torch.float32, 5e-5)):
+        args = (v64.to(dtype), p, c, X.to(cuda_device, dtype), n_rows)
+        got, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert _rel(got, ref) <= bound
+        assert torch.all(got[torch.from_numpy(np.diff(indptr) == 0).to(cuda_device)] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_csr_routing_and_refusals(cuda_device, monkeypatch):
+    """CUDA tensors go to the kernel and never to the plain version (CSR
+    and CSC); what the kernel cannot take raises."""
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    values, indices, indptr, n_cols = _ragged_csr(23, 400, 90)
+    n_rows = len(indptr) - 1
+    v, p, c = _csr_on(cuda_device, values, indices, indptr, torch.float32)
+    x = torch.randn(n_cols, device=cuda_device)
+    y = torch.randn(n_rows, device=cuda_device)
+    ref_x = tops.csr_matvec(v, p, c, x, n_rows)
+    ref_y = tops.csc_matvec(v, p, c, y, n_cols)
+    monkeypatch.setattr(tops, "_plain", refuse)
+    kernel_cuda.reset_launch_counts()
+    A = SparseCSRTensor(values.astype(np.float32), indices, indptr, (n_rows, n_cols),
+                        device=cuda_device)
+    assert torch.equal(A @ x, ref_x)
+    assert torch.equal(A.T @ y, ref_y)
+    assert torch.equal(tops.csr_matmat(v, p, c, x[:, None], n_rows)[:, 0], ref_x)
+    assert kernel_cuda.launch_counts()["csr_spmv"] == 3
+    tops.csr_matmat(v, p, c, torch.randn(n_cols, 4, device=cuda_device), n_rows)
+    assert kernel_cuda.launch_counts()["csr_spmm"] == 1
+    with pytest.raises(NotImplementedError, match="int32 indices"):
+        kernel_cuda.csr_spmv(v, p, c.long(), x, n_rows)
+    with pytest.raises(NotImplementedError, match="same type"):
+        kernel_cuda.csr_spmv(v, p, c, x.double(), n_rows)
+    with pytest.raises(ValueError, match="tensors on"):
+        kernel_cuda.csr_spmv(v, p, c, x.cpu(), n_rows)
+
+
+@pytest.mark.cuda
+def test_cuda_lstsq_sparse_matches_the_cpu(cuda_device):
+    """``LstSq(SparseCSRTensor(A, device=card), b)`` with LSQR and SkPre (an
+    injected factor) gives the CPU solve's residuals in float64."""
+    values, indices, indptr, n_cols = _ragged_csr(24, 3000, 60)
+    n_rows = len(indptr) - 1
+    rng = np.random.default_rng(25)
+    b = rng.standard_normal(n_rows)
+    dense = np.zeros((n_rows, n_cols))
+    np.add.at(dense, (np.repeat(np.arange(n_rows), np.diff(indptr)), indices), values)
+    Y = rng.standard_normal((240, n_rows)) @ dense / 240**0.5
+    L = np.linalg.cholesky(Y.T @ Y)
+    rels = []
+    for dev in ("cpu", cuda_device):
+        A = SparseCSRTensor(values, indices, indptr, (n_rows, n_cols), device=dev)
+        cfg = LSQRConfig(max_iters=20, rtol=1e-13,
+                         precond_config=SkPreConfig(sketch_size=240, rho=0.0))
+        _, log = LstSq(A, torch.from_numpy(b).to(dev)).solve(
+            cfg, torch.zeros((n_cols, 1), dtype=torch.float64, device=dev), callback_freq=5,
+            preconditioner=interop.skpre_preconditioner(L, device=dev))
+        rels.append(np.array([log[i]["metrics"]["internal_metrics"]["rel_res"].cpu().numpy()
+                              for i in sorted(log)]))
+    assert rels[0].shape == rels[1].shape
+    assert np.all(np.abs(rels[0] - rels[1]) <= 1e-9 * rels[0] + 1e-11)

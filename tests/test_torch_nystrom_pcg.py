@@ -135,16 +135,19 @@ def test_pcg_masked_column_stays_frozen(problem):
 
 @pytest.mark.parametrize("config_name,item", [("SAPConfig", 10), ("LSQRConfig", 11)])
 def test_factory_names_the_roadmap_item_of_an_unported_solver(config_name, item):
-    """LSQR (item 11) is not ported: the factory names its item. SAP (item
-    10) is: the factory takes its config, and refuses what SAP cannot use,
-    a prebuilt preconditioner (tests/test_torch_sap.py drives the solver)."""
-    from rlaopt_tpu_torch import solvers
+    """SAP (item 10) and LSQR (item 11) are ported: the factory takes their
+    configs and each solver refuses what it cannot use, SAP a prebuilt
+    preconditioner and LSQR a preconditioner other than Identity or SkPre
+    (tests/test_torch_sap.py and tests/test_torch_lsqr.py drive them)."""
+    from rlaopt_tpu_torch import preconditioners, solvers
 
     if config_name == "SAPConfig":
         config = solvers.SAPConfig(blk_sz=4, accel=False)
         with pytest.raises(ValueError, match="prebuilt preconditioner"):
             solvers._get_solver(None, None, config, preconditioner=object())
         return
-    config = getattr(solvers, config_name)()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, item {item}"):
+    config = getattr(solvers, config_name)(
+        precond_config=preconditioners.NystromConfig(rank=4, rho=1.0)
+    )
+    with pytest.raises(TypeError, match="Valid preconditioner configs for LSQR"):
         solvers._get_solver(None, None, config)
