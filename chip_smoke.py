@@ -47,7 +47,21 @@ straight through and exits non-zero at the first failure:
    sketch's peak memory; #9 against its float64 plain version at the path's
    shapes and a ragged one, timed beside its plain version and cuSPARSE; a
    k = 1 solve profiled; then path C', config 2 as written (dense, SRHT);
-9. the kernels' JSON line (each with its bound, ``bound_ms``), the card
+9. slice 5, the sharded operators on positions of the one card
+   (``make_mesh(devices=[card] * P)``): the pair kernels K4, K4b, K6 against
+   float64 (K4b also against its tier's plain version) at k = 1, 3, 16 at a
+   ragged shape and at each path's shard shape, timed there; path E1, config
+   5 as written (``benchmarks/run.py::config5_sharded_krr``: n = 50,000,
+   ``ShardedRBFLinOp`` on ``make_mesh()``, ``lanczos_eigsh``, ``hutchinson``,
+   Nyström-PCG), profiled; E2, the same on a 4-position ring (the symmetric
+   half-ring: K2 and K4) with one float64 refinement round; E3, the Laplace
+   half-ring on 3 positions at path B's shape (K5, K6); E4, the bf16x3 ring
+   at config 6's n = 1,000,000 on 4 positions (K2b, K4b), five matvecs
+   timed against K2b on the unsharded operator. Each ring matvec against
+   the unsharded operator's and float64, its launches against the
+   schedule's count, every logged rel_res against an independent float64
+   one, Hutchinson's trace against the exact c·n;
+10. the kernels' JSON line (each with its bound, ``bound_ms``), the card
    line, and the result line last.
 
 It imports nothing of JAX.
@@ -87,12 +101,19 @@ LS_A, LS_B = 8.0, 32.0
 S_ROWS, S_COLS, S_WIDTH = 1 << 20, 1024, 16
 S_SKETCH, S_ITERS, S_FREQ, S_RTOL = 4 * S_COLS, 100, 5, 1e-6
 C2_M, C2_N = 100_000, 1_000
+# Slice 5: config 5 (benchmarks/run.py::config5_sharded_krr) at its n =
+# 50,000, Lanczos 20 steps, Hutchinson 32 Gaussian probes, Nyström rank
+# 200, PCG 50 iterations at rtol 1e-6, callback_freq 10; the ring paths on
+# P positions of the one card.
+N5, ITERS5, RANK5, LANCZOS5, PROBES5 = 50_000, 50, 200, 20, 32
+P_RING, P_LAPLACE = 4, 3
 SOURCES = {
     "gram": "rlaopt_tpu_torch/csrc/gram.cu",
     "laplace": "rlaopt_tpu_torch/csrc/gram_laplace.cu",
     "tier": "rlaopt_tpu_torch/csrc/gram_tier.cu",
     "f64": "rlaopt_tpu_torch/csrc/gram_f64.cu",
     "spmv": "rlaopt_tpu_torch/csrc/spmv.cu",
+    "pair": "rlaopt_tpu_torch/csrc/gram_pair.cu",
 }
 PALLAS = "rlaopt_tpu/ops/kernel_pallas.py"
 VALUE64 = "rlaopt_tpu/ops/kernel_value64.py"
@@ -116,7 +137,9 @@ BF16X3_F64_BOUND = 2e-5
 # against float64 where no fixed bound is set. "gen" is
 # kernel_matmat_pallas, "sym" kernel_matvec_symmetric (tile 512). Ragged:
 # ragged_data(); HIGGS: synthetic_higgs(1024) with itself at lengthscale
-# sqrt(28), the size the interpreter runs in seconds.
+# sqrt(28), the size the interpreter runs in seconds. "pair" is
+# kernel_pair_matmat on ragged_data()'s points and pair_ragged_rhs(k): the
+# largest error of both outputs at k = 1 and 3, above k = 16's on this data.
 JAX_TIER_ERR = {
     ("ragged", "bf16x3", "gen", "rbf"): 6.5e-6,
     ("ragged", "bf16x3", "gen", "matern12"): 2.1e-5,
@@ -134,6 +157,14 @@ JAX_TIER_ERR = {
     ("ragged", "bfloat16", "sym", "matern12"): 2.2e-2,
     ("ragged", "bfloat16", "sym", "matern32"): 5.4e-3,
     ("ragged", "bfloat16", "sym", "matern52"): 4.0e-3,
+    ("ragged", "bf16x3", "pair", "rbf"): 1.7e-5,
+    ("ragged", "bf16x3", "pair", "matern12"): 2.8e-5,
+    ("ragged", "bf16x3", "pair", "matern32"): 1.7e-5,
+    ("ragged", "bf16x3", "pair", "matern52"): 1.7e-5,
+    ("ragged", "bfloat16", "pair", "rbf"): 5.8e-3,
+    ("ragged", "bfloat16", "pair", "matern12"): 2.8e-2,
+    ("ragged", "bfloat16", "pair", "matern32"): 7.0e-3,
+    ("ragged", "bfloat16", "pair", "matern52"): 6.1e-3,
     ("higgs", "bfloat16", "gen", 1): 7.8e-4,
     ("higgs", "bfloat16", "gen", 10): 5.4e-4,
     ("higgs", "bfloat16", "sym", 1): 7.8e-4,
@@ -171,7 +202,8 @@ CSR_F64_BOUND, CSR_F32_BOUND = 1e-12, 5e-5
 RES_REL, RES_ABS, RES_ABOVE = 0.01, 5e-7, 1e-5
 COMP_KERNELS = ("gram_matmat_comp", "laplace_matmat_comp")
 F64_KERNELS = ("gram_matmat_f64", "gram_matvec_symmetric_f64")
-TIER_KERNELS = ("gram_matmat_tier", "gram_matvec_symmetric_tier")
+TIER_KERNELS = ("gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_pair_tier")
+PAIR_KERNELS = ("gram_pair", "gram_pair_tier", "laplace_pair")
 CSR_KERNELS = ("csr_spmv", "csr_spmm")
 
 
@@ -184,7 +216,9 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     float32 or, for K1c, K3c, K7 and K8, float64 (the lengthscale's
     division is O((n + m) d) work and not counted), one operation for the
     exponential; 2k for the contraction. The triangle kernels evaluate each
-    of the n^2/2 values of a pair of tiles once and contract it both ways.
+    of the n^2/2 values of a pair of tiles once and contract it both ways;
+    the pair kernels each of the n·m values once, contracted both ways (4k),
+    reading V1 (n, k) besides V2 and writing out2 (m, k) besides out1.
     The tiers: the cross term on the tensor cores (2 operations per feature
     of d, per pass), four float32 operations of epilogue per value, the
     contraction in float32 up to 16 columns and on the tensor cores (per
@@ -203,7 +237,9 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     if sym:
         m = n
     values = n * n / 2 if sym else float(n) * m
-    contraction = 2.0 * k * n * m
+    pair = kernel in PAIR_KERNELS
+    contraction = (4.0 if pair else 2.0) * k * n * m
+    vk = 4 * (m + n) * k if pair else 0  # the pair's V1 read and out2 written
     per_feature = 2 if kind == "laplace" else 3
     ops = {}
     if kernel in COMP_KERNELS or kernel in F64_KERNELS:
@@ -216,10 +252,10 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
         ops["bf16_tc"] = values * 2 * d * passes + (contraction * passes if k > 16 else 0)
         ops["fp32"] = values * 4 + (contraction if k <= 16 else 0)
         parts = 2 * d * (2 if passes == 3 else 1) + 4
-        nbytes = parts * (n + (0 if sym else m)) + 4 * m * k + 4 * n * k
+        nbytes = parts * (n + (0 if sym else m)) + 4 * m * k + 4 * n * k + vk
     else:
         ops["fp32"] = values * (per_feature * d + 1) + contraction
-        nbytes = 4 * (n + (0 if sym else m)) * d + 4 * m * k + 4 * n * k
+        nbytes = 4 * (n + (0 if sym else m)) * d + 4 * m * k + 4 * n * k + vk
     t_ops = max(v / PEAK[unit] for unit, v in ops.items())
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -249,6 +285,15 @@ def ragged_data():
     W = rng.standard_normal((777, 7)).astype(np.float32)
     S = rng.standard_normal((1000, 7)).astype(np.float32)
     return A1, A2, W, S
+
+
+def pair_ragged_rhs(k: int):
+    """The pair check's right-hand sides at the ragged shape: V2 (777, k)
+    for X2 and V1 (1000, k) for X1."""
+    rng = np.random.default_rng(21 + k)
+    V2 = rng.standard_normal((777, k)).astype(np.float32)
+    V1 = rng.standard_normal((1000, k)).astype(np.float32)
+    return V2, V1
 
 
 def extra_targets(X: np.ndarray, k: int, seed: int = 1):
@@ -291,8 +336,9 @@ _NARROW = {0: "gram_matmat", 1: "gram_matmat_comp", 2: "gram_matmat_f64",
            3: "gram_matmat_tier", 4: "gram_matmat_tier"}
 _TRIANGLE = {0: "gram_matvec_symmetric", 2: "gram_matvec_symmetric_f64",
              3: "gram_matvec_symmetric_tier", 4: "gram_matvec_symmetric_tier"}
+_PAIR = {0: "gram_pair", 3: "gram_pair_tier", 4: "gram_pair_tier"}
 _LAPLACE = {"gram_matmat": "laplace_matmat", "gram_matmat_comp": "laplace_matmat_comp",
-            "gram_matvec_symmetric": "laplace_matvec_symmetric"}
+            "gram_matvec_symmetric": "laplace_matvec_symmetric", "gram_pair": "laplace_pair"}
 LAPLACE_CODE = 4
 
 
@@ -305,16 +351,21 @@ def _kernel_group(name: str) -> str:
     if m is None:
         return "other"
     fn, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
+    # gram_matvec_symmetric<KIND, KC, MODE, PAIR>; the others end in MODE
+    triangle = fn == "gram_matvec_symmetric"
     try:
-        family, mode = int(args[0]), int(args[-1])
-    except ValueError:
+        family, mode = int(args[0]), int(args[2] if triangle else args[-1])
+    except (ValueError, IndexError):
         return "other"
     if fn == "gram_matmat_wide":
         group = "gram_matmat"
     elif fn == "gram_matmat_tier_wide":
         group = "gram_matmat_tier"
+    elif triangle:
+        pair = args[3] in ("true", "1", "(bool)1")
+        group = (_PAIR if pair else _TRIANGLE).get(mode, "other")
     else:
-        group = (_NARROW if fn == "gram_matmat_narrow" else _TRIANGLE).get(mode, "other")
+        group = _NARROW.get(mode, "other")
     return _LAPLACE.get(group, group) if family == LAPLACE_CODE else group
 
 
@@ -1178,6 +1229,386 @@ def config2(dev, profiled):
     return record
 
 
+def pair_ragged(dev, compare):
+    """K4 (every squared-distance family), K6 and K4b (both tiers) against
+    float64 and K4b against its tier's plain version, at the ragged shape
+    (X1 1000 x 3, X2 777 x 3) and k = 1, 3, 16."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
+
+    A1, A2, _, _ = (torch.from_numpy(a).to(dev) for a in ragged_data())
+    for k in (1, 3, 16):
+        V2, V1 = (torch.from_numpy(a).to(dev) for a in pair_ragged_rhs(k))
+        what = f"n1=1000 n2=777 d=3 k={k}"
+        for kind in SQDIST_KINDS + ("laplace",):
+            r1, r2 = kernel_plain.gram_pair(kind, A1.double(), A2.double(), V2.double(),
+                                            V1.double(), 1.3, 0.9)
+            if kind == "laplace":
+                kname = "laplace_pair"
+                o1, o2 = kernel_cuda.laplace_pair(A1, A2, V2, V1, 1.3, 0.9)
+            else:
+                kname = "gram_pair"
+                o1, o2 = kernel_cuda.gram_pair(kind, A1, A2, V2, V1, 1.3, 0.9)
+            compare(kname, o1, r1, f"{kind} {what} out1", K_BOUND)
+            compare(kname, o2, r2, f"{kind} {what} out2", K_BOUND)
+            if kind == "laplace":
+                continue
+            for cd in TIERS:
+                P1, P2 = tier_operand(A1 / 1.3, cd), tier_operand(A2 / 1.3, cd)
+                o1, o2 = kernel_cuda.gram_pair_tier(kind, P1, P2, V2, V1, 0.9)
+                t1, t2 = kernel_plain.gram_pair_tier(kind, P1, P2, V2, V1, 0.9)
+                mirror = REROUND_BOUND if cd == "bfloat16" and k >= 3 else TIER_BOUND
+                compare("gram_pair_tier", o1, t1, f"{cd} {kind} {what} out1 vs its tier",
+                        TIER_BOUND)
+                compare("gram_pair_tier", o2, t2, f"{cd} {kind} {what} out2 vs its tier",
+                        mirror)
+                # against float64: 3x the JAX pair kernel's own error on
+                # this data (its tier-matched mirror at k >= 3 included)
+                for o, r, side in ((o1, r1, "out1"), (o2, r2, "out2")):
+                    compare("gram_pair_tier", o, r, f"{cd} {kind} {what} {side} vs float64",
+                            3 * JAX_TIER_ERR[("ragged", cd, "pair", kind)])
+
+
+def pair_at(dev, kname, X1, X2, compare, timings, what, kind="rbf", ls=None, cd=None,
+            rows=None):
+    """One pair kernel at a path's shard shape (X1, X2: two shards) at
+    k = 1, 3, 16 against float64 (and K4b against its tier's plain version),
+    all rows or ``rows`` sampled rows of each output; then the kernel and
+    its plain version timed at k = 1."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
+
+    n1, n2 = X1.shape[0], X2.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(22)
+    P1 = P2 = None
+    if cd is not None:
+        P1, P2 = tier_operand(X1 / ls, cd), tier_operand(X2 / ls, cd)
+
+    def kernel(V2, V1):
+        if kname == "gram_pair_tier":
+            return kernel_cuda.gram_pair_tier(kind, P1, P2, V2, V1)
+        if kname == "laplace_pair":
+            return kernel_cuda.laplace_pair(X1, X2, V2, V1, ls)
+        return kernel_cuda.gram_pair(kind, X1, X2, V2, V1, ls)
+
+    def plain(V2, V1):
+        if kname == "gram_pair_tier":
+            return kernel_plain.gram_pair_tier(kind, P1, P2, V2, V1, row_block=BLOCK // 4)
+        return kernel_plain.gram_pair(kind, X1, X2, V2, V1, ls, row_block=BLOCK)
+
+    t0 = time.perf_counter()
+    for k in (1, 3, 16):
+        V2 = torch.randn((n2, k), generator=gen, device=dev)
+        V1 = torch.randn((n1, k), generator=gen, device=dev)
+        o1, o2 = kernel(V2, V1)
+        shape = f"{what} n1={n1} n2={n2} d={X1.shape[1]} k={k}"
+        if rows is None:
+            r1, r2 = kernel_plain.gram_pair(kind, X1.double(), X2.double(), V2.double(),
+                                            V1.double(), ls, row_block=BLOCK)
+            compare(kname, o1, r1, f"{shape} out1", K_BOUND)
+            compare(kname, o2, r2, f"{shape} out2", K_BOUND)
+            continue
+        # sampled rows: out1 rows need all of X2, out2 rows all of X1
+        i1 = torch.as_tensor(sampled_rows(n1, min(rows, n1), 23), device=dev)
+        i2 = torch.as_tensor(sampled_rows(n2, min(rows, n2), 24), device=dev)
+        f1 = kernel_plain.gram_matmat_f64(kind, X1[i1], X2, V2, ls, row_block=256)
+        f2 = kernel_plain.gram_matmat_f64(kind, X2[i2], X1, V1, ls, row_block=256)
+        t1 = kernel_plain.gram_pair_tier(kind, P1.rows(i1), P2, V2, V1[i1], row_block=256)[0]
+        t2 = kernel_plain.gram_pair_tier(kind, P1, P2.rows(i2), V2[i2], V1, row_block=256)[1]
+        sh = f"{shape} rows {rows}"
+        compare(kname, o1[i1], t1, f"{cd} {sh} out1 vs its tier", TIER_BOUND)
+        compare(kname, o2[i2], t2, f"{cd} {sh} out2 vs its tier",
+                REROUND_BOUND if cd == "bfloat16" and k >= 3 else TIER_BOUND)
+        compare(kname, o1[i1], f1, f"{cd} {sh} out1 vs float64", BF16X3_F64_BOUND)
+        compare(kname, o2[i2], f2, f"{cd} {sh} out2 vs float64", BF16X3_F64_BOUND)
+    V2 = torch.randn((n2, 1), generator=gen, device=dev)
+    V1 = torch.randn((n1, 1), generator=gen, device=dev)
+    ms = cuda_ms(lambda: kernel(V2, V1))
+    p_ms = cuda_ms(lambda: plain(V2, V1), reps=1, warm=False)
+    shape = f"{what} n1={n1} n2={n2} d={X1.shape[1]} k=1" + (f" {cd}" if cd else "")
+    timings.setdefault(kname, []).append(
+        timing_entry(kname, shape, ms, p_ms, n1, n2, X1.shape[1], 1, kind, cd))
+    print(f"time {kname} {shape}: kernel {ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"bound {timings[kname][-1]['bound_ms']:.3f} ms "
+          f"(checks {time.perf_counter() - t0:.3f} s)")
+
+
+def used_since(before):
+    from rlaopt_tpu_torch.ops import kernel_cuda
+
+    after = kernel_cuda.launch_counts()
+    return {c: after[c] - before[c] for c in after if after[c] != before[c]}
+
+
+def residual_gaps(name, log, iterates, rel64):
+    """Every logged rel_res past iteration 0 against the float64 one of the
+    same iterate (``rel64``, one value per logged iterate past 0)."""
+    gaps = {}
+    for j, i in enumerate(int_keys(log)[1:]):
+        logged = float(log[i]["metrics"]["internal_metrics"]["rel_res"][0])
+        gaps[i] = abs(logged - rel64[j]) / rel64[j]
+        print(f"{name} iter {i}: rel_res {logged:.6e} float64 {rel64[j]:.6e} gap {gaps[i]:.2e}")
+        check(gaps[i] <= 0.01, f"{name} rel_res at {i} within 1% of float64")
+    return gaps
+
+
+def matvec_launches(name, K, v, expected):
+    """One matvec of a sharded operator, its launches against the
+    schedule's count."""
+    from rlaopt_tpu_torch.ops import kernel_cuda
+
+    before = kernel_cuda.launch_counts()
+    out = K @ v
+    used = used_since(before)
+    print(f"{name} one matvec: launches {used}, the schedule's {expected}")
+    check(used == expected, f"{name} launches per matvec equal the schedule's")
+    return out
+
+
+def ring_vs(name, ring_out, flat_out, ref64):
+    """A ring matvec against the unsharded operator's and float64."""
+    scale = ref64.abs().max().item()
+    d_flat = (ring_out.double() - flat_out.double()).abs().max().item() / scale
+    d_ref = (ring_out.double() - ref64).abs().max().item() / scale
+    d_flat_ref = (flat_out.double() - ref64).abs().max().item() / scale
+    print(f"{name}: ring vs unsharded {d_flat:.3e}, ring vs float64 {d_ref:.3e}, "
+          f"unsharded vs float64 {d_flat_ref:.3e} (of max|ref|)")
+    return d_flat, d_ref
+
+
+def slice5(dev, Xn100, yn100, profile_run, compare, timings):
+    """Slice 5: the sharded operators and config 5's path on positions of
+    the one card (E1–E4, see the module docstring), with the pair kernels
+    checked and timed at each path's shard shape. Each path's launches are
+    counted from 0 just before it and read just after. Returns the records,
+    each with its launches under ``"launches"``."""
+    import torch
+
+    from rlaopt_tpu_torch.kernels import (
+        KernelConfig,
+        LaplaceLinOp,
+        RBFLinOp,
+        ShardedLaplaceLinOp,
+        ShardedRBFLinOp,
+    )
+    from rlaopt_tpu_torch.models import LinSys
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+    from rlaopt_tpu_torch.parallel import make_mesh
+    from rlaopt_tpu_torch.preconditioners import NystromConfig
+    from rlaopt_tpu_torch.solvers import PCGConfig
+    from rlaopt_tpu_torch.spectral_estimators import hutchinson, lanczos_eigsh
+
+    ls = D**0.5
+    Xn, yn = synthetic_higgs(N5)
+    X = torch.from_numpy(Xn).to(dev)
+    y = torch.from_numpy(yn).to(dev)
+    reg = 1e-4 * N5
+    cfg = PCGConfig(max_iters=ITERS5, rtol=1e-6,
+                    precond_config=NystromConfig(rank=RANK5, rho=reg))
+    records = {}
+    t_phase = time.perf_counter()
+    pair_ragged(dev, compare)
+
+    def config5(name, K, refine):
+        """Config 5 as written on operator K: Lanczos, Hutchinson, the
+        solve (with one evaluate-mode float64 refinement round when
+        ``refine``), counted from 0 and profiled; then its checks."""
+        iterates = []
+        kernel_cuda.reset_launch_counts()
+        with profile_run() as prof:
+            t0 = time.perf_counter()
+            lam = lanczos_eigsh(K, num_iters=LANCZOS5, key=0)
+            tr, var = hutchinson(K, PROBES5, "gauss", key=0)
+            torch.cuda.synchronize()
+            t_est = time.perf_counter() - t0
+            sys_ = LinSys(K, y, reg=reg)
+            extra = dict(f64_refine_rounds=1, f64_refine_device="accel") if refine else {}
+            W, log = sys_.solve(cfg, torch.zeros((N5, 1), device=dev), callback_freq=10, key=0,
+                                callback_fn=lambda w, _model: iterates.append(w.clone()),
+                                **extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        used = kernel_cuda.launch_counts()
+        keys = int_keys(log)
+        iters = keys[-1]
+        lam_max, trace, se = float(lam[-1]), float(tr), (float(var) / PROBES5) ** 0.5
+        print(f"{name}: lambda_max {lam_max:.6e} trace {trace:.6e} ± {se:.3e} (exact c·n = "
+              f"{float(N5):.1f}) estimators {t_est:.3f} s; solve wall {wall:.3f} s "
+              f"phase_walls {sys_.phase_walls} iters {iters} launches {used}")
+        check(np.isfinite(lam_max) and 0 < lam_max <= trace + 5 * se,
+              f"{name} lambda_max finite, positive, below the trace")
+        check(abs(trace - N5) <= 5 * se, f"{name} Hutchinson within 5 standard errors of c·n")
+        # every logged iterate's float64 residual in one plain sweep
+        W64 = torch.cat([w.double() for w in iterates[1:]], 1)
+        y64 = y.double()[:, None]
+        R = y64 - (kernel_plain.gram_matmat_f64("rbf", X, X, W64, ls, row_block=BLOCK)
+                   + reg * W64)
+        rel64 = (torch.linalg.norm(R, dim=0) / torch.linalg.norm(y64)).cpu().numpy()
+        gaps = residual_gaps(name, log, iterates, rel64)
+        first = float(log[0]["metrics"]["internal_metrics"]["rel_res"][0])
+        last = float(log[iters]["metrics"]["internal_metrics"]["rel_res"][0])
+        check(np.isfinite(last) and last < first, f"{name} rel_res falls")
+        profile = device_breakdown(prof) if prof else {}
+        busy = profile.get("busy_ms")
+        rec = {"n": N5, "positions": K.mesh.size, "memory_mode": K.memory_mode,
+               "lambda_max": lam_max, "trace": trace, "trace_se": se, "estimators_s": t_est,
+               "wall_s": wall, "phase_walls": sys_.phase_walls, "iters": iters,
+               "s_per_iter": sys_.phase_walls["train"] / iters,
+               "rel_res": {i: log[i]["metrics"]["internal_metrics"]["rel_res"].tolist()
+                           for i in keys}, "gaps": gaps, "launches": used, "profile": profile,
+               "busy_share": None if busy is None else busy / 1e3 / wall}
+        if refine:
+            ref = log["f64_refine"]
+            final = ref["rel_res_f64"][-1][0]
+            R = y64 - (kernel_plain.gram_matmat_f64("rbf", X, X, W, ls, row_block=BLOCK)
+                       + reg * W)
+            indep = (torch.linalg.norm(R) / torch.linalg.norm(y64)).item()
+            print(f"{name} refined: {json.dumps(ref)} independent float64 {indep:.6e}")
+            check(W.dtype == torch.float64 and W.is_cuda, f"{name} refined W float64 on the card")
+            check(final <= 1e-6, f"{name} refined rel_res_f64 {final:.3e} <= 1e-6 (the base "
+                  f"solve logged {last:.3e})")
+            check(abs(final - indep) <= 0.01 * indep,
+                  f"{name} refined rel_res_f64 within 1% of an independent float64 one")
+            check(used["gram_matvec_symmetric_f64"] > 0 and used["gram_matmat_f64"] > 0,
+                  f"{name} refinement ran through K7 and K8")
+            rec.update({"refine": ref, "refined_independent": indep})
+        return rec
+
+    # E1: config 5 as written, one position (make_mesh() on the one card):
+    # the replicated row slab, K1 for every product, K1c at the boundaries
+    K1 = ShardedRBFLinOp(X, X, KernelConfig(lengthscale=ls), mesh=make_mesh())
+    rec = config5("E1", K1, refine=False)
+    used = rec["launches"]
+    check(used["gram_matmat"] >= rec["iters"] + LANCZOS5 + 2, "E1 ran through K1")
+    check(used["gram_matmat_comp"] >= 1, "E1 boundaries ran through K1c")
+    records["E1"] = rec
+    print("slice5 E1 " + json.dumps(rec))
+    print(f"phase: slice 5 E1 done at {time.perf_counter() - t_phase:.1f} s into it")
+
+    # E2: the same on a 4-position ring of the card: the half-ring
+    mesh = make_mesh(devices=[dev] * P_RING)
+    K2 = ShardedRBFLinOp(X, X, KernelConfig(lengthscale=ls), mesh=mesh, memory_mode="ring")
+    rec2 = config5("E2", K2, refine=True)
+    used = rec2["launches"]
+    pairs = P_RING * (P_RING - 1) // 2
+    check(used["gram_pair"] >= pairs * (rec2["iters"] + LANCZOS5), "E2's pairs ran through K4")
+    check(used["gram_matvec_symmetric"] >= P_RING * (rec2["iters"] + LANCZOS5),
+          "E2's diagonal blocks ran through K2")
+    check(abs(rec2["lambda_max"] - rec["lambda_max"]) <= 1e-4 * rec["lambda_max"],
+          "E2's lambda_max within 1e-4 of E1's (the same start vector)")
+    records["E2"] = rec2
+    # one matvec: its launches, against the unsharded operator (K2) and
+    # float64; then both timed in turns (ring, flat, flat, ring)
+    v = torch.randn((N5, 1), generator=torch.Generator(device=dev).manual_seed(25), device=dev)
+    Kflat = RBFLinOp(X, X, KernelConfig(lengthscale=ls))
+    ring_out = matvec_launches("E2", K2, v, {"gram_matvec_symmetric": P_RING,
+                                             "gram_pair": pairs})
+    ref64 = kernel_plain.gram_matmat_f64("rbf", X, X, v.double(), ls, row_block=BLOCK)
+    d_flat, d_ref = ring_vs("E2", ring_out, Kflat @ v, ref64)
+    check(d_ref <= K_BOUND and d_flat <= 2 * K_BOUND, "E2 ring matvec within the kernel bound")
+    t_ring = cuda_ms(lambda: K2 @ v)
+    t_flat = cuda_ms(lambda: Kflat @ v)
+    t_flat2 = cuda_ms(lambda: Kflat @ v)
+    t_ring2 = cuda_ms(lambda: K2 @ v)
+    rec2["matvec_ms"] = {"ring": [t_ring, t_ring2], "unsharded_K2": [t_flat, t_flat2],
+                         "ratio": (t_ring + t_ring2) / (t_flat + t_flat2)}
+    print(f"time E2 ring matvec n={N5} P={P_RING} k=1: {t_ring:.3f} / {t_ring2:.3f} ms, "
+          f"unsharded K2 {t_flat:.3f} / {t_flat2:.3f} ms, ratio {rec2['matvec_ms']['ratio']:.3f}")
+    print("slice5 E2 " + json.dumps(rec2))
+    # K4 at E2's shard shape (two shards of 12,500 points), checked on all rows
+    loc = N5 // P_RING
+    pair_at(dev, "gram_pair", X[:loc], X[loc:2 * loc], compare, timings, "E2 shards", ls=ls)
+    del K1, K2, Kflat, X, y
+    print(f"phase: slice 5 E2 done at {time.perf_counter() - t_phase:.1f} s into it")
+
+    # E3: the Laplace half-ring on 3 positions at path B's shape (K5, K6)
+    X100 = torch.from_numpy(Xn100).to(dev)
+    Y100 = torch.from_numpy(yn100).to(dev)
+    n = X100.shape[0]
+    reg3 = 1e-4 * n
+    K3 = ShardedLaplaceLinOp(X100, X100, KernelConfig(lengthscale=LS_B),
+                             mesh=make_mesh(devices=[dev] * P_LAPLACE), memory_mode="ring")
+    cfg3 = PCGConfig(max_iters=ITERS, rtol=1e-6, precond_config=NystromConfig(rank=RANK, rho=reg3))
+    iterates = []
+    kernel_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    sys3 = LinSys(K3, Y100, reg=reg3)
+    _, log3 = sys3.solve(cfg3, torch.zeros((n, 1), device=dev), callback_freq=FREQ, key=0,
+                         callback_fn=lambda w, _model: iterates.append(w.clone()))
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    used3 = kernel_cuda.launch_counts()
+    lpairs = P_LAPLACE * (P_LAPLACE - 1) // 2
+    # every logged iterate's float64 residual through K7 (one sweep)
+    W64 = torch.cat([w.double() for w in iterates[1:]], 1)
+    y64 = Y100.double()[:, None]
+    R = y64 - (kernel_cuda.gram_matvec_symmetric_f64("laplace", X100, W64, LS_B) + reg3 * W64)
+    rel64 = (torch.linalg.norm(R, dim=0) / torch.linalg.norm(y64)).cpu().numpy()
+    gaps3 = residual_gaps("E3", log3, iterates, rel64)
+    keys3 = int_keys(log3)
+    check(used3["laplace_pair"] >= lpairs * keys3[-1], "E3's pairs ran through K6")
+    rec3 = {"n": n, "positions": P_LAPLACE, "wall_s": wall3, "phase_walls": sys3.phase_walls,
+            "iters": keys3[-1], "s_per_iter": sys3.phase_walls["train"] / keys3[-1],
+            "rel_res": {i: log3[i]["metrics"]["internal_metrics"]["rel_res"].tolist()
+                        for i in keys3}, "gaps": gaps3, "launches": used3}
+    v = torch.randn((n, 1), generator=torch.Generator(device=dev).manual_seed(26), device=dev)
+    ring_out = matvec_launches("E3", K3, v, {"laplace_matvec_symmetric": P_LAPLACE,
+                                             "laplace_pair": lpairs})
+    Kflat = LaplaceLinOp(X100, X100, KernelConfig(lengthscale=LS_B))
+    ref64 = kernel_cuda.gram_matvec_symmetric_f64("laplace", X100, v.double(), LS_B)
+    d_flat, d_ref = ring_vs("E3", ring_out, Kflat @ v, ref64)
+    check(d_ref <= K_BOUND and d_flat <= 2 * K_BOUND, "E3 ring matvec within the kernel bound")
+    t_ring = cuda_ms(lambda: K3 @ v)
+    t_flat = cuda_ms(lambda: Kflat @ v)
+    rec3["matvec_ms"] = {"ring": t_ring, "unsharded_K5": t_flat, "ratio": t_ring / t_flat}
+    print(f"time E3 ring matvec n={n} P={P_LAPLACE} k=1: {t_ring:.3f} ms, unsharded K5 "
+          f"{t_flat:.3f} ms")
+    records["E3"] = rec3
+    print("slice5 E3 " + json.dumps(rec3))
+    loc = -(-n // P_LAPLACE)
+    pair_at(dev, "laplace_pair", X100[:loc], X100[loc:2 * loc], compare, timings, "E3 shards",
+            kind="laplace", ls=LS_B)
+    del K3, Kflat
+    print(f"phase: slice 5 E3 done at {time.perf_counter() - t_phase:.1f} s into it")
+
+    # E4: the bf16x3 ring at config 6's n on 4 positions (K2b, K4b), five
+    # matvecs timed against K2b on the unsharded operator
+    X6 = torch.from_numpy(synthetic_higgs(N6)[0]).to(dev)
+    K4 = ShardedRBFLinOp(X6, X6, KernelConfig(lengthscale=ls), mesh=make_mesh(devices=[dev] * 4),
+                         memory_mode="ring", compute_dtype="bf16x3")
+    Kflat = RBFLinOp(X6, X6, KernelConfig(lengthscale=ls), compute_dtype="bf16x3")
+    v = torch.randn((N6, 1), generator=torch.Generator(device=dev).manual_seed(27), device=dev)
+    kernel_cuda.reset_launch_counts()
+    t_ring = cuda_ms(lambda: K4 @ v, reps=5, warm=False)
+    used4 = kernel_cuda.launch_counts()
+    check(used4 == {**{c: 0 for c in used4}, "gram_matvec_symmetric_tier": 5 * 4,
+                    "gram_pair_tier": 5 * pairs}, "E4 launches equal the schedule's")
+    t_flat = cuda_ms(lambda: Kflat @ v, reps=5, warm=False)
+    idx = torch.as_tensor(sampled_rows(N6, 4096, 28), device=dev)
+    ref64 = kernel_plain.gram_matmat_f64("rbf", X6[idx], X6, v.double(), ls, row_block=256)
+    ring_out, flat_out = K4 @ v, Kflat @ v
+    d_flat, d_ref = ring_vs("E4 rows 4096", ring_out[idx], flat_out[idx], ref64)
+    check(d_ref <= BF16X3_F64_BOUND and d_flat <= 2 * BF16X3_F64_BOUND,
+          "E4 ring matvec within the tier's bound of float64")
+    rec4 = {"n": N6, "positions": 4, "matvec_ms": {"ring": t_ring, "unsharded_K2b": t_flat,
+                                                   "ratio": t_ring / t_flat},
+            "ring_vs_float64": d_ref, "ring_vs_unsharded": d_flat, "launches": used4}
+    print(f"time E4 ring matvec n={N6} P=4 k=1 bf16x3: {t_ring:.3f} ms, unsharded K2b "
+          f"{t_flat:.3f} ms, ratio {t_ring / t_flat:.3f}")
+    records["E4"] = rec4
+    print("slice5 E4 " + json.dumps(rec4))
+    del K4, Kflat, ring_out, flat_out
+    loc = N6 // 4
+    pair_at(dev, "gram_pair_tier", X6[:loc], X6[loc:2 * loc], compare, timings, "E4 shards",
+            ls=ls, cd="bf16x3", rows=4096)
+    print(f"phase: slice 5 E4 done at {time.perf_counter() - t_phase:.1f} s into it")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -1226,7 +1657,8 @@ def main() -> int:
     names = ("gram_matmat", "gram_matmat_comp", "gram_matvec_symmetric",
              "gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_matmat_f64",
              "gram_matvec_symmetric_f64", "laplace_matmat", "laplace_matmat_comp",
-             "laplace_matvec_symmetric", "csr_spmv", "csr_spmm")
+             "laplace_matvec_symmetric", "csr_spmv", "csr_spmm", "gram_pair",
+             "gram_pair_tier", "laplace_pair")
     # (kernel, "plain" or "float64") -> [(max abs err, relative)]; "plain"
     # is the kernel's own plain version (float64 for all but the tiers)
     errors = {(kname, versus): [] for kname in names for versus in ("plain", "float64")}
@@ -1571,13 +2003,19 @@ def main() -> int:
     rec_c2 = config2(dev, profiled)
     print(f"phase: slice 4 path C' (config 2) done at {time.perf_counter() - t_start:.1f} s")
 
-    # 9. result lines
+    # 9. slice 5: the sharded operators on positions of the card (E1-E4)
+    torch.cuda.empty_cache()
+    rec5 = slice5(dev, Xn, yn, profiled, compare, timings)
+    print(f"phase: slice 5 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 10. result lines
     kernels = []
     comp = timings["gram_matmat_comp"][0]
     comp["plain_f32_twosum_rel_err"] = twosum_f32_rel
     paths = {"slice1": counts_slice1, "config6": ns["launches"], "slice3": counts_slice3,
              "config4_laplace": rec_a["launches"], "config4": rec_a2["launches"],
-             "slice4_sparse": rec_s["launches"], "config2": rec_c2["launches"]}
+             "slice4_sparse": rec_s["launches"], "config2": rec_c2["launches"],
+             **{path: rec["launches"] for path, rec in rec5.items()}}
     for kname, source, replaces in (
         ("gram_matmat", SOURCES["gram"], f"{PALLAS}:733"),
         ("gram_matmat_comp", SOURCES["gram"], f"{PALLAS}:733"),
@@ -1591,6 +2029,9 @@ def main() -> int:
         ("laplace_matvec_symmetric", SOURCES["laplace"], f"{PALLAS}:1930"),
         ("csr_spmv", SOURCES["spmv"], f"{LANED}:136"),
         ("csr_spmm", SOURCES["spmv"], f"{LANED}:136"),
+        ("gram_pair", SOURCES["pair"], f"{PALLAS}:1563"),
+        ("gram_pair_tier", SOURCES["pair"], f"{PALLAS}:1563"),
+        ("laplace_pair", SOURCES["pair"], f"{PALLAS}:2063"),
     ):
         main_t = timings[kname][0]
         vs_f64 = errors[(kname, "float64")]

@@ -16,6 +16,7 @@ __version__ = "0.1.0"
 
 from . import utils  # noqa: F401
 from . import linops  # noqa: F401
+from . import parallel  # noqa: F401
 from . import ops  # noqa: F401
 from . import kernels  # noqa: F401
 from . import sketches  # noqa: F401

@@ -1,13 +1,14 @@
 // Shared pieces of the fused Gram-matrix kernels (gram.cu, gram_laplace.cu,
-// gram_tier.cu, gram_f64.cu): the tile generators, the narrow (k <= 16) and
-// wide contractions and the triangle schedule, each templated on the kernel
-// family and on a MODE:
+// gram_tier.cu, gram_f64.cu, gram_pair.cu): the tile generators, the narrow
+// (k <= 16) and wide contractions and the triangle schedule (with its pair
+// form), each templated on the kernel family and on a MODE:
 //
-//   EXACT  K1, K2, K3, K5  f32 points pre-scaled by the lengthscale, f32 values
+//   EXACT  K1, K2, K3, K4, K5, K6  f32 points pre-scaled by the lengthscale,
+//                                  f32 values
 //   COMP   K1c, K3c  unscaled f32 points, float64 inside a tile, f32 (hi, lo)
 //   F64    K7, K8    K1c's tile, carried to float64 end to end (V and out too)
-//   TIER1  K1b, K2b  bf16 parts, one tensor-core pass (bfloat16 tier)
-//   TIER3  K1b, K2b  bf16 hi/lo parts, three tensor-core passes (bf16x3)
+//   TIER1  K1b, K2b, K4b  bf16 parts, one tensor-core pass (bfloat16 tier)
+//   TIER3  K1b, K2b, K4b  bf16 hi/lo parts, three tensor-core passes (bf16x3)
 //
 // Each translation unit includes this header and instantiates what it
 // launches; everything here has internal linkage.
@@ -45,6 +46,7 @@ __host__ __device__ constexpr bool is_tier(int mode) { return mode == TIER1 || m
 // F64; out_lo is K1c's lo part. The triangle kernels pass X2 = X1, m = n.
 // part and m_split: the narrow kernel's column splits (see
 // launch_narrow_by_k); part holds (gridDim.z, n, k) float partials.
+// V1 (n, k) and out2 (m, k): the pair kernels' second product K^T V1.
 struct GramArgs {
   const float* X1;
   const float* X2;
@@ -58,6 +60,8 @@ struct GramArgs {
   const void* V;
   void* out;
   void* out_lo;
+  const void* V1;
+  void* out2;
   float* part;
   int n, m, d, k;
   int m_split;
@@ -482,16 +486,20 @@ __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a)
   }
 }
 
-// K2 / K2b / K7: the triangle kernel. Block (I, s, z) takes row tile I, the
-// column tiles J = I + 16s .. I + 16s + 15 (J < nt) and the right-hand-side
-// columns from KC * z on. Each tile K_IJ is evaluated once: K_IJ V_J
-// accumulates in registers for out[I]; for J != I, K_IJ^T V_I goes to out[J]
-// at once. Cross-block sums use atomicAdd (float, or double for F64) into an
-// output zeroed before the launch, so the order of the additions, and with
-// it the last bits of the result, changes from run to run (about one
-// rounding per addition). The tiers' mirror takes the tier-matched
+// K2 / K2b / K7: the triangle kernel, and with PAIR the pair kernels K4 /
+// K4b / K6. Triangle: block (I, s, z) takes row tile I, the column tiles
+// J = I + 16s .. I + 16s + 15 (J < nt) and the right-hand-side columns from
+// KC * z on. Each tile K_IJ is evaluated once: K_IJ V_J accumulates in
+// registers for out[I]; for J != I, K_IJ^T V_I goes to out[J] at once. Pair
+// (X1 (n, d) and X2 (m, d) two point sets, nt = ceil(m / 64)): block (I, s,
+// z) takes the column tiles J = 16s .. 16s + 15 of the full rectangle, every
+// tile is mirrored, K_IJ V_J (V: (m, k)) goes to out[I] and K_IJ^T V1_I (V1:
+// (n, k)) to out2[J]. Cross-block sums use atomicAdd (float, or double for
+// F64) into outputs zeroed before the launch, so the order of the additions,
+// and with it the last bits of the result, changes from run to run (about
+// one rounding per addition). The tiers' mirror takes the tier-matched
 // contraction at k >= 3 (KC >= 4), as _sym_mirror_mode.
-template <int KIND, int KC, int MODE>
+template <int KIND, int KC, int MODE, bool PAIR>
 __global__ void __launch_bounds__(kThreads)
     gram_matvec_symmetric(const GramArgs a, int nt) {
   using Tr = ModeTraits<MODE>;
@@ -499,7 +507,7 @@ __global__ void __launch_bounds__(kThreads)
   using VT = typename Tr::VT;
   constexpr bool kTierMirror = is_tier(MODE) && KC >= 4;
   const int I = blockIdx.x;
-  const int J0 = I + blockIdx.y * kStrip;
+  const int J0 = (PAIR ? 0 : I) + blockIdx.y * kStrip;
   if (J0 >= nt) return;
   const int J1 = min(J0 + kStrip, nt);
   const int c0 = blockIdx.z * KC;
@@ -507,16 +515,18 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ VT vj[kTile][KC];
   __shared__ VT vi[kTile][KC];
   const VT* __restrict__ V = static_cast<const VT*>(a.V);
+  const VT* __restrict__ Vi = static_cast<const VT*>(PAIR ? a.V1 : a.V);
   VT* __restrict__ out = static_cast<VT*>(a.out);
+  VT* __restrict__ mirror_out = static_cast<VT*>(PAIR ? a.out2 : a.out);
   const VT c = (VT)a.c;
   const int r = threadIdx.x / 4, q = threadIdx.x % 4;
   Val acc[KC];
 #pragma unroll
   for (int i = 0; i < KC; ++i) acc[i] = 0;
-  stage_v<VT, KC>(V, a.n, a.k, I * kTile, c0, vi);
+  stage_v<VT, KC>(Vi, a.n, a.k, I * kTile, c0, vi);
 
   for (int J = J0; J < J1; ++J) {
-    stage_v<VT, KC>(V, a.n, a.k, J * kTile, c0, vj);
+    stage_v<VT, KC>(V, a.m, a.k, J * kTile, c0, vj);
     make_tile<KIND, MODE>(a, I * kTile, J * kTile, sm);
 #pragma unroll 4
     for (int jj = 0; jj < kTile / 4; ++jj) {
@@ -525,7 +535,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < KC; ++i) acc[i] = madd(kv, vj[j][i], acc[i]);
     }
-    if (J != I) {
+    if (PAIR || J != I) {
       // mirror: thread t owns column t/4 of the tile, rows 16*(t%4) .. +15
       Val mir[KC];
 #pragma unroll
@@ -545,10 +555,10 @@ __global__ void __launch_bounds__(kThreads)
       }
       reduce_quad<Val, KC>(mir);
       const int gj = J * kTile + r;
-      if (q == 0 && gj < a.n) {
+      if (q == 0 && gj < a.m) {
 #pragma unroll
         for (int i = 0; i < KC; ++i)
-          if (c0 + i < a.k) atomicAdd(&out[(size_t)gj * a.k + c0 + i], mir[i] * c);
+          if (c0 + i < a.k) atomicAdd(&mirror_out[(size_t)gj * a.k + c0 + i], mir[i] * c);
       }
     }
     __syncthreads();
@@ -707,26 +717,28 @@ GramArgs points_args(const void* X1, const void* X2, const void* inv_ls,
   return a;
 }
 
-// The triangle kernel at the smallest KC that holds k <= MAX_KC columns, or
+// The triangle kernel (or with PAIR the pair kernel, over the full nt1 x nt2
+// rectangle of tiles) at the smallest KC that holds k <= MAX_KC columns, or
 // MAX_KC columns per blockIdx.z past that.
-template <int KIND, int MODE, int MAX_KC>
+template <int KIND, int MODE, int MAX_KC, bool PAIR = false>
 void launch_symmetric(const GramArgs& a, cudaStream_t s) {
-  const int nt = (a.n + kTile - 1) / kTile;
+  const int nt1 = (a.n + kTile - 1) / kTile;
+  const int nt2 = (a.m + kTile - 1) / kTile;
   const dim3 block(kThreads);
   const auto grid = [&](int kc) {
-    return dim3(nt, (nt + kStrip - 1) / kStrip, (a.k + kc - 1) / kc);
+    return dim3(nt1, (nt2 + kStrip - 1) / kStrip, (a.k + kc - 1) / kc);
   };
   if (a.k > 8 && MAX_KC >= 16) {
-    gram_matvec_symmetric<KIND, (MAX_KC >= 16 ? 16 : MAX_KC), MODE>
-        <<<grid(16), block, 0, s>>>(a, nt);
+    gram_matvec_symmetric<KIND, (MAX_KC >= 16 ? 16 : MAX_KC), MODE, PAIR>
+        <<<grid(16), block, 0, s>>>(a, nt2);
   } else if (a.k > 4) {
-    gram_matvec_symmetric<KIND, 8, MODE><<<grid(8), block, 0, s>>>(a, nt);
+    gram_matvec_symmetric<KIND, 8, MODE, PAIR><<<grid(8), block, 0, s>>>(a, nt2);
   } else if (a.k > 2) {
-    gram_matvec_symmetric<KIND, 4, MODE><<<grid(4), block, 0, s>>>(a, nt);
+    gram_matvec_symmetric<KIND, 4, MODE, PAIR><<<grid(4), block, 0, s>>>(a, nt2);
   } else if (a.k > 1) {
-    gram_matvec_symmetric<KIND, 2, MODE><<<grid(2), block, 0, s>>>(a, nt);
+    gram_matvec_symmetric<KIND, 2, MODE, PAIR><<<grid(2), block, 0, s>>>(a, nt2);
   } else {
-    gram_matvec_symmetric<KIND, 1, MODE><<<grid(1), block, 0, s>>>(a, nt);
+    gram_matvec_symmetric<KIND, 1, MODE, PAIR><<<grid(1), block, 0, s>>>(a, nt2);
   }
 }
 

@@ -6,6 +6,9 @@ the two packages to the same iterates):
 
 * :func:`kernel_operator` — a kernel operator from its payload
   ``(X, ls, scale, kind)``, built on one data set (``X1 is X2``);
+* :func:`sharded_kernel_operator` — a sharded kernel operator from the
+  payload of a JAX ``ShardedKernelLinOp`` (points, lengthscale, scale,
+  ``memory_mode`` and the mesh size) on a mesh of that many positions;
 * :func:`nystrom_preconditioner` — a built :class:`Nystrom` from
   ``NystromFactors(U, S)``, ``rho`` and the low-precision factor ``L``;
 * :func:`pcg_state` — a :class:`PCGState` from ``(W, R, Z, P_, RZ, ok)``;
@@ -31,6 +34,8 @@ import torch
 
 from .kernels.configs import KernelConfig
 from .kernels.linop import KernelLinOp
+from .kernels.sharded import ShardedKernelLinOp
+from .parallel.mesh import make_mesh
 from .preconditioners.configs import NewtonConfig, NystromConfig, SkPreConfig
 from .preconditioners.newton import Newton
 from .preconditioners.nystrom import Nystrom
@@ -43,6 +48,7 @@ from .sparse.sparse_tensor import _Layout, _SparseTensor
 
 __all__ = [
     "kernel_operator",
+    "sharded_kernel_operator",
     "nystrom_preconditioner",
     "newton_preconditioner",
     "pcg_state",
@@ -68,6 +74,30 @@ def kernel_operator(
     lengthscale = float(ls_np) if ls_np.ndim == 0 else _t(ls_np, device, X_t.dtype)
     cfg = KernelConfig(lengthscale=lengthscale, const_scaling=float(np.asarray(scale)))
     return KernelLinOp(X_t, X_t, cfg, kind, compute_dtype=compute_dtype)
+
+
+def sharded_kernel_operator(
+    X1, ls, scale, kind: str, memory_mode: str, n_positions: int, X2=None,
+    device="cpu", compute_dtype=None,
+) -> ShardedKernelLinOp:
+    """A sharded kernel operator from the payload of a JAX
+    ``ShardedKernelLinOp`` (``np.asarray(op.A1)``, ``op._data["ls"]``,
+    ``op._scale``, ``op.kind``, ``op.memory_mode`` and the mesh size), on
+    ``n_positions`` positions of ``device``. ``X2=None`` builds it on one
+    data set (``A1 is A2``: the triangle kernel on own shards and, in ring
+    mode, the symmetric half-ring), as the JAX operator built that way."""
+    X1_t = _t(X1, device)
+    X2_t = X1_t if X2 is None else _t(X2, device)
+    ls_np = np.asarray(ls)
+    if ls_np.ndim and np.all(ls_np == ls_np.flat[0]):
+        ls_np = ls_np.flat[0]  # the JAX operator broadcasts a scalar to (d,)
+    lengthscale = float(ls_np) if np.ndim(ls_np) == 0 else _t(ls_np, device, X1_t.dtype)
+    cfg = KernelConfig(lengthscale=lengthscale, const_scaling=float(np.asarray(scale)))
+    mesh = make_mesh(devices=[torch.device(device)] * n_positions)
+    return ShardedKernelLinOp(
+        X1_t, X2_t, cfg, kind, mesh=mesh, memory_mode=memory_mode,
+        compute_dtype=compute_dtype,
+    )
 
 
 def nystrom_preconditioner(

@@ -14,10 +14,13 @@ Its float64 residuals run through
 :func:`rlaopt_tpu_torch.ops.kernel_dispatch.kernel_matmat_f64` (the CUDA
 kernels K7 and K8 on a card) in place of the two-float value64 engine. The
 samplers fold a draw counter into their seeds, so two certificates of one
-solve draw different rows (the reference reuses one fixed seed).
+solve draw different rows (the reference reuses one fixed seed). A sharded
+kernel operator (:class:`~rlaopt_tpu_torch.kernels.sharded.
+ShardedKernelLinOp`) refines through its own mesh routes: its float64 ring
+(``matmat_f64``: K7 and K8 at the positions, the points left where they
+are), its compensated product and its column-distributed float64 rows.
 
-Not ported yet: checkpoints (``checkpoint_dir``), wandb logging, and the
-sharded operators' refinement branches (ROADMAP Queue 1, item 14).
+Not ported yet: checkpoints (``checkpoint_dir``) and wandb logging.
 """
 
 import dataclasses
@@ -422,17 +425,20 @@ class LinSys(Model):
 
     # -- mixed-precision iterative refinement ---------------------------------
     def _kernel_op(self):
+        """The kernel operator (single-device or sharded), or None."""
         from ..kernels.linop import KernelLinOp
+        from ..kernels.sharded import ShardedKernelLinOp
 
-        return self._A if isinstance(self._A, KernelLinOp) else None
+        return self._A if isinstance(self._A, (KernelLinOp, ShardedKernelLinOp)) else None
 
     def _f64_matmat(self, device: str = "cpu"):
         """Float64 matmat ``W64 ↦ A @ W64`` for refinement, or None.
 
         ``"accel"`` evaluates on the operand's device (a kernel operator
         through :meth:`_value64_matmat`); anything else on the host, with
-        the plain float64 version. The result lies where ``W64`` is moved:
-        the operand's device for ``"accel"``, the CPU otherwise.
+        the plain float64 version (a sharded operator's points gathered
+        there once, as the JAX package does). The result lies where ``W64``
+        is moved: the operand's device for ``"accel"``, the CPU otherwise.
         """
         op = self._kernel_op()
         if op is not None:
@@ -473,8 +479,13 @@ class LinSys(Model):
     def _value64_matmat(self, op):
         """Float64 kernel matmat on the operator's device: one call of
         :func:`kernel_matmat_f64` (K7 on one data set, K8 otherwise), W64
-        taken in float64 as it is (no hi/lo split: the card has FP64)."""
+        taken in float64 as it is (no hi/lo split: the card has FP64); a
+        sharded operator's ``matmat_f64`` over its mesh."""
+        from ..kernels.sharded import ShardedKernelLinOp
         from ..ops.kernel_dispatch import kernel_matmat_f64
+
+        if isinstance(op, ShardedKernelLinOp):
+            return op.matmat_f64
 
         def mm(W64):
             return kernel_matmat_f64(
@@ -528,9 +539,12 @@ class LinSys(Model):
         """Unbiased per-column residual-norm estimate from s sampled rows
         with float64 kernel values (K8 through
         :func:`~rlaopt_tpu_torch.ops.kernel_dispatch.kernel_matmat_f64`):
-        the only uncertainty is the sampling noise, ~(2s)^-1/2 relative.
-        Returns ``(est_abs, rel_stderr)`` or None for operands without a
-        value64 route (d above ``VALUE64_MAX_D``, the JAX package's guard)."""
+        the only uncertainty is the sampling noise, ~(2s)^-1/2 relative; a
+        sharded operator's rows are column-distributed over its mesh
+        (``row_matmat_f64``). Returns ``(est_abs, rel_stderr)`` or None for
+        operands without a value64 route (d above ``VALUE64_MAX_D``, the JAX
+        package's guard)."""
+        from ..kernels.sharded import ShardedKernelLinOp
         from ..ops.kernel_dispatch import kernel_matmat_f64
         from ..ops.kernel_value64 import VALUE64_MAX_D
 
@@ -541,9 +555,12 @@ class LinSys(Model):
         s = min(s, n)
         idx = torch.as_tensor(self._sample_rows(seed, n, s), device=op.device)
         W = W64.to(op.device, torch.float64)
-        rows = kernel_matmat_f64(
-            op.kind, op.A1[idx], op.A2, W, op.lengthscale64, op.const_scaling
-        )
+        if isinstance(op, ShardedKernelLinOp):
+            rows = op.row_matmat_f64(idx, W)
+        else:
+            rows = kernel_matmat_f64(
+                op.kind, op.A1[idx], op.A2, W, op.lengthscale64, op.const_scaling
+            )
         r = self._B[idx].double() - (rows + float(self._reg) * W[idx])
         est = torch.linalg.norm(r, dim=0).cpu().numpy() * (n / s) ** 0.5
         return est, (2.0 * s) ** -0.5

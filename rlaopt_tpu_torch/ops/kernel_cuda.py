@@ -5,8 +5,9 @@ compensated tier, bf16 tiers, the Laplace kernels),
 ``rlaopt_tpu/ops/kernel_value64.py`` (float64 route) and
 ``rlaopt_tpu/sparse/laned.py`` (the sparse CSR product). The kernels live in
 ``csrc/gram.cu`` (K1, K1c, K2), ``csrc/gram_laplace.cu`` (K3, K3c, K5),
-``csrc/gram_tier.cu`` (K1b, K2b), ``csrc/gram_f64.cu`` (K8, K7), with
-their shared pieces in ``csrc/gram_common.cuh``, and ``csrc/spmv.cu`` (the
+``csrc/gram_tier.cu`` (K1b, K2b), ``csrc/gram_f64.cu`` (K8, K7),
+``csrc/gram_pair.cu`` (the pair kernels K4, K4b, K6), with their shared
+pieces in ``csrc/gram_common.cuh``, and ``csrc/spmv.cu`` (the
 CSR SpMV/SpMM; see the note at the top of each). :func:`build` compiles
 each source with ``nvcc`` for ``sm_90a`` in parallel and links them into
 one shared library with a plain C interface, cached under ``build/`` at the
@@ -47,6 +48,9 @@ __all__ = [
     "laplace_matmat",
     "laplace_matmat_comp",
     "laplace_matvec_symmetric",
+    "gram_pair",
+    "gram_pair_tier",
+    "laplace_pair",
     "csr_spmv",
     "csr_spmm",
     "column_splits",
@@ -57,7 +61,8 @@ __all__ = [
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("gram.cu", "gram_laplace.cu", "gram_tier.cu", "gram_f64.cu", "spmv.cu")
+SOURCES = ("gram.cu", "gram_laplace.cu", "gram_tier.cu", "gram_f64.cu", "gram_pair.cu",
+           "spmv.cu")
 _HEADERS = ("gram_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -101,6 +106,12 @@ _SIGNATURES = {
         _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_laplace_matvec_symmetric": [_vp, _vp, _vp, _ci, _ci, _ci, _cd, _vp],
+    "rl_gram_pair": [_ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
+    "rl_gram_pair_tier": [
+        _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+        _ci, _ci, _ci, _ci, _cd, _vp,
+    ],
+    "rl_laplace_pair": [_vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
     "rl_csr_spmm": [_ci, _vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, _ci, _ci, _vp],
 }
 
@@ -183,9 +194,9 @@ def _code(kind: str, laplace: bool = False) -> int:
     if kind == "laplace" and not laplace:
         raise NotImplementedError(
             "this kernel sums squared distances: the Laplace family takes "
-            "laplace_matmat, laplace_matmat_comp or laplace_matvec_symmetric "
-            "(the port of kernel_pallas.py::_laplace_matmat), or the float64 "
-            "kernels"
+            "laplace_matmat, laplace_matmat_comp, laplace_matvec_symmetric or "
+            "laplace_pair (the port of kernel_pallas.py::_laplace_matmat and "
+            "its kin), or the float64 kernels"
         )
     return KIND_CODES[kind]
 
@@ -498,6 +509,79 @@ def laplace_matvec_symmetric(X, V, lengthscale, const_scaling=1.0):
     return out[:, 0] if squeeze else out
 
 
+def _check_pair(X1, X2, V2, V1):
+    """V2 (n2, k) and V1 (n1, k) as contiguous 2-D tensors with k <= 16, and
+    whether they were 1-D."""
+    V2c, squeeze = _check_shapes(X1, X2, V2)
+    V1c, squeeze1 = _check_shapes(X2, X1, V1)
+    if squeeze1 != squeeze or V1c.shape[1] != V2c.shape[1]:
+        raise ValueError(f"V2 {tuple(V2.shape)} and V1 {tuple(V1.shape)} differ in k")
+    if V2c.shape[1] > SYMMETRIC_MAX_K:
+        raise ValueError(f"the pair kernel takes k <= 16 columns (got {V2c.shape[1]})")
+    return V2c, V1c, squeeze
+
+
+def _pair_launch(entry, lead, X1, X2, V2, V1, lengthscale, const_scaling):
+    """K4 or K6: check, scale, launch; ``(out1, out2)``."""
+    _check_tensors((torch.float32,) * 4, X1, X2, V2, V1)
+    V2c, V1c, squeeze = _check_pair(X1, X2, V2, V1)
+    Xs, Ys = _scaled(X1, X2, lengthscale)
+    build()
+    (n1, d), (n2, k) = Xs.shape, V2c.shape
+    out1 = torch.empty((n1, k), dtype=torch.float32, device=Xs.device)
+    out2 = torch.empty((n2, k), dtype=torch.float32, device=Xs.device)
+    with torch.cuda.device(Xs.device):
+        err = getattr(_lib["handle"], entry)(
+            *lead, Xs.data_ptr(), Ys.data_ptr(), V2c.data_ptr(), V1c.data_ptr(),
+            out1.data_ptr(), out2.data_ptr(), n1, n2, d, k, float(const_scaling),
+            _stream(Xs),
+        )
+    _raise_on(err, entry)
+    return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
+
+
+def gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0):
+    """K4: ``(c·K @ V2, c·Kᵀ @ V1)`` with K = k(X1, X2) evaluated once, exact
+    f32 tier, k ≤ 16; the squared-distance families."""
+    out = _pair_launch("rl_gram_pair", (_code(kind),), X1, X2, V2, V1, lengthscale,
+                       const_scaling)
+    gram_pair.launches += 1
+    return out
+
+
+def gram_pair_tier(kind, A: TierOperand, B: TierOperand, V2, V1, const_scaling=1.0):
+    """K4b: ``(c·K @ V2, c·Kᵀ @ V1)`` on a bf16 tier from the parts of X1 (A)
+    and X2 (B), k ≤ 16; the mirror contraction is tier-matched at k ≥ 3."""
+    code = _check_tier(kind, A, B)
+    _check_tensors((torch.float32,) * 2, V2, V1)
+    V2c, V1c, squeeze = _check_pair(A.hi, B.hi, V2, V1)
+    if V2c.device != A.hi.device:
+        raise ValueError(f"tensors on {V2c.device} and {A.hi.device}")
+    _, hx, hy = norms_and_operands(kind, A, B)
+    build()
+    (n1, dp), (n2, k) = A.hi.shape, V2c.shape
+    out1 = torch.empty((n1, k), dtype=torch.float32, device=V2c.device)
+    out2 = torch.empty((n2, k), dtype=torch.float32, device=V2c.device)
+    with torch.cuda.device(V2c.device):
+        err = _lib["handle"].rl_gram_pair_tier(
+            code, A.passes, A.hi.data_ptr(), _ptr(A.lo), hx.data_ptr(),
+            B.hi.data_ptr(), _ptr(B.lo), hy.data_ptr(), V2c.data_ptr(),
+            V1c.data_ptr(), out1.data_ptr(), out2.data_ptr(), n1, n2, dp, k,
+            float(const_scaling), _stream(V2c),
+        )
+    _raise_on(err, "gram_pair_tier")
+    gram_pair_tier.launches += 1
+    return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
+
+
+def laplace_pair(X1, X2, V2, V1, lengthscale, const_scaling=1.0):
+    """K6: the Laplace ``(c·K @ V2, c·Kᵀ @ V1)``, one L1/exp tile for both
+    products, k ≤ 16."""
+    out = _pair_launch("rl_laplace_pair", (), X1, X2, V2, V1, lengthscale, const_scaling)
+    laplace_pair.launches += 1
+    return out
+
+
 def spmm_block_rows(n_rows: int, nnz: int, k: int) -> bool:
     """Whether the CSR kernel gives each row a block of 256 threads (k ≤ 16
     and rows of 256 entries or more on average, where a warp would walk a
@@ -579,6 +663,9 @@ _WRAPPERS = (
     laplace_matmat,
     laplace_matmat_comp,
     laplace_matvec_symmetric,
+    gram_pair,
+    gram_pair_tier,
+    laplace_pair,
     csr_spmv,
     csr_spmm,
 )

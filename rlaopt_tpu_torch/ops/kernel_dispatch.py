@@ -16,7 +16,11 @@ Which kernel, on a card:
 * bf16 tiers (:func:`kernel_matmat_tier`): the same rule between K2b and
   K1b, on the tier parts of :mod:`rlaopt_tpu_torch.ops.kernel_tiers` that
   the operator keeps;
-* float64 (:func:`kernel_matmat_f64`): K7 when symmetric, K8 otherwise.
+* float64 (:func:`kernel_matmat_f64`): K7 when symmetric, K8 otherwise;
+* pairs (:func:`kernel_pair`, :func:`kernel_pair_tier`): ``(c·K @ V2,
+  c·Kᵀ @ V1)`` with K evaluated once, through K4 (K6 for Laplace, K4b on
+  the tiers) when k ≤ 16, and through two general calls past that, as the
+  JAX package's ``kernel_pair`` does.
 
 On the CPU, float64 points take the float64 plain product, as the JAX
 package's XLA route takes the exact path for them.
@@ -33,6 +37,8 @@ __all__ = [
     "kernel_matmat_tier",
     "kernel_matmat_compensated",
     "kernel_matmat_f64",
+    "kernel_pair",
+    "kernel_pair_tier",
 ]
 
 
@@ -132,3 +138,53 @@ def kernel_matmat_f64(
             kind, X1, V, lengthscale, const_scaling
         )
     return kernel_cuda.gram_matmat_f64(kind, X1, X2, V, lengthscale, const_scaling)
+
+
+def kernel_pair(
+    kind: str,
+    X1: torch.Tensor,
+    X2: torch.Tensor,
+    V2: torch.Tensor,
+    V1: torch.Tensor,
+    lengthscale,
+    const_scaling=1.0,
+):
+    """``(c·K @ V2, c·Kᵀ @ V1)`` with ``K = k(X1, X2)``, on the exact tier, on
+    the device of the operands: K evaluated once for k ≤ 16 (K4, or K6 for
+    Laplace, on a card; the plain pair on the CPU), two general calls past
+    that. 1-D operands give 1-D outputs. The building block of the
+    symmetric half-ring of
+    :class:`rlaopt_tpu_torch.kernels.sharded.ShardedKernelLinOp`."""
+    k = 1 if V2.ndim == 1 else V2.shape[1]
+    if k > kernel_cuda.SYMMETRIC_MAX_K:
+        return (
+            kernel_matmat(kind, X1, X2, V2, lengthscale, const_scaling),
+            kernel_matmat(kind, X2, X1, V1, lengthscale, const_scaling),
+        )
+    if not X1.is_cuda:
+        return kernel_plain.gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling)
+    if kind == "laplace":
+        return kernel_cuda.laplace_pair(X1, X2, V2, V1, lengthscale, const_scaling)
+    return kernel_cuda.gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling)
+
+
+def kernel_pair_tier(
+    kind: str,
+    A: TierOperand,
+    B: TierOperand,
+    V2: torch.Tensor,
+    V1: torch.Tensor,
+    const_scaling=1.0,
+):
+    """:func:`kernel_pair` on a bf16 tier from the parts of X1 (A) and X2 (B):
+    K4b for k ≤ 16 on a card (the plain tier pair on the CPU), two K1b calls
+    past that."""
+    k = 1 if V2.ndim == 1 else V2.shape[1]
+    if k > kernel_cuda.SYMMETRIC_MAX_K:
+        return (
+            kernel_matmat_tier(kind, A, B, V2, const_scaling),
+            kernel_matmat_tier(kind, B, A, V1, const_scaling),
+        )
+    if not A.hi.is_cuda:
+        return kernel_plain.gram_pair_tier(kind, A, B, V2, V1, const_scaling)
+    return kernel_cuda.gram_pair_tier(kind, A, B, V2, V1, const_scaling)

@@ -24,6 +24,12 @@ kernel, with the same signature as its wrapper in
   schedule: row tile I contracts the tiles J ≥ I forward in float32 and
   serves the rows of every tile J > I through the mirror, which at k ≥ 3
   takes the tier-matched contraction (``_sym_mirror_mode``).
+* :func:`gram_pair` (K4, and K6 for Laplace) and :func:`gram_pair_tier`
+  (K4b): ``(c·K @ V2, c·Kᵀ @ V1)`` with K = k(X1, X2), each row block of K
+  evaluated once and contracted both ways. :func:`gram_pair` runs in the
+  dtype of the points, float64 included (its float64 tile is the one of
+  :func:`gram_matmat_f64`); the tier pair contracts forward in float32 and
+  the mirror tier-matched at k ≥ 3, as K2b does.
 * :func:`gram_matmat_f64` (K8) and :func:`gram_matvec_symmetric_f64` (K7):
   row blocks of K in float64 from the float64 casts of the points, the one
   float64 plain product. The expansion ``‖x‖² + ‖y‖² − 2·x·y`` cancels to
@@ -60,6 +66,8 @@ __all__ = [
     "gram_matvec_symmetric_tier",
     "gram_matmat_f64",
     "gram_matvec_symmetric_f64",
+    "gram_pair",
+    "gram_pair_tier",
     "tier_contract",
     "SYMMETRIC_TILE",
     "NARROW_MAX_K",
@@ -282,3 +290,69 @@ def gram_matvec_symmetric_f64(
 ) -> torch.Tensor:
     """K7: ``c·k(X, X) @ V`` in float64; the plain version is K8 on (X, X)."""
     return gram_matmat_f64(kind, X, X, V, lengthscale, const_scaling, row_block)
+
+
+def gram_pair(
+    kind: str,
+    X1: torch.Tensor,
+    X2: torch.Tensor,
+    V2: torch.Tensor,
+    V1: torch.Tensor,
+    lengthscale,
+    const_scaling=1.0,
+    row_block: Optional[int] = None,
+):
+    """K4 / K6: ``(c·K @ V2, c·Kᵀ @ V1)`` with ``K = k(X1, X2)``, each row
+    block of K evaluated once for both products. Float64 points take the
+    float64 tile of :func:`gram_matmat_f64` (distances summed directly for
+    Matérn and Laplace)."""
+    V2, squeeze = _as_2d(V2)
+    V1, _ = _as_2d(V1)
+    if X1.dtype == torch.float64:
+        ls = torch.as_tensor(lengthscale, dtype=torch.float64, device=X1.device)
+        Xs, Ys = X1 / ls, X2 / ls
+
+        def tile(a, b):
+            return _f64_tile(kind, a, b)
+    else:
+        Xs, Ys = scale_inputs(X1, lengthscale), scale_inputs(X2, lengthscale)
+
+        def tile(a, b):
+            return kernel_tile(kind, a, b)
+    bm = _block(row_block, X2.shape[0])
+    out1 = torch.empty((X1.shape[0], V2.shape[1]), dtype=V2.dtype, device=V2.device)
+    out2 = torch.zeros((X2.shape[0], V1.shape[1]), dtype=V1.dtype, device=V1.device)
+    for s in range(0, X1.shape[0], bm):
+        Kb = tile(Xs[s : s + bm], Ys)
+        out1[s : s + bm] = Kb @ V2
+        out2 += Kb.T @ V1[s : s + bm]
+    out1, out2 = out1 * const_scaling, out2 * const_scaling
+    return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
+
+
+def gram_pair_tier(
+    kind: str,
+    A: TierOperand,
+    B: TierOperand,
+    V2: torch.Tensor,
+    V1: torch.Tensor,
+    const_scaling=1.0,
+    row_block: Optional[int] = None,
+):
+    """K4b: ``(c·K @ V2, c·Kᵀ @ V1)`` on a bf16 tier from the parts of X1 (A)
+    and X2 (B) (k ≤ 16): the forward contraction in float32, the mirror one
+    in float32 at k ≤ 2 and tier-matched at k ≥ 3."""
+    V2, squeeze = _as_2d(V2)
+    V1, _ = _as_2d(V1)
+    k = V2.shape[1]
+    mirror_mode = "f32" if k <= 2 else _wide_mode(A)
+    bm = _block(row_block, B.hi.shape[0])
+    n1 = A.hi.shape[0]
+    out1 = torch.empty((n1, k), dtype=torch.float32, device=V2.device)
+    out2 = torch.zeros((B.hi.shape[0], k), dtype=torch.float32, device=V2.device)
+    for s in range(0, n1, bm):
+        Kb = _tier_values(kind, A, B, slice(s, s + bm))
+        out1[s : s + bm] = Kb @ V2
+        out2 += tier_contract(Kb.T.contiguous(), V1[s : s + bm], mirror_mode)
+    out1, out2 = out1 * const_scaling, out2 * const_scaling
+    return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)

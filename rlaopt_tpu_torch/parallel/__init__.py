@@ -1,0 +1,31 @@
+"""Device meshes: ordered positions, each a ``torch.device``, with axis names.
+
+Port of ``rlaopt_tpu/parallel``'s single-process half. The multi-process
+runtime (``initialize_multihost``, ``run_multiprocess_dryrun``) is not
+ported yet.
+"""
+
+from .distributed import axis_size, make_mesh_2d  # noqa: F401
+from .mesh import (  # noqa: F401
+    Mesh,
+    make_mesh,
+    move,
+    pad_to_multiple,
+    ppermute,
+    psum,
+    replicate,
+    shard_rows,
+)
+
+__all__ = [
+    "Mesh",
+    "axis_size",
+    "make_mesh",
+    "make_mesh_2d",
+    "move",
+    "pad_to_multiple",
+    "ppermute",
+    "psum",
+    "replicate",
+    "shard_rows",
+]

@@ -10,11 +10,12 @@ from .ops import (  # noqa: F401
     csr_transpose,
     gather_rows,
 )
-from .linop import sparse_aslinop  # noqa: F401
+from .linop import sparse_aslinop, sparse_shard_rows  # noqa: F401
 
 __all__ = [
     "SparseCSRTensor",
     "sparse_aslinop",
+    "sparse_shard_rows",
     "csr_matvec",
     "csr_matmat",
     "csc_matvec",

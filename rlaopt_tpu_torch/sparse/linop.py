@@ -10,18 +10,21 @@ the CSR of A for ``A @ x`` and the CSR of Aᵀ, built once at construction
 are gathers through the hand-written CSR kernel on a card, and the plain
 versions on the CPU; neither scatters.
 
+:func:`sparse_shard_rows` cuts a CSR tensor's rows over the positions of a
+mesh, each chunk such an operator on its position's device.
+
 Not carried over: the TPU layouts ``impl="ell"`` and ``impl="laned"``
-(they exist because the TPU has no hardware gather), the densify-when-it-
-fits rule of ``impl="auto"`` (measured on a chip with no gather), and
-``sparse_shard_rows`` (with the sharded operators).
+(they exist because the TPU has no hardware gather) and the densify-when-it-
+fits rule of ``impl="auto"`` (measured on a chip with no gather).
 """
 
 from . import ops
-from .sparse_tensor import _SparseTensor
+from .sparse_tensor import _Layout, _SparseTensor
 from ..linops.base import TwoSidedLinOp, aslinop
+from ..parallel.mesh import move
 
 
-__all__ = ["sparse_aslinop"]
+__all__ = ["sparse_aslinop", "sparse_shard_rows"]
 
 
 def sparse_aslinop(sp: _SparseTensor, impl: str = "auto") -> TwoSidedLinOp:
@@ -65,3 +68,45 @@ def sparse_aslinop(sp: _SparseTensor, impl: str = "auto") -> TwoSidedLinOp:
     return TwoSidedLinOp(
         (m, n), mv, rmv, matmat=mm, rmatmat=rmm, dtype=sp.dtype, device=sp.device
     )
+
+
+def sparse_shard_rows(sp: _SparseTensor, mesh, axis="i", impl: str = "auto"):
+    """Row-partition a sparse CSR tensor over a mesh as a ShardedLinOp.
+
+    Rows are split into contiguous chunks of ceil(m / P) (the reference's
+    ``torch.chunk`` semantics; the last may be shorter), each chunk becomes
+    an operator of :func:`sparse_aslinop` on its position's device (its CSR
+    and the CSR of its transpose, kernel #9 on a card), and the chunks
+    compose through :meth:`ShardedLinOp.from_local_ops`: the forward product
+    gathers the chunks' outputs, the adjoint psums their partials. ``impl``
+    as in :func:`sparse_aslinop`, the same for every chunk.
+    """
+    from ..linops.sharded import ShardedLinOp
+    from ..parallel.distributed import axis_size
+
+    if not isinstance(sp, _SparseTensor):
+        raise TypeError(f"expected a sparse tensor, got {type(sp).__name__}")
+    if sp.layout != _Layout.CSR:
+        raise ValueError(
+            "sparse_shard_rows needs CSR layout (row slicing); "
+            "transpose a CSC tensor first (.T is zero-copy)"
+        )
+    m, n = sp.shape
+    ndev = axis_size(mesh, axis)
+    chunk = -(-m // ndev)
+    bounds = [(i * chunk, min((i + 1) * chunk, m)) for i in range(ndev)]
+    if any(s >= e for s, e in bounds):
+        raise ValueError(
+            f"{m} rows over {ndev} devices leaves empty shards; "
+            "use a smaller mesh axis"
+        )
+    indptr = sp.indptr.cpu()
+    local_ops = []
+    for (s, e), dev in zip(bounds, mesh.devices):
+        lo, hi = int(indptr[s]), int(indptr[e])
+        part = _SparseTensor(
+            move(sp.values[lo:hi], dev), move(sp.indices[lo:hi], dev),
+            move(sp.indptr[s : e + 1] - lo, dev), (e - s, n), _Layout.CSR, dev,
+        )
+        local_ops.append(sparse_aslinop(part, impl=impl))
+    return ShardedLinOp.from_local_ops(local_ops, mesh, mode="row", axis=axis)

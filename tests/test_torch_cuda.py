@@ -112,6 +112,7 @@ def test_cuda_launch_counts_and_refusals(cuda_device):
         "gram_matmat_tier": 0, "gram_matvec_symmetric_tier": 0,
         "gram_matmat_f64": 0, "gram_matvec_symmetric_f64": 0,
         "laplace_matmat": 0, "laplace_matmat_comp": 0, "laplace_matvec_symmetric": 0,
+        "gram_pair": 0, "gram_pair_tier": 0, "laplace_pair": 0,
         "csr_spmv": 0, "csr_spmm": 0,
     }
     with pytest.raises(ValueError, match="k <= 16"):
@@ -384,3 +385,95 @@ def test_cuda_lstsq_sparse_matches_the_cpu(cuda_device):
                               for i in sorted(log)]))
     assert rels[0].shape == rels[1].shape
     assert np.all(np.abs(rels[0] - rels[1]) <= 1e-9 * rels[0] + 1e-11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SQDIST_KINDS + ("laplace",))
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_cuda_pair_matches_plain(cuda_device, kind, k):
+    """K4 (K6 for Laplace) against the float64 plain pair at a ragged
+    rectangle (n1 = 1000, n2 = 777, d = 3): both outputs within 2e-5 of
+    max|ref|, K2's and K5's contract."""
+    X1, X2, V2 = _data(13, 1000, 777, 3, k)
+    V1 = np.random.default_rng(14).standard_normal((1000, k)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V2, V1)]
+    if kind == "laplace":
+        o1, o2 = kernel_cuda.laplace_pair(*args, 1.3, 0.9)
+    else:
+        o1, o2 = kernel_cuda.gram_pair(kind, *args, 1.3, 0.9)
+    r1, r2 = kernel_plain.gram_pair(kind, *(a.double() for a in args), 1.3, 0.9)
+    torch.cuda.synchronize()
+    assert o1.shape == (1000, k) and o2.shape == (777, k)
+    assert _rel(o1, r1) <= 2e-5 and _rel(o2, r2) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["bf16x3", "bfloat16"])
+@pytest.mark.parametrize("kind", SQDIST_KINDS)
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_cuda_pair_tier_matches_plain(cuda_device, cd, kind, k):
+    """K4b against the plain version of its tier: 1e-5 of max|ref| where
+    both contract in float32 (the forward product, and the mirror at
+    k ≤ 2); the one-pass tier's mirror at k ≥ 3 re-rounds kernel values to
+    bf16 (:func:`_reround_bound`). Two distinct point sets hold no
+    coincident points, so Matérn-1/2 has no cusp here."""
+    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
+
+    X1, X2, V2 = _data(15, 700, 530, 28, k)
+    V1 = np.random.default_rng(16).standard_normal((700, k)).astype(np.float32)
+    X1, X2, V2, V1 = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V2, V1))
+    A, B = tier_operand(X1 / 5.3, cd), tier_operand(X2 / 5.3, cd)
+    o1, o2 = kernel_cuda.gram_pair_tier(kind, A, B, V2, V1, 0.8)
+    r1, r2 = kernel_plain.gram_pair_tier(kind, A, B, V2, V1, 0.8)
+    torch.cuda.synchronize()
+    assert _rel(o1, r1) <= 1e-5
+    reround = cd == "bfloat16" and k >= 3
+    assert _rel(o2, r2) <= (_reround_bound(V1, r2, 0.8) if reround else 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_pair_refusals(cuda_device):
+    X = torch.randn((300, 4), device=cuda_device)
+    V = torch.randn((300, 17), device=cuda_device)
+    with pytest.raises(ValueError, match="k <= 16"):
+        kernel_cuda.gram_pair("rbf", X, X, V, V, 1.0)
+    with pytest.raises(NotImplementedError, match="laplace"):
+        kernel_cuda.gram_pair("laplace", X, X, V[:, :2], V[:, :2], 1.0)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kernel_cuda.laplace_pair(X.cpu(), X.cpu(), V[:, :2].cpu(), V[:, :2].cpu(), 1.0)
+    with pytest.raises(ValueError, match="differ in k"):
+        kernel_cuda.gram_pair("rbf", X, X, V[:, :2], V[:, :3], 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,P,cd", [("rbf", 4, None), ("laplace", 3, None),
+                                       ("rbf", 4, "bf16x3"), ("matern32", 5, None)])
+def test_cuda_half_ring_launches_and_matches(cuda_device, kind, P, cd):
+    """The half-ring on P positions of one card: P triangle launches and
+    P(P − 1)/2 pair launches per matvec (the even-P antipodal step taken by
+    half the positions), the product within the kernels' bound of the
+    single-device float64 one (bf16x3: the tier's 2e-5 against float64)."""
+    from rlaopt_tpu_torch.kernels import KernelConfig, ShardedKernelLinOp
+    from rlaopt_tpu_torch.parallel import make_mesh
+
+    X, _, V = _data(17, 2001, 1, 6, 1)
+    X = torch.from_numpy(X).to(cuda_device)
+    V = torch.from_numpy(np.random.default_rng(18).standard_normal((2001, 2)).astype(np.float32))
+    V = V.to(cuda_device)
+    cfg = KernelConfig(lengthscale=2.0, const_scaling=0.7)
+    A = ShardedKernelLinOp(X, X, cfg, kind, mesh=make_mesh(devices=[cuda_device] * P),
+                           memory_mode="ring", compute_dtype=cd)
+    kernel_cuda.reset_launch_counts()
+    got = A @ V
+    torch.cuda.synchronize()
+    used = kernel_cuda.launch_counts()
+    tri, pair = {
+        ("rbf", None): ("gram_matvec_symmetric", "gram_pair"),
+        ("laplace", None): ("laplace_matvec_symmetric", "laplace_pair"),
+        ("rbf", "bf16x3"): ("gram_matvec_symmetric_tier", "gram_pair_tier"),
+        ("matern32", None): ("gram_matvec_symmetric", "gram_pair"),
+    }[(kind, cd)]
+    assert used[tri] == P and used[pair] == P * (P - 1) // 2
+    assert sum(used.values()) == P + P * (P - 1) // 2
+    ref = kernel_plain.gram_matmat_f64(kind, X, X, V.double(), 2.0, 0.7)
+    assert _rel(got, ref) <= 2e-5

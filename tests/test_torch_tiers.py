@@ -18,7 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from rlaopt_tpu.ops.kernel_pallas import kernel_matmat_pallas, kernel_matvec_symmetric
+from rlaopt_tpu.ops.kernel_pallas import (
+    kernel_matmat_pallas,
+    kernel_matvec_symmetric,
+    kernel_pair_matmat,
+)
 from rlaopt_tpu_torch.ops import kernel_plain
 from rlaopt_tpu_torch.ops.kernel_tiers import (
     normalize_compute_dtype,
@@ -151,12 +155,29 @@ def _f64_ref(kind, X1, X2, V, ls, c):
 
 @pytest.mark.parametrize("key", list(SMOKE.JAX_TIER_ERR), ids=str)
 def test_jax_tier_error_behind_the_card_bound(key):
-    """``chip_smoke.py`` holds K1b and K2b against float64 to 3x the error
-    of the JAX package's tier on the same data (where no fixed bound is
-    set); this measures that error in interpret mode and pins the
+    """``chip_smoke.py`` holds K1b, K2b and K4b against float64 to 3x the
+    error of the JAX package's tier on the same data (where no fixed bound
+    is set); this measures that error in interpret mode and pins the
     script's constant to within a factor of 2 above it. The HIGGS entries
-    are measured at n = 1024 of the recipe the card runs at n = 100,000."""
+    are measured at n = 1024 of the recipe the card runs at n = 100,000;
+    the pair entries are the largest error of both outputs at k = 1 and 3
+    (the pair check's k = 16 errs less on this data: 2.1e-5 of the bound's
+    2.8e-5 at most, measured alike)."""
     data, cd, form, which = key
+    if form == "pair":
+        A1, A2, _, _ = SMOKE.ragged_data()
+        errs = []
+        for k in (1, 3):
+            V2, V1 = SMOKE.pair_ragged_rhs(k)
+            got = kernel_pair_matmat(
+                which, *(jnp.asarray(a) for a in (A1, A2, V2, V1)), 1.3, 0.9,
+                compute_dtype=cd, interpret=True,
+            )
+            errs += [_rel(got[0], _f64_ref(which, A1, A2, V2, 1.3, 0.9)),
+                     _rel(got[1], _f64_ref(which, A2, A1, V1, 1.3, 0.9))]
+        const = SMOKE.JAX_TIER_ERR[key]
+        assert const / 2 <= max(errs) <= const
+        return
     if data == "ragged":
         A1, A2, W, S = SMOKE.ragged_data()
         kind, ls, c, k = which, 1.3, 0.9, 7
@@ -211,3 +232,21 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     assert torch.equal(Bk @ W[blk], KernelLinOp(X[blk], X[blk], cfg, "rbf", cd) @ W[blk])
     assert len(splits) == 4  # the two reference operators split both their sides
     assert _rel(got, (K @ W)[blk]) <= 2e-6
+
+
+@pytest.mark.parametrize("name,group", [
+    ("gram_matvec_symmetric<0, 1, 0, false>(GramArgs, int)", "gram_matvec_symmetric"),
+    ("gram_matvec_symmetric<0, 1, 0, true>(GramArgs, int)", "gram_pair"),
+    ("gram_matvec_symmetric<0, 4, 3, true>(GramArgs, int)", "gram_pair_tier"),
+    ("gram_matvec_symmetric<0, 16, 4, false>(GramArgs, int)", "gram_matvec_symmetric_tier"),
+    ("gram_matvec_symmetric<4, 1, 0, true>(GramArgs, int)", "laplace_pair"),
+    ("gram_matvec_symmetric<4, 8, 0, false>(GramArgs, int)", "laplace_matvec_symmetric"),
+    ("gram_matvec_symmetric<2, 1, 2, false>(GramArgs, int)", "gram_matvec_symmetric_f64"),
+    ("gram_matmat_narrow<0, 1, 1>(GramArgs)", "gram_matmat_comp"),
+    ("gram_matmat_wide<4>(float const*, float const*)", "laplace_matmat"),
+])
+def test_profile_groups_each_kernel_template(name, group):
+    """``chip_smoke.py`` names each Gram kernel in a profile by its
+    template arguments (family, mode and, for the triangle template, the
+    pair flag), as demangled in the device events."""
+    assert SMOKE._kernel_group("void (anonymous namespace)::" + name) == group
