@@ -8,7 +8,8 @@ Needs one CUDA card and ``nvcc`` (the kernels are built from
 straight through and exits non-zero at the first failure:
 
 1. device: the card's name and power limit, the two TF32 flags (set off);
-2. build of the Gram kernels, timed;
+2. build of the Gram kernels, timed, and the registers and spills of K2b
+   and of #9's short-row schedule from the build's ``-Xptxas -v`` log;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (HIGGS-100k: n = 100,000, d = 28) and at a ragged shape
    for every family: K1, K1c, K2 against float64; K1b and K2b on both bf16
@@ -28,8 +29,9 @@ straight through and exits non-zero at the first failure:
    ``torch.profiler``; the certificate, a full float64 sweep of the
    delivered solution and an independent sampled float64 residual (plain
    version, other rows) must all put it at or under 1e-6; then K1b (k =
-   500), K2b, K1c, K7 and K8 against their plain versions at the path's
-   n = m = 1,000,000, on those 4,096 rows;
+   500), K2b (k = 1 and 10), K1c, K7 and K8 against their plain versions
+   at the path's n = m = 1,000,000, on those 4,096 rows, and K2b timed
+   beside the exact K2 on the same points at k = 1 and 10;
 7. slice 3: the Laplace kernels K3, K3c and K5 against the float64 plain
    version at the HIGGS shape (on 4,096 rows) and the ragged one, timed;
    path B, Nyström-PCG on ``LaplaceLinOp`` at the HIGGS-100k shape (k = 1,
@@ -45,8 +47,11 @@ straight through and exits non-zero at the first failure:
    (k = 1, k = 10), every logged rel_res against scipy's float64 one, the
    launches of #9 (``csr_spmv``, ``csr_spmm``) against the path's count, the
    sketch's peak memory; #9 against its float64 plain version at the path's
-   shapes and a ragged one, timed beside its plain version and cuSPARSE; a
-   k = 1 solve profiled; then path C', config 2 as written (dense, SRHT);
+   shapes (k = 1 and 10 both ways, the sketch) and on two ragged operands
+   (rows of 0 to 20,000 entries) in every schedule, float32 and float64,
+   the same bits twice, timed beside its plain version and cuSPARSE (the
+   forward SpMV at every lanes value too); a k = 1 solve profiled; then
+   path C', config 2 as written (dense, SRHT);
 9. slice 5, the sharded operators on positions of the one card
    (``make_mesh(devices=[card] * P)``): the pair kernels K4, K4b, K6 against
    float64 (K4b also against its tier's plain version) at k = 1, 3, 16 at a
@@ -182,8 +187,12 @@ TIERS = ("bf16x3", "bfloat16")
 # The least time the card could take (bound_ms): NVIDIA's data sheet of the
 # H100 SXM, dense rates at 700 W: 67 TFLOP/s float32 outside the tensor
 # cores, 34 TFLOP/s float64 outside them, 989 TFLOP/s bf16 on the tensor
-# cores, 3.35 TB/s of HBM. An FMA counts two operations, any other one.
-PEAK = {"fp32": 67e12, "fp64": 34e12, "bf16_tc": 989e12}
+# cores, 3.35 TB/s of HBM. An FMA counts two operations, any other one. The
+# special-function unit (ex2, rsqrt: the float32 exp and sqrt) issues 16
+# results a clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) on 132 SMs at the 1.98 GHz boost
+# clock of the data sheet.
+PEAK = {"fp32": 67e12, "fp64": 34e12, "bf16_tc": 989e12, "sfu": 16 * 132 * 1.98e9}
 HBM_BYTES_PER_S = 3.35e12
 # #9 (csr_spmv, csr_spmm) against the float64 plain version. In float64 a
 # row's sum of L products is off by ~sqrt(L)·2^-53 of its size (1.4e-14 at
@@ -214,13 +223,16 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     of their unit. Per kernel value: a subtraction and an FMA per feature
     (the squared distance) or a subtraction and an add (Laplace's L1), in
     float32 or, for K1c, K3c, K7 and K8, float64 (the lengthscale's
-    division is O((n + m) d) work and not counted), one operation for the
-    exponential; 2k for the contraction. The triangle kernels evaluate each
+    division is O((n + m) d) work and not counted); the exponential, one
+    SFU operation (and one more for the Matérn square root) where the
+    epilogue is float32, one float64 operation in K1c, K3c, K7 and K8; 2k
+    for the contraction. The triangle kernels evaluate each
     of the n^2/2 values of a pair of tiles once and contract it both ways;
     the pair kernels each of the n·m values once, contracted both ways (4k),
     reading V1 (n, k) besides V2 and writing out2 (m, k) besides out1.
     The tiers: the cross term on the tensor cores (2 operations per feature
-    of d, per pass), four float32 operations of epilogue per value, the
+    of d, per pass), three float32 operations and the exponential (SFU) of
+    epilogue per value, the
     contraction in float32 up to 16 columns and on the tensor cores (per
     pass) past that; their points are read as d bf16 parts (two with
     bf16x3) and a float32 norm each. The CSR product (``csr_spmv``,
@@ -242,6 +254,8 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     vk = 4 * (m + n) * k if pair else 0  # the pair's V1 read and out2 written
     per_feature = 2 if kind == "laplace" else 3
     ops = {}
+    if not (kernel in COMP_KERNELS or kernel in F64_KERNELS):
+        ops["sfu"] = values * (2 if kind.startswith("matern") else 1)
     if kernel in COMP_KERNELS or kernel in F64_KERNELS:
         ops["fp64"] = values * (per_feature * d + 1) + contraction
         vb = 8 if kernel in F64_KERNELS else 4
@@ -250,15 +264,45 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     elif kernel in TIER_KERNELS:
         passes = 3 if cd == "bf16x3" else 1
         ops["bf16_tc"] = values * 2 * d * passes + (contraction * passes if k > 16 else 0)
-        ops["fp32"] = values * 4 + (contraction if k <= 16 else 0)
+        ops["fp32"] = values * 3 + (contraction if k <= 16 else 0)
         parts = 2 * d * (2 if passes == 3 else 1) + 4
         nbytes = parts * (n + (0 if sym else m)) + 4 * m * k + 4 * n * k + vk
     else:
-        ops["fp32"] = values * (per_feature * d + 1) + contraction
+        ops["fp32"] = values * per_feature * d + contraction
         nbytes = 4 * (n + (0 if sym else m)) * d + 4 * m * k + 4 * n * k + vk
     t_ops = max(v / PEAK[unit] for unit, v in ops.items())
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_report(log: str, names) -> dict:
+    """Registers and spills of each instantiation of the kernels ``names``,
+    from the build's ``-Xptxas -v`` log: ``{"name<args>": {"registers": R,
+    "spill_stores": bytes, "spill_loads": bytes}}``; the template arguments
+    read from the mangled name (f float, d double, integers)."""
+    report, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            key = None
+            for name in names:
+                at = m.group(1).find(name)
+                if at >= 0:
+                    tail = m.group(1)[at + len(name):].split("EE")[0]
+                    args = [a or b for a, b in re.findall(r"I?([fd])|Li(\d+)E?", tail)]
+                    key = f"{name}<{','.join(args)}>"
+                    report[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            report[key]["spill_stores"] = int(m.group(1))
+            report[key]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[key]["registers"] = int(m.group(1))
+    return report
 
 
 def check(ok: bool, what: str):
@@ -351,6 +395,8 @@ def _kernel_group(name: str) -> str:
     if m is None:
         return "other"
     fn, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
+    if fn == "gram_tier_symmetric":  # K2b: <KIND, PASSES, KC>
+        return "gram_matvec_symmetric_tier"
     # gram_matvec_symmetric<KIND, KC, MODE, PAIR>; the others end in MODE
     triangle = fn == "gram_matvec_symmetric"
     try:
@@ -404,9 +450,12 @@ def one_pass():
         kernel_cuda.column_splits = real
 
 
-def cuda_ms(fn, reps=5, warm=True):
+def cuda_ms(fn, reps=5, warm=True, inner=1):
     """Median of ``reps`` CUDA-event timings of ``fn``, after one warm-up
-    run unless ``warm`` is False (plain versions that take seconds)."""
+    run unless ``warm`` is False (plain versions that take seconds). With
+    ``inner`` > 1 each timing spans that many calls back to back and is
+    divided by it: for calls of a fraction of a millisecond, whose launch
+    alone would otherwise leave the card idle inside the timing."""
     import torch
 
     if warm:
@@ -417,10 +466,11 @@ def cuda_ms(fn, reps=5, warm=True):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -428,7 +478,7 @@ def int_keys(log):
     return sorted(i for i in log if isinstance(i, int))
 
 
-def north_star(dev, profile_run, compare):
+def north_star(dev, profile_run, compare, timings):
     """Config 6 through the entry points a user calls; returns its record.
 
     Everything from the data to the delivered W64 runs inside the counted
@@ -436,7 +486,8 @@ def north_star(dev, profile_run, compare):
     after it launch outside it: a full float64 sweep through K7, an
     independent sampled float64 residual through the plain version, and
     every kernel of the path held against its plain version at the path's
-    shapes (n = m = 1,000,000; ``compare`` records each).
+    shapes (n = m = 1,000,000; ``compare`` records each), and K2b timed at
+    k = 1 and 10 beside the exact K2 on the same points (``timings``).
     """
     import torch
 
@@ -528,8 +579,8 @@ def north_star(dev, profile_run, compare):
     # The path's kernels against their plain versions at its shapes, on
     # the same s rows (a full plain product at n = 1M takes hours): K7's
     # sweep and K8 against the plain float64 rows above; K1b at the
-    # sketch's k = 500 and K2b at the matvec's k = 1 on the bf16x3 parts of
-    # all 1M points; K1c at k = 1.
+    # sketch's k = 500 and K2b at the matvec's k = 1 (and k = 10) on the
+    # bf16x3 parts of all 1M points; K1c at k = 1.
     t0 = time.perf_counter()
     shape = f"config 6 rows {s} of n=m={N6} d={D}"
     compare("gram_matvec_symmetric_f64", KW[idx], Kr, f"{shape} k=1", COMP_BOUND)
@@ -539,7 +590,7 @@ def north_star(dev, profile_run, compare):
     P = tier_operand(X / ls, "bf16x3")
     Pr = TierOperand(P.hi[idx], P.lo[idx], P.sq[idx])
     gen = torch.Generator(device=dev).manual_seed(3)
-    for k in (RANK, 1):
+    for k in (RANK, 1, 10):
         V = torch.randn((N6, k), generator=gen, device=dev)
         ref64 = kernel_plain.gram_matmat_f64("rbf", X[idx], X, V, ls, row_block=256)
         tier_ref = kernel_plain.gram_matmat_tier("rbf", Pr, P, V, row_block=256)
@@ -555,7 +606,23 @@ def north_star(dev, profile_run, compare):
             hi, lo = kernel_cuda.gram_matmat_comp("rbf", X[idx], X, V, ls)
             compare("gram_matmat_comp", hi.double() + lo.double(), ref64,
                     f"{shape} k=1 (hi+lo)", COMP_BOUND)
-        del V, got, tier_ref, ref64
+        del got, tier_ref, ref64
+        if k != RANK:
+            # K2b beside the exact K2 on the same 1M points (3 runs each; the
+            # plain versions take minutes here and are not run)
+            what = f"n={N6} d={D} k={k}"
+            ms = cuda_ms(lambda: kernel_cuda.gram_matvec_symmetric_tier("rbf", P, V), reps=3)
+            k2_ms = cuda_ms(lambda: kernel_cuda.gram_matvec_symmetric("rbf", X, V, ls), reps=3,
+                            warm=False)
+            timings["gram_matvec_symmetric_tier"].append(
+                timing_entry("gram_matvec_symmetric_tier", what + " bf16x3", ms, None, N6, N6,
+                             D, k, "rbf", "bf16x3", k2_ms=k2_ms))
+            timings["gram_matvec_symmetric"].append(
+                timing_entry("gram_matvec_symmetric", what, k2_ms, None, N6, N6, D, k))
+            print(f"time gram_matvec_symmetric_tier {what} bf16x3: kernel {ms:.3f} ms, "
+                  f"K2 {k2_ms:.3f} ms, bound "
+                  f"{timings['gram_matvec_symmetric_tier'][-1]['bound_ms']:.3f} ms")
+        del V
     print(f"config6 kernel checks at the path's shapes: {time.perf_counter() - t0:.3f} s")
     return {
         "n": N6, "wall_s": wall, "data_s": data_s, "phase_walls": sys_.phase_walls,
@@ -948,6 +1015,20 @@ def ragged_csr(seed=21, n_rows=3000, n_cols=700):
     return rng.standard_normal(indptr[-1]), indices, indptr, n_cols
 
 
+def ragged_rows_csr(seed=23, n_cols=5000):
+    """The ragged CSR of the short-row schedule's contract: rows of 0, 1, 15,
+    16, 17, 33, 300 and 20,000 entries, 40 of each in a shuffled order, each
+    row's first column repeated; float64 values."""
+    rng = np.random.default_rng(seed)
+    lengths = np.tile(np.array([0, 1, 15, 16, 17, 33, 300, 20000]), 40)
+    rng.shuffle(lengths)
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    indices = rng.integers(0, n_cols, indptr[-1]).astype(np.int32)
+    starts = indptr[:-1][lengths >= 2]
+    indices[starts + 1] = indices[starts]
+    return rng.standard_normal(indptr[-1]), indices, indptr, n_cols
+
+
 def library_csr(values, indptr, indices, n_rows, n_cols):
     """The yardstick: torch's CSR tensor on the card, whose product with a
     dense operand is cuSPARSE's. Timed beside #9 here; the port never calls
@@ -957,13 +1038,38 @@ def library_csr(values, indptr, indices, n_rows, n_cols):
     return torch.sparse_csr_tensor(indptr.int(), indices, values, (n_rows, n_cols))
 
 
+# The schedules of #9 at k <= 16 (kernel_cuda.spmm_lanes): lanes a row, or
+# a block of 256 threads a row.
+CSR_SCHEDULES = (2, 4, 8, 16, 32, 256)
+# Calls of #9 and of cuSPARSE per timing (cuda_ms's inner): path S's SpMV
+# takes ~0.1 ms, about what one call's host side takes.
+CSR_INNER = 20
+
+
+@contextlib.contextmanager
+def csr_lanes(lanes):
+    """#9 takes ``lanes`` threads a row inside (k <= 16)."""
+    from rlaopt_tpu_torch.ops import kernel_cuda
+
+    real = kernel_cuda.spmm_lanes
+    kernel_cuda.spmm_lanes = lambda *a: lanes
+    try:
+        yield
+    finally:
+        kernel_cuda.spmm_lanes = real
+
+
 def sparse_kernels(dev, A, compare, timings):
     """#9 against the float64 plain version on path S's operand A (its CSR
     and the cached CSR of Aᵀ), on random right-hand sides: the forward and
     adjoint SpMV, the SpMM at k = 10 both ways, the adjoint SpMM at the
-    sketch's k = 4,096 (checked on 256 columns), and the ragged CSR in both
-    schedules; two launches give the same bits. Each path shape timed
-    (median of 5): kernel, plain version (float32) and cuSPARSE."""
+    sketch's k = 4,096 (checked on 256 columns); the ragged CSR of the card
+    tests and the ragged-rows CSR (rows of 0 to 20,000 entries) in every
+    schedule of k <= 16, float32 and float64; two launches give the same
+    bits in both types. Each path shape and each ragged operand (at the
+    schedule the wrapper picks) timed (median of 5, each over CSR_INNER
+    calls for the kernel and cuSPARSE): kernel, plain version (float32) and
+    cuSPARSE; the forward SpMV also at every lanes value."""
     import torch
 
     from rlaopt_tpu_torch.ops import kernel_cuda
@@ -973,30 +1079,41 @@ def sparse_kernels(dev, A, compare, timings):
     adj = A.T._csr_buffers()
     gen = torch.Generator(device=dev).manual_seed(31)
 
-    def case(kernel, bufs, n_rows, n_cols, X, what, cols=None):
+    def same_bits(fn, args, what):
+        got = fn(*args)
+        again = fn(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{what}: two launches give the same bits")
+        return got
+
+    def case(kernel, bufs, n_rows, n_cols, X, what, cols=None, lanes=()):
         values, indices, indptr = bufs
         fn = getattr(kernel_cuda, kernel)
         v64 = values.double()
         Xc = X if cols is None else X[:, :cols].contiguous()
         ref = sops._plain(v64, indptr, indices, Xc.double(), n_rows, False)
-        got = fn(values, indptr, indices, X, n_rows)
-        again = fn(values, indptr, indices, X, n_rows)
-        torch.cuda.synchronize()
-        check(torch.equal(got, again), f"{kernel} {what}: two launches give the same bits")
+        got = same_bits(fn, (values, indptr, indices, X, n_rows), f"{kernel} {what} float32")
         compare(kernel, got if cols is None else got[:, :cols], ref, f"{what} float32",
                 CSR_F32_BOUND)
-        compare(kernel, fn(v64, indptr, indices, Xc.double(), n_rows), ref,
-                f"{what} float64", CSR_F64_BOUND)
-        del ref, again
+        got = same_bits(fn, (v64, indptr, indices, Xc.double(), n_rows),
+                        f"{kernel} {what} float64")
+        compare(kernel, got, ref, f"{what} float64", CSR_F64_BOUND)
+        del ref, got
         lib = library_csr(values, indptr, indices, n_rows, n_cols)
-        ms = cuda_ms(lambda: fn(values, indptr, indices, X, n_rows))
+        ms = cuda_ms(lambda: fn(values, indptr, indices, X, n_rows), inner=CSR_INNER)
         p_ms = cuda_ms(lambda: sops._plain(values, indptr, indices, X, n_rows, False))
-        l_ms = cuda_ms(lambda: lib @ X)
+        l_ms = cuda_ms(lambda: lib @ X, inner=CSR_INNER)
         entry = timing_entry(kernel, what, ms, p_ms, n_rows, n_cols, 0, X.shape[1],
-                             cd="float32", nnz=values.numel(), library_ms=l_ms)
+                             cd="float32", nnz=values.numel(), library_ms=l_ms,
+                             lanes=kernel_cuda.spmm_lanes(n_rows, values.numel(), X.shape[1]))
+        for L in lanes:
+            with csr_lanes(L):
+                entry.setdefault("ms_by_lanes", {})[L] = cuda_ms(
+                    lambda: fn(values, indptr, indices, X, n_rows), inner=CSR_INNER)
         timings.setdefault(kernel, []).append(entry)
-        print(f"time {kernel} {what}: kernel {ms:.3f} ms, plain {p_ms:.3f} ms, "
-              f"cuSPARSE {l_ms:.3f} ms, bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+        print(f"time {kernel} {what}: kernel {ms:.4f} ms (lanes {entry['lanes']}), plain "
+              f"{p_ms:.3f} ms, cuSPARSE {l_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']})" + (f", by lanes {entry['ms_by_lanes']}" if lanes else ""))
 
     shape = f"n={S_ROWS} m={S_COLS} nnz={A.nnz}"
     t0 = time.perf_counter()
@@ -1007,46 +1124,50 @@ def sparse_kernels(dev, A, compare, timings):
     del X
     torch.cuda.empty_cache()
     case("csr_spmv", fwd, S_ROWS, S_COLS, torch.randn((S_COLS, 1), generator=gen, device=dev),
-         f"forward {shape} k=1")
+         f"forward {shape} k=1", lanes=CSR_SCHEDULES[:-1])
     case("csr_spmv", adj, S_COLS, S_ROWS, torch.randn((S_ROWS, 1), generator=gen, device=dev),
          f"adjoint {shape} k=1")
     case("csr_spmm", fwd, S_ROWS, S_COLS, torch.randn((S_COLS, 10), generator=gen, device=dev),
-         f"forward {shape} k=10")
+         f"forward {shape} k=10", lanes=CSR_SCHEDULES[:-1])
     case("csr_spmm", adj, S_COLS, S_ROWS, torch.randn((S_ROWS, 10), generator=gen, device=dev),
          f"adjoint {shape} k=10")
 
-    # the ragged CSR, both schedules of k <= 16 (a warp or a block a row)
-    values, indices, indptr, n_cols = ragged_csr()
-    n_rows = len(indptr) - 1
-    v64 = torch.from_numpy(values).to(dev)
-    p, c = torch.from_numpy(indptr).to(dev), torch.from_numpy(indices).to(dev)
-    real = kernel_cuda.spmm_block_rows
-    try:
-        for block in (False, True):
-            kernel_cuda.spmm_block_rows = lambda *a, block=block: block
-            for k in (1, 10, 300):
-                kernel = "csr_spmv" if k == 1 else "csr_spmm"
-                fn = getattr(kernel_cuda, kernel)
-                X = torch.randn((n_cols, k), generator=gen, device=dev, dtype=torch.float64)
-                ref = sops._plain(v64, p, c, X, n_rows, False)
-                what = f"ragged n={n_rows} m={n_cols} k={k} {'block' if block else 'warp'} rows"
-                v32, X32 = v64.float(), X.float()
-                got = fn(v32, p, c, X32, n_rows)
-                check(torch.equal(got, fn(v32, p, c, X32, n_rows)),
-                      f"{kernel} {what}: two launches give the same bits")
-                compare(kernel, got, ref, what + " float32", CSR_F32_BOUND)
-                compare(kernel, fn(v64, p, c, X, n_rows), ref, what + " float64", CSR_F64_BOUND)
-                lib = library_csr(v32, p, c, n_rows, n_cols)
-                entry = timing_entry(
-                    kernel, what, cuda_ms(lambda: fn(v32, p, c, X32, n_rows)),
-                    cuda_ms(lambda: sops._plain(v32, p, c, X32, n_rows, False)), n_rows,
-                    n_cols, 0, k, cd="float32", nnz=v32.numel(),
-                    library_ms=cuda_ms(lambda: lib @ X32))
-                timings[kernel].append(entry)
-                print(f"time {kernel} {what}: kernel {entry['ms']:.3f} ms, plain "
-                      f"{entry['plain_ms']:.3f} ms, cuSPARSE {entry['library_ms']:.3f} ms")
-    finally:
-        kernel_cuda.spmm_block_rows = real
+    # the ragged operands: every schedule of k <= 16 checked, the wrapper's
+    # own timed; past k = 16 the wide schedule
+    for name, operand in (("ragged", ragged_csr()), ("ragged rows", ragged_rows_csr())):
+        values, indices, indptr, n_cols = operand
+        n_rows = len(indptr) - 1
+        v64 = torch.from_numpy(values).to(dev)
+        p, c = torch.from_numpy(indptr).to(dev), torch.from_numpy(indices).to(dev)
+        empty = torch.from_numpy(np.diff(indptr) == 0).to(dev)
+        for k in (1, 3, 10, 300):
+            kernel = "csr_spmv" if k == 1 else "csr_spmm"
+            fn = getattr(kernel_cuda, kernel)
+            X = torch.randn((n_cols, k), generator=gen, device=dev, dtype=torch.float64)
+            ref = sops._plain(v64, p, c, X, n_rows, False)
+            what = f"{name} n={n_rows} m={n_cols} nnz={v64.numel()} k={k}"
+            for lanes in (CSR_SCHEDULES if k <= 16 else (None,)):
+                with contextlib.nullcontext() if lanes is None else csr_lanes(lanes):
+                    sched = what + ("" if lanes is None else f" lanes={lanes}")
+                    for dtype, bound in ((torch.float32, CSR_F32_BOUND),
+                                         (torch.float64, CSR_F64_BOUND)):
+                        tag = f"{sched} {str(dtype)[6:]}"
+                        got = same_bits(fn, (v64.to(dtype), p, c, X.to(dtype), n_rows),
+                                        f"{kernel} {tag}")
+                        compare(kernel, got, ref, tag, bound)
+                        check(bool(torch.all(got[empty] == 0)), f"{kernel} {tag}: empty rows 0")
+            v32, X32 = v64.float(), X.float()
+            lib = library_csr(v32, p, c, n_rows, n_cols)
+            entry = timing_entry(
+                kernel, what, cuda_ms(lambda: fn(v32, p, c, X32, n_rows), inner=CSR_INNER),
+                cuda_ms(lambda: sops._plain(v32, p, c, X32, n_rows, False)), n_rows,
+                n_cols, 0, k, cd="float32", nnz=v32.numel(),
+                library_ms=cuda_ms(lambda: lib @ X32, inner=CSR_INNER),
+                lanes=kernel_cuda.spmm_lanes(n_rows, v32.numel(), k))
+            timings[kernel].append(entry)
+            print(f"time {kernel} {what}: kernel {entry['ms']:.4f} ms (lanes "
+                  f"{entry['lanes']}), plain {entry['plain_ms']:.3f} ms, cuSPARSE "
+                  f"{entry['library_ms']:.4f} ms")
     print(f"slice4 kernel checks and times: {time.perf_counter() - t0:.3f} s")
 
 
@@ -1643,6 +1764,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = kernel_cuda.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
+    # the kernels this slice redesigned: K2b and #9's short-row schedule
+    registers = ptxas_report(lib.with_suffix(".log").read_text(),
+                             ("gram_tier_symmetric", "csr_spmm_lanes"))
+    print("registers " + json.dumps(registers))
+    check(len(registers) > 0 and all("registers" in r for r in registers.values()),
+          "the build log reports the registers of K2b and #9's short-row kernel")
 
     # 3. each kernel against its plain version
     Xn, yn = synthetic_higgs(N)
@@ -1977,7 +2104,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. slice 2, config 6: the n = 1M north star, counted and profiled
-    ns = north_star(dev, profiled, compare)
+    ns = north_star(dev, profiled, compare, timings)
     print("config6 " + json.dumps(ns))
     print(f"phase: config 6 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2056,6 +2183,11 @@ def main() -> int:
         })
         if vs_f64:
             kernels[-1]["max_rel_err_vs_float64"] = max(e[1] for e in vs_f64)
+        mine = {key: r for key, r in registers.items()
+                if key.startswith("gram_tier_symmetric" if kname.endswith("symmetric_tier")
+                                  else "csr_spmm_lanes" if kname.startswith("csr") else "-")}
+        if mine:
+            kernels[-1]["registers"] = mine
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -24,10 +24,12 @@ def _create_kernel_classes(kernel_name: str, kind: str) -> Tuple[type, type]:
         A1: torch.Tensor,
         A2: torch.Tensor,
         kernel_config: KernelConfig,
+        impl: str = "auto",
         compute_dtype=None,
     ):
         KernelLinOp.__init__(
-            self, A1, A2, kernel_config, kind=kind, compute_dtype=compute_dtype
+            self, A1, A2, kernel_config, kind=kind, impl=impl,
+            compute_dtype=compute_dtype,
         )
 
     single = type(
@@ -46,13 +48,14 @@ def _create_kernel_classes(kernel_name: str, kind: str) -> Tuple[type, type]:
         kernel_config: KernelConfig,
         mesh=None,
         axis="i",
+        impl: str = "auto",
         use_full_kernel: bool = True,
         memory_mode: str = "replicated",
         compute_dtype=None,
     ):
         ShardedKernelLinOp.__init__(
             self, A1, A2, kernel_config, kind=kind, mesh=mesh, axis=axis,
-            use_full_kernel=use_full_kernel, memory_mode=memory_mode,
+            impl=impl, use_full_kernel=use_full_kernel, memory_mode=memory_mode,
             compute_dtype=compute_dtype,
         )
 

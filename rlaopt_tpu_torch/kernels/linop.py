@@ -18,6 +18,7 @@ from .configs import KernelConfig, _is_kernel_config
 from .functions import kernel_tile, scale_inputs
 from ..linops.base import TwoSidedLinOp
 from ..ops.kernel_dispatch import (
+    check_impl,
     kernel_matmat,
     kernel_matmat_compensated,
     kernel_matmat_tier,
@@ -32,6 +33,10 @@ __all__ = ["KernelLinOp"]
 class KernelLinOp(TwoSidedLinOp):
     """Matrix-free Gram operator K[i,j] = c·k(A1[i], A2[j]).
 
+    ``impl``: ``"auto"`` (the CUDA kernels for CUDA tensors, the plain
+    versions for CPU tensors), ``"xla"`` (the plain PyTorch versions on any
+    device) or ``"pallas"`` (the CUDA kernels; raises on CPU tensors), the
+    JAX package's names (:func:`~rlaopt_tpu_torch.ops.kernel_dispatch.check_impl`).
     ``compute_dtype``: None (exact f32 tier), ``"bf16x3"`` or
     ``"bfloat16"`` (any spelling :func:`normalize_compute_dtype` takes). The
     tiers apply to float32 points of the squared-distance families; float64
@@ -45,6 +50,7 @@ class KernelLinOp(TwoSidedLinOp):
         A2: torch.Tensor,
         kernel_config: KernelConfig,
         kind: str,
+        impl: str = "auto",
         compute_dtype=None,
         _tier=None,
     ):
@@ -53,6 +59,7 @@ class KernelLinOp(TwoSidedLinOp):
         self._check_inputs(A1, A2, kernel_config)
         compute_dtype = normalize_compute_dtype(compute_dtype)
         self.kind = kind
+        self.impl = check_impl(impl)
         self.compute_dtype = compute_dtype
         self._kernel_config = kernel_config
         self._X1, self._X2 = A1, A2
@@ -72,18 +79,18 @@ class KernelLinOp(TwoSidedLinOp):
         def mv(v):
             if self._tier is not None:
                 P1, P2 = self._tier
-                return kernel_matmat_tier(kind, P1, P2, v, self._c, symmetric)
+                return kernel_matmat_tier(kind, P1, P2, v, self._c, symmetric, impl)
             return kernel_matmat(
-                kind, A1, A2, v, self._ls, self._c, symmetric=symmetric
+                kind, A1, A2, v, self._ls, self._c, symmetric=symmetric, impl=impl
             )
 
         def rmv(v):
             # k is symmetric in its arguments: Kᵀ = k(X2, X1)
             if self._tier is not None:
                 P1, P2 = self._tier
-                return kernel_matmat_tier(kind, P2, P1, v, self._c, symmetric)
+                return kernel_matmat_tier(kind, P2, P1, v, self._c, symmetric, impl)
             return kernel_matmat(
-                kind, A2, A1, v, self._ls, self._c, symmetric=symmetric
+                kind, A2, A1, v, self._ls, self._c, symmetric=symmetric, impl=impl
             )
 
         super().__init__(
@@ -142,7 +149,7 @@ class KernelLinOp(TwoSidedLinOp):
         kernel values and each column tile's partial are taken in float64.
         """
         hi, lo = kernel_matmat_compensated(
-            self.kind, self._X1, self._X2, V, self._ls64, self._c
+            self.kind, self._X1, self._X2, V, self._ls64, self._c, impl=self.impl
         )
         return self._apply_scale(hi), self._apply_scale(lo)
 
@@ -163,7 +170,8 @@ class KernelLinOp(TwoSidedLinOp):
                 P2 if idx2 is None else P2.rows(idx2),
             )
         return KernelLinOp(
-            A1, A2, self._kernel_config, self.kind, self.compute_dtype, _tier=tier
+            A1, A2, self._kernel_config, self.kind, self.impl, self.compute_dtype,
+            _tier=tier,
         )
 
     def row_oracle(self, blk: torch.Tensor) -> "KernelLinOp":

@@ -54,6 +54,7 @@ from .configs import KernelConfig, _is_kernel_config
 from .functions import scale_inputs
 from ..linops.sharded import ShardedLinOp, _axes
 from ..ops.kernel_dispatch import (
+    check_impl,
     kernel_matmat,
     kernel_matmat_compensated,
     kernel_matmat_f64,
@@ -111,6 +112,7 @@ class ShardedKernelLinOp(ShardedLinOp):
         kind: str,
         mesh=None,
         axis="i",
+        impl: str = "auto",
         use_full_kernel: bool = True,
         memory_mode: str = "replicated",
         compute_dtype=None,
@@ -118,8 +120,10 @@ class ShardedKernelLinOp(ShardedLinOp):
         """``memory_mode``: ``"replicated"`` (A2 also kept whole at every
         position) or ``"ring"`` (nothing replicated). ``mesh`` defaults to
         :func:`~rlaopt_tpu_torch.parallel.make_mesh` over every CUDA
-        device."""
+        device. ``impl``: as :class:`~rlaopt_tpu_torch.kernels.linop.
+        KernelLinOp`'s, for every local product."""
         self._check_inputs(A1, A2, kernel_config)
+        self.impl = check_impl(impl)
         if memory_mode not in ("replicated", "ring"):
             raise ValueError(f"unknown memory_mode {memory_mode!r}")
         if mesh is None:
@@ -262,14 +266,15 @@ class ShardedKernelLinOp(ShardedLinOp):
     def _gram(self, L: _Points, R: _Points, V, ls, symmetric: bool = False):
         """``c·k(L, R) @ V`` on the operator's tier."""
         if L.T is not None:
-            return kernel_matmat_tier(self.kind, L.T, R.T, V, self._c, symmetric)
-        return kernel_matmat(self.kind, L.X, R.X, V, ls, self._c, symmetric=symmetric)
+            return kernel_matmat_tier(self.kind, L.T, R.T, V, self._c, symmetric, self.impl)
+        return kernel_matmat(self.kind, L.X, R.X, V, ls, self._c, symmetric=symmetric,
+                             impl=self.impl)
 
     def _pair(self, L: _Points, R: _Points, V2, V1, ls):
         """``(c·K @ V2, c·Kᵀ @ V1)`` with K = k(L, R) on the operator's tier."""
         if L.T is not None:
-            return kernel_pair_tier(self.kind, L.T, R.T, V2, V1, self._c)
-        return kernel_pair(self.kind, L.X, R.X, V2, V1, ls, self._c)
+            return kernel_pair_tier(self.kind, L.T, R.T, V2, V1, self._c, self.impl)
+        return kernel_pair(self.kind, L.X, R.X, V2, V1, ls, self._c, self.impl)
 
     # -- ring schedules ------------------------------------------------------
     def _sweep(self, rotating, stationary, visit):
@@ -404,7 +409,7 @@ class ShardedKernelLinOp(ShardedLinOp):
         if self.memory_mode == "replicated":
             parts = [
                 kernel_matmat_compensated(kind, d["X1"].X, d["X2r"].X, move(Vm, dev),
-                                          d["ls64"], c)
+                                          d["ls64"], c, impl=self.impl)
                 for d, dev in zip(self._data, self.mesh.devices)
             ]
         else:
@@ -413,7 +418,8 @@ class ShardedKernelLinOp(ShardedLinOp):
             def visit(p, moving, acc):
                 x2s, vs = moving
                 h, lo = kernel_matmat_compensated(
-                    kind, self._data[p]["X1"].X, x2s.X, vs, self._data[p]["ls64"], c
+                    kind, self._data[p]["X1"].X, x2s.X, vs, self._data[p]["ls64"], c,
+                    impl=self.impl,
                 )
                 if acc is None:
                     return moving, (h, lo)

@@ -3,9 +3,9 @@
 Port of the butterfly half of ``rlaopt_tpu/ops/fwht.py``. The JAX package's
 ``fwht`` takes a Kronecker-factor form (two dense contractions with small
 Hadamard matrices) to run on the TPU's matrix unit; that is a TPU trade-off
-and is not carried over. Here ``fwht`` is the classical ``log2(p)``
-reshape/add ladder in plain tensor ops, in Sylvester order: it matches
-``hadamard_matrix(p) @ x`` exactly on integers.
+and is not carried over. Here ``fwht`` runs :func:`fwht_butterfly`, the
+classical ``log2(p)`` reshape/add ladder in plain tensor ops, in Sylvester
+order: it matches ``hadamard_matrix(p) @ x`` exactly on integers.
 """
 
 import functools
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 
-__all__ = ["fwht", "hadamard_matrix", "next_pow2"]
+__all__ = ["fwht", "fwht_butterfly", "hadamard_matrix", "next_pow2"]
 
 
 def next_pow2(n: int) -> int:
@@ -40,9 +40,9 @@ def hadamard_matrix(p: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
     return torch.as_tensor(_hadamard_np(p), dtype=dtype, device=device)
 
 
-def fwht(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
-    """Unnormalized Walsh–Hadamard transform along ``axis`` (length a power
-    of 2): ``log2(p)`` butterfly stages, each one pass over x."""
+def fwht_butterfly(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Unnormalized WHT along ``axis`` (length a power of 2) via the
+    classical butterfly ladder: ``log2(p)`` stages, each one pass over x."""
     x = torch.movedim(x, axis, 0)
     n = x.shape[0]
     if n & (n - 1):
@@ -55,3 +55,9 @@ def fwht(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
         x = torch.stack([a + b, a - b], dim=1).reshape(n, *rest)
         h *= 2
     return torch.movedim(x, 0, axis)
+
+
+def fwht(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Unnormalized Walsh–Hadamard transform along ``axis`` (length a power
+    of 2): :func:`fwht_butterfly`."""
+    return fwht_butterfly(x, axis)

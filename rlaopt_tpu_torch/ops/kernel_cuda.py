@@ -54,7 +54,7 @@ __all__ = [
     "csr_spmv",
     "csr_spmm",
     "column_splits",
-    "spmm_block_rows",
+    "spmm_lanes",
     "launch_counts",
     "reset_launch_counts",
     "KIND_CODES",
@@ -75,6 +75,11 @@ KIND_CODES = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3, "laplace": 
 SYMMETRIC_MAX_K = 16
 # csrc/spmv.cu keeps up to 16 right-hand sides of a row in registers.
 CSR_NARROW_MAX_K = 16
+# Its short-row schedule: L lanes a row, L a power of two in [2, 32], about
+# this many entries a lane; from this mean row length on a block of
+# CSR_BLOCK_ROW threads takes a row (the C interface's lanes value 256).
+CSR_ENTRIES_PER_LANE = 4
+CSR_BLOCK_ROW = 256
 
 _lock = threading.Lock()
 _lib = {"handle": None, "path": None}
@@ -112,7 +117,9 @@ _SIGNATURES = {
         _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_laplace_pair": [_vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
-    "rl_csr_spmm": [_ci, _vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, _ci, _ci, _vp],
+    "rl_csr_spmm": [
+        _ci, _vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, ctypes.c_longlong, _ci, _ci, _vp,
+    ],
 }
 
 
@@ -582,12 +589,22 @@ def laplace_pair(X1, X2, V2, V1, lengthscale, const_scaling=1.0):
     return out
 
 
-def spmm_block_rows(n_rows: int, nnz: int, k: int) -> bool:
-    """Whether the CSR kernel gives each row a block of 256 threads (k ≤ 16
-    and rows of 256 entries or more on average, where a warp would walk a
-    row in 8 passes or more); otherwise a warp takes a row (k ≤ 16) or a
-    row's column tile (k > 16)."""
-    return k <= CSR_NARROW_MAX_K and nnz >= 256 * max(n_rows, 1)
+def spmm_lanes(n_rows: int, nnz: int, k: int) -> int:
+    """Threads of the CSR kernel on one row at k ≤ 16, from the mean row
+    length: ``CSR_BLOCK_ROW`` (a block of 256) for rows of 256 entries or
+    more on average, else L lanes of a warp, the power of two in [2, 32]
+    nearest above ``mean / CSR_ENTRIES_PER_LANE`` (16-entry rows take 4
+    lanes, 8 rows a warp). Past k = 16 the kernel gives a warp to each
+    (row, column tile), and the value is not read (32 is returned)."""
+    if k > CSR_NARROW_MAX_K:
+        return 32
+    if nnz >= CSR_BLOCK_ROW * max(n_rows, 1):
+        return CSR_BLOCK_ROW
+    want = -(-nnz // (CSR_ENTRIES_PER_LANE * max(n_rows, 1)))
+    lanes = 2
+    while lanes < 32 and lanes < want:
+        lanes *= 2
+    return lanes
 
 
 def _csr_launch(values, indptr, indices, X, n_rows: int) -> torch.Tensor:
@@ -625,8 +642,8 @@ def _csr_launch(values, indptr, indices, X, n_rows: int) -> torch.Tensor:
         err = _lib["handle"].rl_csr_spmm(
             0 if values.dtype == torch.float32 else 1, indptr.data_ptr(),
             indices.data_ptr(), values.data_ptr(), X2.data_ptr(), out.data_ptr(),
-            int(n_rows), int(k), int(spmm_block_rows(n_rows, values.numel(), k)),
-            _stream(X2),
+            int(n_rows), int(values.numel()), int(k),
+            int(spmm_lanes(n_rows, values.numel(), k)), _stream(X2),
         )
     _raise_on(err, "csr_spmm")
     return out

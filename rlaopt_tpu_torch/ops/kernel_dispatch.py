@@ -1,10 +1,13 @@
 """Routing of the streaming kernel matmat to a kernel or its plain version.
 
-Port of ``rlaopt_tpu/ops/kernel_dispatch.py``. The rule is the tensor's
-device and nothing else: CPU tensors go to the plain PyTorch versions
-(:mod:`rlaopt_tpu_torch.ops.kernel_plain`); CUDA tensors go to the CUDA
-kernels (:mod:`rlaopt_tpu_torch.ops.kernel_cuda`), which raise on what they
-cannot take. A CUDA tensor never falls back to the plain version.
+Port of ``rlaopt_tpu/ops/kernel_dispatch.py``. The rule (``impl="auto"``)
+is the tensor's device and nothing else: CPU tensors go to the plain
+PyTorch versions (:mod:`rlaopt_tpu_torch.ops.kernel_plain`); CUDA tensors go
+to the CUDA kernels (:mod:`rlaopt_tpu_torch.ops.kernel_cuda`), which raise
+on what they cannot take. A CUDA tensor never falls back to the plain
+version. The caller may ask otherwise, as in the JAX package: ``impl="xla"``
+takes the plain version on any device, ``impl="pallas"`` the CUDA kernel
+(and raises on a CPU tensor); any other value raises ``ValueError``.
 
 Which kernel, on a card:
 
@@ -33,6 +36,7 @@ from .kernel_tiers import TierOperand
 
 
 __all__ = [
+    "check_impl",
     "kernel_matmat",
     "kernel_matmat_tier",
     "kernel_matmat_compensated",
@@ -40,6 +44,27 @@ __all__ = [
     "kernel_pair",
     "kernel_pair_tier",
 ]
+
+
+IMPLS = ("auto", "pallas", "xla")
+
+
+def check_impl(impl: str) -> str:
+    """``impl`` if it is one of :data:`IMPLS`; ``ValueError`` otherwise."""
+    if impl not in IMPLS:
+        raise ValueError(f"Unknown kernel impl {impl!r}")
+    return impl
+
+
+def _on_card(impl: str, t: torch.Tensor) -> bool:
+    """Whether ``impl`` sends operands like ``t`` to the CUDA kernels."""
+    if check_impl(impl) == "auto":
+        return t.is_cuda
+    if impl == "pallas" and not t.is_cuda:
+        raise ValueError(
+            f"impl='pallas' asks for the CUDA kernels; the operands lie on {t.device}"
+        )
+    return impl == "pallas"
 
 
 def kernel_matmat(
@@ -50,6 +75,7 @@ def kernel_matmat(
     lengthscale,
     const_scaling=1.0,
     symmetric: bool = False,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """``c·k(X1, X2) @ V`` on the exact tier, on the device of the operands.
 
@@ -57,7 +83,7 @@ def kernel_matmat(
     operator checks object identity when it is built). The bf16 tiers go
     through :func:`kernel_matmat_tier`.
     """
-    if not X1.is_cuda:
+    if not _on_card(impl, X1):
         if X1.dtype == torch.float64:
             return kernel_plain.gram_matmat_f64(
                 kind, X1, X2, V, lengthscale, const_scaling
@@ -83,13 +109,14 @@ def kernel_matmat_tier(
     V: torch.Tensor,
     const_scaling=1.0,
     symmetric: bool = False,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """``c·k(X1, X2) @ V`` on a bf16 tier from the parts of X1 (A) and X2
     (B), on their device: K2b when ``symmetric`` and k ≤ 16, K1b otherwise,
     the plain versions of the tier on the CPU."""
     k = 1 if V.ndim == 1 else V.shape[1]
     triangle = symmetric and k <= kernel_cuda.SYMMETRIC_MAX_K
-    if not A.hi.is_cuda:
+    if not _on_card(impl, A.hi):
         if triangle:
             return kernel_plain.gram_matvec_symmetric_tier(kind, A, V, const_scaling)
         return kernel_plain.gram_matmat_tier(kind, A, B, V, const_scaling)
@@ -105,10 +132,11 @@ def kernel_matmat_compensated(
     V: torch.Tensor,
     lengthscale,
     const_scaling=1.0,
+    impl: str = "auto",
 ):
     """``c·k(X1, X2) @ V`` as a compensated ``(hi, lo)`` pair (add ``lo``
     last), on the device of the operands."""
-    if not X1.is_cuda:
+    if not _on_card(impl, X1):
         return kernel_plain.gram_matmat_comp(
             kind, X1, X2, V, lengthscale, const_scaling
         )
@@ -148,6 +176,7 @@ def kernel_pair(
     V1: torch.Tensor,
     lengthscale,
     const_scaling=1.0,
+    impl: str = "auto",
 ):
     """``(c·K @ V2, c·Kᵀ @ V1)`` with ``K = k(X1, X2)``, on the exact tier, on
     the device of the operands: K evaluated once for k ≤ 16 (K4, or K6 for
@@ -158,10 +187,10 @@ def kernel_pair(
     k = 1 if V2.ndim == 1 else V2.shape[1]
     if k > kernel_cuda.SYMMETRIC_MAX_K:
         return (
-            kernel_matmat(kind, X1, X2, V2, lengthscale, const_scaling),
-            kernel_matmat(kind, X2, X1, V1, lengthscale, const_scaling),
+            kernel_matmat(kind, X1, X2, V2, lengthscale, const_scaling, impl=impl),
+            kernel_matmat(kind, X2, X1, V1, lengthscale, const_scaling, impl=impl),
         )
-    if not X1.is_cuda:
+    if not _on_card(impl, X1):
         return kernel_plain.gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling)
     if kind == "laplace":
         return kernel_cuda.laplace_pair(X1, X2, V2, V1, lengthscale, const_scaling)
@@ -175,6 +204,7 @@ def kernel_pair_tier(
     V2: torch.Tensor,
     V1: torch.Tensor,
     const_scaling=1.0,
+    impl: str = "auto",
 ):
     """:func:`kernel_pair` on a bf16 tier from the parts of X1 (A) and X2 (B):
     K4b for k ≤ 16 on a card (the plain tier pair on the CPU), two K1b calls
@@ -182,9 +212,9 @@ def kernel_pair_tier(
     k = 1 if V2.ndim == 1 else V2.shape[1]
     if k > kernel_cuda.SYMMETRIC_MAX_K:
         return (
-            kernel_matmat_tier(kind, A, B, V2, const_scaling),
-            kernel_matmat_tier(kind, B, A, V1, const_scaling),
+            kernel_matmat_tier(kind, A, B, V2, const_scaling, impl=impl),
+            kernel_matmat_tier(kind, B, A, V1, const_scaling, impl=impl),
         )
-    if not A.hi.is_cuda:
+    if not _on_card(impl, A.hi):
         return kernel_plain.gram_pair_tier(kind, A, B, V2, V1, const_scaling)
     return kernel_cuda.gram_pair_tier(kind, A, B, V2, V1, const_scaling)

@@ -140,16 +140,31 @@ def move(obj, device: torch.device):
     return obj
 
 
-def shard_rows(x: torch.Tensor, mesh: Mesh) -> list:
-    """``x`` cut into ``mesh.size`` equal row blocks, each on its position's
-    device (pad first with :func:`pad_to_multiple` if the rows do not
-    divide)."""
-    if x.shape[0] % mesh.size:
+def shard_rows(x: torch.Tensor, mesh: Mesh, axis="i") -> list:
+    """``x`` with its rows cut over the mesh axis ``axis`` (a name, or a
+    tuple of names taken major to minor) and replicated over the others, as
+    ``jax.device_put(x, NamedSharding(mesh, P(axis, None, ...)))``: one
+    tensor per position, on its device. The rows must divide by the axis's
+    size (pad first with :func:`pad_to_multiple`)."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    for a in axes:
+        if a not in mesh.axis_names:
+            raise ValueError(f"axis {a!r} is not an axis of {mesh}")
+    blocks = _prod(mesh.shape[a] for a in axes)
+    if x.shape[0] % blocks:
         raise ValueError(
-            f"{x.shape[0]} rows do not divide over {mesh.size} positions; "
-            "pad_to_multiple first"
+            f"{x.shape[0]} rows do not divide over {blocks} positions of axis "
+            f"{axis!r}; pad_to_multiple first"
         )
-    return [move(c, d) for c, d in zip(x.chunk(mesh.size, dim=0), mesh.devices)]
+    chunks = x.chunk(blocks, dim=0)
+    out = []
+    for p, dev in enumerate(mesh.devices):
+        b = 0
+        for a in axes:
+            i = mesh.axis_names.index(a)
+            b = b * mesh.grid[i] + (p // _prod(mesh.grid[i + 1:])) % mesh.grid[i]
+        out.append(move(chunks[b], dev))
+    return out
 
 
 def replicate(x, mesh: Mesh) -> list:

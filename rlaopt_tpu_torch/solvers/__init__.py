@@ -6,6 +6,7 @@ from .configs import (  # noqa: F401
     SAPAccelConfig,
     SAPConfig,
     SolverConfig,
+    _get_solver_name,
     _is_solver_config,
 )
 from .solver import Solver  # noqa: F401
@@ -21,6 +22,9 @@ __all__ = [
     "SAPConfig",
     "SAPAccelConfig",
     "LSQRConfig",
+    "_is_solver_config",
+    "_get_solver_name",
+    "_get_solver",
     "PCG",
     "PCGState",
     "pcg_init",

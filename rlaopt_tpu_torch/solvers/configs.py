@@ -22,7 +22,9 @@ __all__ = [
     "PCGConfig",
     "SAPConfig",
     "LSQRConfig",
+    "CONFIG_TO_NAME",
     "_is_solver_config",
+    "_get_solver_name",
 ]
 
 
@@ -172,3 +174,16 @@ def _is_solver_config(param: Any, param_name: str):
             f"{param_name} is of type {type(param).__name__}, "
             "but expected type SolverConfig"
         )
+
+
+CONFIG_TO_NAME = {
+    PCGConfig: "pcg",
+    SAPConfig: "sap",
+    LSQRConfig: "lsqr",
+}
+
+
+def _get_solver_name(solver_config: SolverConfig) -> str:
+    """The solver's name for its config class (None for any other class,
+    subclasses included, as in the JAX package)."""
+    return CONFIG_TO_NAME.get(solver_config.__class__)

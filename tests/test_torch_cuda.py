@@ -303,18 +303,24 @@ def _csr_on(device, values, indices, indptr, dtype):
             torch.from_numpy(indices).to(device))
 
 
+# The schedules of #9 at k <= 16: lanes a row (a whole warp, or 2 to 16
+# lanes of one), or a block of 256 threads a row.
+CSR_SCHEDULES = {"warp": 32, "block": 256, "lanes2": 2, "lanes4": 4, "lanes8": 8,
+                 "lanes16": 16}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("schedule", ["auto", "warp", "block"])
+@pytest.mark.parametrize("schedule", ["auto", *CSR_SCHEDULES])
 @pytest.mark.parametrize("k", [1, 3, 10, 40, 300])
 def test_cuda_csr_matches_plain(cuda_device, k, schedule, monkeypatch):
     """#9 on a ragged CSR (empty rows, repeated columns, rows longer than a
-    block) in both schedules of k ≤ 16: float64 against the float64 plain
+    block) in every schedule of k ≤ 16: float64 against the float64 plain
     version to 1e-12, float32 to 5e-5 of it (sums of up to 1,200 terms),
     and the same bits from two launches."""
     values, indices, indptr, n_cols = _ragged_csr()
     n_rows = len(indptr) - 1
     if schedule != "auto":
-        monkeypatch.setattr(kernel_cuda, "spmm_block_rows", lambda *a: schedule == "block")
+        monkeypatch.setattr(kernel_cuda, "spmm_lanes", lambda *a: CSR_SCHEDULES[schedule])
     X = torch.from_numpy(np.random.default_rng(22).standard_normal((n_cols, k)))
     v64, p, c = _csr_on(cuda_device, values, indices, indptr, torch.float64)
     ref = tops._plain(v64, p, c, X.to(cuda_device), n_rows, False)
@@ -326,6 +332,105 @@ def test_cuda_csr_matches_plain(cuda_device, k, schedule, monkeypatch):
         assert torch.equal(got, again)
         assert _rel(got, ref) <= bound
         assert torch.all(got[torch.from_numpy(np.diff(indptr) == 0).to(cuda_device)] == 0)
+
+
+def _ragged_rows_csr(seed=23, n_cols=5000):
+    """Rows of 0, 1, 15, 16, 17, 33, 300 and 20,000 entries, 40 of each in a
+    shuffled order, each row's first column repeated."""
+    rng = np.random.default_rng(seed)
+    lengths = np.tile(np.array([0, 1, 15, 16, 17, 33, 300, 20000]), 40)
+    rng.shuffle(lengths)
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    indices = rng.integers(0, n_cols, indptr[-1]).astype(np.int32)
+    starts = indptr[:-1][lengths >= 2]
+    indices[starts + 1] = indices[starts]
+    return rng.standard_normal(indptr[-1]), indices, indptr, n_cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("schedule", ["auto", *CSR_SCHEDULES])
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_cuda_csr_short_rows_every_length(cuda_device, k, schedule, offset, monkeypatch):
+    """#9 on rows of 0 to 20,000 entries in one operand, in every schedule
+    of k ≤ 16, with 16-byte aligned buffers (the chunked 16-byte loads) and
+    buffers one element off (the same chunks read entry by entry): float64
+    to 1e-12 and float32 to 5e-5 of the float64 plain version (a 20,000-term
+    row), the same bits from two launches, empty rows 0."""
+    values, indices, indptr, n_cols = _ragged_rows_csr()
+    n_rows = len(indptr) - 1
+    if schedule != "auto":
+        monkeypatch.setattr(kernel_cuda, "spmm_lanes", lambda *a: CSR_SCHEDULES[schedule])
+    X = torch.from_numpy(np.random.default_rng(24).standard_normal((n_cols, k)))
+    v64, p, c = _csr_on(cuda_device, values, indices, indptr, torch.float64)
+    ref = tops._plain(v64, p, c, X.to(cuda_device), n_rows, False)
+    fn = kernel_cuda.csr_spmv if k == 1 else kernel_cuda.csr_spmm
+    empty = torch.from_numpy(np.diff(indptr) == 0).to(cuda_device)
+    for dtype, bound in ((torch.float64, 1e-12), (torch.float32, 5e-5)):
+        v = torch.cat([v64.new_zeros(offset), v64]).to(dtype)[offset:]
+        cc = torch.cat([c.new_zeros(offset), c])[offset:]
+        args = (v, p, cc, X.to(cuda_device, dtype), n_rows)
+        got, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert _rel(got, ref) <= bound
+        assert torch.all(got[empty] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["bf16x3", "bfloat16"])
+@pytest.mark.parametrize("kind", SQDIST_KINDS)
+@pytest.mark.parametrize("k", [1, 3, 10, 16])
+@pytest.mark.parametrize("n, d", [(1000, 28), (1024, 28), (130, 3), (700, 100)],
+                         ids=["ragged", "multiple-of-64", "small", "chunked-depth"])
+def test_cuda_k2b_matches_its_tier(cuda_device, cd, kind, k, n, d):
+    """K2b (the register-epilogue triangle kernel) against the plain
+    version of its tier at ragged and whole numbers of 64-row tiles, and at
+    d = 100 (depth 112, staged in chunks of 16 features), with the bounds of
+    :func:`test_cuda_tiers_match_their_plain_versions`: 1e-5 where both
+    contract in float32, two bf16 steps where the one-pass tier's mirror
+    re-rounds (k ≥ 3), Matérn-1/2's diagonal rows at 1e-3 and the rows off
+    it at the regular bound."""
+    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
+
+    X, _, V = _data(13, n, n, d, k)
+    X, V = torch.from_numpy(X).to(cuda_device), torch.from_numpy(V).to(cuda_device)
+    A = tier_operand(X / d**0.5, cd)
+
+    def bound(V, ref):
+        return _reround_bound(V, ref, 0.8) if cd == "bfloat16" and k >= 3 else 1e-5
+
+    got = kernel_cuda.gram_matvec_symmetric_tier(kind, A, V, 0.8)
+    ref = kernel_plain.gram_matvec_symmetric_tier(kind, A, V, 0.8)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= (1e-3 if kind == "matern12" else bound(V, ref))
+    rows = torch.arange(n, device=cuda_device) % 2 == 0
+    Vz = torch.where(rows[:, None], 0.0, V)
+    got = kernel_cuda.gram_matvec_symmetric_tier(kind, A, Vz, 0.8)[rows]
+    ref = kernel_plain.gram_matvec_symmetric_tier(kind, A, Vz, 0.8)[rows]
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= bound(Vz, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", [None, "bf16x3"])
+def test_cuda_impl_routes(cuda_device, tier):
+    """``impl="auto"`` and ``"pallas"`` take the kernels on CUDA tensors,
+    ``"xla"`` the plain versions there (no launch), with the same values."""
+    from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp
+
+    X = torch.randn((500, 6), device=cuda_device)
+    V = torch.randn((500, 2), device=cuda_device)
+    cfg = KernelConfig(lengthscale=1.7)
+    out = {}
+    for impl in ("auto", "pallas", "xla"):
+        kernel_cuda.reset_launch_counts()
+        out[impl] = RBFLinOp(X, X, cfg, impl=impl, compute_dtype=tier) @ V
+        torch.cuda.synchronize()
+        launched = sum(kernel_cuda.launch_counts().values())
+        assert launched == (0 if impl == "xla" else 1), impl
+    assert _rel(out["auto"], out["xla"].double()) <= 2e-5
+    assert torch.equal(out["auto"], out["pallas"]) or _rel(out["auto"], out["pallas"].double()) <= 1e-6
 
 
 @pytest.mark.cuda

@@ -323,3 +323,27 @@ def test_port_never_mentions_torch_sparse_or_imports_jax():
         assert _TORCH_SPARSE.search(text) is None, path
         assert _IMPORT.search(text) is None, path
     assert _IMPORT.search((REPO / "chip_smoke.py").read_text()) is None
+
+
+# Mean row length (entries) -> lanes a row of #9's short-row schedule at k ≤
+# 16: the power of two in [2, 32] nearest above a quarter of the mean (about
+# four entries a lane), a block of 256 threads from 256 entries on.
+LANES_BY_MEAN = [(0, 2), (1, 2), (8, 2), (9, 4), (16, 4), (17, 8), (32, 8), (33, 16),
+                 (64, 16), (65, 32), (128, 32), (255, 32), (256, 256), (16384, 256)]
+
+
+@pytest.mark.parametrize("mean, lanes", LANES_BY_MEAN)
+def test_csr_lanes_follow_the_mean_row_length(mean, lanes):
+    n_rows = 1000
+    assert kernel_cuda.spmm_lanes(n_rows, mean * n_rows, 1) == lanes
+    assert kernel_cuda.spmm_lanes(n_rows, mean * n_rows, 16) == lanes
+
+
+def test_csr_lanes_of_path_s_and_the_wide_schedule():
+    """Path S's forward CSR (2^20 rows of 16) takes 4 lanes a row, its
+    adjoint (1,024 rows of 16,384) a block a row; past 16 columns the wide
+    schedule's warp per (row, column tile) does not read the value."""
+    assert kernel_cuda.spmm_lanes(1 << 20, 16 << 20, 1) == 4
+    assert kernel_cuda.spmm_lanes(1024, 16 << 20, 10) == kernel_cuda.CSR_BLOCK_ROW
+    assert kernel_cuda.spmm_lanes(1 << 20, 16 << 20, 17) == 32
+    assert kernel_cuda.spmm_lanes(0, 0, 1) == 2

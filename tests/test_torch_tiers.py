@@ -11,7 +11,10 @@ round-off.
 """
 
 import importlib.util
+import json
 import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -53,10 +56,10 @@ def _parts(X, cd):
     return tier_operand(torch.from_numpy(X) / LS, cd)
 
 
-@pytest.mark.parametrize("cd", TIERS)
-@pytest.mark.parametrize("kind", ["rbf", "matern32"])
-@pytest.mark.parametrize("k", [1, 7, 20])
-def test_plain_tier_matmat_matches_pallas(cd, kind, k):
+def _matmat_case(cd, kind, k):
+    """The plain K1b against the JAX tier in interpret mode on one case:
+    ``(rel, rel_f32)``, the second (the plain version's kernel values with a
+    float32 contraction) for the one-pass tier past 16 columns only."""
     X1, X2, V = _points(k, N, M, k)
     ref = kernel_matmat_pallas(
         kind, jnp.asarray(X1), jnp.asarray(X2), jnp.asarray(V), LS, C,
@@ -64,10 +67,54 @@ def test_plain_tier_matmat_matches_pallas(cd, kind, k):
     )
     A, B = _parts(X1, cd), _parts(X2, cd)
     got = kernel_plain.gram_matmat_tier(kind, A, B, torch.from_numpy(V), C)
+    rel_f32 = None
+    if k > 16 and cd == "bfloat16":
+        Kv = kernel_plain._tier_values(kind, A, B)
+        rel_f32 = _rel(kernel_plain.tier_contract(Kv, torch.from_numpy(V), "f32") * C, ref)
+    return _rel(got, ref), rel_f32
+
+
+MATMAT_CASES = [(cd, kind, k) for k in (1, 7, 20) for kind in ("rbf", "matern32")
+                for cd in TIERS]
+
+# Runs _matmat_case on every case in a fresh interpreter: JAX on the CPU with
+# the settings of tests/conftest.py, float64 enabled, and no persistent
+# compilation cache.
+_CASES_SCRIPT = """
+import json, os, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_default_matmul_precision", "highest")
+sys.path.insert(0, sys.argv[1])
+from tests import test_torch_tiers as T
+print(json.dumps([T._matmat_case(*case) for case in T.MATMAT_CASES]))
+"""
+
+
+@pytest.fixture(scope="module")
+def matmat_errors():
+    """Each case's errors, computed in a process of their own, so that they
+    depend on nothing an earlier test of the worker left behind (threads,
+    compiled code) and on no entry of the persistent JAX compilation cache
+    that ``tests/conftest.py`` shares between workers and runs."""
+    env = {key: val for key, val in os.environ.items() if not key.startswith("JAX_COMPILATION")}
+    env["JAX_PLATFORMS"] = "cpu"
+    done = subprocess.run([sys.executable, "-c", _CASES_SCRIPT, REPO], capture_output=True,
+                          text=True, env=env, timeout=900, check=False)
+    assert done.returncode == 0, done.stderr[-4000:]
+    return dict(zip(MATMAT_CASES, json.loads(done.stdout.strip().splitlines()[-1])))
+
+
+@pytest.mark.parametrize("cd", TIERS)
+@pytest.mark.parametrize("kind", ["rbf", "matern32"])
+@pytest.mark.parametrize("k", [1, 7, 20])
+def test_plain_tier_matmat_matches_pallas(cd, kind, k, matmat_errors):
+    rel, rel_f32 = matmat_errors[(cd, kind, k)]
     if k <= 16:
-        assert _rel(got, ref) <= 1e-6
+        assert rel <= 1e-6
     elif cd == "bf16x3":
-        assert _rel(got, ref) <= 3e-6
+        assert rel <= 3e-6
     else:
         # The one-pass "fast" contraction is a DEFAULT-precision dot in the
         # JAX kernel: one bf16 pass on the TPU, full float32 in the CPU
@@ -75,10 +122,8 @@ def test_plain_tier_matmat_matches_pallas(cd, kind, k):
         # TPU does, 2.9e-3 of max|ref| from the interpreter (2^-8 per
         # product); with a float32 contraction its kernel values meet the
         # JAX kernel's at the float32 bound.
-        assert _rel(got, ref) <= 2.0**-7
-        Kv = kernel_plain._tier_values(kind, A, B)
-        f32 = kernel_plain.tier_contract(Kv, torch.from_numpy(V), "f32") * C
-        assert _rel(f32, ref) <= 1e-6
+        assert rel <= 2.0**-7
+        assert rel_f32 <= 1e-6
 
 
 @pytest.mark.parametrize("cd", TIERS)
@@ -228,8 +273,8 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     assert splits == []
     assert R._tier[1] is K._tier[1]
     got = R @ W
-    assert torch.equal(got, KernelLinOp(X[blk], X, cfg, "rbf", cd) @ W)
-    assert torch.equal(Bk @ W[blk], KernelLinOp(X[blk], X[blk], cfg, "rbf", cd) @ W[blk])
+    assert torch.equal(got, KernelLinOp(X[blk], X, cfg, "rbf", compute_dtype=cd) @ W)
+    assert torch.equal(Bk @ W[blk], KernelLinOp(X[blk], X[blk], cfg, "rbf", compute_dtype=cd) @ W[blk])
     assert len(splits) == 4  # the two reference operators split both their sides
     assert _rel(got, (K @ W)[blk]) <= 2e-6
 
@@ -244,9 +289,33 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     ("gram_matvec_symmetric<2, 1, 2, false>(GramArgs, int)", "gram_matvec_symmetric_f64"),
     ("gram_matmat_narrow<0, 1, 1>(GramArgs)", "gram_matmat_comp"),
     ("gram_matmat_wide<4>(float const*, float const*)", "laplace_matmat"),
+    ("gram_tier_symmetric<0, 3, 1>(GramArgs, int)", "gram_matvec_symmetric_tier"),
+    ("gram_tier_symmetric<3, 1, 16>(GramArgs, int)", "gram_matvec_symmetric_tier"),
+    ("csr_spmm_lanes<float, 1, 4>(long const*, int const*)", "csr_spmm"),
 ])
 def test_profile_groups_each_kernel_template(name, group):
     """``chip_smoke.py`` names each Gram kernel in a profile by its
     template arguments (family, mode and, for the triangle template, the
     pair flag), as demangled in the device events."""
     assert SMOKE._kernel_group("void (anonymous namespace)::" + name) == group
+
+
+def test_bound_counts_the_exponential_on_the_sfu():
+    """``chip_smoke.bound_ms`` counts one SFU operation per kernel value for
+    the float32 exponential (two for Matérn, whose square root also goes
+    there), at 16 a clock per SM: K2b at the HIGGS shape is bound by it
+    (5e9 values in 1.196 ms, above the 0.849 ms of its tensor-core
+    passes), the float32 K2 by its distance arithmetic as before, and the
+    float64-tile kernels take their exponential in float64."""
+    n, d = 100_000, 28
+    values = n * n / 2
+    sfu = SMOKE.PEAK["sfu"]
+    assert sfu == 16 * 132 * 1.98e9
+    ms, by = SMOKE.bound_ms("gram_matvec_symmetric_tier", n, n, d, 1, "rbf", "bf16x3")
+    assert by == "operations" and ms == pytest.approx(values / sfu * 1e3)
+    ms, _ = SMOKE.bound_ms("gram_matvec_symmetric_tier", n, n, d, 1, "matern32", "bf16x3")
+    assert ms == pytest.approx(2 * values / sfu * 1e3)
+    ms, _ = SMOKE.bound_ms("gram_matvec_symmetric", n, n, d, 1)
+    assert ms == pytest.approx((values * 3 * d + 2 * n * n) / SMOKE.PEAK["fp32"] * 1e3)
+    ms, _ = SMOKE.bound_ms("gram_matvec_symmetric_f64", n, n, d, 1)
+    assert ms == pytest.approx((values * (3 * d + 1) + 2 * n * n) / SMOKE.PEAK["fp64"] * 1e3)
