@@ -8,14 +8,18 @@ Needs one CUDA card and ``nvcc`` (the kernels are built from
 straight through and exits non-zero at the first failure:
 
 1. device: the card's name and power limit, the two TF32 flags (set off);
-2. build of the Gram kernels, timed, and the registers and spills of K2b
-   and of #9's short-row schedule from the build's ``-Xptxas -v`` log;
+2. build of the Gram kernels, timed, and the registers and spills of the
+   kernels redesigned for Hopper (K2b, #9's short-row schedule, K1b's
+   forward strip and wide kernel, the triangle K1c) from the build's
+   ``-Xptxas -v`` log;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (HIGGS-100k: n = 100,000, d = 28) and at a ragged shape
-   for every family: K1, K1c, K2 against float64; K1b and K2b on both bf16
-   tiers against the plain version of the same tier and against float64;
-   K7 and K8, all five families, against the float64 plain version; kernel
-   and plain version timed (median of 5, CUDA events);
+   for every family: K1, K1c (general and triangle), K2 against float64;
+   K1b and K2b on both bf16 tiers against the plain version of the same
+   tier and against float64; K7 and K8, all five families, against the
+   float64 plain version; kernel and plain version timed (median of 5, CUDA
+   events), the triangle K1c beside the general one, and a bf16
+   ``torch.matmul`` of 8192^3 timed as the tensor cores' measured rate;
 4. slice 1, config 3 whole: RBF kernel ridge regression, Nyström-PCG (rank
    500) through ``LinSys.solve`` with k = 1 and k = 10 right-hand sides,
    then the k = 1 solve again with two float64 refinement rounds; every
@@ -26,10 +30,12 @@ straight through and exits non-zero at the first failure:
    and each kernel's share (where the time goes);
 6. slice 2, config 6: the n = 1,000,000 north-star solve on the bf16x3
    operator with update-mode refinement and the sampled certificate, under
-   ``torch.profiler``; the certificate, a full float64 sweep of the
+   ``torch.profiler`` (the K1b sketch and the triangle K1c's confirms timed
+   from it); the certificate, a full float64 sweep of the
    delivered solution and an independent sampled float64 residual (plain
    version, other rows) must all put it at or under 1e-6; then K1b (k =
-   500), K2b (k = 1 and 10), K1c, K7 and K8 against their plain versions
+   500), K2b (k = 1 and 10), K1c (both forms), K7 and K8 against their
+   plain versions
    at the path's n = m = 1,000,000, on those 4,096 rows, and K2b timed
    beside the exact K2 on the same points at k = 1 and 10;
 7. slice 3: the Laplace kernels K3, K3c and K5 against the float64 plain
@@ -114,6 +120,7 @@ N5, ITERS5, RANK5, LANCZOS5, PROBES5 = 50_000, 50, 200, 20, 32
 P_RING, P_LAPLACE = 4, 3
 SOURCES = {
     "gram": "rlaopt_tpu_torch/csrc/gram.cu",
+    "comp": "rlaopt_tpu_torch/csrc/gram_comp.cu",
     "laplace": "rlaopt_tpu_torch/csrc/gram_laplace.cu",
     "tier": "rlaopt_tpu_torch/csrc/gram_tier.cu",
     "f64": "rlaopt_tpu_torch/csrc/gram_f64.cu",
@@ -192,7 +199,11 @@ TIERS = ("bf16x3", "bfloat16")
 # results a clock per SM (CUDA C++ Programming Guide, arithmetic instruction
 # throughput, compute capability 9.0) on 132 SMs at the 1.98 GHz boost
 # clock of the data sheet.
-PEAK = {"fp32": 67e12, "fp64": 34e12, "bf16_tc": 989e12, "sfu": 16 * 132 * 1.98e9}
+# No kernel here puts work on the FP64 tensor cores (67 TFLOP/s); work
+# there would count at that peak ("fp64_tc"), so that no share reads over
+# 100%.
+PEAK = {"fp32": 67e12, "fp64": 34e12, "fp64_tc": 67e12, "bf16_tc": 989e12,
+        "sfu": 16 * 132 * 1.98e9}
 HBM_BYTES_PER_S = 3.35e12
 # #9 (csr_spmv, csr_spmm) against the float64 plain version. In float64 a
 # row's sum of L products is off by ~sqrt(L)·2^-53 of its size (1.4e-14 at
@@ -209,7 +220,15 @@ CSR_F64_BOUND, CSR_F32_BOUND = 1e-12, 5e-5
 # what remains of the float32 sums' rounding is a fixed share of ‖Aᵀb‖: up
 # to 1.07e-7 measured on an H100 (config 2; 5.2e-8 on S), held to 5x that.
 RES_REL, RES_ABS, RES_ABOVE = 0.01, 5e-7, 1e-5
-COMP_KERNELS = ("gram_matmat_comp", "laplace_matmat_comp")
+# The kernels redesigned for Hopper, whose registers and spills the
+# build's -Xptxas -v log reports (the `registers` line and their JSON
+# entries): the CUDA function names, by wrapper.
+REGISTERS_OF = {"gram_matvec_symmetric_tier": ("gram_tier_symmetric",),
+                "gram_matmat_tier": ("gram_tier_forward", "gram_tier_wide"),
+                "gram_matvec_symmetric_comp": ("gram_comp_symmetric",),
+                "csr_spmv": ("csr_spmm_lanes",), "csr_spmm": ("csr_spmm_lanes",)}
+REDESIGNED = tuple(dict.fromkeys(f for fs in REGISTERS_OF.values() for f in fs))
+COMP_KERNELS = ("gram_matmat_comp", "gram_matvec_symmetric_comp", "laplace_matmat_comp")
 F64_KERNELS = ("gram_matmat_f64", "gram_matvec_symmetric_f64")
 TIER_KERNELS = ("gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_pair_tier")
 PAIR_KERNELS = ("gram_pair", "gram_pair_tier", "laplace_pair")
@@ -226,19 +245,23 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     division is O((n + m) d) work and not counted); the exponential, one
     SFU operation (and one more for the Matérn square root) where the
     epilogue is float32, one float64 operation in K1c, K3c, K7 and K8; 2k
-    for the contraction. The triangle kernels evaluate each
+    for the contraction. The triangle kernels (a name that holds
+    "symmetric": K2, K2b, K5, K7 and K1c's triangle form,
+    ``gram_matvec_symmetric_comp``) evaluate each
     of the n^2/2 values of a pair of tiles once and contract it both ways;
     the pair kernels each of the n·m values once, contracted both ways (4k),
     reading V1 (n, k) besides V2 and writing out2 (m, k) besides out1.
     The tiers: the cross term on the tensor cores (2 operations per feature
-    of d, per pass), three float32 operations and the exponential (SFU) of
-    epilogue per value, the
+    of d, per pass: :func:`tier_tc_ops`), three float32 operations and the
+    exponential (SFU) of epilogue per value, the
     contraction in float32 up to 16 columns and on the tensor cores (per
     pass) past that; their points are read as d bf16 parts (two with
     bf16x3) and a float32 norm each. The CSR product (``csr_spmv``,
     ``csr_spmm``; n rows, m columns, ``nnz`` nonzeros, values of type ``cd``,
     float32 by default): each nonzero's index and value, the int64 indptr,
-    X (m, k) and Y (n, k) once; an FMA per nonzero and column."""
+    X (m, k) and Y (n, k) once; an FMA per nonzero and column. No kernel
+    here runs on the FP64 tensor cores; work there would count at
+    ``PEAK["fp64_tc"]``."""
     if kernel in CSR_KERNELS:
         vb = 8 if cd == "float64" else 4
         nbytes = nnz * (4 + vb) + 8 * (n + 1) + vb * k * (m + n)
@@ -263,7 +286,7 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
         nbytes = 4 * (n + (0 if sym else m)) * d + vb * m * k + vb * outs * n * k
     elif kernel in TIER_KERNELS:
         passes = 3 if cd == "bf16x3" else 1
-        ops["bf16_tc"] = values * 2 * d * passes + (contraction * passes if k > 16 else 0)
+        ops["bf16_tc"] = tier_tc_ops(values, contraction, d, k, cd)
         ops["fp32"] = values * 3 + (contraction if k <= 16 else 0)
         parts = 2 * d * (2 if passes == 3 else 1) + 4
         nbytes = parts * (n + (0 if sym else m)) + 4 * m * k + 4 * n * k + vk
@@ -273,6 +296,13 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     t_ops = max(v / PEAK[unit] for unit, v in ops.items())
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tier_tc_ops(values, contraction, d, k, cd):
+    """The tiers' tensor-core operations: the cross term (2 per feature of
+    d and pass) and, past 16 columns, the contraction (per pass)."""
+    passes = 3 if cd == "bf16x3" else 1
+    return values * 2 * d * passes + (contraction * passes if k > 16 else 0)
 
 
 def ptxas_report(log: str, names) -> dict:
@@ -376,8 +406,7 @@ def plain_twosum_f32(kind, X, V, ls):
 
 # csrc/gram_common.cuh's template arguments: the family first (LAPLACE is 4),
 # the Mode last (EXACT 0, COMP 1, F64 2, TIER1 3, TIER3 4).
-_NARROW = {0: "gram_matmat", 1: "gram_matmat_comp", 2: "gram_matmat_f64",
-           3: "gram_matmat_tier", 4: "gram_matmat_tier"}
+_NARROW = {0: "gram_matmat", 1: "gram_matmat_comp", 2: "gram_matmat_f64"}
 _TRIANGLE = {0: "gram_matvec_symmetric", 2: "gram_matvec_symmetric_f64",
              3: "gram_matvec_symmetric_tier", 4: "gram_matvec_symmetric_tier"}
 _PAIR = {0: "gram_pair", 3: "gram_pair_tier", 4: "gram_pair_tier"}
@@ -386,17 +415,28 @@ _LAPLACE = {"gram_matmat": "laplace_matmat", "gram_matmat_comp": "laplace_matmat
 LAPLACE_CODE = 4
 
 
+# Kernels of their own, by name (their template arguments do not select the
+# group): K2b, K1b's forward strip and wide kernel, the triangle K1c and its
+# finishing pass.
+_OWN = {"gram_tier_symmetric": "gram_matvec_symmetric_tier",
+        "gram_tier_forward": "gram_matmat_tier", "gram_tier_wide": "gram_matmat_tier",
+        "gram_comp_symmetric": "gram_matvec_symmetric_comp",
+        "gram_comp_finish": "gram_matvec_symmetric_comp"}
+
+
 def _kernel_group(name: str) -> str:
     if "sum_splits" in name:
         return "sum_splits"
     if "csr_spmm" in name:
         return "csr_spmm"
-    m = re.search(r"(gram_\w+)<([^>]*)>", name)
+    m = re.search(r"(gram_\w+)(?:<([^>]*)>)?", name)
     if m is None:
         return "other"
+    if m.group(1) in _OWN:
+        return _OWN[m.group(1)]
+    if m.group(2) is None:
+        return "other"
     fn, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
-    if fn == "gram_tier_symmetric":  # K2b: <KIND, PASSES, KC>
-        return "gram_matvec_symmetric_tier"
     # gram_matvec_symmetric<KIND, KC, MODE, PAIR>; the others end in MODE
     triangle = fn == "gram_matvec_symmetric"
     try:
@@ -405,8 +445,6 @@ def _kernel_group(name: str) -> str:
         return "other"
     if fn == "gram_matmat_wide":
         group = "gram_matmat"
-    elif fn == "gram_matmat_tier_wide":
-        group = "gram_matmat_tier"
     elif triangle:
         pair = args[3] in ("true", "1", "(bool)1")
         group = (_PAIR if pair else _TRIANGLE).get(mode, "other")
@@ -521,6 +559,11 @@ def north_star(dev, profile_run, compare, timings):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     used = kernel_cuda.launch_counts()
+    profile = device_breakdown(prof) if prof else {}
+    # the sketch (K1b, k = 500) and the confirms (the triangle K1c) at the
+    # path's n, a launch each from the profile
+    profiled_entries(timings, profile.get("kernels", {}), used, "config 6", N6, D,
+                     [("gram_matmat_tier", RANK, "bf16x3"), ("gram_matvec_symmetric_comp", 1, None)])
     ref = log["f64_refine"]
     its = int_keys(log)
     iters = its[-1]
@@ -541,6 +584,8 @@ def north_star(dev, profile_run, compare, timings):
     for kname in ("gram_matmat_tier", "gram_matvec_symmetric_tier",
                   "gram_matvec_symmetric_f64", "gram_matmat_f64"):
         check(used[kname] > 0, f"config 6 launched {kname}")
+    check(used["gram_matvec_symmetric_comp"] > 0 and used["gram_matmat_comp"] == 0,
+          "config 6's confirms ran through K1c's triangle form")
     cert = ref.get("sampled_certificate")
     if cert is None or cert.get("refreshed"):
         print("config6: the sampled certificate was not accepted; the claim "
@@ -606,6 +651,9 @@ def north_star(dev, profile_run, compare, timings):
             hi, lo = kernel_cuda.gram_matmat_comp("rbf", X[idx], X, V, ls)
             compare("gram_matmat_comp", hi.double() + lo.double(), ref64,
                     f"{shape} k=1 (hi+lo)", COMP_BOUND)
+            hi, lo = kernel_cuda.gram_matvec_symmetric_comp("rbf", X, V, ls)
+            compare("gram_matvec_symmetric_comp", (hi.double() + lo.double())[idx], ref64,
+                    f"{shape} k=1 (hi+lo)", COMP_BOUND)
         del got, tier_ref, ref64
         if k != RANK:
             # K2b beside the exact K2 on the same 1M points (3 runs each; the
@@ -631,7 +679,7 @@ def north_star(dev, profile_run, compare, timings):
         "residual_sources": ref["residual_sources"], "rel_res_f64": ref["rel_res_f64"],
         "sampled_certificate": cert, "full_sweep_rel": full, "full_sweep_s": full_s,
         "independent_rel": indep, "independent_stderr": sigma_indep,
-        "launches": used, "profile": device_breakdown(prof) if prof else None,
+        "launches": used, "profile": profile,
     }
 
 
@@ -644,7 +692,24 @@ def timing_entry(kernel, shape, ms, plain_ms, n, m, d, k, kind="rbf", cd=None, n
     """One timed shape of a kernel, with its bound at that shape."""
     bound, by = bound_ms(kernel, n, m, d, k, kind, cd, nnz)
     return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "n": n, "m": m, "d": d, "k": k, "kind": kind, **extra}
+            "bound_by": by, "n": n, "m": m, "d": d, "k": k, "kind": kind, "cd": cd, **extra}
+
+
+def profiled_entries(timings, prof_kernels, used, what, n, d, kernels):
+    """Per-launch timings of ``kernels`` ((wrapper, k, tier) each) from a
+    profiled path: the group's device time over the path's launches of
+    that wrapper (the K1c triangle's group holds its finishing pass)."""
+    for kname, k, cd in kernels:
+        group = prof_kernels.get(kname)
+        if not group or not used[kname]:
+            continue
+        ms = group["ms"] / used[kname]
+        timings.setdefault(kname, []).append(timing_entry(
+            kname, f"{what} n=m={n} d={d} k={k}" + (f" {cd}" if cd else "")
+            + f" (profile: {used[kname]} launches, {group['ms']:.3f} ms)",
+            ms, None, n, n, d, k, "rbf", cd, launches=used[kname]))
+        print(f"time {kname} {what} n=m={n} d={d} k={k}: {ms:.3f} ms a launch (profile), "
+              f"bound {timings[kname][-1]['bound_ms']:.3f} ms")
 
 
 def laplace_kernels(dev, X, compare, timings):
@@ -875,7 +940,8 @@ def config4(dev, X, y, profile_run, compare, timings, laplace):
         check(used["laplace_matmat_comp"] >= 1, f"{name}: the final residual ran through K3c")
     else:
         check(used["gram_matmat_tier"] >= iters, f"{name}: every iteration ran through K1b")
-        check(used["gram_matmat_comp"] >= 1, f"{name}: the final residual ran through K1c")
+        check(used["gram_matvec_symmetric_comp"] >= 1 and used["gram_matmat_comp"] == 0,
+              f"{name}: the final residual ran through K1c's triangle form")
 
     # independent float64 residuals on other rows (seed 7) of every logged
     # iterate past 0, by the plain version, in one sweep with a random
@@ -970,6 +1036,9 @@ def config4(dev, X, y, profile_run, compare, timings, laplace):
               f"bound {timings['gram_matmat_tier'][-1]['bound_ms']:.3f} ms")
         record["row_oracle_ms"] = {"ms": ms, "plain_ms": p_ms}
     profile = device_breakdown(prof) if prof else {}
+    if not laplace:
+        profiled_entries(timings, profile.get("kernels", {}), used, "path A' final residual",
+                         N4, D4, [("gram_matvec_symmetric_comp", 1, None)])
     busy = profile.get("busy_ms")
     record.update({
         "n": N4, "d": D4, "kind": kind, "lengthscale": ls, "iters": iters, "wall_s": wall,
@@ -1605,7 +1674,8 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     rec = config5("E1", K1, refine=False)
     used = rec["launches"]
     check(used["gram_matmat"] >= rec["iters"] + LANCZOS5 + 2, "E1 ran through K1")
-    check(used["gram_matmat_comp"] >= 1, "E1 boundaries ran through K1c")
+    check(used["gram_matmat_comp"] >= 1 and used["gram_matvec_symmetric_comp"] == 0,
+          "E1 boundaries ran through the general K1c")
     records["E1"] = rec
     print("slice5 E1 " + json.dumps(rec))
     print(f"phase: slice 5 E1 done at {time.perf_counter() - t_phase:.1f} s into it")
@@ -1619,6 +1689,8 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     check(used["gram_pair"] >= pairs * (rec2["iters"] + LANCZOS5), "E2's pairs ran through K4")
     check(used["gram_matvec_symmetric"] >= P_RING * (rec2["iters"] + LANCZOS5),
           "E2's diagonal blocks ran through K2")
+    check(used["gram_matmat_comp"] >= 1 and used["gram_matvec_symmetric_comp"] == 0,
+          "E2 boundaries ran through the general K1c")
     check(abs(rec2["lambda_max"] - rec["lambda_max"]) <= 1e-4 * rec["lambda_max"],
           "E2's lambda_max within 1e-4 of E1's (the same start vector)")
     records["E2"] = rec2
@@ -1764,12 +1836,13 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = kernel_cuda.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
-    # the kernels this slice redesigned: K2b and #9's short-row schedule
-    registers = ptxas_report(lib.with_suffix(".log").read_text(),
-                             ("gram_tier_symmetric", "csr_spmm_lanes"))
+    # the kernels redesigned for Hopper: K2b and #9's short-row schedule (PR
+    # 6), K1b's forward strip and wide kernel and the triangle K1c
+    registers = ptxas_report(lib.with_suffix(".log").read_text(), REDESIGNED)
     print("registers " + json.dumps(registers))
-    check(len(registers) > 0 and all("registers" in r for r in registers.values()),
-          "the build log reports the registers of K2b and #9's short-row kernel")
+    check(all(any(key.startswith(name + "<") for key in registers) for name in REDESIGNED)
+          and all("registers" in r for r in registers.values()),
+          "the build log reports the registers of every redesigned kernel")
 
     # 3. each kernel against its plain version
     Xn, yn = synthetic_higgs(N)
@@ -1781,7 +1854,8 @@ def main() -> int:
         k: kernel_plain.gram_matmat_f64("rbf", X, X, Vs[k], ls, row_block=BLOCK)
         for k in (1, 10, 500)
     }
-    names = ("gram_matmat", "gram_matmat_comp", "gram_matvec_symmetric",
+    names = ("gram_matmat", "gram_matmat_comp", "gram_matvec_symmetric_comp",
+             "gram_matvec_symmetric",
              "gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_matmat_f64",
              "gram_matvec_symmetric_f64", "laplace_matmat", "laplace_matmat_comp",
              "laplace_matvec_symmetric", "csr_spmv", "csr_spmm", "gram_pair",
@@ -1812,6 +1886,10 @@ def main() -> int:
     rel = compare("gram_matmat_comp", hi.double() + lo.double(), refs[1],
                   f"n=m={N} d={D} k=1 (hi+lo)", COMP_BOUND)
     check(rel <= rel_k1, "gram_matmat_comp no worse than gram_matmat")
+    for k in (1, 10):
+        hi, lo = kernel_cuda.gram_matvec_symmetric_comp("rbf", X, Vs[k], ls)
+        compare("gram_matvec_symmetric_comp", hi.double() + lo.double(), refs[k],
+                f"n={N} d={D} k={k} (hi+lo)", COMP_BOUND)
     jhi, jlo = plain_twosum_f32("rbf", X, Vs[1], ls)
     diff = (jhi.double() + jlo.double() - refs[1]).abs().max().item()
     twosum_f32_rel = diff / refs[1].abs().max().item()
@@ -1867,6 +1945,10 @@ def main() -> int:
         rel_c = compare("gram_matmat_comp", hi.double() + lo.double(), ref,
                         f"{kind} n=1000 m=777 d=3 k=7 (hi+lo)", COMP_BOUND)
         check(rel_c <= rel, f"gram_matmat_comp {kind} ragged no worse than gram_matmat")
+        hi, lo = kernel_cuda.gram_matvec_symmetric_comp(kind, A1, S7, 1.3, 0.9)
+        compare("gram_matvec_symmetric_comp", hi.double() + lo.double(),
+                kernel_plain.gram_matmat_f64(kind, A1, A1, S7, 1.3, 0.9),
+                f"{kind} n=1000 d=3 k=7 (hi+lo)", COMP_BOUND)
         ref_s = kernel_plain.gram_matmat_f64(kind, A1, A1, S7, 1.3, 0.9)
         compare("gram_matvec_symmetric",
                 kernel_cuda.gram_matvec_symmetric(kind, A1, S7, 1.3, 0.9),
@@ -1930,6 +2012,9 @@ def main() -> int:
             "gram_matmat_comp": (
                 lambda: kernel_cuda.gram_matmat_comp("rbf", X, X, V, ls),
                 lambda: kernel_plain.gram_matmat_comp("rbf", X, X, V, ls, col_block=BLOCK)),
+            "gram_matvec_symmetric_comp": (
+                lambda: kernel_cuda.gram_matvec_symmetric_comp("rbf", X, V, ls),
+                lambda: kernel_plain.gram_matmat_comp("rbf", X, X, V, ls, col_block=BLOCK)),
             "gram_matmat_tier": (
                 lambda: kernel_cuda.gram_matmat_tier("rbf", P, P, V),
                 lambda: kernel_plain.gram_matmat_tier("rbf", P, P, V, row_block=BLOCK)),
@@ -1955,6 +2040,7 @@ def main() -> int:
         ("gram_matvec_symmetric", 1, None), ("gram_matvec_symmetric", 10, None),
         ("gram_matvec_symmetric", 16, None),
         ("gram_matmat_comp", 1, None), ("gram_matmat_comp", 10, None),
+        ("gram_matvec_symmetric_comp", 1, None), ("gram_matvec_symmetric_comp", 10, None),
         ("gram_matmat_tier", 500, "bf16x3"), ("gram_matmat_tier", 1, "bf16x3"),
         ("gram_matmat_tier", 10, "bf16x3"), ("gram_matmat_tier", 500, "bfloat16"),
         ("gram_matmat_tier", 1, "bfloat16"), ("gram_matmat_tier", 10, "bfloat16"),
@@ -1980,6 +2066,11 @@ def main() -> int:
         if kernel == "gram_matmat_comp":
             entry["plain_f32_twosum_ms"] = cuda_ms(lambda: plain_twosum_f32("rbf", X, Vs[k], ls))
             line += f", plain f32 TwoSum {entry['plain_f32_twosum_ms']:.3f} ms"
+        if kernel == "gram_matvec_symmetric_comp":
+            # the general K1c on the same call, timed just before
+            entry["general_ms"] = next(t["ms"] for t in timings["gram_matmat_comp"]
+                                       if t["k"] == k)
+            line += f", general K1c {entry['general_ms']:.3f} ms"
         timings.setdefault(kernel, []).append(entry)
         print(line)
     # K1b at k = 500 once more, a minute after its first timing: the spread
@@ -1987,6 +2078,17 @@ def main() -> int:
     again = cuda_ms(kernel_and_plain("gram_matmat_tier", 500, "bf16x3")[0])
     timings["gram_matmat_tier"][0]["ms_again"] = again
     print(f"time gram_matmat_tier n={N} d={D} k=500 bf16x3 again: kernel {again:.3f} ms")
+    # A yardstick of the tensor cores, measured here and never called by the
+    # port: one bf16 torch.matmul of 8192^3. K1b's tensor-core work over
+    # this rate is its ceiling as measured (matmul_ceiling_ms, step 10),
+    # beside bound_ms from the data sheet.
+    A8, B8 = (torch.randn((8192, 8192), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    mm_ms = cuda_ms(lambda: torch.matmul(A8, B8), reps=10)
+    mm_rate = 2 * 8192**3 / (mm_ms * 1e-3)
+    print(f"yardstick bf16 torch.matmul 8192^3: {mm_ms:.3f} ms, {mm_rate / 1e12:.1f} TFLOP/s "
+          f"(data sheet {PEAK['bf16_tc'] / 1e12:.0f})")
+    del A8, B8
     laplace_kernels(dev, X, compare, timings)
     print(f"phase: kernel checks and times done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2040,7 +2142,8 @@ def main() -> int:
         check(np.all(np.isfinite(last)), f"k={k} rel_res finite")
         check(np.all(last < first), f"k={k} rel_res falls")
         check(used["gram_matmat"] > 0, f"k={k} sketch ran through gram_matmat")
-        check(used["gram_matmat_comp"] > 0, f"k={k} residuals ran through gram_matmat_comp")
+        check(used["gram_matvec_symmetric_comp"] > 0 and used["gram_matmat_comp"] == 0,
+              f"k={k} residuals ran through K1c's triangle form")
         check(used["gram_matvec_symmetric"] >= iters,
               f"k={k} every PCG step ran through gram_matvec_symmetric")
         B64 = sys_.B.double()
@@ -2137,6 +2240,13 @@ def main() -> int:
 
     # 10. result lines
     kernels = []
+    for e in timings["gram_matmat_tier"]:
+        tc = tier_tc_ops(float(e["n"]) * e["m"], 2.0 * e["k"] * e["n"] * e["m"], e["d"], e["k"],
+                         e["cd"])
+        e["matmul_ceiling_ms"] = tc / mm_rate * 1e3
+        print(f"share gram_matmat_tier {e['shape']}: {e['bound_ms'] / e['ms']:.1%} of bound_ms "
+              f"({e['bound_by']}), tensor cores {e['matmul_ceiling_ms'] / e['ms']:.1%} of the "
+              f"measured bf16 matmul rate")
     comp = timings["gram_matmat_comp"][0]
     comp["plain_f32_twosum_rel_err"] = twosum_f32_rel
     paths = {"slice1": counts_slice1, "config6": ns["launches"], "slice3": counts_slice3,
@@ -2146,6 +2256,7 @@ def main() -> int:
     for kname, source, replaces in (
         ("gram_matmat", SOURCES["gram"], f"{PALLAS}:733"),
         ("gram_matmat_comp", SOURCES["gram"], f"{PALLAS}:733"),
+        ("gram_matvec_symmetric_comp", SOURCES["comp"], f"{PALLAS}:733"),
         ("gram_matvec_symmetric", SOURCES["gram"], f"{PALLAS}:1366"),
         ("gram_matmat_tier", SOURCES["tier"], f"{PALLAS}:733"),
         ("gram_matvec_symmetric_tier", SOURCES["tier"], f"{PALLAS}:1366"),
@@ -2183,9 +2294,10 @@ def main() -> int:
         })
         if vs_f64:
             kernels[-1]["max_rel_err_vs_float64"] = max(e[1] for e in vs_f64)
+        if kname == "gram_matmat_tier":
+            kernels[-1]["matmul_tflops"] = mm_rate / 1e12
         mine = {key: r for key, r in registers.items()
-                if key.startswith("gram_tier_symmetric" if kname.endswith("symmetric_tier")
-                                  else "csr_spmm_lanes" if kname.startswith("csr") else "-")}
+                if key.split("<")[0] in REGISTERS_OF.get(kname, ())}
         if mine:
             kernels[-1]["registers"] = mine
     print(f"total: {time.perf_counter() - t_start:.1f} s")

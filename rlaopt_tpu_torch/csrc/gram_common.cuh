@@ -1,5 +1,6 @@
 // Shared pieces of the fused Gram-matrix kernels (gram.cu, gram_laplace.cu,
-// gram_tier.cu, gram_f64.cu, gram_pair.cu): the tile generators, the narrow
+// gram_tier.cu, gram_f64.cu, gram_pair.cu, gram_comp.cu): the tile
+// generators, the narrow
 // (k <= 16) and wide contractions and the triangle schedule (with its pair
 // form), each templated on the kernel family and on a MODE:
 //
@@ -7,8 +8,11 @@
 //                                  f32 values
 //   COMP   K1c, K3c  unscaled f32 points, float64 inside a tile, f32 (hi, lo)
 //   F64    K7, K8    K1c's tile, carried to float64 end to end (V and out too)
-//   TIER1  K1b, K2b, K4b  bf16 parts, one tensor-core pass (bfloat16 tier)
-//   TIER3  K1b, K2b, K4b  bf16 hi/lo parts, three tensor-core passes (bf16x3)
+//   TIER1  K4b  bf16 parts, one tensor-core pass (bfloat16 tier)
+//   TIER3  K4b  bf16 hi/lo parts, three tensor-core passes (bf16x3)
+//
+// K1b, K2b (gram_tier.cu) and the triangle K1c (gram_comp.cu) have kernels
+// of their own; they take the operands and sum_splits from here.
 //
 // Each translation unit includes this header and instantiates what it
 // launches; everything here has internal linkage.
@@ -47,6 +51,8 @@ __host__ __device__ constexpr bool is_tier(int mode) { return mode == TIER1 || m
 // part and m_split: the narrow kernel's column splits (see
 // launch_narrow_by_k); part holds (gridDim.z, n, k) float partials.
 // V1 (n, k) and out2 (m, k): the pair kernels' second product K^T V1.
+// Vh, Vl (m, kp): V's bf16 parts for K1b past 16 columns, kp a multiple of
+// 16 at or above k.
 struct GramArgs {
   const float* X1;
   const float* X2;
@@ -62,8 +68,10 @@ struct GramArgs {
   void* out_lo;
   const void* V1;
   void* out2;
+  const __nv_bfloat16* Vh;
+  const __nv_bfloat16* Vl;
   float* part;
-  int n, m, d, k;
+  int n, m, d, k, kp;
   int m_split;
   double c;
 };
@@ -402,7 +410,7 @@ __device__ __forceinline__ float tier_mul(float a, float b) {
   }
 }
 
-// K1 / K1c / K1b / K3 / K8 for KC <= 16 right-hand-side columns, those from
+// K1 / K1c / K3 / K8 for KC <= 16 right-hand-side columns, those from
 // KC * blockIdx.y on. Thread t owns output row t/4 and the columns
 // j = 16*(t%4) .. +15 of each tile. With COMP the tile partial is completed
 // across the quad and scaled by c in double, then split into a float pair and
@@ -486,7 +494,7 @@ __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a)
   }
 }
 
-// K2 / K2b / K7: the triangle kernel, and with PAIR the pair kernels K4 /
+// K2 / K7: the triangle kernel, and with PAIR the pair kernels K4 /
 // K4b / K6. Triangle: block (I, s, z) takes row tile I, the column tiles
 // J = I + 16s .. I + 16s + 15 (J < nt) and the right-hand-side columns from
 // KC * z on. Each tile K_IJ is evaluated once: K_IJ V_J accumulates in

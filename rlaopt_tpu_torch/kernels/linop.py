@@ -68,7 +68,7 @@ class KernelLinOp(TwoSidedLinOp):
         self._ls64 = kernel_config.lengthscale_tensor(torch.float64, A1.device)
         self._c = float(kernel_config.const_scaling)
         # One data set on both sides: the apply may take the triangle kernel.
-        symmetric = A1 is A2
+        symmetric = self._symmetric = A1 is A2
         self._tier = _tier  # (parts of X1, parts of X2) on a bf16 tier
         if (_tier is None and compute_dtype is not None and kind != "laplace"
                 and A1.dtype == torch.float32):
@@ -147,9 +147,11 @@ class KernelLinOp(TwoSidedLinOp):
 
         The ground truth of residual checks: the lengthscale division, the
         kernel values and each column tile's partial are taken in float64.
+        One data set on both sides takes the triangle form on a card.
         """
         hi, lo = kernel_matmat_compensated(
-            self.kind, self._X1, self._X2, V, self._ls64, self._c, impl=self.impl
+            self.kind, self._X1, self._X2, V, self._ls64, self._c,
+            symmetric=self._symmetric, impl=self.impl,
         )
         return self._apply_scale(hi), self._apply_scale(lo)
 

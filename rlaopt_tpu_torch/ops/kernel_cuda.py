@@ -4,8 +4,9 @@ Counterpart of ``rlaopt_tpu/ops/kernel_pallas.py`` (exact f32 tier,
 compensated tier, bf16 tiers, the Laplace kernels),
 ``rlaopt_tpu/ops/kernel_value64.py`` (float64 route) and
 ``rlaopt_tpu/sparse/laned.py`` (the sparse CSR product). The kernels live in
-``csrc/gram.cu`` (K1, K1c, K2), ``csrc/gram_laplace.cu`` (K3, K3c, K5),
-``csrc/gram_tier.cu`` (K1b, K2b), ``csrc/gram_f64.cu`` (K8, K7),
+``csrc/gram.cu`` (K1, K1c, K2), ``csrc/gram_comp.cu`` (K1c's triangle
+form), ``csrc/gram_laplace.cu`` (K3, K3c, K5), ``csrc/gram_tier.cu`` (K1b,
+K2b), ``csrc/gram_f64.cu`` (K8, K7),
 ``csrc/gram_pair.cu`` (the pair kernels K4, K4b, K6), with their shared
 pieces in ``csrc/gram_common.cuh``, and ``csrc/spmv.cu`` (the
 CSR SpMV/SpMM; see the note at the top of each). :func:`build` compiles
@@ -33,13 +34,15 @@ from pathlib import Path
 import torch
 
 from ..kernels.functions import scale_inputs
-from .kernel_tiers import TierOperand, norms_and_operands
+from .kernel_tiers import TierOperand, norms_and_operands, split_rhs
 
 
 __all__ = [
     "build",
     "gram_matmat",
     "gram_matmat_comp",
+    "gram_matvec_symmetric_comp",
+    "symmetric_comp_operand",
     "gram_matvec_symmetric",
     "gram_matmat_tier",
     "gram_matvec_symmetric_tier",
@@ -54,6 +57,7 @@ __all__ = [
     "csr_spmv",
     "csr_spmm",
     "column_splits",
+    "tier_splits",
     "spmm_lanes",
     "launch_counts",
     "reset_launch_counts",
@@ -61,8 +65,8 @@ __all__ = [
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("gram.cu", "gram_laplace.cu", "gram_tier.cu", "gram_f64.cu", "gram_pair.cu",
-           "spmv.cu")
+SOURCES = ("gram.cu", "gram_comp.cu", "gram_laplace.cu", "gram_tier.cu", "gram_f64.cu",
+           "gram_pair.cu", "spmv.cu")
 _HEADERS = ("gram_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -73,6 +77,11 @@ COMPILE_FLAGS = (
 # have wrappers of their own (laplace_*); the float64 ones take the code.
 KIND_CODES = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3, "laplace": 4}
 SYMMETRIC_MAX_K = 16
+# csrc/gram_tier.cu: K1b's forward strip takes 128 rows a block, two blocks
+# an SM; csrc/gram_comp.cu's triangle K1c tiles of 128 points and chunks of
+# 16 features.
+TIER_ROWS, TIER_BLOCKS_PER_SM = 128, 2
+COMP_TILE, COMP_FEAT = 128, 16
 # csrc/spmv.cu keeps up to 16 right-hand sides of a row in registers.
 CSR_NARROW_MAX_K = 16
 # Its short-row schedule: L lanes a row, L a power of two in [2, 32], about
@@ -92,10 +101,13 @@ _SIGNATURES = {
     "rl_gram_matmat_comp": [
         _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
+    "rl_gram_matvec_symmetric_comp": [
+        _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
+    ],
     "rl_gram_matvec_symmetric": [_ci, _vp, _vp, _vp, _ci, _ci, _ci, _cd, _vp],
     "rl_gram_matmat_tier": [
-        _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-        _ci, _ci, _ci, _ci, _cd, _vp,
+        _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+        _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_gram_matvec_symmetric_tier": [
         _ci, _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _cd, _vp,
@@ -275,6 +287,25 @@ def column_splits(n: int, m: int, k: int, device) -> int:
     return max(1, min(-(-4 * sms // rows), tiles // 16))
 
 
+def tier_splits(n: int, m: int, k: int, sms: int) -> int:
+    """Runs of the m axis for K1b's forward strip (k ≤ 16) on a card of
+    ``sms`` SMs: 1 when the 128-row blocks of n fill two rounds of the
+    card's ``2·sms`` block slots (the last round's idle share is then at
+    most a third); otherwise as many runs as keep the blocks within four
+    rounds, each run at least 16 column tiles of 64. Uniform blocks run in
+    rounds, so the count aims below a whole number of them: SAP's row
+    oracle (10⁴ rows, 79 blocks) takes 13 runs, 1,027 blocks on 1,056
+    slot-rounds, where the one-run schedule left 53 of 132 SMs idle.
+    Past 16 columns (the wide kernel) 1."""
+    if k > SYMMETRIC_MAX_K:
+        return 1
+    rows, tiles = -(-n // TIER_ROWS), -(-m // 64)
+    slots = TIER_BLOCKS_PER_SM * sms
+    if rows >= 2 * slots:
+        return 1
+    return max(1, min(4 * slots // rows, tiles // 16))
+
+
 def _matmat_launch(entry, lead, X1, X2, V, lengthscale, const_scaling):
     """K1 or K3: check, scale, launch with its column splits; the output.
     ``lead``: the entry point's arguments before the pointers (K1's family
@@ -332,6 +363,48 @@ def gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling=1.0):
     return (out[:, 0], lo[:, 0]) if squeeze else (out, lo)
 
 
+def symmetric_comp_operand(X: torch.Tensor, lengthscale) -> torch.Tensor:
+    """The points of the triangle K1c: ``X / ℓ`` in float64, transposed to
+    (dpad, npad) and zero past d and n, dpad a multiple of ``COMP_FEAT`` and
+    npad of ``COMP_TILE`` (the kernel's feature chunks and tiles). The
+    scaling is the plain version's, :func:`kernel_plain.gram_matmat_comp`
+    (``scale_inputs`` of the float64 points)."""
+    n, d = X.shape
+    ls = torch.as_tensor(lengthscale, dtype=torch.float64, device=X.device)
+    if ls.ndim > 1 or ls.numel() not in (1, d):
+        raise ValueError(f"lengthscale of shape {tuple(ls.shape)} for d = {d}")
+    XT = torch.zeros((-(-d // COMP_FEAT) * COMP_FEAT, -(-n // COMP_TILE) * COMP_TILE),
+                     dtype=torch.float64, device=X.device)
+    XT[:d, :n] = scale_inputs(X.double(), ls).T
+    return XT
+
+
+def gram_matvec_symmetric_comp(kind, X, V, lengthscale, const_scaling=1.0):
+    """K1c's triangle form: ``c·k(X, X) @ V`` as ``(hi, lo)`` (add ``lo``
+    last), each tile pair evaluated once in float64 and contracted both
+    ways, any k. The function and contract of :func:`gram_matmat_comp` on
+    ``(X, X)``; the float64 sums go through atomics, so their last bits
+    (about 1e-16 relative) change from run to run."""
+    code = _code(kind)
+    _check_tensors((torch.float32,) * 2, X, V)
+    V2, squeeze = _check_shapes(X, X, V)
+    XT = symmetric_comp_operand(X, lengthscale)
+    (n, _), k = X.shape, V2.shape[1]
+    build()
+    acc = torch.empty((n, k), dtype=torch.float64, device=X.device)
+    out = torch.empty((n, k), dtype=torch.float32, device=X.device)
+    lo = torch.empty_like(out)
+    with torch.cuda.device(X.device):
+        err = _lib["handle"].rl_gram_matvec_symmetric_comp(
+            code, XT.data_ptr(), V2.data_ptr(), acc.data_ptr(), out.data_ptr(),
+            lo.data_ptr(), n, XT.shape[1], XT.shape[0], k, float(const_scaling),
+            _stream(X),
+        )
+    _raise_on(err, "gram_matvec_symmetric_comp")
+    gram_matvec_symmetric_comp.launches += 1
+    return (out[:, 0], lo[:, 0]) if squeeze else (out, lo)
+
+
 def gram_matvec_symmetric(kind, X, V, lengthscale, const_scaling=1.0):
     """K2: ``c·k(X, X) @ V`` for at most 16 columns, each tile pair once."""
     code = _code(kind)
@@ -373,22 +446,36 @@ def _check_tier(kind, *operands: TierOperand):
 
 def gram_matmat_tier(kind, A: TierOperand, B: TierOperand, V, const_scaling=1.0):
     """K1b: ``c·k(X1, X2) @ V`` on a bf16 tier from the parts of X1 (A) and
-    X2 (B) (:func:`rlaopt_tpu_torch.ops.kernel_tiers.tier_operand`): float32
-    contraction for k ≤ 16, the tier-matched tensor-core one past that."""
+    X2 (B) (:func:`rlaopt_tpu_torch.ops.kernel_tiers.tier_operand`): the
+    forward strip with a float32 contraction for k ≤ 16, the m axis in
+    :func:`tier_splits` runs; past that the wide kernel, the tier-matched
+    contraction on the tensor cores, with V's bf16 parts split here once
+    (:func:`rlaopt_tpu_torch.ops.kernel_tiers.split_rhs`)."""
     code = _check_tier(kind, A, B)
     _check_tensors((torch.float32,), V)
     V2, squeeze = _check_shapes(A.hi, B.hi, V)
     if V2.device != A.hi.device:
         raise ValueError(f"tensors on {V2.device} and {A.hi.device}")
     _, hx, hy = norms_and_operands(kind, A, B)
-    build()
     (n, dp), (m, k) = A.hi.shape, V2.shape
-    out = torch.empty((n, k), dtype=torch.float32, device=V2.device)
-    with torch.cuda.device(V2.device):
+    dev = V2.device
+    Vh = Vl = part = None
+    splits, kp = 1, k
+    if k > SYMMETRIC_MAX_K:
+        Vh, Vl = split_rhs(V2, A.passes)
+        kp = Vh.shape[1]
+    else:
+        splits = tier_splits(n, m, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+        if splits > 1:
+            part = torch.empty((splits, n, k), dtype=torch.float32, device=dev)
+    build()
+    out = torch.empty((n, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         err = _lib["handle"].rl_gram_matmat_tier(
             code, A.passes, A.hi.data_ptr(), _ptr(A.lo), hx.data_ptr(),
-            B.hi.data_ptr(), _ptr(B.lo), hy.data_ptr(), V2.data_ptr(),
-            out.data_ptr(), n, m, dp, k, float(const_scaling), _stream(V2),
+            B.hi.data_ptr(), _ptr(B.lo), hy.data_ptr(), V2.data_ptr(), _ptr(Vh),
+            _ptr(Vl), _ptr(part), out.data_ptr(), n, m, dp, k, kp, int(splits),
+            float(const_scaling), _stream(V2),
         )
     _raise_on(err, "gram_matmat_tier")
     gram_matmat_tier.launches += 1
@@ -672,6 +759,7 @@ def csr_spmm(values, indptr, indices, X, n_rows: int):
 _WRAPPERS = (
     gram_matmat,
     gram_matmat_comp,
+    gram_matvec_symmetric_comp,
     gram_matvec_symmetric,
     gram_matmat_tier,
     gram_matvec_symmetric_tier,

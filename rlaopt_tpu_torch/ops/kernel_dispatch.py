@@ -15,7 +15,8 @@ Which kernel, on a card:
   operator was built on one data set (``symmetric``) and ``k ≤ 16``, the
   general kernel K1 otherwise; for the Laplace family K5 and K3 by the same
   rule (the JAX package's gate without its VMEM window);
-* compensated (:func:`kernel_matmat_compensated`): K1c, or K3c for Laplace;
+* compensated (:func:`kernel_matmat_compensated`): K1c's triangle form
+  when symmetric (any k), the general K1c otherwise; K3c for Laplace;
 * bf16 tiers (:func:`kernel_matmat_tier`): the same rule between K2b and
   K1b, on the tier parts of :mod:`rlaopt_tpu_torch.ops.kernel_tiers` that
   the operator keeps;
@@ -132,16 +133,22 @@ def kernel_matmat_compensated(
     V: torch.Tensor,
     lengthscale,
     const_scaling=1.0,
+    symmetric: bool = False,
     impl: str = "auto",
 ):
     """``c·k(X1, X2) @ V`` as a compensated ``(hi, lo)`` pair (add ``lo``
-    last), on the device of the operands."""
+    last), on the device of the operands. ``symmetric=True`` asserts that
+    X1 and X2 are one data set: on a card the triangle K1c evaluates each
+    tile pair once (the same function; its plain version is the general
+    one)."""
     if not _on_card(impl, X1):
         return kernel_plain.gram_matmat_comp(
             kind, X1, X2, V, lengthscale, const_scaling
         )
     if kind == "laplace":
         return kernel_cuda.laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling)
+    if symmetric and X1.shape[0] == X2.shape[0]:
+        return kernel_cuda.gram_matvec_symmetric_comp(kind, X1, V, lengthscale, const_scaling)
     return kernel_cuda.gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling)
 
 

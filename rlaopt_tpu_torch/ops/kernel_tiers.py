@@ -32,6 +32,7 @@ __all__ = [
     "TierOperand",
     "normalize_compute_dtype",
     "split_bf16",
+    "split_rhs",
     "tier_operand",
     "norms_and_operands",
     "finish_dot",
@@ -62,6 +63,23 @@ def split_bf16(A: torch.Tensor):
     hi = A.to(torch.bfloat16).float()
     lo = (A - hi).to(torch.bfloat16).float()
     return hi, lo
+
+
+def split_rhs(V: torch.Tensor, passes: int):
+    """The right-hand side of K1b past 16 columns: ``(vh, vl)``, V's bf16
+    parts (``vl`` None on the one-pass tier), each (m, kp) with kp the
+    column count rounded up to a multiple of 16, zero past it, so that
+    every row starts 16-byte aligned. Bit for bit the parts
+    :func:`split_bf16` gives (round to nearest even), taken once per call
+    instead of once per tile and row block."""
+    if V.ndim != 2 or V.dtype != torch.float32:
+        raise ValueError(f"split_rhs takes a 2-D float32 V, got {V.dtype} {tuple(V.shape)}")
+    pad = -V.shape[1] % DEPTH_MULTIPLE
+    Vp = torch.nn.functional.pad(V, (0, pad)) if pad else V
+    vh = Vp.to(torch.bfloat16).contiguous()
+    if passes == 1:
+        return vh, None
+    return vh, (Vp - vh.float()).to(torch.bfloat16).contiguous()
 
 
 @dataclass(frozen=True)

@@ -108,7 +108,8 @@ def test_cuda_launch_counts_and_refusals(cuda_device):
     kernel_cuda.gram_matmat("rbf", X, X, V, 1.0)
     kernel_cuda.gram_matmat_comp("rbf", X, X, V[:, :2], 1.0)
     assert kernel_cuda.launch_counts() == {
-        "gram_matmat": 1, "gram_matmat_comp": 1, "gram_matvec_symmetric": 0,
+        "gram_matmat": 1, "gram_matmat_comp": 1, "gram_matvec_symmetric_comp": 0,
+        "gram_matvec_symmetric": 0,
         "gram_matmat_tier": 0, "gram_matvec_symmetric_tier": 0,
         "gram_matmat_f64": 0, "gram_matvec_symmetric_f64": 0,
         "laplace_matmat": 0, "laplace_matmat_comp": 0, "laplace_matvec_symmetric": 0,
@@ -166,6 +167,58 @@ def test_cuda_tiers_match_their_plain_versions(cuda_device, cd, kind, k):
                 ref = kernel_plain.gram_matvec_symmetric_tier(kind, A, Vz, 0.8)[rows]
                 torch.cuda.synchronize()
                 assert _rel(got, ref) <= bound(Vz, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["bf16x3", "bfloat16"])
+@pytest.mark.parametrize("kind", SQDIST_KINDS)
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 16, 17, 64, 129, 500])
+def test_cuda_k1b_ragged_every_width(cuda_device, cd, kind, k, monkeypatch):
+    """K1b against the plain version of its tier on ragged n and m (not
+    whole 64-row tiles), every width of both schedules: the forward strip
+    (k <= 16) with one run of the m axis and with three (the partials summed
+    by a second launch), and the wide kernel at 64 and 128 columns a block
+    with a ragged last block. Bounds as in
+    :func:`test_cuda_tiers_match_their_plain_versions`."""
+    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
+
+    X1, X2, V = _data(31, 333, 1201, 28, k)
+    X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
+    A, B = tier_operand(X1 / 5.3, cd), tier_operand(X2 / 5.3, cd)
+    ref = kernel_plain.gram_matmat_tier(kind, A, B, V, 0.8)
+    reround = cd == "bfloat16" and k > 16
+    bound = _reround_bound(V, ref, 0.8) if reround else 1e-5
+    for runs in ((1, 3) if k <= 16 else (1,)):
+        monkeypatch.setattr(kernel_cuda, "tier_splits", lambda *a, runs=runs: runs)
+        got = kernel_cuda.gram_matmat_tier(kind, A, B, V, 0.8)
+        torch.cuda.synchronize()
+        assert got.shape == (333, k)
+        assert _rel(got, ref) <= bound, runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SQDIST_KINDS)
+@pytest.mark.parametrize("k", [1, 2, 3, 16, 17])
+@pytest.mark.parametrize("n", [1000, 129])
+def test_cuda_symmetric_comp_matches(cuda_device, kind, k, n):
+    """The triangle K1c against the general K1c and the float64 plain
+    version at ragged n (tiles of 128 points: a ragged last tile, and one
+    point past a whole tile), k from 1 to 17 (1, 2 or 4 columns a slice):
+    hi + lo within 1e-10 of max|ref| of both, as ``chip_smoke.py`` holds
+    it; the ARD lengthscale of a float64 tensor."""
+    X, _, V = _data(5 + k, n, n, 7, k)
+    X, V = torch.from_numpy(X).to(cuda_device), torch.from_numpy(V).to(cuda_device)
+    ls = torch.linspace(0.8, 1.9, 7, dtype=torch.float64, device=cuda_device)
+    ref = kernel_plain.gram_matmat_f64(kind, X, X, V, ls, 0.9)
+    hi, lo = kernel_cuda.gram_matvec_symmetric_comp(kind, X, V, ls, 0.9)
+    ghi, glo = kernel_cuda.gram_matmat_comp(kind, X, X, V, ls, 0.9)
+    torch.cuda.synchronize()
+    assert hi.dtype == lo.dtype == torch.float32 and hi.shape == (n, k)
+    got = hi.double() + lo.double()
+    assert _rel(got, ref) <= 1e-10
+    assert _rel(got, ghi.double() + glo.double()) <= 1e-10
+    h1, l1 = kernel_cuda.gram_matvec_symmetric_comp(kind, X, V[:, 0], ls, 0.9)
+    assert h1.shape == (n,) and _rel(h1.double() + l1.double(), ref[:, 0]) <= 1e-10
 
 
 @pytest.mark.cuda

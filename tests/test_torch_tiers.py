@@ -291,6 +291,13 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     ("gram_matmat_wide<4>(float const*, float const*)", "laplace_matmat"),
     ("gram_tier_symmetric<0, 3, 1>(GramArgs, int)", "gram_matvec_symmetric_tier"),
     ("gram_tier_symmetric<3, 1, 16>(GramArgs, int)", "gram_matvec_symmetric_tier"),
+    ("gram_tier_forward<0, 3, 1>(GramArgs, int)", "gram_matmat_tier"),
+    ("gram_tier_forward<2, 1, 16>(GramArgs, int)", "gram_matmat_tier"),
+    ("gram_tier_wide<1, 3, 16>(GramArgs, int)", "gram_matmat_tier"),
+    ("gram_comp_symmetric<0, 1>(double const*, float const*, double*, int, int, int, int, int)",
+     "gram_matvec_symmetric_comp"),
+    ("gram_comp_finish(double const*, float*, float*, unsigned long, double)",
+     "gram_matvec_symmetric_comp"),
     ("csr_spmm_lanes<float, 1, 4>(long const*, int const*)", "csr_spmm"),
 ])
 def test_profile_groups_each_kernel_template(name, group):
@@ -298,6 +305,21 @@ def test_profile_groups_each_kernel_template(name, group):
     template arguments (family, mode and, for the triangle template, the
     pair flag), as demangled in the device events."""
     assert SMOKE._kernel_group("void (anonymous namespace)::" + name) == group
+
+
+def test_bound_of_the_triangle_k1c():
+    """``chip_smoke.bound_ms`` counts the triangle K1c
+    (``gram_matvec_symmetric_comp``, one of ``COMP_KERNELS``) as n²/2
+    float64 values, each contracted both ways, with the float32 pair written
+    out: half the general K1c's value work at the same n."""
+    n, d = 100_000, 28
+    assert "gram_matvec_symmetric_comp" in SMOKE.COMP_KERNELS
+    ms, by = SMOKE.bound_ms("gram_matvec_symmetric_comp", n, n, d, 1)
+    assert by == "operations"
+    assert ms == pytest.approx((n * n / 2 * (3 * d + 1) + 2 * n * n) / SMOKE.PEAK["fp64"] * 1e3)
+    general, _ = SMOKE.bound_ms("gram_matmat_comp", n, n, d, 1)
+    assert general == pytest.approx((n * n * (3 * d + 1) + 2 * n * n) / SMOKE.PEAK["fp64"] * 1e3)
+    assert SMOKE.PEAK["fp64_tc"] == 67e12  # the FP64 tensor cores: used by no kernel yet
 
 
 def test_bound_counts_the_exponential_on_the_sfu():
