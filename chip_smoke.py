@@ -8,10 +8,22 @@ Needs one CUDA card and ``nvcc`` (the kernels are built from
 straight through and exits non-zero at the first failure:
 
 1. device: the card's name and power limit, the two TF32 flags (set off);
-2. build of the Gram kernels, timed, and the registers and spills of the
-   kernels redesigned for Hopper (K2b, #9's short-row schedule, K1b's
-   forward strip and wide kernel, the triangle K1c) from the build's
-   ``-Xptxas -v`` log;
+2. build of the Gram kernels and the ceiling probes, timed, and the
+   registers and spills of the kernels redesigned for Hopper (K2b, #9's
+   short-row schedule, K1b's forward strip and wide kernel, the triangle
+   K1c and K3c, K3's tile) and of the probes from the build's ``-Xptxas
+   -v`` log;
+2b. the ceilings: each probe (TPU kernels #10-#13: the L1 pair rate in
+   float32 and float64, the elementwise chain, the exp chain, the exp and
+   epilogue rates) against its plain version at a small size, then, with
+   the probes' counts set to 0, each at its TPU probe's shapes (the L1
+   probes in as many instances as fill four or more whole rounds of the
+   card's blocks), timed with CUDA events over 50 ms or more a timing
+   (median of 3) and held against its plain version there, its rate by
+   the TPU probe's own count printed, the SM clock and power draw sampled
+   by ``nvidia-smi`` while the longest probe runs, and the pipes' peak
+   rate for the L1 pair at that clock; each Laplace kernel's time is read
+   against these rates at the end;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (HIGGS-100k: n = 100,000, d = 28) and at a ragged shape
    for every family: K1, K1c (general and triangle), K2 against float64;
@@ -38,16 +50,24 @@ straight through and exits non-zero at the first failure:
    plain versions
    at the path's n = m = 1,000,000, on those 4,096 rows, and K2b timed
    beside the exact K2 on the same points at k = 1 and 10;
-7. slice 3: the Laplace kernels K3, K3c and K5 against the float64 plain
-   version at the HIGGS shape (on 4,096 rows) and the ragged one, timed;
+7. slice 3: the Laplace kernels K3 (its Hopper tile up to 16 columns, the
+   wide kernel past that), K3c (general and triangle) and K5 against the
+   float64 plain version at the HIGGS shape (on 4,096 rows) and at ragged
+   shapes (n, m not multiples of 128; d = 3, 28, 50; an ARD lengthscale),
+   the tile's split product the same bits twice, timed, the tile beside the
+   shared template it replaced and the triangle K3c beside the general;
    path B, Nyström-PCG on ``LaplaceLinOp`` at the HIGGS-100k shape (k = 1,
    k = 10, k = 1 refined), every logged residual within 1% of a float64 one;
    path A, ASkotch (SAP) on ``LaplaceLinOp`` at config 4's n = 1,000,000,
    d = 50, and path A', config 4 as written (bf16x3 RBF), both under
    ``torch.profiler`` with sampled metrics, each sampled estimate within
-   5 sigma of an independent float64 residual on other rows; then K3, K3c,
-   K1b and K1c at the paths' block-oracle shape (10,000 x 1,000,000),
-   checked on 4,096 rows, and the dense block's peak memory;
+   5 sigma of an independent float64 residual on other rows, path A's row
+   oracle through K3's tile every step and its final residual through the
+   triangle K3c; then K3 (beside the template it replaced), K3c, K1b and
+   K1c at the paths' block-oracle shape (10,000 x 1,000,000), checked on
+   4,096 rows, the triangle K3c at path A's n = 1,000,000 checked on those
+   rows and timed beside the general K3c, and the dense block's peak
+   memory;
 8. slice 4: path S, ``LstSq(SparseCSRTensor(A), b)`` with LSQR and the
    sparse SkPre sketch on a 2^20 x 1,024 CSR operand with 16 nonzeros a row
    (k = 1, k = 10), every logged rel_res against scipy's float64 one, the
@@ -72,14 +92,16 @@ straight through and exits non-zero at the first failure:
    the unsharded operator's and float64, its launches against the
    schedule's count, every logged rel_res against an independent float64
    one, Hutchinson's trace against the exact c·n;
-10. the kernels' JSON line (each with its bound, ``bound_ms``), the card
-   line, and the result line last.
+10. each Laplace kernel's share of its bound, of the probe-measured
+   ceiling and of the pipes' peak rate, the kernels' JSON line (each
+   with its bound, ``bound_ms``), the card line, and the result line last.
 
 It imports nothing of JAX.
 """
 
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -126,6 +148,7 @@ SOURCES = {
     "f64": "rlaopt_tpu_torch/csrc/gram_f64.cu",
     "spmv": "rlaopt_tpu_torch/csrc/spmv.cu",
     "pair": "rlaopt_tpu_torch/csrc/gram_pair.cu",
+    "probes": "rlaopt_tpu_torch/csrc/probes.cu",
 }
 PALLAS = "rlaopt_tpu/ops/kernel_pallas.py"
 VALUE64 = "rlaopt_tpu/ops/kernel_value64.py"
@@ -226,13 +249,37 @@ RES_REL, RES_ABS, RES_ABOVE = 0.01, 5e-7, 1e-5
 REGISTERS_OF = {"gram_matvec_symmetric_tier": ("gram_tier_symmetric",),
                 "gram_matmat_tier": ("gram_tier_forward", "gram_tier_wide"),
                 "gram_matvec_symmetric_comp": ("gram_comp_symmetric",),
-                "csr_spmv": ("csr_spmm_lanes",), "csr_spmm": ("csr_spmm_lanes",)}
+                "csr_spmv": ("csr_spmm_lanes",), "csr_spmm": ("csr_spmm_lanes",),
+                "laplace_matmat_narrow": ("laplace_forward",),
+                "probe_l1": ("probe_l1",), "probe_elem": ("probe_chain",),
+                "probe_exp_chain": ("probe_chain",), "probe_vmem_chain": ("probe_chain",)}
 REDESIGNED = tuple(dict.fromkeys(f for fs in REGISTERS_OF.values() for f in fs))
 COMP_KERNELS = ("gram_matmat_comp", "gram_matvec_symmetric_comp", "laplace_matmat_comp")
 F64_KERNELS = ("gram_matmat_f64", "gram_matvec_symmetric_f64")
 TIER_KERNELS = ("gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_pair_tier")
 PAIR_KERNELS = ("gram_pair", "gram_pair_tier", "laplace_pair")
 CSR_KERNELS = ("csr_spmv", "csr_spmm")
+# The ceiling probes (rlaopt_tpu_torch/ops/probes.py), by wrapper: the TPU
+# probe each replaces (the line of its def) and the SPECS names it runs at.
+PROBES = {
+    "probe_l1": ("bench.py:146", ("vpu_peak", "bcast_256x256", "bcast_512x1024",
+                                  "bcast_256x1024")),
+    "probe_vmem_chain": ("bench.py:215", ("exp_peak", "epilogue_bound")),
+    "probe_elem": ("benchmarks/vpu_probe_study.py:125", ("elem_256x256", "elem_512x1024")),
+    "probe_exp_chain": ("benchmarks/exp_probe_study.py:116", ("exp_chain_512x1024",
+                                                              "exp_chain_256x256")),
+}
+# Operations a probe event takes by unit, as bound_ms counts them (an
+# absolute value or a negation is an operand modifier and not counted, an
+# exp is one SFU operation): the L1 pair and the elementwise step, a
+# subtraction and an add; the exp chain's step a subtraction and the exp;
+# make_exp_peak's a multiplication, the exp and the sum's add;
+# make_epilogue_bound's two subtractions, the exp, a multiplication and an
+# add.
+PROBE_OPS = {"l1": {"fp32": 2}, "elem": {"fp32": 2}, "exp_chain": {"fp32": 1, "sfu": 1},
+             "exp": {"fp32": 2, "sfu": 1}, "epilogue": {"fp32": 4, "sfu": 1}}
+# Timings of the ceilings phase: at least this long each (ms), median of 3.
+PROBE_TIMING_MS = 50.0
 
 
 def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
@@ -303,6 +350,29 @@ def tier_tc_ops(values, contraction, d, k, cd):
     d and pass) and, past 16 columns, the contraction (per pass)."""
     passes = 3 if cd == "bf16x3" else 1
     return values * 2 * d * passes + (contraction * passes if k > 16 else 0)
+
+
+def probe_bound_ms(spec: dict, instances: int = 1, cd: str = "float32"):
+    """``(ms, "bytes" or "operations")`` of one call of a ceiling probe at
+    its TPU probe's shapes (``ops.probes.SPECS``) with ``instances``
+    instances: its events times ``PROBE_OPS`` over the unit's peak (float64
+    for the L1 probe in float64), or X and Y read once and the output
+    written once over the HBM rate, the larger."""
+    from rlaopt_tpu_torch.ops import probes
+
+    ev = probes.events(spec, instances)
+    ops = dict(PROBE_OPS[spec["kind"]])
+    if cd == "float64":
+        ops = {"fp64": ops.pop("fp32")}
+    t_ops = max(ev * v / PEAK[unit] for unit, v in ops.items())
+    vb = 8 if cd == "float64" else 4
+    if spec["kind"] == "l1":
+        elems = instances * (spec["nb"] * spec["fb"] * (spec["tm"] + spec["tn"])
+                             + spec["tm"] * spec["tn"])
+    else:
+        elems = 3.0 * spec["grid"] * spec["tm"] * spec["tn"] * instances
+    t_bytes = elems * vb / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def ptxas_report(log: str, names) -> dict:
@@ -422,6 +492,9 @@ _OWN = {"gram_tier_symmetric": "gram_matvec_symmetric_tier",
         "gram_tier_forward": "gram_matmat_tier", "gram_tier_wide": "gram_matmat_tier",
         "gram_comp_symmetric": "gram_matvec_symmetric_comp",
         "gram_comp_finish": "gram_matvec_symmetric_comp"}
+# Kernels whose names hold no gram_ prefix: K3's tile and the probes.
+_OWN_NAMED = {"laplace_forward": "laplace_matmat_narrow", "probe_l1": "probe_l1",
+              "probe_chain": "probe_chain"}
 
 
 def _kernel_group(name: str) -> str:
@@ -429,6 +502,9 @@ def _kernel_group(name: str) -> str:
         return "sum_splits"
     if "csr_spmm" in name:
         return "csr_spmm"
+    for own, group in _OWN_NAMED.items():
+        if own in name:
+            return group
     m = re.search(r"(gram_\w+)(?:<([^>]*)>)?", name)
     if m is None:
         return "other"
@@ -473,19 +549,6 @@ def device_breakdown(prof) -> dict:
         "busy_ms": busy,
         "kernels": {key: {"ms": g[0], "events": g[1]} for key, g in sorted(groups.items())},
     }
-
-
-@contextlib.contextmanager
-def one_pass():
-    """K1 and K3 walk all of m in one pass (no column splits) inside."""
-    from rlaopt_tpu_torch.ops import kernel_cuda
-
-    real = kernel_cuda.column_splits
-    kernel_cuda.column_splits = lambda *a: 1
-    try:
-        yield
-    finally:
-        kernel_cuda.column_splits = real
 
 
 def cuda_ms(fn, reps=5, warm=True, inner=1):
@@ -695,10 +758,10 @@ def timing_entry(kernel, shape, ms, plain_ms, n, m, d, k, kind="rbf", cd=None, n
             "bound_by": by, "n": n, "m": m, "d": d, "k": k, "kind": kind, "cd": cd, **extra}
 
 
-def profiled_entries(timings, prof_kernels, used, what, n, d, kernels):
+def profiled_entries(timings, prof_kernels, used, what, n, d, kernels, kind="rbf"):
     """Per-launch timings of ``kernels`` ((wrapper, k, tier) each) from a
     profiled path: the group's device time over the path's launches of
-    that wrapper (the K1c triangle's group holds its finishing pass)."""
+    that wrapper (the triangle's group holds its finishing pass)."""
     for kname, k, cd in kernels:
         group = prof_kernels.get(kname)
         if not group or not used[kname]:
@@ -707,17 +770,228 @@ def profiled_entries(timings, prof_kernels, used, what, n, d, kernels):
         timings.setdefault(kname, []).append(timing_entry(
             kname, f"{what} n=m={n} d={d} k={k}" + (f" {cd}" if cd else "")
             + f" (profile: {used[kname]} launches, {group['ms']:.3f} ms)",
-            ms, None, n, n, d, k, "rbf", cd, launches=used[kname]))
+            ms, None, n, n, d, k, kind, cd, launches=used[kname]))
         print(f"time {kname} {what} n=m={n} d={d} k={k}: {ms:.3f} ms a launch (profile), "
               f"bound {timings[kname][-1]['bound_ms']:.3f} ms")
 
 
+def old_k3(X1, X2, V, ls):
+    """K3's schedule before its Hopper tile: the shared narrow template
+    (``gram_matmat_narrow<LAPLACE>``, 64-point tiles, ``column_splits``
+    runs), which ``rl_laplace_matmat`` still runs at k <= 16 (the wrapper
+    sends those to ``laplace_matmat_narrow``); timed beside the tile, and
+    not counted."""
+    from rlaopt_tpu_torch.ops import kernel_cuda
+
+    return kernel_cuda._matmat_launch("rl_laplace_matmat", (), X1, X2, V, ls, 1.0)
+
+
+def probe_instances(spec: dict, sms: int) -> int:
+    """Instances of an L1 probe (``ops.probes.SPECS``) in a timed call: the
+    fewest that fill whole rounds of the card's block slots (one 128 x 128
+    block an SM), four rounds or more, so that no round runs part full."""
+    per = spec["tm"] // 128 * spec["tn"] // 128
+    base = sms // math.gcd(sms, per)
+    return base * -(-4 * sms // (base * per))
+
+
+def timed_probe(fn):
+    """``(ms a call, calls a timing)``: a pilot call sizes each timing to
+    PROBE_TIMING_MS or more; the median of 3 such timings."""
+    pilot = cuda_ms(fn, reps=1)
+    inner = max(1, int(np.ceil(PROBE_TIMING_MS / pilot)))
+    return cuda_ms(fn, reps=3, inner=inner), inner
+
+
+def sample_smi(fn, seconds=2.0):
+    """Run ``fn`` back to back for about ``seconds`` while ``nvidia-smi``
+    samples the SM clock (MHz) and power draw (W) every 100 ms; returns
+    the samples and the ms a call over that window (CUDA events)."""
+    import torch
+
+    pilot = cuda_ms(fn, reps=1)
+    calls = max(1, int(seconds * 1e3 / pilot))
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.3)
+        ms = cuda_ms(fn, reps=1, warm=False, inner=calls)
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    samples = []
+    for line in out.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2:
+            try:
+                samples.append((float(parts[0]), float(parts[1])))
+            except ValueError:
+                continue
+    return samples, ms
+
+
+def ceilings(dev, compare, timings):
+    """Phase 2b: the ceiling probes (TPU #10-#13). Each against its plain
+    version at a small size, then, counted, each at its TPU probe's shapes,
+    timed and held against its plain version there too; the float32 L1
+    probe also in float64, and once more for about 2 s with ``nvidia-smi``
+    sampling the SM clock and power draw. Returns the measured rates
+    (events a second, by the TPU probes' count), the samples, the pipes'
+    peak rates for the L1 pair at the median SM clock and the probes'
+    launches."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda, probes
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(20)
+    # The L1 probe sums in the plain version's order (block by block,
+    # feature by feature) and the elementwise chain does its operations:
+    # the same bits (1e-6 is room, not a measured gap). The exp chains and
+    # sums take __expf, a few float32 ulps from torch.exp, each chain step
+    # contracting an error (its derivative is at most 1 in size): 1e-5.
+    bounds = {"l1": {"float32": 1e-6, "float64": 1e-14}, "elem": 1e-6, "exp_chain": 1e-5,
+              "exp": 1e-5, "epilogue": 1e-5}
+    for dt in (torch.float32, torch.float64):
+        cd = str(dt)[6:]
+        X = torch.randn((3, 2, 256, 64), generator=gen, device=dev, dtype=dt)
+        Y = torch.randn((3, 2, 64, 384), generator=gen, device=dev, dtype=dt)
+        compare("probe_l1", probes.probe_l1(X, Y), probes.probe_l1_plain(X, Y),
+                f"3 instances nb=2 tm=256 tn=384 fb=64 {cd}", bounds["l1"][cd])
+    X, Y = (torch.randn((512, 1024), generator=gen, device=dev) for _ in range(2))
+    U, U2 = (torch.rand((512, 1024), generator=gen, device=dev) for _ in range(2))
+    compare("probe_elem", probes.probe_elem(X, Y), probes.probe_elem_plain(X, Y),
+            "512x1024 normal", bounds["elem"])
+    compare("probe_exp_chain", probes.probe_exp_chain(X, Y), probes.probe_exp_chain_plain(X, Y),
+            "512x1024 normal", bounds["exp_chain"])
+    for step in ("exp", "epilogue"):
+        compare("probe_vmem_chain", probes.probe_vmem_chain(U, U2, step),
+                probes.probe_vmem_chain_plain(U, U2, step), f"{step} 512x1024 uniform",
+                bounds[step])
+    del X, Y, U, U2
+
+    probes.reset_launch_counts()
+    rates, fns = {}, {}
+    for kname, (tpu, names) in PROBES.items():
+        for sname in names:
+            spec = probes.SPECS[sname]
+            for cd in (("float32", "float64") if sname == "vpu_peak" else ("float32",)):
+                dt = torch.float32 if cd == "float32" else torch.float64
+                draw = torch.randn if spec["data"] == "normal" else torch.rand
+                if spec["kind"] == "l1":
+                    inst = probe_instances(spec, sms)
+                    X = draw((inst, spec["nb"], spec["tm"], spec["fb"]), generator=gen,
+                             device=dev, dtype=dt)
+                    Y = draw((inst, spec["nb"], spec["fb"], spec["tn"]), generator=gen,
+                             device=dev, dtype=dt)
+                    fn = (lambda X=X, Y=Y: probes.probe_l1(X, Y))
+                    plain = (lambda X=X, Y=Y: probes.probe_l1_plain(X, Y))
+                    bound_err = bounds["l1"][cd]
+                else:
+                    inst = 1
+                    shape = (spec["grid"] * spec["tm"], spec["tn"])
+                    X = draw(shape, generator=gen, device=dev)
+                    Y = draw(shape, generator=gen, device=dev)
+                    fn, plain = {
+                        "elem": (lambda X=X, Y=Y: probes.probe_elem(X, Y),
+                                 lambda X=X, Y=Y: probes.probe_elem_plain(X, Y)),
+                        "exp_chain": (lambda X=X, Y=Y: probes.probe_exp_chain(X, Y),
+                                      lambda X=X, Y=Y: probes.probe_exp_chain_plain(X, Y)),
+                        "exp": (lambda X=X, Y=Y: probes.probe_vmem_chain(X, Y, "exp"),
+                                lambda X=X, Y=Y: probes.probe_vmem_chain_plain(X, Y, "exp")),
+                        "epilogue": (
+                            lambda X=X, Y=Y: probes.probe_vmem_chain(X, Y, "epilogue"),
+                            lambda X=X, Y=Y: probes.probe_vmem_chain_plain(X, Y, "epilogue")),
+                    }[spec["kind"]]
+                    bound_err = bounds[spec["kind"]]
+                ms, inner = timed_probe(fn)
+                what = f"{sname} {cd}" + (f" x{inst} instances" if inst > 1 else "")
+                # the plain version once at every timed shape, timed, and
+                # the probe held against it there
+                held = {}
+                p_ms = cuda_ms(lambda: held.setdefault("ref", plain()), reps=1, warm=False)
+                compare(kname, fn(), held.pop("ref"), f"{what} (timed shape)", bound_err)
+                ev = probes.events(spec, inst)
+                rate = ev / (ms * 1e-3)
+                bound, by = probe_bound_ms(spec, inst, cd)
+                timings.setdefault(kname, []).append({
+                    "shape": what, "ms": ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                    "library_ms": None, "tpu": spec["tpu"], "number": spec["number"],
+                    "instances": inst, "events": ev, "rate_per_s": rate, "calls_a_timing": inner,
+                    "kind": spec["kind"], "cd": cd})
+                rates[f"{sname} {cd}"] = rate
+                fns[f"{sname} {cd}"] = fn
+                print(f"ceiling {kname} #{spec['number']} {what}: {ms:.4f} ms a call "
+                      f"({inner} calls a timing), {rate / 1e12:.4f} T events/s, bound "
+                      f"{bound:.4f} ms ({by}), {bound / ms:.1%} of it; plain {p_ms:.3f} ms")
+                del X, Y
+    samples, ms = sample_smi(fns["vpu_peak float32"])
+    check(len(samples) > 0, "nvidia-smi sampled the SM clock and power draw")
+    clocks = sorted(c for c, _ in samples)
+    watts = sorted(w for _, w in samples)
+    ev = probes.events(probes.SPECS["vpu_peak"], timings["probe_l1"][0]["instances"])
+    smi = {"probe": "vpu_peak float32", "samples": len(samples), "ms_a_call": ms,
+           "rate_per_s": ev / (ms * 1e-3),
+           "sm_clock_mhz": {"min": clocks[0], "median": statistics.median(clocks),
+                            "max": clocks[-1]},
+           "power_w": {"min": watts[0], "median": statistics.median(watts), "max": watts[-1]}}
+    print("ceilings smi " + json.dumps(smi))
+    used = probes.launch_counts()
+    for kname in PROBES:
+        check(used[kname] > 0, f"the ceilings phase launched {kname}")
+    # the L1 pair rate the pipes allow at the median SM clock, two adds a
+    # pair: 128 FP32 and 64 FP64 lanes a clock per SM
+    hz = smi["sm_clock_mhz"]["median"] * 1e6
+    pipes = {"float32": 128 * sms * hz / 2, "float64": 64 * sms * hz / 2}
+    smi["fp32_pairs_per_s"], smi["fp64_pairs_per_s"] = pipes["float32"], pipes["float64"]
+    print(f"ceilings: L1 pairs {rates['vpu_peak float32'] / 1e12:.4f} T/s float32 "
+          f"({rates['vpu_peak float32'] / pipes['float32']:.1%} of the FP32 pipes' "
+          f"{pipes['float32'] / 1e12:.4f} T pairs/s at the median SM clock), "
+          f"{rates['vpu_peak float64'] / 1e12:.4f} T/s float64 "
+          f"({rates['vpu_peak float64'] / pipes['float64']:.1%} of the FP64 pipes' "
+          f"{pipes['float64'] / 1e12:.4f}); exp {rates['exp_peak float32'] / 1e12:.4f} T/s, "
+          f"epilogue {rates['epilogue_bound float32'] / 1e12:.4f} T values/s")
+    rec = {"rates": rates, "pipes": pipes, "smi": smi,
+           "launches": {**kernel_cuda.launch_counts(), **used}}
+    print("ceilings " + json.dumps(rec))
+    return rec
+
+
+def ceiling_shares(timings, rates, pipes):
+    """Each Laplace row's share of ``bound_ms``, of the probe-measured
+    ceiling and of the pipes' peak rate: its pairs (n·m·d, n²/2·d for the
+    triangles) over the L1 probe's rate (float64 for the compensated
+    kernels), kept in the entry as ``ceiling_ms``, and over the FP32 (FP64)
+    pipes' pair rate at the SM clock read during the probe, as
+    ``pipe_ms``."""
+    for kname in ("laplace_matmat_narrow", "laplace_matmat", "laplace_matmat_comp",
+                  "gram_matvec_symmetric_comp", "laplace_matvec_symmetric", "laplace_pair"):
+        for e in timings.get(kname, []):
+            if e.get("kind") != "laplace" or not e.get("ms"):
+                continue
+            n, m, d = e["n"], e["m"], e["d"]
+            pairs = (n * n / 2 if "symmetric" in kname else float(n) * m) * d
+            cd = "float64" if kname in COMP_KERNELS else "float32"
+            e["ceiling_ms"] = pairs / rates[f"vpu_peak {cd}"] * 1e3
+            e["pipe_ms"] = pairs / pipes[cd] * 1e3
+            print(f"share {kname} {e['shape']}: {e['bound_ms'] / e['ms']:.1%} of bound_ms "
+                  f"({e['bound_by']}), {e['ceiling_ms'] / e['ms']:.1%} of the measured {cd} "
+                  f"L1 ceiling ({e['ceiling_ms']:.3f} ms), {e['pipe_ms'] / e['ms']:.1%} of the "
+                  f"FP{cd[5:]} pipes' peak rate ({e['pipe_ms']:.3f} ms)")
+
+
 def laplace_kernels(dev, X, compare, timings):
-    """K3, K3c and K5 against the float64 plain version at the HIGGS shape
-    (lengthscale 32, on 4,096 rows of each full product) and at the ragged
-    shape, then each kernel and its plain version timed at the HIGGS shape.
-    The plain versions sum distances directly, seconds a call here: one
-    timed run each, without a warm-up."""
+    """K3 (its tile up to 16 columns, the wide kernel past that), K3c
+    (general and triangle) and K5 against the float64 plain version at the
+    HIGGS shape (lengthscale 32, on 4,096 rows of each full product) and at
+    ragged shapes: n and m not multiples of 128, d = 3, 28 and 50, a scalar
+    and an ARD lengthscale; the tile's split product the same bits twice.
+    Then each kernel and its plain version timed at the HIGGS shape, the
+    tile beside the shared template it replaced (:func:`old_k3`) and the
+    triangle K3c beside the general. The plain versions sum distances
+    directly, seconds a call here: one timed run each, without a warm-up."""
     import torch
 
     from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
@@ -725,62 +999,123 @@ def laplace_kernels(dev, X, compare, timings):
     n = X.shape[0]
     idx = torch.as_tensor(sampled_rows(n, 4096, 5), device=dev)
     gen = torch.Generator(device=dev).manual_seed(4)
-    Vs = {k: torch.randn((n, k), generator=gen, device=dev) for k in (1, 10, RANK)}
-    cols = {1: slice(0, 1), 10: slice(1, 11), RANK: slice(11, 11 + RANK)}
+    Vs = {k: torch.randn((n, k), generator=gen, device=dev) for k in (1, 10, 16, RANK)}
+    cols, at = {}, 0
+    for k in Vs:
+        cols[k] = slice(at, at + k)
+        at += k
     t0 = time.perf_counter()
-    ref = kernel_plain.gram_matmat_f64(
-        "laplace", X[idx], X, torch.cat([Vs[1], Vs[10], Vs[RANK]], 1), LS_B, row_block=512
-    )
+    ref = kernel_plain.gram_matmat_f64("laplace", X[idx], X, torch.cat(list(Vs.values()), 1),
+                                       LS_B, row_block=512)
     torch.cuda.synchronize()
     print(f"laplace float64 reference, 4096 rows: {time.perf_counter() - t0:.3f} s")
     shape = f"rows 4096 of n=m={n} d={D}"
-    for k in (1, 10, RANK):
-        compare("laplace_matmat", kernel_cuda.laplace_matmat(X, X, Vs[k], LS_B)[idx],
+    for k in (1, 10, 16):
+        compare("laplace_matmat_narrow", kernel_cuda.laplace_matmat(X, X, Vs[k], LS_B)[idx],
                 ref[:, cols[k]], f"{shape} k={k}", K_BOUND)
+    compare("laplace_matmat", kernel_cuda.laplace_matmat(X, X, Vs[RANK], LS_B)[idx],
+            ref[:, cols[RANK]], f"{shape} k={RANK}", K_BOUND)
     for k in (1, 10):
         compare("laplace_matvec_symmetric",
                 kernel_cuda.laplace_matvec_symmetric(X, Vs[k], LS_B)[idx],
                 ref[:, cols[k]], f"{shape} k={k}", K_BOUND)
+        hi, lo = kernel_cuda.gram_matvec_symmetric_comp("laplace", X, Vs[k], LS_B)
+        compare("gram_matvec_symmetric_comp", (hi.double() + lo.double())[idx], ref[:, cols[k]],
+                f"laplace {shape} k={k} (hi+lo)", COMP_BOUND)
     hi, lo = kernel_cuda.laplace_matmat_comp(X, X, Vs[1], LS_B)
     compare("laplace_matmat_comp", (hi.double() + lo.double())[idx], ref[:, cols[1]],
             f"{shape} k=1 (hi+lo)", COMP_BOUND)
     del ref, hi, lo
     A1, A2, W7, S7 = (torch.from_numpy(a).to(dev) for a in ragged_data())
     ref = kernel_plain.gram_matmat_f64("laplace", A1, A2, W7, 1.3, 0.9)
-    rel = compare("laplace_matmat", kernel_cuda.laplace_matmat(A1, A2, W7, 1.3, 0.9), ref,
-                  "n=1000 m=777 d=3 k=7", K_BOUND)
+    rel = compare("laplace_matmat_narrow", kernel_cuda.laplace_matmat(A1, A2, W7, 1.3, 0.9),
+                  ref, "n=1000 m=777 d=3 k=7", K_BOUND)
     hi, lo = kernel_cuda.laplace_matmat_comp(A1, A2, W7, 1.3, 0.9)
     rel_c = compare("laplace_matmat_comp", hi.double() + lo.double(), ref,
                     "n=1000 m=777 d=3 k=7 (hi+lo)", COMP_BOUND)
     check(rel_c <= rel, "laplace_matmat_comp ragged no worse than laplace_matmat")
+    ref_s = kernel_plain.gram_matmat_f64("laplace", A1, A1, S7, 1.3, 0.9)
     compare("laplace_matvec_symmetric", kernel_cuda.laplace_matvec_symmetric(A1, S7, 1.3, 0.9),
-            kernel_plain.gram_matmat_f64("laplace", A1, A1, S7, 1.3, 0.9), "n=1000 d=3 k=7",
-            K_BOUND)
+            ref_s, "n=1000 d=3 k=7", K_BOUND)
+    hi, lo = kernel_cuda.gram_matvec_symmetric_comp("laplace", A1, S7, 1.3, 0.9)
+    compare("gram_matvec_symmetric_comp", hi.double() + lo.double(), ref_s,
+            "laplace n=1000 d=3 k=7 (hi+lo)", COMP_BOUND)
+    # K3's tile at ragged shapes: every k it takes the kernel at (1, 2, 4,
+    # 8, 16 columns a block) at d = 28 and 50 (a last chunk of 12 and 2
+    # features), with a scalar and an ARD lengthscale
+    rng = np.random.default_rng(31)
+    for n1, m1, d in ((1000, 777, 28), (1000, 777, 50), (300, 1300, 50)):
+        P1 = torch.from_numpy(rng.standard_normal((n1, d)).astype(np.float32)).to(dev)
+        P2 = torch.from_numpy(rng.standard_normal((m1, d)).astype(np.float32)).to(dev)
+        ard = torch.linspace(0.6, 1.4, d, device=dev) * (2 * d / np.pi**0.5)
+        for k in (1, 2, 3, 5, 16):
+            V = torch.from_numpy(rng.standard_normal((m1, k)).astype(np.float32)).to(dev)
+            for ls, tag in ((2 * d / np.pi**0.5, "scalar"), (ard, "ARD")):
+                compare("laplace_matmat_narrow", kernel_cuda.laplace_matmat(P1, P2, V, ls, 0.9),
+                        kernel_plain.gram_matmat_f64("laplace", P1, P2, V, ls, 0.9),
+                        f"n={n1} m={m1} d={d} k={k} {tag} lengthscale", K_BOUND)
+        S = torch.from_numpy(rng.standard_normal((n1, 3)).astype(np.float32)).to(dev)
+        hi, lo = kernel_cuda.gram_matvec_symmetric_comp("laplace", P1, S, ard.double(), 0.9)
+        compare("gram_matvec_symmetric_comp", hi.double() + lo.double(),
+                kernel_plain.gram_matmat_f64("laplace", P1, P1, S, ard.double(), 0.9),
+                f"laplace n={n1} d={d} k=3 ARD lengthscale (hi+lo)", COMP_BOUND)
+    # the m axis in runs: the same bits on two calls
+    P1 = torch.from_numpy(rng.standard_normal((1000, 50)).astype(np.float32)).to(dev)
+    P2 = torch.from_numpy(rng.standard_normal((300_000, 50)).astype(np.float32)).to(dev)
+    V = torch.from_numpy(rng.standard_normal((300_000, 3)).astype(np.float32)).to(dev)
+    runs = kernel_cuda.laplace_splits(1000, 300_000, 3, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    one, two = (kernel_cuda.laplace_matmat(P1, P2, V, 8.0) for _ in range(2))
+    torch.cuda.synchronize()
+    check(runs > 1 and torch.equal(one, two),
+          f"laplace_matmat_narrow in {runs} runs gives the same bits twice")
+    compare("laplace_matmat_narrow", one[:256],
+            kernel_plain.gram_matmat_f64("laplace", P1[:256], P2, V, 8.0, row_block=256),
+            f"rows 256 of n=1000 m=300000 d=50 k=3, {runs} runs", K_BOUND)
+    del P1, P2, V, one, two
 
-    # K5's plain version is K3's on (X, X), the same call: timed once per k
+    # K5's plain version is K3's on (X, X), the same call, and the
+    # triangle K3c's the general one's: timed once per k
     plain_ms = {}
-    for kernel, k in (("laplace_matmat", RANK), ("laplace_matmat", 1), ("laplace_matmat", 10),
+    for kernel, k in (("laplace_matmat", RANK), ("laplace_matmat_narrow", 1),
+                      ("laplace_matmat_narrow", 10), ("laplace_matmat_narrow", 16),
                       ("laplace_matvec_symmetric", 1), ("laplace_matvec_symmetric", 10),
-                      ("laplace_matmat_comp", 1)):
+                      ("laplace_matmat_comp", 1), ("laplace_matmat_comp", 10),
+                      ("gram_matvec_symmetric_comp", 1), ("gram_matvec_symmetric_comp", 10)):
         V = Vs[k]
+        extra = {}
         if kernel == "laplace_matmat_comp":
             ms = cuda_ms(lambda: kernel_cuda.laplace_matmat_comp(X, X, V, LS_B))
             p_ms = cuda_ms(lambda: kernel_plain.gram_matmat_comp(
-                "laplace", X, X, V, LS_B, col_block=BLOCK), reps=1, warm=False)
+                "laplace", X, X, V, LS_B, col_block=BLOCK), reps=1, warm=False) if k == 1 else None
+            plain_ms[("comp", k)] = p_ms
+        elif kernel == "gram_matvec_symmetric_comp":
+            ms = cuda_ms(lambda: kernel_cuda.gram_matvec_symmetric_comp("laplace", X, V, LS_B))
+            p_ms = plain_ms[("comp", k)]
+            extra["general_ms"] = next(t["ms"] for t in timings["laplace_matmat_comp"]
+                                       if t["k"] == k and t["n"] == n)
         else:
-            if kernel == "laplace_matmat":
-                ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(X, X, V, LS_B))
-            else:
+            if kernel == "laplace_matvec_symmetric":
                 ms = cuda_ms(lambda: kernel_cuda.laplace_matvec_symmetric(X, V, LS_B))
-            if k not in plain_ms:
+            else:
+                ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(X, X, V, LS_B))
+            if kernel == "laplace_matmat_narrow":
+                extra["old_ms"] = cuda_ms(lambda: old_k3(X, X, V, LS_B))
+            if k not in plain_ms and k in (1, 10, RANK):
                 plain_ms[k] = cuda_ms(lambda: kernel_plain.gram_matmat(
                     "laplace", X, X, V, LS_B, row_block=BLOCK), reps=1, warm=False)
-            p_ms = plain_ms[k]
-        what = f"n={n} d={D} k={k}"
-        timings.setdefault(kernel, []).append(
-            timing_entry(kernel, what, ms, p_ms, n, n, D, k, "laplace"))
-        print(f"time {kernel} {what}: kernel {ms:.3f} ms, plain {p_ms:.3f} ms, "
-              f"bound {timings[kernel][-1]['bound_ms']:.3f} ms")
+            p_ms = plain_ms.get(k)
+        what = ("laplace " if kernel == "gram_matvec_symmetric_comp" else "") + f"n={n} d={D} k={k}"
+        entry = timing_entry(kernel, what, ms, p_ms, n, n, D, k, "laplace", **extra)
+        timings.setdefault(kernel, []).append(entry)
+        line = (f"time {kernel} {what}: kernel {ms:.3f} ms, plain "
+                + (f"{p_ms:.3f} ms" if p_ms is not None else "not timed")
+                + f", bound {entry['bound_ms']:.3f} ms")
+        if "old_ms" in extra:
+            line += f", the shared template it replaced {extra['old_ms']:.3f} ms"
+        if "general_ms" in extra:
+            line += f", general K3c {extra['general_ms']:.3f} ms"
+        print(line)
 
 
 def slice3(dev, X, Xn, y):
@@ -853,8 +1188,8 @@ def slice3(dev, X, Xn, y):
         first, last = np.array(hist[0]), np.array(hist[iters])
         check(np.all(np.isfinite(last)) and np.all(last < first), f"slice3 k={k} rel_res falls")
         check(used["laplace_matmat"] > 0, f"slice3 k={k} sketch ran through laplace_matmat")
-        check(used["laplace_matmat_comp"] >= len(log),
-              f"slice3 k={k} every boundary ran through laplace_matmat_comp")
+        check(used["gram_matvec_symmetric_comp"] >= len(log) and used["laplace_matmat_comp"] == 0,
+              f"slice3 k={k} every boundary ran through the triangle K3c")
         check(used["laplace_matvec_symmetric"] >= iters,
               f"slice3 k={k} every PCG step ran through laplace_matvec_symmetric")
         gaps = {}
@@ -936,8 +1271,10 @@ def config4(dev, X, y, profile_run, compare, timings, laplace):
     check(hist[iters].get("source") is None and np.isfinite(final) and final < 1.0,
           f"{name} final true rel_res {final:.4e} finite and below 1")
     if laplace:
-        check(used["laplace_matmat"] >= iters, f"{name}: every iteration ran through K3")
-        check(used["laplace_matmat_comp"] >= 1, f"{name}: the final residual ran through K3c")
+        check(used["laplace_matmat_narrow"] >= iters,
+              f"{name}: every iteration's row oracle ran through K3's tile")
+        check(used["gram_matvec_symmetric_comp"] >= 1 and used["laplace_matmat_comp"] == 0,
+              f"{name}: the final residual ran through the triangle K3c")
     else:
         check(used["gram_matmat_tier"] >= iters, f"{name}: every iteration ran through K1b")
         check(used["gram_matvec_symmetric_comp"] >= 1 and used["gram_matmat_comp"] == 0,
@@ -982,26 +1319,62 @@ def config4(dev, X, y, profile_run, compare, timings, laplace):
     Xb = X[blk]
     record = {}
     if laplace:
-        splits = kernel_cuda.column_splits(BLK4, N4, 1, dev)
-        compare("laplace_matmat", kernel_cuda.laplace_matmat(Xb, X, Wf, ls)[:s], ref,
-                f"{shape} splits {splits}", K_BOUND)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = kernel_cuda.laplace_splits(BLK4, N4, 1, sms)
+        # the path's call: LaplaceLinOp's row oracle keeps the operand of
+        # the N4 points on its parent and builds its block's
+        XT = kernel_cuda.laplace_operand(X, ls)
+        kept = (lambda: (kernel_cuda.laplace_operand(Xb, ls), XT))
+        got, again = (kernel_cuda.laplace_matmat(Xb, X, Wf, ls) for _ in range(2))
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name} row oracle: the same bits twice")
+        check(torch.equal(got, kernel_cuda.laplace_matmat(Xb, X, Wf, ls, operands=kept)),
+              f"{name} row oracle: the same bits with the operator's kept operand")
+        compare("laplace_matmat_narrow", got[:s], ref, f"{shape} runs {splits}", K_BOUND)
+        compare("laplace_matmat", old_k3(Xb, X, Wf, ls)[:s], ref,
+                f"{shape}, the shared template K3's tile replaced", K_BOUND)
+        del got, again
         hi, lo = kernel_cuda.laplace_matmat_comp(X[idx], X, Wf, ls)
         compare("laplace_matmat_comp", hi.double() + lo.double(), ref, f"{shape} (hi+lo)",
                 COMP_BOUND)
-        ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(Xb, X, Wf, ls))
-        with one_pass():
-            compare("laplace_matmat", kernel_cuda.laplace_matmat(Xb, X, Wf, ls)[:s], ref,
-                    f"{shape} one pass", K_BOUND)
-            ms1 = cuda_ms(lambda: kernel_cuda.laplace_matmat(Xb, X, Wf, ls))
+        ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(Xb, X, Wf, ls, operands=kept))
+        built_ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(Xb, X, Wf, ls))
+        old_ms = cuda_ms(lambda: old_k3(Xb, X, Wf, ls))
+        operand_ms = cuda_ms(lambda: kernel_cuda.laplace_operand(X, ls))
+        del XT
         p_ms = cuda_ms(lambda: kernel_plain.gram_matmat("laplace", Xb, X, Wf, ls, row_block=64),
                        reps=1, warm=False)
         what = f"row oracle n={BLK4} m={N4} d={D4} k=1"
-        timings.setdefault("laplace_matmat", []).insert(0, timing_entry(
-            "laplace_matmat", f"{what} splits {splits}", ms, p_ms, BLK4, N4, D4, 1, "laplace",
-            splits=splits, one_pass_ms=ms1))
-        print(f"time laplace_matmat {what}: splits {splits} {ms:.3f} ms, one pass {ms1:.3f} ms, "
-              f"plain {p_ms:.3f} ms, bound {timings['laplace_matmat'][0]['bound_ms']:.3f} ms")
-        record["row_oracle_ms"] = {"splits": splits, "ms": ms, "one_pass_ms": ms1, "plain_ms": p_ms}
+        timings.setdefault("laplace_matmat_narrow", []).insert(0, timing_entry(
+            "laplace_matmat_narrow", f"{what} runs {splits}", ms, p_ms, BLK4, N4, D4, 1,
+            "laplace", splits=splits, old_ms=old_ms, operand_ms=operand_ms, built_ms=built_ms))
+        print(f"time laplace_matmat_narrow {what}: runs {splits} {ms:.3f} ms with the operand "
+              f"of the {N4} points kept (building it in the call {built_ms:.3f} ms; it alone "
+              f"{operand_ms:.3f} ms, once an operator), the shared template it replaced "
+              f"{old_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{timings['laplace_matmat_narrow'][0]['bound_ms']:.3f} ms")
+        record["row_oracle_ms"] = {"runs": splits, "ms": ms, "built_ms": built_ms,
+                                   "old_ms": old_ms, "operand_ms": operand_ms, "plain_ms": p_ms}
+        # the final residual's product at path A's n: the triangle K3c on a
+        # random column, checked on the s rows and timed beside the general
+        out = {}
+        tri_ms = cuda_ms(lambda: out.update(
+            hl=kernel_cuda.gram_matvec_symmetric_comp("laplace", X, Wf, ls)), reps=1, warm=False)
+        hi, lo = out.pop("hl")
+        compare("gram_matvec_symmetric_comp", (hi.double() + lo.double())[idx], ref,
+                f"laplace rows {s} of n=m={N4} d={D4} k=1 (hi+lo)", COMP_BOUND)
+        del hi, lo
+        gen_ms = cuda_ms(lambda: kernel_cuda.laplace_matmat_comp(X, X, Wf, ls), reps=1, warm=False)
+        what = f"path A's final residual n=m={N4} d={D4} k=1"
+        timings.setdefault("gram_matvec_symmetric_comp", []).append(timing_entry(
+            "gram_matvec_symmetric_comp", f"laplace {what}", tri_ms, None, N4, N4, D4, 1,
+            "laplace", general_ms=gen_ms))
+        timings.setdefault("laplace_matmat_comp", []).append(timing_entry(
+            "laplace_matmat_comp", what, gen_ms, None, N4, N4, D4, 1, "laplace"))
+        print(f"time gram_matvec_symmetric_comp laplace {what}: triangle {tri_ms:.3f} ms, "
+              f"general K3c {gen_ms:.3f} ms, bound "
+              f"{timings['gram_matvec_symmetric_comp'][-1]['bound_ms']:.3f} ms")
+        record["final_residual_ms"] = {"triangle_ms": tri_ms, "general_ms": gen_ms}
         # the dense block of SAP's block preconditioner (blk_dense)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
@@ -1036,9 +1409,9 @@ def config4(dev, X, y, profile_run, compare, timings, laplace):
               f"bound {timings['gram_matmat_tier'][-1]['bound_ms']:.3f} ms")
         record["row_oracle_ms"] = {"ms": ms, "plain_ms": p_ms}
     profile = device_breakdown(prof) if prof else {}
-    if not laplace:
-        profiled_entries(timings, profile.get("kernels", {}), used, "path A' final residual",
-                         N4, D4, [("gram_matvec_symmetric_comp", 1, None)])
+    profiled_entries(timings, profile.get("kernels", {}), used,
+                     "path A final residual" if laplace else "path A' final residual",
+                     N4, D4, [("gram_matvec_symmetric_comp", 1, None)], kind)
     busy = profile.get("busy_ms")
     record.update({
         "n": N4, "d": D4, "kind": kind, "lengthscale": ls, "iters": iters, "wall_s": wall,
@@ -1810,7 +2183,7 @@ def main() -> int:
         return 1
     from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp
     from rlaopt_tpu_torch.models import LinSys
-    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain, probes
     from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
     from rlaopt_tpu_torch.preconditioners import NystromConfig
     from rlaopt_tpu_torch.solvers import PCGConfig
@@ -1836,8 +2209,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = kernel_cuda.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
-    # the kernels redesigned for Hopper: K2b and #9's short-row schedule (PR
-    # 6), K1b's forward strip and wide kernel and the triangle K1c
+    # the kernels redesigned for Hopper: K2b and #9's short-row schedule, K1b's
+    # forward strip and wide kernel, the triangle K1c and K3c, K3's tile; and
+    # the probes
     registers = ptxas_report(lib.with_suffix(".log").read_text(), REDESIGNED)
     print("registers " + json.dumps(registers))
     check(all(any(key.startswith(name + "<") for key in registers) for name in REDESIGNED)
@@ -1857,9 +2231,9 @@ def main() -> int:
     names = ("gram_matmat", "gram_matmat_comp", "gram_matvec_symmetric_comp",
              "gram_matvec_symmetric",
              "gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_matmat_f64",
-             "gram_matvec_symmetric_f64", "laplace_matmat", "laplace_matmat_comp",
-             "laplace_matvec_symmetric", "csr_spmv", "csr_spmm", "gram_pair",
-             "gram_pair_tier", "laplace_pair")
+             "gram_matvec_symmetric_f64", "laplace_matmat", "laplace_matmat_narrow",
+             "laplace_matmat_comp", "laplace_matvec_symmetric", "csr_spmv", "csr_spmm",
+             "gram_pair", "gram_pair_tier", "laplace_pair", *PROBES)
     # (kernel, "plain" or "float64") -> [(max abs err, relative)]; "plain"
     # is the kernel's own plain version (float64 for all but the tiers)
     errors = {(kname, versus): [] for kname in names for versus in ("plain", "float64")}
@@ -1873,6 +2247,11 @@ def main() -> int:
         print(f"check {kernel} {what}: max_abs_err={diff:.3e} rel={rel:.3e} (bound {bound:.1e})")
         check(rel <= bound, f"{kernel} {what} within {bound:.1e}")
         return rel
+
+    # 2b. the ceilings: the probes (TPU #10-#13), counted on their own
+    timings = {}
+    rec_ceil = ceilings(dev, compare, timings)
+    print(f"phase: ceilings done at {time.perf_counter() - t_start:.1f} s")
 
     for k in refs:
         compare("gram_matmat", kernel_cuda.gram_matmat("rbf", X, X, Vs[k], ls),
@@ -2030,7 +2409,6 @@ def main() -> int:
                                                                row_block=BLOCK)),
         }[kernel]
 
-    timings = {}
     # K7's plain version is K8's on (X, X), the same call: timed once per k
     # (13.5 s a run at this shape), for both rows.
     plain_f64_ms = {}
@@ -2249,7 +2627,9 @@ def main() -> int:
               f"measured bf16 matmul rate")
     comp = timings["gram_matmat_comp"][0]
     comp["plain_f32_twosum_rel_err"] = twosum_f32_rel
-    paths = {"slice1": counts_slice1, "config6": ns["launches"], "slice3": counts_slice3,
+    ceiling_shares(timings, rec_ceil["rates"], rec_ceil["pipes"])
+    paths = {"ceilings": rec_ceil["launches"], "slice1": counts_slice1, "config6": ns["launches"],
+             "slice3": counts_slice3,
              "config4_laplace": rec_a["launches"], "config4": rec_a2["launches"],
              "slice4_sparse": rec_s["launches"], "config2": rec_c2["launches"],
              **{path: rec["launches"] for path, rec in rec5.items()}}
@@ -2262,6 +2642,7 @@ def main() -> int:
         ("gram_matvec_symmetric_tier", SOURCES["tier"], f"{PALLAS}:1366"),
         ("gram_matvec_symmetric_f64", SOURCES["f64"], f"{VALUE64}:467"),
         ("gram_matmat_f64", SOURCES["f64"], f"{VALUE64}:684"),
+        ("laplace_matmat_narrow", SOURCES["laplace"], f"{PALLAS}:592"),
         ("laplace_matmat", SOURCES["laplace"], f"{PALLAS}:592"),
         ("laplace_matmat_comp", SOURCES["laplace"], f"{PALLAS}:592"),
         ("laplace_matvec_symmetric", SOURCES["laplace"], f"{PALLAS}:1930"),
@@ -2270,10 +2651,11 @@ def main() -> int:
         ("gram_pair", SOURCES["pair"], f"{PALLAS}:1563"),
         ("gram_pair_tier", SOURCES["pair"], f"{PALLAS}:1563"),
         ("laplace_pair", SOURCES["pair"], f"{PALLAS}:2063"),
+        *((kname, SOURCES["probes"], tpu) for kname, (tpu, _) in PROBES.items()),
     ):
         main_t = timings[kname][0]
         vs_f64 = errors[(kname, "float64")]
-        by_path = {path: counts[kname] for path, counts in paths.items()}
+        by_path = {path: counts.get(kname, 0) for path, counts in paths.items()}
         kernels.append({
             "name": kname,
             "route": "cuda",

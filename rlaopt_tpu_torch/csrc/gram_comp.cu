@@ -4,14 +4,19 @@
 //   K1c gram_comp_symmetric<KIND, KC>  replaces rlaopt_tpu/ops/
 //       kernel_pallas.py :: kernel_matmat_pallas(compensated=True) when X2
 //       is X1 (the true residual of a solve, the refinement's updates)
+//   K3c gram_comp_symmetric<LAPLACE, KC>  replaces kernel_pallas.py ::
+//       _laplace_matmat(compensated=True) when X2 is X1 (path A's final
+//       residual, path B's boundaries)
 //
 // It computes c * k(X, X) @ V as a float32 pair (hi, lo), lo added last,
 // with the values formed in float64: the contract of the general K1c
-// (gram.cu), the float64 product of the float32 points. The squared-distance
-// families (rbf, matern12/32/52); Laplace has K3c (gram_laplace.cu).
+// (gram.cu) and K3c (gram_laplace.cu), the float64 product of the float32
+// points. Every family: the squared-distance ones sum (x - y)^2 (a
+// subtraction and an FMA a feature), Laplace sums |x - y| (a subtraction
+// and an add of the absolute value, the same count).
 //
 // What bounds it on the H100: the FP64 instruction rate (64 a clock per SM,
-// 34 TFLOP/s on the data sheet). Per kernel value: a subtraction and an FMA
+// 34 TFLOP/s on the data sheet). Per kernel value: two float64 operations
 // per feature, the family's epilogue in float64 (a software exp, ~20
 // instructions), and 4k FMAs of contraction (each value serves both
 // triangles). The general K1c evaluates every value twice (the full n x m
@@ -166,7 +171,11 @@ __global__ void __launch_bounds__(kCThreads, 1)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const double diff = a[i] - b[j];
-          K[i][j] = fma(diff, diff, K[i][j]);
+          if constexpr (KIND == LAPLACE) {
+            K[i][j] += fabs(diff);
+          } else {
+            K[i][j] = fma(diff, diff, K[i][j]);
+          }
         }
     }
     if (ch != chunks - 1) continue;
@@ -282,7 +291,8 @@ cudaError_t launch_comp(const double* XT, const float* V, double* acc, int n, in
 // Plain C interface, loaded with ctypes; launches on `stream`, does not
 // synchronize, returns a CUDA error code (0 on success).
 
-// K1c, triangle form: out + out_lo = c * k(X, X) @ V. XT (dpad, npad)
+// K1c and K3c, triangle form: out + out_lo = c * k(X, X) @ V, kind the
+// family code (LAPLACE 4). XT (dpad, npad)
 // float64: the points divided by the lengthscale, transposed, zero past n
 // and d, dpad a multiple of 16 and npad of 128; V (n, k) float32; acc (n,
 // k) float64 scratch, zeroed here; out, out_lo (n, k) float32.
@@ -304,6 +314,7 @@ extern "C" int rl_gram_matvec_symmetric_comp(int kind, const void* XT, const voi
     case MATERN12: err = launch_comp<MATERN12>(X, Vf, A, n, npad, dpad, k, s); break;
     case MATERN32: err = launch_comp<MATERN32>(X, Vf, A, n, npad, dpad, k, s); break;
     case MATERN52: err = launch_comp<MATERN52>(X, Vf, A, n, npad, dpad, k, s); break;
+    case LAPLACE: err = launch_comp<LAPLACE>(X, Vf, A, n, npad, dpad, k, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;

@@ -4,12 +4,14 @@ Counterpart of ``rlaopt_tpu/ops/kernel_pallas.py`` (exact f32 tier,
 compensated tier, bf16 tiers, the Laplace kernels),
 ``rlaopt_tpu/ops/kernel_value64.py`` (float64 route) and
 ``rlaopt_tpu/sparse/laned.py`` (the sparse CSR product). The kernels live in
-``csrc/gram.cu`` (K1, K1c, K2), ``csrc/gram_comp.cu`` (K1c's triangle
-form), ``csrc/gram_laplace.cu`` (K3, K3c, K5), ``csrc/gram_tier.cu`` (K1b,
-K2b), ``csrc/gram_f64.cu`` (K8, K7),
+``csrc/gram.cu`` (K1, K1c, K2), ``csrc/gram_comp.cu`` (the triangle form of
+K1c and K3c), ``csrc/gram_laplace.cu`` (K3, K3c, K5), ``csrc/gram_tier.cu``
+(K1b, K2b), ``csrc/gram_f64.cu`` (K8, K7),
 ``csrc/gram_pair.cu`` (the pair kernels K4, K4b, K6), with their shared
-pieces in ``csrc/gram_common.cuh``, and ``csrc/spmv.cu`` (the
-CSR SpMV/SpMM; see the note at the top of each). :func:`build` compiles
+pieces in ``csrc/gram_common.cuh``, ``csrc/spmv.cu`` (the
+CSR SpMV/SpMM) and ``csrc/probes.cu`` (the ceiling probes, wrapped in
+:mod:`rlaopt_tpu_torch.ops.probes`); see the note at the top of each.
+:func:`build` compiles
 each source with ``nvcc`` for ``sm_90a`` in parallel and links them into
 one shared library with a plain C interface, cached under ``build/`` at the
 repository root by a hash of the sources and the flags. Nothing is compiled
@@ -24,6 +26,7 @@ takes CUDA tensors only: everything else raises (the dispatchers in
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -49,6 +52,8 @@ __all__ = [
     "gram_matmat_f64",
     "gram_matvec_symmetric_f64",
     "laplace_matmat",
+    "laplace_matmat_narrow",
+    "laplace_operand",
     "laplace_matmat_comp",
     "laplace_matvec_symmetric",
     "gram_pair",
@@ -58,7 +63,9 @@ __all__ = [
     "csr_spmm",
     "column_splits",
     "tier_splits",
+    "laplace_splits",
     "spmm_lanes",
+    "sm_count",
     "launch_counts",
     "reset_launch_counts",
     "KIND_CODES",
@@ -66,7 +73,7 @@ __all__ = [
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("gram.cu", "gram_comp.cu", "gram_laplace.cu", "gram_tier.cu", "gram_f64.cu",
-           "gram_pair.cu", "spmv.cu")
+           "gram_pair.cu", "spmv.cu", "probes.cu")
 _HEADERS = ("gram_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -82,6 +89,9 @@ SYMMETRIC_MAX_K = 16
 # 16 features.
 TIER_ROWS, TIER_BLOCKS_PER_SM = 128, 2
 COMP_TILE, COMP_FEAT = 128, 16
+# csrc/gram_laplace.cu: K3's tile at k <= 16 takes 128 points a side, chunks
+# of 32 features, two blocks an SM.
+LAPLACE_TILE, LAPLACE_FEAT, LAPLACE_BLOCKS_PER_SM = 128, 32, 2
 # csrc/spmv.cu keeps up to 16 right-hand sides of a row in registers.
 CSR_NARROW_MAX_K = 16
 # Its short-row schedule: L lanes a row, L a power of two in [2, 32], about
@@ -119,6 +129,9 @@ _SIGNATURES = {
         _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_laplace_matmat": [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cd, _vp],
+    "rl_laplace_matmat_narrow": [
+        _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
+    ],
     "rl_laplace_matmat_comp": [
         _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
@@ -132,6 +145,8 @@ _SIGNATURES = {
     "rl_csr_spmm": [
         _ci, _vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, ctypes.c_longlong, _ci, _ci, _vp,
     ],
+    "rl_probe_l1": [_ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp],
+    "rl_probe_chain": [_ci, _vp, _vp, _vp, ctypes.c_longlong, _vp],
 }
 
 
@@ -207,7 +222,8 @@ def build() -> Path:
 
 def _code(kind: str, laplace: bool = False) -> int:
     """The family code; the squared-distance kernels (K1, K1c, K2 and the
-    tiers) refuse Laplace, whose float32 kernels are the laplace_* wrappers."""
+    tiers) refuse Laplace, whose float32 kernels are the laplace_* wrappers
+    (the float64 kernels and the triangle K1c/K3c take the code)."""
     if kind not in KIND_CODES:
         raise ValueError(f"Unknown kernel kind {kind!r}")
     if kind == "laplace" and not laplace:
@@ -215,7 +231,7 @@ def _code(kind: str, laplace: bool = False) -> int:
             "this kernel sums squared distances: the Laplace family takes "
             "laplace_matmat, laplace_matmat_comp, laplace_matvec_symmetric or "
             "laplace_pair (the port of kernel_pallas.py::_laplace_matmat and "
-            "its kin), or the float64 kernels"
+            "its kin), or the float64 kernels and gram_matvec_symmetric_comp"
         )
     return KIND_CODES[kind]
 
@@ -276,38 +292,62 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, read once per device."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def column_splits(n: int, m: int, k: int, device) -> int:
-    """Runs of the m axis for the narrow kernel of K1 and K3 (k ≤ 16): when
+    """Runs of the m axis for the shared narrow kernel (K1, k ≤ 16): when
     the 64-row tiles of n give fewer than four blocks per SM, enough runs
     for four, each of at least 16 column tiles; 1 otherwise."""
     if k > SYMMETRIC_MAX_K:
         return 1
     rows, tiles = -(-n // 64), -(-m // 64)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = sm_count(device)
     return max(1, min(-(-4 * sms // rows), tiles // 16))
+
+
+def _runs(rows: int, tiles: int, k: int, slots: int, min_tiles: int) -> int:
+    """Runs of the m axis for a narrow kernel of ``rows`` row blocks over
+    ``tiles`` column tiles on a card of ``slots`` block slots: 1 when the
+    row blocks fill two rounds of the slots (the last round's idle share is
+    then at most a third); otherwise as many runs as keep the blocks within
+    four rounds, each run at least ``min_tiles`` column tiles. Uniform
+    blocks run in rounds, so the count aims below a whole number of them.
+    Past 16 columns (the wide kernels) 1."""
+    if k > SYMMETRIC_MAX_K or rows >= 2 * slots:
+        return 1
+    return max(1, min(4 * slots // rows, tiles // min_tiles))
 
 
 def tier_splits(n: int, m: int, k: int, sms: int) -> int:
     """Runs of the m axis for K1b's forward strip (k ≤ 16) on a card of
-    ``sms`` SMs: 1 when the 128-row blocks of n fill two rounds of the
-    card's ``2·sms`` block slots (the last round's idle share is then at
-    most a third); otherwise as many runs as keep the blocks within four
-    rounds, each run at least 16 column tiles of 64. Uniform blocks run in
-    rounds, so the count aims below a whole number of them: SAP's row
-    oracle (10⁴ rows, 79 blocks) takes 13 runs, 1,027 blocks on 1,056
-    slot-rounds, where the one-run schedule left 53 of 132 SMs idle.
-    Past 16 columns (the wide kernel) 1."""
-    if k > SYMMETRIC_MAX_K:
-        return 1
-    rows, tiles = -(-n // TIER_ROWS), -(-m // 64)
-    slots = TIER_BLOCKS_PER_SM * sms
-    if rows >= 2 * slots:
-        return 1
-    return max(1, min(4 * slots // rows, tiles // 16))
+    ``sms`` SMs (:func:`_runs`): 128-row blocks, two an SM, runs of at least
+    16 column tiles of 64. SAP's row oracle (10⁴ rows, 79 blocks) takes 13
+    runs, 1,027 blocks on 1,056 slot-rounds, where the one-run schedule left
+    53 of 132 SMs idle."""
+    return _runs(-(-n // TIER_ROWS), -(-m // 64), k, TIER_BLOCKS_PER_SM * sms, 16)
+
+
+def laplace_splits(n: int, m: int, k: int, sms: int) -> int:
+    """Runs of the m axis for K3's tile at k ≤ 16 on a card of ``sms`` SMs
+    (:func:`_runs`): 128-point tiles both ways, two blocks an SM, runs of
+    at least 8 column tiles (1,024 points). SAP's row oracle (10⁴ rows, 79
+    row tiles) takes 13 runs; 100,000 rows one."""
+    return _runs(-(-n // LAPLACE_TILE), -(-m // LAPLACE_TILE), k,
+                 LAPLACE_BLOCKS_PER_SM * sms, 8)
 
 
 def _matmat_launch(entry, lead, X1, X2, V, lengthscale, const_scaling):
-    """K1 or K3: check, scale, launch with its column splits; the output.
+    """K1, or K3 past 16 columns: check, scale, launch with its column
+    splits; the output.
     ``lead``: the entry point's arguments before the pointers (K1's family
     code)."""
     _check_tensors((torch.float32,) * 3, X1, X2, V)
@@ -380,12 +420,14 @@ def symmetric_comp_operand(X: torch.Tensor, lengthscale) -> torch.Tensor:
 
 
 def gram_matvec_symmetric_comp(kind, X, V, lengthscale, const_scaling=1.0):
-    """K1c's triangle form: ``c·k(X, X) @ V`` as ``(hi, lo)`` (add ``lo``
-    last), each tile pair evaluated once in float64 and contracted both
-    ways, any k. The function and contract of :func:`gram_matmat_comp` on
-    ``(X, X)``; the float64 sums go through atomics, so their last bits
-    (about 1e-16 relative) change from run to run."""
-    code = _code(kind)
+    """The triangle form of K1c and K3c: ``c·k(X, X) @ V`` as ``(hi, lo)``
+    (add ``lo`` last), each tile pair evaluated once in float64 and
+    contracted both ways, any k, every family (Laplace included). The
+    function and contract of :func:`gram_matmat_comp` and
+    :func:`laplace_matmat_comp` on ``(X, X)``; the float64 sums go through
+    atomics, so their last bits (about 1e-16 relative) change from run to
+    run."""
+    code = _code(kind, laplace=True)
     _check_tensors((torch.float32,) * 2, X, V)
     V2, squeeze = _check_shapes(X, X, V)
     XT = symmetric_comp_operand(X, lengthscale)
@@ -465,7 +507,7 @@ def gram_matmat_tier(kind, A: TierOperand, B: TierOperand, V, const_scaling=1.0)
         Vh, Vl = split_rhs(V2, A.passes)
         kp = Vh.shape[1]
     else:
-        splits = tier_splits(n, m, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+        splits = tier_splits(n, m, k, sm_count(dev))
         if splits > 1:
             part = torch.empty((splits, n, k), dtype=torch.float32, device=dev)
     build()
@@ -549,13 +591,69 @@ def gram_matvec_symmetric_f64(kind, X, V, lengthscale, const_scaling=1.0):
     return out[:, 0] if squeeze else out
 
 
-def laplace_matmat(X1, X2, V, lengthscale, const_scaling=1.0):
-    """K3: ``c·exp(−‖x − y‖₁/ℓ) @ V`` (n, k) on the card, float32; K1's
-    schedule and column splits (:func:`gram_matmat`)."""
+def laplace_operand(X: torch.Tensor, lengthscale) -> torch.Tensor:
+    """The points of K3's tile: ``X / ℓ`` in float32 (the plain version's
+    and the other float32 kernels' scaling, ``scale_inputs``), transposed
+    to (dpad, npad) and zero past d and n, dpad a multiple of
+    ``LAPLACE_FEAT`` and npad of ``LAPLACE_TILE``."""
+    n, d = X.shape
+    XT = torch.zeros((-(-d // LAPLACE_FEAT) * LAPLACE_FEAT, -(-n // LAPLACE_TILE) * LAPLACE_TILE),
+                     dtype=torch.float32, device=X.device)
+    XT[:d, :n] = scale_inputs(X, lengthscale).T
+    return XT
+
+
+def laplace_matmat(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
+    """K3: ``c·exp(−‖x − y‖₁/ℓ) @ V`` (n, k) on the card, float32. Up to 16
+    columns :func:`laplace_matmat_narrow` (the Hopper tile, counted there),
+    given ``operands()`` as its operands when ``operands`` is not None (a
+    callable: an operator keeps its points' operand and builds it on first
+    use); past 16 the wide kernel of K1's schedule, counted here."""
+    if (1 if V.ndim == 1 else V.shape[1]) <= SYMMETRIC_MAX_K:
+        return laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling,
+                                     None if operands is None else operands())
     out = _matmat_launch("rl_laplace_matmat", (), X1, X2, V, lengthscale,
                          const_scaling)
     laplace_matmat.launches += 1
     return out
+
+
+def laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
+    """K3 at k ≤ 16 (``csrc/gram_laplace.cu::laplace_forward``): tiles of 128
+    x 128 points, an 8 x 8 register tile a thread, the m axis in
+    :func:`laplace_splits` runs summed in a fixed order (the same bits on
+    every call). The points go in as :func:`laplace_operand`: ``operands``,
+    the pair for (X1, X2) built beforehand, or None to build them here."""
+    _check_tensors((torch.float32,) * 3, X1, X2, V)
+    V2, squeeze = _check_shapes(X1, X2, V)
+    (n, d), (m, k) = X1.shape, V2.shape
+    if k > SYMMETRIC_MAX_K:
+        raise ValueError(f"laplace_matmat_narrow takes k <= 16 columns (got {k})")
+    if operands is None:
+        XT1 = laplace_operand(X1, lengthscale)
+        XT2 = XT1 if X2 is X1 else laplace_operand(X2, lengthscale)
+    else:
+        XT1, XT2 = operands
+        for XT, (rows, _) in ((XT1, X1.shape), (XT2, X2.shape)):
+            want = (-(-d // LAPLACE_FEAT) * LAPLACE_FEAT, -(-rows // LAPLACE_TILE) * LAPLACE_TILE)
+            if XT.dtype != torch.float32 or tuple(XT.shape) != want or not XT.is_contiguous() \
+                    or XT.device != V2.device:
+                raise ValueError(f"K3's operand is {XT.dtype} {tuple(XT.shape)} on {XT.device}; "
+                                 f"laplace_operand gives float32 {want} on {V2.device}")
+    dev = V2.device
+    splits = laplace_splits(n, m, k, sm_count(dev))
+    part = torch.empty((splits, n, k), dtype=torch.float32, device=dev) if splits > 1 else None
+    build()
+    out = torch.empty((n, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib["handle"].rl_laplace_matmat_narrow(
+            XT1.data_ptr(), XT2.data_ptr(), V2.data_ptr(), out.data_ptr(), _ptr(part), n, m,
+            XT1.shape[1], XT2.shape[1], d, XT1.shape[0], k, int(splits), float(const_scaling),
+            _stream(V2),
+        )
+    _raise_on(err, "laplace_matmat_narrow")
+    laplace_matmat_narrow.launches += 1
+    return out[:, 0] if squeeze else out
 
 
 def laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling=1.0):
@@ -766,6 +864,7 @@ _WRAPPERS = (
     gram_matmat_f64,
     gram_matvec_symmetric_f64,
     laplace_matmat,
+    laplace_matmat_narrow,
     laplace_matmat_comp,
     laplace_matvec_symmetric,
     gram_pair,

@@ -14,9 +14,11 @@ Which kernel, on a card:
 * exact tier (:func:`kernel_matmat`): the triangle kernel K2 when the
   operator was built on one data set (``symmetric``) and ``k ≤ 16``, the
   general kernel K1 otherwise; for the Laplace family K5 and K3 by the same
-  rule (the JAX package's gate without its VMEM window);
-* compensated (:func:`kernel_matmat_compensated`): K1c's triangle form
-  when symmetric (any k), the general K1c otherwise; K3c for Laplace;
+  rule (the JAX package's gate without its VMEM window), K3 taking its
+  Hopper tile up to 16 columns and the wide kernel past that;
+* compensated (:func:`kernel_matmat_compensated`): the triangle form of
+  K1c and K3c when symmetric (any k, every family), the general K1c (K3c
+  for Laplace) otherwise;
 * bf16 tiers (:func:`kernel_matmat_tier`): the same rule between K2b and
   K1b, on the tier parts of :mod:`rlaopt_tpu_torch.ops.kernel_tiers` that
   the operator keeps;
@@ -77,12 +79,15 @@ def kernel_matmat(
     const_scaling=1.0,
     symmetric: bool = False,
     impl: str = "auto",
+    laplace_operands=None,
 ) -> torch.Tensor:
     """``c·k(X1, X2) @ V`` on the exact tier, on the device of the operands.
 
     ``symmetric=True`` asserts that X1 and X2 are the same data set (the
     operator checks object identity when it is built). The bf16 tiers go
-    through :func:`kernel_matmat_tier`.
+    through :func:`kernel_matmat_tier`. ``laplace_operands``: None, or a
+    callable giving K3's tile its operands of (X1, X2)
+    (:func:`kernel_cuda.laplace_matmat`), called only when the tile runs.
     """
     if not _on_card(impl, X1):
         if X1.dtype == torch.float64:
@@ -99,7 +104,8 @@ def kernel_matmat(
             kind, X1, V, lengthscale, const_scaling
         )
     if laplace:
-        return kernel_cuda.laplace_matmat(X1, X2, V, lengthscale, const_scaling)
+        return kernel_cuda.laplace_matmat(X1, X2, V, lengthscale, const_scaling,
+                                          laplace_operands)
     return kernel_cuda.gram_matmat(kind, X1, X2, V, lengthscale, const_scaling)
 
 
@@ -138,17 +144,18 @@ def kernel_matmat_compensated(
 ):
     """``c·k(X1, X2) @ V`` as a compensated ``(hi, lo)`` pair (add ``lo``
     last), on the device of the operands. ``symmetric=True`` asserts that
-    X1 and X2 are one data set: on a card the triangle K1c evaluates each
-    tile pair once (the same function; its plain version is the general
-    one)."""
+    X1 and X2 are one data set: on a card the triangle form of K1c and K3c
+    evaluates each tile pair once, in every family (the same function; its
+    plain version is the general one). Two data sets take the general K1c,
+    or K3c for Laplace."""
     if not _on_card(impl, X1):
         return kernel_plain.gram_matmat_comp(
             kind, X1, X2, V, lengthscale, const_scaling
         )
-    if kind == "laplace":
-        return kernel_cuda.laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling)
     if symmetric and X1.shape[0] == X2.shape[0]:
         return kernel_cuda.gram_matvec_symmetric_comp(kind, X1, V, lengthscale, const_scaling)
+    if kind == "laplace":
+        return kernel_cuda.laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling)
     return kernel_cuda.gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling)
 
 

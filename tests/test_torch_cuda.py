@@ -112,7 +112,8 @@ def test_cuda_launch_counts_and_refusals(cuda_device):
         "gram_matvec_symmetric": 0,
         "gram_matmat_tier": 0, "gram_matvec_symmetric_tier": 0,
         "gram_matmat_f64": 0, "gram_matvec_symmetric_f64": 0,
-        "laplace_matmat": 0, "laplace_matmat_comp": 0, "laplace_matvec_symmetric": 0,
+        "laplace_matmat": 0, "laplace_matmat_narrow": 0, "laplace_matmat_comp": 0,
+        "laplace_matvec_symmetric": 0,
         "gram_pair": 0, "gram_pair_tier": 0, "laplace_pair": 0,
         "csr_spmv": 0, "csr_spmm": 0,
     }
@@ -275,10 +276,11 @@ def test_cuda_refinement_certifies(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 3, 16, 17, 500])
 def test_cuda_laplace_matches_plain(cuda_device, k, monkeypatch):
-    """K3 (with the default column splits and in one pass over m) and K3c
-    against the float64 plain version at a ragged shape, d = 50 (three full
-    16-feature stages and a ragged one), scalar and ARD lengthscales: K3
-    2e-5, K3c 1e-10 of max|ref|, as K1 and K1c."""
+    """K3 (its tile up to 16 columns, the wide kernel past that; with the
+    default runs of the m axis and in one pass over m) and K3c against the
+    float64 plain version at a ragged shape, d = 50 (three full 16-feature
+    stages and a ragged one), scalar and ARD lengthscales: K3 2e-5, K3c
+    1e-10 of max|ref|, as K1 and K1c."""
     X1, X2, V = _data(14, 1000, 777, 50, k)
     X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
     ard = torch.linspace(6.0, 10.0, 50, device=cuda_device)
@@ -287,6 +289,7 @@ def test_cuda_laplace_matches_plain(cuda_device, k, monkeypatch):
         got = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9)
         with monkeypatch.context() as mp:
             mp.setattr(kernel_cuda, "column_splits", lambda *a: 1)
+            mp.setattr(kernel_cuda, "laplace_splits", lambda *a: 1)
             one = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9)
         ls64 = ls.double() if torch.is_tensor(ls) else ls
         hi, lo = kernel_cuda.laplace_matmat_comp(X1, X2, V, ls64, 0.9)
@@ -313,14 +316,15 @@ def test_cuda_laplace_symmetric_matches_plain(cuda_device, k):
 @pytest.mark.parametrize("kind", ["rbf", "laplace"])
 def test_cuda_column_splits(cuda_device, kind, monkeypatch):
     """A few rows against many points: the narrow kernel cuts m into runs
-    (column_splits) and sums their partials in a fixed order. Both the
-    split and the one-pass product against float64: 2e-5; the split one
-    gives the same bits twice."""
+    (column_splits; laplace_splits for K3's tile) and sums their partials
+    in a fixed order. Both the split and the one-pass product against
+    float64: 2e-5; the split one gives the same bits twice."""
     rng = np.random.default_rng(16)
     X1 = torch.from_numpy(rng.standard_normal((300, 8)).astype(np.float32)).to(cuda_device)
     X2 = torch.from_numpy(rng.standard_normal((200_000, 8)).astype(np.float32)).to(cuda_device)
     V = torch.from_numpy(rng.standard_normal((200_000, 2)).astype(np.float32)).to(cuda_device)
     assert kernel_cuda.column_splits(300, 200_000, 2, cuda_device) > 1
+    assert kernel_cuda.laplace_splits(300, 200_000, 2, 132) > 1
     ls = 3.0 if kind == "rbf" else 9.0
     if kind == "rbf":
         fn = lambda: kernel_cuda.gram_matmat("rbf", X1, X2, V, ls)  # noqa: E731
@@ -329,11 +333,99 @@ def test_cuda_column_splits(cuda_device, kind, monkeypatch):
     ref = kernel_plain.gram_matmat_f64(kind, X1, X2, V, ls)
     split, again = fn(), fn()
     monkeypatch.setattr(kernel_cuda, "column_splits", lambda *a: 1)
+    monkeypatch.setattr(kernel_cuda, "laplace_splits", lambda *a: 1)
     one = fn()
     torch.cuda.synchronize()
     assert torch.equal(split, again)
     assert _rel(split, ref) <= 2e-5
     assert _rel(one, ref) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 9, 16])
+@pytest.mark.parametrize("n,m,d", [(1000, 777, 3), (1000, 777, 28), (300, 1300, 50),
+                                   (129, 4000, 17)])
+def test_cuda_k3_tile_matches_plain(cuda_device, n, m, d, k):
+    """K3's tile (``laplace_matmat_narrow``) at ragged shapes (n and m not
+    multiples of 128, d with a ragged last chunk) at every right-hand-side
+    count of its instantiations, scalar and ARD lengthscales, against the
+    float64 plain version: 2e-5 of max|ref|; the same bits twice."""
+    X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in _data(n + m + d + k, n, m, d, k))
+    for ls in (2 * d / np.pi**0.5, torch.linspace(0.6, 1.4, d, device=cuda_device) * d):
+        ref = kernel_plain.gram_matmat_f64("laplace", X1, X2, V, ls, 0.9)
+        kernel_cuda.reset_launch_counts()
+        got, again = (kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9) for _ in range(2))
+        torch.cuda.synchronize()
+        assert kernel_cuda.launch_counts()["laplace_matmat_narrow"] == 2
+        assert torch.equal(got, again)
+        assert _rel(got, ref) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_k3_tile_takes_an_operators_operands(cuda_device):
+    """K3's tile given its operands built beforehand (as a Laplace operator
+    keeps them) gives the same bits as building them per call; an operand
+    of other points' shape raises. A row oracle of ``LaplaceLinOp`` gives
+    the same bits as the call on its rows."""
+    from rlaopt_tpu_torch.kernels import KernelConfig, LaplaceLinOp
+
+    X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in _data(41, 300, 1300, 50, 3))
+    ls = 7.5
+    ops = (kernel_cuda.laplace_operand(X1, ls), kernel_cuda.laplace_operand(X2, ls))
+    want = kernel_cuda.laplace_matmat_narrow(X1, X2, V, ls, 0.9)
+    assert torch.equal(kernel_cuda.laplace_matmat_narrow(X1, X2, V, ls, 0.9, ops), want)
+    assert torch.equal(kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9, lambda: ops), want)
+    with pytest.raises(ValueError, match="operand"):
+        kernel_cuda.laplace_matmat_narrow(X1, X2, V, ls, 0.9, ops[::-1])
+    K = LaplaceLinOp(X2, X2, KernelConfig(lengthscale=ls, const_scaling=0.9))
+    blk = torch.arange(0, 1300, 7, device=cuda_device)
+    W = V[:, :1]
+    for _ in range(2):
+        got = K.row_oracle(blk) @ W
+        torch.cuda.synchronize()
+        assert torch.equal(got, kernel_cuda.laplace_matmat(X2[blk], X2, W, ls, 0.9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 16, 17])
+@pytest.mark.parametrize("n,d", [(1000, 3), (129, 50), (700, 28)])
+def test_cuda_triangle_k3c_matches_float64(cuda_device, n, d, k):
+    """The triangle K3c (``gram_matvec_symmetric_comp`` on Laplace) against
+    the float64 plain version, scalar and ARD lengthscales: hi + lo within
+    1e-10 of max|ref|, as the general K3c."""
+    X, _, V = (torch.from_numpy(a).to(cuda_device) for a in _data(n + d + k, n, n, d, k))
+    for ls in (1.3, torch.linspace(6.0, 10.0, d, device=cuda_device, dtype=torch.float64)):
+        ref = kernel_plain.gram_matmat_f64("laplace", X, X, V, ls, 0.9)
+        hi, lo = kernel_cuda.gram_matvec_symmetric_comp("laplace", X, V, ls, 0.9)
+        torch.cuda.synchronize()
+        assert _rel(hi.double() + lo.double(), ref) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_cuda_probes_match_plain(cuda_device):
+    """The ceiling probes against their plain versions: the L1 probe
+    (float32 and float64) and the elementwise chain to the bit (the same
+    operations in the same order), the exp chain and sums within 1e-5 of
+    max|ref| (``__expf`` against ``torch.exp``); each launch counted."""
+    from rlaopt_tpu_torch.ops import probes
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    probes.reset_launch_counts()
+    for dt in (torch.float32, torch.float64):
+        X = torch.randn((2, 3, 128, 64), generator=g, device=cuda_device, dtype=dt)
+        Y = torch.randn((2, 3, 64, 256), generator=g, device=cuda_device, dtype=dt)
+        assert torch.equal(probes.probe_l1(X, Y), probes.probe_l1_plain(X, Y))
+    X, Y = (torch.randn((256, 1000), generator=g, device=cuda_device) for _ in range(2))
+    assert torch.equal(probes.probe_elem(X, Y), probes.probe_elem_plain(X, Y))
+    assert _rel(probes.probe_exp_chain(X, Y), probes.probe_exp_chain_plain(X, Y).double()) <= 1e-5
+    U, U2 = (torch.rand((256, 1000), generator=g, device=cuda_device) for _ in range(2))
+    for step in ("exp", "epilogue"):
+        got = probes.probe_vmem_chain(U, U2, step)
+        assert _rel(got, probes.probe_vmem_chain_plain(U, U2, step).double()) <= 1e-5
+    assert probes.launch_counts() == {"probe_l1": 2, "probe_elem": 1, "probe_exp_chain": 1,
+                                      "probe_vmem_chain": 2}
+    with pytest.raises(RuntimeError, match="multiples of 128"):
+        probes.probe_l1(X[None, None, :100, :64], Y[None, None, :64, :256])
 
 
 def _ragged_csr(seed=21, n_rows=3000, n_cols=700):
