@@ -10,9 +10,9 @@ straight through and exits non-zero at the first failure:
 1. device: the card's name and power limit, the two TF32 flags (set off);
 2. build of the Gram kernels and the ceiling probes, timed, and the
    registers and spills of the kernels redesigned for Hopper (K2b, #9's
-   short-row schedule, K1b's forward strip and wide kernel, the triangle
-   K1c and K3c, K3's tile) and of the probes from the build's ``-Xptxas
-   -v`` log;
+   short-row schedule, K1b's forward strip and wide kernel, K4b's pair
+   strip, the float64 triangle of K1c, K3c and K7, K3's tile) and of the
+   probes from the build's ``-Xptxas -v`` log;
 2b. the ceilings: each probe (TPU kernels #10-#13: the L1 pair rate in
    float32 and float64, the elementwise chain, the exp chain, the exp and
    epilogue rates) against its plain version at a small size, then, with
@@ -22,14 +22,17 @@ straight through and exits non-zero at the first failure:
    (median of 3) and held against its plain version there, its rate by
    the TPU probe's own count printed, the SM clock and power draw sampled
    by ``nvidia-smi`` while the longest probe runs, and the pipes' peak
-   rate for the L1 pair at that clock; each Laplace kernel's time is read
-   against these rates at the end;
+   rate for the L1 pair at that clock, and ``torch.cdist(p=1)`` on the L1
+   probes' operands timed as their library call; each Laplace kernel's
+   time is read against these rates at the end;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (HIGGS-100k: n = 100,000, d = 28) and at a ragged shape
    for every family: K1, K1c (general and triangle), K2 against float64;
    K1b and K2b on both bf16 tiers against the plain version of the same
    tier and against float64; K7 and K8, all five families, against the
-   float64 plain version; kernel and plain version timed (median of 5, CUDA
+   float64 plain version, K7 also at k = 1, 2, 4, 5, 10, 16 with a scalar
+   and an ARD lengthscale (before any path takes it as the reference of
+   a certified residual); kernel and plain version timed (median of 5, CUDA
    events), the triangle K1c beside the general one, and a bf16
    ``torch.matmul`` of 8192^3 timed as the tensor cores' measured rate;
 4. slice 1, config 3 whole: RBF kernel ridge regression, Nyström-PCG (rank
@@ -80,8 +83,9 @@ straight through and exits non-zero at the first failure:
    path C', config 2 as written (dense, SRHT);
 9. slice 5, the sharded operators on positions of the one card
    (``make_mesh(devices=[card] * P)``): the pair kernels K4, K4b, K6 against
-   float64 (K4b also against its tier's plain version) at k = 1, 3, 16 at a
-   ragged shape and at each path's shard shape, timed there; path E1, config
+   float64 (K4b also against its tier's plain version) at k = 1, 2, 3, 16
+   at a ragged shape (V1 and V2 apart) and at k = 1, 3, 16 at each path's
+   shard shape, timed there; path E1, config
    5 as written (``benchmarks/run.py::config5_sharded_krr``: n = 50,000,
    ``ShardedRBFLinOp`` on ``make_mesh()``, ``lanczos_eigsh``, ``hutchinson``,
    Nyström-PCG), profiled; E2, the same on a 4-position ring (the symmetric
@@ -164,6 +168,43 @@ K_BOUND, COMP_BOUND = 2e-5, 1e-10
 # from the plain version's in its last float bit now and then rounds the
 # other way, 2^-8 of that product: held to 5e-4 there.
 TIER_BOUND, REROUND_BOUND = 1e-5, 5e-4
+
+
+def reround_bound(V, ref, c: float) -> float:
+    """The re-rounded product's bound where it depends on the data: one
+    bf16 step moves an output by at most c·2^-8·|v| (kernel values below
+    1), and two such steps in one output row are allowed, relative to
+    max|ref|. At the HIGGS width (d = 28) one step is large against
+    max|ref| of a 700-row sum: K4b's mirror reached 8.4e-4 of it over 21
+    draws of V on an H100, one step each time, above REROUND_BOUND."""
+    return 2 * c * 2.0**-8 * V.abs().max().item() / ref.abs().max().item()
+
+
+def reround_steps(K, V, got, ref, c: float):
+    """Whether the one-pass mirror's largest error, ``got − ref`` of
+    ``c·bf16(K)ᵀ @ bf16(V)``, is re-rounding: returns the error and, of
+    the sums of at most two steps c·(K′ − bf16(K))·bf16(v) of its output's
+    column, the nearest and what remains of the error (all relative to
+    max|ref|). A step's K is within 4 float32 ulps of a bf16 rounding
+    boundary and K′ its other bf16 neighbour."""
+    import torch
+
+    err = got - ref
+    j, col = divmod(int(err.abs().argmax()), err.shape[1])
+    Kj = K[:, j]
+    Kb = Kj.bfloat16().float()
+    v = V[:, col].bfloat16().float()
+    steps = []
+    for way in (-float("inf"), float("inf")):
+        Kp = Kj
+        for _ in range(4):
+            Kp = torch.nextafter(Kp, torch.full_like(Kp, way))
+            flip = Kp.bfloat16().float() - Kb
+            steps += (c * flip * v)[flip != 0].tolist()
+    e, scale = err[j, col].item(), ref.abs().max().item()
+    sums = [0.0] + sorted(set(steps))
+    best = min((a + b for i, a in enumerate(sums) for b in sums[i:]), key=lambda t: abs(e - t))
+    return e / scale, best / scale, abs(e - best) / scale
 # bf16x3 against float64 at the HIGGS shape.
 BF16X3_F64_BOUND = 2e-5
 # The JAX package's Pallas tiers in interpret mode against the float64
@@ -245,10 +286,13 @@ CSR_F64_BOUND, CSR_F32_BOUND = 1e-12, 5e-5
 RES_REL, RES_ABS, RES_ABOVE = 0.01, 5e-7, 1e-5
 # The kernels redesigned for Hopper, whose registers and spills the
 # build's -Xptxas -v log reports (the `registers` line and their JSON
-# entries): the CUDA function names, by wrapper.
+# entries): the CUDA function names, by wrapper (the float64 triangle's
+# by V's type, triangle_wrapper).
 REGISTERS_OF = {"gram_matvec_symmetric_tier": ("gram_tier_symmetric",),
                 "gram_matmat_tier": ("gram_tier_forward", "gram_tier_wide"),
+                "gram_pair_tier": ("gram_tier_pair",),
                 "gram_matvec_symmetric_comp": ("gram_comp_symmetric",),
+                "gram_matvec_symmetric_f64": ("gram_comp_symmetric",),
                 "csr_spmv": ("csr_spmm_lanes",), "csr_spmm": ("csr_spmm_lanes",),
                 "laplace_matmat_narrow": ("laplace_forward",),
                 "probe_l1": ("probe_l1",), "probe_elem": ("probe_chain",),
@@ -405,6 +449,31 @@ def ptxas_report(log: str, names) -> dict:
     return report
 
 
+# The float64 triangle and its finishing pass serve two wrappers, told
+# apart by V's type, their last template argument ("d" in ptxas_report's
+# keys, "double" in a demangled name): K7 where V is double, the triangle
+# K1c and K3c otherwise.
+F64_TRIANGLE = ("gram_comp_symmetric", "gram_comp_finish")
+
+
+def triangle_wrapper(args: str) -> str:
+    """The wrapper of a float64 triangle instantiation, from its template
+    arguments ``args`` (as in ``"0, 4, double"``)."""
+    last = args.split(",")[-1].strip(" >")
+    return "gram_matvec_symmetric_f64" if last in ("d", "double") else "gram_matvec_symmetric_comp"
+
+
+def registers_of(kname: str, registers: dict) -> dict:
+    """The entries of ``ptxas_report`` that belong to the wrapper ``kname``."""
+    mine = {}
+    for key, r in registers.items():
+        fn, _, args = key.partition("<")
+        if fn in REGISTERS_OF.get(kname, ()) and (
+                fn not in F64_TRIANGLE or triangle_wrapper(args) == kname):
+            mine[key] = r
+    return mine
+
+
 def check(ok: bool, what: str):
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
@@ -475,23 +544,20 @@ def plain_twosum_f32(kind, X, V, ls):
 
 
 # csrc/gram_common.cuh's template arguments: the family first (LAPLACE is 4),
-# the Mode last (EXACT 0, COMP 1, F64 2, TIER1 3, TIER3 4).
+# then the narrow kernel's Mode last (EXACT 0, COMP 1, F64 2), the exact
+# triangle's PAIR last.
 _NARROW = {0: "gram_matmat", 1: "gram_matmat_comp", 2: "gram_matmat_f64"}
-_TRIANGLE = {0: "gram_matvec_symmetric", 2: "gram_matvec_symmetric_f64",
-             3: "gram_matvec_symmetric_tier", 4: "gram_matvec_symmetric_tier"}
-_PAIR = {0: "gram_pair", 3: "gram_pair_tier", 4: "gram_pair_tier"}
 _LAPLACE = {"gram_matmat": "laplace_matmat", "gram_matmat_comp": "laplace_matmat_comp",
             "gram_matvec_symmetric": "laplace_matvec_symmetric", "gram_pair": "laplace_pair"}
 LAPLACE_CODE = 4
 
 
 # Kernels of their own, by name (their template arguments do not select the
-# group): K2b, K1b's forward strip and wide kernel, the triangle K1c and its
-# finishing pass.
+# group): K2b, K1b's forward strip and wide kernel, K4b; the float64
+# triangle's by V's type (triangle_wrapper).
 _OWN = {"gram_tier_symmetric": "gram_matvec_symmetric_tier",
         "gram_tier_forward": "gram_matmat_tier", "gram_tier_wide": "gram_matmat_tier",
-        "gram_comp_symmetric": "gram_matvec_symmetric_comp",
-        "gram_comp_finish": "gram_matvec_symmetric_comp"}
+        "gram_tier_pair": "gram_pair_tier"}
 # Kernels whose names hold no gram_ prefix: K3's tile and the probes.
 _OWN_NAMED = {"laplace_forward": "laplace_matmat_narrow", "probe_l1": "probe_l1",
               "probe_chain": "probe_chain"}
@@ -508,24 +574,25 @@ def _kernel_group(name: str) -> str:
     m = re.search(r"(gram_\w+)(?:<([^>]*)>)?", name)
     if m is None:
         return "other"
+    if m.group(1) in F64_TRIANGLE:
+        return triangle_wrapper(m.group(2) or "")
     if m.group(1) in _OWN:
         return _OWN[m.group(1)]
     if m.group(2) is None:
         return "other"
     fn, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
-    # gram_matvec_symmetric<KIND, KC, MODE, PAIR>; the others end in MODE
-    triangle = fn == "gram_matvec_symmetric"
+    # gram_matvec_symmetric<KIND, KC, PAIR> ends in PAIR; the others in MODE
     try:
-        family, mode = int(args[0]), int(args[2] if triangle else args[-1])
+        family = int(args[0])
+        if fn == "gram_matmat_wide":
+            group = "gram_matmat"
+        elif fn == "gram_matvec_symmetric":
+            pair = args[-1] in ("true", "1", "(bool)1")
+            group = "gram_pair" if pair else "gram_matvec_symmetric"
+        else:
+            group = _NARROW.get(int(args[-1]), "other")
     except (ValueError, IndexError):
         return "other"
-    if fn == "gram_matmat_wide":
-        group = "gram_matmat"
-    elif triangle:
-        pair = args[3] in ("true", "1", "(bool)1")
-        group = (_PAIR if pair else _TRIANGLE).get(mode, "other")
-    else:
-        group = _NARROW.get(mode, "other")
     return _LAPLACE.get(group, group) if family == LAPLACE_CODE else group
 
 
@@ -626,7 +693,8 @@ def north_star(dev, profile_run, compare, timings):
     # the sketch (K1b, k = 500) and the confirms (the triangle K1c) at the
     # path's n, a launch each from the profile
     profiled_entries(timings, profile.get("kernels", {}), used, "config 6", N6, D,
-                     [("gram_matmat_tier", RANK, "bf16x3"), ("gram_matvec_symmetric_comp", 1, None)])
+                     [("gram_matmat_tier", RANK, "bf16x3"), ("gram_matvec_symmetric_comp", 1, None),
+                      ("gram_matvec_symmetric_f64", 1, None)])
     ref = log["f64_refine"]
     its = int_keys(log)
     iters = its[-1]
@@ -908,6 +976,24 @@ def ceilings(dev, compare, timings):
                     bound_err = bounds[spec["kind"]]
                 ms, inner = timed_probe(fn)
                 what = f"{sname} {cd}" + (f" x{inst} instances" if inst > 1 else "")
+                lib_ms = None
+                if spec["kind"] == "l1":
+                    # one PyTorch call computes the same L1 matrix: torch.cdist
+                    # (p = 1) of the operands as points of nb * fb features,
+                    # reshaped outside the timing; held to the probe at the
+                    # round-off of a sum of up to 4,096 terms in another order
+                    # (~sqrt(4096) 2^-24 typical, 1e-4 of max|ref| float32)
+                    Xp = X.permute(0, 2, 1, 3).reshape(inst, spec["tm"], -1).contiguous()
+                    Yp = Y.permute(0, 3, 1, 2).reshape(inst, spec["tn"], -1).contiguous()
+                    lib_ms = cuda_ms(lambda: torch.cdist(Xp, Yp, p=1), reps=3)
+                    got, lib = fn(), torch.cdist(Xp, Yp, p=1)
+                    rel = ((got.double() - lib.double()).abs().max()
+                           / lib.double().abs().max()).item()
+                    print(f"library torch.cdist(p=1) {what}: {lib_ms:.4f} ms, probe vs it "
+                          f"{rel:.3e} of max|ref|")
+                    check(rel <= {"float32": 1e-4, "float64": 1e-12}[cd],
+                          f"torch.cdist(p=1) computes probe_l1's function at {what}")
+                    del Xp, Yp, got, lib
                 # the plain version once at every timed shape, timed, and
                 # the probe held against it there
                 held = {}
@@ -918,7 +1004,7 @@ def ceilings(dev, compare, timings):
                 bound, by = probe_bound_ms(spec, inst, cd)
                 timings.setdefault(kname, []).append({
                     "shape": what, "ms": ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
-                    "library_ms": None, "tpu": spec["tpu"], "number": spec["number"],
+                    "library_ms": lib_ms, "tpu": spec["tpu"], "number": spec["number"],
                     "instances": inst, "events": ev, "rate_per_s": rate, "calls_a_timing": inner,
                     "kind": spec["kind"], "cd": cd})
                 rates[f"{sname} {cd}"] = rate
@@ -1795,14 +1881,18 @@ def config2(dev, profiled):
 def pair_ragged(dev, compare):
     """K4 (every squared-distance family), K6 and K4b (both tiers) against
     float64 and K4b against its tier's plain version, at the ragged shape
-    (X1 1000 x 3, X2 777 x 3) and k = 1, 3, 16."""
+    (X1 1000 x 3, X2 777 x 3) and k = 1, 2, 3, 16, with V1 and V2 drawn
+    apart (a mix-up of the two would pass at V1 = V2); then K4b against its
+    tier's plain version at the HIGGS width (X1 700 x 28, X2 530 x 28,
+    lengthscale 5.3), its one-pass mirror at k >= 3 held to
+    ``reround_bound``."""
     import torch
 
     from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
     from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
 
     A1, A2, _, _ = (torch.from_numpy(a).to(dev) for a in ragged_data())
-    for k in (1, 3, 16):
+    for k in (1, 2, 3, 16):
         V2, V1 = (torch.from_numpy(a).to(dev) for a in pair_ragged_rhs(k))
         what = f"n1=1000 n2=777 d=3 k={k}"
         for kind in SQDIST_KINDS + ("laplace",):
@@ -1832,6 +1922,31 @@ def pair_ragged(dev, compare):
                 for o, r, side in ((o1, r1, "out1"), (o2, r2, "out2")):
                     compare("gram_pair_tier", o, r, f"{cd} {kind} {what} {side} vs float64",
                             3 * JAX_TIER_ERR[("ragged", cd, "pair", kind)])
+    rng = np.random.default_rng(5)
+    B1, B2 = (torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32)).to(dev)
+              for n in (700, 530))
+    for k in (1, 2, 3, 16):
+        V2, V1 = (torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(dev)
+                  for n in (530, 700))
+        what = f"n1=700 n2=530 d={D} k={k}"
+        for kind in SQDIST_KINDS:
+            for cd in TIERS:
+                P1, P2 = tier_operand(B1 / 5.3, cd), tier_operand(B2 / 5.3, cd)
+                o1, o2 = kernel_cuda.gram_pair_tier(kind, P1, P2, V2, V1, 0.9)
+                t1, t2 = kernel_plain.gram_pair_tier(kind, P1, P2, V2, V1, 0.9)
+                reround = cd == "bfloat16" and k >= 3
+                compare("gram_pair_tier", o1, t1, f"{cd} {kind} {what} out1 vs its tier",
+                        TIER_BOUND)
+                compare("gram_pair_tier", o2, t2, f"{cd} {kind} {what} out2 vs its tier",
+                        reround_bound(V1, t2, 0.9) if reround else TIER_BOUND)
+                if reround:
+                    e, steps, rest = reround_steps(kernel_plain._tier_values(kind, P1, P2),
+                                                   V1, o2, t2, 0.9)
+                    print(f"reround gram_pair_tier {cd} {kind} {what} out2: largest error "
+                          f"{e:.3e}, nearest sum of <= 2 re-rounding steps {steps:.3e}, "
+                          f"rest {rest:.1e} (of max|ref|)")
+                    check(rest <= TIER_BOUND, f"gram_pair_tier {kind} {what}: the mirror's "
+                          "largest error is re-rounding")
 
 
 def pair_at(dev, kname, X1, X2, compare, timings, what, kind="rbf", ls=None, cd=None,
@@ -2210,11 +2325,11 @@ def main() -> int:
     lib = kernel_cuda.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
     # the kernels redesigned for Hopper: K2b and #9's short-row schedule, K1b's
-    # forward strip and wide kernel, the triangle K1c and K3c, K3's tile; and
-    # the probes
+    # forward strip and wide kernel, K4b's pair strip, the float64 triangle
+    # (K1c and K3c's triangle form, K7), K3's tile; and the probes
     registers = ptxas_report(lib.with_suffix(".log").read_text(), REDESIGNED)
     print("registers " + json.dumps(registers))
-    check(all(any(key.startswith(name + "<") for key in registers) for name in REDESIGNED)
+    check(all(registers_of(kname, registers) for kname in REGISTERS_OF)
           and all("registers" in r for r in registers.values()),
           "the build log reports the registers of every redesigned kernel")
 
@@ -2375,6 +2490,19 @@ def main() -> int:
                 kernel_cuda.gram_matvec_symmetric_f64(kind, A1, S7.double(), 1.3, 0.9),
                 kernel_plain.gram_matmat_f64(kind, A1, A1, S7, 1.3, 0.9),
                 f"{kind} n=1000 d=3 k=7", COMP_BOUND)
+    # K7, the reference of every certified residual below, at every width
+    # of its slices (1, 2, 4 right-hand sides a slice; 5, 10 and 16 in 2,
+    # 3 and 4 slices) and both kinds of lengthscale
+    ard3 = torch.tensor([0.9, 1.3, 2.1], dtype=torch.float64, device=dev)
+    rng7 = np.random.default_rng(70)
+    for k in (1, 2, 4, 5, 10, 16):
+        V7 = torch.from_numpy(rng7.standard_normal((A1.shape[0], k))).to(dev)
+        for kind in SQDIST_KINDS + ("laplace",):
+            for ls_name, ls7 in (("scalar", 1.3), ("ARD", ard3)):
+                compare("gram_matvec_symmetric_f64",
+                        kernel_cuda.gram_matvec_symmetric_f64(kind, A1, V7, ls7, 0.9),
+                        kernel_plain.gram_matmat_f64(kind, A1, A1, V7, ls7, 0.9),
+                        f"{kind} n=1000 d=3 k={k} {ls_name} lengthscale", COMP_BOUND)
     del refs
 
     # The first shape of each kernel is the one its JSON entry reports.
@@ -2640,7 +2768,7 @@ def main() -> int:
         ("gram_matvec_symmetric", SOURCES["gram"], f"{PALLAS}:1366"),
         ("gram_matmat_tier", SOURCES["tier"], f"{PALLAS}:733"),
         ("gram_matvec_symmetric_tier", SOURCES["tier"], f"{PALLAS}:1366"),
-        ("gram_matvec_symmetric_f64", SOURCES["f64"], f"{VALUE64}:467"),
+        ("gram_matvec_symmetric_f64", SOURCES["comp"], f"{VALUE64}:467"),
         ("gram_matmat_f64", SOURCES["f64"], f"{VALUE64}:684"),
         ("laplace_matmat_narrow", SOURCES["laplace"], f"{PALLAS}:592"),
         ("laplace_matmat", SOURCES["laplace"], f"{PALLAS}:592"),
@@ -2649,7 +2777,7 @@ def main() -> int:
         ("csr_spmv", SOURCES["spmv"], f"{LANED}:136"),
         ("csr_spmm", SOURCES["spmv"], f"{LANED}:136"),
         ("gram_pair", SOURCES["pair"], f"{PALLAS}:1563"),
-        ("gram_pair_tier", SOURCES["pair"], f"{PALLAS}:1563"),
+        ("gram_pair_tier", SOURCES["tier"], f"{PALLAS}:1563"),
         ("laplace_pair", SOURCES["pair"], f"{PALLAS}:2063"),
         *((kname, SOURCES["probes"], tpu) for kname, (tpu, _) in PROBES.items()),
     ):
@@ -2678,8 +2806,7 @@ def main() -> int:
             kernels[-1]["max_rel_err_vs_float64"] = max(e[1] for e in vs_f64)
         if kname == "gram_matmat_tier":
             kernels[-1]["matmul_tflops"] = mm_rate / 1e12
-        mine = {key: r for key, r in registers.items()
-                if key.split("<")[0] in REGISTERS_OF.get(kname, ())}
+        mine = registers_of(kname, registers)
         if mine:
             kernels[-1]["registers"] = mine
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -121,10 +121,10 @@ extern "C" int rl_gram_matvec_symmetric(int kind, const void* X, const void* V,
   if (err != cudaSuccess) return (int)err;
   const GramArgs a = points_args(X, X, nullptr, V, out, nullptr, n, n, d, k, c);
   switch (kind) {
-    case RBF: launch_symmetric<RBF, EXACT, 16>(a, s); break;
-    case MATERN12: launch_symmetric<MATERN12, EXACT, 16>(a, s); break;
-    case MATERN32: launch_symmetric<MATERN32, EXACT, 16>(a, s); break;
-    case MATERN52: launch_symmetric<MATERN52, EXACT, 16>(a, s); break;
+    case RBF: launch_symmetric<RBF>(a, s); break;
+    case MATERN12: launch_symmetric<MATERN12>(a, s); break;
+    case MATERN32: launch_symmetric<MATERN32>(a, s); break;
+    case MATERN52: launch_symmetric<MATERN52>(a, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

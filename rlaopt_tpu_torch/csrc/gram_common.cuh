@@ -1,18 +1,15 @@
 // Shared pieces of the fused Gram-matrix kernels (gram.cu, gram_laplace.cu,
 // gram_tier.cu, gram_f64.cu, gram_pair.cu, gram_comp.cu): the tile
-// generators, the narrow
-// (k <= 16) and wide contractions and the triangle schedule (with its pair
-// form), each templated on the kernel family and on a MODE:
+// generator, the wide contraction (k > 16), the exact tier's triangle
+// schedule with its pair form (K2, K5; K4, K6), and the narrow contraction
+// (k <= 16), templated on the kernel family and on a MODE:
 //
-//   EXACT  K1, K2, K3, K4, K5, K6  f32 points pre-scaled by the lengthscale,
-//                                  f32 values
+//   EXACT  K1, K3  f32 points pre-scaled by the lengthscale, f32 values
 //   COMP   K1c, K3c  unscaled f32 points, float64 inside a tile, f32 (hi, lo)
-//   F64    K7, K8    K1c's tile, carried to float64 end to end (V and out too)
-//   TIER1  K4b  bf16 parts, one tensor-core pass (bfloat16 tier)
-//   TIER3  K4b  bf16 hi/lo parts, three tensor-core passes (bf16x3)
+//   F64    K8        K1c's tile, carried to float64 end to end (V and out too)
 //
-// K1b, K2b (gram_tier.cu) and the triangle K1c (gram_comp.cu) have kernels
-// of their own; they take the operands and sum_splits from here.
+// K1b, K2b, K4b (gram_tier.cu), the triangle K1c and K7 (gram_comp.cu) have
+// kernels of their own; they take the operands and sum_splits from here.
 //
 // Each translation unit includes this header and instantiates what it
 // launches; everything here has internal linkage.
@@ -22,7 +19,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -34,20 +30,17 @@ constexpr int kFeat = 16;   // features staged in shared memory per pass
 constexpr int kWide = 64;   // right-hand-side columns per block when k > 16
 constexpr int kStrip = 16;  // column tiles per block in the triangle kernel
 constexpr int kDepth = 16;  // depth of one bf16 tensor-core step
-constexpr int kPartLd = kDepth + 8;  // row stride of a staged bf16 part
-constexpr int kTierLd = kTile + 4;   // row stride of a tier K tile (floats)
 
 enum Kind { RBF = 0, MATERN12 = 1, MATERN32 = 2, MATERN52 = 3, LAPLACE = 4 };
-enum Mode { EXACT = 0, COMP = 1, F64 = 2, TIER1 = 3, TIER3 = 4 };
-
-__host__ __device__ constexpr bool is_tier(int mode) { return mode == TIER1 || mode == TIER3; }
+enum Mode { EXACT = 0, COMP = 1, F64 = 2 };
 
 // The operands of one launch. Points: X1 (n, d), X2 (m, d) float32,
 // pre-scaled for EXACT, unscaled with inv_ls (d doubles) for COMP and F64.
-// Tiers: the bf16 parts X1h/X1l (n, dp) and X2h/X2l (m, dp), d = dp the
-// padded depth, lo parts null on TIER1, and the norm vectors hx (n), hy (m)
-// of _norms_and_operands. V (m, k) and out (n, k) are float, or double for
-// F64; out_lo is K1c's lo part. The triangle kernels pass X2 = X1, m = n.
+// Tiers (gram_tier.cu): the bf16 parts X1h/X1l (n, dp) and X2h/X2l (m,
+// dp), d = dp the padded depth, lo parts null on the one-pass tier, and the
+// norm vectors hx (n), hy (m) of _norms_and_operands. V (m, k) and out (n,
+// k) are float, or double for F64; out_lo is K1c's lo part. The triangle
+// kernels pass X2 = X1, m = n.
 // part and m_split: the narrow kernel's column splits (see
 // launch_narrow_by_k); part holds (gridDim.z, n, k) float partials.
 // V1 (n, k) and out2 (m, k): the pair kernels' second product K^T V1.
@@ -87,19 +80,6 @@ union TileSmem {
   T k[kTile][kTile + 1];
 };
 
-// The tiers' tile: bf16 parts staged kDepth features at a time (raw bits),
-// then the cross term and the kernel values in place as floats.
-struct __align__(128) TierSmem {
-  union {
-    struct {
-      uint16_t ah[kTile][kPartLd], al[kTile][kPartLd];
-      uint16_t bh[kTile][kPartLd], bl[kTile][kPartLd];
-    } in;
-    float k[kTile][kTierLd];
-  };
-  float hx[kTile], hy[kTile];
-};
-
 template <int MODE> struct ModeTraits {
   using Val = float;  // kernel values and the contraction
   using VT = float;   // V and out
@@ -118,13 +98,6 @@ template <> struct ModeTraits<F64> {
   using Acc = double;
   using Smem = TileSmem<double>;
 };
-template <> struct ModeTraits<TIER1> {
-  using Val = float;
-  using VT = float;
-  using Acc = float;
-  using Smem = TierSmem;
-};
-template <> struct ModeTraits<TIER3> : ModeTraits<TIER1> {};
 
 // Kernel value from the squared distance (the L1 distance for Laplace).
 template <int KIND>
@@ -165,19 +138,6 @@ __device__ __forceinline__ double finish_accurate(double d2) {
       const double s5 = 2.23606797749979;
       return (1.0 + s5 * r + (5.0 / 3.0) * d2) * exp(-s5 * r);
     }
-  }
-}
-
-// Kernel value from the tier's cross term x.y and the norm vectors
-// (_finish_dot): RBF exp(cross - hx - hy) with hx = |x|^2/2; the Matern
-// family from max(hx + hy - 2 cross, 0) with hx = |x|^2, the 2 being the
-// JAX package's X-operand scale, applied here to the cross term (exact).
-template <int KIND>
-__device__ __forceinline__ float finish_dot(float cross, float hx, float hy) {
-  if constexpr (KIND == RBF) {
-    return expf(cross - hx - hy);
-  } else {
-    return finish<KIND>(fmaxf(hx + hy - 2.0f * cross, 0.0f));
   }
 }
 
@@ -272,103 +232,11 @@ __device__ __forceinline__ void kernel_tile(
   __syncthreads();
 }
 
-// Stage rows [row0, row0 + 64) of the (n_p, dp) bf16 part P into dst, the
-// kDepth features from f0 on, zero past n_p. Two 16-byte loads per row.
-__device__ __forceinline__ void stage_part(const __nv_bfloat16* __restrict__ P,
-                                           int n_p, int dp, int row0, int f0,
-                                           int e, uint16_t (*dst)[kPartLd]) {
-  const int r = e / 2, half = e % 2;
-  const int g = row0 + r;
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (g < n_p) {
-    v = *reinterpret_cast<const uint4*>(P + (size_t)g * dp + f0 + half * 8);
-  }
-  *reinterpret_cast<uint4*>(&dst[r][half * 8]) = v;
-}
-
-// Tier K tile: sm.k[r][c] = finish_dot(cross(A_r, B_c)), zero past n_a or
-// n_b, with the cross term on the tensor cores (bf16 in, f32 accumulate):
-// hi.hi (+ hi.lo + lo.hi when PASSES == 3) over the padded depth. Each of
-// the 8 warps owns a 16-row strip and two 16-column fragments of the 64x64
-// tile. Ends with a barrier.
-template <int KIND, int PASSES>
-__device__ __forceinline__ void tier_tile(
-    const __nv_bfloat16* __restrict__ Ah, const __nv_bfloat16* __restrict__ Al,
-    const float* __restrict__ hx, const __nv_bfloat16* __restrict__ Bh,
-    const __nv_bfloat16* __restrict__ Bl, const float* __restrict__ hy,
-    int n_a, int n_b, int dp, int row0, int col0, TierSmem& sm) {
-  using namespace nvcuda;
-  const int t = threadIdx.x;
-  const int warp = t / 32;
-  const int fr = warp / 2, fc = (warp % 2) * 2;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  if (t < kTile) {
-    sm.hx[t] = (row0 + t < n_a) ? hx[row0 + t] : 0.0f;
-  } else if (t < 2 * kTile) {
-    sm.hy[t - kTile] = (col0 + t - kTile < n_b) ? hy[col0 + t - kTile] : 0.0f;
-  }
-  for (int f0 = 0; f0 < dp; f0 += kDepth) {
-    // 128 16-byte loads per part: threads 0..127 the hi parts, 128..255 lo
-    if (t < 2 * kTile) {
-      stage_part(Ah, n_a, dp, row0, f0, t, sm.in.ah);
-      stage_part(Bh, n_b, dp, col0, f0, t, sm.in.bh);
-    } else if (PASSES == 3) {
-      stage_part(Al, n_a, dp, row0, f0, t - 2 * kTile, sm.in.al);
-      stage_part(Bl, n_b, dp, col0, f0, t - 2 * kTile, sm.in.bl);
-    }
-    __syncthreads();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a_hi, a_lo;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b_hi, b_lo;
-    wmma::load_matrix_sync(
-        a_hi, reinterpret_cast<const __nv_bfloat16*>(&sm.in.ah[fr * 16][0]), kPartLd);
-    if constexpr (PASSES == 3) {
-      wmma::load_matrix_sync(
-          a_lo, reinterpret_cast<const __nv_bfloat16*>(&sm.in.al[fr * 16][0]), kPartLd);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      // B^T as a column-major matrix_b: element (f, c) = B[c][f]
-      wmma::load_matrix_sync(
-          b_hi, reinterpret_cast<const __nv_bfloat16*>(&sm.in.bh[(fc + j) * 16][0]),
-          kPartLd);
-      wmma::mma_sync(acc[j], a_hi, b_hi, acc[j]);
-      if constexpr (PASSES == 3) {
-        wmma::load_matrix_sync(
-            b_lo, reinterpret_cast<const __nv_bfloat16*>(&sm.in.bl[(fc + j) * 16][0]),
-            kPartLd);
-        wmma::mma_sync(acc[j], a_hi, b_lo, acc[j]);
-        wmma::mma_sync(acc[j], a_lo, b_hi, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::store_matrix_sync(&sm.k[fr * 16][(fc + j) * 16], acc[j], kTierLd,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int e = t; e < kTile * kTile; e += kThreads) {
-    const int r = e / kTile, c = e % kTile;
-    const bool inside = (row0 + r < n_a) && (col0 + c < n_b);
-    sm.k[r][c] = inside ? finish_dot<KIND>(sm.k[r][c], sm.hx[r], sm.hy[c]) : 0.0f;
-  }
-  __syncthreads();
-}
-
 // The K tile of a launch, by MODE: rows from X1, columns from X2.
 template <int KIND, int MODE>
 __device__ __forceinline__ void make_tile(const GramArgs& a, int row0, int col0,
                                           typename ModeTraits<MODE>::Smem& sm) {
-  if constexpr (is_tier(MODE)) {
-    tier_tile<KIND, MODE == TIER3 ? 3 : 1>(a.X1h, a.X1l, a.hx, a.X2h, a.X2l, a.hy,
-                                         a.n, a.m, a.d, row0, col0, sm);
-  } else {
-    kernel_tile<KIND, MODE != EXACT>(a.X1, a.X2, a.inv_ls, a.n, a.m, a.d, row0,
-                                     col0, sm);
-  }
+  kernel_tile<KIND, MODE != EXACT>(a.X1, a.X2, a.inv_ls, a.n, a.m, a.d, row0, col0, sm);
 }
 
 // Stage rows [row0, row0 + 64) and columns [c0, c0 + KC) of V (n_v, k) into
@@ -390,23 +258,6 @@ __device__ __forceinline__ void reduce_quad(T (&v)[KC]) {
   for (int c = 0; c < KC; ++c) {
     v[c] += __shfl_xor_sync(0xffffffffu, v[c], 1);
     v[c] += __shfl_xor_sync(0xffffffffu, v[c], 2);
-  }
-}
-
-// a * b by the tier's mirror contraction at k >= 3 (_sym_mirror_mode):
-// "split" (PASSES 3: hi.hi + hi.lo + lo.hi of both operands' bf16 parts) or
-// "fast" (PASSES 1: one product of bf16 values); each product of bf16 values
-// is exact in float.
-template <int PASSES>
-__device__ __forceinline__ float tier_mul(float a, float b) {
-  const float ah = __bfloat162float(__float2bfloat16_rn(a));
-  const float bh = __bfloat162float(__float2bfloat16_rn(b));
-  if constexpr (PASSES == 1) {
-    return ah * bh;
-  } else {
-    const float al = __bfloat162float(__float2bfloat16_rn(a - ah));
-    const float bl = __bfloat162float(__float2bfloat16_rn(b - bh));
-    return fmaf(ah, bh, fmaf(ah, bl, al * bh));
   }
 }
 
@@ -494,32 +345,29 @@ __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a)
   }
 }
 
-// K2 / K7: the triangle kernel, and with PAIR the pair kernels K4 /
-// K4b / K6. Triangle: block (I, s, z) takes row tile I, the column tiles
-// J = I + 16s .. I + 16s + 15 (J < nt) and the right-hand-side columns from
+// K2 / K5: the triangle kernel of the exact tier, and with PAIR the pair
+// kernels K4 / K6. Triangle: block (I, s, z) takes row tile I, the column
+// tiles J = I + 16s .. I + 16s + 15 (J < nt) and the right-hand-side columns from
 // KC * z on. Each tile K_IJ is evaluated once: K_IJ V_J accumulates in
 // registers for out[I]; for J != I, K_IJ^T V_I goes to out[J] at once. Pair
 // (X1 (n, d) and X2 (m, d) two point sets, nt = ceil(m / 64)): block (I, s,
 // z) takes the column tiles J = 16s .. 16s + 15 of the full rectangle, every
 // tile is mirrored, K_IJ V_J (V: (m, k)) goes to out[I] and K_IJ^T V1_I (V1:
-// (n, k)) to out2[J]. Cross-block sums use atomicAdd (float, or double for
-// F64) into outputs zeroed before the launch, so the order of the additions,
-// and with it the last bits of the result, changes from run to run (about
-// one rounding per addition). The tiers' mirror takes the tier-matched
-// contraction at k >= 3 (KC >= 4), as _sym_mirror_mode.
-template <int KIND, int KC, int MODE, bool PAIR>
+// (n, k)) to out2[J]. Cross-block sums use atomicAdd into outputs zeroed
+// before the launch, so the order of the additions, and with it the last
+// bits of the result, changes from run to run (about one rounding per
+// addition).
+template <int KIND, int KC, bool PAIR>
 __global__ void __launch_bounds__(kThreads)
     gram_matvec_symmetric(const GramArgs a, int nt) {
-  using Tr = ModeTraits<MODE>;
-  using Val = typename Tr::Val;
-  using VT = typename Tr::VT;
-  constexpr bool kTierMirror = is_tier(MODE) && KC >= 4;
+  using Val = float;
+  using VT = float;
   const int I = blockIdx.x;
   const int J0 = (PAIR ? 0 : I) + blockIdx.y * kStrip;
   if (J0 >= nt) return;
   const int J1 = min(J0 + kStrip, nt);
   const int c0 = blockIdx.z * KC;
-  __shared__ typename Tr::Smem sm;
+  __shared__ TileSmem<float> sm;
   __shared__ VT vj[kTile][KC];
   __shared__ VT vi[kTile][KC];
   const VT* __restrict__ V = static_cast<const VT*>(a.V);
@@ -535,7 +383,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int J = J0; J < J1; ++J) {
     stage_v<VT, KC>(V, a.m, a.k, J * kTile, c0, vj);
-    make_tile<KIND, MODE>(a, I * kTile, J * kTile, sm);
+    make_tile<KIND, EXACT>(a, I * kTile, J * kTile, sm);
 #pragma unroll 4
     for (int jj = 0; jj < kTile / 4; ++jj) {
       const int j = q * (kTile / 4) + jj;
@@ -553,13 +401,7 @@ __global__ void __launch_bounds__(kThreads)
         const int ri = q * (kTile / 4) + rr;
         const Val kv = sm.k[ri][r];
 #pragma unroll
-        for (int i = 0; i < KC; ++i) {
-          if constexpr (kTierMirror) {
-            mir[i] += tier_mul<MODE == TIER3 ? 3 : 1>(kv, vi[ri][i]);
-          } else {
-            mir[i] = madd(kv, vi[ri][i], mir[i]);
-          }
-        }
+        for (int i = 0; i < KC; ++i) mir[i] = madd(kv, vi[ri][i], mir[i]);
       }
       reduce_quad<Val, KC>(mir);
       const int gj = J * kTile + r;
@@ -726,9 +568,9 @@ GramArgs points_args(const void* X1, const void* X2, const void* inv_ls,
 }
 
 // The triangle kernel (or with PAIR the pair kernel, over the full nt1 x nt2
-// rectangle of tiles) at the smallest KC that holds k <= MAX_KC columns, or
-// MAX_KC columns per blockIdx.z past that.
-template <int KIND, int MODE, int MAX_KC, bool PAIR = false>
+// rectangle of tiles) at the smallest KC that holds k <= 16 columns, or 16
+// columns per blockIdx.z past that.
+template <int KIND, bool PAIR = false>
 void launch_symmetric(const GramArgs& a, cudaStream_t s) {
   const int nt1 = (a.n + kTile - 1) / kTile;
   const int nt2 = (a.m + kTile - 1) / kTile;
@@ -736,17 +578,16 @@ void launch_symmetric(const GramArgs& a, cudaStream_t s) {
   const auto grid = [&](int kc) {
     return dim3(nt1, (nt2 + kStrip - 1) / kStrip, (a.k + kc - 1) / kc);
   };
-  if (a.k > 8 && MAX_KC >= 16) {
-    gram_matvec_symmetric<KIND, (MAX_KC >= 16 ? 16 : MAX_KC), MODE, PAIR>
-        <<<grid(16), block, 0, s>>>(a, nt2);
+  if (a.k > 8) {
+    gram_matvec_symmetric<KIND, 16, PAIR><<<grid(16), block, 0, s>>>(a, nt2);
   } else if (a.k > 4) {
-    gram_matvec_symmetric<KIND, 8, MODE, PAIR><<<grid(8), block, 0, s>>>(a, nt2);
+    gram_matvec_symmetric<KIND, 8, PAIR><<<grid(8), block, 0, s>>>(a, nt2);
   } else if (a.k > 2) {
-    gram_matvec_symmetric<KIND, 4, MODE, PAIR><<<grid(4), block, 0, s>>>(a, nt2);
+    gram_matvec_symmetric<KIND, 4, PAIR><<<grid(4), block, 0, s>>>(a, nt2);
   } else if (a.k > 1) {
-    gram_matvec_symmetric<KIND, 2, MODE, PAIR><<<grid(2), block, 0, s>>>(a, nt2);
+    gram_matvec_symmetric<KIND, 2, PAIR><<<grid(2), block, 0, s>>>(a, nt2);
   } else {
-    gram_matvec_symmetric<KIND, 1, MODE, PAIR><<<grid(1), block, 0, s>>>(a, nt2);
+    gram_matvec_symmetric<KIND, 1, PAIR><<<grid(1), block, 0, s>>>(a, nt2);
   }
 }
 

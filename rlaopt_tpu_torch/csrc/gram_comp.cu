@@ -1,17 +1,24 @@
-// The compensated Gram product for one data set, a triangle of float64
-// tiles, for Hopper (sm_90a).
+// The Gram product for one data set on a triangle of float64 tiles, for
+// Hopper (sm_90a).
 //
-//   K1c gram_comp_symmetric<KIND, KC>  replaces rlaopt_tpu/ops/
+//   K1c gram_comp_symmetric<KIND, KC, float>  replaces rlaopt_tpu/ops/
 //       kernel_pallas.py :: kernel_matmat_pallas(compensated=True) when X2
 //       is X1 (the true residual of a solve, the refinement's updates)
-//   K3c gram_comp_symmetric<LAPLACE, KC>  replaces kernel_pallas.py ::
-//       _laplace_matmat(compensated=True) when X2 is X1 (path A's final
+//   K3c gram_comp_symmetric<LAPLACE, KC, float>  replaces kernel_pallas.py
+//       :: _laplace_matmat(compensated=True) when X2 is X1 (path A's final
 //       residual, path B's boundaries)
+//   K7 gram_comp_symmetric<KIND, KC, double>  replaces rlaopt_tpu/ops/
+//       kernel_value64.py :: _value64_symmetric (the certified float64
+//       sweep of refinement and of config 6's check)
 //
-// It computes c * k(X, X) @ V as a float32 pair (hi, lo), lo added last,
-// with the values formed in float64: the contract of the general K1c
-// (gram.cu) and K3c (gram_laplace.cu), the float64 product of the float32
-// points. Every family: the squared-distance ones sum (x - y)^2 (a
+// It computes c * k(X, X) @ V with the values formed in float64 from the
+// float32 points: K1c and K3c take V in float32 and give a float32 pair
+// (hi, lo), lo added last, the contract of the general K1c (gram.cu) and K3c
+// (gram_laplace.cu); K7 takes V in float64 and gives float64, the contract
+// of K8 (gram_f64.cu). The TPU has no float64, so the JAX package reaches
+// ~3e-9 kernel values through two-float arithmetic (ops/twofloat.py); the
+// H100 has FP64 units, and the error here is the float64 round-off of the
+// sums. Every family: the squared-distance ones sum (x - y)^2 (a
 // subtraction and an FMA a feature), Laplace sums |x - y| (a subtraction
 // and an add of the absolute value, the same count).
 //
@@ -22,7 +29,12 @@
 // triangles). The general K1c evaluates every value twice (the full n x m
 // square) and spends, per pair and feature, two conversions of the staged
 // floats to double and a multiplication by the inverse lengthscale on top:
-// 101.4 ms at n = 100,000, d = 28, k = 1, 25% of its bound.
+// 101.4 ms at n = 100,000, d = 28, k = 1, 25% of its bound. K7's first
+// version was the shared triangle template in float64 (gram_common.cuh,
+// kernel_tile<KIND, true>): a 4 x 4 register tile, those conversions and
+// that multiplication per pair and feature, 8 right-hand sides a slice, and
+// float64 V and sums throughout: 59.4 / 261.5 ms at n = 100,000, d = 28,
+// k = 1 / 10, where this triangle took 41.1 / 133.7 ms as K1c.
 //
 // Design:
 //   * the points are scaled by the lengthscale in float64 once per call by
@@ -48,10 +60,15 @@
 //     row sums are reduced over the column pair of a lane (one shuffle) and
 //     carried in registers over the strip, one float64 atomicAdd per row
 //     and right-hand side a block;
-//   * the sums go to a float64 (n, k) scratch zeroed first; a second pass
-//     scales by c and splits each sum s into hi = (float)s, lo = (float)(s -
-//     hi). The float64 atomics make the last bits of s change from run to
-//     run (about 1e-16 relative), far under the 1e-10 the card checks hold.
+//   * the sums go to a float64 (n, k) array zeroed first (K1c's scratch,
+//     K7's output); a second pass scales by c and, for K1c, splits each sum
+//     s into hi = (float)s, lo = (float)(s - hi). The float64 atomics make
+//     the last bits of s change from run to run (about 1e-16 relative), far
+//     under the 1e-10 the card checks hold;
+//   * V's type (float for K1c, double for K7) is a template parameter: its
+//     column tiles are staged in that type (8 KB more shared memory in
+//     float64), and V_J and V_I are read from shared memory where they are
+//     used, so that float64 V adds no live registers.
 // Registers: 128 for the values, pinned by __launch_bounds__ (256 threads,
 // one block an SM); the kernel reaches the 255 a thread may hold and spills
 // a few hundred bytes (the build's -Xptxas -v log, chip_smoke.py's
@@ -66,10 +83,11 @@ constexpr int kCFeat = 16;    // features per staged chunk
 constexpr int kCStrip = 16;   // column tiles a block walks
 constexpr int kCThreads = 256;
 
+template <typename VT>
 struct __align__(16) CompSmem {
   double x[2][kCFeat][kCTile];  // the row tile's chunk, two buffers
   double y[2][kCFeat][kCTile];  // the column tile's chunk
-  float vj[2][4][kCTile];       // V of the column tile (two tiles), KC <= 4
+  VT vj[2][4][kCTile];          // V of the column tile (two tiles), KC <= 4
   double vi[4][kCTile];         // V of the row tile
 };
 
@@ -78,21 +96,23 @@ __device__ __forceinline__ void cp_async16_cg(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
-__device__ __forceinline__ void cp_async4_ca(void* dst, const void* src, bool valid) {
+// One element of V (4 or 8 bytes), zero-filled when not valid.
+template <typename VT>
+__device__ __forceinline__ void cp_async_ca(VT* dst, const VT* src, bool valid) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+               "n"((int)sizeof(VT)), "r"(valid ? (int)sizeof(VT) : 0));
 }
 
-// XT (dpad, npad) doubles: the scaled points, transposed. V (n, k) float,
-// acc (n, k) double, zeroed. c0: the slice's first right-hand side.
-template <int KIND, int KC>
+// XT (dpad, npad) doubles: the scaled points, transposed. V (n, k) of type
+// VT, acc (n, k) double, zeroed. c0: the slice's first right-hand side.
+template <int KIND, int KC, typename VT>
 __global__ void __launch_bounds__(kCThreads, 1)
-    gram_comp_symmetric(const double* __restrict__ XT, const float* __restrict__ V,
+    gram_comp_symmetric(const double* __restrict__ XT, const VT* __restrict__ V,
                         double* __restrict__ acc, int n, int npad, int dpad, int k,
                         int nt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  CompSmem& sm = *reinterpret_cast<CompSmem*>(smem_raw);
+  CompSmem<VT>& sm = *reinterpret_cast<CompSmem<VT>*>(smem_raw);
   const int I = blockIdx.x;
   const int J0 = I + blockIdx.y * kCStrip;
   if (J0 >= nt) return;
@@ -128,8 +148,8 @@ __global__ void __launch_bounds__(kCThreads, 1)
       for (int e = tid; e < KC * kCTile; e += kCThreads) {
         const int c = e / kCTile, j = e % kCTile;
         const bool valid = col0 + j < n && c < kc;
-        cp_async4_ca(&sm.vj[vb][c][j], valid ? V + (size_t)(col0 + j) * k + c0 + c : V,
-                     valid);
+        cp_async_ca(&sm.vj[vb][c][j], valid ? V + (size_t)(col0 + j) * k + c0 + c : V,
+                    valid);
       }
     }
     asm volatile("cp.async.commit_group;\n");
@@ -249,41 +269,75 @@ __global__ void __launch_bounds__(kCThreads, 1)
   }
 }
 
-// hi = (float)(c s), lo = (float)(c s - hi) for each float64 sum s.
+// The finishing pass over each float64 sum s: K1c's hi = (float)(c s), lo
+// = (float)(c s - hi) (VT float), or K7's c s in place (VT double; hi and
+// lo unused).
+template <typename VT>
 __global__ void __launch_bounds__(kThreads)
-    gram_comp_finish(const double* __restrict__ acc, float* __restrict__ hi,
-                     float* __restrict__ lo, size_t count, double c) {
+    gram_comp_finish(double* acc, float* hi, float* lo, size_t count, double c) {
   for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < count;
        i += (size_t)gridDim.x * kThreads) {
     const double s = acc[i] * c;
-    const float h = (float)s;
-    hi[i] = h;
-    lo[i] = (float)(s - (double)h);
+    if constexpr (sizeof(VT) == sizeof(double)) {
+      acc[i] = s;
+    } else {
+      const float h = (float)s;
+      hi[i] = h;
+      lo[i] = (float)(s - (double)h);
+    }
   }
 }
 
-template <int KIND, int KC>
-cudaError_t launch_comp_kc(const double* XT, const float* V, double* acc, int n, int npad,
+template <int KIND, int KC, typename VT>
+cudaError_t launch_comp_kc(const double* XT, const VT* V, double* acc, int n, int npad,
                            int dpad, int k, cudaStream_t s) {
-  const int bytes = (int)sizeof(CompSmem);
+  const int bytes = (int)sizeof(CompSmem<VT>);
   const cudaError_t err = cudaFuncSetAttribute(
-      gram_comp_symmetric<KIND, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      gram_comp_symmetric<KIND, KC, VT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int nt = (n + kCTile - 1) / kCTile;
   const dim3 grid(nt, (nt + kCStrip - 1) / kCStrip, (k + KC - 1) / KC);
-  gram_comp_symmetric<KIND, KC><<<grid, kCThreads, bytes, s>>>(XT, V, acc, n, npad, dpad, k,
-                                                               nt);
+  gram_comp_symmetric<KIND, KC, VT><<<grid, kCThreads, bytes, s>>>(XT, V, acc, n, npad, dpad,
+                                                                   k, nt);
   return cudaGetLastError();
 }
 
 // KC = 1, 2 or 4 right-hand sides a slice: the smallest that holds k, 4
 // past that.
-template <int KIND>
-cudaError_t launch_comp(const double* XT, const float* V, double* acc, int n, int npad,
+template <int KIND, typename VT>
+cudaError_t launch_comp(const double* XT, const VT* V, double* acc, int n, int npad,
                         int dpad, int k, cudaStream_t s) {
   if (k > 2) return launch_comp_kc<KIND, 4>(XT, V, acc, n, npad, dpad, k, s);
   if (k > 1) return launch_comp_kc<KIND, 2>(XT, V, acc, n, npad, dpad, k, s);
   return launch_comp_kc<KIND, 1>(XT, V, acc, n, npad, dpad, k, s);
+}
+
+// Zero acc, sum every family's triangle into it, then the finishing pass.
+template <typename VT>
+int comp_symmetric(int kind, const void* XT, const void* V, double* acc, void* out,
+                   void* out_lo, int n, int npad, int dpad, int k, double c,
+                   cudaStream_t s) {
+  if (n < 1 || k < 1 || dpad % kCFeat || npad % kCTile || npad < n)
+    return (int)cudaErrorInvalidValue;
+  const size_t count = (size_t)n * k;
+  cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(double) * count, s);
+  if (err != cudaSuccess) return (int)err;
+  const double* X = static_cast<const double*>(XT);
+  const VT* Vt = static_cast<const VT*>(V);
+  switch (kind) {
+    case RBF: err = launch_comp<RBF>(X, Vt, acc, n, npad, dpad, k, s); break;
+    case MATERN12: err = launch_comp<MATERN12>(X, Vt, acc, n, npad, dpad, k, s); break;
+    case MATERN32: err = launch_comp<MATERN32>(X, Vt, acc, n, npad, dpad, k, s); break;
+    case MATERN52: err = launch_comp<MATERN52>(X, Vt, acc, n, npad, dpad, k, s); break;
+    case LAPLACE: err = launch_comp<LAPLACE>(X, Vt, acc, n, npad, dpad, k, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  size_t blocks = (count + kThreads - 1) / kThreads;
+  if (blocks > 4096) blocks = 4096;
+  gram_comp_finish<VT><<<(unsigned)blocks, kThreads, 0, s>>>(
+      acc, static_cast<float*>(out), static_cast<float*>(out_lo), count, c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -300,27 +354,15 @@ extern "C" int rl_gram_matvec_symmetric_comp(int kind, const void* XT, const voi
                                              void* acc, void* out, void* out_lo, int n,
                                              int npad, int dpad, int k, double c,
                                              void* stream) {
-  if (n < 1 || k < 1 || dpad % kCFeat || npad % kCTile || npad < n)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t count = (size_t)n * k;
-  cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(double) * count, s);
-  if (err != cudaSuccess) return (int)err;
-  const double* X = static_cast<const double*>(XT);
-  const float* Vf = static_cast<const float*>(V);
-  double* A = static_cast<double*>(acc);
-  switch (kind) {
-    case RBF: err = launch_comp<RBF>(X, Vf, A, n, npad, dpad, k, s); break;
-    case MATERN12: err = launch_comp<MATERN12>(X, Vf, A, n, npad, dpad, k, s); break;
-    case MATERN32: err = launch_comp<MATERN32>(X, Vf, A, n, npad, dpad, k, s); break;
-    case MATERN52: err = launch_comp<MATERN52>(X, Vf, A, n, npad, dpad, k, s); break;
-    case LAPLACE: err = launch_comp<LAPLACE>(X, Vf, A, n, npad, dpad, k, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  size_t blocks = (count + kThreads - 1) / kThreads;
-  if (blocks > 4096) blocks = 4096;
-  gram_comp_finish<<<(unsigned)blocks, kThreads, 0, s>>>(
-      A, static_cast<float*>(out), static_cast<float*>(out_lo), count, c);
-  return (int)cudaGetLastError();
+  return comp_symmetric<float>(kind, XT, V, static_cast<double*>(acc), out, out_lo, n, npad,
+                               dpad, k, c, static_cast<cudaStream_t>(stream));
+}
+
+// K7: out = c * k(X, X) @ V in float64, the same operand XT; V and out (n,
+// k) float64, out zeroed here.
+extern "C" int rl_gram_matvec_symmetric_f64(int kind, const void* XT, const void* V,
+                                            void* out, int n, int npad, int dpad, int k,
+                                            double c, void* stream) {
+  return comp_symmetric<double>(kind, XT, V, static_cast<double*>(out), nullptr, nullptr, n,
+                                npad, dpad, k, c, static_cast<cudaStream_t>(stream));
 }

@@ -324,7 +324,7 @@ extern "C" int rl_laplace_matvec_symmetric(const void* X, const void* V,
   cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * (size_t)n * k, s);
   if (err != cudaSuccess) return (int)err;
   const GramArgs a = points_args(X, X, nullptr, V, out, nullptr, n, n, d, k, c);
-  launch_symmetric<LAPLACE, EXACT, 16>(a, s);
+  launch_symmetric<LAPLACE>(a, s);
   return (int)cudaGetLastError();
 }
 

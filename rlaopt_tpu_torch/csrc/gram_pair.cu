@@ -4,12 +4,13 @@
 // value evaluated once and contracted both ways, K never reaching device
 // memory:
 //
-//   K4  gram_pair            replaces rlaopt_tpu/ops/kernel_pallas.py ::
-//                            kernel_pair_matmat (_body_pair), exact tier
-//   K4b gram_pair (TIER1/3)  replaces kernel_pair_matmat with
-//                            compute_dtype "bfloat16" / "bf16x3"
-//   K6  laplace_pair         replaces kernel_pallas.py :: _laplace_pair_matmat
-//                            (_body_pair_laplace)
+//   K4  gram_pair     replaces rlaopt_tpu/ops/kernel_pallas.py ::
+//                     kernel_pair_matmat (_body_pair), exact tier
+//   K6  laplace_pair  replaces kernel_pallas.py :: _laplace_pair_matmat
+//                     (_body_pair_laplace)
+//
+// The bf16 tiers of kernel_pair_matmat (K4b) are the pair form of the tier
+// strip, in gram_tier.cu.
 //
 // The pair kernel serves one off-diagonal block of a symmetric Gram matrix
 // split into shards: block K_pq of shards p and q gives K_pq V_q to shard p
@@ -19,24 +20,20 @@
 // forced; the triangle kernels here write their mirror to device memory and
 // have no n cap, so that banded schedule is not ported.
 //
-// What bounds them on the H100: what bounds K2, K2b and K5, whose tile code
-// they are (gram_common.cuh: gram_matvec_symmetric with PAIR). Per kernel
-// value: ~3d float32 instructions of squared distance (2d of L1 distance for
-// Laplace; the cross term on the tensor cores for the tiers), one expf, and
-// 2 FMAs per right-hand side for each of the two products. Bytes are
-// O((n1 + n2)(d + k)), re-read from L2: not the limit.
+// What bounds them on the H100: what bounds K2 and K5, whose tile code they
+// are (gram_common.cuh: gram_matvec_symmetric with PAIR). Per kernel value:
+// ~3d float32 instructions of squared distance (2d of L1 distance for
+// Laplace), one expf, and 2 FMAs per right-hand side for each of the two
+// products. Bytes are O((n1 + n2)(d + k)), re-read from L2: not the limit.
 //
 // Design: K2's schedule over the full nt1 x nt2 rectangle of 64 x 64 tiles,
 // with no diagonal: block (I, s) holds row tile I of X1 and walks the 16
 // column tiles J = 16s .. 16s + 15 of X2; for each it makes the K tile in
-// shared memory (kernel_tile, or tier_tile on the tensor cores), contracts
-// it with V2_J into registers for out1[I], and its transpose with V1_I into
-// out2[J] at once by atomicAdd. out1[I] is added once per block by
-// atomicAdd. Both outputs are zeroed in the same call. The tiers' mirror
-// (out2) takes the tier-matched contraction at k >= 3 (tier_mul), as
-// _sym_mirror_mode does; k <= 16 (gridDim.z past 16 columns is not taken:
-// the caller routes k > 16 to two general calls, as kernel_dispatch.py
-// does).
+// shared memory (kernel_tile), contracts it with V2_J into registers for
+// out1[I], and its transpose with V1_I into out2[J] at once by atomicAdd.
+// out1[I] is added once per block by atomicAdd. Both outputs are zeroed in
+// the same call; k <= 16 (gridDim.z past 16 columns is not taken: the caller
+// routes k > 16 to two general calls, as kernel_dispatch.py does).
 //
 // Ragged edges: entries of the K tile past n1 or n2 are zero, and no output
 // row past n1 or n2 is written, so zero-padded shards of a mesh only need
@@ -61,13 +58,12 @@ cudaError_t zero_outputs(void* out1, void* out2, size_t n1, size_t n2, int k,
   return cudaMemsetAsync(out2, 0, sizeof(float) * n2 * k, s);
 }
 
-template <int MODE>
 int pair_by_kind(int kind, const GramArgs& a, cudaStream_t s) {
   switch (kind) {
-    case RBF: launch_symmetric<RBF, MODE, 16, true>(a, s); break;
-    case MATERN12: launch_symmetric<MATERN12, MODE, 16, true>(a, s); break;
-    case MATERN32: launch_symmetric<MATERN32, MODE, 16, true>(a, s); break;
-    case MATERN52: launch_symmetric<MATERN52, MODE, 16, true>(a, s); break;
+    case RBF: launch_symmetric<RBF, true>(a, s); break;
+    case MATERN12: launch_symmetric<MATERN12, true>(a, s); break;
+    case MATERN32: launch_symmetric<MATERN32, true>(a, s); break;
+    case MATERN52: launch_symmetric<MATERN52, true>(a, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -94,41 +90,7 @@ extern "C" int rl_gram_pair(int kind, const void* X1, const void* X2,
   GramArgs a = points_args(X1, X2, nullptr, V2, out1, nullptr, n1, n2, d, k, c);
   a.V1 = V1;
   a.out2 = out2;
-  return pair_by_kind<EXACT>(kind, a, s);
-}
-
-// K4b: the same products on the bf16 tier of `passes` (3: bf16x3, 1:
-// bfloat16), from the parts X1h, X1l (n1, dp) and X2h, X2l (n2, dp) (lo
-// parts unused and possibly null when passes == 1) and the norm vectors hx
-// (n1), hy (n2) of _norms_and_operands; dp a multiple of 16.
-extern "C" int rl_gram_pair_tier(int kind, int passes, const void* X1h,
-                                 const void* X1l, const void* hx,
-                                 const void* X2h, const void* X2l,
-                                 const void* hy, const void* V2, const void* V1,
-                                 void* out1, void* out2, int n1, int n2, int dp,
-                                 int k, double c, void* stream) {
-  if (dp % kDepth != 0 || k < 1 || k > 16) return (int)cudaErrorInvalidValue;
-  if (passes != 1 && passes != 3) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = zero_outputs(out1, out2, n1, n2, k, s);
-  if (err != cudaSuccess) return (int)err;
-  GramArgs a{};
-  a.X1h = static_cast<const __nv_bfloat16*>(X1h);
-  a.X1l = static_cast<const __nv_bfloat16*>(X1l);
-  a.hx = static_cast<const float*>(hx);
-  a.X2h = static_cast<const __nv_bfloat16*>(X2h);
-  a.X2l = static_cast<const __nv_bfloat16*>(X2l);
-  a.hy = static_cast<const float*>(hy);
-  a.V = V2;
-  a.out = out1;
-  a.V1 = V1;
-  a.out2 = out2;
-  a.n = n1;
-  a.m = n2;
-  a.d = dp;
-  a.k = k;
-  a.c = c;
-  return passes == 3 ? pair_by_kind<TIER3>(kind, a, s) : pair_by_kind<TIER1>(kind, a, s);
+  return pair_by_kind(kind, a, s);
 }
 
 // K6: the Laplace pair, c * exp(-|x - y|_1) with X1 and X2 pre-scaled by the
@@ -143,6 +105,6 @@ extern "C" int rl_laplace_pair(const void* X1, const void* X2, const void* V2,
   GramArgs a = points_args(X1, X2, nullptr, V2, out1, nullptr, n1, n2, d, k, c);
   a.V1 = V1;
   a.out2 = out2;
-  launch_symmetric<LAPLACE, EXACT, 16, true>(a, s);
+  launch_symmetric<LAPLACE, true>(a, s);
   return (int)cudaGetLastError();
 }

@@ -9,6 +9,10 @@
 //   K2b gram_tier_symmetric<KIND, PASSES, KC>  replaces kernel_pallas.py ::
 //       kernel_matvec_symmetric with the same tiers (_sym_epilogue,
 //       _sym_tier_params, _sym_mirror_mode)
+//   K4b gram_tier_pair<KIND, PASSES, KC>  replaces kernel_pallas.py ::
+//       kernel_pair_matmat with the same tiers: (out1, out2) = (c K @ V2,
+//       c K^T @ V1) with K = k(X1, X2) evaluated once, the off-diagonal
+//       block of the sharded half-ring (rlaopt_tpu_torch/kernels/sharded.py)
 //
 // Operands: the bf16 parts of the points pre-scaled by the lengthscale (hi,
 // and lo for bf16x3), split once per operator in PyTorch and padded in depth
@@ -27,11 +31,11 @@
 // of depth 64 per tile and column on the tensor cores, 18x the cross term at
 // d = 28.
 //
-// K1b and K2b share one strip body (tier_strip, below): a block owns 128
-// rows, 8 warps of 16, and walks 64-column tiles; the cross term goes
+// K1b, K2b and K4b share one strip body (tier_strip, below): a block owns
+// 128 rows, 8 warps of 16, and walks 64-column tiles; the cross term goes
 // through mma.sync into registers, the epilogue and the row contraction run
 // on the fragments, and the column tiles are staged by cp.async two ahead.
-// K1b's forward form (TRI = false) walks a run of the m axis: with few row
+// K1b's forward form walks a run of the m axis: with few row
 // blocks (SAP's 10,000-row oracle is 79 of them on 132 SMs) the wrapper cuts
 // the m axis into runs on blockIdx.y (kernel_cuda.tier_splits), each block
 // writes its partial rows, and sum_splits adds them in a fixed order.
@@ -47,15 +51,17 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// The strip body: K2b (the triangle) and K1b's forward form.
+// The strip body: K2b (the triangle), K1b's forward form and K4b's pair
+// form.
 //
 // What bounds K2b on the H100: per kernel value, 3 (or 1) bf16 products of
 // depth dp on the tensor cores (0.85 ms of work at n = 100,000, d = 28 on
 // the 989 TFLOP/s data-sheet rate) and one exponential on the SFU, which
 // returns 16 a clock per SM: 5.0e9 values at 132 x 16 x 1.98 GHz take
 // ~1.2 ms, the floor. The first version (the shared triangle template with
-// tier_tile) ran at 6% of it: per 64 x 64 tile it staged both point tiles
-// 16 features at a time, stored the wmma accumulators to shared memory, ran
+// a tier tile built in shared memory) ran at 6% of it: per 64 x 64 tile it
+// staged both point tiles 16 features at a time, stored the tensor-core
+// accumulators to shared memory, ran
 // the epilogue there, read the tile again for the row contraction and by
 // columns for the mirror (the four threads of a quad 16 rows of 68 floats
 // apart: one bank by the address arithmetic, not confirmed by a profiler),
@@ -110,6 +116,23 @@ namespace {
 // tiles of X2 in its run z (all of them with one run), every warp active on
 // every tile; its rows are written once, scaled (one run) or as the run's
 // unscaled partial into part[z], with no atomics.
+//
+// K4b's pair form is the triangle's body on two point sets, with neither
+// the triangle nor the diagonal: block (I, s) owns row tiles 2I and 2I + 1
+// of X1 and walks the column tiles J = 16s .. 16s + 15 of X2, every warp
+// active on every tile. The forward product K_IJ V2_J goes to out1's rows
+// (one atomicAdd per row and block: several strips add to a row); the
+// mirror K_IJ^T V1_I, V1_I staged from V1 where the triangle stages it from
+// V, goes to out2's rows of tile J, the 8 warps' column sums added in warp
+// order, one atomicAdd per column a tile. Entries past n1 or n2 are zero and
+// no output row past them is written; a padded shard's points are zero only
+// in the operands (k(x, 0) > 0), so the caller slices the padded rows away.
+// The first version (the shared triangle template in its pair form, the
+// same tier tile in shared memory) evaluated 2.6e11 values a second at E4's
+// shards, where K2b's strip evaluates 6.6e11.
+
+// The strip body's three forms.
+enum StripForm { FORWARD = 0, TRIANGLE = 1, PAIR = 2 };
 
 constexpr int kSymRowTiles = 2;                 // 64-row tiles a block owns
 constexpr int kSymRows = kSymRowTiles * kTile;  // 128 rows
@@ -322,33 +345,43 @@ __device__ __forceinline__ void cross_chunk(float (&C)[8][4], const uint16_t* ih
   }
 }
 
-// TRI: K2b, block (I, s) as described above, nt = ceil(n / 64), X2 = X1.
-// Forward (K1b, k <= 16): block (I, z), nt = ceil(m / 64) column tiles of
-// X2, the run z of a.m_split / 64 of them.
-template <int KIND, int PASSES, int KC, bool TRI>
+// TRIANGLE: K2b, block (I, s) as described above, nt = ceil(n / 64), X2 =
+// X1. FORWARD (K1b, k <= 16): block (I, z), nt = ceil(m / 64) column tiles
+// of X2, the run z of a.m_split / 64 of them. PAIR (K4b): block (I, s), nt
+// = ceil(m / 64) column tiles of X2, V2 = a.V, V1 = a.V1, out1 = a.out,
+// out2 = a.out2.
+template <int KIND, int PASSES, int KC, int FORM>
 __device__ __forceinline__ void tier_strip(const GramArgs& a, int nt) {
-  constexpr bool kTierMirror = TRI && KC >= 4;  // k >= 3, as _sym_mirror_mode
+  constexpr bool kMirror = FORM != FORWARD;
+  constexpr bool kTierMirror = kMirror && KC >= 4;  // k >= 3, as _sym_mirror_mode
   constexpr float kScale = KIND == RBF ? kLog2e : 1.0f;
   extern __shared__ __align__(16) unsigned char smem[];
   // row tiles I0 and I0 + 1; column tiles J0 .. J1 - 1
   const int I0 = kSymRowTiles * blockIdx.x;
   int J0, J1;
-  if constexpr (TRI) {
+  if constexpr (FORM == TRIANGLE) {
     J0 = I0 + blockIdx.y * kSymStrip;
     if (J0 >= nt) return;
+    J1 = min(J0 + kSymStrip, nt);
+  } else if constexpr (FORM == PAIR) {
+    J0 = blockIdx.y * kSymStrip;  // < nt by the grid
     J1 = min(J0 + kSymStrip, nt);
   } else {
     const int run = a.m_split / kTile;
     J0 = blockIdx.y * run;
     J1 = min(J0 + run, nt);
   }
-  const SymLayout L = sym_layout(a.d, KC, TRI);
+  const SymLayout L = sym_layout(a.d, KC, kMirror);
   const int n = a.n, m = a.m, k = a.k, dp = a.d;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int Iw = I0 + warp / 4;  // the warp's row tile; its rows 16 warp..
+  // forward: V_J from V (V2 for the pair) into out; mirror: V_I from V (V1
+  // for the pair) into the rows of tile J of out (out2 for the pair)
   const float* __restrict__ V = static_cast<const float*>(a.V);
-  float* __restrict__ out = static_cast<float*>(a.out);
+  const float* __restrict__ Vi = static_cast<const float*>(FORM == PAIR ? a.V1 : a.V);
+  float* out = static_cast<float*>(a.out);  // the triangle's two are one array
+  float* mirror_out = static_cast<float*>(FORM == PAIR ? a.out2 : a.out);
   float* hy_s = reinterpret_cast<float*>(smem + L.hy_off);
   float* vj_s = reinterpret_cast<float*>(smem + L.vj_off);
   float* vi_s = reinterpret_cast<float*>(smem + L.vi_off);
@@ -362,10 +395,10 @@ __device__ __forceinline__ void tier_strip(const GramArgs& a, int nt) {
     const int gr = row0 + 16 * warp + g + 8 * h;
     hx_r[h] = gr < n ? a.hx[gr] * kScale : 0.0f;
   }
-  if constexpr (TRI) {
+  if constexpr (kMirror) {
     for (int e = tid; e < KC * kSymRows; e += kSymThreads) {
       const int c = e / kSymRows, r = e % kSymRows;
-      const float v = (row0 + r < n && c < k) ? V[(size_t)(row0 + r) * k + c] : 0.0f;
+      const float v = (row0 + r < n && c < k) ? Vi[(size_t)(row0 + r) * k + c] : 0.0f;
       if constexpr (kTierMirror) {
         const float vh = bf16_value(bf16_bits(v));
         vi_s[e] = vh;
@@ -459,8 +492,9 @@ __device__ __forceinline__ void tier_strip(const GramArgs& a, int nt) {
     const int J = J0 + st / L.chunks, ch = st % L.chunks, buf = st % kSymStages;
     // the warp's part of this column tile (triangle): none below the
     // diagonal (J < Iw: its mirror image is taken from tile (J, Iw)), the
-    // forward contraction alone on it (J == Iw), both above (J > Iw)
-    const bool active = !TRI || J >= Iw;
+    // forward contraction alone on it (J == Iw), both above (J > Iw); the
+    // other forms have no diagonal
+    const bool active = FORM != TRIANGLE || J >= Iw;
     if (active) {
       if (ch == 0) {
 #pragma unroll
@@ -503,10 +537,11 @@ __device__ __forceinline__ void tier_strip(const GramArgs& a, int nt) {
         }
       }
     }
-    if constexpr (TRI) {
-      // the mirror runs where some row tile lies above J's diagonal
-      if (J <= I0) continue;
-      if (J > Iw) {
+    if constexpr (kMirror) {
+      // the mirror runs where some row tile lies above J's diagonal (the
+      // pair's every tile)
+      if (FORM == TRIANGLE && J <= I0) continue;
+      if (FORM == PAIR || J > Iw) {
         // column sums of K_IJ^T V_I over the warp's 16 rows, into
         // mir_s[warp][c][column]
         if constexpr (kTierMirror) {
@@ -584,19 +619,22 @@ __device__ __forceinline__ void tier_strip(const GramArgs& a, int nt) {
       }
       __syncthreads();
       // the column sums of the warps above the diagonal (both row tiles',
-      // or at J = I0 + 1 the first's), in warp order
-      const int above = J > I0 + 1 ? kSymStrips : kSymStrips / kSymRowTiles;
+      // or at J = I0 + 1 the first's; the pair's 8), in warp order
+      const int above =
+          FORM == PAIR || J > I0 + 1 ? kSymStrips : kSymStrips / kSymRowTiles;
       for (int e = tid; e < KC * kTile; e += kSymThreads) {
         const int c = e / kTile, j = e % kTile;
         float s = mir_s[c * kMirLd + j];
         for (int w = 1; w < above; ++w) s += mir_s[(w * KC + c) * kMirLd + j];
-        if (col0 + j < n && c < k) atomicAdd(&out[(size_t)(col0 + j) * k + c], s * (float)a.c);
+        if (col0 + j < m && c < k) {
+          atomicAdd(&mirror_out[(size_t)(col0 + j) * k + c], s * (float)a.c);
+        }
       }
     }
   }
 
   // the strip's row sums: across the quad, then one atomicAdd per row
-  // (triangle), or one store per row: scaled, or the run's partial
+  // (triangle, pair), or one store per row: scaled, or the run's partial
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int gr = row0 + 16 * warp + g + 8 * h;
@@ -606,7 +644,7 @@ __device__ __forceinline__ void tier_strip(const GramArgs& a, int nt) {
       v += __shfl_xor_sync(0xffffffffu, v, 1);
       v += __shfl_xor_sync(0xffffffffu, v, 2);
       if (t == 0 && gr < n && c < k) {
-        if constexpr (TRI) {
+        if constexpr (kMirror) {
           atomicAdd(&out[(size_t)gr * k + c], v * (float)a.c);
         } else if (gridDim.y > 1) {
           a.part[((size_t)blockIdx.y * n + gr) * k + c] = v;
@@ -621,13 +659,19 @@ __device__ __forceinline__ void tier_strip(const GramArgs& a, int nt) {
 template <int KIND, int PASSES, int KC>
 __global__ void __launch_bounds__(kSymThreads, 2)
     gram_tier_symmetric(const GramArgs a, int nt) {
-  tier_strip<KIND, PASSES, KC, true>(a, nt);
+  tier_strip<KIND, PASSES, KC, TRIANGLE>(a, nt);
 }
 
 template <int KIND, int PASSES, int KC>
 __global__ void __launch_bounds__(kSymThreads, 2)
     gram_tier_forward(const GramArgs a, int nt) {
-  tier_strip<KIND, PASSES, KC, false>(a, nt);
+  tier_strip<KIND, PASSES, KC, FORWARD>(a, nt);
+}
+
+template <int KIND, int PASSES, int KC>
+__global__ void __launch_bounds__(kSymThreads, 2)
+    gram_tier_pair(const GramArgs a, int nt) {
+  tier_strip<KIND, PASSES, KC, PAIR>(a, nt);
 }
 
 // ---------------------------------------------------------------------------
@@ -638,11 +682,11 @@ __global__ void __launch_bounds__(kSymThreads, 2)
 // 989 TFLOP/s data-sheet rate at n = m = 100,000, 18x the cross term at
 // d = 28.
 // The first version built each 64 x 64 K tile through shared memory
-// (wmma fragments stored, the epilogue there), split it and the matching
-// 64 x 128 slice of V into bf16 parts in shared memory per tile (V's split
-// redone by every row block: 15,625 times at n = 1M), and contracted with
-// wmma loaded from shared memory: every product passed through shared
-// memory twice, 7.1% of the bound.
+// (tensor-core fragments stored, the epilogue there), split it and the
+// matching 64 x 128 slice of V into bf16 parts in shared memory per tile
+// (V's split redone by every row block: 15,625 times at n = 1M), and
+// contracted with tensor-core operands loaded from shared memory: every
+// product passed through shared memory twice, 7.1% of the bound.
 //
 // Design. Block (I, y) owns rows 128 I .. (8 warps of 16, the strip body's
 // warps) and the 8 NF right-hand-side columns from 8 NF y of kp (NF = 16:
@@ -930,36 +974,39 @@ int tier_matmat_by_kind(int kind, const GramArgs& a, int splits, cudaStream_t s)
   }
 }
 
-template <int KIND, int PASSES, int KC>
-int launch_tier_symmetric_kc(const GramArgs& a, cudaStream_t s) {
+// K2b (triangle) or K4b (pair): row tiles of X1 two a block, strips of 16
+// column tiles of X2 (the triangle's from the block's own row tile on).
+template <int KIND, int PASSES, int KC, bool PAIR>
+int launch_tier_mirror_kc(const GramArgs& a, cudaStream_t s) {
   const SymLayout L = sym_layout(a.d, KC, true);
-  cudaError_t err = cudaFuncSetAttribute(gram_tier_symmetric<KIND, PASSES, KC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         L.bytes);
+  void (*kernel)(const GramArgs, int) =
+      PAIR ? gram_tier_pair<KIND, PASSES, KC> : gram_tier_symmetric<KIND, PASSES, KC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return (int)err;
-  const int nt = (a.n + kTile - 1) / kTile;
-  const dim3 grid((nt + kSymRowTiles - 1) / kSymRowTiles, (nt + kSymStrip - 1) / kSymStrip);
-  gram_tier_symmetric<KIND, PASSES, KC><<<grid, kSymThreads, L.bytes, s>>>(a, nt);
+  const int nt1 = (a.n + kTile - 1) / kTile, nt2 = (a.m + kTile - 1) / kTile;
+  const dim3 grid((nt1 + kSymRowTiles - 1) / kSymRowTiles, (nt2 + kSymStrip - 1) / kSymStrip);
+  kernel<<<grid, kSymThreads, L.bytes, s>>>(a, nt2);
   return (int)cudaGetLastError();
 }
 
-// K2b at the smallest KC that holds k <= 16 columns.
-template <int KIND, int PASSES>
-int launch_tier_symmetric(const GramArgs& a, cudaStream_t s) {
-  if (a.k > 8) return launch_tier_symmetric_kc<KIND, PASSES, 16>(a, s);
-  if (a.k > 4) return launch_tier_symmetric_kc<KIND, PASSES, 8>(a, s);
-  if (a.k > 2) return launch_tier_symmetric_kc<KIND, PASSES, 4>(a, s);
-  if (a.k > 1) return launch_tier_symmetric_kc<KIND, PASSES, 2>(a, s);
-  return launch_tier_symmetric_kc<KIND, PASSES, 1>(a, s);
+// K2b or K4b at the smallest KC that holds k <= 16 columns.
+template <int KIND, int PASSES, bool PAIR>
+int launch_tier_mirror(const GramArgs& a, cudaStream_t s) {
+  if (a.k > 8) return launch_tier_mirror_kc<KIND, PASSES, 16, PAIR>(a, s);
+  if (a.k > 4) return launch_tier_mirror_kc<KIND, PASSES, 8, PAIR>(a, s);
+  if (a.k > 2) return launch_tier_mirror_kc<KIND, PASSES, 4, PAIR>(a, s);
+  if (a.k > 1) return launch_tier_mirror_kc<KIND, PASSES, 2, PAIR>(a, s);
+  return launch_tier_mirror_kc<KIND, PASSES, 1, PAIR>(a, s);
 }
 
-template <int PASSES>
-int tier_symmetric_by_kind(int kind, const GramArgs& a, cudaStream_t s) {
+template <int PASSES, bool PAIR>
+int tier_mirror_by_kind(int kind, const GramArgs& a, cudaStream_t s) {
   switch (kind) {
-    case RBF: return launch_tier_symmetric<RBF, PASSES>(a, s);
-    case MATERN12: return launch_tier_symmetric<MATERN12, PASSES>(a, s);
-    case MATERN32: return launch_tier_symmetric<MATERN32, PASSES>(a, s);
-    case MATERN52: return launch_tier_symmetric<MATERN52, PASSES>(a, s);
+    case RBF: return launch_tier_mirror<RBF, PASSES, PAIR>(a, s);
+    case MATERN12: return launch_tier_mirror<MATERN12, PASSES, PAIR>(a, s);
+    case MATERN32: return launch_tier_mirror<MATERN32, PASSES, PAIR>(a, s);
+    case MATERN52: return launch_tier_mirror<MATERN52, PASSES, PAIR>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -991,7 +1038,8 @@ GramArgs tier_args(const void* X1h, const void* X1l, const void* hx,
 // does not synchronize, and returns a CUDA error code (0 on success).
 // Parts: X1h, X1l (n, dp) and X2h, X2l (m, dp) bf16 with dp a multiple of
 // 16 (the lo parts are unused and may be null when passes == 1); hx (n),
-// hy (m), V (m, k), out (n, k) float32; all contiguous on one device.
+// hy (m) the norm vectors of _norms_and_operands, V (m, k), out (n, k)
+// float32; all contiguous on one device.
 
 // K1b: out = c * k(X1, X2) @ V on the tier of `passes` (3 or 1). k <= 16:
 // V is read, and splits > 1 cuts the m axis into that many runs whose
@@ -1029,7 +1077,30 @@ extern "C" int rl_gram_matvec_symmetric_tier(int kind, int passes,
   cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * (size_t)n * k, s);
   if (err != cudaSuccess) return (int)err;
   const GramArgs a = tier_args(Xh, Xl, hx, Xh, Xl, hx, V, out, n, n, dp, k, c);
-  if (passes == 3) return tier_symmetric_by_kind<3>(kind, a, s);
-  if (passes == 1) return tier_symmetric_by_kind<1>(kind, a, s);
+  if (passes == 3) return tier_mirror_by_kind<3, false>(kind, a, s);
+  if (passes == 1) return tier_mirror_by_kind<1, false>(kind, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4b: (out1, out2) = (c * k(X1, X2) @ V2, c * k(X1, X2)^T @ V1) with X1's
+// parts (n1, dp) and X2's (n2, dp), V2 (n2, k), V1 (n1, k), out1 (n1, k),
+// out2 (n2, k), 1 <= k <= 16; both outputs are zeroed here first.
+extern "C" int rl_gram_pair_tier(int kind, int passes, const void* X1h,
+                                 const void* X1l, const void* hx,
+                                 const void* X2h, const void* X2l,
+                                 const void* hy, const void* V2, const void* V1,
+                                 void* out1, void* out2, int n1, int n2, int dp,
+                                 int k, double c, void* stream) {
+  if (dp % kDepth != 0 || k < 1 || k > 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(out1, 0, sizeof(float) * (size_t)n1 * k, s);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(out2, 0, sizeof(float) * (size_t)n2 * k, s);
+  if (err != cudaSuccess) return (int)err;
+  GramArgs a = tier_args(X1h, X1l, hx, X2h, X2l, hy, V2, out1, n1, n2, dp, k, c);
+  a.V1 = V1;
+  a.out2 = out2;
+  if (passes == 3) return tier_mirror_by_kind<3, true>(kind, a, s);
+  if (passes == 1) return tier_mirror_by_kind<1, true>(kind, a, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,10 +4,10 @@ Counterpart of ``rlaopt_tpu/ops/kernel_pallas.py`` (exact f32 tier,
 compensated tier, bf16 tiers, the Laplace kernels),
 ``rlaopt_tpu/ops/kernel_value64.py`` (float64 route) and
 ``rlaopt_tpu/sparse/laned.py`` (the sparse CSR product). The kernels live in
-``csrc/gram.cu`` (K1, K1c, K2), ``csrc/gram_comp.cu`` (the triangle form of
-K1c and K3c), ``csrc/gram_laplace.cu`` (K3, K3c, K5), ``csrc/gram_tier.cu``
-(K1b, K2b), ``csrc/gram_f64.cu`` (K8, K7),
-``csrc/gram_pair.cu`` (the pair kernels K4, K4b, K6), with their shared
+``csrc/gram.cu`` (K1, K1c, K2), ``csrc/gram_comp.cu`` (the float64 triangle:
+K1c and K3c's triangle form, K7), ``csrc/gram_laplace.cu`` (K3, K3c, K5),
+``csrc/gram_tier.cu`` (K1b, K2b, K4b), ``csrc/gram_f64.cu`` (K8),
+``csrc/gram_pair.cu`` (the exact pair kernels K4, K6), with their shared
 pieces in ``csrc/gram_common.cuh``, ``csrc/spmv.cu`` (the
 CSR SpMV/SpMM) and ``csrc/probes.cu`` (the ceiling probes, wrapped in
 :mod:`rlaopt_tpu_torch.ops.probes`); see the note at the top of each.
@@ -125,9 +125,7 @@ _SIGNATURES = {
     "rl_gram_matmat_f64": [
         _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
-    "rl_gram_matvec_symmetric_f64": [
-        _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _cd, _vp,
-    ],
+    "rl_gram_matvec_symmetric_f64": [_ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
     "rl_laplace_matmat": [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cd, _vp],
     "rl_laplace_matmat_narrow": [
         _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
@@ -272,7 +270,7 @@ def _scaled(X1, X2, lengthscale):
 
 
 def _inv_lengthscale(lengthscale, d: int, device) -> torch.Tensor:
-    """(d,) float64 inverse lengthscale for K1c, K7 and K8."""
+    """(d,) float64 inverse lengthscale for the general K1c, K3c and K8."""
     ls = torch.as_tensor(lengthscale, dtype=torch.float64, device=device)
     if ls.ndim > 1 or ls.numel() not in (1, d):
         raise ValueError(f"lengthscale of shape {tuple(ls.shape)} for d = {d}")
@@ -404,11 +402,13 @@ def gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling=1.0):
 
 
 def symmetric_comp_operand(X: torch.Tensor, lengthscale) -> torch.Tensor:
-    """The points of the triangle K1c: ``X / ℓ`` in float64, transposed to
-    (dpad, npad) and zero past d and n, dpad a multiple of ``COMP_FEAT`` and
-    npad of ``COMP_TILE`` (the kernel's feature chunks and tiles). The
-    scaling is the plain version's, :func:`kernel_plain.gram_matmat_comp`
-    (``scale_inputs`` of the float64 points)."""
+    """The points of the float64 triangle (K1c and K3c's triangle form,
+    K7): ``X / ℓ`` in float64, transposed to (dpad, npad) and zero past d
+    and n, dpad a multiple of ``COMP_FEAT`` and npad of ``COMP_TILE`` (the
+    kernel's feature chunks and tiles). The scaling is the plain versions'
+    (:func:`kernel_plain.gram_matmat_comp`,
+    :func:`kernel_plain.gram_matmat_f64`: the float64 points over the
+    float64 lengthscale)."""
     n, d = X.shape
     ls = torch.as_tensor(lengthscale, dtype=torch.float64, device=X.device)
     if ls.ndim > 1 or ls.numel() not in (1, d):
@@ -572,19 +572,24 @@ def gram_matmat_f64(kind, X1, X2, V, lengthscale, const_scaling=1.0):
 
 
 def gram_matvec_symmetric_f64(kind, X, V, lengthscale, const_scaling=1.0):
-    """K7: ``c·k(X, X) @ V`` in float64, each tile pair once; any k."""
+    """K7: ``c·k(X, X) @ V`` in float64 from float32 points, a float64
+    lengthscale (scalar or ARD) and float64 V, float64 out; any k, every
+    family. The float64 triangle of the triangle K1c
+    (``csrc/gram_comp.cu``) on :func:`symmetric_comp_operand`, each tile
+    pair evaluated once and contracted both ways; its float64 sums go
+    through atomics, so their last bits (about 1e-16 relative) change from
+    run to run."""
     code = _code(kind, laplace=True)
     _check_tensors((torch.float32, torch.float64), X, V)
     V2, squeeze = _check_shapes(X, X, V)
-    A = X.contiguous()
-    (n, d), k = A.shape, V2.shape[1]
-    inv_ls = _inv_lengthscale(lengthscale, d, A.device)
+    XT = symmetric_comp_operand(X, lengthscale)
+    (n, _), k = X.shape, V2.shape[1]
     build()
-    out = torch.empty((n, k), dtype=torch.float64, device=A.device)
-    with torch.cuda.device(A.device):
+    out = torch.empty((n, k), dtype=torch.float64, device=X.device)
+    with torch.cuda.device(X.device):
         err = _lib["handle"].rl_gram_matvec_symmetric_f64(
-            code, A.data_ptr(), inv_ls.data_ptr(), V2.data_ptr(), out.data_ptr(),
-            n, d, k, float(const_scaling), _stream(A),
+            code, XT.data_ptr(), V2.data_ptr(), out.data_ptr(), n, XT.shape[1], XT.shape[0],
+            k, float(const_scaling), _stream(X),
         )
     _raise_on(err, "gram_matvec_symmetric_f64")
     gram_matvec_symmetric_f64.launches += 1
@@ -743,7 +748,10 @@ def gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0):
 
 def gram_pair_tier(kind, A: TierOperand, B: TierOperand, V2, V1, const_scaling=1.0):
     """K4b: ``(c·K @ V2, c·Kᵀ @ V1)`` on a bf16 tier from the parts of X1 (A)
-    and X2 (B), k ≤ 16; the mirror contraction is tier-matched at k ≥ 3."""
+    and X2 (B), k ≤ 16; the mirror contraction is tier-matched at k ≥ 3.
+    The pair form of K2b's strip (``csrc/gram_tier.cu``), each value
+    evaluated once and contracted both ways; float atomics, so the last
+    bits change from run to run."""
     code = _check_tier(kind, A, B)
     _check_tensors((torch.float32,) * 2, V2, V1)
     V2c, V1c, squeeze = _check_pair(A.hi, B.hi, V2, V1)

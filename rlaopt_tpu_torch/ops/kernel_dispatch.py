@@ -172,7 +172,7 @@ def kernel_matmat_f64(
     operands: K7 when ``symmetric`` (X1 and X2 one data set), K8 otherwise,
     the plain float64 version on the CPU. On a card the points are float32
     (the kernels cast them exactly); the lengthscale is taken in float64."""
-    if not X1.is_cuda:
+    if not _on_card("auto", X1):
         return kernel_plain.gram_matmat_f64(kind, X1, X2, V, lengthscale, const_scaling)
     V = V.double()
     if symmetric and X1.shape[0] == X2.shape[0]:

@@ -245,6 +245,28 @@ def test_cuda_f64_match_plain(cuda_device, kind, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", SQDIST_KINDS + ("laplace",))
+@pytest.mark.parametrize("ard", [False, True])
+@pytest.mark.parametrize("k", [1, 4, 5, 10])
+def test_cuda_k7_matches_float64(cuda_device, kind, ard, k):
+    """K7 (the float64 triangle of ``csrc/gram_comp.cu``) against the float64
+    plain version at a ragged n and d (1,000 points: 8 tiles of 128, the
+    last part full; d = 20: two chunks of 16 features, the second part
+    zero), every width of its slices (1, 4; 5 and 10 in 2 and 3 slices):
+    float64 end to end, 1e-10 of max|ref|."""
+    X, _, V = _data(17, 1000, 1000, 20, k)
+    X = torch.from_numpy(X).to(cuda_device)
+    V = torch.from_numpy(V).to(cuda_device).double()
+    ls = (torch.linspace(3.0, 6.0, 20, dtype=torch.float64, device=cuda_device) if ard
+          else 4.4)
+    got = kernel_cuda.gram_matvec_symmetric_f64(kind, X, V, ls, 0.7)
+    ref = kernel_plain.gram_matmat_f64(kind, X, X, V, ls, 0.7)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64 and got.shape == (1000, k)
+    assert _rel(got, ref) <= 1e-10
+
+
+@pytest.mark.cuda
 def test_cuda_refinement_certifies(cuda_device):
     """A bf16x3 operator's solve refined in update mode with the sampled
     certificate, on the card: float64 W there, K1b, K2b, K7 and K8 all
@@ -660,9 +682,10 @@ def test_cuda_pair_matches_plain(cuda_device, kind, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cd", ["bf16x3", "bfloat16"])
 @pytest.mark.parametrize("kind", SQDIST_KINDS)
-@pytest.mark.parametrize("k", [1, 3, 16])
+@pytest.mark.parametrize("k", [1, 2, 3, 16])
 def test_cuda_pair_tier_matches_plain(cuda_device, cd, kind, k):
-    """K4b against the plain version of its tier: 1e-5 of max|ref| where
+    """K4b (the pair form of K2b's strip) at ragged n1 ≠ n2 with V1 ≠ V2
+    against the plain version of its tier: 1e-5 of max|ref| where
     both contract in float32 (the forward product, and the mirror at
     k ≤ 2); the one-pass tier's mirror at k ≥ 3 re-rounds kernel values to
     bf16 (:func:`_reround_bound`). Two distinct point sets hold no

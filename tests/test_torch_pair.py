@@ -156,3 +156,73 @@ def test_pair_tier_routing_and_triangle_identity():
     got = torch.cat([d_top + o_top, d_bot + o_bot])
     ref = kernel_plain.gram_matvec_symmetric_tier("rbf", P, V, C)
     assert _rel(got, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("cd,k", [("bf16x3", 1), ("bf16x3", 3), ("bfloat16", 2)])
+def test_tier_ring_reaches_the_pair_kernel(monkeypatch, cd, k):
+    """The bf16 half-ring (E4's schedule) on a 4-position CPU mesh, with
+    ragged shards (n = 203: 51 rows each, the last padded), on the card's
+    route (``kernel_dispatch._on_card`` forced true; K4b and K2b replaced by
+    recorders that compute with their plain versions): a matvec reaches
+    K4b P(P − 1)/2 = 6 times and K2b P = 4 times. Each pair call of shards
+    (p, q) is handed V2 = v_q and V1 = v_p, two different blocks, and its
+    outputs equal the JAX pair kernel's on the same shards in interpret
+    mode at the tier's bounds (:func:`test_plain_pair_tier_matches_pallas`),
+    but for bf16x3's tier-matched mirror at k ≥ 3: a value whose float32
+    round-off differs moves its bf16 lo part by up to 2^-17 of the product,
+    and a shard's sums over 51 rows are small against that, so 2^-16 of
+    max|ref| there (3.6e-6 measured); the ring's result equals the plain
+    K2b on the whole set to the order of the sums, at the same bounds."""
+    from rlaopt_tpu_torch.kernels import KernelConfig, ShardedRBFLinOp
+    from rlaopt_tpu_torch.ops import kernel_cuda
+    from rlaopt_tpu_torch.parallel import make_mesh
+
+    pairs, triangles = [], []
+
+    def pair(kind, A, B, V2, V1, const_scaling=1.0):
+        out = kernel_plain.gram_pair_tier(kind, A, B, V2, V1, const_scaling)
+        pairs.append((A, B, V2, V1, out))
+        return out
+
+    def triangle(kind, A, V, const_scaling=1.0):
+        triangles.append(A)
+        return kernel_plain.gram_matvec_symmetric_tier(kind, A, V, const_scaling)
+
+    monkeypatch.setattr(kernel_cuda, "gram_pair_tier", pair)
+    monkeypatch.setattr(kernel_cuda, "gram_matvec_symmetric_tier", triangle)
+    monkeypatch.setattr(kernel_dispatch, "_on_card", lambda impl, t: True)
+    n, P, loc = 203, 4, 51
+    rng = np.random.default_rng(30 + k)
+    X = rng.standard_normal((n, D)).astype(np.float32)
+    v = rng.standard_normal((n, k)).astype(np.float32)
+    Xt = torch.from_numpy(X)
+    K = ShardedRBFLinOp(Xt, Xt, KernelConfig(lengthscale=LS, const_scaling=C),
+                        mesh=make_mesh(devices=["cpu"] * P), memory_mode="ring", compute_dtype=cd)
+    got = K @ torch.from_numpy(v)
+    assert len(pairs) == P * (P - 1) // 2 and len(triangles) == P
+    Xp = np.concatenate([X, np.zeros((P * loc - n, D), np.float32)])
+    vp = np.concatenate([v, np.zeros((P * loc - n, k), np.float32)])
+    shards = [tier_operand(torch.from_numpy(Xp[p * loc:(p + 1) * loc]) / LS, cd) for p in range(P)]
+
+    def which(T):
+        (p,) = [p for p, S in enumerate(shards) if torch.equal(S.hi, T.hi)]
+        return p
+
+    seen = set()
+    mirror_bound = {"bf16x3": 2.0**-16, "bfloat16": 5e-4}[cd] if k >= 3 else 1e-6
+    for A, B, V2, V1, (o1, o2) in pairs:
+        p, q = which(A), which(B)
+        assert p != q and frozenset((p, q)) not in seen
+        seen.add(frozenset((p, q)))
+        assert np.array_equal(V2.numpy(), vp[q * loc:(q + 1) * loc])
+        assert np.array_equal(V1.numpy(), vp[p * loc:(p + 1) * loc])
+        r1, r2 = kernel_pair_matmat(
+            "rbf", *(jnp.asarray(a) for a in (Xp[p * loc:(p + 1) * loc], Xp[q * loc:(q + 1) * loc],
+                                              V2.numpy(), V1.numpy())),
+            LS, C, compute_dtype=cd, tile=256, interpret=True,
+        )
+        assert _rel(o1, r1) <= 1e-6
+        assert _rel(o2, r2) <= mirror_bound
+    whole = kernel_plain.gram_matvec_symmetric_tier(
+        "rbf", tier_operand(torch.from_numpy(X) / LS, cd), torch.from_numpy(v), C)
+    assert _rel(got, whole) <= (mirror_bound if k >= 3 else 1e-6)

@@ -282,11 +282,23 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
 @pytest.mark.parametrize("name,group", [
     ("gram_matvec_symmetric<0, 1, 0, false>(GramArgs, int)", "gram_matvec_symmetric"),
     ("gram_matvec_symmetric<0, 1, 0, true>(GramArgs, int)", "gram_pair"),
-    ("gram_matvec_symmetric<0, 4, 3, true>(GramArgs, int)", "gram_pair_tier"),
-    ("gram_matvec_symmetric<0, 16, 4, false>(GramArgs, int)", "gram_matvec_symmetric_tier"),
     ("gram_matvec_symmetric<4, 1, 0, true>(GramArgs, int)", "laplace_pair"),
     ("gram_matvec_symmetric<4, 8, 0, false>(GramArgs, int)", "laplace_matvec_symmetric"),
-    ("gram_matvec_symmetric<2, 1, 2, false>(GramArgs, int)", "gram_matvec_symmetric_f64"),
+    ("gram_matvec_symmetric<0, 1, false>(GramArgs, int)", "gram_matvec_symmetric"),
+    ("gram_matvec_symmetric<1, 16, true>(GramArgs, int)", "gram_pair"),
+    ("gram_matvec_symmetric<4, 4, true>(GramArgs, int)", "laplace_pair"),
+    ("gram_tier_pair<0, 3, 1>(GramArgs, int)", "gram_pair_tier"),
+    ("gram_tier_pair<3, 1, 16>(GramArgs, int)", "gram_pair_tier"),
+    ("gram_comp_symmetric<0, 2, float>(double const*, float const*, double*, int, int, int, "
+     "int, int)", "gram_matvec_symmetric_comp"),
+    ("gram_comp_finish<float>(double*, float*, float*, unsigned long, double)",
+     "gram_matvec_symmetric_comp"),
+    ("gram_comp_symmetric<0, 1, double>(double const*, double const*, double*, int, int, int, "
+     "int, int)", "gram_matvec_symmetric_f64"),
+    ("gram_comp_symmetric<4, 4, double>(double const*, double const*)",
+     "gram_matvec_symmetric_f64"),
+    ("gram_comp_finish<double>(double*, float*, float*, unsigned long, double)",
+     "gram_matvec_symmetric_f64"),
     ("gram_matmat_narrow<0, 1, 1>(GramArgs)", "gram_matmat_comp"),
     ("gram_matmat_wide<4>(float const*, float const*)", "laplace_matmat"),
     ("gram_tier_symmetric<0, 3, 1>(GramArgs, int)", "gram_matvec_symmetric_tier"),
@@ -303,8 +315,56 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
 def test_profile_groups_each_kernel_template(name, group):
     """``chip_smoke.py`` names each Gram kernel in a profile by its
     template arguments (family, mode and, for the triangle template, the
-    pair flag), as demangled in the device events."""
+    pair flag last; the float64 triangle's V type), as demangled in the
+    device events. The triangle template's names with a mode before the
+    pair flag are those of earlier builds, grouped the same."""
     assert SMOKE._kernel_group("void (anonymous namespace)::" + name) == group
+
+
+def test_registers_of_tells_the_float64_triangles_apart():
+    """``chip_smoke.registers_of`` gives each wrapper the ``-Xptxas -v``
+    entries of its own kernels: the float64 triangle's instantiations go to
+    K7 where V is double and to the triangle K1c where it is float, by the
+    same rule as the profile's groups."""
+    reg = {"gram_comp_symmetric<0,1,f>": {"registers": 255},
+           "gram_comp_symmetric<4,16,f>": {"registers": 255},
+           "gram_comp_symmetric<0,4,d>": {"registers": 254},
+           "gram_tier_pair<0,3,1>": {"registers": 128}}
+    assert set(SMOKE.registers_of("gram_matvec_symmetric_f64", reg)) == {
+        "gram_comp_symmetric<0,4,d>"}
+    assert set(SMOKE.registers_of("gram_matvec_symmetric_comp", reg)) == {
+        "gram_comp_symmetric<0,1,f>", "gram_comp_symmetric<4,16,f>"}
+    assert set(SMOKE.registers_of("gram_pair_tier", reg)) == {"gram_tier_pair<0,3,1>"}
+    assert SMOKE.registers_of("gram_matmat", reg) == {}
+
+
+def test_reround_steps_tell_a_rounding_flip_from_a_fault():
+    """``chip_smoke.reround_steps`` on a one-pass mirror ``c·bf16(K)ᵀ @
+    bf16(V)``: where a kernel value one float32 ulp from a bf16 rounding
+    boundary rounds the other way, the largest error is that one step and
+    nothing remains; an error of another size leaves itself; no error
+    leaves none. ``reround_bound`` is two of the largest steps over
+    max|ref|."""
+    rng = np.random.default_rng(3)
+    K = torch.from_numpy(rng.uniform(0.1, 0.9, (40, 6)).astype(np.float32))
+    V = torch.from_numpy(rng.standard_normal((40, 3)).astype(np.float32))
+    c = 0.9
+    mid = torch.tensor(0.5 + 2.0**-9)  # halfway between bf16 0.5 and 0.50390625
+    K[7, 2] = torch.nextafter(mid, torch.tensor(0.0))  # rounds down to 0.5
+    ref = c * (K.bfloat16().float().T @ V.bfloat16().float())
+    flipped = ref.clone()
+    flipped[2] += c * 2.0**-8 * V[7].bfloat16().float()  # rounded up instead
+    scale = ref.abs().max().item()
+    e, steps, rest = SMOKE.reround_steps(K, V, flipped, ref, c)
+    assert rest <= 1e-6 and abs(steps) > 1e-4
+    assert abs(e) * scale == pytest.approx(c * 2.0**-8 * V[7].abs().max().item(), rel=1e-2)
+    fault = ref.clone()
+    fault[4, 1] += 0.1
+    e, steps, rest = SMOKE.reround_steps(K, V, fault, ref, c)
+    assert rest == pytest.approx(0.1 / scale, rel=1e-3) and steps == 0.0
+    assert SMOKE.reround_steps(K, V, ref, ref, c) == (0.0, 0.0, 0.0)
+    assert SMOKE.reround_bound(V, ref, c) == pytest.approx(
+        2 * c * 2.0**-8 * V.abs().max().item() / scale)
 
 
 def test_bound_of_the_triangle_k1c():
