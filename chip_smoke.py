@@ -10,9 +10,10 @@ straight through and exits non-zero at the first failure:
 1. device: the card's name and power limit, the two TF32 flags (set off);
 2. build of the Gram kernels and the ceiling probes, timed, and the
    registers and spills of the kernels redesigned for Hopper (K2b, #9's
-   short-row schedule, K1b's forward strip and wide kernel, K4b's pair
-   strip, the float64 triangle of K1c, K3c and K7, K3's tile) and of the
-   probes from the build's ``-Xptxas -v`` log;
+   short-row, wide and segmented schedules, K1b's forward strip and wide
+   kernel, K4b's pair strip, the float64 triangle of K1c, K3c and K7, K3's
+   tile in its forward and triangle (K5) forms) and of the probes from the
+   build's ``-Xptxas -v`` log;
 2b. the ceilings: each probe (TPU kernels #10-#13: the L1 pair rate in
    float32 and float64, the elementwise chain, the exp chain, the exp and
    epilogue rates) against its plain version at a small size, then, with
@@ -54,7 +55,8 @@ straight through and exits non-zero at the first failure:
    at the path's n = m = 1,000,000, on those 4,096 rows, and K2b timed
    beside the exact K2 on the same points at k = 1 and 10;
 7. slice 3: the Laplace kernels K3 (its Hopper tile up to 16 columns, the
-   wide kernel past that), K3c (general and triangle) and K5 against the
+   wide kernel past that), K3c (general and triangle) and K5 (the tile's
+   triangle form, at k = 1, 3, 10 and 16) against the
    float64 plain version at the HIGGS shape (on 4,096 rows) and at ragged
    shapes (n, m not multiples of 128; d = 3, 28, 50; an ARD lengthscale),
    the tile's split product the same bits twice, timed, the tile beside the
@@ -77,9 +79,12 @@ straight through and exits non-zero at the first failure:
    launches of #9 (``csr_spmv``, ``csr_spmm``) against the path's count, the
    sketch's peak memory; #9 against its float64 plain version at the path's
    shapes (k = 1 and 10 both ways, the sketch) and on two ragged operands
-   (rows of 0 to 20,000 entries) in every schedule, float32 and float64,
-   the same bits twice, timed beside its plain version and cuSPARSE (the
-   forward SpMV at every lanes value too); a k = 1 solve profiled; then
+   (rows of 0 to 20,000 entries) at k = 1, 3, 10 and 300 in every schedule
+   (each lanes value, every row whole and the long rows in segments),
+   float32 and float64, the same bits twice, empty rows 0, timed beside its
+   plain version and cuSPARSE (the forward SpMV at every lanes value too,
+   the ragged operands and the sketch with every row whole and at segments
+   of 256 to 2,048 entries); a k = 1 solve profiled; then
    path C', config 2 as written (dense, SRHT);
 9. slice 5, the sharded operators on positions of the one card
    (``make_mesh(devices=[card] * P)``): the pair kernels K4, K4b, K6 against
@@ -293,8 +298,10 @@ REGISTERS_OF = {"gram_matvec_symmetric_tier": ("gram_tier_symmetric",),
                 "gram_pair_tier": ("gram_tier_pair",),
                 "gram_matvec_symmetric_comp": ("gram_comp_symmetric",),
                 "gram_matvec_symmetric_f64": ("gram_comp_symmetric",),
-                "csr_spmv": ("csr_spmm_lanes",), "csr_spmm": ("csr_spmm_lanes",),
+                "csr_spmv": ("csr_spmm_lanes",),
+                "csr_spmm": ("csr_spmm_lanes", "csr_spmm_wide", "csr_spmm_sum_segments"),
                 "laplace_matmat_narrow": ("laplace_forward",),
+                "laplace_matvec_symmetric": ("laplace_triangle",),
                 "probe_l1": ("probe_l1",), "probe_elem": ("probe_chain",),
                 "probe_exp_chain": ("probe_chain",), "probe_vmem_chain": ("probe_chain",)}
 REDESIGNED = tuple(dict.fromkeys(f for fs in REGISTERS_OF.values() for f in fs))
@@ -558,8 +565,10 @@ LAPLACE_CODE = 4
 _OWN = {"gram_tier_symmetric": "gram_matvec_symmetric_tier",
         "gram_tier_forward": "gram_matmat_tier", "gram_tier_wide": "gram_matmat_tier",
         "gram_tier_pair": "gram_pair_tier"}
-# Kernels whose names hold no gram_ prefix: K3's tile and the probes.
-_OWN_NAMED = {"laplace_forward": "laplace_matmat_narrow", "probe_l1": "probe_l1",
+# Kernels whose names hold no gram_ prefix: K3's tile in its two forms (K3,
+# K5) and the probes.
+_OWN_NAMED = {"laplace_forward": "laplace_matmat_narrow",
+              "laplace_triangle": "laplace_matvec_symmetric", "probe_l1": "probe_l1",
               "probe_chain": "probe_chain"}
 
 
@@ -1070,13 +1079,15 @@ def ceiling_shares(timings, rates, pipes):
 
 def laplace_kernels(dev, X, compare, timings):
     """K3 (its tile up to 16 columns, the wide kernel past that), K3c
-    (general and triangle) and K5 against the float64 plain version at the
-    HIGGS shape (lengthscale 32, on 4,096 rows of each full product) and at
-    ragged shapes: n and m not multiples of 128, d = 3, 28 and 50, a scalar
-    and an ARD lengthscale; the tile's split product the same bits twice.
-    Then each kernel and its plain version timed at the HIGGS shape, the
-    tile beside the shared template it replaced (:func:`old_k3`) and the
-    triangle K3c beside the general. The plain versions sum distances
+    (general and triangle) and K5 (the tile's triangle form) against the
+    float64 plain version at the HIGGS shape (lengthscale 32, on 4,096 rows
+    of each full product; K5 at k = 1, 10 and 16) and at ragged shapes: n
+    and m not multiples of 128, d = 3, 28 and 50, a scalar and an ARD
+    lengthscale (K5 at k = 1, 3, 10 and 16); the tile's split product the
+    same bits twice. Then each kernel and its plain version timed at the
+    HIGGS shape (K5 on the operand an operator keeps), the tile beside the
+    shared template it replaced (:func:`old_k3`) and the triangle K3c beside
+    the general. The plain versions sum distances
     directly, seconds a call here: one timed run each, without a warm-up."""
     import torch
 
@@ -1101,10 +1112,11 @@ def laplace_kernels(dev, X, compare, timings):
                 ref[:, cols[k]], f"{shape} k={k}", K_BOUND)
     compare("laplace_matmat", kernel_cuda.laplace_matmat(X, X, Vs[RANK], LS_B)[idx],
             ref[:, cols[RANK]], f"{shape} k={RANK}", K_BOUND)
-    for k in (1, 10):
+    for k in (1, 10, 16):
         compare("laplace_matvec_symmetric",
                 kernel_cuda.laplace_matvec_symmetric(X, Vs[k], LS_B)[idx],
                 ref[:, cols[k]], f"{shape} k={k}", K_BOUND)
+    for k in (1, 10):
         hi, lo = kernel_cuda.gram_matvec_symmetric_comp("laplace", X, Vs[k], LS_B)
         compare("gram_matvec_symmetric_comp", (hi.double() + lo.double())[idx], ref[:, cols[k]],
                 f"laplace {shape} k={k} (hi+lo)", COMP_BOUND)
@@ -1129,7 +1141,7 @@ def laplace_kernels(dev, X, compare, timings):
     # K3's tile at ragged shapes: every k it takes the kernel at (1, 2, 4,
     # 8, 16 columns a block) at d = 28 and 50 (a last chunk of 12 and 2
     # features), with a scalar and an ARD lengthscale
-    rng = np.random.default_rng(31)
+    rng, rng5 = np.random.default_rng(31), np.random.default_rng(37)
     for n1, m1, d in ((1000, 777, 28), (1000, 777, 50), (300, 1300, 50)):
         P1 = torch.from_numpy(rng.standard_normal((n1, d)).astype(np.float32)).to(dev)
         P2 = torch.from_numpy(rng.standard_normal((m1, d)).astype(np.float32)).to(dev)
@@ -1140,6 +1152,14 @@ def laplace_kernels(dev, X, compare, timings):
                 compare("laplace_matmat_narrow", kernel_cuda.laplace_matmat(P1, P2, V, ls, 0.9),
                         kernel_plain.gram_matmat_f64("laplace", P1, P2, V, ls, 0.9),
                         f"n={n1} m={m1} d={d} k={k} {tag} lengthscale", K_BOUND)
+        # K5, the tile's triangle form, on P1 at every KC it takes
+        for k in (1, 3, 10, 16):
+            W = torch.from_numpy(rng5.standard_normal((n1, k)).astype(np.float32)).to(dev)
+            for ls, tag in ((2 * d / np.pi**0.5, "scalar"), (ard, "ARD")):
+                compare("laplace_matvec_symmetric",
+                        kernel_cuda.laplace_matvec_symmetric(P1, W, ls, 0.9),
+                        kernel_plain.gram_matmat_f64("laplace", P1, P1, W, ls, 0.9),
+                        f"n={n1} d={d} k={k} {tag} lengthscale", K_BOUND)
         S = torch.from_numpy(rng.standard_normal((n1, 3)).astype(np.float32)).to(dev)
         hi, lo = kernel_cuda.gram_matvec_symmetric_comp("laplace", P1, S, ard.double(), 0.9)
         compare("gram_matvec_symmetric_comp", hi.double() + lo.double(),
@@ -1163,9 +1183,11 @@ def laplace_kernels(dev, X, compare, timings):
     # K5's plain version is K3's on (X, X), the same call, and the
     # triangle K3c's the general one's: timed once per k
     plain_ms = {}
+    XT = kernel_cuda.laplace_operand(X, LS_B)
     for kernel, k in (("laplace_matmat", RANK), ("laplace_matmat_narrow", 1),
                       ("laplace_matmat_narrow", 10), ("laplace_matmat_narrow", 16),
                       ("laplace_matvec_symmetric", 1), ("laplace_matvec_symmetric", 10),
+                      ("laplace_matvec_symmetric", 16),
                       ("laplace_matmat_comp", 1), ("laplace_matmat_comp", 10),
                       ("gram_matvec_symmetric_comp", 1), ("gram_matvec_symmetric_comp", 10)):
         V = Vs[k]
@@ -1182,7 +1204,8 @@ def laplace_kernels(dev, X, compare, timings):
                                        if t["k"] == k and t["n"] == n)
         else:
             if kernel == "laplace_matvec_symmetric":
-                ms = cuda_ms(lambda: kernel_cuda.laplace_matvec_symmetric(X, V, LS_B))
+                # on the operand an operator keeps (path B, E3)
+                ms = cuda_ms(lambda: kernel_cuda.laplace_matvec_symmetric(X, V, LS_B, 1.0, XT))
             else:
                 ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(X, X, V, LS_B))
             if kernel == "laplace_matmat_narrow":
@@ -1569,42 +1592,55 @@ def library_csr(values, indptr, indices, n_rows, n_cols):
 # The schedules of #9 at k <= 16 (kernel_cuda.spmm_lanes): lanes a row, or
 # a block of 256 threads a row.
 CSR_SCHEDULES = (2, 4, 8, 16, 32, 256)
+# The segment lengths of #9's segmented schedule timed beside the one the
+# plan takes (kernel_cuda.CSR_SEGMENT).
+CSR_SEGMENTS = (128, 256, 512, 1024, 2048)
 # Calls of #9 and of cuSPARSE per timing (cuda_ms's inner): path S's SpMV
 # takes ~0.1 ms, about what one call's host side takes.
 CSR_INNER = 20
 
 
 @contextlib.contextmanager
-def csr_lanes(lanes):
-    """#9 takes ``lanes`` threads a row inside (k <= 16)."""
+def csr_schedule(lanes=None, segmented=None):
+    """#9 takes ``lanes`` threads a row (k <= 16; in the segmented schedule
+    the short rows' lanes) and, where ``segmented`` is not None, cuts its
+    long rows into segments or keeps every row whole."""
     from rlaopt_tpu_torch.ops import kernel_cuda
 
-    real = kernel_cuda.spmm_lanes
-    kernel_cuda.spmm_lanes = lambda *a: lanes
+    real = kernel_cuda.spmm_lanes, kernel_cuda.csr_segmented
+    if lanes is not None:
+        kernel_cuda.spmm_lanes = lambda *a: lanes
+    if segmented is not None:
+        kernel_cuda.csr_segmented = lambda plan: segmented
     try:
         yield
     finally:
-        kernel_cuda.spmm_lanes = real
+        kernel_cuda.spmm_lanes, kernel_cuda.csr_segmented = real
 
 
 def sparse_kernels(dev, A, compare, timings):
     """#9 against the float64 plain version on path S's operand A (its CSR
-    and the cached CSR of Aᵀ), on random right-hand sides: the forward and
-    adjoint SpMV, the SpMM at k = 10 both ways, the adjoint SpMM at the
-    sketch's k = 4,096 (checked on 256 columns); the ragged CSR of the card
-    tests and the ragged-rows CSR (rows of 0 to 20,000 entries) in every
-    schedule of k <= 16, float32 and float64; two launches give the same
-    bits in both types. Each path shape and each ragged operand (at the
-    schedule the wrapper picks) timed (median of 5, each over CSR_INNER
-    calls for the kernel and cuSPARSE): kernel, plain version (float32) and
-    cuSPARSE; the forward SpMV also at every lanes value."""
+    and the cached CSR of Aᵀ, with their kept plans), on random right-hand
+    sides: the forward and adjoint SpMV, the SpMM at k = 10 both ways, the
+    adjoint SpMM at the sketch's k = 4,096 (checked on 256 columns); the
+    ragged CSR of the card tests and the ragged-rows CSR (rows of 0 to
+    20,000 entries) at k = 1, 3, 10 and 300 in every schedule (every lanes
+    value of k <= 16 with every row whole and with the long rows in
+    segments, the wide schedule whole and in segments past 16), float32 and
+    float64; two launches give the same bits in both types, and empty rows
+    are 0. Each path shape and each ragged operand (at the schedule the
+    wrapper picks, its plan built beforehand) timed (median of 5, each over
+    CSR_INNER calls for the kernel and cuSPARSE): kernel, plain version
+    (float32) and cuSPARSE; the forward SpMV also at every lanes value;
+    the ragged operands and the sketch also with every row whole and with
+    segments of each of CSR_SEGMENTS."""
     import torch
 
     from rlaopt_tpu_torch.ops import kernel_cuda
     from rlaopt_tpu_torch.sparse import ops as sops
 
-    fwd = A._csr_buffers()
-    adj = A.T._csr_buffers()
+    fwd = (*A._csr_buffers(), A._csr_plan())
+    adj = (*A.T._csr_buffers(), A.T._csr_plan())
     gen = torch.Generator(device=dev).manual_seed(31)
 
     def same_bits(fn, args, what):
@@ -1614,41 +1650,62 @@ def sparse_kernels(dev, A, compare, timings):
         check(torch.equal(got, again), f"{what}: two launches give the same bits")
         return got
 
-    def case(kernel, bufs, n_rows, n_cols, X, what, cols=None, lanes=()):
-        values, indices, indptr = bufs
+    def by_segment(fn, values, indptr, indices, X, n_rows, inner, plan):
+        """ms with every row whole and with segments of each length (each
+        timing with its plan built beforehand)."""
+        times = {}
+        with csr_schedule(segmented=False):
+            times["whole"] = cuda_ms(lambda: fn(values, indptr, indices, X, n_rows, plan),
+                                     inner=inner)
+        for seg in CSR_SEGMENTS:
+            plan = kernel_cuda.csr_plan(indptr, seg)
+            with csr_schedule(segmented=True):
+                times[seg] = cuda_ms(lambda: fn(values, indptr, indices, X, n_rows, plan),
+                                     inner=inner)
+        return times
+
+    def case(kernel, bufs, n_rows, n_cols, X, what, cols=None, lanes=(), segments=False):
+        values, indices, indptr, plan = bufs
         fn = getattr(kernel_cuda, kernel)
         v64 = values.double()
         Xc = X if cols is None else X[:, :cols].contiguous()
         ref = sops._plain(v64, indptr, indices, Xc.double(), n_rows, False)
-        got = same_bits(fn, (values, indptr, indices, X, n_rows), f"{kernel} {what} float32")
+        got = same_bits(fn, (values, indptr, indices, X, n_rows, plan),
+                        f"{kernel} {what} float32")
         compare(kernel, got if cols is None else got[:, :cols], ref, f"{what} float32",
                 CSR_F32_BOUND)
-        got = same_bits(fn, (v64, indptr, indices, Xc.double(), n_rows),
+        got = same_bits(fn, (v64, indptr, indices, Xc.double(), n_rows, plan),
                         f"{kernel} {what} float64")
         compare(kernel, got, ref, f"{what} float64", CSR_F64_BOUND)
         del ref, got
         lib = library_csr(values, indptr, indices, n_rows, n_cols)
-        ms = cuda_ms(lambda: fn(values, indptr, indices, X, n_rows), inner=CSR_INNER)
+        ms = cuda_ms(lambda: fn(values, indptr, indices, X, n_rows, plan), inner=CSR_INNER)
         p_ms = cuda_ms(lambda: sops._plain(values, indptr, indices, X, n_rows, False))
         l_ms = cuda_ms(lambda: lib @ X, inner=CSR_INNER)
-        entry = timing_entry(kernel, what, ms, p_ms, n_rows, n_cols, 0, X.shape[1],
+        k = X.shape[1]
+        entry = timing_entry(kernel, what, ms, p_ms, n_rows, n_cols, 0, k,
                              cd="float32", nnz=values.numel(), library_ms=l_ms,
-                             lanes=kernel_cuda.spmm_lanes(n_rows, values.numel(), X.shape[1]))
+                             lanes=kernel_cuda.spmm_lanes(n_rows, values.numel(), k),
+                             segmented=kernel_cuda.csr_segmented(plan))
         for L in lanes:
-            with csr_lanes(L):
+            with csr_schedule(lanes=L):
                 entry.setdefault("ms_by_lanes", {})[L] = cuda_ms(
-                    lambda: fn(values, indptr, indices, X, n_rows), inner=CSR_INNER)
+                    lambda: fn(values, indptr, indices, X, n_rows, plan), inner=CSR_INNER)
+        if segments:
+            entry["ms_by_segment"] = by_segment(fn, values, indptr, indices, X, n_rows, 1, plan)
         timings.setdefault(kernel, []).append(entry)
-        print(f"time {kernel} {what}: kernel {ms:.4f} ms (lanes {entry['lanes']}), plain "
-              f"{p_ms:.3f} ms, cuSPARSE {l_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
-              f"({entry['bound_by']})" + (f", by lanes {entry['ms_by_lanes']}" if lanes else ""))
+        print(f"time {kernel} {what}: kernel {ms:.4f} ms (lanes {entry['lanes']}, segmented "
+              f"{entry['segmented']}), plain {p_ms:.3f} ms, cuSPARSE {l_ms:.4f} ms, bound "
+              f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})"
+              + (f", by lanes {entry['ms_by_lanes']}" if lanes else "")
+              + (f", by segment {entry['ms_by_segment']}" if segments else ""))
 
     shape = f"n={S_ROWS} m={S_COLS} nnz={A.nnz}"
     t0 = time.perf_counter()
     # csr_spmm's first entry (its JSON line) is the sketch's
     X = torch.randn((S_ROWS, S_SKETCH), generator=gen, device=dev)
     case("csr_spmm", adj, S_COLS, S_ROWS, X, f"adjoint {shape} k={S_SKETCH} (the sketch)",
-         cols=256)
+         cols=256, segments=True)
     del X
     torch.cuda.empty_cache()
     case("csr_spmv", fwd, S_ROWS, S_COLS, torch.randn((S_COLS, 1), generator=gen, device=dev),
@@ -1660,13 +1717,15 @@ def sparse_kernels(dev, A, compare, timings):
     case("csr_spmm", adj, S_COLS, S_ROWS, torch.randn((S_ROWS, 10), generator=gen, device=dev),
          f"adjoint {shape} k=10")
 
-    # the ragged operands: every schedule of k <= 16 checked, the wrapper's
-    # own timed; past k = 16 the wide schedule
+    # the ragged operands: every schedule checked, whole and in segments;
+    # the wrapper's own (its plan built beforehand) timed, and beside it
+    # every row whole and each segment length
     for name, operand in (("ragged", ragged_csr()), ("ragged rows", ragged_rows_csr())):
         values, indices, indptr, n_cols = operand
         n_rows = len(indptr) - 1
         v64 = torch.from_numpy(values).to(dev)
         p, c = torch.from_numpy(indptr).to(dev), torch.from_numpy(indices).to(dev)
+        plan = kernel_cuda.csr_plan(p)
         empty = torch.from_numpy(np.diff(indptr) == 0).to(dev)
         for k in (1, 3, 10, 300):
             kernel = "csr_spmv" if k == 1 else "csr_spmm"
@@ -1675,27 +1734,33 @@ def sparse_kernels(dev, A, compare, timings):
             ref = sops._plain(v64, p, c, X, n_rows, False)
             what = f"{name} n={n_rows} m={n_cols} nnz={v64.numel()} k={k}"
             for lanes in (CSR_SCHEDULES if k <= 16 else (None,)):
-                with contextlib.nullcontext() if lanes is None else csr_lanes(lanes):
-                    sched = what + ("" if lanes is None else f" lanes={lanes}")
-                    for dtype, bound in ((torch.float32, CSR_F32_BOUND),
-                                         (torch.float64, CSR_F64_BOUND)):
-                        tag = f"{sched} {str(dtype)[6:]}"
-                        got = same_bits(fn, (v64.to(dtype), p, c, X.to(dtype), n_rows),
-                                        f"{kernel} {tag}")
-                        compare(kernel, got, ref, tag, bound)
-                        check(bool(torch.all(got[empty] == 0)), f"{kernel} {tag}: empty rows 0")
+                for segmented in (False, True):
+                    sched = what + ("" if lanes is None else f" lanes={lanes}") + (
+                        " segmented" if segmented else " whole")
+                    with csr_schedule(lanes, segmented):
+                        for dtype, bound in ((torch.float32, CSR_F32_BOUND),
+                                             (torch.float64, CSR_F64_BOUND)):
+                            tag = f"{sched} {str(dtype)[6:]}"
+                            got = same_bits(fn, (v64.to(dtype), p, c, X.to(dtype), n_rows, plan),
+                                            f"{kernel} {tag}")
+                            compare(kernel, got, ref, tag, bound)
+                            check(bool(torch.all(got[empty] == 0)),
+                                  f"{kernel} {tag}: empty rows 0")
             v32, X32 = v64.float(), X.float()
             lib = library_csr(v32, p, c, n_rows, n_cols)
             entry = timing_entry(
-                kernel, what, cuda_ms(lambda: fn(v32, p, c, X32, n_rows), inner=CSR_INNER),
+                kernel, what, cuda_ms(lambda: fn(v32, p, c, X32, n_rows, plan), inner=CSR_INNER),
                 cuda_ms(lambda: sops._plain(v32, p, c, X32, n_rows, False)), n_rows,
                 n_cols, 0, k, cd="float32", nnz=v32.numel(),
                 library_ms=cuda_ms(lambda: lib @ X32, inner=CSR_INNER),
-                lanes=kernel_cuda.spmm_lanes(n_rows, v32.numel(), k))
+                lanes=kernel_cuda.spmm_lanes(n_rows - plan.n_long, v32.numel() - plan.long_nnz, k),
+                segmented=kernel_cuda.csr_segmented(plan),
+                ms_by_segment=by_segment(fn, v32, p, c, X32, n_rows, CSR_INNER, plan))
             timings[kernel].append(entry)
             print(f"time {kernel} {what}: kernel {entry['ms']:.4f} ms (lanes "
-                  f"{entry['lanes']}), plain {entry['plain_ms']:.3f} ms, cuSPARSE "
-                  f"{entry['library_ms']:.4f} ms")
+                  f"{entry['lanes']}, segmented {entry['segmented']}), plain "
+                  f"{entry['plain_ms']:.3f} ms, cuSPARSE {entry['library_ms']:.4f} ms, bound "
+                  f"{entry['bound_ms']:.4f} ms, by segment {entry['ms_by_segment']}")
     print(f"slice4 kernel checks and times: {time.perf_counter() - t0:.3f} s")
 
 

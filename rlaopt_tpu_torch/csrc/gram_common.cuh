@@ -1,15 +1,16 @@
 // Shared pieces of the fused Gram-matrix kernels (gram.cu, gram_laplace.cu,
 // gram_tier.cu, gram_f64.cu, gram_pair.cu, gram_comp.cu): the tile
 // generator, the wide contraction (k > 16), the exact tier's triangle
-// schedule with its pair form (K2, K5; K4, K6), and the narrow contraction
+// schedule with its pair form (K2; K4, K6), and the narrow contraction
 // (k <= 16), templated on the kernel family and on a MODE:
 //
 //   EXACT  K1, K3  f32 points pre-scaled by the lengthscale, f32 values
 //   COMP   K1c, K3c  unscaled f32 points, float64 inside a tile, f32 (hi, lo)
 //   F64    K8        K1c's tile, carried to float64 end to end (V and out too)
 //
-// K1b, K2b, K4b (gram_tier.cu), the triangle K1c and K7 (gram_comp.cu) have
-// kernels of their own; they take the operands and sum_splits from here.
+// K1b, K2b, K4b (gram_tier.cu), the triangle K1c and K7 (gram_comp.cu), K3's
+// tile and K5 (gram_laplace.cu) have kernels of their own; they take the
+// operands and sum_splits from here.
 //
 // Each translation unit includes this header and instantiates what it
 // launches; everything here has internal linkage.
@@ -345,7 +346,7 @@ __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a)
   }
 }
 
-// K2 / K5: the triangle kernel of the exact tier, and with PAIR the pair
+// K2: the triangle kernel of the exact tier, and with PAIR the pair
 // kernels K4 / K6. Triangle: block (I, s, z) takes row tile I, the column
 // tiles J = I + 16s .. I + 16s + 15 (J < nt) and the right-hand-side columns from
 // KC * z on. Each tile K_IJ is evaluated once: K_IJ V_J accumulates in
@@ -548,7 +549,7 @@ void launch_matmat(const GramArgs& a, cudaStream_t s, int splits) {
   }
 }
 
-// The operands of a launch on points (K1, K1c, K3, K3c, K2, K5, K7, K8).
+// The operands of a launch on points (K1, K1c, K3, K3c, K2, K4, K6, K8).
 GramArgs points_args(const void* X1, const void* X2, const void* inv_ls,
                      const void* V, void* out, void* out_lo, int n, int m,
                      int d, int k, double c) {

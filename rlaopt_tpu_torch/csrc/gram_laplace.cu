@@ -8,8 +8,8 @@
 //   K3c laplace_matmat (COMP)     replaces _laplace_matmat(compensated=True)
 //                                 for two data sets; one data set takes the
 //                                 triangle of gram_comp.cu
-//   K5  laplace_matvec_symmetric  replaces kernel_pallas.py ::
-//                                 _laplace_matvec_symmetric
+//   K5  laplace_triangle          replaces kernel_pallas.py ::
+//       (K3's tile, triangle form) _laplace_matvec_symmetric
 //
 // What bounds them on the H100: the FP32 instruction rate (FP64 for K3c),
 // not bytes. An L1 pair and feature costs two FADDs, d = x - y and acc +=
@@ -57,12 +57,33 @@
 // for k <= 16 and stays as the schedule chip_smoke.py times the new tile
 // against.
 //
-// K3c has K1c's general schedule; K5 has K2's (each unordered tile pair
-// evaluated once, the mirror added by atomicAdd into an output zeroed in
-// the same call, k <= 16, no n cap). K5 and K3c take points pre-scaled by
-// the lengthscale in float32 (K5) or unscaled with the inverse lengthscale
-// in float64 (K3c, the float64 product of the float32 points, TwoSum-added
-// into a float (hi, lo) pair across column tiles).
+// K5 (laplace_triangle<KC>) is the triangle form of K3's tile, on the same
+// operand (the wrapper's laplace_operand, or the one an operator keeps):
+//   * block (I, s) owns row tile I and walks the column tiles J = I + 8 s
+//     .. I + 8 s + 7 (J < nt), so each unordered pair of 128-point tiles is
+//     evaluated once, and the triangle's blocks carry 8 tiles each but at
+//     its edge (blocks past the edge leave at once);
+//   * the forward contraction K_IJ V_J on the register tile and the
+//     shuffle reduce-scatter, as in K3, the lane's row sums carried across
+//     the run and added once by atomicAdd;
+//   * for J > I the mirror K_IJ^T V_I: V_I (the row tile's right-hand
+//     sides, transposed) is read into shared memory once a block; per
+//     right-hand side a thread sums its 8 rows for each of its 8 columns,
+//     the two lanes that share those columns (rows 8 apart) reduce-scatter
+//     them by shuffles, 4 columns each, the 8 warps' sums go through shared
+//     memory (4 right-hand sides at a time) and are added in warp order,
+//     and one atomicAdd a column goes into the output, zeroed in the same
+//     call. The diagonal tile contracts forward only;
+//   * the float atomics make the last bits change from run to run.
+// The kernel it replaced ran on the shared triangle template
+// (gram_matvec_symmetric<LAPLACE>: 64-point tiles through shared memory,
+// each thread one output row of a 4 x 4 slice, both contractions reading
+// the K tile back from shared memory k times over), 23.7 / 97.3 ms at
+// 100k^2, d = 28, k = 1 / 10 (NVIDIA H100 80GB HBM3, 700 W), where K3's
+// tile took 24.8 / 31.7 ms for the whole square.
+// K3c has K1c's general schedule, from unscaled points with the inverse
+// lengthscale in float64 (the float64 product of the float32 points,
+// TwoSum-added into a float (hi, lo) pair across column tiles).
 //
 // Not carried over from the TPU kernels: the 64-feature grid axis of
 // _laplace_feature_block (the staging loops walk d 16 or 32 features at a time),
@@ -77,11 +98,26 @@ constexpr int kLFeat = 32;   // features per staged chunk
 constexpr int kLStages = 2;  // chunk buffers: one load in flight
 constexpr int kLThreads = 256;
 
+constexpr int kLWarps = kLThreads / 32;
+constexpr int kLRun = 8;     // column tiles a triangle block walks
+
+// The tile's forms: K3 (forward) and K5 (triangle); the pair form (K6) is
+// to take the next value.
+enum LaplaceForm { L_FORWARD = 0, L_TRIANGLE = 1 };
+
 template <int KC>
 struct __align__(16) LaplaceSmem {
   float x[kLStages][kLFeat][kLTile];  // the row tile's chunk
   float y[kLStages][kLFeat][kLTile];  // the column tile's chunk
   float v[kLStages][KC][kLTile];      // V of the column tile, transposed
+};
+
+// The triangle's mirror, after LaplaceSmem in shared memory.
+template <int KC>
+struct __align__(16) LaplaceMirror {
+  static constexpr int kGroup = KC < 4 ? KC : 4;  // right-hand sides a pass
+  float vi[KC][kLTile];                 // V of the row tile, transposed
+  float sums[kLWarps][kGroup][kLTile];  // each warp's column sums of a pass
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -118,26 +154,47 @@ __device__ __forceinline__ void l1_feature(float (&D)[8][8], const float* x, con
     for (int j = 0; j < 8; ++j) D[i][j] += fabsf(a[i] - b[j]);
 }
 
-// K3, k <= 16. XT1 (dpad, npad), XT2 (dpad, mpad) floats: the scaled points,
-// transposed, zero padded; V (m, k). Block (I, 0, z): row tile I, column
-// tiles [z run, (z + 1) run). One run: out = c * sums; more: part[z] =
-// sums, for sum_splits.
-template <int KC>
-__global__ void __launch_bounds__(kLThreads, 2)
-    laplace_forward(const float* __restrict__ XT1, const float* __restrict__ XT2,
-                    const float* __restrict__ V, float* __restrict__ out,
-                    float* __restrict__ part, int n, int m, int npad, int mpad, int d,
-                    int k, int run, double c) {
+// K3 and K5, k <= 16. XT1 (dpad, npad), XT2 (dpad, mpad) floats: the scaled
+// points, transposed, zero padded; V (m, k).
+// L_FORWARD (K3): block (I, 0, z): row tile I, column tiles [z run, (z + 1)
+// run). One run: out = c * sums; more: part[z] = sums, for sum_splits.
+// L_TRIANGLE (K5): X2 = X1, block (I, s): row tile I, column tiles [I + s
+// run, I + (s + 1) run), every sum added to out (zeroed) by atomicAdd.
+template <int KC, int FORM>
+__device__ __forceinline__ void laplace_tile(const float* __restrict__ XT1,
+                                             const float* __restrict__ XT2,
+                                             const float* __restrict__ V,
+                                             float* __restrict__ out, float* __restrict__ part,
+                                             int n, int m, int npad, int mpad, int d, int k,
+                                             int run, double c) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   LaplaceSmem<KC>& sm = *reinterpret_cast<LaplaceSmem<KC>*>(smem_raw);
+  LaplaceMirror<KC>& mi =
+      *reinterpret_cast<LaplaceMirror<KC>*>(smem_raw + sizeof(LaplaceSmem<KC>));
   const int mt = (m + kLTile - 1) / kLTile;
-  const int J0 = blockIdx.z * run;
-  const int J1 = min(J0 + run, mt);
+  int J0, J1;
+  if constexpr (FORM == L_TRIANGLE) {
+    J0 = blockIdx.x + blockIdx.y * run;
+    if (J0 >= mt) return;  // past the triangle's edge: the whole block
+    J1 = min(J0 + run, mt);
+  } else {
+    J0 = blockIdx.z * run;
+    J1 = min(J0 + run, mt);
+  }
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int row0 = blockIdx.x * kLTile;
   const int rbase = 16 * warp + 8 * (lane >> 4), cbase = 4 * (lane & 15);
   const int chunks = (d + kLFeat - 1) / kLFeat;
   const int kc = min(k, KC);
+  const float cf = (float)c;
+  if constexpr (FORM == L_TRIANGLE) {
+    // V of the row tile, for every mirror of the run (visible after the
+    // first step's barrier)
+    for (int e = tid; e < KC * kLTile; e += kLThreads) {
+      const int cc = e / kLTile, j = e % kLTile;
+      mi.vi[cc][j] = cc < kc && row0 + j < n ? V[(size_t)(row0 + j) * k + cc] : 0.0f;
+    }
+  }
 
   const int steps = (J1 - J0) * chunks;
   // Loads run kLStages - 1 steps ahead of the compute: step st (column
@@ -183,7 +240,7 @@ __global__ void __launch_bounds__(kLThreads, 2)
   const int ri = ((lane >> 3) & 1) * 4 + ((lane >> 2) & 1) * 2 + ((lane >> 1) & 1);
 
   for (int s = 0; s < kLStages - 1; ++s) load_next();
-  int ch = 0, buf = 0, vb = 0;
+  int ch = 0, buf = 0, vb = 0, cj = J0;
   for (int st = 0; st < steps; ++st) {
     // step st's group is complete when at most kLStages - 2 (the later
     // ones) are pending; after the barrier every thread is done with step
@@ -241,11 +298,64 @@ __global__ void __launch_bounds__(kLThreads, 2)
       }
       acc[cc] += p[0] + __shfl_xor_sync(0xffffffffu, p[0], 1);
     }
+    if constexpr (FORM == L_TRIANGLE) {
+      // the mirror K_IJ^T V_I into the rows of tile J, above the diagonal
+      if (cj > (int)blockIdx.x) {
+        constexpr int G = LaplaceMirror<KC>::kGroup;
+        const bool up = lane & 16;
+        const int cpos = (up ? 64 : 0) + cbase;  // the 4 columns this lane sums
+        const int col0 = cj * kLTile;
+#pragma unroll
+        for (int g0 = 0; g0 < KC; g0 += G) {
+          if (g0 >= kc) break;
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            if (g0 + g >= kc) break;
+            float w[8], t[8];
+            load4(&mi.vi[g0 + g][rbase], w);
+            load4(&mi.vi[g0 + g][rbase + 4], w + 4);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              t[j] = 0.0f;
+#pragma unroll
+              for (int i = 0; i < 8; ++i) t[j] = fmaf(D[i][j], w[i], t[j]);
+            }
+            // lanes l and l ^ 16 (rows 8 apart) share the columns: each
+            // keeps 4 of the 8 sums, its partner's added
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float send = up ? t[j] : t[j + 4];
+              const float keep = up ? t[j + 4] : t[j];
+              t[j] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+            }
+            *reinterpret_cast<float4*>(&mi.sums[warp][g][cpos]) =
+                make_float4(t[0], t[1], t[2], t[3]);
+          }
+          __syncthreads();
+          // the warps' column sums in warp order, one atomicAdd a column
+          for (int e = tid; e < G * kLTile; e += kLThreads) {
+            const int g = e / kLTile, j = e % kLTile;
+            if (g0 + g < kc && col0 + j < n) {
+              float sum = mi.sums[0][g][j];
+#pragma unroll
+              for (int w = 1; w < kLWarps; ++w) sum += mi.sums[w][g][j];
+              atomicAdd(&out[(size_t)(col0 + j) * k + g0 + g], sum * cf);
+            }
+          }
+          __syncthreads();
+        }
+      }
+      ++cj;
+    }
     vb = vb == kLStages - 1 ? 0 : vb + 1;
   }
   const int gr = row0 + rbase + ri;
   if ((lane & 1) || gr >= n) return;
-  if (gridDim.z > 1) {
+  if constexpr (FORM == L_TRIANGLE) {
+#pragma unroll
+    for (int cc = 0; cc < KC; ++cc)
+      if (cc < kc) atomicAdd(&out[(size_t)gr * k + cc], acc[cc] * cf);
+  } else if (gridDim.z > 1) {
     float* dst = part + ((size_t)blockIdx.z * n + gr) * k;
 #pragma unroll
     for (int cc = 0; cc < KC; ++cc)
@@ -255,6 +365,41 @@ __global__ void __launch_bounds__(kLThreads, 2)
     for (int cc = 0; cc < KC; ++cc)
       if (cc < kc) out[(size_t)gr * k + cc] = (float)(acc[cc] * c);
   }
+}
+
+template <int KC>
+__global__ void __launch_bounds__(kLThreads, 2)
+    laplace_forward(const float* __restrict__ XT1, const float* __restrict__ XT2,
+                    const float* __restrict__ V, float* __restrict__ out,
+                    float* __restrict__ part, int n, int m, int npad, int mpad, int d,
+                    int k, int run, double c) {
+  laplace_tile<KC, L_FORWARD>(XT1, XT2, V, out, part, n, m, npad, mpad, d, k, run, c);
+}
+
+template <int KC>
+__global__ void __launch_bounds__(kLThreads, 2)
+    laplace_triangle(const float* __restrict__ XT, const float* __restrict__ V,
+                     float* __restrict__ out, int n, int npad, int d, int k, int run,
+                     double c) {
+  laplace_tile<KC, L_TRIANGLE>(XT, XT, V, out, nullptr, n, n, npad, npad, d, k, run, c);
+}
+
+// K5: out zeroed, then the triangle's blocks (I, s), s < ceil(nt / run).
+template <int KC>
+cudaError_t launch_triangle(const float* XT, const float* V, float* out, int n, int npad,
+                            int d, int k, double c, cudaStream_t s) {
+  const int bytes = (int)(sizeof(LaplaceSmem<KC>) + sizeof(LaplaceMirror<KC>));
+  cudaError_t err = cudaFuncSetAttribute(
+      laplace_triangle<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int nt = (n + kLTile - 1) / kLTile;
+  const int strips = (nt + kLRun - 1) / kLRun;
+  if (strips > 65535) return cudaErrorInvalidValue;
+  err = cudaMemsetAsync(out, 0, sizeof(float) * (size_t)n * k, s);
+  if (err != cudaSuccess) return err;
+  laplace_triangle<KC><<<dim3(nt, strips), kLThreads, bytes, s>>>(XT, V, out, n, npad, d, k,
+                                                                  kLRun, c);
+  return cudaGetLastError();
 }
 
 template <int KC>
@@ -314,18 +459,33 @@ extern "C" int rl_laplace_matmat_comp(const void* X1, const void* X2,
   return (int)cudaGetLastError();
 }
 
-// K5: X (n, d) pre-scaled, V (n, k) with k <= 16, out (n, k); out is zeroed
-// here first.
-extern "C" int rl_laplace_matvec_symmetric(const void* X, const void* V,
-                                           void* out, int n, int d, int k,
-                                           double c, void* stream) {
+// K5 (laplace_triangle): out = c * k(X, X) @ V from XT (dpad, npad) floats,
+// the points divided by the lengthscale, transposed, zero past d and n, dpad
+// a multiple of 32 and npad of 128 (K3's operand); V (n, k) with k <= 16,
+// out (n, k) float32, zeroed here first.
+extern "C" int rl_laplace_matvec_symmetric(const void* XT, const void* V, void* out, int n,
+                                           int npad, int d, int dpad, int k, double c,
+                                           void* stream) {
+  if (n < 1 || d < 1 || k < 1 || k > 16 || dpad % kLFeat || dpad < d || npad % kLTile ||
+      npad < n)
+    return (int)cudaErrorInvalidValue;
+  const float* A = static_cast<const float*>(XT);
+  const float* Vf = static_cast<const float*>(V);
+  float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k < 1 || k > 16) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * (size_t)n * k, s);
-  if (err != cudaSuccess) return (int)err;
-  const GramArgs a = points_args(X, X, nullptr, V, out, nullptr, n, n, d, k, c);
-  launch_symmetric<LAPLACE>(a, s);
-  return (int)cudaGetLastError();
+  cudaError_t err;
+  if (k > 8) {
+    err = launch_triangle<16>(A, Vf, o, n, npad, d, k, c, s);
+  } else if (k > 4) {
+    err = launch_triangle<8>(A, Vf, o, n, npad, d, k, c, s);
+  } else if (k > 2) {
+    err = launch_triangle<4>(A, Vf, o, n, npad, d, k, c, s);
+  } else if (k > 1) {
+    err = launch_triangle<2>(A, Vf, o, n, npad, d, k, c, s);
+  } else {
+    err = launch_triangle<1>(A, Vf, o, n, npad, d, k, c, s);
+  }
+  return (int)err;
 }
 
 // K3 at k <= 16 (laplace_forward): out = c * k(X1, X2) @ V from XT1 (dpad,

@@ -20,8 +20,8 @@
 // forced; the triangle kernels here write their mirror to device memory and
 // have no n cap, so that banded schedule is not ported.
 //
-// What bounds them on the H100: what bounds K2 and K5, whose tile code they
-// are (gram_common.cuh: gram_matvec_symmetric with PAIR). Per kernel value:
+// What bounds them on the H100: what bounds K2, whose tile code they are
+// (gram_common.cuh: gram_matvec_symmetric with PAIR). Per kernel value:
 // ~3d float32 instructions of squared distance (2d of L1 distance for
 // Laplace), one expf, and 2 FMAs per right-hand side for each of the two
 // products. Bytes are O((n1 + n2)(d + k)), re-read from L2: not the limit.

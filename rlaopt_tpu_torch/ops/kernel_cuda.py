@@ -5,7 +5,8 @@ compensated tier, bf16 tiers, the Laplace kernels),
 ``rlaopt_tpu/ops/kernel_value64.py`` (float64 route) and
 ``rlaopt_tpu/sparse/laned.py`` (the sparse CSR product). The kernels live in
 ``csrc/gram.cu`` (K1, K1c, K2), ``csrc/gram_comp.cu`` (the float64 triangle:
-K1c and K3c's triangle form, K7), ``csrc/gram_laplace.cu`` (K3, K3c, K5),
+K1c and K3c's triangle form, K7), ``csrc/gram_laplace.cu`` (K3, K3c, K5:
+K3's tile in its forward and triangle forms),
 ``csrc/gram_tier.cu`` (K1b, K2b, K4b), ``csrc/gram_f64.cu`` (K8),
 ``csrc/gram_pair.cu`` (the exact pair kernels K4, K6), with their shared
 pieces in ``csrc/gram_common.cuh``, ``csrc/spmv.cu`` (the
@@ -26,6 +27,7 @@ takes CUDA tensors only: everything else raises (the dispatchers in
 """
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -33,6 +35,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -61,6 +64,10 @@ __all__ = [
     "laplace_pair",
     "csr_spmv",
     "csr_spmm",
+    "CSRPlan",
+    "csr_plan",
+    "csr_segmented",
+    "csr_chunk",
     "column_splits",
     "tier_splits",
     "laplace_splits",
@@ -99,11 +106,19 @@ CSR_NARROW_MAX_K = 16
 # CSR_BLOCK_ROW threads takes a row (the C interface's lanes value 256).
 CSR_ENTRIES_PER_LANE = 4
 CSR_BLOCK_ROW = 256
+# Its segmented schedule (csr_plan, csr_segmented): rows of more than
+# CSR_SEGMENT entries are cut into segments of that many, whose partial sums
+# a second launch adds; the partial buffer is held within CSR_PART_BYTES by
+# taking the columns in chunks (csr_chunk). Segments of 128 to 2,048 entries
+# timed at chip_smoke.py's ragged operands (PERF.md, PR 10): 128 and 256
+# the fastest, 256 the fewer partials.
+CSR_SEGMENT = 256
+CSR_PART_BYTES = 1 << 28
 
 _lock = threading.Lock()
 _lib = {"handle": None, "path": None}
 
-_vp, _ci, _cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_vp, _ci, _cd, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _SIGNATURES = {
     "rl_gram_matmat": [
         _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
@@ -133,18 +148,20 @@ _SIGNATURES = {
     "rl_laplace_matmat_comp": [
         _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
-    "rl_laplace_matvec_symmetric": [_vp, _vp, _vp, _ci, _ci, _ci, _cd, _vp],
+    "rl_laplace_matvec_symmetric": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cd, _vp],
     "rl_gram_pair": [_ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
     "rl_gram_pair_tier": [
         _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
         _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_laplace_pair": [_vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
-    "rl_csr_spmm": [
-        _ci, _vp, _vp, _vp, _vp, _vp, ctypes.c_longlong, ctypes.c_longlong, _ci, _ci, _vp,
+    "rl_csr_spmm": [_ci, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _ci, _ci, _vp],
+    "rl_csr_spmm_segmented": [
+        _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+        _ll, _ll, _ll, _ll, _ll, _ci, _ci, _ci, _vp,
     ],
     "rl_probe_l1": [_ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp],
-    "rl_probe_chain": [_ci, _vp, _vp, _vp, ctypes.c_longlong, _vp],
+    "rl_probe_chain": [_ci, _vp, _vp, _vp, _ll, _vp],
 }
 
 
@@ -608,6 +625,17 @@ def laplace_operand(X: torch.Tensor, lengthscale) -> torch.Tensor:
     return XT
 
 
+def _check_laplace_operand(XT, X, device):
+    """``XT`` has the layout :func:`laplace_operand` gives the points X on
+    ``device``; ``ValueError`` otherwise."""
+    n, d = X.shape
+    want = (-(-d // LAPLACE_FEAT) * LAPLACE_FEAT, -(-n // LAPLACE_TILE) * LAPLACE_TILE)
+    if XT.dtype != torch.float32 or tuple(XT.shape) != want or not XT.is_contiguous() \
+            or XT.device != device:
+        raise ValueError(f"K3's operand is {XT.dtype} {tuple(XT.shape)} on {XT.device}; "
+                         f"laplace_operand gives float32 {want} on {device}")
+
+
 def laplace_matmat(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
     """K3: ``c·exp(−‖x − y‖₁/ℓ) @ V`` (n, k) on the card, float32. Up to 16
     columns :func:`laplace_matmat_narrow` (the Hopper tile, counted there),
@@ -639,12 +667,8 @@ def laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling=1.0, operands=No
         XT2 = XT1 if X2 is X1 else laplace_operand(X2, lengthscale)
     else:
         XT1, XT2 = operands
-        for XT, (rows, _) in ((XT1, X1.shape), (XT2, X2.shape)):
-            want = (-(-d // LAPLACE_FEAT) * LAPLACE_FEAT, -(-rows // LAPLACE_TILE) * LAPLACE_TILE)
-            if XT.dtype != torch.float32 or tuple(XT.shape) != want or not XT.is_contiguous() \
-                    or XT.device != V2.device:
-                raise ValueError(f"K3's operand is {XT.dtype} {tuple(XT.shape)} on {XT.device}; "
-                                 f"laplace_operand gives float32 {want} on {V2.device}")
+        _check_laplace_operand(XT1, X1, V2.device)
+        _check_laplace_operand(XT2, X2, V2.device)
     dev = V2.device
     splits = laplace_splits(n, m, k, sm_count(dev))
     part = torch.empty((splits, n, k), dtype=torch.float32, device=dev) if splits > 1 else None
@@ -684,22 +708,30 @@ def laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling=1.0):
     return (out[:, 0], lo[:, 0]) if squeeze else (out, lo)
 
 
-def laplace_matvec_symmetric(X, V, lengthscale, const_scaling=1.0):
-    """K5: the Laplace ``c·k(X, X) @ V`` for at most 16 columns, each tile
-    pair once (K2's schedule)."""
+def laplace_matvec_symmetric(X, V, lengthscale, const_scaling=1.0, operand=None):
+    """K5: the Laplace ``c·k(X, X) @ V`` for at most 16 columns, the
+    triangle form of K3's tile (``csrc/gram_laplace.cu::laplace_triangle``):
+    each pair of 128-point tiles evaluated once and contracted both ways,
+    the mirror added by float atomics, so the last bits change from run to
+    run. The points go in as :func:`laplace_operand`: ``operand``, built
+    beforehand (an operator keeps it), or None to build it here."""
     _check_tensors((torch.float32,) * 2, X, V)
     V2, squeeze = _check_shapes(X, X, V)
-    Xs, _ = _scaled(X, X, lengthscale)
-    n, d = Xs.shape
+    n, d = X.shape
     k = V2.shape[1]
     if k > SYMMETRIC_MAX_K:
         raise ValueError(f"the triangle kernel takes k <= 16 columns (got {k})")
+    if operand is None:
+        XT = laplace_operand(X, lengthscale)
+    else:
+        XT = operand
+        _check_laplace_operand(XT, X, V2.device)
     build()
-    out = torch.empty((n, k), dtype=torch.float32, device=Xs.device)
-    with torch.cuda.device(Xs.device):
+    out = torch.empty((n, k), dtype=torch.float32, device=V2.device)
+    with torch.cuda.device(V2.device):
         err = _lib["handle"].rl_laplace_matvec_symmetric(
-            Xs.data_ptr(), V2.data_ptr(), out.data_ptr(), n, d, k,
-            float(const_scaling), _stream(Xs),
+            XT.data_ptr(), V2.data_ptr(), out.data_ptr(), n, XT.shape[1], d, XT.shape[0], k,
+            float(const_scaling), _stream(V2),
         )
     _raise_on(err, "laplace_matvec_symmetric")
     laplace_matvec_symmetric.launches += 1
@@ -788,7 +820,8 @@ def spmm_lanes(n_rows: int, nnz: int, k: int) -> int:
     more on average, else L lanes of a warp, the power of two in [2, 32]
     nearest above ``mean / CSR_ENTRIES_PER_LANE`` (16-entry rows take 4
     lanes, 8 rows a warp). Past k = 16 the kernel gives a warp to each
-    (row, column tile), and the value is not read (32 is returned)."""
+    (row, column tile), and the value is not read (32 is returned). In the
+    segmented schedule it is asked about the short rows alone."""
     if k > CSR_NARROW_MAX_K:
         return 32
     if nnz >= CSR_BLOCK_ROW * max(n_rows, 1):
@@ -800,8 +833,101 @@ def spmm_lanes(n_rows: int, nnz: int, k: int) -> int:
     return lanes
 
 
-def _csr_launch(values, indptr, indices, X, n_rows: int) -> torch.Tensor:
-    """#9: ``Y = A @ X`` (n_rows, k) for CSR A on the card; X 2-D."""
+@dataclasses.dataclass(frozen=True)
+class CSRPlan:
+    """#9's plan of one CSR (:func:`csr_plan`): its sizes and its longest
+    row, read from ``indptr`` once, and, where some row has more than
+    ``segment`` entries, the segments of those long rows on the buffers'
+    device. ``rows`` (n_long,) int32: the long rows, in order; ``first``
+    (n_long + 1,) int64: long row i's segments are ``first[i]`` ..
+    ``first[i + 1] - 1``, in order; ``lo``, ``hi`` (n_segs,) int64: each
+    segment's entries ``[lo, hi)``; ``order`` (n_segs,) int32: the segments
+    by (index in their row, row), the order they launch in past 16
+    columns. ``indptr_ptr``: the address of the ``indptr`` it was built
+    from, which the wrapper holds its buffers to."""
+
+    indptr_ptr: int
+    n_rows: int
+    nnz: int
+    max_row: int
+    segment: int
+    n_long: int = 0
+    long_nnz: int = 0
+    n_segs: int = 0
+    rows: Optional[torch.Tensor] = None
+    first: Optional[torch.Tensor] = None
+    lo: Optional[torch.Tensor] = None
+    hi: Optional[torch.Tensor] = None
+    order: Optional[torch.Tensor] = None
+
+
+def csr_plan(indptr: torch.Tensor, segment: Optional[int] = None) -> CSRPlan:
+    """#9's plan of the CSR with this ``indptr``, built on its device: one
+    read of nnz and the longest row (a synchronisation, once per CSR), and
+    where a row has more than ``segment`` entries (``CSR_SEGMENT`` by
+    default) the segments of every such row, ``segment`` entries each but
+    the last, in order (a second read, of their count)."""
+    segment = CSR_SEGMENT if segment is None else int(segment)
+    if segment < 1:
+        raise ValueError(f"segments of {segment} entries")
+    n_rows = indptr.numel() - 1
+    if n_rows < 1:
+        return CSRPlan(indptr.data_ptr(), 0, 0, 0, segment)
+    lengths = indptr[1:] - indptr[:-1]
+    nnz, max_row = torch.stack((indptr[-1], lengths.max())).tolist()
+    plan = CSRPlan(indptr.data_ptr(), n_rows, nnz, max_row, segment)
+    if max_row <= segment:
+        return plan
+    dev = indptr.device
+    rows = torch.nonzero(lengths > segment).flatten()
+    n_long = rows.numel()
+    long_len = lengths[rows]
+    counts = (long_len + segment - 1) // segment
+    first = torch.zeros(n_long + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=first[1:])
+    n_segs, long_nnz = torch.stack((first[-1], long_len.sum())).tolist()
+    if n_segs >= 2**31:
+        raise ValueError(f"{n_segs} segments: past the int32 launch order")
+    owner = torch.repeat_interleave(torch.arange(n_long, device=dev), counts,
+                                    output_size=n_segs)
+    j = torch.arange(n_segs, device=dev) - first[owner]
+    lo = indptr[rows][owner] + j * segment
+    hi = torch.minimum(lo + segment, indptr[rows + 1][owner])
+    order = torch.argsort(j * n_long + owner).to(torch.int32)
+    return dataclasses.replace(plan, n_long=n_long, long_nnz=long_nnz, n_segs=n_segs,
+                               rows=rows.to(torch.int32), first=first, lo=lo, hi=hi,
+                               order=order)
+
+
+def csr_segmented(plan: CSRPlan) -> bool:
+    """Whether the rows of more than ``plan.segment`` entries take the
+    segmented schedule: yes, unless the rows are long and of about one
+    length (the mean 256 entries or more, the longest within twice the
+    mean). Such rows fill the card whole with no tail: a block of 256
+    threads a row up to 16 columns (path S's adjoint CSR, 1,024 rows of
+    ~16,384), a warp per (row, column tile) past 16, where the sketch's
+    32,768 warps are bound by the bytes their gathers bring from L2 and
+    took 42.5 ms whole against 63–68 ms in segments (``chip_smoke.py``,
+    NVIDIA H100 80GB HBM3, 700 W)."""
+    if plan.n_long == 0:
+        return False
+    mean = plan.nnz / plan.n_rows
+    return not (mean >= CSR_BLOCK_ROW and plan.max_row <= 2 * mean)
+
+
+def csr_chunk(n_segs: int, k: int, itemsize: int) -> int:
+    """Columns a segment launch takes at once: all k up to 16 columns or
+    while the partial buffer (n_segs x columns) stays within
+    ``CSR_PART_BYTES``; else the most whole column tiles of 128 that do
+    (at least one)."""
+    if k <= CSR_NARROW_MAX_K or n_segs * k * itemsize <= CSR_PART_BYTES:
+        return k
+    return max(128, CSR_PART_BYTES // (n_segs * itemsize) // 128 * 128)
+
+
+def _csr_launch(values, indptr, indices, X, n_rows: int, plan: Optional[CSRPlan]):
+    """#9: ``Y = A @ X`` (n_rows, k) for CSR A on the card; X 2-D. ``plan``:
+    the CSR's :func:`csr_plan`, or None to build it here."""
     if not (values.is_cuda and X.is_cuda):
         raise ValueError("the CUDA CSR kernel takes CUDA tensors only")
     dev = values.device
@@ -829,35 +955,57 @@ def _csr_launch(values, indptr, indices, X, n_rows: int) -> torch.Tensor:
     k = X2.shape[1]
     if k < 1:
         raise ValueError("empty operand")
+    nnz = values.numel()
+    if plan is None:
+        plan = csr_plan(indptr)
+    elif (plan.indptr_ptr, plan.n_rows, plan.nnz) != (indptr.data_ptr(), n_rows, nnz):
+        raise ValueError("the CSR plan was built for other buffers")
+    segmented = plan.n_long > 0 and csr_segmented(plan)
+    if segmented and plan.lo.device != dev:
+        raise ValueError(f"the CSR plan lies on {plan.lo.device}, the buffers on {dev}")
     build()
     out = torch.empty((n_rows, k), dtype=values.dtype, device=dev)
+    dtype = 0 if values.dtype == torch.float32 else 1
     with torch.cuda.device(dev):
-        err = _lib["handle"].rl_csr_spmm(
-            0 if values.dtype == torch.float32 else 1, indptr.data_ptr(),
-            indices.data_ptr(), values.data_ptr(), X2.data_ptr(), out.data_ptr(),
-            int(n_rows), int(values.numel()), int(k),
-            int(spmm_lanes(n_rows, values.numel(), k)), _stream(X2),
-        )
+        if not segmented:
+            err = _lib["handle"].rl_csr_spmm(
+                dtype, indptr.data_ptr(), indices.data_ptr(), values.data_ptr(), X2.data_ptr(),
+                out.data_ptr(), int(n_rows), int(nnz), int(k),
+                int(spmm_lanes(n_rows, nnz, k)), _stream(X2),
+            )
+        else:
+            chunk = csr_chunk(plan.n_segs, k, values.element_size())
+            part = torch.empty((plan.n_segs, chunk), dtype=values.dtype, device=dev)
+            err = _lib["handle"].rl_csr_spmm_segmented(
+                dtype, indptr.data_ptr(), indices.data_ptr(), values.data_ptr(), X2.data_ptr(),
+                out.data_ptr(), part.data_ptr(), plan.lo.data_ptr(), plan.hi.data_ptr(),
+                plan.order.data_ptr(), plan.first.data_ptr(), plan.rows.data_ptr(),
+                int(n_rows), int(nnz), plan.n_long, plan.n_segs, plan.segment, int(k),
+                int(spmm_lanes(n_rows - plan.n_long, nnz - plan.long_nnz, k)), int(chunk),
+                _stream(X2),
+            )
     _raise_on(err, "csr_spmm")
     return out
 
 
-def csr_spmv(values, indptr, indices, x, n_rows: int):
+def csr_spmv(values, indptr, indices, x, n_rows: int, plan: Optional[CSRPlan] = None):
     """#9 at one right-hand side: ``y = A @ x`` for CSR A, x of shape
-    (n_cols,) or (n_cols, 1); y of the same rank."""
+    (n_cols,) or (n_cols, 1); y of the same rank. ``plan``: the CSR's
+    :func:`csr_plan` (an operator keeps it), or None to build it here."""
     squeeze = x.ndim == 1
     if not squeeze and (x.ndim != 2 or x.shape[1] != 1):
         raise ValueError(f"csr_spmv takes one right-hand side, got {tuple(x.shape)}")
-    out = _csr_launch(values, indptr, indices, x[:, None] if squeeze else x, n_rows)
+    out = _csr_launch(values, indptr, indices, x[:, None] if squeeze else x, n_rows, plan)
     csr_spmv.launches += 1
     return out[:, 0] if squeeze else out
 
 
-def csr_spmm(values, indptr, indices, X, n_rows: int):
-    """#9 at k ≥ 1 right-hand sides: ``Y = A @ X`` for CSR A, X (n_cols, k)."""
+def csr_spmm(values, indptr, indices, X, n_rows: int, plan: Optional[CSRPlan] = None):
+    """#9 at k ≥ 1 right-hand sides: ``Y = A @ X`` for CSR A, X (n_cols,
+    k). ``plan`` as for :func:`csr_spmv`."""
     if X.ndim != 2:
         raise ValueError(f"csr_spmm takes a 2-D operand, got {tuple(X.shape)}")
-    out = _csr_launch(values, indptr, indices, X, n_rows)
+    out = _csr_launch(values, indptr, indices, X, n_rows, plan)
     csr_spmm.launches += 1
     return out
 

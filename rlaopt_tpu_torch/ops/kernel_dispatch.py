@@ -15,7 +15,8 @@ Which kernel, on a card:
   operator was built on one data set (``symmetric``) and ``k ≤ 16``, the
   general kernel K1 otherwise; for the Laplace family K5 and K3 by the same
   rule (the JAX package's gate without its VMEM window), K3 taking its
-  Hopper tile up to 16 columns and the wide kernel past that;
+  Hopper tile up to 16 columns and the wide kernel past that, K5 the tile's
+  triangle form, both on the operand of the points an operator keeps;
 * compensated (:func:`kernel_matmat_compensated`): the triangle form of
   K1c and K3c when symmetric (any k, every family), the general K1c (K3c
   for Laplace) otherwise;
@@ -87,7 +88,8 @@ def kernel_matmat(
     operator checks object identity when it is built). The bf16 tiers go
     through :func:`kernel_matmat_tier`. ``laplace_operands``: None, or a
     callable giving K3's tile its operands of (X1, X2)
-    (:func:`kernel_cuda.laplace_matmat`), called only when the tile runs.
+    (:func:`kernel_cuda.laplace_matmat`), called only when the tile runs
+    (K5, the tile's triangle form, takes the first).
     """
     if not _on_card(impl, X1):
         if X1.dtype == torch.float64:
@@ -99,7 +101,9 @@ def kernel_matmat(
     laplace = kind == "laplace"
     if symmetric and X1.shape[0] == X2.shape[0] and k <= kernel_cuda.SYMMETRIC_MAX_K:
         if laplace:
-            return kernel_cuda.laplace_matvec_symmetric(X1, V, lengthscale, const_scaling)
+            return kernel_cuda.laplace_matvec_symmetric(
+                X1, V, lengthscale, const_scaling,
+                None if laplace_operands is None else laplace_operands()[0])
         return kernel_cuda.gram_matvec_symmetric(
             kind, X1, V, lengthscale, const_scaling
         )

@@ -8,7 +8,9 @@ Its payload is two CSR copies, as in the JAX package's ``impl="laned"``:
 the CSR of A for ``A @ x`` and the CSR of Aᵀ, built once at construction
 (and shared with the tensor's ``.T`` views), for ``Aᵀ @ y``. Both applies
 are gathers through the hand-written CSR kernel on a card, and the plain
-versions on the CPU; neither scatters.
+versions on the CPU; neither scatters. On a card the kernel's plan of each
+CSR (its long rows' segments, :func:`kernel_cuda.csr_plan`) is built at
+construction too, so no apply reads the row lengths.
 
 :func:`sparse_shard_rows` cuts a CSR tensor's rows over the positions of a
 mesh, each chunk such an operator on its position's device.
@@ -52,18 +54,21 @@ def sparse_aslinop(sp: _SparseTensor, impl: str = "auto") -> TwoSidedLinOp:
     m, n = sp.shape
     fv, fi, fp = sp._csr_buffers()
     av, ai, ap = sp.T._csr_buffers()
+    card = sp.values.is_cuda
+    fplan = sp._csr_plan() if card else None
+    aplan = sp.T._csr_plan() if card else None
 
     def mv(x):
-        return ops.csr_matvec(fv, fp, fi, x, m)
+        return ops.csr_matvec(fv, fp, fi, x, m, fplan)
 
     def mm(X):
-        return ops.csr_matmat(fv, fp, fi, X, m)
+        return ops.csr_matmat(fv, fp, fi, X, m, fplan)
 
     def rmv(x):
-        return ops.csr_matvec(av, ap, ai, x, n)
+        return ops.csr_matvec(av, ap, ai, x, n, aplan)
 
     def rmm(X):
-        return ops.csr_matmat(av, ap, ai, X, n)
+        return ops.csr_matmat(av, ap, ai, X, n, aplan)
 
     return TwoSidedLinOp(
         (m, n), mv, rmv, matmat=mm, rmatmat=rmm, dtype=sp.dtype, device=sp.device

@@ -69,19 +69,21 @@ def _on_card(*tensors) -> bool:
 
 
 # -- CSR ---------------------------------------------------------------------
-def csr_matvec(values, indptr, indices, x, n_rows: int):
-    """y = A @ x for CSR A."""
+def csr_matvec(values, indptr, indices, x, n_rows: int, plan=None):
+    """y = A @ x for CSR A. ``plan``: the kernel's plan of the CSR
+    (:func:`kernel_cuda.csr_plan`, kept by the sparse tensor), read on a
+    card only; None builds it there."""
     if _on_card(values, x):
-        return kernel_cuda.csr_spmv(values, indptr, indices, x, n_rows)
+        return kernel_cuda.csr_spmv(values, indptr, indices, x, n_rows, plan)
     return _plain(values, indptr, indices, x[:, None], n_rows, False)[:, 0]
 
 
-def csr_matmat(values, indptr, indices, X, n_rows: int):
-    """Y = A @ X for CSR A, X (m, k)."""
+def csr_matmat(values, indptr, indices, X, n_rows: int, plan=None):
+    """Y = A @ X for CSR A, X (m, k); ``plan`` as for :func:`csr_matvec`."""
     if _on_card(values, X):
         if X.ndim == 2 and X.shape[1] == 1:
-            return kernel_cuda.csr_spmv(values, indptr, indices, X, n_rows)
-        return kernel_cuda.csr_spmm(values, indptr, indices, X, n_rows)
+            return kernel_cuda.csr_spmv(values, indptr, indices, X, n_rows, plan)
+        return kernel_cuda.csr_spmm(values, indptr, indices, X, n_rows, plan)
     return _plain(values, indptr, indices, X, n_rows, False)
 
 

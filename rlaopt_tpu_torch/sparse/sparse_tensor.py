@@ -12,7 +12,9 @@ view multiplies with its own buffers; a CSC view (``A.T`` of a CSR tensor)
 with the CSR of the buffers' transpose, built at first use and kept in a
 cache that ``.T`` views share, so ``A @ x`` and then ``A.T @ y`` build it
 at most once. (The JAX package keeps a hybrid-ELL cache there, a TPU
-layout.)
+layout.) The same cache keeps the CSR kernel's plan of each of the two CSRs
+(:func:`rlaopt_tpu_torch.ops.kernel_cuda.csr_plan`: the long rows and their
+segments), built at a card product's first use.
 """
 
 from enum import Enum, auto
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from . import ops
+from ..ops import kernel_cuda
 
 
 __all__ = ["SparseCSRTensor", "_SparseTensor", "_Layout"]
@@ -56,7 +59,8 @@ class _SparseTensor:
         self.indptr = _as_buffer(indptr, device, torch.int64)
         self.shape = (int(shape[0]), int(shape[1]))
         self.layout = layout
-        # The CSR of the buffers' transpose, shared with .T views.
+        # The CSR of the buffers' transpose and the kernel's plans of both
+        # CSRs, shared with .T views.
         self._transpose_cache: dict = {}
         major = self.shape[0] if layout == _Layout.CSR else self.shape[1]
         if self.indptr.shape[0] != major + 1:
@@ -86,10 +90,15 @@ class _SparseTensor:
 
     # -- scipy interop -------------------------------------------------------
     @classmethod
-    def from_scipy(cls, mat, device="cpu") -> "_SparseTensor":
+    def from_scipy(cls, mat, device=None) -> "_SparseTensor":
+        """The tensor of a scipy sparse matrix (CSR or CSC kept, any other
+        format as CSR), on the CUDA card unless ``device`` says otherwise
+        (``"cpu"`` for the host), as :class:`SparseCSRTensor`; without a
+        card the default raises."""
         import scipy.sparse as sp
 
         if sp.issparse(mat):
+            device = _default_device() if device is None else torch.device(device)
             if mat.format == "csr":
                 layout = _Layout.CSR
             elif mat.format == "csc":
@@ -148,6 +157,14 @@ class _SparseTensor:
             )
         return self._transpose_cache["BT"]
 
+    def _csr_plan(self) -> kernel_cuda.CSRPlan:
+        """The CSR kernel's plan of THIS view's CSR (:meth:`_csr_buffers`),
+        built once and shared by ``.T`` views."""
+        key = "plan" if self.layout == _Layout.CSR else "BT_plan"
+        if key not in self._transpose_cache:
+            self._transpose_cache[key] = kernel_cuda.csr_plan(self._csr_buffers()[2])
+        return self._transpose_cache[key]
+
     # -- row slicing ---------------------------------------------------------
     def __getitem__(self, idx) -> "_SparseTensor":
         """Row gather (CSR only, like the reference's get_row_slice op)."""
@@ -190,7 +207,8 @@ class _SparseTensor:
             )
         values, indices, indptr = self._csr_buffers()
         fn = ops.csr_matvec if x.ndim == 1 else ops.csr_matmat
-        return fn(values, indptr, indices, x, self.shape[0])
+        plan = self._csr_plan() if values.is_cuda else None
+        return fn(values, indptr, indices, x, self.shape[0], plan)
 
     def __rmatmul__(self, x) -> torch.Tensor:
         x = _as_operand(x, self.device)

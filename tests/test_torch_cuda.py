@@ -324,7 +324,8 @@ def test_cuda_laplace_matches_plain(cuda_device, k, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2, 5, 16])
 def test_cuda_laplace_symmetric_matches_plain(cuda_device, k):
-    """K5 against the float64 plain version: 2e-5, as K2 (fp32 atomics)."""
+    """K5 (the triangle form of K3's tile) against the float64 plain
+    version: 2e-5, as K2 (fp32 atomics)."""
     rng = np.random.default_rng(15)
     X = torch.from_numpy(rng.standard_normal((1300, 28)).astype(np.float32)).to(cuda_device)
     V = torch.from_numpy(rng.standard_normal((1300, k)).astype(np.float32)).to(cuda_device)
@@ -332,6 +333,51 @@ def test_cuda_laplace_symmetric_matches_plain(cuda_device, k):
     got = kernel_cuda.laplace_matvec_symmetric(X, V, 32.0, 1.1)
     torch.cuda.synchronize()
     assert _rel(got, ref) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 10, 16])
+@pytest.mark.parametrize("n, d", [(1000, 3), (1300, 28), (257, 50), (128, 28)])
+def test_cuda_k5_triangle_tile_matches_float64(cuda_device, n, d, k):
+    """K5 at ragged and whole numbers of 128-point tiles, d = 3, 28 and 50
+    (a last feature chunk of 18), every KC it takes, scalar and ARD
+    lengthscales: 2e-5 of the float64 plain version; given the operand an
+    operator keeps, the same product to the float atomics' order (1e-6)."""
+    rng = np.random.default_rng(n + d + k)
+    X = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda_device)
+    V = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(cuda_device)
+    for ls in (2 * d / np.pi**0.5, torch.linspace(0.6, 1.4, d, device=cuda_device) * d):
+        ref = kernel_plain.gram_matmat_f64("laplace", X, X, V, ls, 0.9)
+        got = kernel_cuda.laplace_matvec_symmetric(X, V, ls, 0.9)
+        kept = kernel_cuda.laplace_matvec_symmetric(X, V, ls, 0.9,
+                                                    kernel_cuda.laplace_operand(X, ls))
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= 2e-5
+        assert _rel(kept, got.double()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_k5_takes_the_operators_operand(cuda_device):
+    """``LaplaceLinOp`` on one data set applies K5 on the operand it keeps
+    (built once), within the float atomics' order of a direct call; a wrong
+    operand raises."""
+    from rlaopt_tpu_torch.kernels import KernelConfig, LaplaceLinOp
+
+    rng = np.random.default_rng(51)
+    X = torch.from_numpy(rng.standard_normal((900, 28)).astype(np.float32)).to(cuda_device)
+    V = torch.from_numpy(rng.standard_normal((900, 3)).astype(np.float32)).to(cuda_device)
+    K = LaplaceLinOp(X, X, KernelConfig(lengthscale=32.0, const_scaling=1.1))
+    kernel_cuda.reset_launch_counts()
+    got = [K @ V for _ in range(2)]
+    assert kernel_cuda.launch_counts()["laplace_matvec_symmetric"] == 2
+    assert K._lap[0].get() is K._lap[0].get()
+    want = kernel_cuda.laplace_matvec_symmetric(X, V, 32.0, 1.1)
+    torch.cuda.synchronize()
+    for g in got:
+        assert _rel(g, want.double()) <= 1e-6
+    with pytest.raises(ValueError, match="K3's operand"):
+        kernel_cuda.laplace_matvec_symmetric(X, V, 32.0, 1.1,
+                                             kernel_cuda.laplace_operand(X[:500], 32.0))
 
 
 @pytest.mark.cuda
@@ -542,6 +588,66 @@ def test_cuda_csr_short_rows_every_length(cuda_device, k, schedule, offset, monk
         assert torch.equal(got, again)
         assert _rel(got, ref) <= bound
         assert torch.all(got[empty] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segment", [256, 512, 2048])
+@pytest.mark.parametrize("segmented", [True, False], ids=["segmented", "whole"])
+@pytest.mark.parametrize("k", [1, 3, 10, 300])
+@pytest.mark.parametrize("operand", ["ragged", "ragged rows"])
+def test_cuda_csr_segmented_matches_plain(cuda_device, operand, k, segmented, segment,
+                                          monkeypatch):
+    """#9 on both ragged operands with their long rows cut into segments of
+    256 to 2,048 entries (the plan built for that length), and with every
+    row whole: float64 to 1e-12 and float32 to 5e-5 of the float64 plain
+    version, the same bits from two launches, empty rows 0; past 16
+    columns also with the columns taken in chunks of 128."""
+    values, indices, indptr, n_cols = (_ragged_csr() if operand == "ragged"
+                                       else _ragged_rows_csr())
+    n_rows = len(indptr) - 1
+    monkeypatch.setattr(kernel_cuda, "csr_segmented", lambda plan: segmented)
+    X = torch.from_numpy(np.random.default_rng(25).standard_normal((n_cols, k)))
+    v64, p, c = _csr_on(cuda_device, values, indices, indptr, torch.float64)
+    plan = kernel_cuda.csr_plan(p, segment)
+    ref = tops._plain(v64, p, c, X.to(cuda_device), n_rows, False)
+    fn = kernel_cuda.csr_spmv if k == 1 else kernel_cuda.csr_spmm
+    empty = torch.from_numpy(np.diff(indptr) == 0).to(cuda_device)
+    caps = [kernel_cuda.CSR_PART_BYTES] + ([plan.n_segs * 128 * 8] if k > 16 else [])
+    for cap in caps:
+        monkeypatch.setattr(kernel_cuda, "CSR_PART_BYTES", cap)
+        for dtype, bound in ((torch.float64, 1e-12), (torch.float32, 5e-5)):
+            args = (v64.to(dtype), p, c, X.to(cuda_device, dtype), n_rows, plan)
+            got, again = fn(*args), fn(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            assert _rel(got, ref) <= bound
+            assert torch.all(got[empty] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_operator_keeps_its_plans(cuda_device, monkeypatch):
+    """``sparse_aslinop`` on the card builds both CSRs' plans once, at
+    construction: no product after it builds one, and its products are the
+    wrapper's on the same plans, bit for bit."""
+    values, indices, indptr, n_cols = _ragged_rows_csr()
+    A = SparseCSRTensor(values.astype(np.float32), indices, indptr,
+                        (len(indptr) - 1, n_cols), device=cuda_device)
+    from rlaopt_tpu_torch.sparse import sparse_aslinop
+
+    op = sparse_aslinop(A)
+
+    def refuse(*a, **kw):
+        raise AssertionError("an apply built a plan")
+
+    monkeypatch.setattr(kernel_cuda, "csr_plan", refuse)
+    X = torch.randn((n_cols, 300), device=cuda_device)
+    Y = torch.randn((A.shape[0], 10), device=cuda_device)
+    got, got_t = op @ X, op.T @ Y
+    fv, fi, fp = A._csr_buffers()
+    av, ai, ap = A.T._csr_buffers()
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernel_cuda.csr_spmm(fv, fp, fi, X, A.shape[0], A._csr_plan()))
+    assert torch.equal(got_t, kernel_cuda.csr_spmm(av, ap, ai, Y, n_cols, A.T._csr_plan()))
 
 
 @pytest.mark.cuda

@@ -15,6 +15,9 @@ count of the m axis) are pure functions of their inputs and are held to the
 plain versions bit for bit.
 """
 
+import contextlib
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -61,9 +64,14 @@ def recorded(monkeypatch):
         calls.append((entry, V.shape[1]))
         return kernel_plain.gram_matmat("laplace", X1, X2, V, lengthscale, const_scaling)
 
-    def k5(X, V, lengthscale, const_scaling=1.0):
+    def k5(X, V, lengthscale, const_scaling=1.0, operand=None):
         calls.append(("laplace_matvec_symmetric", 1 if V.ndim == 1 else V.shape[1]))
+        if operand is not None:  # an operator's kept operand: the wrapper's own, bit for bit
+            assert torch.equal(operand, kernel_cuda.laplace_operand(X, lengthscale))
+        k5.operands.append(operand)
         return kernel_plain.gram_matvec_symmetric("laplace", X, V, lengthscale, const_scaling)
+
+    k5.operands = []
 
     monkeypatch.setattr(kernel_cuda, "gram_matvec_symmetric_comp", triangle)
     monkeypatch.setattr(kernel_cuda, "laplace_matmat_comp", general)
@@ -182,7 +190,8 @@ def test_path_a_builds_the_points_operand_once(recorded, monkeypatch):
     """Path A's row oracles share the operator's operand of the data set
     for K3's tile: built once over the solve, where each call built it
     before; each oracle builds one of its own rows (a step's block, the
-    sampled metrics' rows). A symmetric apply (K5) and the wide K3 build
+    sampled metrics' rows). A symmetric apply (K5, the tile's triangle
+    form) builds the operator's own at its first use; the wide K3 builds
     none."""
     built = []
 
@@ -196,7 +205,7 @@ def test_path_a_builds_the_points_operand_once(recorded, monkeypatch):
     K = LaplaceLinOp(X, X, KernelConfig(lengthscale=3.0))
     K @ _points(n, 1, 16)
     K @ _points(n, 20, 17)
-    assert built == []
+    assert len(built) == 1 and built[0] is X
     sys_ = LinSys(K, y, reg=0.5, A_row_oracle=K.row_oracle, A_blk_oracle=K.blk_oracle)
     cfg = SAPConfig(max_iters=iters, rtol=1e-12, blk_sz=32,
                     precond_config=NystromConfig(rank=8, rho=0.5), accel=False)
@@ -250,3 +259,125 @@ def test_laplace_splits(n, m, k, runs):
     slots; else as many as keep the blocks within four rounds, each run 8
     column tiles of 128 or more; one past 16 columns."""
     assert kernel_cuda.laplace_splits(n, m, k, H100_SMS) == runs
+
+
+def test_path_b_hands_k5_the_operators_operand(recorded, monkeypatch):
+    """Path B (Nyström-PCG on one ``LaplaceLinOp``): K5's operand of the
+    points is built once over the solve and that one tensor is handed to
+    every K5 call, where each call built its own before."""
+    built = []
+
+    def counted(X, lengthscale):
+        built.append(X)
+        return kernel_cuda.laplace_operand(X, lengthscale)
+
+    monkeypatch.setattr(linop, "laplace_operand", counted)
+    n = 200
+    X, y = _points(n, 5, 10), _points(n, 1, 11)[:, 0]
+    K = LaplaceLinOp(X, X, KernelConfig(lengthscale=4.0))
+    cfg = PCGConfig(max_iters=6, rtol=1e-12, precond_config=NystromConfig(rank=20, rho=0.5))
+    LinSys(K, y, reg=0.5).solve(cfg, torch.zeros((n, 1)), callback_freq=3, key=0)
+    given = kernel_cuda.laplace_matvec_symmetric.operands
+    assert len(given) >= 6 and len(built) == 1 and built[0] is X
+    assert all(g is given[0] for g in given) and given[0] is K._lap[0].get()
+
+
+def test_e3_half_ring_keeps_each_shards_operand(recorded, monkeypatch):
+    """E3's half-ring (one data set, ring mode, 3 positions): each
+    position's diagonal block (K5) takes the operand of its own shard,
+    built once per operator over two matvecs; the ring's product is the
+    plain one's."""
+    built = []
+
+    def counted(X, lengthscale):
+        built.append(X)
+        return kernel_cuda.laplace_operand(X, lengthscale)
+
+    def pair(X1, X2, V2, V1, lengthscale, const_scaling=1.0):
+        return (kernel_plain.gram_matmat("laplace", X1, X2, V2, lengthscale, const_scaling),
+                kernel_plain.gram_matmat("laplace", X2, X1, V1, lengthscale, const_scaling))
+
+    monkeypatch.setattr(linop, "laplace_operand", counted)
+    monkeypatch.setattr(kernel_cuda, "laplace_pair", pair)
+    X, v = _points(90, 3, 20), _points(90, 1, 21)[:, 0]
+    K = ShardedLaplaceLinOp(X, X, CFG, mesh=make_mesh(devices=["cpu"] * 3), memory_mode="ring")
+    outs = [K @ v for _ in range(2)]
+    given = kernel_cuda.laplace_matvec_symmetric.operands
+    assert len(built) == 3 and len(given) == 6
+    assert all(g is b for g, b in zip(given, given[3:])) and all(g is not None for g in given)
+    want = kernel_plain.gram_matmat("laplace", X, X, v[:, None], 2.5, 1.1)[:, 0]
+    for out in outs:
+        assert torch.allclose(out, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+class _K5Entry:
+    """``rl_laplace_matvec_symmetric`` emulated on the host, with the
+    arguments of its ctypes signature (XT, V, out, n, npad, d, dpad, k, c,
+    stream): ``c·k(P, P) @ V`` in float64 from the operand's points P."""
+
+    def __init__(self):
+        self.calls = []
+
+    def rl_laplace_matvec_symmetric(self, *args):
+        assert len(args) == len(kernel_cuda._SIGNATURES["rl_laplace_matvec_symmetric"])
+        xt, v, out, n, npad, d, dpad, k, c, _stream = args
+        assert npad % kernel_cuda.LAPLACE_TILE == 0 and dpad % kernel_cuda.LAPLACE_FEAT == 0
+
+        def host(ptr, shape):
+            return np.ctypeslib.as_array(ctypes.cast(ptr, ctypes.POINTER(ctypes.c_float)),
+                                         shape=shape)
+
+        XT = host(xt, (dpad, npad)).copy()
+        P = XT[:d, :n].T.astype(np.float64)
+        Kv = np.exp(-np.abs(P[:, None, :] - P[None, :, :]).sum(-1)) @ host(v, (n, k))
+        host(out, (n, k))[:] = c * Kv
+        self.calls.append({"ptr": xt, "XT": XT, "n": n, "d": d, "k": k})
+        return 0
+
+
+@pytest.fixture
+def k5_entry(monkeypatch):
+    """K5's wrapper on CPU tensors down to the emulated entry."""
+    entry = _K5Entry()
+
+    def check_dtypes(dtypes, *tensors):
+        assert all(t.dtype == dt for t, dt in zip(tensors, dtypes))
+
+    monkeypatch.setattr(kernel_cuda, "_check_tensors", check_dtypes)
+    monkeypatch.setattr(kernel_cuda, "build", lambda: None)
+    monkeypatch.setattr(kernel_cuda, "_stream", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setitem(kernel_cuda._lib, "handle", entry)
+    return entry
+
+
+@pytest.mark.parametrize("n,d,k,ls", [(300, 3, 1, 0.7), (130, 28, 10, 32.0), (257, 50, 16, "ard")])
+def test_k5_hands_its_entry_k3s_operand(k5_entry, n, d, k, ls):
+    """K5's wrapper hands its entry K3's operand (``laplace_operand``: the
+    plain version's scaled points, transposed, padded) bit for bit, built
+    in the call or given; the product on it is the plain version's."""
+    X, V = _points(n, d, 22), _points(n, k, 23)
+    ls = torch.linspace(0.5, 2.0, d) * d if ls == "ard" else ls
+    got = kernel_cuda.laplace_matvec_symmetric(X, V, ls, 0.9)
+    call = k5_entry.calls[-1]
+    assert np.array_equal(call["XT"], kernel_cuda.laplace_operand(X, ls).numpy())
+    assert (call["n"], call["d"], call["k"]) == (n, d, k)
+    want = kernel_plain.gram_matmat_f64("laplace", X, X, V.double(), ls, 0.9)
+    assert ((got.double() - want).abs().max() / want.abs().max()).item() <= 1e-6
+    XT = kernel_cuda.laplace_operand(X, ls)
+    kernel_cuda.laplace_matvec_symmetric(X, V, ls, 0.9, XT)
+    assert k5_entry.calls[-1]["ptr"] == XT.data_ptr()
+
+
+def test_k5_rejects_a_wrong_operand(k5_entry):
+    """K5 refuses, as K3's tile does, an operand that
+    ``laplace_operand`` would not give for its points: another set's
+    shape, float64, a layout that is not contiguous; nothing launches."""
+    X, V = _points(300, 28, 24), _points(300, 2, 25)
+    XT = kernel_cuda.laplace_operand(X, 32.0)
+    wider = kernel_cuda.laplace_operand(_points(300, 40, 26), 32.0)
+    wrong = (kernel_cuda.laplace_operand(X[:200], 32.0), wider, XT.double(), XT.T.contiguous().T)
+    for op in wrong:
+        with pytest.raises(ValueError, match="K3's operand"):
+            kernel_cuda.laplace_matvec_symmetric(X, V, 32.0, 1.0, op)
+    assert k5_entry.calls == []

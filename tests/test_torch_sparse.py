@@ -149,7 +149,7 @@ def test_scipy_round_trip_todense_astype():
     np.testing.assert_array_equal(raw.todense().numpy(), A.toarray())
     csc = interop.sparse_tensor(values, indices, indptr, (N, M), layout="csc")
     np.testing.assert_array_equal(csc.todense().numpy(), A.toarray().T)
-    from_csc = _SparseTensor.from_scipy(A.tocsc())
+    from_csc = _SparseTensor.from_scipy(A.tocsc(), device="cpu")
     assert from_csc.layout == _Layout.CSC and from_csc.shape == A.shape
     np.testing.assert_array_equal(from_csc.todense().numpy(), A.toarray())
 
@@ -257,6 +257,21 @@ def test_default_device_is_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SparseCSRTensor(_scipy(*_csr()))
     assert SparseCSRTensor(_scipy(*_csr()), device="cpu").device.type == "cpu"
+
+
+def test_from_scipy_defaults_to_the_card(monkeypatch):
+    """``from_scipy`` places the tensor as ``SparseCSRTensor`` does: on the
+    card unless the caller asks for the host, raising without a card; what
+    is not a scipy matrix raises the JAX package's TypeError first."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    A = _scipy(*_csr())
+    for cls in (SparseCSRTensor, _SparseTensor):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls.from_scipy(A)
+        with pytest.raises(TypeError, match="scipy sparse matrix"):
+            cls.from_scipy(A.toarray())
+        on_host = cls.from_scipy(A.tocsc(), device="cpu")
+        assert on_host.device.type == "cpu" and on_host.layout == _Layout.CSC
 
 
 def test_cpu_tensors_take_the_plain_version(monkeypatch):

@@ -311,6 +311,10 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     ("gram_comp_finish(double const*, float*, float*, unsigned long, double)",
      "gram_matvec_symmetric_comp"),
     ("csr_spmm_lanes<float, 1, 4>(long const*, int const*)", "csr_spmm"),
+    ("csr_spmm_wide<float, 1, 8>(long const*, long const*)", "csr_spmm"),
+    ("csr_spmm_sum_segments<double>(double const*, long const*)", "csr_spmm"),
+    ("laplace_triangle<16>(float const*, float const*, float*, int)",
+     "laplace_matvec_symmetric"),
 ])
 def test_profile_groups_each_kernel_template(name, group):
     """``chip_smoke.py`` names each Gram kernel in a profile by its
@@ -336,6 +340,26 @@ def test_registers_of_tells_the_float64_triangles_apart():
         "gram_comp_symmetric<0,1,f>", "gram_comp_symmetric<4,16,f>"}
     assert set(SMOKE.registers_of("gram_pair_tier", reg)) == {"gram_tier_pair<0,3,1>"}
     assert SMOKE.registers_of("gram_matmat", reg) == {}
+
+
+def test_registers_of_the_laplace_tile_forms_and_the_csr_schedules():
+    """K3's tile and K5 are one body in two kernels, each wrapper given its
+    own; ``csr_spmm`` gets the short-row, wide and segment-sum kernels of
+    #9's schedules, ``csr_spmv`` the short-row kernel it runs at k = 1."""
+    reg = {"laplace_forward<1>": {"registers": 128}, "laplace_triangle<16>": {"registers": 128},
+           "csr_spmm_lanes<f,1,4>": {"registers": 40}, "csr_spmm_wide<f,1,8>": {"registers": 48},
+           "csr_spmm_sum_segments<d>": {"registers": 32}}
+    assert set(SMOKE.registers_of("laplace_matmat_narrow", reg)) == {"laplace_forward<1>"}
+    assert set(SMOKE.registers_of("laplace_matvec_symmetric", reg)) == {"laplace_triangle<16>"}
+    assert set(SMOKE.registers_of("csr_spmm", reg)) == {
+        "csr_spmm_lanes<f,1,4>", "csr_spmm_wide<f,1,8>", "csr_spmm_sum_segments<d>"}
+    assert set(SMOKE.registers_of("csr_spmv", reg)) == {"csr_spmm_lanes<f,1,4>"}
+    names = SMOKE.ptxas_report(
+        "Compiling entry function '_ZN12_GLOBAL__N_116laplace_triangleILi16EEEvPKfS2_Pfiiiiid'"
+        " for 'sm_90a'\n    4 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 128 registers\n", SMOKE.REDESIGNED)
+    assert names == {"laplace_triangle<16>": {"spill_stores": 4, "spill_loads": 8,
+                                              "registers": 128}}
 
 
 def test_reround_steps_tell_a_rounding_flip_from_a_fault():
