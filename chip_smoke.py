@@ -11,9 +11,10 @@ straight through and exits non-zero at the first failure:
 2. build of the Gram kernels and the ceiling probes, timed, and the
    registers and spills of the kernels redesigned for Hopper (K2b, #9's
    short-row, wide and segmented schedules, K1b's forward strip and wide
-   kernel, K4b's pair strip, the float64 triangle of K1c, K3c and K7, K3's
-   tile in its forward and triangle (K5) forms) and of the probes from the
-   build's ``-Xptxas -v`` log;
+   kernel, K4b's pair strip, the float64 triangle of K1c, K3c and K7, the
+   register tile in its forward (K1, K3) and triangle (K2, K5) forms, K1's
+   3xTF32 wide kernel) and of the probes from the build's ``-Xptxas -v``
+   log;
 2b. the ceilings: each probe (TPU kernels #10-#13: the L1 pair rate in
    float32 and float64, the elementwise chain, the exp chain, the exp and
    epilogue rates) against its plain version at a small size, then, with
@@ -36,6 +37,12 @@ straight through and exits non-zero at the first failure:
    a certified residual); kernel and plain version timed (median of 5, CUDA
    events), the triangle K1c beside the general one, and a bf16
    ``torch.matmul`` of 8192^3 timed as the tensor cores' measured rate;
+   K1 (its tile up to 16 columns, the 3xTF32 kernel past that) and K2 in
+   every squared-distance family against float64 at the HIGGS shape on
+   4,096 rows (K1 at k = 1, 3, 16, 17, 200, 500; K2 at 1, 2, 3, 10, 16), at
+   ragged shapes (d = 3, 28, 50; scalar and ARD lengthscales) and K2 at
+   E2's shard shape, the forward form the same bits twice; K1 timed at
+   config 5's n (E1);
 4. slice 1, config 3 whole: RBF kernel ridge regression, Nyström-PCG (rank
    500) through ``LinSys.solve`` with k = 1 and k = 10 right-hand sides,
    then the k = 1 solve again with two float64 refinement rounds; every
@@ -59,8 +66,8 @@ straight through and exits non-zero at the first failure:
    triangle form, at k = 1, 3, 10 and 16) against the
    float64 plain version at the HIGGS shape (on 4,096 rows) and at ragged
    shapes (n, m not multiples of 128; d = 3, 28, 50; an ARD lengthscale),
-   the tile's split product the same bits twice, timed, the tile beside the
-   shared template it replaced and the triangle K3c beside the general;
+   the tile's split product the same bits twice, timed, the triangle K3c
+   beside the general;
    path B, Nyström-PCG on ``LaplaceLinOp`` at the HIGGS-100k shape (k = 1,
    k = 10, k = 1 refined), every logged residual within 1% of a float64 one;
    path A, ASkotch (SAP) on ``LaplaceLinOp`` at config 4's n = 1,000,000,
@@ -68,7 +75,7 @@ straight through and exits non-zero at the first failure:
    ``torch.profiler`` with sampled metrics, each sampled estimate within
    5 sigma of an independent float64 residual on other rows, path A's row
    oracle through K3's tile every step and its final residual through the
-   triangle K3c; then K3 (beside the template it replaced), K3c, K1b and
+   triangle K3c; then K3, K3c, K1b and
    K1c at the paths' block-oracle shape (10,000 x 1,000,000), checked on
    4,096 rows, the triangle K3c at path A's n = 1,000,000 checked on those
    rows and timed beside the general K3c, and the dense block's peak
@@ -151,6 +158,8 @@ N5, ITERS5, RANK5, LANCZOS5, PROBES5 = 50_000, 50, 200, 20, 32
 P_RING, P_LAPLACE = 4, 3
 SOURCES = {
     "gram": "rlaopt_tpu_torch/csrc/gram.cu",
+    "wide": "rlaopt_tpu_torch/csrc/gram_wide.cu",
+    "tile": "rlaopt_tpu_torch/csrc/gram_tile.cuh",
     "comp": "rlaopt_tpu_torch/csrc/gram_comp.cu",
     "laplace": "rlaopt_tpu_torch/csrc/gram_laplace.cu",
     "tier": "rlaopt_tpu_torch/csrc/gram_tier.cu",
@@ -270,9 +279,10 @@ TIERS = ("bf16x3", "bfloat16")
 # clock of the data sheet.
 # No kernel here puts work on the FP64 tensor cores (67 TFLOP/s); work
 # there would count at that peak ("fp64_tc"), so that no share reads over
-# 100%.
+# 100%. K1 past 16 columns contracts on the TF32 tensor cores, 495 TFLOP/s
+# dense on the data sheet ("tf32_tc").
 PEAK = {"fp32": 67e12, "fp64": 34e12, "fp64_tc": 67e12, "bf16_tc": 989e12,
-        "sfu": 16 * 132 * 1.98e9}
+        "tf32_tc": 495e12, "sfu": 16 * 132 * 1.98e9}
 HBM_BYTES_PER_S = 3.35e12
 # #9 (csr_spmv, csr_spmm) against the float64 plain version. In float64 a
 # row's sum of L products is off by ~sqrt(L)·2^-53 of its size (1.4e-14 at
@@ -293,15 +303,17 @@ RES_REL, RES_ABS, RES_ABOVE = 0.01, 5e-7, 1e-5
 # build's -Xptxas -v log reports (the `registers` line and their JSON
 # entries): the CUDA function names, by wrapper (the float64 triangle's
 # by V's type, triangle_wrapper).
-REGISTERS_OF = {"gram_matvec_symmetric_tier": ("gram_tier_symmetric",),
+REGISTERS_OF = {"gram_matmat": ("tile_forward", "gram_wide_tf32"),
+                "gram_matvec_symmetric": ("tile_triangle",),
+                "gram_matvec_symmetric_tier": ("gram_tier_symmetric",),
                 "gram_matmat_tier": ("gram_tier_forward", "gram_tier_wide"),
                 "gram_pair_tier": ("gram_tier_pair",),
                 "gram_matvec_symmetric_comp": ("gram_comp_symmetric",),
                 "gram_matvec_symmetric_f64": ("gram_comp_symmetric",),
                 "csr_spmv": ("csr_spmm_lanes",),
                 "csr_spmm": ("csr_spmm_lanes", "csr_spmm_wide", "csr_spmm_sum_segments"),
-                "laplace_matmat_narrow": ("laplace_forward",),
-                "laplace_matvec_symmetric": ("laplace_triangle",),
+                "laplace_matmat_narrow": ("tile_forward",),
+                "laplace_matvec_symmetric": ("tile_triangle",),
                 "probe_l1": ("probe_l1",), "probe_elem": ("probe_chain",),
                 "probe_exp_chain": ("probe_chain",), "probe_vmem_chain": ("probe_chain",)}
 REDESIGNED = tuple(dict.fromkeys(f for fs in REGISTERS_OF.values() for f in fs))
@@ -343,7 +355,12 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     division is O((n + m) d) work and not counted); the exponential, one
     SFU operation (and one more for the Matérn square root) where the
     epilogue is float32, one float64 operation in K1c, K3c, K7 and K8; 2k
-    for the contraction. The triangle kernels (a name that holds
+    for the contraction, except K1 past 16 columns (``gram_matmat`` at k >
+    16, float32), which contracts on the TF32 tensor cores in three passes
+    (hi·hi, hi·lo, lo·hi: 6k operations a value, ``PEAK["tf32_tc"]``), its
+    distance and exponential counted once a value as for any other kernel
+    (the kernel evaluates each value once per 128 output columns). The
+    triangle kernels (a name that holds
     "symmetric": K2, K2b, K5, K7 and K1c's triangle form,
     ``gram_matvec_symmetric_comp``) evaluate each
     of the n^2/2 values of a pair of tiles once and contract it both ways;
@@ -388,6 +405,10 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
         ops["fp32"] = values * 3 + (contraction if k <= 16 else 0)
         parts = 2 * d * (2 if passes == 3 else 1) + 4
         nbytes = parts * (n + (0 if sym else m)) + 4 * m * k + 4 * n * k + vk
+    elif kernel == "gram_matmat" and k > 16:
+        ops["fp32"] = values * per_feature * d
+        ops["tf32_tc"] = 3 * contraction
+        nbytes = 4 * (n + m) * d + 4 * m * k + 4 * n * k
     else:
         ops["fp32"] = values * per_feature * d + contraction
         nbytes = 4 * (n + (0 if sym else m)) * d + 4 * m * k + 4 * n * k + vk
@@ -470,13 +491,27 @@ def triangle_wrapper(args: str) -> str:
     return "gram_matvec_symmetric_f64" if last in ("d", "double") else "gram_matvec_symmetric_comp"
 
 
+# The register tile's two forms serve the squared-distance wrappers (K1, K2)
+# and the Laplace ones (K3, K5), told apart by the family, their first
+# template argument (LAPLACE_CODE).
+TILE_FORMS = {"tile_forward": ("gram_matmat", "laplace_matmat_narrow"),
+              "tile_triangle": ("gram_matvec_symmetric", "laplace_matvec_symmetric")}
+
+
+def tile_wrapper(fn: str, args: str) -> str:
+    """The wrapper of a register-tile instantiation ``fn<args>``."""
+    family = args.strip(" <>").split(",")[0].strip()
+    return TILE_FORMS[fn][family == str(LAPLACE_CODE)]
+
+
 def registers_of(kname: str, registers: dict) -> dict:
     """The entries of ``ptxas_report`` that belong to the wrapper ``kname``."""
     mine = {}
     for key, r in registers.items():
         fn, _, args = key.partition("<")
         if fn in REGISTERS_OF.get(kname, ()) and (
-                fn not in F64_TRIANGLE or triangle_wrapper(args) == kname):
+                fn not in F64_TRIANGLE or triangle_wrapper(args) == kname) and (
+                fn not in TILE_FORMS or tile_wrapper(fn, args) == kname):
             mine[key] = r
     return mine
 
@@ -565,11 +600,12 @@ LAPLACE_CODE = 4
 _OWN = {"gram_tier_symmetric": "gram_matvec_symmetric_tier",
         "gram_tier_forward": "gram_matmat_tier", "gram_tier_wide": "gram_matmat_tier",
         "gram_tier_pair": "gram_pair_tier"}
-# Kernels whose names hold no gram_ prefix: K3's tile in its two forms (K3,
-# K5) and the probes.
+# Kernels whose names hold no gram_ prefix: the probes, and K3's tile in its
+# two forms as earlier builds named them (K3, K5); the register tile's forms
+# by family (TILE_FORMS), K1's wide kernel by name.
 _OWN_NAMED = {"laplace_forward": "laplace_matmat_narrow",
               "laplace_triangle": "laplace_matvec_symmetric", "probe_l1": "probe_l1",
-              "probe_chain": "probe_chain"}
+              "probe_chain": "probe_chain", "gram_wide_tf32": "gram_matmat"}
 
 
 def _kernel_group(name: str) -> str:
@@ -577,6 +613,9 @@ def _kernel_group(name: str) -> str:
         return "sum_splits"
     if "csr_spmm" in name:
         return "csr_spmm"
+    m = re.search(r"(tile_forward|tile_triangle)<([^>]*)>", name)
+    if m:
+        return tile_wrapper(m.group(1), m.group(2))
     for own, group in _OWN_NAMED.items():
         if own in name:
             return group
@@ -852,17 +891,6 @@ def profiled_entries(timings, prof_kernels, used, what, n, d, kernels, kind="rbf
               f"bound {timings[kname][-1]['bound_ms']:.3f} ms")
 
 
-def old_k3(X1, X2, V, ls):
-    """K3's schedule before its Hopper tile: the shared narrow template
-    (``gram_matmat_narrow<LAPLACE>``, 64-point tiles, ``column_splits``
-    runs), which ``rl_laplace_matmat`` still runs at k <= 16 (the wrapper
-    sends those to ``laplace_matmat_narrow``); timed beside the tile, and
-    not counted."""
-    from rlaopt_tpu_torch.ops import kernel_cuda
-
-    return kernel_cuda._matmat_launch("rl_laplace_matmat", (), X1, X2, V, ls, 1.0)
-
-
 def probe_instances(spec: dict, sms: int) -> int:
     """Instances of an L1 probe (``ops.probes.SPECS``) in a timed call: the
     fewest that fill whole rounds of the card's block slots (one 128 x 128
@@ -1085,9 +1113,8 @@ def laplace_kernels(dev, X, compare, timings):
     and m not multiples of 128, d = 3, 28 and 50, a scalar and an ARD
     lengthscale (K5 at k = 1, 3, 10 and 16); the tile's split product the
     same bits twice. Then each kernel and its plain version timed at the
-    HIGGS shape (K5 on the operand an operator keeps), the tile beside the
-    shared template it replaced (:func:`old_k3`) and the triangle K3c beside
-    the general. The plain versions sum distances
+    HIGGS shape (K5 on the operand an operator keeps) and the triangle K3c
+    beside the general. The plain versions sum distances
     directly, seconds a call here: one timed run each, without a warm-up."""
     import torch
 
@@ -1169,7 +1196,7 @@ def laplace_kernels(dev, X, compare, timings):
     P1 = torch.from_numpy(rng.standard_normal((1000, 50)).astype(np.float32)).to(dev)
     P2 = torch.from_numpy(rng.standard_normal((300_000, 50)).astype(np.float32)).to(dev)
     V = torch.from_numpy(rng.standard_normal((300_000, 3)).astype(np.float32)).to(dev)
-    runs = kernel_cuda.laplace_splits(1000, 300_000, 3, torch.cuda.get_device_properties(
+    runs = kernel_cuda.tile_splits(1000, 300_000, 3, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     one, two = (kernel_cuda.laplace_matmat(P1, P2, V, 8.0) for _ in range(2))
     torch.cuda.synchronize()
@@ -1183,7 +1210,7 @@ def laplace_kernels(dev, X, compare, timings):
     # K5's plain version is K3's on (X, X), the same call, and the
     # triangle K3c's the general one's: timed once per k
     plain_ms = {}
-    XT = kernel_cuda.laplace_operand(X, LS_B)
+    XT = kernel_cuda.tile_operand(X, LS_B)
     for kernel, k in (("laplace_matmat", RANK), ("laplace_matmat_narrow", 1),
                       ("laplace_matmat_narrow", 10), ("laplace_matmat_narrow", 16),
                       ("laplace_matvec_symmetric", 1), ("laplace_matvec_symmetric", 10),
@@ -1208,8 +1235,6 @@ def laplace_kernels(dev, X, compare, timings):
                 ms = cuda_ms(lambda: kernel_cuda.laplace_matvec_symmetric(X, V, LS_B, 1.0, XT))
             else:
                 ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(X, X, V, LS_B))
-            if kernel == "laplace_matmat_narrow":
-                extra["old_ms"] = cuda_ms(lambda: old_k3(X, X, V, LS_B))
             if k not in plain_ms and k in (1, 10, RANK):
                 plain_ms[k] = cuda_ms(lambda: kernel_plain.gram_matmat(
                     "laplace", X, X, V, LS_B, row_block=BLOCK), reps=1, warm=False)
@@ -1220,11 +1245,131 @@ def laplace_kernels(dev, X, compare, timings):
         line = (f"time {kernel} {what}: kernel {ms:.3f} ms, plain "
                 + (f"{p_ms:.3f} ms" if p_ms is not None else "not timed")
                 + f", bound {entry['bound_ms']:.3f} ms")
-        if "old_ms" in extra:
-            line += f", the shared template it replaced {extra['old_ms']:.3f} ms"
         if "general_ms" in extra:
             line += f", general K3c {extra['general_ms']:.3f} ms"
         print(line)
+
+
+def concat_columns(Vs: dict):
+    """The right-hand sides side by side, and the column range of each."""
+    import torch
+
+    cols, at = {}, 0
+    for key, V in Vs.items():
+        cols[key] = slice(at, at + V.shape[1])
+        at += V.shape[1]
+    return torch.cat(list(Vs.values()), 1), cols
+
+
+def sqdist_kernels(dev, X, compare, timings):
+    """K1 (the register tile's forward form up to 16 columns, the 3xTF32
+    wide kernel past 16) and K2 (the tile's triangle form) in every
+    squared-distance family against the float64 plain version: at the
+    HIGGS shape on 4,096 sampled rows (lengthscale sqrt(28), K1 at k = 1,
+    3, 16, 17, 200, 500, K2 at 1, 2, 3, 10, 16), at ragged shapes (n, m not
+    multiples of 128; d = 3, 28, 50; a scalar and an ARD lengthscale), K2
+    at E2's shard shape (12,500 points of the half-ring, d = 28); the
+    forward form the same bits twice (also in runs of the m axis); and K1
+    timed at config 5's (E1's) shapes, n = m = 50,000: k = 1, 32, 200."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+
+    n, d = X.shape
+    ls = d**0.5
+    idx = torch.as_tensor(sampled_rows(n, 4096, 6), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    k1s, k2s = (1, 3, 16, 17, 200, 500), (1, 2, 3, 10, 16)
+    V1 = {k: torch.randn((n, k), generator=gen, device=dev) for k in k1s}
+    V2 = {k: torch.randn((n, k), generator=gen, device=dev) for k in k2s}
+    Vall, cols = concat_columns({**{("k1", k): V1[k] for k in k1s},
+                                 **{("k2", k): V2[k] for k in k2s}})
+    XT = kernel_cuda.tile_operand(X, ls)
+    ops = (lambda: (XT, XT))
+    shape = f"rows 4096 of n=m={n} d={d}"
+    for kind in SQDIST_KINDS:
+        t0 = time.perf_counter()
+        ref = kernel_plain.gram_matmat_f64(kind, X[idx], X, Vall, ls, row_block=512)
+        torch.cuda.synchronize()
+        print(f"{kind} float64 reference, 4096 rows, {Vall.shape[1]} columns: "
+              f"{time.perf_counter() - t0:.3f} s")
+        for k in k1s:
+            got = kernel_cuda.gram_matmat(kind, X, X, V1[k], ls, 1.0, ops)
+            compare("gram_matmat", got[idx], ref[:, cols[("k1", k)]], f"{kind} {shape} k={k}",
+                    K_BOUND)
+            if k in (3, 500):
+                again = kernel_cuda.gram_matmat(kind, X, X, V1[k], ls, 1.0, ops)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"gram_matmat {kind} k={k}: the same bits twice")
+            del got
+        for k in k2s:
+            compare("gram_matvec_symmetric",
+                    kernel_cuda.gram_matvec_symmetric(kind, X, V2[k], ls, 1.0, XT)[idx],
+                    ref[:, cols[("k2", k)]], f"{kind} {shape} k={k}", K_BOUND)
+        del ref
+    del Vall, V1, V2
+    # ragged shapes: n, m not multiples of 128, the last feature chunk 3, 28
+    # and 18 features, a scalar and an ARD lengthscale
+    rng = np.random.default_rng(41)
+    for n1, m1, dd in ((1000, 777, 3), (1000, 777, 28), (300, 1300, 50)):
+        P1 = torch.from_numpy(rng.standard_normal((n1, dd)).astype(np.float32)).to(dev)
+        P2 = torch.from_numpy(rng.standard_normal((m1, dd)).astype(np.float32)).to(dev)
+        W1, c1 = concat_columns({k: torch.from_numpy(rng.standard_normal((m1, k)).astype(
+            np.float32)).to(dev) for k in k1s})
+        W2, c2 = concat_columns({k: torch.from_numpy(rng.standard_normal((n1, k)).astype(
+            np.float32)).to(dev) for k in k2s})
+        ard = torch.linspace(0.6, 1.4, dd, device=dev) * dd**0.5
+        for lsr, tag in ((dd**0.5, "scalar"), (ard, "ARD")):
+            for kind in SQDIST_KINDS:
+                ref1 = kernel_plain.gram_matmat_f64(kind, P1, P2, W1, lsr, 0.9)
+                ref2 = kernel_plain.gram_matmat_f64(kind, P1, P1, W2, lsr, 0.9)
+                for k in k1s:
+                    compare("gram_matmat",
+                            kernel_cuda.gram_matmat(kind, P1, P2, W1[:, c1[k]], lsr, 0.9),
+                            ref1[:, c1[k]], f"{kind} n={n1} m={m1} d={dd} k={k} {tag} "
+                            "lengthscale", K_BOUND)
+                for k in k2s:
+                    compare("gram_matvec_symmetric",
+                            kernel_cuda.gram_matvec_symmetric(kind, P1, W2[:, c2[k]], lsr, 0.9),
+                            ref2[:, c2[k]], f"{kind} n={n1} d={dd} k={k} {tag} lengthscale",
+                            K_BOUND)
+    # the triangle at the shard shape of E2's half-ring (N5 / P_RING points)
+    ns = N5 // P_RING
+    Xs = X[:ns].contiguous()
+    W2, c2 = concat_columns({k: torch.randn((ns, k), generator=gen, device=dev) for k in k2s})
+    ard = torch.linspace(0.6, 1.4, d, device=dev) * ls
+    for lsr, tag in ((ls, "scalar"), (ard, "ARD")):
+        for kind in SQDIST_KINDS:
+            ref = kernel_plain.gram_matmat_f64(kind, Xs, Xs, W2, lsr, row_block=2048)
+            for k in k2s:
+                compare("gram_matvec_symmetric",
+                        kernel_cuda.gram_matvec_symmetric(kind, Xs, W2[:, c2[k]], lsr),
+                        ref[:, c2[k]], f"{kind} E2 shard n={ns} d={d} k={k} {tag} lengthscale",
+                        K_BOUND)
+    # the forward form in runs of the m axis: the same bits twice
+    P1 = torch.from_numpy(rng.standard_normal((1000, 28)).astype(np.float32)).to(dev)
+    P2 = torch.from_numpy(rng.standard_normal((300_000, 28)).astype(np.float32)).to(dev)
+    W = torch.from_numpy(rng.standard_normal((300_000, 3)).astype(np.float32)).to(dev)
+    runs = kernel_cuda.tile_splits(1000, 300_000, 3, kernel_cuda.sm_count(dev))
+    one, two = (kernel_cuda.gram_matmat("matern32", P1, P2, W, ls) for _ in range(2))
+    torch.cuda.synchronize()
+    check(runs > 1 and torch.equal(one, two), f"gram_matmat in {runs} runs: the same bits twice")
+    compare("gram_matmat", one[:256],
+            kernel_plain.gram_matmat_f64("matern32", P1[:256], P2, W, ls, row_block=256),
+            f"matern32 rows 256 of n=1000 m=300000 d=28 k=3, {runs} runs", K_BOUND)
+    del P1, P2, W, one, two
+
+    # K1 at config 5's n (E1's operator, the unsharded mesh of one card)
+    X5 = X[:N5].contiguous()
+    XT5 = kernel_cuda.tile_operand(X5, ls)
+    for k in (1, 32, RANK5):
+        V = torch.randn((N5, k), generator=gen, device=dev)
+        ms = cuda_ms(lambda: kernel_cuda.gram_matmat("rbf", X5, X5, V, ls, 1.0,
+                                                     lambda: (XT5, XT5)))
+        entry = timing_entry("gram_matmat", f"E1 n={N5} d={d} k={k}", ms, None, N5, N5, d, k)
+        timings.setdefault("gram_matmat", []).append(entry)
+        print(f"time gram_matmat E1 n={N5} d={d} k={k}: kernel {ms:.3f} ms, bound "
+              f"{entry['bound_ms']:.3f} ms ({entry['bound_by']})")
 
 
 def slice3(dev, X, Xn, y):
@@ -1429,41 +1574,37 @@ def config4(dev, X, y, profile_run, compare, timings, laplace):
     record = {}
     if laplace:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        splits = kernel_cuda.laplace_splits(BLK4, N4, 1, sms)
+        splits = kernel_cuda.tile_splits(BLK4, N4, 1, sms)
         # the path's call: LaplaceLinOp's row oracle keeps the operand of
         # the N4 points on its parent and builds its block's
-        XT = kernel_cuda.laplace_operand(X, ls)
-        kept = (lambda: (kernel_cuda.laplace_operand(Xb, ls), XT))
+        XT = kernel_cuda.tile_operand(X, ls)
+        kept = (lambda: (kernel_cuda.tile_operand(Xb, ls), XT))
         got, again = (kernel_cuda.laplace_matmat(Xb, X, Wf, ls) for _ in range(2))
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"{name} row oracle: the same bits twice")
         check(torch.equal(got, kernel_cuda.laplace_matmat(Xb, X, Wf, ls, operands=kept)),
               f"{name} row oracle: the same bits with the operator's kept operand")
         compare("laplace_matmat_narrow", got[:s], ref, f"{shape} runs {splits}", K_BOUND)
-        compare("laplace_matmat", old_k3(Xb, X, Wf, ls)[:s], ref,
-                f"{shape}, the shared template K3's tile replaced", K_BOUND)
         del got, again
         hi, lo = kernel_cuda.laplace_matmat_comp(X[idx], X, Wf, ls)
         compare("laplace_matmat_comp", hi.double() + lo.double(), ref, f"{shape} (hi+lo)",
                 COMP_BOUND)
         ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(Xb, X, Wf, ls, operands=kept))
         built_ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(Xb, X, Wf, ls))
-        old_ms = cuda_ms(lambda: old_k3(Xb, X, Wf, ls))
-        operand_ms = cuda_ms(lambda: kernel_cuda.laplace_operand(X, ls))
+        operand_ms = cuda_ms(lambda: kernel_cuda.tile_operand(X, ls))
         del XT
         p_ms = cuda_ms(lambda: kernel_plain.gram_matmat("laplace", Xb, X, Wf, ls, row_block=64),
                        reps=1, warm=False)
         what = f"row oracle n={BLK4} m={N4} d={D4} k=1"
         timings.setdefault("laplace_matmat_narrow", []).insert(0, timing_entry(
             "laplace_matmat_narrow", f"{what} runs {splits}", ms, p_ms, BLK4, N4, D4, 1,
-            "laplace", splits=splits, old_ms=old_ms, operand_ms=operand_ms, built_ms=built_ms))
+            "laplace", splits=splits, operand_ms=operand_ms, built_ms=built_ms))
         print(f"time laplace_matmat_narrow {what}: runs {splits} {ms:.3f} ms with the operand "
               f"of the {N4} points kept (building it in the call {built_ms:.3f} ms; it alone "
-              f"{operand_ms:.3f} ms, once an operator), the shared template it replaced "
-              f"{old_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{operand_ms:.3f} ms, once an operator), plain {p_ms:.3f} ms, bound "
               f"{timings['laplace_matmat_narrow'][0]['bound_ms']:.3f} ms")
         record["row_oracle_ms"] = {"runs": splits, "ms": ms, "built_ms": built_ms,
-                                   "old_ms": old_ms, "operand_ms": operand_ms, "plain_ms": p_ms}
+                                   "operand_ms": operand_ms, "plain_ms": p_ms}
         # the final residual's product at path A's n: the triangle K3c on a
         # random column, checked on the s rows and timed beside the general
         out = {}
@@ -2570,16 +2711,20 @@ def main() -> int:
                         f"{kind} n=1000 d=3 k={k} {ls_name} lengthscale", COMP_BOUND)
     del refs
 
-    # The first shape of each kernel is the one its JSON entry reports.
+    # The first shape of each kernel is the one its JSON entry reports. K1
+    # and K2 on the tile's operand that the operator of slice 1 keeps.
+    XT = kernel_cuda.tile_operand(X, ls)
+
     def kernel_and_plain(kernel, k, cd=None):
         V = Vs[k]
         P = parts.get(cd)
         V64 = V.double()
         return {
-            "gram_matmat": (lambda: kernel_cuda.gram_matmat("rbf", X, X, V, ls),
+            "gram_matmat": (lambda: kernel_cuda.gram_matmat("rbf", X, X, V, ls, 1.0,
+                                                            lambda: (XT, XT)),
                             lambda: kernel_plain.gram_matmat("rbf", X, X, V, ls, row_block=BLOCK)),
             "gram_matvec_symmetric": (
-                lambda: kernel_cuda.gram_matvec_symmetric("rbf", X, V, ls),
+                lambda: kernel_cuda.gram_matvec_symmetric("rbf", X, V, ls, 1.0, XT),
                 lambda: kernel_plain.gram_matvec_symmetric("rbf", X, V, ls, row_block=BLOCK)),
             "gram_matmat_comp": (
                 lambda: kernel_cuda.gram_matmat_comp("rbf", X, X, V, ls),
@@ -2661,6 +2806,9 @@ def main() -> int:
           f"(data sheet {PEAK['bf16_tc'] / 1e12:.0f})")
     del A8, B8
     laplace_kernels(dev, X, compare, timings)
+    print(f"phase: Laplace kernels done at {time.perf_counter() - t_start:.1f} s")
+    sqdist_kernels(dev, X, compare, timings)
+    del XT
     print(f"phase: kernel checks and times done at {time.perf_counter() - t_start:.1f} s")
 
     # 4. slice 1, config 3 whole, through the entry points a user calls
@@ -2871,6 +3019,11 @@ def main() -> int:
             kernels[-1]["max_rel_err_vs_float64"] = max(e[1] for e in vs_f64)
         if kname == "gram_matmat_tier":
             kernels[-1]["matmul_tflops"] = mm_rate / 1e12
+        if kname == "gram_matmat":
+            kernels[-1]["sources"] = [SOURCES["gram"], SOURCES["wide"], SOURCES["tile"]]
+        if kname in ("gram_matvec_symmetric", "laplace_matmat_narrow",
+                     "laplace_matvec_symmetric"):
+            kernels[-1]["sources"] = [source, SOURCES["tile"]]
         mine = registers_of(kname, registers)
         if mine:
             kernels[-1]["registers"] = mine

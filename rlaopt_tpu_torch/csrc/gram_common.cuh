@@ -1,16 +1,18 @@
 // Shared pieces of the fused Gram-matrix kernels (gram.cu, gram_laplace.cu,
 // gram_tier.cu, gram_f64.cu, gram_pair.cu, gram_comp.cu): the tile
-// generator, the wide contraction (k > 16), the exact tier's triangle
-// schedule with its pair form (K2; K4, K6), and the narrow contraction
-// (k <= 16), templated on the kernel family and on a MODE:
+// generator, the wide Laplace contraction (K3 past 16 columns), the pair
+// schedule (K4, K6), and the narrow contraction, templated on the kernel
+// family and on a MODE:
 //
-//   EXACT  K1, K3  f32 points pre-scaled by the lengthscale, f32 values
+//   EXACT  K4, K6, K3 wide  f32 points pre-scaled by the lengthscale, f32
+//                           values (the tile generator and the pair kernel)
 //   COMP   K1c, K3c  unscaled f32 points, float64 inside a tile, f32 (hi, lo)
 //   F64    K8        K1c's tile, carried to float64 end to end (V and out too)
 //
-// K1b, K2b, K4b (gram_tier.cu), the triangle K1c and K7 (gram_comp.cu), K3's
-// tile and K5 (gram_laplace.cu) have kernels of their own; they take the
-// operands and sum_splits from here.
+// K1 and K2 (gram.cu, gram_wide.cu), K3's tile and K5 (gram_laplace.cu)
+// run on the register tile of gram_tile.cuh; K1b, K2b, K4b (gram_tier.cu),
+// the triangle K1c and K7 (gram_comp.cu) have kernels of their own; they
+// take the operands and sum_splits from here.
 //
 // Each translation unit includes this header and instantiates what it
 // launches; everything here has internal linkage.
@@ -42,8 +44,8 @@ enum Mode { EXACT = 0, COMP = 1, F64 = 2 };
 // norm vectors hx (n), hy (m) of _norms_and_operands. V (m, k) and out (n,
 // k) are float, or double for F64; out_lo is K1c's lo part. The triangle
 // kernels pass X2 = X1, m = n.
-// part and m_split: the narrow kernel's column splits (see
-// launch_narrow_by_k); part holds (gridDim.z, n, k) float partials.
+// part and m_split: K1b's forward strip's runs of the m axis
+// (gram_tier.cu); part holds (gridDim.y, n, k) float partials.
 // V1 (n, k) and out2 (m, k): the pair kernels' second product K^T V1.
 // Vh, Vl (m, kp): V's bf16 parts for K1b past 16 columns, kp a multiple of
 // 16 at or above k.
@@ -262,13 +264,11 @@ __device__ __forceinline__ void reduce_quad(T (&v)[KC]) {
   }
 }
 
-// K1 / K1c / K3 / K8 for KC <= 16 right-hand-side columns, those from
+// K1c / K3c / K8 for KC <= 16 right-hand-side columns, those from
 // KC * blockIdx.y on. Thread t owns output row t/4 and the columns
 // j = 16*(t%4) .. +15 of each tile. With COMP the tile partial is completed
 // across the quad and scaled by c in double, then split into a float pair and
-// TwoSum-added. F64 contracts and accumulates in double. Block z walks the
-// columns [z * m_split, (z + 1) * m_split); with more than one split (EXACT
-// only) it writes its unscaled float partial to part[z] for sum_splits.
+// TwoSum-added. F64 contracts and accumulates in double.
 template <int KIND, int KC, int MODE>
 __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a) {
   using Tr = ModeTraits<MODE>;
@@ -280,9 +280,8 @@ __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a)
   const VT* __restrict__ V = static_cast<const VT*>(a.V);
   const int row0 = blockIdx.x * kTile;
   const int c0 = blockIdx.y * KC;
+  static_assert(MODE != EXACT, "the exact tier runs on gram_tile.cuh");
   const int r = threadIdx.x / 4, q = threadIdx.x % 4;
-  const int col_begin = blockIdx.z * a.m_split;
-  const int col_end = min(a.m, col_begin + a.m_split);
   Acc acc[KC];
   float lo[KC];
 #pragma unroll
@@ -291,7 +290,7 @@ __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a)
     lo[i] = 0.0f;
   }
 
-  for (int col0 = col_begin; col0 < col_end; col0 += kTile) {
+  for (int col0 = 0; col0 < a.m; col0 += kTile) {
     stage_v<VT, KC>(V, a.m, a.k, col0, c0, vs);
     make_tile<KIND, MODE>(a, row0, col0, sm);
     Val p[KC];
@@ -332,12 +331,6 @@ __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a)
         if constexpr (MODE == COMP) {
           out[(size_t)gr * a.k + gc] = acc[i];
           static_cast<float*>(a.out_lo)[(size_t)gr * a.k + gc] = lo[i];
-        } else if constexpr (MODE == EXACT) {
-          if (gridDim.z > 1) {
-            a.part[((size_t)blockIdx.z * a.n + gr) * a.k + gc] = acc[i];
-          } else {
-            out[(size_t)gr * a.k + gc] = (VT)(acc[i] * a.c);
-          }
         } else {
           out[(size_t)gr * a.k + gc] = (VT)(acc[i] * a.c);
         }
@@ -346,25 +339,24 @@ __global__ void __launch_bounds__(kThreads) gram_matmat_narrow(const GramArgs a)
   }
 }
 
-// K2: the triangle kernel of the exact tier, and with PAIR the pair
-// kernels K4 / K6. Triangle: block (I, s, z) takes row tile I, the column
-// tiles J = I + 16s .. I + 16s + 15 (J < nt) and the right-hand-side columns from
-// KC * z on. Each tile K_IJ is evaluated once: K_IJ V_J accumulates in
-// registers for out[I]; for J != I, K_IJ^T V_I goes to out[J] at once. Pair
-// (X1 (n, d) and X2 (m, d) two point sets, nt = ceil(m / 64)): block (I, s,
-// z) takes the column tiles J = 16s .. 16s + 15 of the full rectangle, every
-// tile is mirrored, K_IJ V_J (V: (m, k)) goes to out[I] and K_IJ^T V1_I (V1:
-// (n, k)) to out2[J]. Cross-block sums use atomicAdd into outputs zeroed
-// before the launch, so the order of the additions, and with it the last
-// bits of the result, changes from run to run (about one rounding per
-// addition).
+// The pair kernels K4 / K6: X1 (n, d) and X2 (m, d) two point sets, nt =
+// ceil(m / 64); block (I, s, z) takes row tile I of X1, the column tiles
+// J = 16s .. 16s + 15 of X2 and the right-hand-side columns from KC * z
+// on. Each tile K_IJ is evaluated once: K_IJ V_J (V: (m, k)) accumulates
+// in registers for out[I], and K_IJ^T V1_I (V1: (n, k)) goes to out2[J] at
+// once. Cross-block sums use atomicAdd into outputs zeroed before the
+// launch, so the order of the additions, and with it the last bits of the
+// result, changes from run to run (about one rounding per addition). PAIR
+// is always true (the triangle form, K2, runs on gram_tile.cuh); the name
+// and the argument stay because chip_smoke.py groups profile events by them.
 template <int KIND, int KC, bool PAIR>
 __global__ void __launch_bounds__(kThreads)
     gram_matvec_symmetric(const GramArgs a, int nt) {
+  static_assert(PAIR, "the triangle form runs on gram_tile.cuh");
   using Val = float;
   using VT = float;
   const int I = blockIdx.x;
-  const int J0 = (PAIR ? 0 : I) + blockIdx.y * kStrip;
+  const int J0 = blockIdx.y * kStrip;
   if (J0 >= nt) return;
   const int J1 = min(J0 + kStrip, nt);
   const int c0 = blockIdx.z * KC;
@@ -372,9 +364,9 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ VT vj[kTile][KC];
   __shared__ VT vi[kTile][KC];
   const VT* __restrict__ V = static_cast<const VT*>(a.V);
-  const VT* __restrict__ Vi = static_cast<const VT*>(PAIR ? a.V1 : a.V);
+  const VT* __restrict__ Vi = static_cast<const VT*>(a.V1);
   VT* __restrict__ out = static_cast<VT*>(a.out);
-  VT* __restrict__ mirror_out = static_cast<VT*>(PAIR ? a.out2 : a.out);
+  VT* __restrict__ mirror_out = static_cast<VT*>(a.out2);
   const VT c = (VT)a.c;
   const int r = threadIdx.x / 4, q = threadIdx.x % 4;
   Val acc[KC];
@@ -392,25 +384,23 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < KC; ++i) acc[i] = madd(kv, vj[j][i], acc[i]);
     }
-    if (PAIR || J != I) {
-      // mirror: thread t owns column t/4 of the tile, rows 16*(t%4) .. +15
-      Val mir[KC];
+    // mirror: thread t owns column t/4 of the tile, rows 16*(t%4) .. +15
+    Val mir[KC];
 #pragma unroll
-      for (int i = 0; i < KC; ++i) mir[i] = 0;
+    for (int i = 0; i < KC; ++i) mir[i] = 0;
 #pragma unroll 4
-      for (int rr = 0; rr < kTile / 4; ++rr) {
-        const int ri = q * (kTile / 4) + rr;
-        const Val kv = sm.k[ri][r];
+    for (int rr = 0; rr < kTile / 4; ++rr) {
+      const int ri = q * (kTile / 4) + rr;
+      const Val kv = sm.k[ri][r];
 #pragma unroll
-        for (int i = 0; i < KC; ++i) mir[i] = madd(kv, vi[ri][i], mir[i]);
-      }
-      reduce_quad<Val, KC>(mir);
-      const int gj = J * kTile + r;
-      if (q == 0 && gj < a.m) {
+      for (int i = 0; i < KC; ++i) mir[i] = madd(kv, vi[ri][i], mir[i]);
+    }
+    reduce_quad<Val, KC>(mir);
+    const int gj = J * kTile + r;
+    if (q == 0 && gj < a.m) {
 #pragma unroll
-        for (int i = 0; i < KC; ++i)
-          if (c0 + i < a.k) atomicAdd(&mirror_out[(size_t)gj * a.k + c0 + i], mir[i] * c);
-      }
+      for (int i = 0; i < KC; ++i)
+        if (c0 + i < a.k) atomicAdd(&mirror_out[(size_t)gj * a.k + c0 + i], mir[i] * c);
     }
     __syncthreads();
   }
@@ -442,43 +432,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The narrow kernel at the smallest KC that holds k <= 16 columns, or 16
-// columns per blockIdx.y past that (COMP, F64). splits > 1 (EXACT, k <= 16,
-// a.part holding splits * n * k floats) cuts the m axis into that many runs
-// of whole column tiles on blockIdx.z, for grid fill when n is small (a
-// 10,000-row block oracle is 157 row tiles on 132 SMs), and sums the
-// partials with sum_splits.
+// The narrow kernel (COMP, F64) at the smallest KC that holds k <= 16
+// columns, or 16 columns per blockIdx.y past that.
 template <int KIND, int MODE>
-void launch_narrow_by_k(const GramArgs& args, cudaStream_t s, int splits = 1) {
-  GramArgs a = args;
-  const int tiles = (a.m + kTile - 1) / kTile;
-  if (MODE != EXACT || splits < 1 || a.part == nullptr) splits = 1;
-  if (splits > tiles) splits = tiles;
-  a.m_split = ((tiles + splits - 1) / splits) * kTile;
-  splits = (a.m + a.m_split - 1) / a.m_split;
+void launch_narrow_by_k(const GramArgs& a, cudaStream_t s) {
   const unsigned rows = (a.n + kTile - 1) / kTile;
-  const unsigned z = splits;
   if (a.k > 8) {
-    launch_narrow<KIND, 16, MODE>(dim3(rows, (a.k + 15) / 16, z), a, s);
+    launch_narrow<KIND, 16, MODE>(dim3(rows, (a.k + 15) / 16), a, s);
   } else if (a.k > 4) {
-    launch_narrow<KIND, 8, MODE>(dim3(rows, 1, z), a, s);
+    launch_narrow<KIND, 8, MODE>(dim3(rows), a, s);
   } else if (a.k > 2) {
-    launch_narrow<KIND, 4, MODE>(dim3(rows, 1, z), a, s);
+    launch_narrow<KIND, 4, MODE>(dim3(rows), a, s);
   } else if (a.k > 1) {
-    launch_narrow<KIND, 2, MODE>(dim3(rows, 1, z), a, s);
+    launch_narrow<KIND, 2, MODE>(dim3(rows), a, s);
   } else {
-    launch_narrow<KIND, 1, MODE>(dim3(rows, 1, z), a, s);
-  }
-  if (splits > 1) {
-    const size_t count = (size_t)a.n * a.k;
-    size_t blocks = (count + kThreads - 1) / kThreads;
-    if (blocks > 4096) blocks = 4096;
-    sum_splits<<<(unsigned)blocks, kThreads, 0, s>>>(a.part, static_cast<float*>(a.out),
-                                           splits, count, a.c);
+    launch_narrow<KIND, 1, MODE>(dim3(rows), a, s);
   }
 }
 
-// K1 and K3 for k > 16: block (bx, by) owns rows 64*bx.. and right-hand-side
+// K3 for k > 16: block (bx, by) owns rows 64*bx.. and right-hand-side
 // columns 64*by..; thread (ty, tx) owns rows 4*ty.. and columns 4*tx.. .
 template <int KIND>
 __global__ void __launch_bounds__(kThreads)
@@ -534,22 +506,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K1 / K3 (wide past 16 columns, narrow with column splits up to 16) and
-// K1c (narrow, 16 columns per blockIdx.y past 16).
-template <int KIND, bool COMPENSATED>
-void launch_matmat(const GramArgs& a, cudaStream_t s, int splits) {
-  if (!COMPENSATED && a.k > 16) {
-    const dim3 grid((a.n + kTile - 1) / kTile, (a.k + kWide - 1) / kWide);
-    gram_matmat_wide<KIND><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(a.X1), static_cast<const float*>(a.X2),
-        static_cast<const float*>(a.V), static_cast<float*>(a.out), a.n, a.m,
-        a.d, a.k, a.c);
-  } else {
-    launch_narrow_by_k<KIND, COMPENSATED ? COMP : EXACT>(a, s, COMPENSATED ? 1 : splits);
-  }
+// K3 past 16 columns.
+template <int KIND>
+void launch_wide(const GramArgs& a, cudaStream_t s) {
+  const dim3 grid((a.n + kTile - 1) / kTile, (a.k + kWide - 1) / kWide);
+  gram_matmat_wide<KIND><<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(a.X1), static_cast<const float*>(a.X2),
+      static_cast<const float*>(a.V), static_cast<float*>(a.out), a.n, a.m, a.d, a.k, a.c);
 }
 
-// The operands of a launch on points (K1, K1c, K3, K3c, K2, K4, K6, K8).
+// The operands of a launch on points (K1c, K3, K3c, K4, K6, K8).
 GramArgs points_args(const void* X1, const void* X2, const void* inv_ls,
                      const void* V, void* out, void* out_lo, int n, int m,
                      int d, int k, double c) {
@@ -568,10 +534,9 @@ GramArgs points_args(const void* X1, const void* X2, const void* inv_ls,
   return a;
 }
 
-// The triangle kernel (or with PAIR the pair kernel, over the full nt1 x nt2
-// rectangle of tiles) at the smallest KC that holds k <= 16 columns, or 16
-// columns per blockIdx.z past that.
-template <int KIND, bool PAIR = false>
+// The pair kernel (the full nt1 x nt2 rectangle of tiles) at the smallest
+// KC that holds k <= 16 columns, or 16 columns per blockIdx.z past that.
+template <int KIND, bool PAIR>
 void launch_symmetric(const GramArgs& a, cudaStream_t s) {
   const int nt1 = (a.n + kTile - 1) / kTile;
   const int nt2 = (a.m + kTile - 1) / kTile;

@@ -24,7 +24,9 @@ the two packages to the same iterates):
 * :func:`lsqr_state` — an :class:`LSQRState` from ``(Y, U, V, W, alpha,
   phibar, rhobar)``.
 
-Nothing here imports ``jax``: callers convert with ``numpy.asarray``.
+Nothing here imports ``jax``: callers convert with ``numpy.asarray``. Each
+function places what it makes on ``device``, the CUDA card by default (None
+raises where there is no card).
 """
 
 from typing import Optional
@@ -44,6 +46,7 @@ from .solvers.lsqr import LSQRState
 from .solvers.pcg import PCGState
 from .solvers.sap import SAPState
 from .sparse.sparse_tensor import _Layout, _SparseTensor
+from .utils.checkers import _as_device
 
 
 __all__ = [
@@ -60,11 +63,11 @@ __all__ = [
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return torch.as_tensor(np.array(a), dtype=dtype, device=_as_device(device))
 
 
 def kernel_operator(
-    X, ls, scale, kind: str, device="cpu", compute_dtype=None
+    X, ls, scale, kind: str, device=None, compute_dtype=None
 ) -> KernelLinOp:
     """``k(X, X)`` operator from the payload of a JAX ``KernelLinOp``
     (``op._data["X1"]``, ``["ls"]``, ``["scale"]``, ``op.kind`` and
@@ -78,7 +81,7 @@ def kernel_operator(
 
 def sharded_kernel_operator(
     X1, ls, scale, kind: str, memory_mode: str, n_positions: int, X2=None,
-    device="cpu", compute_dtype=None,
+    device=None, compute_dtype=None,
 ) -> ShardedKernelLinOp:
     """A sharded kernel operator from the payload of a JAX
     ``ShardedKernelLinOp`` (``np.asarray(op.A1)``, ``op._data["ls"]``,
@@ -93,7 +96,7 @@ def sharded_kernel_operator(
         ls_np = ls_np.flat[0]  # the JAX operator broadcasts a scalar to (d,)
     lengthscale = float(ls_np) if np.ndim(ls_np) == 0 else _t(ls_np, device, X1_t.dtype)
     cfg = KernelConfig(lengthscale=lengthscale, const_scaling=float(np.asarray(scale)))
-    mesh = make_mesh(devices=[torch.device(device)] * n_positions)
+    mesh = make_mesh(devices=[_as_device(device)] * n_positions)
     return ShardedKernelLinOp(
         X1_t, X2_t, cfg, kind, mesh=mesh, memory_mode=memory_mode,
         compute_dtype=compute_dtype,
@@ -106,7 +109,7 @@ def nystrom_preconditioner(
     rho,
     L=None,
     config: Optional[NystromConfig] = None,
-    device="cpu",
+    device=None,
 ) -> Nystrom:
     """A built Nyström preconditioner from the JAX package's factors.
 
@@ -124,7 +127,7 @@ def nystrom_preconditioner(
     return P
 
 
-def pcg_state(W, R, Z, P_, RZ, ok, device="cpu") -> PCGState:
+def pcg_state(W, R, Z, P_, RZ, ok, device=None) -> PCGState:
     """A :class:`PCGState` from the fields of the JAX package's PCGState."""
     return PCGState(
         W=_t(W, device),
@@ -136,14 +139,14 @@ def pcg_state(W, R, Z, P_, RZ, ok, device="cpu") -> PCGState:
     )
 
 
-def newton_preconditioner(L, rho, device="cpu") -> Newton:
+def newton_preconditioner(L, rho, device=None) -> Newton:
     """A built Newton preconditioner from the JAX package's ``Newton.L``."""
     P = Newton(NewtonConfig(rho=float(np.asarray(rho))))
     P.L = _t(L, device)
     return P
 
 
-def sap_state(W, V, Y, t, device="cpu") -> SAPState:
+def sap_state(W, V, Y, t, device=None) -> SAPState:
     """A :class:`SAPState` from the fields of the JAX package's SAPState
     (its iteration counter ``t`` included; its key is not carried)."""
     return SAPState(
@@ -151,17 +154,17 @@ def sap_state(W, V, Y, t, device="cpu") -> SAPState:
     )
 
 
-def sparse_tensor(values, indices, indptr, shape, layout="csr", device="cpu") -> _SparseTensor:
+def sparse_tensor(values, indices, indptr, shape, layout="csr", device=None) -> _SparseTensor:
     """A sparse tensor from the buffers of the JAX package's ``_SparseTensor``
     (``.values``, ``.indices``, ``.indptr``, ``.shape``; ``layout`` "csr" or
     "csc", the lower-case name of its ``.layout``)."""
     return _SparseTensor(
         np.asarray(values), np.asarray(indices), np.asarray(indptr), shape,
-        _Layout[layout.upper()], device,
+        _Layout[layout.upper()], _as_device(device),
     )
 
 
-def skpre_preconditioner(L, config: Optional[SkPreConfig] = None, device="cpu") -> SkPre:
+def skpre_preconditioner(L, config: Optional[SkPreConfig] = None, device=None) -> SkPre:
     """A built SkPre from the JAX package's factor ``SkPre.L``."""
     L_t = _t(L, device)
     P = SkPre(config or SkPreConfig(sketch_size=L_t.shape[0], rho=0.0))
@@ -169,6 +172,6 @@ def skpre_preconditioner(L, config: Optional[SkPreConfig] = None, device="cpu") 
     return P
 
 
-def lsqr_state(Y, U, V, W, alpha, phibar, rhobar, device="cpu") -> LSQRState:
+def lsqr_state(Y, U, V, W, alpha, phibar, rhobar, device=None) -> LSQRState:
     """An :class:`LSQRState` from the fields of the JAX package's LSQRState."""
     return LSQRState(*(_t(a, device) for a in (Y, U, V, W, alpha, phibar, rhobar)))

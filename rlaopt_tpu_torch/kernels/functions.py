@@ -90,8 +90,13 @@ def kernel_from_sqdist(kind: str, D2: torch.Tensor) -> torch.Tensor:
     return fn(D2)
 
 
-def kernel_tile(kind: str, Xs: torch.Tensor, Ys: torch.Tensor) -> torch.Tensor:
-    """Evaluate the (pre-scaled) kernel tile k(Xs, Ys) of shape (m, n)."""
+def kernel_tile(kind: str, Xs: torch.Tensor, Ys: torch.Tensor, precision=None) -> torch.Tensor:
+    """Evaluate the (pre-scaled) kernel tile k(Xs, Ys) of shape (m, n).
+
+    ``precision`` is the JAX package's (``Precision.HIGHEST`` by default
+    there), taken and ignored: a float32 product here is already full
+    float32 on the CPU, and on a card TF32 stays off
+    (``torch.backends.cuda.matmul.allow_tf32`` is False by default)."""
     if kind not in KERNEL_KINDS:
         raise ValueError(
             f"Unknown kernel kind {kind!r}; expected one of {KERNEL_KINDS}"

@@ -8,9 +8,11 @@ materialized, except by :meth:`KernelLinOp.blk_dense` for a block. A bf16
 ``compute_dtype`` keeps the tier parts of the points (bf16 hi/lo and norm
 vectors, :mod:`rlaopt_tpu_torch.ops.kernel_tiers`) on the operator, made
 once when it is built; the row and block oracles gather theirs from it.
-A Laplace operator on float32 points keeps K3's operand of each point set
-(:func:`rlaopt_tpu_torch.ops.kernel_cuda.laplace_operand`), built the first
-time K3's tile takes it; a row oracle shares its parent's for the columns.
+An operator on float32 points on the exact tier (every family) keeps the
+register tile's operand of each point set
+(:func:`rlaopt_tpu_torch.ops.kernel_cuda.tile_operand`: K1, K2, K3, K5),
+built the first time a kernel takes it; a row oracle shares its parent's
+for the columns.
 """
 
 from typing import Optional
@@ -26,7 +28,7 @@ from ..ops.kernel_dispatch import (
     kernel_matmat_compensated,
     kernel_matmat_tier,
 )
-from ..ops.kernel_cuda import laplace_operand
+from ..ops.kernel_cuda import tile_operand
 from ..ops.kernel_tiers import normalize_compute_dtype, tier_operand
 from ..utils.checkers import _is_tensor
 
@@ -57,12 +59,12 @@ class KernelLinOp(TwoSidedLinOp):
         impl: str = "auto",
         compute_dtype=None,
         _tier=None,
-        _lap=None,
+        _tile=None,
     ):
         """``_tier``: the tier parts of (A1, A2), gathered by the oracles
-        from their parent's; None makes them here. ``_lap``: K3's operands
-        of (A1, A2) as :class:`_LaplaceOperand`, passed on by the oracles;
-        None makes them here."""
+        from their parent's; None makes them here. ``_tile``: the register
+        tile's operands of (A1, A2) as :class:`_TileOperand`, passed on by
+        the oracles; None makes them here."""
         self._check_inputs(A1, A2, kernel_config)
         compute_dtype = normalize_compute_dtype(compute_dtype)
         self.kind = kind
@@ -82,12 +84,14 @@ class KernelLinOp(TwoSidedLinOp):
             P1 = tier_operand(scale_inputs(A1, self._ls), compute_dtype)
             P2 = P1 if symmetric else tier_operand(scale_inputs(A2, self._ls), compute_dtype)
             self._tier = (P1, P2)
-        self._lap = _lap  # K3's operands of (A1, A2), each built on first use
-        if _lap is None and kind == "laplace" and A1.dtype == torch.float32:
-            L1 = _LaplaceOperand(A1, self._ls)
-            self._lap = (L1, L1 if symmetric else _LaplaceOperand(A2, self._ls))
-        lap = None if self._lap is None else (lambda: (self._lap[0].get(), self._lap[1].get()))
-        lap_t = None if self._lap is None else (lambda: (self._lap[1].get(), self._lap[0].get()))
+        # the tile's operands of (A1, A2), each built on first use
+        self._tile_ops = _tile
+        if _tile is None and self._tier is None and A1.dtype == torch.float32:
+            L1 = _TileOperand(A1, self._ls)
+            self._tile_ops = (L1, L1 if symmetric else _TileOperand(A2, self._ls))
+        ops = self._tile_ops
+        fwd = None if ops is None else (lambda: (ops[0].get(), ops[1].get()))
+        adj = None if ops is None else (lambda: (ops[1].get(), ops[0].get()))
 
         def mv(v):
             if self._tier is not None:
@@ -95,7 +99,7 @@ class KernelLinOp(TwoSidedLinOp):
                 return kernel_matmat_tier(kind, P1, P2, v, self._c, symmetric, impl)
             return kernel_matmat(
                 kind, A1, A2, v, self._ls, self._c, symmetric=symmetric, impl=impl,
-                laplace_operands=lap,
+                tile_operands=fwd,
             )
 
         def rmv(v):
@@ -105,7 +109,7 @@ class KernelLinOp(TwoSidedLinOp):
                 return kernel_matmat_tier(kind, P2, P1, v, self._c, symmetric, impl)
             return kernel_matmat(
                 kind, A2, A1, v, self._ls, self._c, symmetric=symmetric, impl=impl,
-                laplace_operands=lap_t,
+                tile_operands=adj,
             )
 
         super().__init__(
@@ -186,16 +190,16 @@ class KernelLinOp(TwoSidedLinOp):
                 P1 if idx1 is None else P1.rows(idx1),
                 P2 if idx2 is None else P2.rows(idx2),
             )
-        lap = None
-        if self._lap is not None:
-            L1, L2 = self._lap
-            lap = (
-                L1 if idx1 is None else _LaplaceOperand(A1, self._ls),
-                L2 if idx2 is None else _LaplaceOperand(A2, self._ls),
+        ops = None
+        if self._tile_ops is not None:
+            L1, L2 = self._tile_ops
+            ops = (
+                L1 if idx1 is None else _TileOperand(A1, self._ls),
+                L2 if idx2 is None else _TileOperand(A2, self._ls),
             )
         return KernelLinOp(
             A1, A2, self._kernel_config, self.kind, self.impl, self.compute_dtype,
-            _tier=tier, _lap=lap,
+            _tier=tier, _tile=ops,
         )
 
     def row_oracle(self, blk: torch.Tensor) -> "KernelLinOp":
@@ -214,14 +218,14 @@ class KernelLinOp(TwoSidedLinOp):
         return self._apply_scale(kernel_tile(self.kind, Xs, Ys) * self._c)
 
 
-class _LaplaceOperand:
-    """K3's operand of one point set (``laplace_operand(X, ℓ)``: the scaled
-    points transposed and padded), built on first use and kept."""
+class _TileOperand:
+    """The register tile's operand of one point set (``tile_operand(X, ℓ)``:
+    the scaled points transposed and padded), built on first use and kept."""
 
     def __init__(self, X: torch.Tensor, lengthscale: torch.Tensor):
         self._X, self._ls, self._XT = X, lengthscale, None
 
     def get(self) -> torch.Tensor:
         if self._XT is None:
-            self._XT = laplace_operand(self._X, self._ls)
+            self._XT = tile_operand(self._X, self._ls)
         return self._XT

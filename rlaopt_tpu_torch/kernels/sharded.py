@@ -52,7 +52,7 @@ import torch
 
 from .configs import KernelConfig, _is_kernel_config
 from .functions import scale_inputs
-from .linop import _LaplaceOperand
+from .linop import _TileOperand
 from ..linops.sharded import ShardedLinOp, _axes
 from ..ops.kernel_dispatch import (
     check_impl,
@@ -194,11 +194,11 @@ class ShardedKernelLinOp(ShardedLinOp):
 
         axes = _axes(axis)
         sym_ring = memory_mode == "ring" and symmetric and len(axes) == 1 and ndev > 1
-        if sym_ring and kind == "laplace" and A1.dtype == torch.float32:
-            # the half-ring's diagonal blocks (K5) take K3's operand of each
-            # shard, built on first use and kept
+        if sym_ring and not tier and A1.dtype == torch.float32:
+            # the half-ring's diagonal blocks (K2, K5) take the register
+            # tile's operand of each shard, built on first use and kept
             for entry in data:
-                entry["lap"] = _LaplaceOperand(entry["X1"].X, entry["ls"])
+                entry["tile"] = _TileOperand(entry["X1"].X, entry["ls"])
         if sym_ring:
             mv = rmv = self._half_ring  # square symmetric Gram: Kᵀ = K
         elif memory_mode == "ring":
@@ -269,14 +269,14 @@ class ShardedKernelLinOp(ShardedLinOp):
             )
 
     # -- the local products --------------------------------------------------
-    def _gram(self, L: _Points, R: _Points, V, ls, symmetric: bool = False, lap=None):
-        """``c·k(L, R) @ V`` on the operator's tier; ``lap``: the kept
-        :class:`_LaplaceOperand` of L = R for K5, or None."""
+    def _gram(self, L: _Points, R: _Points, V, ls, symmetric: bool = False, tile=None):
+        """``c·k(L, R) @ V`` on the operator's tier; ``tile``: the kept
+        :class:`_TileOperand` of L = R for the triangle (K2, K5), or None."""
         if L.T is not None:
             return kernel_matmat_tier(self.kind, L.T, R.T, V, self._c, symmetric, self.impl)
-        operands = None if lap is None else (lambda: (lap.get(), lap.get()))
+        operands = None if tile is None else (lambda: (tile.get(), tile.get()))
         return kernel_matmat(self.kind, L.X, R.X, V, ls, self._c, symmetric=symmetric,
-                             impl=self.impl, laplace_operands=operands)
+                             impl=self.impl, tile_operands=operands)
 
     def _pair(self, L: _Points, R: _Points, V2, V1, ls):
         """``(c·K @ V2, c·Kᵀ @ V1)`` with K = k(L, R) on the operator's tier."""
@@ -354,7 +354,7 @@ class ShardedKernelLinOp(ShardedLinOp):
         squeeze = chunks[0].ndim == 1
         V = [c[:, None] if squeeze else c for c in chunks]
         out = [
-            self._gram(d["X1"], d["X1"], v, d["ls"], symmetric=True, lap=d.get("lap"))
+            self._gram(d["X1"], d["X1"], v, d["ls"], symmetric=True, tile=d.get("tile"))
             for d, v in zip(data, V)
         ]
         carry = [(d["X1"], v, torch.zeros_like(v)) for d, v in zip(data, V)]

@@ -2,9 +2,12 @@
 
 Port of ``rlaopt_tpu/linops/base.py``. Operators are not pytrees here:
 ``matvec``/``matmat`` are closures over tensors, and nothing has to cross a
-``jit`` boundary. Without an explicit matmat, one is derived by applying the
-matvec to each column. Scalar scaling is folded into every application, and
-nested scalings merge by ``__mul__``.
+``jit`` boundary. As in the JAX package, a caller may pass the payload as
+``data`` instead: the callables are then called as ``f(data, x)``. Without
+an explicit matmat, one is derived by applying the matvec to each column.
+Scalar scaling is folded into every application, and nested scalings merge
+by ``__mul__``. The parameters keep the JAX package's order; ``device``, the
+port's own, comes after them.
 """
 
 from typing import Callable, Optional, Tuple
@@ -26,16 +29,42 @@ def _cols(fn: Callable) -> Callable:
     return mm
 
 
+def _bind(fn: Optional[Callable], data) -> Optional[Callable]:
+    """``fn`` itself without a payload; ``x ↦ fn(data, x)`` with one (the
+    JAX package's calling convention when ``data`` is given)."""
+    if fn is None or data is None:
+        return fn
+    return lambda x: fn(data, x)
+
+
+def _data_device(data):
+    """The device of the first tensor in ``data`` (a tensor, or a tuple,
+    list or dict of them), or None."""
+    if isinstance(data, torch.Tensor):
+        return data.device
+    leaves = data.values() if isinstance(data, dict) else data
+    if isinstance(leaves, (tuple, list)) or isinstance(data, dict):
+        for leaf in leaves:
+            dev = _data_device(leaf)
+            if dev is not None:
+                return dev
+    return None
+
+
 class LinOp:
     """One-sided matrix-free operator: supports ``A @ x`` only.
 
     Args:
         shape: (n_rows, n_cols).
-        matvec: ``f(x) -> y``.
-        matmat: optional ``f(X) -> Y``; derived from matvec if omitted.
+        matvec: ``f(x) -> y``, or ``f(data, x) -> y`` when ``data`` is given.
+        matmat: optional ``f(X) -> Y`` (``f(data, X)``); derived from matvec
+            if omitted.
         dtype: operator element dtype.
-        device: device of the operator's payload.
+        data: optional payload handed to the callables as their first
+            argument, as in the JAX package; ``()`` when omitted.
         scale: scalar multiplier folded into every application.
+        device: device of the operator's payload; by default that of the
+            first tensor in ``data``, else the CPU.
     """
 
     _is_two_sided = False
@@ -46,8 +75,9 @@ class LinOp:
         matvec: Callable,
         matmat: Optional[Callable] = None,
         dtype: torch.dtype = torch.float32,
-        device=None,
+        data=None,
         scale=1.0,
+        device=None,
     ):
         _is_callable(matvec, "matvec")
         if matmat is not None:
@@ -56,9 +86,13 @@ class LinOp:
             raise ValueError(f"shape must have length 2, got {shape}")
         self._shape = (int(shape[0]), int(shape[1]))
         self._dtype = dtype
+        if device is None:
+            device = _data_device(data)
         self._device = torch.device(device if device is not None else "cpu")
-        self._mv = matvec
-        self._mm = matmat if matmat is not None else _cols(matvec)
+        self._data = () if data is None else data
+        self._mv = _bind(matvec, data)
+        mm = _bind(matmat, data)
+        self._mm = mm if mm is not None else _cols(self._mv)
         self._scale = scale
 
     @property
@@ -72,6 +106,11 @@ class LinOp:
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def data(self):
+        """The payload given as ``data`` (``()`` when none was)."""
+        return self._data
 
     @property
     def scale(self):
@@ -141,17 +180,19 @@ class TwoSidedLinOp(LinOp):
         matmat: Optional[Callable] = None,
         rmatmat: Optional[Callable] = None,
         dtype: torch.dtype = torch.float32,
-        device=None,
+        data=None,
         scale=1.0,
+        device=None,
     ):
         super().__init__(
-            shape, matvec, matmat=matmat, dtype=dtype, device=device, scale=scale
+            shape, matvec, matmat=matmat, dtype=dtype, data=data, scale=scale, device=device
         )
         _is_callable(rmatvec, "rmatvec")
         if rmatmat is not None:
             _is_callable(rmatmat, "rmatmat")
-        self._rmv = rmatvec
-        self._rmm = rmatmat if rmatmat is not None else _cols(rmatvec)
+        self._rmv = _bind(rmatvec, data)
+        rmm = _bind(rmatmat, data)
+        self._rmm = rmm if rmm is not None else _cols(self._rmv)
 
     def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
         return self._apply_scale(self._rmv(x))
@@ -196,8 +237,9 @@ class SymmetricLinOp(TwoSidedLinOp):
         matvec: Callable,
         matmat: Optional[Callable] = None,
         dtype: torch.dtype = torch.float32,
-        device=None,
+        data=None,
         scale=1.0,
+        device=None,
     ):
         if shape[0] != shape[1]:
             raise ValueError(
@@ -205,7 +247,7 @@ class SymmetricLinOp(TwoSidedLinOp):
             )
         super().__init__(
             shape, matvec, rmatvec=matvec, matmat=matmat, rmatmat=matmat,
-            dtype=dtype, device=device, scale=scale,
+            dtype=dtype, data=data, scale=scale, device=device,
         )
 
     @property

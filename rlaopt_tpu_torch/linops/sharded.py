@@ -28,6 +28,17 @@ order.
 ``axis`` may be a tuple naming every axis of a 2-D mesh
 (:func:`rlaopt_tpu_torch.parallel.make_mesh_2d`); the positions are then
 taken in row-major order.
+
+The payload comes one of two ways. The port's own: ``data`` a sequence of
+one payload per position, each on its device. The JAX package's: ``data``
+one pytree (a tensor, or tuples, lists and dicts of them) and
+``data_specs`` a matching pytree of partition specs, as ``shard_map`` reads
+them: a leaf whose spec names mesh axes in its first entry (``("i",)``,
+``("i", None)``, ``(("dcn", "i"),)`` or the JAX ``PartitionSpec`` of the
+same entries) has its rows cut over those axes
+(:func:`rlaopt_tpu_torch.parallel.shard_rows`), a leaf whose spec is
+``None`` or names none is replicated, and each position receives the pytree
+of its blocks.
 """
 
 from typing import Any, Callable, Optional, Sequence, Tuple
@@ -37,7 +48,7 @@ import torch
 from .base import TwoSidedLinOp
 from .enums import _DistributionMode
 from ..parallel.distributed import axis_size
-from ..parallel.mesh import Mesh, move, pad_to_multiple, psum
+from ..parallel.mesh import Mesh, move, pad_to_multiple, psum, shard_rows
 
 
 __all__ = [
@@ -71,6 +82,39 @@ def _pad_rows(x, target: int):
     return x if x.shape[0] == target else pad_to_multiple(x, target)[0]
 
 
+def _row_axes(spec):
+    """The mesh axes a leaf's partition spec cuts its rows over (None:
+    replicated). Only the first dimension may be sharded."""
+    if spec is None or isinstance(spec, str):
+        return spec
+    entries = tuple(spec)
+    if any(e is not None for e in entries[1:]):
+        raise NotImplementedError(
+            f"partition spec {spec!r}: only the first dimension of a payload may be sharded"
+        )
+    return entries[0] if entries else None
+
+
+def _place(data, specs, mesh: Mesh) -> list:
+    """The JAX package's payload ``data`` with its partition specs
+    ``specs``: one pytree of blocks per position. A container of ``data``
+    meets a container of specs of the same length (or keys) element by
+    element; any other spec applies to every leaf below it."""
+    if isinstance(data, dict):
+        keys = list(data)
+        sub = specs if isinstance(specs, dict) else dict.fromkeys(keys, specs)
+        placed = {key: _place(data[key], sub[key], mesh) for key in keys}
+        return [{key: placed[key][p] for key in keys} for p in range(mesh.size)]
+    if isinstance(data, (tuple, list)):
+        paired = isinstance(specs, (tuple, list)) and len(specs) == len(data)
+        parts = [_place(x, specs[i] if paired else specs, mesh) for i, x in enumerate(data)]
+        return [type(data)(part[p] for part in parts) for p in range(mesh.size)]
+    axes = _row_axes(specs)
+    if axes is None:
+        return [move(data, dev) for dev in mesh.devices]
+    return shard_rows(data, mesh, axis=axes)
+
+
 class ShardedLinOp(TwoSidedLinOp):
     """Operator whose payload is sharded over the positions of a mesh.
 
@@ -80,7 +124,10 @@ class ShardedLinOp(TwoSidedLinOp):
             matvec receives a position's payload and the full operand,
             rmatvec the position's row chunk of the operand.
         mesh: the device mesh.
-        data: one payload per position, each on its position's device.
+        data: one payload per position, each on its position's device; or,
+            with ``data_specs``, the JAX package's payload pytree.
+        data_specs: None, or the partition specs of ``data`` (the module's
+            note): rows cut over the named axes, the rest replicated.
         mode: "row" or "column".
         axis: mesh axis name (or the tuple of all names of a 2-D mesh).
         padded_shape: physical (padded) shape if the sharded dim was padded.
@@ -96,6 +143,7 @@ class ShardedLinOp(TwoSidedLinOp):
         rmatvec: Callable,
         mesh: Mesh,
         data: Sequence[Any],
+        data_specs: Any = None,
         mode: str = "row",
         axis="i",
         dtype: torch.dtype = torch.float32,
@@ -104,6 +152,8 @@ class ShardedLinOp(TwoSidedLinOp):
         gather_idx: Optional[torch.Tensor] = None,
     ):
         _check_axis(mesh, axis)
+        if data_specs is not None:
+            data = _place(data, data_specs, mesh)
         if len(data) != mesh.size:
             raise ValueError(f"one payload per position ({mesh.size}), got {len(data)}")
         super().__init__(
@@ -114,6 +164,7 @@ class ShardedLinOp(TwoSidedLinOp):
         self.axis = axis
         self.mode = _DistributionMode._from_str(mode, "mode")
         self._data = list(data)
+        self.data_specs = data_specs
         self.padded_shape = tuple(padded_shape or shape)
         self.gather_idx = gather_idx
 

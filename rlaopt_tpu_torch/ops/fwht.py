@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.checkers import _as_device
+
 
 __all__ = ["fwht", "fwht_butterfly", "hadamard_matrix", "next_pow2"]
 
@@ -35,9 +37,10 @@ def _hadamard_np(p: int) -> np.ndarray:
     return H
 
 
-def hadamard_matrix(p: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
-    """Unnormalized Hadamard matrix of size p (power of 2), Sylvester order."""
-    return torch.as_tensor(_hadamard_np(p), dtype=dtype, device=device)
+def hadamard_matrix(p: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Unnormalized Hadamard matrix of size p (power of 2), Sylvester order,
+    on ``device`` (None: the CUDA card)."""
+    return torch.as_tensor(_hadamard_np(p), dtype=dtype, device=_as_device(device))
 
 
 def fwht_butterfly(x: torch.Tensor, axis: int = 0) -> torch.Tensor:

@@ -4,9 +4,11 @@ Counterpart of ``rlaopt_tpu/ops/kernel_pallas.py`` (exact f32 tier,
 compensated tier, bf16 tiers, the Laplace kernels),
 ``rlaopt_tpu/ops/kernel_value64.py`` (float64 route) and
 ``rlaopt_tpu/sparse/laned.py`` (the sparse CSR product). The kernels live in
-``csrc/gram.cu`` (K1, K1c, K2), ``csrc/gram_comp.cu`` (the float64 triangle:
-K1c and K3c's triangle form, K7), ``csrc/gram_laplace.cu`` (K3, K3c, K5:
-K3's tile in its forward and triangle forms),
+``csrc/gram.cu`` (K1 up to 16 columns, K1c, K2), ``csrc/gram_wide.cu`` (K1
+past 16 columns, the 3xTF32 contraction), ``csrc/gram_comp.cu`` (the
+float64 triangle: K1c and K3c's triangle form, K7), ``csrc/gram_laplace.cu``
+(K3, K3c, K5), the register tile of K1, K2, K3 and K5 in its forward and
+triangle forms in ``csrc/gram_tile.cuh``,
 ``csrc/gram_tier.cu`` (K1b, K2b, K4b), ``csrc/gram_f64.cu`` (K8),
 ``csrc/gram_pair.cu`` (the exact pair kernels K4, K6), with their shared
 pieces in ``csrc/gram_common.cuh``, ``csrc/spmv.cu`` (the
@@ -50,13 +52,14 @@ __all__ = [
     "gram_matvec_symmetric_comp",
     "symmetric_comp_operand",
     "gram_matvec_symmetric",
+    "tile_operand",
+    "wide_rhs",
     "gram_matmat_tier",
     "gram_matvec_symmetric_tier",
     "gram_matmat_f64",
     "gram_matvec_symmetric_f64",
     "laplace_matmat",
     "laplace_matmat_narrow",
-    "laplace_operand",
     "laplace_matmat_comp",
     "laplace_matvec_symmetric",
     "gram_pair",
@@ -68,9 +71,8 @@ __all__ = [
     "csr_plan",
     "csr_segmented",
     "csr_chunk",
-    "column_splits",
     "tier_splits",
-    "laplace_splits",
+    "tile_splits",
     "spmm_lanes",
     "sm_count",
     "launch_counts",
@@ -79,9 +81,9 @@ __all__ = [
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("gram.cu", "gram_comp.cu", "gram_laplace.cu", "gram_tier.cu", "gram_f64.cu",
-           "gram_pair.cu", "spmv.cu", "probes.cu")
-_HEADERS = ("gram_common.cuh",)
+SOURCES = ("gram.cu", "gram_wide.cu", "gram_comp.cu", "gram_laplace.cu", "gram_tier.cu",
+           "gram_f64.cu", "gram_pair.cu", "spmv.cu", "probes.cu")
+_HEADERS = ("gram_common.cuh", "gram_tile.cuh")
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (
@@ -96,9 +98,13 @@ SYMMETRIC_MAX_K = 16
 # 16 features.
 TIER_ROWS, TIER_BLOCKS_PER_SM = 128, 2
 COMP_TILE, COMP_FEAT = 128, 16
-# csrc/gram_laplace.cu: K3's tile at k <= 16 takes 128 points a side, chunks
-# of 32 features, two blocks an SM.
-LAPLACE_TILE, LAPLACE_FEAT, LAPLACE_BLOCKS_PER_SM = 128, 32, 2
+# csrc/gram_tile.cuh: the register tile of K1, K2, K3 and K5 at k <= 16
+# takes 128 points a side, chunks of 32 features, two blocks an SM.
+TILE_POINTS, TILE_FEAT, TILE_BLOCKS_PER_SM = 128, 32, 2
+# csrc/gram_wide.cu: K1 past 16 columns takes this many output columns a
+# block, 64 where V's TF32 parts (padded to a multiple of 8 columns) have
+# 64 or fewer: each width measured the faster on its side (gram_wide.cu).
+WIDE_COLS = 128
 # csrc/spmv.cu keeps up to 16 right-hand sides of a row in registers.
 CSR_NARROW_MAX_K = 16
 # Its short-row schedule: L lanes a row, L a power of two in [2, 32], about
@@ -120,8 +126,11 @@ _lib = {"handle": None, "path": None}
 
 _vp, _ci, _cd, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _SIGNATURES = {
-    "rl_gram_matmat": [
-        _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
+    "rl_gram_matmat_narrow": [
+        _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
+    ],
+    "rl_gram_matmat_wide": [
+        _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_gram_matmat_comp": [
         _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
@@ -129,7 +138,7 @@ _SIGNATURES = {
     "rl_gram_matvec_symmetric_comp": [
         _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
-    "rl_gram_matvec_symmetric": [_ci, _vp, _vp, _vp, _ci, _ci, _ci, _cd, _vp],
+    "rl_gram_matvec_symmetric": [_ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cd, _vp],
     "rl_gram_matmat_tier": [
         _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
         _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
@@ -141,7 +150,7 @@ _SIGNATURES = {
         _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_gram_matvec_symmetric_f64": [_ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
-    "rl_laplace_matmat": [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cd, _vp],
+    "rl_laplace_matmat": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
     "rl_laplace_matmat_narrow": [
         _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
@@ -318,17 +327,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def column_splits(n: int, m: int, k: int, device) -> int:
-    """Runs of the m axis for the shared narrow kernel (K1, k ≤ 16): when
-    the 64-row tiles of n give fewer than four blocks per SM, enough runs
-    for four, each of at least 16 column tiles; 1 otherwise."""
-    if k > SYMMETRIC_MAX_K:
-        return 1
-    rows, tiles = -(-n // 64), -(-m // 64)
-    sms = sm_count(device)
-    return max(1, min(-(-4 * sms // rows), tiles // 16))
-
-
 def _runs(rows: int, tiles: int, k: int, slots: int, min_tiles: int) -> int:
     """Runs of the m axis for a narrow kernel of ``rows`` row blocks over
     ``tiles`` column tiles on a card of ``slots`` block slots: 1 when the
@@ -351,44 +349,128 @@ def tier_splits(n: int, m: int, k: int, sms: int) -> int:
     return _runs(-(-n // TIER_ROWS), -(-m // 64), k, TIER_BLOCKS_PER_SM * sms, 16)
 
 
-def laplace_splits(n: int, m: int, k: int, sms: int) -> int:
-    """Runs of the m axis for K3's tile at k ≤ 16 on a card of ``sms`` SMs
-    (:func:`_runs`): 128-point tiles both ways, two blocks an SM, runs of
-    at least 8 column tiles (1,024 points). SAP's row oracle (10⁴ rows, 79
-    row tiles) takes 13 runs; 100,000 rows one."""
-    return _runs(-(-n // LAPLACE_TILE), -(-m // LAPLACE_TILE), k,
-                 LAPLACE_BLOCKS_PER_SM * sms, 8)
+def tile_splits(n: int, m: int, k: int, sms: int) -> int:
+    """Runs of the m axis for the register tile's forward form at k ≤ 16
+    (K1, K3) on a card of ``sms`` SMs (:func:`_runs`): 128-point tiles both
+    ways, two blocks an SM, runs of at least 8 column tiles (1,024 points).
+    SAP's row oracle (10⁴ rows, 79 row tiles) takes 13 runs; 100,000 rows
+    one."""
+    return _runs(-(-n // TILE_POINTS), -(-m // TILE_POINTS), k,
+                 TILE_BLOCKS_PER_SM * sms, 8)
 
 
-def _matmat_launch(entry, lead, X1, X2, V, lengthscale, const_scaling):
-    """K1, or K3 past 16 columns: check, scale, launch with its column
-    splits; the output.
-    ``lead``: the entry point's arguments before the pointers (K1's family
-    code)."""
-    _check_tensors((torch.float32,) * 3, X1, X2, V)
-    V2, squeeze = _check_shapes(X1, X2, V)
-    Xs, Ys = _scaled(X1, X2, lengthscale)
+def tile_operand(X: torch.Tensor, lengthscale) -> torch.Tensor:
+    """The points of the register tile (K1, K2, K3, K5): ``X / ℓ`` in
+    float32 (the plain version's and the other float32 kernels' scaling,
+    ``scale_inputs``), transposed to (dpad, npad) and zero past d and n,
+    dpad a multiple of ``TILE_FEAT`` and npad of ``TILE_POINTS``. Zero
+    padding adds nothing to a squared or an L1 distance, so one layout
+    serves every family."""
+    n, d = X.shape
+    XT = torch.zeros((-(-d // TILE_FEAT) * TILE_FEAT, -(-n // TILE_POINTS) * TILE_POINTS),
+                     dtype=torch.float32, device=X.device)
+    XT[:d, :n] = scale_inputs(X, lengthscale).T
+    return XT
+
+
+def _check_tile_operand(XT, X, device):
+    """``XT`` has the layout :func:`tile_operand` gives the points X on
+    ``device``; ``ValueError`` otherwise."""
+    n, d = X.shape
+    want = (-(-d // TILE_FEAT) * TILE_FEAT, -(-n // TILE_POINTS) * TILE_POINTS)
+    if XT.dtype != torch.float32 or tuple(XT.shape) != want or not XT.is_contiguous() \
+            or XT.device != device:
+        raise ValueError(f"the tile's operand is {XT.dtype} {tuple(XT.shape)} on {XT.device}; "
+                         f"tile_operand gives float32 {want} on {device}")
+
+
+def _tile_operands(X1, X2, lengthscale, device, operands):
+    """The tile's operands of (X1, X2): ``operands()`` checked, or built
+    here when ``operands`` is None."""
+    if operands is None:
+        XT1 = tile_operand(X1, lengthscale)
+        return XT1, XT1 if X2 is X1 else tile_operand(X2, lengthscale)
+    XT1, XT2 = operands()
+    _check_tile_operand(XT1, X1, device)
+    _check_tile_operand(XT2, X2, device)
+    return XT1, XT2
+
+
+def _tile_forward(entry, lead, X1, X2, V2, XT1, XT2, const_scaling):
+    """The register tile's forward form (K1, K3 at k ≤ 16) through ``entry``
+    (``lead``: the arguments before the pointers), the m axis in
+    :func:`tile_splits` runs; the (n, k) output."""
+    (n, d), (m, k) = X1.shape, V2.shape
+    dev = V2.device
+    splits = tile_splits(n, m, k, sm_count(dev))
+    part = torch.empty((splits, n, k), dtype=torch.float32, device=dev) if splits > 1 else None
     build()
-    (n, d), (m, k) = Xs.shape, V2.shape
-    splits = column_splits(n, m, k, Xs.device)
-    out = torch.empty((n, k), dtype=torch.float32, device=Xs.device)
-    part = torch.empty((splits, n, k), dtype=torch.float32, device=Xs.device) if splits > 1 else None
-    with torch.cuda.device(Xs.device):
+    out = torch.empty((n, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         err = getattr(_lib["handle"], entry)(
-            *lead, Xs.data_ptr(), Ys.data_ptr(), V2.data_ptr(), out.data_ptr(),
-            _ptr(part), n, m, d, k, int(splits), float(const_scaling), _stream(Xs),
+            *lead, XT1.data_ptr(), XT2.data_ptr(), V2.data_ptr(), out.data_ptr(), _ptr(part),
+            n, m, XT1.shape[1], XT2.shape[1], d, XT1.shape[0], k, int(splits),
+            float(const_scaling), _stream(V2),
         )
     _raise_on(err, entry)
-    return out[:, 0] if squeeze else out
-
-
-def gram_matmat(kind, X1, X2, V, lengthscale, const_scaling=1.0):
-    """K1: ``c·k(X1, X2) @ V`` (n, k) on the card, exact f32 tier; the m
-    axis in :func:`column_splits` runs."""
-    out = _matmat_launch("rl_gram_matmat", (_code(kind),), X1, X2, V, lengthscale,
-                         const_scaling)
-    gram_matmat.launches += 1
     return out
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` of each float32: the nearest float with 10
+    mantissa bits (ties away from zero), by adding half the dropped ulp to
+    the bit pattern and clearing the 13 low bits."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def wide_rhs(V: torch.Tensor, mpad: int, kp: int) -> torch.Tensor:
+    """K1's right-hand side past 16 columns (``csrc/gram_wide.cu``): V (m,
+    k) float32, zero-padded to (mpad, kp), split into TF32 parts hi =
+    tf32(v), lo = tf32(v − hi) (:func:`kernel_plain.tf32_split` in bit
+    operations), laid out as (mpad / 2, kp, 4) float32: for the rows 2p,
+    2p + 1 and each column, (hi₀, hi₁, lo₀, lo₁), one 16-byte piece that is
+    a lane's B fragments of both parts. Made once per call."""
+    m, k = V.shape
+    Vp = torch.zeros((mpad, kp), dtype=torch.float32, device=V.device)
+    Vp[:m, :k] = V
+    hi = _tf32(Vp)
+    lo = _tf32(Vp - hi)
+    return torch.stack((hi[0::2], hi[1::2], lo[0::2], lo[1::2]), dim=-1)
+
+
+def gram_matmat(kind, X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
+    """K1: ``c·k(X1, X2) @ V`` (n, k) on the card, exact f32 tier, the
+    squared-distance families. Up to 16 columns the register tile's forward
+    form (``csrc/gram_tile.cuh``), the m axis in :func:`tile_splits` runs
+    summed in a fixed order (the same bits on every call); past 16 the
+    3xTF32 tensor-core kernel (``csrc/gram_wide.cu``) on V's TF32 parts
+    (:func:`wide_rhs`). The points go in as :func:`tile_operand`:
+    ``operands()``, the pair for (X1, X2) built beforehand (an operator
+    keeps them), or None to build them here."""
+    code = _code(kind)
+    _check_tensors((torch.float32,) * 3, X1, X2, V)
+    V2, squeeze = _check_shapes(X1, X2, V)
+    (n, d), (m, k) = X1.shape, V2.shape
+    dev = V2.device
+    XT1, XT2 = _tile_operands(X1, X2, lengthscale, dev, operands)
+    if k <= SYMMETRIC_MAX_K:
+        out = _tile_forward("rl_gram_matmat_narrow", (code,), X1, X2, V2, XT1, XT2,
+                            const_scaling)
+    else:
+        kp = -(-k // 8) * 8
+        VP = wide_rhs(V2, XT2.shape[1], kp)
+        nf = WIDE_COLS // 8 if kp > 64 else 8
+        build()
+        out = torch.empty((n, k), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = _lib["handle"].rl_gram_matmat_wide(
+                code, XT1.data_ptr(), XT2.data_ptr(), VP.data_ptr(), out.data_ptr(), n, m,
+                XT1.shape[1], XT2.shape[1], d, XT1.shape[0], k, kp, nf,
+                float(const_scaling), _stream(V2),
+            )
+        _raise_on(err, "rl_gram_matmat_wide")
+    gram_matmat.launches += 1
+    return out[:, 0] if squeeze else out
 
 
 def gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling=1.0):
@@ -464,25 +546,41 @@ def gram_matvec_symmetric_comp(kind, X, V, lengthscale, const_scaling=1.0):
     return (out[:, 0], lo[:, 0]) if squeeze else (out, lo)
 
 
-def gram_matvec_symmetric(kind, X, V, lengthscale, const_scaling=1.0):
-    """K2: ``c·k(X, X) @ V`` for at most 16 columns, each tile pair once."""
+def gram_matvec_symmetric(kind, X, V, lengthscale, const_scaling=1.0, operand=None):
+    """K2: ``c·k(X, X) @ V`` for at most 16 columns, the register tile's
+    triangle form (``csrc/gram_tile.cuh``): each pair of 128-point tiles
+    evaluated once and contracted both ways, the mirror added by float
+    atomics, so the last bits change from run to run. The points go in as
+    :func:`tile_operand`: ``operand``, built beforehand (an operator keeps
+    it), or None to build it here."""
     code = _code(kind)
+    return _triangle("rl_gram_matvec_symmetric", (code,), X, V, lengthscale, const_scaling,
+                     operand, gram_matvec_symmetric)
+
+
+def _triangle(entry, lead, X, V, lengthscale, const_scaling, operand, wrapper):
+    """The register tile's triangle form (K2, K5) through ``entry``; counted
+    on ``wrapper``."""
     _check_tensors((torch.float32,) * 2, X, V)
     V2, squeeze = _check_shapes(X, X, V)
-    Xs, _ = _scaled(X, X, lengthscale)
-    n, d = Xs.shape
+    n, d = X.shape
     k = V2.shape[1]
     if k > SYMMETRIC_MAX_K:
         raise ValueError(f"the triangle kernel takes k <= 16 columns (got {k})")
+    if operand is None:
+        XT = tile_operand(X, lengthscale)
+    else:
+        XT = operand
+        _check_tile_operand(XT, X, V2.device)
     build()
-    out = torch.empty((n, k), dtype=torch.float32, device=Xs.device)
-    with torch.cuda.device(Xs.device):
-        err = _lib["handle"].rl_gram_matvec_symmetric(
-            code, Xs.data_ptr(), V2.data_ptr(), out.data_ptr(), n, d, k,
-            float(const_scaling), _stream(Xs),
+    out = torch.empty((n, k), dtype=torch.float32, device=V2.device)
+    with torch.cuda.device(V2.device):
+        err = getattr(_lib["handle"], entry)(
+            *lead, XT.data_ptr(), V2.data_ptr(), out.data_ptr(), n, XT.shape[1], d, XT.shape[0],
+            k, float(const_scaling), _stream(V2),
         )
-    _raise_on(err, "gram_matvec_symmetric")
-    gram_matvec_symmetric.launches += 1
+    _raise_on(err, entry)
+    wrapper.launches += 1
     return out[:, 0] if squeeze else out
 
 
@@ -613,74 +711,53 @@ def gram_matvec_symmetric_f64(kind, X, V, lengthscale, const_scaling=1.0):
     return out[:, 0] if squeeze else out
 
 
-def laplace_operand(X: torch.Tensor, lengthscale) -> torch.Tensor:
-    """The points of K3's tile: ``X / ℓ`` in float32 (the plain version's
-    and the other float32 kernels' scaling, ``scale_inputs``), transposed
-    to (dpad, npad) and zero past d and n, dpad a multiple of
-    ``LAPLACE_FEAT`` and npad of ``LAPLACE_TILE``."""
-    n, d = X.shape
-    XT = torch.zeros((-(-d // LAPLACE_FEAT) * LAPLACE_FEAT, -(-n // LAPLACE_TILE) * LAPLACE_TILE),
-                     dtype=torch.float32, device=X.device)
-    XT[:d, :n] = scale_inputs(X, lengthscale).T
-    return XT
-
-
-def _check_laplace_operand(XT, X, device):
-    """``XT`` has the layout :func:`laplace_operand` gives the points X on
-    ``device``; ``ValueError`` otherwise."""
-    n, d = X.shape
-    want = (-(-d // LAPLACE_FEAT) * LAPLACE_FEAT, -(-n // LAPLACE_TILE) * LAPLACE_TILE)
-    if XT.dtype != torch.float32 or tuple(XT.shape) != want or not XT.is_contiguous() \
-            or XT.device != device:
-        raise ValueError(f"K3's operand is {XT.dtype} {tuple(XT.shape)} on {XT.device}; "
-                         f"laplace_operand gives float32 {want} on {device}")
-
-
 def laplace_matmat(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
     """K3: ``c·exp(−‖x − y‖₁/ℓ) @ V`` (n, k) on the card, float32. Up to 16
     columns :func:`laplace_matmat_narrow` (the Hopper tile, counted there),
     given ``operands()`` as its operands when ``operands`` is not None (a
     callable: an operator keeps its points' operand and builds it on first
-    use); past 16 the wide kernel of K1's schedule, counted here."""
+    use); past 16 the wide kernel, counted here."""
     if (1 if V.ndim == 1 else V.shape[1]) <= SYMMETRIC_MAX_K:
         return laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling,
                                      None if operands is None else operands())
-    out = _matmat_launch("rl_laplace_matmat", (), X1, X2, V, lengthscale,
-                         const_scaling)
+    out = _laplace_wide(X1, X2, V, lengthscale, const_scaling)
     laplace_matmat.launches += 1
     return out
 
 
-def laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
-    """K3 at k ≤ 16 (``csrc/gram_laplace.cu::laplace_forward``): tiles of 128
-    x 128 points, an 8 x 8 register tile a thread, the m axis in
-    :func:`laplace_splits` runs summed in a fixed order (the same bits on
-    every call). The points go in as :func:`laplace_operand`: ``operands``,
-    the pair for (X1, X2) built beforehand, or None to build them here."""
+def _laplace_wide(X1, X2, V, lengthscale, const_scaling):
+    """K3 past 16 columns: the shared wide kernel (``gram_matmat_wide
+    <LAPLACE>``) on the points scaled here."""
     _check_tensors((torch.float32,) * 3, X1, X2, V)
     V2, squeeze = _check_shapes(X1, X2, V)
-    (n, d), (m, k) = X1.shape, V2.shape
+    Xs, Ys = _scaled(X1, X2, lengthscale)
+    build()
+    (n, d), (m, k) = Xs.shape, V2.shape
+    out = torch.empty((n, k), dtype=torch.float32, device=Xs.device)
+    with torch.cuda.device(Xs.device):
+        err = _lib["handle"].rl_laplace_matmat(
+            Xs.data_ptr(), Ys.data_ptr(), V2.data_ptr(), out.data_ptr(), n, m, d, k,
+            float(const_scaling), _stream(Xs),
+        )
+    _raise_on(err, "rl_laplace_matmat")
+    return out[:, 0] if squeeze else out
+
+
+def laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
+    """K3 at k ≤ 16: the register tile's forward form
+    (``csrc/gram_tile.cuh``), tiles of 128 x 128 points, an 8 x 8 register
+    tile a thread, the m axis in :func:`tile_splits` runs summed in a fixed
+    order (the same bits on every call). The points go in as
+    :func:`tile_operand`: ``operands``, the pair for (X1, X2) built
+    beforehand, or None to build them here."""
+    _check_tensors((torch.float32,) * 3, X1, X2, V)
+    V2, squeeze = _check_shapes(X1, X2, V)
+    k = V2.shape[1]
     if k > SYMMETRIC_MAX_K:
         raise ValueError(f"laplace_matmat_narrow takes k <= 16 columns (got {k})")
-    if operands is None:
-        XT1 = laplace_operand(X1, lengthscale)
-        XT2 = XT1 if X2 is X1 else laplace_operand(X2, lengthscale)
-    else:
-        XT1, XT2 = operands
-        _check_laplace_operand(XT1, X1, V2.device)
-        _check_laplace_operand(XT2, X2, V2.device)
-    dev = V2.device
-    splits = laplace_splits(n, m, k, sm_count(dev))
-    part = torch.empty((splits, n, k), dtype=torch.float32, device=dev) if splits > 1 else None
-    build()
-    out = torch.empty((n, k), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib["handle"].rl_laplace_matmat_narrow(
-            XT1.data_ptr(), XT2.data_ptr(), V2.data_ptr(), out.data_ptr(), _ptr(part), n, m,
-            XT1.shape[1], XT2.shape[1], d, XT1.shape[0], k, int(splits), float(const_scaling),
-            _stream(V2),
-        )
-    _raise_on(err, "laplace_matmat_narrow")
+    XT1, XT2 = _tile_operands(X1, X2, lengthscale, V2.device,
+                              None if operands is None else (lambda: operands))
+    out = _tile_forward("rl_laplace_matmat_narrow", (), X1, X2, V2, XT1, XT2, const_scaling)
     laplace_matmat_narrow.launches += 1
     return out[:, 0] if squeeze else out
 
@@ -710,32 +787,13 @@ def laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling=1.0):
 
 def laplace_matvec_symmetric(X, V, lengthscale, const_scaling=1.0, operand=None):
     """K5: the Laplace ``c·k(X, X) @ V`` for at most 16 columns, the
-    triangle form of K3's tile (``csrc/gram_laplace.cu::laplace_triangle``):
-    each pair of 128-point tiles evaluated once and contracted both ways,
-    the mirror added by float atomics, so the last bits change from run to
-    run. The points go in as :func:`laplace_operand`: ``operand``, built
-    beforehand (an operator keeps it), or None to build it here."""
-    _check_tensors((torch.float32,) * 2, X, V)
-    V2, squeeze = _check_shapes(X, X, V)
-    n, d = X.shape
-    k = V2.shape[1]
-    if k > SYMMETRIC_MAX_K:
-        raise ValueError(f"the triangle kernel takes k <= 16 columns (got {k})")
-    if operand is None:
-        XT = laplace_operand(X, lengthscale)
-    else:
-        XT = operand
-        _check_laplace_operand(XT, X, V2.device)
-    build()
-    out = torch.empty((n, k), dtype=torch.float32, device=V2.device)
-    with torch.cuda.device(V2.device):
-        err = _lib["handle"].rl_laplace_matvec_symmetric(
-            XT.data_ptr(), V2.data_ptr(), out.data_ptr(), n, XT.shape[1], d, XT.shape[0], k,
-            float(const_scaling), _stream(V2),
-        )
-    _raise_on(err, "laplace_matvec_symmetric")
-    laplace_matvec_symmetric.launches += 1
-    return out[:, 0] if squeeze else out
+    register tile's triangle form (``csrc/gram_tile.cuh``), as K2: each pair
+    of 128-point tiles evaluated once and contracted both ways, the mirror
+    added by float atomics, so the last bits change from run to run. The
+    points go in as :func:`tile_operand`: ``operand``, built beforehand (an
+    operator keeps it), or None to build it here."""
+    return _triangle("rl_laplace_matvec_symmetric", (), X, V, lengthscale, const_scaling,
+                     operand, laplace_matvec_symmetric)
 
 
 def _check_pair(X1, X2, V2, V1):

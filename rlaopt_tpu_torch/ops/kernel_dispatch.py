@@ -14,9 +14,10 @@ Which kernel, on a card:
 * exact tier (:func:`kernel_matmat`): the triangle kernel K2 when the
   operator was built on one data set (``symmetric``) and ``k ≤ 16``, the
   general kernel K1 otherwise; for the Laplace family K5 and K3 by the same
-  rule (the JAX package's gate without its VMEM window), K3 taking its
-  Hopper tile up to 16 columns and the wide kernel past that, K5 the tile's
-  triangle form, both on the operand of the points an operator keeps;
+  rule (the JAX package's gate without its VMEM window). K1 and K3 take the
+  Hopper register tile up to 16 columns, past that K1 its 3xTF32
+  tensor-core kernel and K3 the wide kernel; K2 and K5 are the tile's
+  triangle form; all on the operand of the points an operator keeps;
 * compensated (:func:`kernel_matmat_compensated`): the triangle form of
   K1c and K3c when symmetric (any k, every family), the general K1c (K3c
   for Laplace) otherwise;
@@ -80,16 +81,16 @@ def kernel_matmat(
     const_scaling=1.0,
     symmetric: bool = False,
     impl: str = "auto",
-    laplace_operands=None,
+    tile_operands=None,
 ) -> torch.Tensor:
     """``c·k(X1, X2) @ V`` on the exact tier, on the device of the operands.
 
     ``symmetric=True`` asserts that X1 and X2 are the same data set (the
     operator checks object identity when it is built). The bf16 tiers go
-    through :func:`kernel_matmat_tier`. ``laplace_operands``: None, or a
-    callable giving K3's tile its operands of (X1, X2)
-    (:func:`kernel_cuda.laplace_matmat`), called only when the tile runs
-    (K5, the tile's triangle form, takes the first).
+    through :func:`kernel_matmat_tier`. ``tile_operands``: None, or a
+    callable giving the register tile its operands of (X1, X2)
+    (:func:`kernel_cuda.tile_operand`), called only when a kernel on them
+    runs (the triangle form takes the first; K3's wide kernel none).
     """
     if not _on_card(impl, X1):
         if X1.dtype == torch.float64:
@@ -100,17 +101,16 @@ def kernel_matmat(
     k = 1 if V.ndim == 1 else V.shape[1]
     laplace = kind == "laplace"
     if symmetric and X1.shape[0] == X2.shape[0] and k <= kernel_cuda.SYMMETRIC_MAX_K:
+        operand = None if tile_operands is None else tile_operands()[0]
         if laplace:
-            return kernel_cuda.laplace_matvec_symmetric(
-                X1, V, lengthscale, const_scaling,
-                None if laplace_operands is None else laplace_operands()[0])
-        return kernel_cuda.gram_matvec_symmetric(
-            kind, X1, V, lengthscale, const_scaling
-        )
+            return kernel_cuda.laplace_matvec_symmetric(X1, V, lengthscale, const_scaling,
+                                                        operand)
+        return kernel_cuda.gram_matvec_symmetric(kind, X1, V, lengthscale, const_scaling,
+                                                 operand)
     if laplace:
         return kernel_cuda.laplace_matmat(X1, X2, V, lengthscale, const_scaling,
-                                          laplace_operands)
-    return kernel_cuda.gram_matmat(kind, X1, X2, V, lengthscale, const_scaling)
+                                          tile_operands)
+    return kernel_cuda.gram_matmat(kind, X1, X2, V, lengthscale, const_scaling, tile_operands)
 
 
 def kernel_matmat_tier(

@@ -14,7 +14,10 @@ kernel, with the same signature as its wrapper in
   kernel, the inputs are divided by the lengthscale, and a tile's kernel
   values and its partial (times the constant) are taken, in float64; the
   partial is split into a pair of the input dtype before the TwoSum.
-* :func:`gram_matvec_symmetric` (K2) is K1 on ``(X, X)``.
+* :func:`gram_matvec_symmetric` (K2) is K1 on ``(X, X)``. Past 16
+  columns the card's K1 contracts on the tensor cores in 3xTF32, each
+  value and each V entry split by :func:`tf32_split` (hi + lo, ~2⁻²² of
+  the value); its plain version is this full float32 product.
 * :func:`gram_matmat_tier` (K1b) and :func:`gram_matvec_symmetric_tier`
   (K2b): the bf16 tiers of :mod:`rlaopt_tpu_torch.ops.kernel_tiers`, cross
   term from the bf16 parts, kernel values and contraction in float32. The
@@ -69,6 +72,7 @@ __all__ = [
     "gram_pair",
     "gram_pair_tier",
     "tier_contract",
+    "tf32_split",
     "SYMMETRIC_TILE",
     "NARROW_MAX_K",
 ]
@@ -356,3 +360,24 @@ def gram_pair_tier(
         out2 += tier_contract(Kb.T.contiguous(), V1[s : s + bm], mirror_mode)
     out1, out2 = out1 * const_scaling, out2 * const_scaling
     return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
+
+
+def tf32_split(V: torch.Tensor):
+    """``(hi, lo)`` float32 TF32 parts of float32 ``V``, as the card's K1
+    splits its values and V past 16 columns: ``hi`` the nearest value with
+    11 significant bits (``cvt.rna.tf32.f32``: ties away from zero), ``lo``
+    the same rounding of ``V − hi`` (exact in float32). ``hi + lo`` is V to
+    2⁻²² of its size, and ``|lo| ≤ 2⁻¹¹ |hi|``. Taken in float64 by
+    rounding each value to a multiple of its quantum, half away from zero:
+    2^(e − 11) for a value in [2^(e − 1), 2^e), 2⁻¹³⁶ below 2⁻¹²⁶ (TF32's
+    subnormals keep 10 bits, as float32's keep 23); the wrapper's
+    :func:`kernel_cuda.wide_rhs` does it on the bit patterns."""
+
+    def rna(x):
+        x64 = x.double()
+        quantum = torch.clamp(torch.frexp(x64)[1] - 11, min=-136)
+        big = torch.floor(torch.ldexp(x64.abs(), -quantum) + 0.5)
+        return torch.copysign(torch.ldexp(big, quantum), x64).float()
+
+    hi = rna(V)
+    return hi, rna(V - hi)

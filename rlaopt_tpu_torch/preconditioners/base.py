@@ -1,10 +1,12 @@
 """Preconditioner ABC and inverse wrapper.
 
 Port of ``rlaopt_tpu/preconditioners/base.py``. Without ``jit`` there is no
-functional state to thread through a compiled loop: solvers call
-:meth:`Preconditioner._inverse_matmul` directly. Each concrete
-preconditioner keeps its functional core (``*_update`` / ``*_apply`` /
-``*_apply_inv``) in its module.
+functional state to thread through a compiled loop; the JAX package's
+calling convention stays all the same: :meth:`Preconditioner.
+_functional_inverse` gives ``(inv_fn, pstate)`` with ``inv_fn(pstate, x) =
+P⁻¹x``, the state being the preconditioner itself, and PCG takes that pair
+as the JAX PCG does. Each concrete preconditioner keeps its functional core
+(``*_update`` / ``*_apply`` / ``*_apply_inv``) in its module.
 """
 
 from abc import ABC, abstractmethod
@@ -16,6 +18,11 @@ from ..utils.checkers import _is_tensor_1d_2d
 
 
 __all__ = ["Preconditioner"]
+
+
+def _apply_inverse(P: "Preconditioner", x: torch.Tensor) -> torch.Tensor:
+    """``P⁻¹ x``: the ``inv_fn`` of :meth:`Preconditioner._functional_inverse`."""
+    return P._inverse_matmul(x)
 
 
 class Preconditioner(ABC):
@@ -59,3 +66,9 @@ class Preconditioner(ABC):
 
     def _update_damping(self, baseline_rho: float):
         """Adjust damping after build; no-op except for Nyström."""
+
+    def _functional_inverse(self):
+        """``(inv_fn, pstate)`` with ``inv_fn(pstate, x) = P⁻¹x``, the JAX
+        package's pair for ``pcg_init`` and ``pcg_step``; ``pstate`` is the
+        preconditioner itself."""
+        return _apply_inverse, self

@@ -59,7 +59,7 @@ def nystrom_update(
     sketch: str,
     key,
     dtype: torch.dtype,
-    device="cpu",
+    device=None,
     _route: Optional[str] = None,
     Omega: Optional[torch.Tensor] = None,
 ) -> NystromFactors:
@@ -71,7 +71,7 @@ def nystrom_update(
         rank: sketch rank r.
         sketch: sketch family name for the range finder.
         key: ``torch.Generator`` (unused when ``Omega`` is given).
-        dtype, device: of the sketch.
+        dtype, device: of the sketch; ``device`` None is the CUDA card.
         _route: test hook — "eigh" or "svd" instead of the n > 64·rank rule.
         Omega: an (n, r) sketch to use in place of a fresh draw, so that
             tests can hand both packages the same one.

@@ -16,13 +16,18 @@ can: the fast transform for SRHT on a dense A, and Ωᵀ drawn directly in
 (d, s) layout for an operator (``(Aᵀ Ωᵀ)ᵀ``), so Ω is never held twice.
 
 The numbers differ from the JAX package's for the same seed; tests inject
-the embedding.
+the embedding. The three embeddings take the JAX package's parameters in
+its order, ``key`` first: a ``torch.Generator`` or an int seed (the port's
+stand-in for a JAX key); ``device``, the port's own, comes last. Every
+function here draws on the CUDA card unless ``device`` names another (None,
+the default, raises where there is no card).
 """
 
 import torch
 
 from .enums import _SketchMode
 from ..ops.fwht import fwht, next_pow2
+from ..utils.checkers import _as_device, _as_generator
 from ..utils.linalg import hmm
 from ..utils.rng import device_generator
 
@@ -40,18 +45,20 @@ __all__ = [
 ]
 
 
-def gauss_embedding(gen, s: int, d: int, dtype=torch.float32, device="cpu"):
+def gauss_embedding(key, s: int, d: int, dtype=torch.float32, device=None):
     """Gaussian embedding (s, d), scaled so E[ΩᵀΩ] = I."""
-    g = device_generator(gen, device)
+    device = _as_device(device)
+    g = device_generator(_as_generator(key), device)
     return torch.randn((s, d), generator=g, dtype=dtype, device=device) / s**0.5
 
 
-def ortho_embedding(gen, s: int, d: int, dtype=torch.float32, device="cpu"):
+def ortho_embedding(key, s: int, d: int, dtype=torch.float32, device=None):
     """Orthonormal embedding: reduced-QR Q factor of randn(d, s), shape (d, s).
 
     Columns are exactly orthonormal (requires s <= d).
     """
-    g = device_generator(gen, device)
+    device = _as_device(device)
+    g = device_generator(_as_generator(key), device)
     G = torch.randn((d, s), generator=g, dtype=dtype, device=device)
     Q, _ = torch.linalg.qr(G, mode="reduced")
     return Q
@@ -69,16 +76,18 @@ def _sparse_sign_entries(gen, s: int, d: int, dtype, device):
     return rows, cols, z * zeta**-0.5
 
 
-def sparse_sign_embedding(gen, s: int, d: int, dtype=torch.float32, device="cpu"):
+def sparse_sign_embedding(key, s: int, d: int, dtype=torch.float32, device=None):
     """Sparse-sign embedding (s, d): ζ=min(8,s) ±1 per column, scaled ζ^(-1/2)."""
-    rows, cols, vals = _sparse_sign_entries(gen, s, d, dtype, device)
+    device = _as_device(device)
+    rows, cols, vals = _sparse_sign_entries(_as_generator(key), s, d, dtype, device)
     Omega = torch.zeros((s, d), dtype=dtype, device=device)
     Omega[rows, cols] = vals
     return Omega
 
 
-def srht_params(gen, s: int, d: int, dtype=torch.float32, device="cpu"):
+def srht_params(gen, s: int, d: int, dtype=torch.float32, device=None):
     """Draw SRHT randomness: (signs (p,), row_idx (s,)) with p = next_pow2(d)."""
+    device = _as_device(device)
     p = next_pow2(d)
     g = device_generator(gen, device)
     signs = 2.0 * torch.randint(0, 2, (p,), generator=g, device=device).to(dtype) - 1.0
@@ -132,10 +141,11 @@ def srht_matrix(signs: torch.Tensor, rows: torch.Tensor, d: int) -> torch.Tensor
     return Theta[:, :d]
 
 
-def _left_embedding_t(name, gen, s: int, d: int, dtype, device="cpu"):
+def _left_embedding_t(name, gen, s: int, d: int, dtype, device=None):
     """Ωᵀ (d, s) contiguous, with the values of ``left_embedding(...).T`` for
     the same generator: drawn in that layout for the sparse-sign and
     orthonormal families (one (d, s) matrix), transposed for the others."""
+    device = _as_device(device)
     mode = _SketchMode._from_str(name, "name")
     if mode == _SketchMode.SPARSE:
         rows, cols, vals = _sparse_sign_entries(gen, s, d, dtype, device)
@@ -172,8 +182,9 @@ def sketch_apply_left(name, gen, s: int, A, dtype) -> torch.Tensor:
     return hmm(left_embedding(name, gen, s, d, dtype, device), A)
 
 
-def left_embedding(name, gen, s: int, d: int, dtype, device="cpu"):
+def left_embedding(name, gen, s: int, d: int, dtype, device=None):
     """Materialized left-mode (s, d) embedding for the named sketch family."""
+    device = _as_device(device)
     mode = _SketchMode._from_str(name, "name")
     if mode == _SketchMode.GAUSS:
         return gauss_embedding(gen, s, d, dtype, device)
@@ -185,8 +196,9 @@ def left_embedding(name, gen, s: int, d: int, dtype, device="cpu"):
     return srht_matrix(signs, rows, d)
 
 
-def right_embedding(name, gen, s: int, d: int, dtype, device="cpu"):
+def right_embedding(name, gen, s: int, d: int, dtype, device=None):
     """Materialized right-mode (d, s) embedding for the named sketch family."""
+    device = _as_device(device)
     mode = _SketchMode._from_str(name, "name")
     if mode == _SketchMode.ORTHO:
         return ortho_embedding(gen, s, d, dtype, device)

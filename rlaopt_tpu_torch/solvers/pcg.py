@@ -12,6 +12,9 @@ Port of ``rlaopt_tpu/solvers/pcg.py`` with the same iterates:
   column restarts from a true residual (``_resync``).
 * **Chunks.** ``_run_chunk(n)`` is a Python loop of n steps with one host
   sync at its end (the breakdown check), never one per step.
+
+The preconditioner enters as the JAX package's pair ``(inv_fn, pstate)``:
+``inv_fn(pstate, R)`` is P⁻¹R (``Preconditioner._functional_inverse``).
 """
 
 from typing import NamedTuple, TYPE_CHECKING
@@ -52,7 +55,7 @@ def _is_zero(W: torch.Tensor) -> bool:
     return not bool(torch.any(W != 0))
 
 
-def pcg_init(A, B, reg, W, inv_fn, w_zero: bool = False) -> PCGState:
+def pcg_init(A, B, reg, W, inv_fn, pstate, w_zero: bool = False) -> PCGState:
     """R = B − (A + reg·I)W;  Z = P⁻¹R;  P_ = Z;  RZ = RᵀZ.
 
     For f32 kernel operators the residual is evaluated compensated
@@ -67,7 +70,7 @@ def pcg_init(A, B, reg, W, inv_fn, w_zero: bool = False) -> PCGState:
         R = (B - reg * W - hi) - lo
     else:
         R = B - (_op_mm(A, W) + reg * W)
-    Z = inv_fn(R)
+    Z = inv_fn(pstate, R)
     RZ = hmm(R.T, Z)
     ok = torch.ones((W.shape[1],), dtype=torch.bool, device=W.device)
     return PCGState(W=W, R=R, Z=Z, P_=Z, RZ=RZ, ok=ok)
@@ -91,7 +94,7 @@ def _safe_solve(M, B):
     return torch.linalg.solve(M + delta * eye, B)
 
 
-def pcg_step(A, reg, inv_fn, state: PCGState, mask) -> PCGState:
+def pcg_step(A, reg, inv_fn, pstate, state: PCGState, mask) -> PCGState:
     """One masked PCG iteration (full-width, mask-frozen columns).
 
     Columns are active when unconverged (``mask``) and healthy
@@ -109,7 +112,7 @@ def pcg_step(A, reg, inv_fn, state: PCGState, mask) -> PCGState:
     W = state.W + hmm(state.P_, alpha) * m[None, :]
     R = state.R - hmm(AP, alpha) * m[None, :]
 
-    Z_new = inv_fn(R)
+    Z_new = inv_fn(pstate, R)
     Z = torch.where(active[None, :], Z_new, state.Z)
 
     RZ_new = hmm(R.T, Z_new) * mm
@@ -156,11 +159,12 @@ class PCG(Solver):
             preconditioner if preconditioner is not None
             else self._get_precond()
         )
-        self._inv_fn = self.P._inverse_matmul
+        self._inv_fn, self._pstate = self.P._functional_inverse()
         self._reg = system.reg
         W0 = W_init[:, None] if W_init.ndim == 1 else W_init
         self.state = pcg_init(
-            system.A, system.B, self._reg, W0, self._inv_fn, w_zero=_is_zero(W0)
+            system.A, system.B, self._reg, W0, self._inv_fn, self._pstate,
+            w_zero=_is_zero(W0),
         )
 
     @property
@@ -184,13 +188,13 @@ class PCG(Solver):
         """Restart from the current iterate with a freshly computed residual
         (residual replacement): one extra operator apply."""
         self.state = pcg_init(
-            self.system.A, self.system.B, self._reg, self.state.W, self._inv_fn
+            self.system.A, self.system.B, self._reg, self.state.W, self._inv_fn, self._pstate
         )
 
     def _run_chunk(self, n_steps: int):
         A, mask = self.system.A, self.system.mask
         for _ in range(n_steps):
-            self.state = pcg_step(A, self._reg, self._inv_fn, self.state, mask)
+            self.state = pcg_step(A, self._reg, self._inv_fn, self._pstate, self.state, mask)
         # Breakdown in any active column → restart with a true residual.
         if not bool(torch.all(self.state.ok | ~mask)):
             self._resync()

@@ -59,16 +59,16 @@ def sparse_aslinop(sp: _SparseTensor, impl: str = "auto") -> TwoSidedLinOp:
     aplan = sp.T._csr_plan() if card else None
 
     def mv(x):
-        return ops.csr_matvec(fv, fp, fi, x, m, fplan)
+        return ops.csr_matvec(fv, fp, fi, x, m, plan=fplan)
 
     def mm(X):
-        return ops.csr_matmat(fv, fp, fi, X, m, fplan)
+        return ops.csr_matmat(fv, fp, fi, X, m, plan=fplan)
 
     def rmv(x):
-        return ops.csr_matvec(av, ap, ai, x, n, aplan)
+        return ops.csr_matvec(av, ap, ai, x, n, plan=aplan)
 
     def rmm(X):
-        return ops.csr_matmat(av, ap, ai, X, n, aplan)
+        return ops.csr_matmat(av, ap, ai, X, n, plan=aplan)
 
     return TwoSidedLinOp(
         (m, n), mv, rmv, matmat=mm, rmatmat=rmm, dtype=sp.dtype, device=sp.device

@@ -9,6 +9,13 @@ of TPU kernel #9); a CSC product there is the CSR product of the transposed
 buffers (:func:`csr_transpose`), never a scatter. What the kernel cannot
 take raises; nothing falls back.
 
+``impl`` takes the JAX package's values: ``"auto"`` is the rule above,
+``"xla"`` the plain version on any device; ``"native"`` names the JAX
+package's OpenMP CPU kernels (``csrc/sparse_ops.cc`` through XLA FFI),
+which the port does not carry, and raises what the JAX package raises when
+they are not built. Any other value raises ``ValueError``. ``plan``, the
+port's own, comes after it.
+
 The buffers must form a valid CSR (indptr rising from 0 to nnz, indices
 within range), as :class:`~rlaopt_tpu_torch.sparse.SparseCSRTensor` checks
 once when it is built: the kernel reads them unchecked.
@@ -64,23 +71,31 @@ def _plain(values, indptr, indices, X, n_out: int, gather_segments: bool):
     return out
 
 
-def _on_card(*tensors) -> bool:
-    return any(t.is_cuda for t in tensors)
+IMPLS = ("auto", "xla", "native")
+
+
+def _on_card(impl: str, *tensors) -> bool:
+    """Whether ``impl`` sends these operands to the CUDA kernel."""
+    if impl not in IMPLS:
+        raise ValueError(f"Unknown sparse impl {impl!r}; expected one of {IMPLS}")
+    if impl == "native":
+        raise RuntimeError("native sparse kernels unavailable")
+    return impl == "auto" and any(t.is_cuda for t in tensors)
 
 
 # -- CSR ---------------------------------------------------------------------
-def csr_matvec(values, indptr, indices, x, n_rows: int, plan=None):
+def csr_matvec(values, indptr, indices, x, n_rows: int, impl: str = "auto", plan=None):
     """y = A @ x for CSR A. ``plan``: the kernel's plan of the CSR
     (:func:`kernel_cuda.csr_plan`, kept by the sparse tensor), read on a
     card only; None builds it there."""
-    if _on_card(values, x):
+    if _on_card(impl, values, x):
         return kernel_cuda.csr_spmv(values, indptr, indices, x, n_rows, plan)
     return _plain(values, indptr, indices, x[:, None], n_rows, False)[:, 0]
 
 
-def csr_matmat(values, indptr, indices, X, n_rows: int, plan=None):
+def csr_matmat(values, indptr, indices, X, n_rows: int, impl: str = "auto", plan=None):
     """Y = A @ X for CSR A, X (m, k); ``plan`` as for :func:`csr_matvec`."""
-    if _on_card(values, X):
+    if _on_card(impl, values, X):
         if X.ndim == 2 and X.shape[1] == 1:
             return kernel_cuda.csr_spmv(values, indptr, indices, X, n_rows, plan)
         return kernel_cuda.csr_spmm(values, indptr, indices, X, n_rows, plan)
@@ -88,17 +103,17 @@ def csr_matmat(values, indptr, indices, X, n_rows: int, plan=None):
 
 
 # -- CSC ---------------------------------------------------------------------
-def csc_matvec(values, indptr, row_idx, x, n_rows: int):
+def csc_matvec(values, indptr, row_idx, x, n_rows: int, impl: str = "auto"):
     """y = A @ x for CSC A (indptr over columns, row_idx per entry)."""
-    if _on_card(values, x):
+    if _on_card(impl, values, x):
         t_values, t_indices, t_indptr = csr_transpose(values, indptr, row_idx, n_rows)
         return csr_matvec(t_values, t_indptr, t_indices, x, n_rows)
     return _plain(values, indptr, row_idx, x[:, None], n_rows, True)[:, 0]
 
 
-def csc_matmat(values, indptr, row_idx, X, n_rows: int):
+def csc_matmat(values, indptr, row_idx, X, n_rows: int, impl: str = "auto"):
     """Y = A @ X for CSC A, X (m, k)."""
-    if _on_card(values, X):
+    if _on_card(impl, values, X):
         t_values, t_indices, t_indptr = csr_transpose(values, indptr, row_idx, n_rows)
         return csr_matmat(t_values, t_indptr, t_indices, X, n_rows)
     return _plain(values, indptr, row_idx, X, n_rows, True)
@@ -122,12 +137,14 @@ def csr_transpose(values, indptr, indices, n_cols: int):
 
 
 # -- row slicing -------------------------------------------------------------
-def gather_rows(values, indptr, indices, sel):
+def gather_rows(values, indptr, indices, sel, impl: str = "auto"):
     """CSR row gather: returns (new_values, new_indices, new_indptr).
 
     Output nnz is data-dependent, so this op is host-driven (eager), like
-    the reference's ``get_row_slice``.
+    the reference's ``get_row_slice``, whatever ``impl`` (``"native"``
+    raises, as without the JAX package's native kernels).
     """
+    _on_card(impl)
     indptr_np = indptr.cpu().numpy()
     sel_np = np.asarray(sel.cpu() if isinstance(sel, torch.Tensor) else sel)
     counts = indptr_np[sel_np + 1] - indptr_np[sel_np]

@@ -24,6 +24,7 @@ import torch
 
 from . import ops
 from ..ops import kernel_cuda
+from ..utils.checkers import _as_device
 
 
 __all__ = ["SparseCSRTensor", "_SparseTensor", "_Layout"]
@@ -98,7 +99,7 @@ class _SparseTensor:
         import scipy.sparse as sp
 
         if sp.issparse(mat):
-            device = _default_device() if device is None else torch.device(device)
+            device = _as_device(device)
             if mat.format == "csr":
                 layout = _Layout.CSR
             elif mat.format == "csc":
@@ -208,7 +209,7 @@ class _SparseTensor:
         values, indices, indptr = self._csr_buffers()
         fn = ops.csr_matvec if x.ndim == 1 else ops.csr_matmat
         plan = self._csr_plan() if values.is_cuda else None
-        return fn(values, indptr, indices, x, self.shape[0], plan)
+        return fn(values, indptr, indices, x, self.shape[0], plan=plan)
 
     def __rmatmul__(self, x) -> torch.Tensor:
         x = _as_operand(x, self.device)
@@ -239,15 +240,6 @@ def _as_operand(x, device) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(x, device=device)
 
 
-def _default_device() -> torch.device:
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "SparseCSRTensor places its buffers on the CUDA card by default and "
-            "none is available: pass device='cpu' to hold them on the host"
-        )
-    return torch.device("cuda")
-
-
 class SparseCSRTensor(_SparseTensor):
     """User-facing CSR tensor: from a scipy csr_matrix/csr_array or raw
     buffers ``(values, indices, indptr, shape)``.
@@ -258,7 +250,7 @@ class SparseCSRTensor(_SparseTensor):
     """
 
     def __init__(self, arg, indices=None, indptr=None, shape=None, device=None):
-        device = _default_device() if device is None else torch.device(device)
+        device = _as_device(device)
         try:
             import scipy.sparse as sp
 

@@ -111,3 +111,16 @@ def _as_generator(key: Any, param_name: str = "key") -> torch.Generator:
         return torch.Generator().manual_seed(int(key))
     _is_generator(key, param_name)
     return key
+
+
+def _as_device(device: Any) -> torch.device:
+    """``device`` as a ``torch.device``; None is the CUDA card, every entry
+    point's default, and raises where there is none."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "the default device is the CUDA card and none is available: "
+            "pass device='cpu' to run on the host"
+        )
+    return torch.device("cuda")

@@ -310,8 +310,7 @@ def test_cuda_laplace_matches_plain(cuda_device, k, monkeypatch):
         ref = kernel_plain.gram_matmat_f64("laplace", X1, X2, V, ls, 0.9)
         got = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9)
         with monkeypatch.context() as mp:
-            mp.setattr(kernel_cuda, "column_splits", lambda *a: 1)
-            mp.setattr(kernel_cuda, "laplace_splits", lambda *a: 1)
+            mp.setattr(kernel_cuda, "tile_splits", lambda *a: 1)
             one = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9)
         ls64 = ls.double() if torch.is_tensor(ls) else ls
         hi, lo = kernel_cuda.laplace_matmat_comp(X1, X2, V, ls64, 0.9)
@@ -350,7 +349,7 @@ def test_cuda_k5_triangle_tile_matches_float64(cuda_device, n, d, k):
         ref = kernel_plain.gram_matmat_f64("laplace", X, X, V, ls, 0.9)
         got = kernel_cuda.laplace_matvec_symmetric(X, V, ls, 0.9)
         kept = kernel_cuda.laplace_matvec_symmetric(X, V, ls, 0.9,
-                                                    kernel_cuda.laplace_operand(X, ls))
+                                                    kernel_cuda.tile_operand(X, ls))
         torch.cuda.synchronize()
         assert _rel(got, ref) <= 2e-5
         assert _rel(kept, got.double()) <= 1e-6
@@ -370,29 +369,28 @@ def test_cuda_k5_takes_the_operators_operand(cuda_device):
     kernel_cuda.reset_launch_counts()
     got = [K @ V for _ in range(2)]
     assert kernel_cuda.launch_counts()["laplace_matvec_symmetric"] == 2
-    assert K._lap[0].get() is K._lap[0].get()
+    assert K._tile_ops[0].get() is K._tile_ops[0].get()
     want = kernel_cuda.laplace_matvec_symmetric(X, V, 32.0, 1.1)
     torch.cuda.synchronize()
     for g in got:
         assert _rel(g, want.double()) <= 1e-6
-    with pytest.raises(ValueError, match="K3's operand"):
+    with pytest.raises(ValueError, match="tile's operand"):
         kernel_cuda.laplace_matvec_symmetric(X, V, 32.0, 1.1,
-                                             kernel_cuda.laplace_operand(X[:500], 32.0))
+                                             kernel_cuda.tile_operand(X[:500], 32.0))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["rbf", "laplace"])
 def test_cuda_column_splits(cuda_device, kind, monkeypatch):
-    """A few rows against many points: the narrow kernel cuts m into runs
-    (column_splits; laplace_splits for K3's tile) and sums their partials
-    in a fixed order. Both the split and the one-pass product against
-    float64: 2e-5; the split one gives the same bits twice."""
+    """A few rows against many points: the register tile's forward form (K1
+    and K3) cuts m into runs (tile_splits) and sums their partials in a
+    fixed order. Both the split and the one-pass product against float64:
+    2e-5; the split one gives the same bits twice."""
     rng = np.random.default_rng(16)
     X1 = torch.from_numpy(rng.standard_normal((300, 8)).astype(np.float32)).to(cuda_device)
     X2 = torch.from_numpy(rng.standard_normal((200_000, 8)).astype(np.float32)).to(cuda_device)
     V = torch.from_numpy(rng.standard_normal((200_000, 2)).astype(np.float32)).to(cuda_device)
-    assert kernel_cuda.column_splits(300, 200_000, 2, cuda_device) > 1
-    assert kernel_cuda.laplace_splits(300, 200_000, 2, 132) > 1
+    assert kernel_cuda.tile_splits(300, 200_000, 2, 132) > 1
     ls = 3.0 if kind == "rbf" else 9.0
     if kind == "rbf":
         fn = lambda: kernel_cuda.gram_matmat("rbf", X1, X2, V, ls)  # noqa: E731
@@ -400,8 +398,7 @@ def test_cuda_column_splits(cuda_device, kind, monkeypatch):
         fn = lambda: kernel_cuda.laplace_matmat(X1, X2, V, ls)  # noqa: E731
     ref = kernel_plain.gram_matmat_f64(kind, X1, X2, V, ls)
     split, again = fn(), fn()
-    monkeypatch.setattr(kernel_cuda, "column_splits", lambda *a: 1)
-    monkeypatch.setattr(kernel_cuda, "laplace_splits", lambda *a: 1)
+    monkeypatch.setattr(kernel_cuda, "tile_splits", lambda *a: 1)
     one = fn()
     torch.cuda.synchronize()
     assert torch.equal(split, again)
@@ -439,7 +436,7 @@ def test_cuda_k3_tile_takes_an_operators_operands(cuda_device):
 
     X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in _data(41, 300, 1300, 50, 3))
     ls = 7.5
-    ops = (kernel_cuda.laplace_operand(X1, ls), kernel_cuda.laplace_operand(X2, ls))
+    ops = (kernel_cuda.tile_operand(X1, ls), kernel_cuda.tile_operand(X2, ls))
     want = kernel_cuda.laplace_matmat_narrow(X1, X2, V, ls, 0.9)
     assert torch.equal(kernel_cuda.laplace_matmat_narrow(X1, X2, V, ls, 0.9, ops), want)
     assert torch.equal(kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9, lambda: ops), want)
@@ -452,6 +449,74 @@ def test_cuda_k3_tile_takes_an_operators_operands(cuda_device):
         got = K.row_oracle(blk) @ W
         torch.cuda.synchronize()
         assert torch.equal(got, kernel_cuda.laplace_matmat(X2[blk], X2, W, ls, 0.9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 9, 16, 17, 64, 65, 200])
+@pytest.mark.parametrize("n,m,d", [(1000, 777, 3), (300, 1300, 50), (129, 4000, 28)])
+@pytest.mark.parametrize("kind", SQDIST_KINDS)
+def test_cuda_k1_tile_and_wide_match_float64(cuda_device, kind, n, m, d, k):
+    """K1 on the register tile up to 16 columns and on the 3xTF32 wide
+    kernel past 16 (64 columns a block up to 64, 128 beyond), at ragged
+    shapes (n, m not multiples of 128, a last feature chunk of 3, 18 and 28
+    features), scalar and ARD lengthscales, every family: 2e-5 of max|ref|
+    against the float64 plain version; the same bits twice."""
+    X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in _data(n + m + k, n, m, d, k))
+    for ls in (d**0.5, torch.linspace(0.5, 1.5, d, device=cuda_device) * d**0.5):
+        ref = kernel_plain.gram_matmat_f64(kind, X1, X2, V, ls, 0.9)
+        got, again = (kernel_cuda.gram_matmat(kind, X1, X2, V, ls, 0.9) for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert _rel(got, ref) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 10, 16])
+@pytest.mark.parametrize("n,d", [(1000, 3), (1300, 28), (257, 50), (128, 28)])
+@pytest.mark.parametrize("kind", SQDIST_KINDS)
+def test_cuda_k2_triangle_tile_matches_float64(cuda_device, kind, n, d, k):
+    """K2, the register tile's triangle form, at ragged and whole numbers of
+    128-point tiles, every KC it takes, scalar and ARD lengthscales: 2e-5
+    of the float64 plain version (Matérn-1/2's diagonal: the squared
+    distance of a point with itself is 0 exactly in the direct sum);
+    given the operand an operator keeps, the same product to the float
+    atomics' order (1e-6)."""
+    rng = np.random.default_rng(n + d + k)
+    X = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda_device)
+    V = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(cuda_device)
+    for ls in (d**0.5, torch.linspace(0.5, 1.5, d, device=cuda_device) * d**0.5):
+        ref = kernel_plain.gram_matmat_f64(kind, X, X, V, ls, 0.9)
+        got = kernel_cuda.gram_matvec_symmetric(kind, X, V, ls, 0.9)
+        kept = kernel_cuda.gram_matvec_symmetric(kind, X, V, ls, 0.9,
+                                                 kernel_cuda.tile_operand(X, ls))
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= 2e-5
+        assert _rel(kept, got.double()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_k1_k2_take_the_operators_operand(cuda_device):
+    """``RBFLinOp`` on one data set keeps the tile's operand (built once)
+    and applies K2 (k = 3) and the wide K1 (k = 20) on it, within the float
+    atomics' order of direct calls (K1 bit for bit); a row oracle gives
+    the bits of the call on its rows."""
+    from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp
+
+    rng = np.random.default_rng(52)
+    X = torch.from_numpy(rng.standard_normal((900, 28)).astype(np.float32)).to(cuda_device)
+    V = torch.from_numpy(rng.standard_normal((900, 20)).astype(np.float32)).to(cuda_device)
+    K = RBFLinOp(X, X, KernelConfig(lengthscale=5.3, const_scaling=1.1))
+    kernel_cuda.reset_launch_counts()
+    sym, wide = K @ V[:, :3], K @ V
+    counts = kernel_cuda.launch_counts()
+    assert counts["gram_matvec_symmetric"] == 1 and counts["gram_matmat"] == 1
+    assert K._tile_ops[0].get() is K._tile_ops[1].get()
+    torch.cuda.synchronize()
+    assert _rel(sym, kernel_cuda.gram_matvec_symmetric("rbf", X, V[:, :3], 5.3, 1.1).double()) <= 1e-6
+    assert torch.equal(wide, kernel_cuda.gram_matmat("rbf", X, X, V, 5.3, 1.1))
+    blk = torch.arange(0, 900, 7, device=cuda_device)
+    assert torch.equal(K.row_oracle(blk) @ V[:, :1],
+                       kernel_cuda.gram_matmat("rbf", X[blk], X, V[:, :1], 5.3, 1.1))
 
 
 @pytest.mark.cuda
@@ -856,3 +921,24 @@ def test_cuda_half_ring_launches_and_matches(cuda_device, kind, P, cd):
     assert sum(used.values()) == P + P * (P - 1) // 2
     ref = kernel_plain.gram_matmat_f64(kind, X, X, V.double(), 2.0, 0.7)
     assert _rel(got, ref) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_entry_points_default_to_the_card(cuda_device):
+    """Called as a JAX caller calls them, with no device, the embeddings,
+    the Hadamard matrix and the interop converters make their tensors on
+    the card."""
+    from rlaopt_tpu_torch.ops import hadamard_matrix
+    from rlaopt_tpu_torch.sketches import embeddings as emb
+
+    made = [
+        emb.gauss_embedding(0, 4, 6, torch.float32),
+        emb.ortho_embedding(0, 4, 6, torch.float32),
+        emb.sparse_sign_embedding(0, 4, 6, torch.float32),
+        emb.srht_params(torch.Generator().manual_seed(0), 4, 6)[0],
+        emb.left_embedding("sparse", torch.Generator().manual_seed(0), 4, 6, torch.float32),
+        emb.right_embedding("ortho", torch.Generator().manual_seed(0), 4, 6, torch.float32),
+        hadamard_matrix(4),
+        interop.pcg_state(*[np.ones(3)] * 5, True).W,
+    ]
+    assert all(t.device.type == "cuda" for t in made)

@@ -105,8 +105,15 @@ def card(monkeypatch):
     def triangle_comp(kind, X, V, lengthscale, const_scaling=1.0):
         return kernel_plain.gram_matmat_comp(kind, X, X, V, lengthscale, const_scaling)
 
-    for name, plain in (("gram_matmat", kernel_plain.gram_matmat),
-                        ("gram_matvec_symmetric", kernel_plain.gram_matvec_symmetric),
+    # K1 and K2 take the register tile's operands besides (an operator keeps them)
+    def k1(kind, X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
+        return kernel_plain.gram_matmat(kind, X1, X2, V, lengthscale, const_scaling)
+
+    def k2(kind, X, V, lengthscale, const_scaling=1.0, operand=None):
+        return kernel_plain.gram_matvec_symmetric(kind, X, V, lengthscale, const_scaling)
+
+    for name, plain in (("gram_matmat", k1),
+                        ("gram_matvec_symmetric", k2),
                         ("gram_matmat_comp", kernel_plain.gram_matmat_comp),
                         ("gram_matvec_symmetric_comp", triangle_comp),
                         ("gram_matmat_f64", kernel_plain.gram_matmat_f64)):

@@ -39,17 +39,18 @@ def test_mid_solve_state_continues_in_the_port(low_precision_path):
         js = j_pcg.pcg_step(jA, reg, inv_fn, pstate, js, mask)
 
     d_ = jA._data
-    tA = interop.kernel_operator(d_["X1"], d_["ls"], d_["scale"], jA.kind)
+    tA = interop.kernel_operator(d_["X1"], d_["ls"], d_["scale"], jA.kind, device="cpu")
     assert tA.A1 is tA.A2 and tA.kind == "rbf"
-    tP = interop.nystrom_preconditioner(P.U, P.S, P.rho, P.L)
-    ts = interop.pcg_state(*(np.asarray(f) for f in js))
+    tP = interop.nystrom_preconditioner(P.U, P.S, P.rho, P.L, device="cpu")
+    ts = interop.pcg_state(*(np.asarray(f) for f in js), device="cpu")
     assert _rel(tA @ ts.P_, jA @ js.P_) <= 1e-12
     assert _rel(tP._inverse_matmul(ts.R), inv_fn(pstate, js.R)) <= 1e-12
 
+    t_inv_fn, t_pstate = tP._functional_inverse()
     tmask = torch.ones((k,), dtype=torch.bool)
     for _ in range(5):
         js = j_pcg.pcg_step(jA, reg, inv_fn, pstate, js, mask)
-        ts = t_pcg.pcg_step(tA, reg, tP._inverse_matmul, ts, tmask)
+        ts = t_pcg.pcg_step(tA, reg, t_inv_fn, t_pstate, ts, tmask)
     for name in ("W", "R", "Z", "P_", "RZ"):
         assert _rel(getattr(ts, name), getattr(js, name)) <= 1e-9, name
     assert np.array_equal(ts.ok.numpy(), np.asarray(js.ok))
@@ -72,7 +73,7 @@ def test_tier_operator_applies_like_jax(cd):
                    compute_dtype=cd)
     d_ = jA._data
     tA = interop.kernel_operator(d_["X1"], d_["ls"], d_["scale"], jA.kind,
-                                 compute_dtype=jA.compute_dtype)
+                                 device="cpu", compute_dtype=jA.compute_dtype)
     assert tA.compute_dtype == cd and tA._tier is not None
     import rlaopt_tpu_torch.ops.kernel_plain as kp
 
@@ -115,18 +116,19 @@ def test_mid_solve_sap_state_continues_in_the_port():
     js._run_chunk(6)
 
     d_ = jA._data
-    tA = interop.kernel_operator(d_["X1"], d_["ls"], d_["scale"], jA.kind)
+    tA = interop.kernel_operator(d_["X1"], d_["ls"], d_["scale"], jA.kind, device="cpu")
     tsys = LinSys(tA, torch.from_numpy(B), reg, tA.row_oracle, tA.blk_oracle)
     ts = SAP(tsys, torch.zeros((n, k), dtype=torch.float64), NewtonConfig(rho=reg),
              accel_config=SAPAccelConfig(mu=0.05, nu=4.0), key=0, **kw)
     ts.state = interop.sap_state(*(np.asarray(f) for f in (js.state.W, js.state.V,
-                                                           js.state.Y, js.state.t)))
+                                                           js.state.Y, js.state.t)),
+                                  device="cpu")
     assert ts.state.t == 6
 
     blk = sched[6]
     jP = JNewton(JNewtonConfig(rho=reg))
     jP._update(jA.blk_dense(jnp.asarray(blk)))
-    tP = interop.newton_preconditioner(jP.L, reg)
+    tP = interop.newton_preconditioner(jP.L, reg, device="cpu")
     R = rng.standard_normal((blk_sz, k))
     assert _rel(tP._inverse_matmul(torch.from_numpy(R)), jP._inverse_matmul(jnp.asarray(R))) <= 1e-12
     assert _rel(tP @ torch.from_numpy(R), jP @ jnp.asarray(R)) <= 1e-12

@@ -60,9 +60,11 @@ def test_plain_matmat_matches_xla_f64(kind):
 
 
 @pytest.mark.parametrize("kind", SQDIST_KINDS)
-@pytest.mark.parametrize("k", [1, 7, 130])
+@pytest.mark.parametrize("k", [1, 3, 7, 16, 17, 130])
 def test_plain_matmat_matches_pallas_f32(kind, k):
-    """Ragged n, m and d against several row and column tiles."""
+    """Ragged n, m and d against several row and column tiles, at the
+    widths where the card's K1 changes form (its tile up to 16 columns, the
+    3xTF32 kernel past 16): 1e-5 of max|ref|, float32 sums in two orders."""
     X1, X2, V = _data(2, 77, 301, 11, k, np.float32)
     ref = kernel_matmat_pallas(
         kind, jnp.asarray(X1), jnp.asarray(X2), jnp.asarray(V), 2.3, 1.2,
@@ -89,6 +91,33 @@ def test_plain_symmetric_matches_pallas_triangle(k):
         "rbf", torch.from_numpy(X), torch.from_numpy(V), 1.9, 1.1
     )
     assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("k", [1, 3, 16])
+@pytest.mark.parametrize("kind", SQDIST_KINDS)
+def test_plain_symmetric_matches_pallas_triangle_every_family(kind, k):
+    """K2's plain version against the JAX triangle kernel in interpret mode
+    in every squared-distance family, at the widths of the card's triangle
+    (1, 2 ... 16 right-hand sides a launch): 1e-5 of max|ref| (float32 sums
+    in two orders). Matérn-1/2's diagonal: both sides take the float32
+    matmul expansion, whose cancelled distance of a point with itself comes
+    out of the square root ~1e-3 from 0, differently in the two orders; so
+    there the rows whose own row of V is zero (no diagonal value) are held
+    to 1e-5, even rows then odd ones, as chip_smoke.py holds K2b."""
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((600, 9)).astype(np.float32)
+    V = rng.standard_normal((600, k)).astype(np.float32)
+    parities = (0, 1) if kind == "matern12" else (None,)
+    for parity in parities:
+        rows = np.ones(600, bool) if parity is None else np.arange(600) % 2 == parity
+        Vp = np.where(rows[:, None], 0.0, V).astype(np.float32) if parity is not None else V
+        ref = kernel_matvec_symmetric(
+            kind, jnp.asarray(X), jnp.asarray(Vp), 1.9, 1.1, tile=256, interpret=True,
+        )
+        got = kernel_plain.gram_matvec_symmetric(
+            kind, torch.from_numpy(X), torch.from_numpy(Vp), 1.9, 1.1
+        )
+        assert _rel(got[rows], np.asarray(ref)[rows]) <= 1e-5
 
 
 def test_plain_compensated_accumulation():

@@ -30,6 +30,16 @@ def _rel(got, ref):
     return np.abs(got - ref).max() / np.abs(ref).max()
 
 
+def _worst(got, ref) -> str:
+    """Both sides at the entry where they differ most, and the max|.| of
+    each side: which of the two went wrong when a comparison fails."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    at = np.unravel_index(np.abs(got - ref).argmax(), got.shape)
+    return (f"worst entry {tuple(int(i) for i in at)}: port {float(got[at])!r}, JAX "
+            f"{float(ref[at])!r}; max|port| {float(np.abs(got).max())!r}, max|JAX| "
+            f"{float(np.abs(ref).max())!r}")
+
+
 def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
@@ -47,7 +57,7 @@ def test_general_matches_pallas_interpret(d, k):
     ref = kernel_matmat_pallas("laplace", X1, X2, V, ls, 0.8, interpret=True)
     got = kernel_matmat("laplace", *_t(X1, X2, V), ls, 0.8)
     assert got.dtype == torch.float32
-    assert _rel(got, ref) <= 2e-6
+    assert _rel(got, ref) <= 2e-6, _worst(got, ref)
 
 
 @pytest.mark.parametrize("k", [1, 4, 16])

@@ -57,17 +57,17 @@ def recorded(monkeypatch):
         calls.append(("laplace_matmat_narrow", 1 if V.ndim == 1 else V.shape[1]))
         if operands is not None:  # an operator's kept operands: the wrapper's own, bit for bit
             for XT, X in zip(operands, (X1, X2)):
-                assert torch.equal(XT, kernel_cuda.laplace_operand(X, lengthscale))
+                assert torch.equal(XT, kernel_cuda.tile_operand(X, lengthscale))
         return kernel_plain.gram_matmat("laplace", X1, X2, V, lengthscale, const_scaling)
 
-    def wide(entry, lead, X1, X2, V, lengthscale, const_scaling):
-        calls.append((entry, V.shape[1]))
+    def wide(X1, X2, V, lengthscale, const_scaling):
+        calls.append(("rl_laplace_matmat", V.shape[1]))
         return kernel_plain.gram_matmat("laplace", X1, X2, V, lengthscale, const_scaling)
 
     def k5(X, V, lengthscale, const_scaling=1.0, operand=None):
         calls.append(("laplace_matvec_symmetric", 1 if V.ndim == 1 else V.shape[1]))
         if operand is not None:  # an operator's kept operand: the wrapper's own, bit for bit
-            assert torch.equal(operand, kernel_cuda.laplace_operand(X, lengthscale))
+            assert torch.equal(operand, kernel_cuda.tile_operand(X, lengthscale))
         k5.operands.append(operand)
         return kernel_plain.gram_matvec_symmetric("laplace", X, V, lengthscale, const_scaling)
 
@@ -76,7 +76,7 @@ def recorded(monkeypatch):
     monkeypatch.setattr(kernel_cuda, "gram_matvec_symmetric_comp", triangle)
     monkeypatch.setattr(kernel_cuda, "laplace_matmat_comp", general)
     monkeypatch.setattr(kernel_cuda, "laplace_matmat_narrow", narrow)
-    monkeypatch.setattr(kernel_cuda, "_matmat_launch", wide)
+    monkeypatch.setattr(kernel_cuda, "_laplace_wide", wide)
     monkeypatch.setattr(kernel_cuda, "laplace_matvec_symmetric", k5)
     monkeypatch.setattr(kernel_dispatch, "_on_card", lambda impl, t: True)
     return calls
@@ -197,9 +197,9 @@ def test_path_a_builds_the_points_operand_once(recorded, monkeypatch):
 
     def counted(X, lengthscale):
         built.append(X)
-        return kernel_cuda.laplace_operand(X, lengthscale)
+        return kernel_cuda.tile_operand(X, lengthscale)
 
-    monkeypatch.setattr(linop, "laplace_operand", counted)
+    monkeypatch.setattr(linop, "tile_operand", counted)
     n, iters = 256, 6
     X, y = _points(n, 4, 12), _points(n, 1, 13)[:, 0]
     K = LaplaceLinOp(X, X, KernelConfig(lengthscale=3.0))
@@ -224,7 +224,7 @@ def test_laplace_operand_is_the_plain_scaled_points(n, d, ls):
     feature by feature."""
     X = _points(n, d, 14)
     ls = torch.linspace(0.5, 2.0, d) if ls is None else ls
-    XT = kernel_cuda.laplace_operand(X, ls)
+    XT = kernel_cuda.tile_operand(X, ls)
     assert XT.dtype == torch.float32 and XT.is_contiguous()
     assert XT.shape == (-(-d // 32) * 32, -(-n // 128) * 128)
     assert torch.equal(XT[:d, :n], scale_inputs(X, ls).T)
@@ -258,7 +258,7 @@ def test_laplace_splits(n, m, k, runs):
     rows an SM): one run once the row tiles fill two rounds of the 264
     slots; else as many as keep the blocks within four rounds, each run 8
     column tiles of 128 or more; one past 16 columns."""
-    assert kernel_cuda.laplace_splits(n, m, k, H100_SMS) == runs
+    assert kernel_cuda.tile_splits(n, m, k, H100_SMS) == runs
 
 
 def test_path_b_hands_k5_the_operators_operand(recorded, monkeypatch):
@@ -269,9 +269,9 @@ def test_path_b_hands_k5_the_operators_operand(recorded, monkeypatch):
 
     def counted(X, lengthscale):
         built.append(X)
-        return kernel_cuda.laplace_operand(X, lengthscale)
+        return kernel_cuda.tile_operand(X, lengthscale)
 
-    monkeypatch.setattr(linop, "laplace_operand", counted)
+    monkeypatch.setattr(linop, "tile_operand", counted)
     n = 200
     X, y = _points(n, 5, 10), _points(n, 1, 11)[:, 0]
     K = LaplaceLinOp(X, X, KernelConfig(lengthscale=4.0))
@@ -279,7 +279,7 @@ def test_path_b_hands_k5_the_operators_operand(recorded, monkeypatch):
     LinSys(K, y, reg=0.5).solve(cfg, torch.zeros((n, 1)), callback_freq=3, key=0)
     given = kernel_cuda.laplace_matvec_symmetric.operands
     assert len(given) >= 6 and len(built) == 1 and built[0] is X
-    assert all(g is given[0] for g in given) and given[0] is K._lap[0].get()
+    assert all(g is given[0] for g in given) and given[0] is K._tile_ops[0].get()
 
 
 def test_e3_half_ring_keeps_each_shards_operand(recorded, monkeypatch):
@@ -291,13 +291,13 @@ def test_e3_half_ring_keeps_each_shards_operand(recorded, monkeypatch):
 
     def counted(X, lengthscale):
         built.append(X)
-        return kernel_cuda.laplace_operand(X, lengthscale)
+        return kernel_cuda.tile_operand(X, lengthscale)
 
     def pair(X1, X2, V2, V1, lengthscale, const_scaling=1.0):
         return (kernel_plain.gram_matmat("laplace", X1, X2, V2, lengthscale, const_scaling),
                 kernel_plain.gram_matmat("laplace", X2, X1, V1, lengthscale, const_scaling))
 
-    monkeypatch.setattr(linop, "laplace_operand", counted)
+    monkeypatch.setattr(linop, "tile_operand", counted)
     monkeypatch.setattr(kernel_cuda, "laplace_pair", pair)
     X, v = _points(90, 3, 20), _points(90, 1, 21)[:, 0]
     K = ShardedLaplaceLinOp(X, X, CFG, mesh=make_mesh(devices=["cpu"] * 3), memory_mode="ring")
@@ -321,7 +321,7 @@ class _K5Entry:
     def rl_laplace_matvec_symmetric(self, *args):
         assert len(args) == len(kernel_cuda._SIGNATURES["rl_laplace_matvec_symmetric"])
         xt, v, out, n, npad, d, dpad, k, c, _stream = args
-        assert npad % kernel_cuda.LAPLACE_TILE == 0 and dpad % kernel_cuda.LAPLACE_FEAT == 0
+        assert npad % kernel_cuda.TILE_POINTS == 0 and dpad % kernel_cuda.TILE_FEAT == 0
 
         def host(ptr, shape):
             return np.ctypeslib.as_array(ctypes.cast(ptr, ctypes.POINTER(ctypes.c_float)),
@@ -353,31 +353,31 @@ def k5_entry(monkeypatch):
 
 @pytest.mark.parametrize("n,d,k,ls", [(300, 3, 1, 0.7), (130, 28, 10, 32.0), (257, 50, 16, "ard")])
 def test_k5_hands_its_entry_k3s_operand(k5_entry, n, d, k, ls):
-    """K5's wrapper hands its entry K3's operand (``laplace_operand``: the
+    """K5's wrapper hands its entry the tile's operand (``tile_operand``: the
     plain version's scaled points, transposed, padded) bit for bit, built
     in the call or given; the product on it is the plain version's."""
     X, V = _points(n, d, 22), _points(n, k, 23)
     ls = torch.linspace(0.5, 2.0, d) * d if ls == "ard" else ls
     got = kernel_cuda.laplace_matvec_symmetric(X, V, ls, 0.9)
     call = k5_entry.calls[-1]
-    assert np.array_equal(call["XT"], kernel_cuda.laplace_operand(X, ls).numpy())
+    assert np.array_equal(call["XT"], kernel_cuda.tile_operand(X, ls).numpy())
     assert (call["n"], call["d"], call["k"]) == (n, d, k)
     want = kernel_plain.gram_matmat_f64("laplace", X, X, V.double(), ls, 0.9)
     assert ((got.double() - want).abs().max() / want.abs().max()).item() <= 1e-6
-    XT = kernel_cuda.laplace_operand(X, ls)
+    XT = kernel_cuda.tile_operand(X, ls)
     kernel_cuda.laplace_matvec_symmetric(X, V, ls, 0.9, XT)
     assert k5_entry.calls[-1]["ptr"] == XT.data_ptr()
 
 
 def test_k5_rejects_a_wrong_operand(k5_entry):
     """K5 refuses, as K3's tile does, an operand that
-    ``laplace_operand`` would not give for its points: another set's
+    ``tile_operand`` would not give for its points: another set's
     shape, float64, a layout that is not contiguous; nothing launches."""
     X, V = _points(300, 28, 24), _points(300, 2, 25)
-    XT = kernel_cuda.laplace_operand(X, 32.0)
-    wider = kernel_cuda.laplace_operand(_points(300, 40, 26), 32.0)
-    wrong = (kernel_cuda.laplace_operand(X[:200], 32.0), wider, XT.double(), XT.T.contiguous().T)
+    XT = kernel_cuda.tile_operand(X, 32.0)
+    wider = kernel_cuda.tile_operand(_points(300, 40, 26), 32.0)
+    wrong = (kernel_cuda.tile_operand(X[:200], 32.0), wider, XT.double(), XT.T.contiguous().T)
     for op in wrong:
-        with pytest.raises(ValueError, match="K3's operand"):
+        with pytest.raises(ValueError, match="tile's operand"):
             kernel_cuda.laplace_matvec_symmetric(X, V, 32.0, 1.0, op)
     assert k5_entry.calls == []

@@ -92,7 +92,7 @@ def _solve_both(A, B, L, sparse, damp=0.0, precond="skpre", iters=ITERS, rtol=1e
     if precond == "skpre":
         jP = JSkPre(JSkPreConfig(sketch_size=S, rho=0.0))
         jP.L = jnp.asarray(L)
-        tP = interop.skpre_preconditioner(L)
+        tP = interop.skpre_preconditioner(L, device="cpu")
         jcfg_p, tcfg_p = JSkPreConfig(sketch_size=S, rho=0.0), SkPreConfig(sketch_size=S, rho=0.0)
     else:
         jP = tP = None
@@ -121,8 +121,8 @@ def test_fwht_is_exact_on_integers():
     rng = np.random.default_rng(1)
     for p in (1, 2, 64):
         x = torch.from_numpy(rng.integers(-9, 10, (p, 3)).astype(np.float64))
-        assert torch.equal(fwht(x), hadamard_matrix(p, torch.float64) @ x)
-        assert torch.equal(fwht(x.T, axis=1), (hadamard_matrix(p, torch.float64) @ x).T)
+        assert torch.equal(fwht(x), hadamard_matrix(p, torch.float64, "cpu") @ x)
+        assert torch.equal(fwht(x.T, axis=1), (hadamard_matrix(p, torch.float64, "cpu") @ x).T)
     assert next_pow2(100) == 128 and next_pow2(128) == 128 and next_pow2(1) == 1
     x = rng.standard_normal(256)
     assert _rel(fwht(torch.from_numpy(x)).numpy(), j_fwht(jnp.asarray(x))) <= 1e-12
@@ -262,8 +262,8 @@ def test_lsqr_state_carries_over_from_jax():
 
     tmodel = LstSq(torch.from_numpy(A), torch.from_numpy(B))
     tsolver = LSQR(tmodel, None, SkPreConfig(sketch_size=S, rho=0.0),
-                   preconditioner=interop.skpre_preconditioner(L))
-    tsolver.state = interop.lsqr_state(*mid)
+                   preconditioner=interop.skpre_preconditioner(L, device="cpu"))
+    tsolver.state = interop.lsqr_state(*mid, device="cpu")
     tsolver._run_chunk(10)
     assert _rel(tsolver.W.numpy(), np.asarray(jsolver.W)) <= 1e-9
 
@@ -286,8 +286,9 @@ def test_transposed_embedding_has_the_same_values(name):
     """Ωᵀ drawn in (d, s) layout for an operator is ``left_embedding(...).T``
     for the same generator, so the sketch of a LinOp equals Ω @ A."""
     d, s = 50, 12
-    got = t_emb._left_embedding_t(name, torch.Generator().manual_seed(8), s, d, torch.float64)
-    ref = t_emb.left_embedding(name, torch.Generator().manual_seed(8), s, d, torch.float64)
+    got = t_emb._left_embedding_t(name, torch.Generator().manual_seed(8), s, d, torch.float64,
+                                  "cpu")
+    ref = t_emb.left_embedding(name, torch.Generator().manual_seed(8), s, d, torch.float64, "cpu")
     assert got.is_contiguous() and got.shape == (d, s)
     assert torch.equal(got, ref.T)
     A = torch.from_numpy(np.random.default_rng(9).standard_normal((d, 5)))

@@ -100,19 +100,20 @@ def test_pcg_init_and_steps_match(problem, monkeypatch):
     def j_inv(_, x):
         return j_nys.nystrom_apply_inv(fj, rho_j, x, None)
 
-    def t_inv(x):
+    def t_inv(_, x):
         return t_nys.nystrom_apply_inv(ft, rho_t, x, None)
 
     B, W0 = problem["B"], problem["W0"]
     js = j_pcg.pcg_init(problem["jA"], jnp.asarray(B), REG, jnp.asarray(W0), j_inv, None)
-    ts = t_pcg.pcg_init(problem["tA"], torch.from_numpy(B), REG, torch.from_numpy(W0), t_inv)
+    ts = t_pcg.pcg_init(problem["tA"], torch.from_numpy(B), REG, torch.from_numpy(W0), t_inv,
+                        None)
     for name in ("R", "Z", "RZ"):
         assert _rel(getattr(ts, name), getattr(js, name)) <= 1e-9, name
     jmask = jnp.ones((2,), bool)
     tmask = torch.ones((2,), dtype=torch.bool)
     for _ in range(3):
         js = j_pcg.pcg_step(problem["jA"], REG, j_inv, None, js, jmask)
-        ts = t_pcg.pcg_step(problem["tA"], REG, t_inv, ts, tmask)
+        ts = t_pcg.pcg_step(problem["tA"], REG, t_inv, None, ts, tmask)
     for name in ("W", "R", "Z", "P_", "RZ"):
         assert _rel(getattr(ts, name), getattr(js, name)) <= 1e-9, name
     assert np.array_equal(ts.ok.numpy(), np.asarray(js.ok))
@@ -122,13 +123,13 @@ def test_pcg_masked_column_stays_frozen(problem):
     """A masked column keeps its iterate exactly while the other moves."""
     tA = problem["tA"]
 
-    def ident(x):
+    def ident(_, x):
         return x
 
     B = torch.from_numpy(problem["B"])
-    s0 = t_pcg.pcg_init(tA, B, REG, torch.zeros_like(B), ident, w_zero=True)
+    s0 = t_pcg.pcg_init(tA, B, REG, torch.zeros_like(B), ident, None, w_zero=True)
     mask = torch.tensor([True, False])
-    s1 = t_pcg.pcg_step(tA, REG, ident, s0, mask)
+    s1 = t_pcg.pcg_step(tA, REG, ident, None, s0, mask)
     assert torch.equal(s1.W[:, 1], s0.W[:, 1])
     assert not torch.equal(s1.W[:, 0], s0.W[:, 0])
 

@@ -389,7 +389,7 @@ def test_interop_sharded_operator_from_jax_payload():
     J = _jax_op(X, None, "ring")
     A = interop.sharded_kernel_operator(
         np.asarray(J.A1), np.asarray(J._data["ls"]), J._scale, J.kind, J.memory_mode,
-        J.mesh.devices.size,
+        J.mesh.devices.size, device="cpu",
     )
     assert A.memory_mode == "ring" and A.mesh.size == 8 and A.shape == (37, 37)
     v = np.random.default_rng(18).standard_normal(37)

@@ -147,7 +147,7 @@ def test_scipy_round_trip_todense_astype():
     assert f32.dtype == torch.float32 and f32.indices is tA.indices
     raw = SparseCSRTensor(values, indices, indptr, A.shape, device="cpu")
     np.testing.assert_array_equal(raw.todense().numpy(), A.toarray())
-    csc = interop.sparse_tensor(values, indices, indptr, (N, M), layout="csc")
+    csc = interop.sparse_tensor(values, indices, indptr, (N, M), layout="csc", device="cpu")
     np.testing.assert_array_equal(csc.todense().numpy(), A.toarray().T)
     from_csc = _SparseTensor.from_scipy(A.tocsc(), device="cpu")
     assert from_csc.layout == _Layout.CSC and from_csc.shape == A.shape
@@ -312,7 +312,7 @@ def test_sparse_sign_embedding_scaled_before_the_scatter(s):
     """Scaling the ±1 values by ζ^-1/2 before the scatter gives the bits of
     the former scatter-then-scale formula (one (s, d) matrix, not two)."""
     d = 50
-    got = sparse_sign_embedding(torch.Generator().manual_seed(17), s, d)
+    got = sparse_sign_embedding(torch.Generator().manual_seed(17), s, d, device="cpu")
     g = torch.Generator().manual_seed(17)
     zeta = 8 if s >= 8 else s
     z = 2.0 * torch.randint(0, 2, (zeta, d), generator=g).to(torch.float32) - 1.0

@@ -44,6 +44,16 @@ def _rel(got, ref):
     return np.abs(got - ref).max() / np.abs(ref).max()
 
 
+def _worst(got, ref) -> str:
+    """Both sides at the entry where they differ most, and the max|.| of
+    each side: which of the two went wrong when a comparison fails."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    at = np.unravel_index(np.abs(got - ref).argmax(), got.shape)
+    return (f"worst entry {tuple(int(i) for i in at)}: port {float(got[at])!r}, JAX "
+            f"{float(ref[at])!r}; max|port| {float(np.abs(got).max())!r}, max|JAX| "
+            f"{float(np.abs(ref).max())!r}")
+
+
 def _points(seed, n, m, k):
     rng = np.random.default_rng(seed)
     X1 = rng.standard_normal((n, D)).astype(np.float32)
@@ -142,7 +152,7 @@ def test_plain_tier_triangle_matches_pallas(cd, k):
     got = kernel_plain.gram_matvec_symmetric_tier(
         "rbf", _parts(X, cd), torch.from_numpy(V), C, tile=128
     )
-    assert _rel(got, ref) <= (3e-6 if cd == "bf16x3" and k == 3 else 1e-6)
+    assert _rel(got, ref) <= (3e-6 if cd == "bf16x3" and k == 3 else 1e-6), _worst(got, ref)
 
 
 @pytest.mark.parametrize("cd", TIERS)
@@ -315,6 +325,13 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     ("csr_spmm_sum_segments<double>(double const*, long const*)", "csr_spmm"),
     ("laplace_triangle<16>(float const*, float const*, float*, int)",
      "laplace_matvec_symmetric"),
+    ("tile_forward<0, 1>(float const*, float const*, float const*, float*, float*, int)",
+     "gram_matmat"),
+    ("tile_forward<4, 16>(float const*)", "laplace_matmat_narrow"),
+    ("tile_triangle<3, 8>(float const*, float const*, float*, int)", "gram_matvec_symmetric"),
+    ("tile_triangle<4, 1>(float const*)", "laplace_matvec_symmetric"),
+    ("gram_wide_tf32<2, 16, 2>(float const*, float const*, float4 const*, float*)",
+     "gram_matmat"),
 ])
 def test_profile_groups_each_kernel_template(name, group):
     """``chip_smoke.py`` names each Gram kernel in a profile by its
@@ -343,23 +360,31 @@ def test_registers_of_tells_the_float64_triangles_apart():
 
 
 def test_registers_of_the_laplace_tile_forms_and_the_csr_schedules():
-    """K3's tile and K5 are one body in two kernels, each wrapper given its
-    own; ``csr_spmm`` gets the short-row, wide and segment-sum kernels of
-    #9's schedules, ``csr_spmv`` the short-row kernel it runs at k = 1."""
-    reg = {"laplace_forward<1>": {"registers": 128}, "laplace_triangle<16>": {"registers": 128},
+    """The register tile is one body in two kernels (forward, triangle),
+    instantiated for Laplace (K3, K5) and the squared-distance families
+    (K1, K2): each wrapper is given its own instantiations by the family,
+    the first template argument; K1 also its wide kernel. ``csr_spmm`` gets
+    the short-row, wide and segment-sum kernels of #9's schedules,
+    ``csr_spmv`` the short-row kernel it runs at k = 1."""
+    reg = {"tile_forward<4,1>": {"registers": 128}, "tile_triangle<4,16>": {"registers": 128},
+           "tile_forward<0,16>": {"registers": 128}, "tile_triangle<3,2>": {"registers": 128},
+           "gram_wide_tf32<1,16,2>": {"registers": 255},
            "csr_spmm_lanes<f,1,4>": {"registers": 40}, "csr_spmm_wide<f,1,8>": {"registers": 48},
            "csr_spmm_sum_segments<d>": {"registers": 32}}
-    assert set(SMOKE.registers_of("laplace_matmat_narrow", reg)) == {"laplace_forward<1>"}
-    assert set(SMOKE.registers_of("laplace_matvec_symmetric", reg)) == {"laplace_triangle<16>"}
+    assert set(SMOKE.registers_of("laplace_matmat_narrow", reg)) == {"tile_forward<4,1>"}
+    assert set(SMOKE.registers_of("laplace_matvec_symmetric", reg)) == {"tile_triangle<4,16>"}
+    assert set(SMOKE.registers_of("gram_matmat", reg)) == {"tile_forward<0,16>",
+                                                           "gram_wide_tf32<1,16,2>"}
+    assert set(SMOKE.registers_of("gram_matvec_symmetric", reg)) == {"tile_triangle<3,2>"}
     assert set(SMOKE.registers_of("csr_spmm", reg)) == {
         "csr_spmm_lanes<f,1,4>", "csr_spmm_wide<f,1,8>", "csr_spmm_sum_segments<d>"}
     assert set(SMOKE.registers_of("csr_spmv", reg)) == {"csr_spmm_lanes<f,1,4>"}
     names = SMOKE.ptxas_report(
-        "Compiling entry function '_ZN12_GLOBAL__N_116laplace_triangleILi16EEEvPKfS2_Pfiiiiid'"
+        "Compiling entry function '_ZN12_GLOBAL__N_113tile_triangleILi4ELi16EEEvPKfS2_Pfiiiiid'"
         " for 'sm_90a'\n    4 bytes spill stores, 8 bytes spill loads\n"
         "ptxas info    : Used 128 registers\n", SMOKE.REDESIGNED)
-    assert names == {"laplace_triangle<16>": {"spill_stores": 4, "spill_loads": 8,
-                                              "registers": 128}}
+    assert names == {"tile_triangle<4,16>": {"spill_stores": 4, "spill_loads": 8,
+                                             "registers": 128}}
 
 
 def test_reround_steps_tell_a_rounding_flip_from_a_fault():

@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Time a kernel operator's product in two checkouts on one card.
+
+    python3 tools/before_after.py OTHER_TREE [--kind KIND] [--d D]
+        [--general N:K ...] [--symmetric N:K ...]
+
+OTHER_TREE is another checkout of the repository (for example a ``git
+archive`` of a commit unpacked into a directory that ``.gitignore``
+lists). Each tree's kernels are built from its own sources, both builds
+started together; then the trees are timed in turns, other, this, this,
+other, each in a process of its own that imports that tree's package.
+
+What is timed is ``A @ V`` for a ``KernelLinOp`` of that tree, the public
+operator, on float32 points drawn from a seed (standard normal, N x D,
+lengthscale sqrt(D), V standard normal N x K): ``--general N:K`` on two
+point sets (X and a copy of it: the forward product, K1 or K3),
+``--symmetric N:K`` on one (``A1 is A2``: the triangle up to 16 columns,
+K2 or K5). The operator is built once a shape and applied once before the
+timings, so whatever it keeps (the points' operand) is made outside them,
+as in a solve. CUDA-event medians of 5 applies after that one.
+
+With no shapes: the exact tier's products at the HIGGS surrogate of
+``chip_smoke.py`` (D = 28), general 100,000 x K = 1, 10, 16, 500 and
+50,000 x K = 1, 32, 200 (config 5's n), symmetric 100,000 x K = 1, 10, 16.
+
+Prints one line a timing run, ``before_after {"tree": ..., "general":
+{"n=N k=K": ms}, "symmetric": {...}}``, then the card's name and power
+limit. Needs one CUDA card and ``nvcc``.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+DEFAULT_GENERAL = ["100000:1", "100000:10", "100000:16", "100000:500",
+                   "50000:1", "50000:32", "50000:200"]
+DEFAULT_SYMMETRIC = ["100000:1", "100000:10", "100000:16"]
+
+
+def _shape(text: str):
+    n, k = text.split(":")
+    return int(n), int(k)
+
+
+def _cuda_ms(fn, reps=5):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _run(args) -> dict:
+    """Build (and unless ``args.build_only``, time) the kernels of
+    ``args.tree``, imported from there."""
+    sys.path.insert(0, args.tree)
+    import numpy as np
+    import torch
+
+    from rlaopt_tpu_torch.kernels import KernelConfig, KernelLinOp
+    from rlaopt_tpu_torch.ops import kernel_cuda
+
+    assert Path(kernel_cuda.__file__).resolve().is_relative_to(Path(args.tree).resolve())
+    kernel_cuda.build()
+    if args.build_only:
+        return {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    shapes = {"general": args.general or [], "symmetric": args.symmetric or []}
+    n_max = max(n for group in shapes.values() for n, _ in group)
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.standard_normal((n_max, args.d), dtype=np.float32)).to(dev)
+    cfg = KernelConfig(lengthscale=args.d**0.5)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rec = {"tree": args.tree, "kind": args.kind, "d": args.d}
+    for form, group in shapes.items():
+        rec[form] = {}
+        for n, k in group:
+            Xn = X[:n].contiguous()
+            A = KernelLinOp(Xn, Xn if form == "symmetric" else Xn.clone(), cfg, args.kind)
+            V = torch.randn((n, k), generator=gen, device=dev)
+            rec[form][f"n={n} k={k}"] = _cuda_ms(lambda: A @ V)
+            del A, V
+    return rec
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("other_tree")
+    p.add_argument("--kind", default="rbf")
+    p.add_argument("--d", type=int, default=28)
+    p.add_argument("--general", nargs="*", type=_shape)
+    p.add_argument("--symmetric", nargs="*", type=_shape)
+    p.add_argument("--tree", help=argparse.SUPPRESS)
+    p.add_argument("--build-only", action="store_true", help=argparse.SUPPRESS)
+    args = p.parse_args()
+    if args.tree:
+        print(json.dumps(_run(args)))
+        return 0
+    if args.general is None and args.symmetric is None:
+        args.general = [_shape(s) for s in DEFAULT_GENERAL]
+        args.symmetric = [_shape(s) for s in DEFAULT_SYMMETRIC]
+    shapes = []
+    for flag, group in (("--general", args.general), ("--symmetric", args.symmetric)):
+        if group:
+            shapes += [flag, *(f"{n}:{k}" for n, k in group)]
+    other, this = str(Path(args.other_tree).resolve()), str(HERE)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    me = str(Path(__file__).resolve())
+
+    def start(tree, *extra):
+        return subprocess.Popen([sys.executable, me, args.other_tree, "--kind", args.kind,
+                                 "--d", str(args.d), *shapes, "--tree", tree, *extra],
+                                env=env, stdout=subprocess.PIPE, text=True)
+
+    builds = [start(tree, "--build-only") for tree in (other, this)]
+    for b in builds:
+        b.communicate()
+    if any(b.returncode != 0 for b in builds):
+        return 1
+    for tree in (other, this, this, other):
+        run = start(tree)
+        out = run.communicate()[0]
+        if run.returncode != 0:
+            return run.returncode
+        print("before_after " + out.strip().splitlines()[-1], flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60)
+    print(card.stdout.strip().splitlines()[0])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
