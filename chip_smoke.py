@@ -12,9 +12,9 @@ straight through and exits non-zero at the first failure:
    registers and spills of the kernels redesigned for Hopper (K2b, #9's
    short-row, wide and segmented schedules, K1b's forward strip and wide
    kernel, K4b's pair strip, the float64 triangle of K1c, K3c and K7, the
-   register tile in its forward (K1, K3) and triangle (K2, K5) forms, K1's
-   3xTF32 wide kernel) and of the probes from the build's ``-Xptxas -v``
-   log;
+   register tile in its forward (K1, K3), triangle (K2, K5) and pair (K4,
+   K6) forms, the 3xTF32 wide kernel of K1 and K3) and of the probes from
+   the build's ``-Xptxas -v`` log;
 2b. the ceilings: each probe (TPU kernels #10-#13: the L1 pair rate in
    float32 and float64, the elementwise chain, the exp chain, the exp and
    epilogue rates) against its plain version at a small size, then, with
@@ -62,14 +62,18 @@ straight through and exits non-zero at the first failure:
    at the path's n = m = 1,000,000, on those 4,096 rows, and K2b timed
    beside the exact K2 on the same points at k = 1 and 10;
 7. slice 3: the Laplace kernels K3 (its Hopper tile up to 16 columns, the
-   wide kernel past that), K3c (general and triangle) and K5 (the tile's
-   triangle form, at k = 1, 3, 10 and 16) against the
-   float64 plain version at the HIGGS shape (on 4,096 rows) and at ragged
-   shapes (n, m not multiples of 128; d = 3, 28, 50; an ARD lengthscale),
-   the tile's split product the same bits twice, timed, the triangle K3c
+   3xTF32 wide kernel past that, at k = 17, 32, 64, 200, 500), K3c
+   (general and triangle) and K5 (the tile's triangle form, at k = 1, 3,
+   10 and 16) against the float64 plain version at the HIGGS shape (on
+   4,096 rows; the wide K3 also at path A's lengthscale) and at ragged
+   shapes (n, m not multiples of 128; d = 3, 28, 50, 70; an ARD
+   lengthscale), the tile's split product and the wide K3 the same bits
+   twice, timed (the wide K3 also at E3's shard pair), the triangle K3c
    beside the general;
    path B, Nyström-PCG on ``LaplaceLinOp`` at the HIGGS-100k shape (k = 1,
-   k = 10, k = 1 refined), every logged residual within 1% of a float64 one;
+   k = 10, k = 1 refined), every logged residual within 1% of a float64 one,
+   the sketch through the wide K3 on the operator's kept operand (built
+   once in the path);
    path A, ASkotch (SAP) on ``LaplaceLinOp`` at config 4's n = 1,000,000,
    d = 50, and path A', config 4 as written (bf16x3 RBF), both under
    ``torch.profiler`` with sampled metrics, each sampled estimate within
@@ -94,10 +98,14 @@ straight through and exits non-zero at the first failure:
    of 256 to 2,048 entries); a k = 1 solve profiled; then
    path C', config 2 as written (dense, SRHT);
 9. slice 5, the sharded operators on positions of the one card
-   (``make_mesh(devices=[card] * P)``): the pair kernels K4, K4b, K6 against
-   float64 (K4b also against its tier's plain version) at k = 1, 2, 3, 16
-   at a ragged shape (V1 and V2 apart) and at k = 1, 3, 16 at each path's
-   shard shape, timed there; path E1, config
+   (``make_mesh(devices=[card] * P)``): the exact pair (K4, K6: the
+   register tile's pair form) in every family at k = 1, 2, 3, 10, 16
+   against float64 (out1 against the plain K1/K3 on (X1, X2, V2), out2 on
+   (X2, X1, V1), V1 and V2 apart) at two ragged shapes (n1 > n2 and n1 <
+   n2) and at E2's and E3's shard shapes, K4 timed at E2's (k = 1, 10, 16),
+   K6 at E3's (k = 1, 10); K4b against float64 and its tier's plain
+   version at k = 1, 2, 3, 16 at a ragged shape and at k = 1, 3, 16 at
+   E4's shard shape, timed there; path E1, config
    5 as written (``benchmarks/run.py::config5_sharded_krr``: n = 50,000,
    ``ShardedRBFLinOp`` on ``make_mesh()``, ``lanczos_eigsh``, ``hutchinson``,
    Nyström-PCG), profiled; E2, the same on a 4-position ring (the symmetric
@@ -279,8 +287,8 @@ TIERS = ("bf16x3", "bfloat16")
 # clock of the data sheet.
 # No kernel here puts work on the FP64 tensor cores (67 TFLOP/s); work
 # there would count at that peak ("fp64_tc"), so that no share reads over
-# 100%. K1 past 16 columns contracts on the TF32 tensor cores, 495 TFLOP/s
-# dense on the data sheet ("tf32_tc").
+# 100%. K1 and K3 past 16 columns contract on the TF32 tensor cores, 495
+# TFLOP/s dense on the data sheet ("tf32_tc").
 PEAK = {"fp32": 67e12, "fp64": 34e12, "fp64_tc": 67e12, "bf16_tc": 989e12,
         "tf32_tc": 495e12, "sfu": 16 * 132 * 1.98e9}
 HBM_BYTES_PER_S = 3.35e12
@@ -305,6 +313,8 @@ RES_REL, RES_ABS, RES_ABOVE = 0.01, 5e-7, 1e-5
 # by V's type, triangle_wrapper).
 REGISTERS_OF = {"gram_matmat": ("tile_forward", "gram_wide_tf32"),
                 "gram_matvec_symmetric": ("tile_triangle",),
+                "laplace_matmat": ("gram_wide_tf32",),
+                "gram_pair": ("tile_pair",), "laplace_pair": ("tile_pair",),
                 "gram_matvec_symmetric_tier": ("gram_tier_symmetric",),
                 "gram_matmat_tier": ("gram_tier_forward", "gram_tier_wide"),
                 "gram_pair_tier": ("gram_tier_pair",),
@@ -355,11 +365,13 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     division is O((n + m) d) work and not counted); the exponential, one
     SFU operation (and one more for the Matérn square root) where the
     epilogue is float32, one float64 operation in K1c, K3c, K7 and K8; 2k
-    for the contraction, except K1 past 16 columns (``gram_matmat`` at k >
-    16, float32), which contracts on the TF32 tensor cores in three passes
-    (hi·hi, hi·lo, lo·hi: 6k operations a value, ``PEAK["tf32_tc"]``), its
-    distance and exponential counted once a value as for any other kernel
-    (the kernel evaluates each value once per 128 output columns). The
+    for the contraction, except K1 and K3 past 16 columns (``gram_matmat``
+    and ``laplace_matmat`` at k > 16, float32), which contract on the TF32
+    tensor cores in three passes (hi·hi, hi·lo, lo·hi: 6k operations a
+    value, ``PEAK["tf32_tc"]``), their distance (squared, or K3's L1 at 2
+    operations a feature) and exponential counted once a value as for any
+    other kernel (the kernel evaluates each value once per 128 output
+    columns): 60.6 ms at 100k², k = 500, for either. The
     triangle kernels (a name that holds
     "symmetric": K2, K2b, K5, K7 and K1c's triangle form,
     ``gram_matvec_symmetric_comp``) evaluate each
@@ -405,7 +417,7 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
         ops["fp32"] = values * 3 + (contraction if k <= 16 else 0)
         parts = 2 * d * (2 if passes == 3 else 1) + 4
         nbytes = parts * (n + (0 if sym else m)) + 4 * m * k + 4 * n * k + vk
-    elif kernel == "gram_matmat" and k > 16:
+    elif kernel in ("gram_matmat", "laplace_matmat") and k > 16:
         ops["fp32"] = values * per_feature * d
         ops["tf32_tc"] = 3 * contraction
         nbytes = 4 * (n + m) * d + 4 * m * k + 4 * n * k
@@ -491,11 +503,13 @@ def triangle_wrapper(args: str) -> str:
     return "gram_matvec_symmetric_f64" if last in ("d", "double") else "gram_matvec_symmetric_comp"
 
 
-# The register tile's two forms serve the squared-distance wrappers (K1, K2)
-# and the Laplace ones (K3, K5), told apart by the family, their first
-# template argument (LAPLACE_CODE).
+# The register tile's three forms and the 3xTF32 wide kernel serve the
+# squared-distance wrappers (K1, K2, K4) and the Laplace ones (K3, K5, K6),
+# told apart by the family, their first template argument (LAPLACE_CODE).
 TILE_FORMS = {"tile_forward": ("gram_matmat", "laplace_matmat_narrow"),
-              "tile_triangle": ("gram_matvec_symmetric", "laplace_matvec_symmetric")}
+              "tile_triangle": ("gram_matvec_symmetric", "laplace_matvec_symmetric"),
+              "tile_pair": ("gram_pair", "laplace_pair"),
+              "gram_wide_tf32": ("gram_matmat", "laplace_matmat")}
 
 
 def tile_wrapper(fn: str, args: str) -> str:
@@ -586,11 +600,9 @@ def plain_twosum_f32(kind, X, V, ls):
 
 
 # csrc/gram_common.cuh's template arguments: the family first (LAPLACE is 4),
-# then the narrow kernel's Mode last (EXACT 0, COMP 1, F64 2), the exact
-# triangle's PAIR last.
-_NARROW = {0: "gram_matmat", 1: "gram_matmat_comp", 2: "gram_matmat_f64"}
-_LAPLACE = {"gram_matmat": "laplace_matmat", "gram_matmat_comp": "laplace_matmat_comp",
-            "gram_matvec_symmetric": "laplace_matvec_symmetric", "gram_pair": "laplace_pair"}
+# then the narrow kernel's Mode last (COMP 1, F64 2).
+_NARROW = {1: "gram_matmat_comp", 2: "gram_matmat_f64"}
+_LAPLACE = {"gram_matmat_comp": "laplace_matmat_comp"}
 LAPLACE_CODE = 4
 
 
@@ -602,10 +614,10 @@ _OWN = {"gram_tier_symmetric": "gram_matvec_symmetric_tier",
         "gram_tier_pair": "gram_pair_tier"}
 # Kernels whose names hold no gram_ prefix: the probes, and K3's tile in its
 # two forms as earlier builds named them (K3, K5); the register tile's forms
-# by family (TILE_FORMS), K1's wide kernel by name.
+# and the wide kernel by family (TILE_FORMS).
 _OWN_NAMED = {"laplace_forward": "laplace_matmat_narrow",
               "laplace_triangle": "laplace_matvec_symmetric", "probe_l1": "probe_l1",
-              "probe_chain": "probe_chain", "gram_wide_tf32": "gram_matmat"}
+              "probe_chain": "probe_chain"}
 
 
 def _kernel_group(name: str) -> str:
@@ -613,7 +625,7 @@ def _kernel_group(name: str) -> str:
         return "sum_splits"
     if "csr_spmm" in name:
         return "csr_spmm"
-    m = re.search(r"(tile_forward|tile_triangle)<([^>]*)>", name)
+    m = re.search(r"(tile_forward|tile_triangle|tile_pair|gram_wide_tf32)<([^>]*)>", name)
     if m:
         return tile_wrapper(m.group(1), m.group(2))
     for own, group in _OWN_NAMED.items():
@@ -628,17 +640,11 @@ def _kernel_group(name: str) -> str:
         return _OWN[m.group(1)]
     if m.group(2) is None:
         return "other"
-    fn, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
-    # gram_matvec_symmetric<KIND, KC, PAIR> ends in PAIR; the others in MODE
+    args = [a.strip() for a in m.group(2).split(",")]
+    # gram_matmat_narrow<KIND, KC, MODE> ends in MODE
     try:
         family = int(args[0])
-        if fn == "gram_matmat_wide":
-            group = "gram_matmat"
-        elif fn == "gram_matvec_symmetric":
-            pair = args[-1] in ("true", "1", "(bool)1")
-            group = "gram_pair" if pair else "gram_matvec_symmetric"
-        else:
-            group = _NARROW.get(int(args[-1]), "other")
+        group = _NARROW.get(int(args[-1]), "other")
     except (ValueError, IndexError):
         return "other"
     return _LAPLACE.get(group, group) if family == LAPLACE_CODE else group
@@ -1088,8 +1094,9 @@ def ceiling_shares(timings, rates, pipes):
     triangles) over the L1 probe's rate (float64 for the compensated
     kernels), kept in the entry as ``ceiling_ms``, and over the FP32 (FP64)
     pipes' pair rate at the SM clock read during the probe, as
-    ``pipe_ms``."""
-    for kname in ("laplace_matmat_narrow", "laplace_matmat", "laplace_matmat_comp",
+    ``pipe_ms``. K3 past 16 columns (``laplace_matmat``) has no such row:
+    its time goes to the TF32 contraction (``bound_ms``), not the L1 pair."""
+    for kname in ("laplace_matmat_narrow", "laplace_matmat_comp",
                   "gram_matvec_symmetric_comp", "laplace_matvec_symmetric", "laplace_pair"):
         for e in timings.get(kname, []):
             if e.get("kind") != "laplace" or not e.get("ms"):
@@ -1105,16 +1112,26 @@ def ceiling_shares(timings, rates, pipes):
                   f"FP{cd[5:]} pipes' peak rate ({e['pipe_ms']:.3f} ms)")
 
 
+# K3 past 16 columns (K1's 3xTF32 kernel with the L1 step) is checked at
+# these widths: one n-tile of 8 columns and a ragged one (17), 64 output
+# columns a block (32, 64), 128 (200, path B's 500).
+WIDE_KS = (17, 32, 64, 200, RANK)
+
+
 def laplace_kernels(dev, X, compare, timings):
-    """K3 (its tile up to 16 columns, the wide kernel past that), K3c
-    (general and triangle) and K5 (the tile's triangle form) against the
-    float64 plain version at the HIGGS shape (lengthscale 32, on 4,096 rows
-    of each full product; K5 at k = 1, 10 and 16) and at ragged shapes: n
-    and m not multiples of 128, d = 3, 28 and 50, a scalar and an ARD
-    lengthscale (K5 at k = 1, 3, 10 and 16); the tile's split product the
-    same bits twice. Then each kernel and its plain version timed at the
-    HIGGS shape (K5 on the operand an operator keeps) and the triangle K3c
-    beside the general. The plain versions sum distances
+    """K3 (its tile up to 16 columns, the 3xTF32 wide kernel past that),
+    K3c (general and triangle) and K5 (the tile's triangle form) against
+    the float64 plain version at the HIGGS shape (lengthscale 32, on 4,096
+    rows of each full product; K5 at k = 1, 10 and 16; K3 past 16 at k =
+    17, 32, 64, 200, 500, also at path A's lengthscale 8, on the operand an
+    operator keeps, the same bits twice and the same bits on an operand
+    built in the call) and at ragged shapes: n and m not multiples of 128,
+    d = 3, 28, 50 and 70, a scalar and an ARD lengthscale (K5 at k = 1, 3,
+    10 and 16); the tile's split product the same bits twice. Then each
+    kernel and its plain version timed at the HIGGS shape (K5 and the wide
+    K3 on the operand an operator keeps; the wide K3 also at E3's shard
+    pair, 33,334 points a side, k = 500, checked there on 4,096 rows) and
+    the triangle K3c beside the general. The plain versions sum distances
     directly, seconds a call here: one timed run each, without a warm-up."""
     import torch
 
@@ -1123,7 +1140,7 @@ def laplace_kernels(dev, X, compare, timings):
     n = X.shape[0]
     idx = torch.as_tensor(sampled_rows(n, 4096, 5), device=dev)
     gen = torch.Generator(device=dev).manual_seed(4)
-    Vs = {k: torch.randn((n, k), generator=gen, device=dev) for k in (1, 10, 16, RANK)}
+    Vs = {k: torch.randn((n, k), generator=gen, device=dev) for k in (1, 10, 16) + WIDE_KS}
     cols, at = {}, 0
     for k in Vs:
         cols[k] = slice(at, at + k)
@@ -1137,8 +1154,29 @@ def laplace_kernels(dev, X, compare, timings):
     for k in (1, 10, 16):
         compare("laplace_matmat_narrow", kernel_cuda.laplace_matmat(X, X, Vs[k], LS_B)[idx],
                 ref[:, cols[k]], f"{shape} k={k}", K_BOUND)
-    compare("laplace_matmat", kernel_cuda.laplace_matmat(X, X, Vs[RANK], LS_B)[idx],
-            ref[:, cols[RANK]], f"{shape} k={RANK}", K_BOUND)
+    # past 16 columns on the operand an operator keeps (path B's sketch), and
+    # at path A's lengthscale; no atomics: the same bits twice, and on an
+    # operand built in the call
+    XT = kernel_cuda.tile_operand(X, LS_B)
+    kept = (lambda: (XT, XT))
+    Wa, cols_a = concat_columns({k: Vs[k] for k in WIDE_KS})
+    ref_a = kernel_plain.gram_matmat_f64("laplace", X[idx], X, Wa, LS_A, row_block=512)
+    del Wa
+    for k in WIDE_KS:
+        got = kernel_cuda.laplace_matmat(X, X, Vs[k], LS_B, 1.0, kept)
+        compare("laplace_matmat", got[idx], ref[:, cols[k]], f"{shape} k={k}", K_BOUND)
+        if k in (17, RANK):
+            again = kernel_cuda.laplace_matmat(X, X, Vs[k], LS_B, 1.0, kept)
+            built = kernel_cuda.laplace_matmat(X, X, Vs[k], LS_B)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again) and torch.equal(got, built),
+                  f"laplace_matmat k={k}: the same bits twice, and on an operand built in "
+                  "the call")
+            del again, built
+        del got
+        compare("laplace_matmat", kernel_cuda.laplace_matmat(X, X, Vs[k], LS_A)[idx],
+                ref_a[:, cols_a[k]], f"{shape} k={k} lengthscale {LS_A}", K_BOUND)
+    del ref_a
     for k in (1, 10, 16):
         compare("laplace_matvec_symmetric",
                 kernel_cuda.laplace_matvec_symmetric(X, Vs[k], LS_B)[idx],
@@ -1192,6 +1230,20 @@ def laplace_kernels(dev, X, compare, timings):
         compare("gram_matvec_symmetric_comp", hi.double() + lo.double(),
                 kernel_plain.gram_matmat_f64("laplace", P1, P1, S, ard.double(), 0.9),
                 f"laplace n={n1} d={d} k=3 ARD lengthscale (hi+lo)", COMP_BOUND)
+    # the wide K3 at ragged shapes: d = 3, 28, 50 and 70 (one, two and three
+    # chunks of 32 features, ragged last ones), every width of WIDE_KS
+    rngw = np.random.default_rng(43)
+    for n1, m1, d in ((1000, 777, 3), (1000, 777, 28), (300, 1300, 50), (777, 1000, 70)):
+        P1 = torch.from_numpy(rngw.standard_normal((n1, d)).astype(np.float32)).to(dev)
+        P2 = torch.from_numpy(rngw.standard_normal((m1, d)).astype(np.float32)).to(dev)
+        W, cw = concat_columns({k: torch.from_numpy(rngw.standard_normal((m1, k)).astype(
+            np.float32)).to(dev) for k in WIDE_KS})
+        ard = torch.linspace(0.6, 1.4, d, device=dev) * (2 * d / np.pi**0.5)
+        for ls, tag in ((2 * d / np.pi**0.5, "scalar"), (ard, "ARD")):
+            refw = kernel_plain.gram_matmat_f64("laplace", P1, P2, W, ls, 0.9)
+            for k in WIDE_KS:
+                compare("laplace_matmat", kernel_cuda.laplace_matmat(P1, P2, W[:, cw[k]], ls, 0.9),
+                        refw[:, cw[k]], f"n={n1} m={m1} d={d} k={k} {tag} lengthscale", K_BOUND)
     # the m axis in runs: the same bits on two calls
     P1 = torch.from_numpy(rng.standard_normal((1000, 50)).astype(np.float32)).to(dev)
     P2 = torch.from_numpy(rng.standard_normal((300_000, 50)).astype(np.float32)).to(dev)
@@ -1210,8 +1262,8 @@ def laplace_kernels(dev, X, compare, timings):
     # K5's plain version is K3's on (X, X), the same call, and the
     # triangle K3c's the general one's: timed once per k
     plain_ms = {}
-    XT = kernel_cuda.tile_operand(X, LS_B)
-    for kernel, k in (("laplace_matmat", RANK), ("laplace_matmat_narrow", 1),
+    for kernel, k in (("laplace_matmat", RANK), ("laplace_matmat", 17), ("laplace_matmat", 64),
+                      ("laplace_matmat_narrow", 1),
                       ("laplace_matmat_narrow", 10), ("laplace_matmat_narrow", 16),
                       ("laplace_matvec_symmetric", 1), ("laplace_matvec_symmetric", 10),
                       ("laplace_matvec_symmetric", 16),
@@ -1233,6 +1285,8 @@ def laplace_kernels(dev, X, compare, timings):
             if kernel == "laplace_matvec_symmetric":
                 # on the operand an operator keeps (path B, E3)
                 ms = cuda_ms(lambda: kernel_cuda.laplace_matvec_symmetric(X, V, LS_B, 1.0, XT))
+            elif kernel == "laplace_matmat":
+                ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(X, X, V, LS_B, 1.0, kept))
             else:
                 ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(X, X, V, LS_B))
             if k not in plain_ms and k in (1, 10, RANK):
@@ -1248,6 +1302,25 @@ def laplace_kernels(dev, X, compare, timings):
         if "general_ms" in extra:
             line += f", general K3c {extra['general_ms']:.3f} ms"
         print(line)
+    # the wide K3 at E3's shard pair (path B's points in 3 shards), k = 500:
+    # the sketch's general calls of the Laplace half-ring
+    loc = -(-n // P_LAPLACE)
+    X1, X2 = X[:loc], X[loc:2 * loc]
+    XT1, XT2 = kernel_cuda.tile_operand(X1, LS_B), kernel_cuda.tile_operand(X2, LS_B)
+    V = torch.randn((X2.shape[0], RANK), generator=gen, device=dev)
+    got = kernel_cuda.laplace_matmat(X1, X2, V, LS_B, 1.0, lambda: (XT1, XT2))
+    i3 = torch.as_tensor(sampled_rows(loc, 4096, 8), device=dev)
+    what = f"E3 shards n1={loc} n2={X2.shape[0]} d={D} k={RANK}"
+    compare("laplace_matmat", got[i3],
+            kernel_plain.gram_matmat_f64("laplace", X1[i3], X2, V, LS_B, row_block=512),
+            f"{what} rows 4096", K_BOUND)
+    ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(X1, X2, V, LS_B, 1.0, lambda: (XT1, XT2)))
+    p_ms = cuda_ms(lambda: kernel_plain.gram_matmat("laplace", X1, X2, V, LS_B, row_block=BLOCK),
+                   reps=1, warm=False)
+    entry = timing_entry("laplace_matmat", what, ms, p_ms, loc, X2.shape[0], D, RANK, "laplace")
+    timings["laplace_matmat"].append(entry)
+    print(f"time laplace_matmat {what}: kernel {ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+          f"{entry['bound_ms']:.3f} ms")
 
 
 def concat_columns(Vs: dict):
@@ -1375,13 +1448,15 @@ def sqdist_kernels(dev, X, compare, timings):
 def slice3(dev, X, Xn, y):
     """Path B: Nyström-PCG on the Laplace operator at the HIGGS-100k shape,
     through the entry points a user calls: k = 1, k = 10, then k = 1 with
-    two float64 refinement rounds (evaluate/full). Counted as one window;
-    then every logged residual against a float64 one of the same iterate
-    (one plain float64 sweep over all of them), and the refined claim
-    against a full K7 sweep. Returns the launch counts."""
+    two float64 refinement rounds (evaluate/full). Counted as one window,
+    and so are the register tile's operands built in it: the operator's
+    kept one once (K5 and the wide K3 of the sketch take it), none in a
+    call; then every logged residual against a float64 one of the same
+    iterate (one plain float64 sweep over all of them), and the refined
+    claim against a full K7 sweep. Returns the launch counts."""
     import torch
 
-    from rlaopt_tpu_torch.kernels import KernelConfig, LaplaceLinOp
+    from rlaopt_tpu_torch.kernels import KernelConfig, LaplaceLinOp, linop
     from rlaopt_tpu_torch.models import LinSys
     from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
     from rlaopt_tpu_torch.preconditioners import NystromConfig
@@ -1392,6 +1467,17 @@ def slice3(dev, X, Xn, y):
     Y10 = torch.cat([y[:, None], torch.from_numpy(extra_targets(Xn, 10)).to(dev)], 1)
     cfg = PCGConfig(max_iters=ITERS, rtol=1e-6,
                     precond_config=NystromConfig(rank=RANK, rho=reg))
+    built = {"kept": 0, "in a call": 0}
+
+    def counted(fn, key):
+        def build(*args):
+            built[key] += 1
+            return fn(*args)
+        return build
+
+    kept_fn, call_fn = linop.tile_operand, kernel_cuda.tile_operand
+    linop.tile_operand = counted(kept_fn, "kept")
+    kernel_cuda.tile_operand = counted(call_fn, "in a call")
     kernel_cuda.reset_launch_counts()
     K = LaplaceLinOp(X, X, KernelConfig(lengthscale=LS_B))
     solves = []
@@ -1416,6 +1502,10 @@ def slice3(dev, X, Xn, y):
     wall_r = time.perf_counter() - t0
     counts = kernel_cuda.launch_counts()
     used_r = {c: counts[c] - before[c] for c in counts}
+    linop.tile_operand, kernel_cuda.tile_operand = kept_fn, call_fn
+    print(f"slice3 tile operands built: {built}")
+    check(built == {"kept": 1, "in a call": 0},
+          "slice3 the operator's tile operand built once, taken by K5 and the wide K3 sketch")
 
     # every logged iterate's float64 residual in one plain sweep
     W64s, B64s, where = [], [], []
@@ -1441,7 +1531,8 @@ def slice3(dev, X, Xn, y):
               f"s/iter {s_iter:.4f} launches {used}")
         first, last = np.array(hist[0]), np.array(hist[iters])
         check(np.all(np.isfinite(last)) and np.all(last < first), f"slice3 k={k} rel_res falls")
-        check(used["laplace_matmat"] > 0, f"slice3 k={k} sketch ran through laplace_matmat")
+        check(used["laplace_matmat"] > 0 and used["laplace_matmat_narrow"] == 0,
+              f"slice3 k={k} sketch ran through laplace_matmat past 16 columns")
         check(used["gram_matvec_symmetric_comp"] >= len(log) and used["laplace_matmat_comp"] == 0,
               f"slice3 k={k} every boundary ran through the triangle K3c")
         check(used["laplace_matvec_symmetric"] >= iters,
@@ -2084,36 +2175,76 @@ def config2(dev, profiled):
     return record
 
 
+# The exact pair (K4, K6: the register tile's pair form) is checked in every
+# family at these widths: each KC it is built for (1, 2, 4, 16), a ragged
+# one (3) and E2's probes' (10).
+PAIR_KS = (1, 2, 3, 10, 16)
+
+
+def pair_name(kind: str) -> str:
+    return "laplace_pair" if kind == "laplace" else "gram_pair"
+
+
+def exact_pair(kind, X1, X2, V2, V1, ls, c=1.0, operands=None):
+    """K4, or K6 for Laplace."""
+    from rlaopt_tpu_torch.ops import kernel_cuda
+
+    if kind == "laplace":
+        return kernel_cuda.laplace_pair(X1, X2, V2, V1, ls, c, operands)
+    return kernel_cuda.gram_pair(kind, X1, X2, V2, V1, ls, c, operands)
+
+
+def pair_checks(dev, compare, X1, X2, ls, what, c=1.0, seed=22, rows=None):
+    """K4 and K6 in every family at ``PAIR_KS`` against float64: out1
+    against the plain K1/K3 on (X1, X2, V2), out2 against it on (X2, X1,
+    V1), V1 and V2 random and drawn apart (a mix-up of the two would pass
+    at V1 = V2); all rows, or ``rows`` sampled rows of each output."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_plain
+
+    n1, n2 = X1.shape[0], X2.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    W2, cols = concat_columns({k: torch.randn((n2, k), generator=gen, device=dev)
+                               for k in PAIR_KS})
+    W1, _ = concat_columns({k: torch.randn((n1, k), generator=gen, device=dev)
+                            for k in PAIR_KS})
+    i1 = i2 = slice(None)
+    if rows is not None:
+        i1 = torch.as_tensor(sampled_rows(n1, min(rows, n1), seed + 1), device=dev)
+        i2 = torch.as_tensor(sampled_rows(n2, min(rows, n2), seed + 2), device=dev)
+        what += f" rows {rows}"
+    for kind in SQDIST_KINDS + ("laplace",):
+        r1 = kernel_plain.gram_matmat_f64(kind, X1[i1], X2, W2, ls, c, row_block=1024)
+        r2 = kernel_plain.gram_matmat_f64(kind, X2[i2], X1, W1, ls, c, row_block=1024)
+        for k in PAIR_KS:
+            o1, o2 = exact_pair(kind, X1, X2, W2[:, cols[k]], W1[:, cols[k]], ls, c)
+            shape = f"{kind} {what} n1={n1} n2={n2} d={X1.shape[1]} k={k}"
+            compare(pair_name(kind), o1[i1], r1[:, cols[k]], f"{shape} out1", K_BOUND)
+            compare(pair_name(kind), o2[i2], r2[:, cols[k]], f"{shape} out2", K_BOUND)
+
+
 def pair_ragged(dev, compare):
-    """K4 (every squared-distance family), K6 and K4b (both tiers) against
-    float64 and K4b against its tier's plain version, at the ragged shape
-    (X1 1000 x 3, X2 777 x 3) and k = 1, 2, 3, 16, with V1 and V2 drawn
-    apart (a mix-up of the two would pass at V1 = V2); then K4b against its
-    tier's plain version at the HIGGS width (X1 700 x 28, X2 530 x 28,
-    lengthscale 5.3), its one-pass mirror at k >= 3 held to
-    ``reround_bound``."""
+    """K4 and K6 (every family, :func:`pair_checks`) at the ragged shapes
+    X1 1000 x 3, X2 777 x 3 (lengthscale 1.3) and X1 530 x 28, X2 700 x 28
+    (n1 < n2, lengthscale 5.3); K4b (both tiers) against float64 and
+    against its tier's plain version at the first (k = 1, 2, 3, 16, V1 and
+    V2 drawn apart), then against its tier's plain version at the HIGGS
+    width (X1 700 x 28, X2 530 x 28, lengthscale 5.3), its one-pass mirror
+    at k >= 3 held to ``reround_bound``."""
     import torch
 
     from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
     from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
 
     A1, A2, _, _ = (torch.from_numpy(a).to(dev) for a in ragged_data())
+    pair_checks(dev, compare, A1, A2, 1.3, "ragged", c=0.9, seed=40)
     for k in (1, 2, 3, 16):
         V2, V1 = (torch.from_numpy(a).to(dev) for a in pair_ragged_rhs(k))
         what = f"n1=1000 n2=777 d=3 k={k}"
-        for kind in SQDIST_KINDS + ("laplace",):
+        for kind in SQDIST_KINDS:
             r1, r2 = kernel_plain.gram_pair(kind, A1.double(), A2.double(), V2.double(),
                                             V1.double(), 1.3, 0.9)
-            if kind == "laplace":
-                kname = "laplace_pair"
-                o1, o2 = kernel_cuda.laplace_pair(A1, A2, V2, V1, 1.3, 0.9)
-            else:
-                kname = "gram_pair"
-                o1, o2 = kernel_cuda.gram_pair(kind, A1, A2, V2, V1, 1.3, 0.9)
-            compare(kname, o1, r1, f"{kind} {what} out1", K_BOUND)
-            compare(kname, o2, r2, f"{kind} {what} out2", K_BOUND)
-            if kind == "laplace":
-                continue
             for cd in TIERS:
                 P1, P2 = tier_operand(A1 / 1.3, cd), tier_operand(A2 / 1.3, cd)
                 o1, o2 = kernel_cuda.gram_pair_tier(kind, P1, P2, V2, V1, 0.9)
@@ -2131,6 +2262,7 @@ def pair_ragged(dev, compare):
     rng = np.random.default_rng(5)
     B1, B2 = (torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32)).to(dev)
               for n in (700, 530))
+    pair_checks(dev, compare, B2, B1, 5.3, "ragged", c=0.9, seed=41)
     for k in (1, 2, 3, 16):
         V2, V1 = (torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(dev)
                   for n in (530, 700))
@@ -2155,34 +2287,59 @@ def pair_ragged(dev, compare):
                           "largest error is re-rounding")
 
 
-def pair_at(dev, kname, X1, X2, compare, timings, what, kind="rbf", ls=None, cd=None,
-            rows=None):
-    """One pair kernel at a path's shard shape (X1, X2: two shards) at
-    k = 1, 3, 16 against float64 (and K4b against its tier's plain version),
-    all rows or ``rows`` sampled rows of each output; then the kernel and
-    its plain version timed at k = 1."""
+def pair_timed(dev, X1, X2, compare, timings, what, kind, ls, ks, rows=None):
+    """The exact pair at a path's shard shape (X1, X2: two shards): every
+    family checked (:func:`pair_checks`), all rows or ``rows`` sampled rows
+    of each output; then the path's family timed at each of ``ks`` on the
+    operands the half-ring keeps, and its plain version at the first."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+
+    t0 = time.perf_counter()
+    pair_checks(dev, compare, X1, X2, ls, what, rows=rows)
+    kname = pair_name(kind)
+    n1, n2 = X1.shape[0], X2.shape[0]
+    XT1, XT2 = kernel_cuda.tile_operand(X1, ls), kernel_cuda.tile_operand(X2, ls)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    for k in ks:
+        V2 = torch.randn((n2, k), generator=gen, device=dev)
+        V1 = torch.randn((n1, k), generator=gen, device=dev)
+        # 20 calls a timing: a call of a fraction of a millisecond
+        ms = cuda_ms(lambda: exact_pair(kind, X1, X2, V2, V1, ls, 1.0, lambda: (XT1, XT2)),
+                     inner=20)
+        p_ms = None
+        if k == ks[0]:
+            p_ms = cuda_ms(lambda: kernel_plain.gram_pair(kind, X1, X2, V2, V1, ls,
+                                                          row_block=BLOCK), reps=1, warm=False)
+        shape = f"{what} n1={n1} n2={n2} d={X1.shape[1]} k={k}"
+        timings.setdefault(kname, []).append(
+            timing_entry(kname, shape, ms, p_ms, n1, n2, X1.shape[1], k, kind))
+        print(f"time {kname} {shape}: kernel {ms:.4f} ms, plain "
+              + (f"{p_ms:.3f} ms" if p_ms is not None else "not timed")
+              + f", bound {timings[kname][-1]['bound_ms']:.4f} ms "
+              f"(checks and times {time.perf_counter() - t0:.3f} s)")
+
+
+def pair_at(dev, X1, X2, compare, timings, what, ls, cd, rows):
+    """K4b at a path's shard shape (X1, X2: two shards) at k = 1, 3, 16
+    against float64 and its tier's plain version on ``rows`` sampled rows
+    of each output; then the kernel and its plain version timed at k = 1."""
     import torch
 
     from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
     from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
 
+    kname, kind = "gram_pair_tier", "rbf"
     n1, n2 = X1.shape[0], X2.shape[0]
     gen = torch.Generator(device=dev).manual_seed(22)
-    P1 = P2 = None
-    if cd is not None:
-        P1, P2 = tier_operand(X1 / ls, cd), tier_operand(X2 / ls, cd)
+    P1, P2 = tier_operand(X1 / ls, cd), tier_operand(X2 / ls, cd)
 
     def kernel(V2, V1):
-        if kname == "gram_pair_tier":
-            return kernel_cuda.gram_pair_tier(kind, P1, P2, V2, V1)
-        if kname == "laplace_pair":
-            return kernel_cuda.laplace_pair(X1, X2, V2, V1, ls)
-        return kernel_cuda.gram_pair(kind, X1, X2, V2, V1, ls)
+        return kernel_cuda.gram_pair_tier(kind, P1, P2, V2, V1)
 
     def plain(V2, V1):
-        if kname == "gram_pair_tier":
-            return kernel_plain.gram_pair_tier(kind, P1, P2, V2, V1, row_block=BLOCK // 4)
-        return kernel_plain.gram_pair(kind, X1, X2, V2, V1, ls, row_block=BLOCK)
+        return kernel_plain.gram_pair_tier(kind, P1, P2, V2, V1, row_block=BLOCK // 4)
 
     t0 = time.perf_counter()
     for k in (1, 3, 16):
@@ -2190,12 +2347,6 @@ def pair_at(dev, kname, X1, X2, compare, timings, what, kind="rbf", ls=None, cd=
         V1 = torch.randn((n1, k), generator=gen, device=dev)
         o1, o2 = kernel(V2, V1)
         shape = f"{what} n1={n1} n2={n2} d={X1.shape[1]} k={k}"
-        if rows is None:
-            r1, r2 = kernel_plain.gram_pair(kind, X1.double(), X2.double(), V2.double(),
-                                            V1.double(), ls, row_block=BLOCK)
-            compare(kname, o1, r1, f"{shape} out1", K_BOUND)
-            compare(kname, o2, r2, f"{shape} out2", K_BOUND)
-            continue
         # sampled rows: out1 rows need all of X2, out2 rows all of X1
         i1 = torch.as_tensor(sampled_rows(n1, min(rows, n1), 23), device=dev)
         i2 = torch.as_tensor(sampled_rows(n2, min(rows, n2), 24), device=dev)
@@ -2213,7 +2364,7 @@ def pair_at(dev, kname, X1, X2, compare, timings, what, kind="rbf", ls=None, cd=
     V1 = torch.randn((n1, 1), generator=gen, device=dev)
     ms = cuda_ms(lambda: kernel(V2, V1))
     p_ms = cuda_ms(lambda: plain(V2, V1), reps=1, warm=False)
-    shape = f"{what} n1={n1} n2={n2} d={X1.shape[1]} k=1" + (f" {cd}" if cd else "")
+    shape = f"{what} n1={n1} n2={n2} d={X1.shape[1]} k=1 {cd}"
     timings.setdefault(kname, []).append(
         timing_entry(kname, shape, ms, p_ms, n1, n2, X1.shape[1], 1, kind, cd))
     print(f"time {kname} {shape}: kernel {ms:.3f} ms, plain {p_ms:.3f} ms, "
@@ -2406,9 +2557,11 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     print(f"time E2 ring matvec n={N5} P={P_RING} k=1: {t_ring:.3f} / {t_ring2:.3f} ms, "
           f"unsharded K2 {t_flat:.3f} / {t_flat2:.3f} ms, ratio {rec2['matvec_ms']['ratio']:.3f}")
     print("slice5 E2 " + json.dumps(rec2))
-    # K4 at E2's shard shape (two shards of 12,500 points), checked on all rows
+    # K4 and K6 at E2's shard shape (two shards of 12,500 points), checked on
+    # all rows; K4 timed at k = 1, 10, 16
     loc = N5 // P_RING
-    pair_at(dev, "gram_pair", X[:loc], X[loc:2 * loc], compare, timings, "E2 shards", ls=ls)
+    pair_timed(dev, X[:loc], X[loc:2 * loc], compare, timings, "E2 shards", "rbf", ls,
+               (1, 10, 16))
     del K1, K2, Kflat, X, y
     print(f"phase: slice 5 E2 done at {time.perf_counter() - t_phase:.1f} s into it")
 
@@ -2438,6 +2591,8 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     gaps3 = residual_gaps("E3", log3, iterates, rel64)
     keys3 = int_keys(log3)
     check(used3["laplace_pair"] >= lpairs * keys3[-1], "E3's pairs ran through K6")
+    check(used3["laplace_matmat"] >= P_LAPLACE + 2 * lpairs,
+          "E3's sketch ran through the wide K3 (diagonal blocks and the pairs' general calls)")
     rec3 = {"n": n, "positions": P_LAPLACE, "wall_s": wall3, "phase_walls": sys3.phase_walls,
             "iters": keys3[-1], "s_per_iter": sys3.phase_walls["train"] / keys3[-1],
             "rel_res": {i: log3[i]["metrics"]["internal_metrics"]["rel_res"].tolist()
@@ -2457,8 +2612,8 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     records["E3"] = rec3
     print("slice5 E3 " + json.dumps(rec3))
     loc = -(-n // P_LAPLACE)
-    pair_at(dev, "laplace_pair", X100[:loc], X100[loc:2 * loc], compare, timings, "E3 shards",
-            kind="laplace", ls=LS_B)
+    pair_timed(dev, X100[:loc], X100[loc:2 * loc], compare, timings, "E3 shards", "laplace",
+               LS_B, (1, 10), rows=4096)
     del K3, Kflat
     print(f"phase: slice 5 E3 done at {time.perf_counter() - t_phase:.1f} s into it")
 
@@ -2490,8 +2645,7 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     print("slice5 E4 " + json.dumps(rec4))
     del K4, Kflat, ring_out, flat_out
     loc = N6 // 4
-    pair_at(dev, "gram_pair_tier", X6[:loc], X6[loc:2 * loc], compare, timings, "E4 shards",
-            ls=ls, cd="bf16x3", rows=4096)
+    pair_at(dev, X6[:loc], X6[loc:2 * loc], compare, timings, "E4 shards", ls, "bf16x3", 4096)
     print(f"phase: slice 5 E4 done at {time.perf_counter() - t_phase:.1f} s into it")
     return records
 
@@ -2984,7 +3138,7 @@ def main() -> int:
         ("gram_matvec_symmetric_f64", SOURCES["comp"], f"{VALUE64}:467"),
         ("gram_matmat_f64", SOURCES["f64"], f"{VALUE64}:684"),
         ("laplace_matmat_narrow", SOURCES["laplace"], f"{PALLAS}:592"),
-        ("laplace_matmat", SOURCES["laplace"], f"{PALLAS}:592"),
+        ("laplace_matmat", SOURCES["wide"], f"{PALLAS}:592"),
         ("laplace_matmat_comp", SOURCES["laplace"], f"{PALLAS}:592"),
         ("laplace_matvec_symmetric", SOURCES["laplace"], f"{PALLAS}:1930"),
         ("csr_spmv", SOURCES["spmv"], f"{LANED}:136"),
@@ -3021,8 +3175,8 @@ def main() -> int:
             kernels[-1]["matmul_tflops"] = mm_rate / 1e12
         if kname == "gram_matmat":
             kernels[-1]["sources"] = [SOURCES["gram"], SOURCES["wide"], SOURCES["tile"]]
-        if kname in ("gram_matvec_symmetric", "laplace_matmat_narrow",
-                     "laplace_matvec_symmetric"):
+        if kname in ("gram_matvec_symmetric", "laplace_matmat_narrow", "laplace_matmat",
+                     "laplace_matvec_symmetric", "gram_pair", "laplace_pair"):
             kernels[-1]["sources"] = [source, SOURCES["tile"]]
         mine = registers_of(kname, registers)
         if mine:

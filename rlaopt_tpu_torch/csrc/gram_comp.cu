@@ -31,7 +31,7 @@
 // floats to double and a multiplication by the inverse lengthscale on top:
 // 101.4 ms at n = 100,000, d = 28, k = 1, 25% of its bound. K7's first
 // version was the shared triangle template in float64 (gram_common.cuh,
-// kernel_tile<KIND, true>): a 4 x 4 register tile, those conversions and
+// kernel_tile<KIND>): a 4 x 4 register tile, those conversions and
 // that multiplication per pair and feature, 8 right-hand sides a slice, and
 // float64 V and sums throughout: 59.4 / 261.5 ms at n = 100,000, d = 28,
 // k = 1 / 10, where this triangle took 41.1 / 133.7 ms as K1c.

@@ -8,7 +8,7 @@
 // float64 (scalar or ARD, d values), V and out in float64. The TPU has no
 // float64, so the JAX package reaches ~3e-9 kernel values through two-float
 // arithmetic (ops/twofloat.py); the H100 has FP64 units, so this kernel is
-// K1c's tile (gram_common.cuh, kernel_tile<KIND, true>) carried to float64
+// K1c's tile (gram_common.cuh, kernel_tile<KIND>) carried to float64
 // end to end: the difference of two float inputs is exact in double, and
 // the scaling, the distance (squared, or L1 for Laplace), the value, V, the
 // contraction and the accumulator are double. Its error against the float64

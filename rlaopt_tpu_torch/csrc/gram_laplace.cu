@@ -3,8 +3,9 @@
 // out = c * exp(-sum_f |x_f - y_f|) @ V, K never reaching device memory:
 //
 //   K3  tile_forward<LAPLACE>     replaces rlaopt_tpu/ops/kernel_pallas.py ::
-//       (k <= 16; past 16 the     _laplace_matmat (plain)
-//       shared wide kernel)
+//       (k <= 16; past 16         _laplace_matmat (plain)
+//       gram_wide.cu's 3xTF32
+//       kernel)
 //   K3c laplace_matmat (COMP)     replaces _laplace_matmat(compensated=True)
 //                                 for two data sets; one data set takes the
 //                                 triangle of gram_comp.cu
@@ -18,8 +19,9 @@
 // instruction a clock per sub-partition) deliver half the data sheet's
 // 67 TFLOP/s (which counts an FMA as two) for this function, and every
 // other instruction in the loop takes a FADD's slot. Per kernel value
-// besides: one exp and 2k FMAs of contraction. No tensor cores: an L1
-// distance has no product form.
+// besides: one exp and 2k FMAs of contraction. An L1 distance has no
+// product form, so it stays on the FP32 pipes; past 16 columns the
+// contraction goes to the TF32 tensor cores (gram_wide.cu).
 //
 // K3 for k <= 16 and K5 run on the register tile of gram_tile.cuh (K3's
 // tile and its triangle form, since generalised to every family: K1
@@ -27,8 +29,9 @@
 // a thread, cp.async staging of 32-feature chunks, the shuffle
 // reduce-scatter, the m axis in runs summed by sum_splits (forward form),
 // the triangle's mirror through shared memory with one atomicAdd a column.
-// K3 past 16 columns keeps the wide kernel of gram_common.cuh
-// (gram_matmat_wide<LAPLACE>, 64-column chunks on blockIdx.y).
+// K3 past 16 columns is gram_wide.cu's gram_wide_tf32<LAPLACE, NF>, K1's
+// 3xTF32 kernel with the L1 step (rl_gram_matmat_wide, LAPLACE's code);
+// the pair of two point sets (K6) is the tile's pair form in gram_pair.cu.
 // K3c has K1c's general schedule, from unscaled points with the inverse
 // lengthscale in float64 (the float64 product of the float32 points,
 // TwoSum-added into a float (hi, lo) pair across column tiles).
@@ -43,16 +46,6 @@
 // does not synchronize, and returns cudaGetLastError() (0 on success).
 // Shapes: X1 (n, d), X2 (m, d), V (m, k), out and out_lo (n, k), all
 // contiguous float32 on one device; n, m, d, k >= 1.
-
-// K3 past 16 columns (the wide kernel): out = c * k(X1, X2) @ V, X1 and X2
-// pre-scaled by the lengthscale; k <= 16 takes rl_laplace_matmat_narrow.
-extern "C" int rl_laplace_matmat(const void* X1, const void* X2, const void* V, void* out,
-                                 int n, int m, int d, int k, double c, void* stream) {
-  if (k <= 16) return (int)cudaErrorInvalidValue;
-  const GramArgs a = points_args(X1, X2, nullptr, V, out, nullptr, n, m, d, k, c);
-  launch_wide<LAPLACE>(a, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
-}
 
 // K3c: the same product as out + out_lo (out_lo added last), from unscaled
 // X1 and X2 and the inverse lengthscale inv_ls (d doubles).

@@ -1,10 +1,13 @@
 // The register tile of the float32 Gram products for k <= 16, for Hopper
 // (sm_90a), in every family: K3's tile, generalised over the kernel
 // family. gram_laplace.cu instantiates it for Laplace (K3, K5), gram.cu for
-// the squared-distance families (K1, K2); the two forms:
+// the squared-distance families (K1, K2), gram_pair.cu every family's pair
+// (K4, K6); the three forms:
 //
 //   tile_forward<KIND, KC>   c * k(X1, X2) @ V for two point sets (K1, K3)
 //   tile_triangle<KIND, KC>  c * k(X, X) @ V, each pair of tiles once (K2, K5)
+//   tile_pair<KIND, KC>      (c * k(X1, X2) @ V2, c * k(X1, X2)^T @ V1), each
+//                            value once, contracted both ways (K4, K6)
 //
 // What bounds them on the H100: the FP32 instruction rate, not bytes. Per
 // feature and pair of points the distance takes two instructions: an L1
@@ -14,7 +17,7 @@
 // pair's three counted operations take the same two issue slots as the L1
 // pair's two. Per kernel value besides: the epilogue (one exp on the SFU,
 // and for Matern a square root there too) and 2k FMAs of contraction
-// (4k in the triangle's off-diagonal tiles).
+// (4k in the triangle's off-diagonal tiles and in every tile of the pair).
 //
 // Design:
 //   * a block owns a row tile of 128 points of X1 and walks a run of column
@@ -39,7 +42,8 @@
 //     them by shuffles (three halving steps and one sum), so a lane carries
 //     one row's sum a right-hand side across the run; no K tile goes
 //     through shared memory, and the padding needs no masks: a padded
-//     column's value meets a zero row of V, and no padded row is written;
+//     column's value meets a zero row of V, a padded row's a zero row of
+//     V1 in the mirror, and no padded row of either output is written;
 //   * forward (K1, K3): the m axis in runs (kernel_cuda.tile_splits: SAP's
 //     row oracle, 79 row tiles, takes 13), each run's partial written to
 //     part[z] and summed by sum_splits in a fixed order: no float atomics,
@@ -56,6 +60,12 @@
 //     warp order, and one atomicAdd a column goes into the output, zeroed in
 //     the same call. The diagonal tile contracts forward only. The float
 //     atomics make the last bits change from run to run;
+//   * pair (K4, K6): the triangle's mirror without the triangle. Block
+//     (I, s) owns row tile I of X1 and the column tiles [s run, (s + 1)
+//     run) of X2 (kernel_cuda.tile_splits runs), the whole nt1 x nt2
+//     rectangle, no tile skipped; the forward sums go to out1 (rows of X1)
+//     and every tile's mirror, from V1 of the row tile, to out2 (rows of
+//     X2), both by atomicAdd into outputs zeroed in the same call;
 //   * __launch_bounds__(256, 2): two blocks an SM, 128 registers a thread
 //     (the build's -Xptxas -v log, chip_smoke.py's registers line).
 //
@@ -83,9 +93,8 @@ constexpr int kLThreads = 256;
 constexpr int kLWarps = kLThreads / 32;
 constexpr int kLRun = 8;     // column tiles a triangle block walks
 
-// The tile's forms: forward (K1, K3) and triangle (K2, K5); the pair form
-// (K4, K6) is to take the next value.
-enum TileForm { L_FORWARD = 0, L_TRIANGLE = 1 };
+// The tile's forms: forward (K1, K3), triangle (K2, K5) and pair (K4, K6).
+enum TileForm { L_FORWARD = 0, L_TRIANGLE = 1, L_PAIR = 2 };
 
 template <int KC>
 struct __align__(16) TileSmem128 {
@@ -94,11 +103,12 @@ struct __align__(16) TileSmem128 {
   float v[kLStages][KC][kLTile];      // V of the column tile, transposed
 };
 
-// The triangle's mirror, after TileSmem128 in shared memory.
+// The mirror of the triangle and the pair, after TileSmem128 in shared
+// memory.
 template <int KC>
 struct __align__(16) TileMirror {
   static constexpr int kGroup = KC < 4 ? KC : 4;  // right-hand sides a pass
-  float vi[KC][kLTile];                 // V of the row tile, transposed
+  float vi[KC][kLTile];                 // V (V1 of the pair) of the row tile, transposed
   float sums[kLWarps][kGroup][kLTile];  // each warp's column sums of a pass
 };
 
@@ -179,28 +189,34 @@ __device__ __forceinline__ void tile_feature(float (&D)[8][8], const float* x, c
     for (int j = 0; j < 8; ++j) D[i][j] = dist_step<KIND>(D[i][j], a[i], b[j]);
 }
 
-// The forward and triangle forms, k <= 16. XT1 (dpad, npad), XT2 (dpad,
-// mpad) floats: the scaled points, transposed, zero padded; V (m, k).
+// The three forms, k <= 16. XT1 (dpad, npad), XT2 (dpad, mpad) floats: the
+// scaled points, transposed, zero padded; V (m, k).
 // L_FORWARD: block (I, 0, z): row tile I, column tiles [z run, (z + 1)
 // run). One run: out = c * sums; more: part[z] = sums, for sum_splits.
-// L_TRIANGLE: X2 = X1, block (I, s): row tile I, column tiles [I + s run,
-// I + (s + 1) run), every sum added to out (zeroed) by atomicAdd.
+// L_TRIANGLE: X2 = X1, V1 = V, out2 = out, block (I, s): row tile I,
+// column tiles [I + s run, I + (s + 1) run), every sum added to out
+// (zeroed) by atomicAdd.
+// L_PAIR: block (I, s): row tile I, column tiles [s run, (s + 1) run);
+// the forward sums added to out (n, k), the mirror from V1 (n, k) to out2
+// (m, k), both zeroed, by atomicAdd. (V1 and out2 are not __restrict__:
+// the triangle passes V and out for them.)
 template <int KIND, int KC, int FORM>
 __device__ __forceinline__ void gram_tile(const float* __restrict__ XT1,
                                           const float* __restrict__ XT2,
                                           const float* __restrict__ V,
-                                          float* __restrict__ out, float* __restrict__ part,
-                                          int n, int m, int npad, int mpad, int d, int k,
-                                          int run, double c) {
+                                          const float* V1, float* __restrict__ out,
+                                          float* out2,
+                                          float* __restrict__ part, int n, int m, int npad,
+                                          int mpad, int d, int k, int run, double c) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TileSmem128<KC>& sm = *reinterpret_cast<TileSmem128<KC>*>(smem_raw);
   TileMirror<KC>& mi =
       *reinterpret_cast<TileMirror<KC>*>(smem_raw + sizeof(TileSmem128<KC>));
   const int mt = (m + kLTile - 1) / kLTile;
   int J0, J1;
-  if constexpr (FORM == L_TRIANGLE) {
-    J0 = blockIdx.x + blockIdx.y * run;
-    if (J0 >= mt) return;  // past the triangle's edge: the whole block
+  if constexpr (FORM != L_FORWARD) {
+    J0 = (FORM == L_TRIANGLE ? blockIdx.x : 0) + blockIdx.y * run;
+    if (J0 >= mt) return;  // past the triangle's (the rectangle's) edge: the whole block
     J1 = min(J0 + run, mt);
   } else {
     J0 = blockIdx.z * run;
@@ -212,12 +228,12 @@ __device__ __forceinline__ void gram_tile(const float* __restrict__ XT1,
   const int chunks = (d + kLFeat - 1) / kLFeat;
   const int kc = min(k, KC);
   const float cf = (float)c;
-  if constexpr (FORM == L_TRIANGLE) {
-    // V of the row tile, for every mirror of the run (visible after the
-    // first step's barrier)
+  if constexpr (FORM != L_FORWARD) {
+    // V1 of the row tile (V in the triangle), for every mirror of the run
+    // (visible after the first step's barrier); zero past n
     for (int e = tid; e < KC * kLTile; e += kLThreads) {
       const int cc = e / kLTile, j = e % kLTile;
-      mi.vi[cc][j] = cc < kc && row0 + j < n ? V[(size_t)(row0 + j) * k + cc] : 0.0f;
+      mi.vi[cc][j] = cc < kc && row0 + j < n ? V1[(size_t)(row0 + j) * k + cc] : 0.0f;
     }
   }
 
@@ -325,9 +341,10 @@ __device__ __forceinline__ void gram_tile(const float* __restrict__ XT1,
       }
       acc[cc] += p[0] + __shfl_xor_sync(0xffffffffu, p[0], 1);
     }
-    if constexpr (FORM == L_TRIANGLE) {
-      // the mirror K_IJ^T V_I into the rows of tile J, above the diagonal
-      if (cj > (int)blockIdx.x) {
+    if constexpr (FORM != L_FORWARD) {
+      // the mirror K_IJ^T V_I into the rows of tile J: above the triangle's
+      // diagonal, every tile of the pair
+      if (FORM == L_PAIR || cj > (int)blockIdx.x) {
         constexpr int G = TileMirror<KC>::kGroup;
         const bool up = lane & 16;
         const int cpos = (up ? 64 : 0) + cbase;  // the 4 columns this lane sums
@@ -362,11 +379,11 @@ __device__ __forceinline__ void gram_tile(const float* __restrict__ XT1,
           // the warps' column sums in warp order, one atomicAdd a column
           for (int e = tid; e < G * kLTile; e += kLThreads) {
             const int g = e / kLTile, j = e % kLTile;
-            if (g0 + g < kc && col0 + j < n) {
+            if (g0 + g < kc && col0 + j < m) {
               float sum = mi.sums[0][g][j];
 #pragma unroll
               for (int w = 1; w < kLWarps; ++w) sum += mi.sums[w][g][j];
-              atomicAdd(&out[(size_t)(col0 + j) * k + g0 + g], sum * cf);
+              atomicAdd(&out2[(size_t)(col0 + j) * k + g0 + g], sum * cf);
             }
           }
           __syncthreads();
@@ -378,7 +395,7 @@ __device__ __forceinline__ void gram_tile(const float* __restrict__ XT1,
   }
   const int gr = row0 + rbase + ri;
   if ((lane & 1) || gr >= n) return;
-  if constexpr (FORM == L_TRIANGLE) {
+  if constexpr (FORM != L_FORWARD) {
 #pragma unroll
     for (int cc = 0; cc < KC; ++cc)
       if (cc < kc) atomicAdd(&out[(size_t)gr * k + cc], acc[cc] * cf);
@@ -400,14 +417,26 @@ __global__ void __launch_bounds__(kLThreads, 2)
                  const float* __restrict__ V, float* __restrict__ out,
                  float* __restrict__ part, int n, int m, int npad, int mpad, int d, int k,
                  int run, double c) {
-  gram_tile<KIND, KC, L_FORWARD>(XT1, XT2, V, out, part, n, m, npad, mpad, d, k, run, c);
+  gram_tile<KIND, KC, L_FORWARD>(XT1, XT2, V, nullptr, out, nullptr, part, n, m, npad, mpad, d,
+                                 k, run, c);
 }
 
 template <int KIND, int KC>
 __global__ void __launch_bounds__(kLThreads, 2)
     tile_triangle(const float* __restrict__ XT, const float* __restrict__ V,
                   float* __restrict__ out, int n, int npad, int d, int k, int run, double c) {
-  gram_tile<KIND, KC, L_TRIANGLE>(XT, XT, V, out, nullptr, n, n, npad, npad, d, k, run, c);
+  gram_tile<KIND, KC, L_TRIANGLE>(XT, XT, V, V, out, out, nullptr, n, n, npad, npad, d, k, run,
+                                  c);
+}
+
+template <int KIND, int KC>
+__global__ void __launch_bounds__(kLThreads, 2)
+    tile_pair(const float* __restrict__ XT1, const float* __restrict__ XT2,
+              const float* __restrict__ V2, const float* __restrict__ V1,
+              float* __restrict__ out1, float* __restrict__ out2, int n1, int n2, int n1pad,
+              int n2pad, int d, int k, int run, double c) {
+  gram_tile<KIND, KC, L_PAIR>(XT1, XT2, V2, V1, out1, out2, nullptr, n1, n2, n1pad, n2pad, d, k,
+                              run, c);
 }
 
 // The triangle form: out zeroed, then the blocks (I, s), s < ceil(nt / run).
@@ -425,6 +454,29 @@ cudaError_t launch_tile_triangle(const float* XT, const float* V, float* out, in
   if (err != cudaSuccess) return err;
   tile_triangle<KIND, KC><<<dim3(nt, strips), kLThreads, bytes, s>>>(XT, V, out, n, npad, d, k,
                                                                      kLRun, c);
+  return cudaGetLastError();
+}
+
+// The pair form: out1 and out2 zeroed, then the blocks (I, s), each on
+// `run` column tiles of X2.
+template <int KIND, int KC>
+cudaError_t launch_tile_pair(const float* XT1, const float* XT2, const float* V2,
+                             const float* V1, float* out1, float* out2, int n1, int n2,
+                             int n1pad, int n2pad, int d, int k, int run, double c,
+                             cudaStream_t s) {
+  const int bytes = (int)(sizeof(TileSmem128<KC>) + sizeof(TileMirror<KC>));
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_pair<KIND, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int nt2 = (n2 + kLTile - 1) / kLTile;
+  const int strips = (nt2 + run - 1) / run;
+  if (strips > 65535) return cudaErrorInvalidValue;
+  err = cudaMemsetAsync(out1, 0, sizeof(float) * (size_t)n1 * k, s);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(out2, 0, sizeof(float) * (size_t)n2 * k, s);
+  if (err != cudaSuccess) return err;
+  tile_pair<KIND, KC><<<dim3((n1 + kLTile - 1) / kLTile, strips), kLThreads, bytes, s>>>(
+      XT1, XT2, V2, V1, out1, out2, n1, n2, n1pad, n2pad, d, k, run, c);
   return cudaGetLastError();
 }
 
@@ -482,6 +534,26 @@ cudaError_t tile_forward_by_k(const float* XT1, const float* XT2, const float* V
                                         splits, c, s);
   return launch_tile_forward<KIND, 1>(XT1, XT2, V, out, part, n, m, npad, mpad, d, k, splits,
                                       c, s);
+}
+
+template <int KIND>
+cudaError_t tile_pair_by_k(const float* XT1, const float* XT2, const float* V2, const float* V1,
+                           float* out1, float* out2, int n1, int n2, int n1pad, int n2pad, int d,
+                           int k, int run, double c, cudaStream_t s) {
+  if (k > 8)
+    return launch_tile_pair<KIND, 16>(XT1, XT2, V2, V1, out1, out2, n1, n2, n1pad, n2pad, d, k,
+                                      run, c, s);
+  if (k > 4)
+    return launch_tile_pair<KIND, 8>(XT1, XT2, V2, V1, out1, out2, n1, n2, n1pad, n2pad, d, k,
+                                     run, c, s);
+  if (k > 2)
+    return launch_tile_pair<KIND, 4>(XT1, XT2, V2, V1, out1, out2, n1, n2, n1pad, n2pad, d, k,
+                                     run, c, s);
+  if (k > 1)
+    return launch_tile_pair<KIND, 2>(XT1, XT2, V2, V1, out1, out2, n1, n2, n1pad, n2pad, d, k,
+                                     run, c, s);
+  return launch_tile_pair<KIND, 1>(XT1, XT2, V2, V1, out1, out2, n1, n2, n1pad, n2pad, d, k, run,
+                                   c, s);
 }
 
 template <int KIND>

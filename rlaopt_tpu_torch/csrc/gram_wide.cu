@@ -1,24 +1,28 @@
-// K1 past 16 columns, for Hopper (sm_90a): out = c * k(X1, X2) @ V for the
-// squared-distance families, the contraction on the tensor cores in
-// 3xTF32.
+// K1 and K3 past 16 columns, for Hopper (sm_90a): out = c * k(X1, X2) @ V
+// for every family, the contraction on the tensor cores in 3xTF32.
 //
 //   K1  gram_wide_tf32<KIND, NF>  replaces rlaopt_tpu/ops/kernel_pallas.py ::
-//       (k > 16)                  kernel_matmat_pallas, exact tier, past 16
-//                                 columns: its six-term bf16 fold of the
+//       (KIND != LAPLACE,         kernel_matmat_pallas, exact tier, past 16
+//       k > 16)                   columns: its six-term bf16 fold of the
 //                                 distance on the MXU and its contraction at
 //                                 Precision.HIGHEST (the Nystrom sketch at
 //                                 k = 500, config 5's at k = 200)
+//   K3  gram_wide_tf32<LAPLACE,   replaces kernel_pallas.py :: _laplace_matmat
+//       NF> (k > 16)              past 16 columns: the L1 distance on the
+//                                 VPU, the contraction at "highest" (path
+//                                 B's sketch at k = 500, E3's sketches)
 //
 // What bounds it on the H100: at k = 500 the contraction, 2k operations a
-// kernel value (1,000 of every value's ~1,084 at d = 28); on the FP32 cores
-// that alone is ~150 ms at 100k^2. Here it runs on the TF32 tensor cores in
-// three passes, hi.hi + hi.lo + lo.hi, each value and each V entry split
-// into TF32 parts (hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v - hi)): the
-// error of a product is ~2^-21 of it, float32-class, where one TF32 pass
-// keeps ~3 digits. Three passes of 2k at the data sheet's dense 495 TFLOP/s
-// are ~61 ms at 100k^2, k = 500; the distances on the FP32 cores (the same
-// two issue slots a feature as K3's L1 pair) ~12.5 ms a pass over the values
-// and the exponential ~2.4 ms on the SFU.
+// kernel value (1,000 of every value's ~1,056-1,084 at d = 28); on the FP32
+// cores that alone is ~150 ms at 100k^2. Here it runs on the TF32 tensor
+// cores in three passes, hi.hi + hi.lo + lo.hi, each value and each V entry
+// split into TF32 parts (hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v - hi)):
+// the error of a product is ~2^-21 of it, float32-class (the TPU's
+// "highest" contract), where one TF32 pass keeps ~3 digits. Three passes of
+// 2k at the data sheet's dense 495 TFLOP/s are ~61 ms at 100k^2, k = 500;
+// the distances on the FP32 cores ~12.5 ms a pass over the values (a
+// squared pair's FSUB and FFMA and an L1 pair's two FADDs take the same
+// two issue slots a feature) and the exponential ~2.4 ms on the SFU.
 //
 // Design (the values never leave registers between the distance and the
 // tensor cores):
@@ -35,7 +39,8 @@
 //     contraction index are permuted, not the arithmetic: the output rows
 //     are written back through the same map, and V's rows are staged in the
 //     same order. Per feature a lane reads three float4 (4 x values, 8 y)
-//     for 32 FSUB + FFMA pairs;
+//     for 32 pairs (FSUB + FFMA, or Laplace's two FADDs: gram_tile.cuh's
+//     dist_step);
 //   * the points come as the register tile's operand (kernel_cuda.
 //     tile_operand: scaled, transposed, zero padded), staged by cp.async in
 //     chunks of 32 features, one chunk ahead, as in gram_tile.cuh; with one
@@ -322,11 +327,13 @@ cudaError_t wide_by_nf(int nf, const float* XT1, const float* XT2, const float4*
 
 }  // namespace
 
-// K1 past 16 columns: out (n, k) = c * k(X1, X2) @ V from the tile's
-// operands XT1 (dpad, npad), XT2 (dpad, mpad) (as rl_gram_matmat_narrow)
-// and VP, V's TF32 parts as (mpad / 2, kp) pieces of 4 floats
-// (kernel_cuda.wide_rhs), kp a multiple of 8 at or above k; nf: 8 or 16
-// n-tiles of 8 output columns a block. Plain C interface, as gram.cu's.
+// K1 and K3 past 16 columns: out (n, k) = c * k(X1, X2) @ V for the family
+// `kind` (every one, Laplace included) from the tile's operands XT1 (dpad,
+// npad), XT2 (dpad, mpad) (as rl_gram_matmat_narrow) and VP, V's TF32
+// parts as (mpad / 2, kp) pieces of 4 floats (kernel_cuda.wide_rhs), kp a
+// multiple of 8 at or above k; nf: 8 or 16 n-tiles of 8 output columns a
+// block. Zero padding adds nothing to a squared or an L1 distance. Plain C
+// interface, as gram.cu's.
 extern "C" int rl_gram_matmat_wide(int kind, const void* XT1, const void* XT2, const void* VP,
                                    void* out, int n, int m, int npad, int mpad, int d, int dpad,
                                    int k, int kp, int nf, double c, void* stream) {
@@ -343,6 +350,7 @@ extern "C" int rl_gram_matmat_wide(int kind, const void* XT1, const void* XT2, c
     case MATERN12: return (int)wide_by_nf<MATERN12>(nf, A, B, P, o, n, m, npad, mpad, d, k, kp, c, s);
     case MATERN32: return (int)wide_by_nf<MATERN32>(nf, A, B, P, o, n, m, npad, mpad, d, k, kp, c, s);
     case MATERN52: return (int)wide_by_nf<MATERN52>(nf, A, B, P, o, n, m, npad, mpad, d, k, kp, c, s);
+    case LAPLACE: return (int)wide_by_nf<LAPLACE>(nf, A, B, P, o, n, m, npad, mpad, d, k, kp, c, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

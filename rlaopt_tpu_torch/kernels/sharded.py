@@ -20,9 +20,13 @@ Mesh`; payloads are per-position lists and the collectives are
   ring mode on a 1-D mesh of P ≥ 2 positions visits each unordered shard
   pair {p, q} once: one kernel evaluation of K_pq serves K_pq V_q → out_p
   and K_pqᵀ V_p → out_q (:func:`~rlaopt_tpu_torch.ops.kernel_dispatch.
-  kernel_pair`: K4, K4b or K6 on a card for k ≤ 16), the diagonal block runs
-  the triangle kernel, and one rotation by ns − 1 hops brings every mirror
-  accumulator home. For even P the antipodal step would cover its pairs
+  kernel_pair`: on a card for k ≤ 16 K4 or K6, the register tile's pair
+  form, or K4b on a bf16 tier; two general calls past 16), the diagonal
+  block runs the triangle kernel (K2, K5, K2b), and one rotation by ns − 1
+  hops brings every mirror accumulator home. On the exact tier each shard
+  keeps the register tile's operand of its points, built once: its own
+  diagonal block and every pair take it, the rotating shard's carried
+  with its points. For even P the antipodal step would cover its pairs
   twice, and only the positions p < P/2 take it: where the JAX package
   multiplies the other half's operands by zero, the port skips their
   launches (the sum is the same; the launch counts show it).
@@ -195,8 +199,9 @@ class ShardedKernelLinOp(ShardedLinOp):
         axes = _axes(axis)
         sym_ring = memory_mode == "ring" and symmetric and len(axes) == 1 and ndev > 1
         if sym_ring and not tier and A1.dtype == torch.float32:
-            # the half-ring's diagonal blocks (K2, K5) take the register
-            # tile's operand of each shard, built on first use and kept
+            # the half-ring's diagonal blocks (K2, K5) and pairs (K4, K6)
+            # take the register tile's operand of each shard, built on
+            # first use and kept
             for entry in data:
                 entry["tile"] = _TileOperand(entry["X1"].X, entry["ls"])
         if sym_ring:
@@ -278,11 +283,17 @@ class ShardedKernelLinOp(ShardedLinOp):
         return kernel_matmat(self.kind, L.X, R.X, V, ls, self._c, symmetric=symmetric,
                              impl=self.impl, tile_operands=operands)
 
-    def _pair(self, L: _Points, R: _Points, V2, V1, ls):
-        """``(c·K @ V2, c·Kᵀ @ V1)`` with K = k(L, R) on the operator's tier."""
+    def _pair(self, L: _Points, R: _Points, V2, V1, ls, tiles=(None, None)):
+        """``(c·K @ V2, c·Kᵀ @ V1)`` with K = k(L, R) on the operator's tier;
+        ``tiles``: the kept :class:`_TileOperand` of L and of R (the exact
+        tier's half-ring keeps both), or None each. R's is read where L
+        lies."""
         if L.T is not None:
             return kernel_pair_tier(self.kind, L.T, R.T, V2, V1, self._c, self.impl)
-        return kernel_pair(self.kind, L.X, R.X, V2, V1, ls, self._c, self.impl)
+        tl, tr = tiles
+        operands = None if tl is None else (lambda: (tl.get(), move(tr.get(), L.X.device)))
+        return kernel_pair(self.kind, L.X, R.X, V2, V1, ls, self._c, self.impl,
+                           tile_operands=operands)
 
     # -- ring schedules ------------------------------------------------------
     def _sweep(self, rotating, stationary, visit):
@@ -339,11 +350,12 @@ class ShardedKernelLinOp(ShardedLinOp):
     def _half_ring(self, data, chunks):
         """The symmetric half-ring sweep: ~half the kernel evaluations.
 
-        Position p starts with its own (shard, operand, zero mirror
-        accumulator) as the rotating carry; after s forward rotations it
-        holds shard q = p − s and computes both products of the pair
-        {p, q} from one evaluation, adding the mirror product to the carried
-        accumulator of shard q. Steps s = 1 .. ns − 1 visit each unordered
+        Position p starts with its own (shard, its kept tile operand,
+        right-hand side chunk, zero mirror accumulator) as the rotating
+        carry; after s forward rotations it holds shard q = p − s and
+        computes both products of the pair {p, q} from one evaluation (on
+        the kept tile operands of both shards), adding the mirror product
+        to the carried accumulator of shard q. Steps s = 1 .. ns − 1 visit each unordered
         pair once (for even P the antipodal step is taken by p < P/2 only);
         then one rotation by −(ns − 1) delivers every mirror accumulator
         home. The diagonal block runs the triangle kernel locally.
@@ -357,18 +369,19 @@ class ShardedKernelLinOp(ShardedLinOp):
             self._gram(d["X1"], d["X1"], v, d["ls"], symmetric=True, tile=d.get("tile"))
             for d, v in zip(data, V)
         ]
-        carry = [(d["X1"], v, torch.zeros_like(v)) for d, v in zip(data, V)]
+        carry = [(d["X1"], d.get("tile"), v, torch.zeros_like(v)) for d, v in zip(data, V)]
         for s in range(1, ns):
             carry = ppermute(carry, mesh, ax)
             for p in range(P):
                 if P % 2 == 0 and not (s < ns - 1 or p < P // 2):
                     continue  # the antipodal pair is taken from its other side
-                xq, vq, mir = carry[p]
-                o_p, o_q = self._pair(data[p]["X1"], xq, vq, V[p], data[p]["ls"])
+                xq, tq, vq, mir = carry[p]
+                o_p, o_q = self._pair(data[p]["X1"], xq, vq, V[p], data[p]["ls"],
+                                      (data[p].get("tile"), tq))
                 out[p] = out[p] + o_p
-                carry[p] = (xq, vq, mir + o_q)
+                carry[p] = (xq, tq, vq, mir + o_q)
         # the mirror of shard q sits ns - 1 hops ahead: one rotation home
-        mirrors = ppermute([c[2] for c in carry], mesh, ax, -(ns - 1))
+        mirrors = ppermute([c[3] for c in carry], mesh, ax, -(ns - 1))
         out = [o + mr for o, mr in zip(out, mirrors)]
         return [o[:, 0] for o in out] if squeeze else out
 

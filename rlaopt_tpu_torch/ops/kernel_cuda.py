@@ -5,12 +5,13 @@ compensated tier, bf16 tiers, the Laplace kernels),
 ``rlaopt_tpu/ops/kernel_value64.py`` (float64 route) and
 ``rlaopt_tpu/sparse/laned.py`` (the sparse CSR product). The kernels live in
 ``csrc/gram.cu`` (K1 up to 16 columns, K1c, K2), ``csrc/gram_wide.cu`` (K1
-past 16 columns, the 3xTF32 contraction), ``csrc/gram_comp.cu`` (the
+and K3 past 16 columns, the 3xTF32 contraction), ``csrc/gram_comp.cu`` (the
 float64 triangle: K1c and K3c's triangle form, K7), ``csrc/gram_laplace.cu``
-(K3, K3c, K5), the register tile of K1, K2, K3 and K5 in its forward and
-triangle forms in ``csrc/gram_tile.cuh``,
+(K3 up to 16 columns, K3c, K5), ``csrc/gram_pair.cu`` (the exact pair
+kernels K4, K6), the register tile of K1–K6 in its forward, triangle and
+pair forms in ``csrc/gram_tile.cuh``,
 ``csrc/gram_tier.cu`` (K1b, K2b, K4b), ``csrc/gram_f64.cu`` (K8),
-``csrc/gram_pair.cu`` (the exact pair kernels K4, K6), with their shared
+with their shared
 pieces in ``csrc/gram_common.cuh``, ``csrc/spmv.cu`` (the
 CSR SpMV/SpMM) and ``csrc/probes.cu`` (the ceiling probes, wrapped in
 :mod:`rlaopt_tpu_torch.ops.probes`); see the note at the top of each.
@@ -90,7 +91,8 @@ COMPILE_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c",
 )
 # Kernel family codes of csrc/gram_common.cuh. The float32 Laplace kernels
-# have wrappers of their own (laplace_*); the float64 ones take the code.
+# have wrappers of their own (laplace_*), which hand the shared entries
+# (the wide kernel, the pair) this code; the float64 ones take the code.
 KIND_CODES = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3, "laplace": 4}
 SYMMETRIC_MAX_K = 16
 # csrc/gram_tier.cu: K1b's forward strip takes 128 rows a block, two blocks
@@ -98,12 +100,13 @@ SYMMETRIC_MAX_K = 16
 # 16 features.
 TIER_ROWS, TIER_BLOCKS_PER_SM = 128, 2
 COMP_TILE, COMP_FEAT = 128, 16
-# csrc/gram_tile.cuh: the register tile of K1, K2, K3 and K5 at k <= 16
-# takes 128 points a side, chunks of 32 features, two blocks an SM.
+# csrc/gram_tile.cuh: the register tile of K1–K6 at k <= 16 takes 128
+# points a side, chunks of 32 features, two blocks an SM.
 TILE_POINTS, TILE_FEAT, TILE_BLOCKS_PER_SM = 128, 32, 2
-# csrc/gram_wide.cu: K1 past 16 columns takes this many output columns a
-# block, 64 where V's TF32 parts (padded to a multiple of 8 columns) have
-# 64 or fewer: each width measured the faster on its side (gram_wide.cu).
+# csrc/gram_wide.cu: K1 and K3 past 16 columns take this many output
+# columns a block, 64 where V's TF32 parts (padded to a multiple of 8
+# columns) have 64 or fewer: each width measured the faster on its side
+# (gram_wide.cu).
 WIDE_COLS = 128
 # csrc/spmv.cu keeps up to 16 right-hand sides of a row in registers.
 CSR_NARROW_MAX_K = 16
@@ -150,7 +153,6 @@ _SIGNATURES = {
         _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_gram_matvec_symmetric_f64": [_ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
-    "rl_laplace_matmat": [_vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
     "rl_laplace_matmat_narrow": [
         _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
@@ -158,12 +160,13 @@ _SIGNATURES = {
         _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_laplace_matvec_symmetric": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cd, _vp],
-    "rl_gram_pair": [_ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
+    "rl_tile_pair": [
+        _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
+    ],
     "rl_gram_pair_tier": [
         _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
         _ci, _ci, _ci, _ci, _cd, _vp,
     ],
-    "rl_laplace_pair": [_vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
     "rl_csr_spmm": [_ci, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _ci, _ci, _vp],
     "rl_csr_spmm_segmented": [
         _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
@@ -245,9 +248,10 @@ def build() -> Path:
 
 
 def _code(kind: str, laplace: bool = False) -> int:
-    """The family code; the squared-distance kernels (K1, K1c, K2 and the
-    tiers) refuse Laplace, whose float32 kernels are the laplace_* wrappers
-    (the float64 kernels and the triangle K1c/K3c take the code)."""
+    """The family code; the squared-distance wrappers (K1, K1c, K2, K4 and
+    the tiers) refuse Laplace, whose float32 kernels are the laplace_*
+    wrappers (which pass it on to the entries they share: the wide kernel,
+    the pair), as the float64 kernels and the triangle K1c/K3c take it."""
     if kind not in KIND_CODES:
         raise ValueError(f"Unknown kernel kind {kind!r}")
     if kind == "laplace" and not laplace:
@@ -287,12 +291,6 @@ def _check_shapes(X1, X2, V):
     if X1.numel() >= 2**31 or X2.numel() >= 2**31 or V2.numel() >= 2**31:
         raise ValueError("operands past 2^31 elements")
     return V2, squeeze
-
-
-def _scaled(X1, X2, lengthscale):
-    """The contiguous operands of K1 and K2: X / lengthscale in float32."""
-    Xs = scale_inputs(X1, lengthscale).contiguous()
-    return Xs, Xs if X2 is X1 else scale_inputs(X2, lengthscale).contiguous()
 
 
 def _inv_lengthscale(lengthscale, d: int, device) -> torch.Tensor:
@@ -360,7 +358,8 @@ def tile_splits(n: int, m: int, k: int, sms: int) -> int:
 
 
 def tile_operand(X: torch.Tensor, lengthscale) -> torch.Tensor:
-    """The points of the register tile (K1, K2, K3, K5): ``X / ℓ`` in
+    """The points of the register tile (K1–K6, and K1 and K3 past 16
+    columns): ``X / ℓ`` in
     float32 (the plain version's and the other float32 kernels' scaling,
     ``scale_inputs``), transposed to (dpad, npad) and zero past d and n,
     dpad a multiple of ``TILE_FEAT`` and npad of ``TILE_POINTS``. Zero
@@ -438,6 +437,27 @@ def wide_rhs(V: torch.Tensor, mpad: int, kp: int) -> torch.Tensor:
     return torch.stack((hi[0::2], hi[1::2], lo[0::2], lo[1::2]), dim=-1)
 
 
+def _wide(code, X1, X2, V2, XT1, XT2, const_scaling):
+    """K1 and K3 past 16 columns: the 3xTF32 kernel (``csrc/gram_wide.cu``)
+    for the family ``code`` on the tile's operands and V's TF32 parts
+    (:func:`wide_rhs`), 128 output columns a block past kp = 64, else 64;
+    the (n, k) output."""
+    (n, d), (m, k) = X1.shape, V2.shape
+    kp = -(-k // 8) * 8
+    VP = wide_rhs(V2, XT2.shape[1], kp)
+    nf = WIDE_COLS // 8 if kp > 64 else 8
+    build()
+    out = torch.empty((n, k), dtype=torch.float32, device=V2.device)
+    with torch.cuda.device(V2.device):
+        err = _lib["handle"].rl_gram_matmat_wide(
+            code, XT1.data_ptr(), XT2.data_ptr(), VP.data_ptr(), out.data_ptr(), n, m,
+            XT1.shape[1], XT2.shape[1], d, XT1.shape[0], k, kp, nf, float(const_scaling),
+            _stream(V2),
+        )
+    _raise_on(err, "rl_gram_matmat_wide")
+    return out
+
+
 def gram_matmat(kind, X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
     """K1: ``c·k(X1, X2) @ V`` (n, k) on the card, exact f32 tier, the
     squared-distance families. Up to 16 columns the register tile's forward
@@ -450,25 +470,12 @@ def gram_matmat(kind, X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
     code = _code(kind)
     _check_tensors((torch.float32,) * 3, X1, X2, V)
     V2, squeeze = _check_shapes(X1, X2, V)
-    (n, d), (m, k) = X1.shape, V2.shape
-    dev = V2.device
-    XT1, XT2 = _tile_operands(X1, X2, lengthscale, dev, operands)
-    if k <= SYMMETRIC_MAX_K:
+    XT1, XT2 = _tile_operands(X1, X2, lengthscale, V2.device, operands)
+    if V2.shape[1] <= SYMMETRIC_MAX_K:
         out = _tile_forward("rl_gram_matmat_narrow", (code,), X1, X2, V2, XT1, XT2,
                             const_scaling)
     else:
-        kp = -(-k // 8) * 8
-        VP = wide_rhs(V2, XT2.shape[1], kp)
-        nf = WIDE_COLS // 8 if kp > 64 else 8
-        build()
-        out = torch.empty((n, k), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            err = _lib["handle"].rl_gram_matmat_wide(
-                code, XT1.data_ptr(), XT2.data_ptr(), VP.data_ptr(), out.data_ptr(), n, m,
-                XT1.shape[1], XT2.shape[1], d, XT1.shape[0], k, kp, nf,
-                float(const_scaling), _stream(V2),
-            )
-        _raise_on(err, "rl_gram_matmat_wide")
+        out = _wide(code, X1, X2, V2, XT1, XT2, const_scaling)
     gram_matmat.launches += 1
     return out[:, 0] if squeeze else out
 
@@ -713,34 +720,22 @@ def gram_matvec_symmetric_f64(kind, X, V, lengthscale, const_scaling=1.0):
 
 def laplace_matmat(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
     """K3: ``c·exp(−‖x − y‖₁/ℓ) @ V`` (n, k) on the card, float32. Up to 16
-    columns :func:`laplace_matmat_narrow` (the Hopper tile, counted there),
-    given ``operands()`` as its operands when ``operands`` is not None (a
-    callable: an operator keeps its points' operand and builds it on first
-    use); past 16 the wide kernel, counted here."""
+    columns :func:`laplace_matmat_narrow` (the Hopper tile, counted there);
+    past 16 K1's 3xTF32 kernel (``csrc/gram_wide.cu``) with the L1 step,
+    counted here: the contraction float32-accurate, as the JAX kernel's
+    "highest". The points go in as :func:`tile_operand`: ``operands()``,
+    the pair for (X1, X2) built beforehand (a callable: an operator keeps
+    its points' operand and builds it on first use), or None to build them
+    here."""
     if (1 if V.ndim == 1 else V.shape[1]) <= SYMMETRIC_MAX_K:
         return laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling,
                                      None if operands is None else operands())
-    out = _laplace_wide(X1, X2, V, lengthscale, const_scaling)
+    _check_tensors((torch.float32,) * 3, X1, X2, V)
+    V2, _ = _check_shapes(X1, X2, V)
+    XT1, XT2 = _tile_operands(X1, X2, lengthscale, V2.device, operands)
+    out = _wide(_code("laplace", laplace=True), X1, X2, V2, XT1, XT2, const_scaling)
     laplace_matmat.launches += 1
     return out
-
-
-def _laplace_wide(X1, X2, V, lengthscale, const_scaling):
-    """K3 past 16 columns: the shared wide kernel (``gram_matmat_wide
-    <LAPLACE>``) on the points scaled here."""
-    _check_tensors((torch.float32,) * 3, X1, X2, V)
-    V2, squeeze = _check_shapes(X1, X2, V)
-    Xs, Ys = _scaled(X1, X2, lengthscale)
-    build()
-    (n, d), (m, k) = Xs.shape, V2.shape
-    out = torch.empty((n, k), dtype=torch.float32, device=Xs.device)
-    with torch.cuda.device(Xs.device):
-        err = _lib["handle"].rl_laplace_matmat(
-            Xs.data_ptr(), Ys.data_ptr(), V2.data_ptr(), out.data_ptr(), n, m, d, k,
-            float(const_scaling), _stream(Xs),
-        )
-    _raise_on(err, "rl_laplace_matmat")
-    return out[:, 0] if squeeze else out
 
 
 def laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
@@ -808,30 +803,42 @@ def _check_pair(X1, X2, V2, V1):
     return V2c, V1c, squeeze
 
 
-def _pair_launch(entry, lead, X1, X2, V2, V1, lengthscale, const_scaling):
-    """K4 or K6: check, scale, launch; ``(out1, out2)``."""
+def _tile_pair(code, X1, X2, V2, V1, lengthscale, const_scaling, operands):
+    """K4 or K6: the register tile's pair form (``csrc/gram_pair.cu``,
+    ``rl_tile_pair``) for the family ``code`` on the tile's operands of (X1,
+    X2) (``operands()``, or built here when None), the column tiles of X2 in
+    :func:`tile_splits` runs: the forward form's rule suits the pair, whose
+    blocks are the forward form's with the mirror added (E2's 12,500-point
+    shards: 98 x 98 tiles in 10 runs, 980 blocks on the H100's 264 slots);
+    ``(out1, out2)``."""
     _check_tensors((torch.float32,) * 4, X1, X2, V2, V1)
     V2c, V1c, squeeze = _check_pair(X1, X2, V2, V1)
-    Xs, Ys = _scaled(X1, X2, lengthscale)
+    dev = V2c.device
+    XT1, XT2 = _tile_operands(X1, X2, lengthscale, dev, operands)
+    (n1, d), (n2, k) = X1.shape, V2c.shape
+    tiles = -(-n2 // TILE_POINTS)
+    run = -(-tiles // tile_splits(n1, n2, k, sm_count(dev)))  # column tiles a block
     build()
-    (n1, d), (n2, k) = Xs.shape, V2c.shape
-    out1 = torch.empty((n1, k), dtype=torch.float32, device=Xs.device)
-    out2 = torch.empty((n2, k), dtype=torch.float32, device=Xs.device)
-    with torch.cuda.device(Xs.device):
-        err = getattr(_lib["handle"], entry)(
-            *lead, Xs.data_ptr(), Ys.data_ptr(), V2c.data_ptr(), V1c.data_ptr(),
-            out1.data_ptr(), out2.data_ptr(), n1, n2, d, k, float(const_scaling),
-            _stream(Xs),
+    out1 = torch.empty((n1, k), dtype=torch.float32, device=dev)
+    out2 = torch.empty((n2, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib["handle"].rl_tile_pair(
+            code, XT1.data_ptr(), XT2.data_ptr(), V2c.data_ptr(), V1c.data_ptr(),
+            out1.data_ptr(), out2.data_ptr(), n1, n2, XT1.shape[1], XT2.shape[1], d,
+            XT1.shape[0], k, int(run), float(const_scaling), _stream(V2c),
         )
-    _raise_on(err, entry)
+    _raise_on(err, "rl_tile_pair")
     return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
 
 
-def gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0):
+def gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0, operands=None):
     """K4: ``(c·K @ V2, c·Kᵀ @ V1)`` with K = k(X1, X2) evaluated once, exact
-    f32 tier, k ≤ 16; the squared-distance families."""
-    out = _pair_launch("rl_gram_pair", (_code(kind),), X1, X2, V2, V1, lengthscale,
-                       const_scaling)
+    f32 tier, k ≤ 16; the squared-distance families. The register tile's
+    pair form: float atomics, so the last bits change from run to run. The
+    points go in as :func:`tile_operand`: ``operands()``, the pair for (X1,
+    X2) built beforehand (the half-ring keeps each shard's), or None to
+    build them here."""
+    out = _tile_pair(_code(kind), X1, X2, V2, V1, lengthscale, const_scaling, operands)
     gram_pair.launches += 1
     return out
 
@@ -864,10 +871,12 @@ def gram_pair_tier(kind, A: TierOperand, B: TierOperand, V2, V1, const_scaling=1
     return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
 
 
-def laplace_pair(X1, X2, V2, V1, lengthscale, const_scaling=1.0):
+def laplace_pair(X1, X2, V2, V1, lengthscale, const_scaling=1.0, operands=None):
     """K6: the Laplace ``(c·K @ V2, c·Kᵀ @ V1)``, one L1/exp tile for both
-    products, k ≤ 16."""
-    out = _pair_launch("rl_laplace_pair", (), X1, X2, V2, V1, lengthscale, const_scaling)
+    products, k ≤ 16: :func:`gram_pair`'s kernel and operands with
+    Laplace's code."""
+    out = _tile_pair(_code("laplace", laplace=True), X1, X2, V2, V1, lengthscale,
+                     const_scaling, operands)
     laplace_pair.launches += 1
     return out
 

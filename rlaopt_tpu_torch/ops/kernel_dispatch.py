@@ -15,9 +15,9 @@ Which kernel, on a card:
   operator was built on one data set (``symmetric``) and ``k ≤ 16``, the
   general kernel K1 otherwise; for the Laplace family K5 and K3 by the same
   rule (the JAX package's gate without its VMEM window). K1 and K3 take the
-  Hopper register tile up to 16 columns, past that K1 its 3xTF32
-  tensor-core kernel and K3 the wide kernel; K2 and K5 are the tile's
-  triangle form; all on the operand of the points an operator keeps;
+  Hopper register tile up to 16 columns, past that the 3xTF32 tensor-core
+  kernel; K2 and K5 are the tile's triangle form; all on the operand of the
+  points an operator keeps;
 * compensated (:func:`kernel_matmat_compensated`): the triangle form of
   K1c and K3c when symmetric (any k, every family), the general K1c (K3c
   for Laplace) otherwise;
@@ -26,9 +26,10 @@ Which kernel, on a card:
   the operator keeps;
 * float64 (:func:`kernel_matmat_f64`): K7 when symmetric, K8 otherwise;
 * pairs (:func:`kernel_pair`, :func:`kernel_pair_tier`): ``(c·K @ V2,
-  c·Kᵀ @ V1)`` with K evaluated once, through K4 (K6 for Laplace, K4b on
-  the tiers) when k ≤ 16, and through two general calls past that, as the
-  JAX package's ``kernel_pair`` does.
+  c·Kᵀ @ V1)`` with K evaluated once, through K4 (K6 for Laplace: the
+  tile's pair form; K4b on the tiers) when k ≤ 16, and through two general
+  calls past that, as the JAX package's ``kernel_pair`` does; both on the
+  operands of the two point sets the half-ring keeps.
 
 On the CPU, float64 points take the float64 plain product, as the JAX
 package's XLA route takes the exact path for them.
@@ -90,7 +91,7 @@ def kernel_matmat(
     through :func:`kernel_matmat_tier`. ``tile_operands``: None, or a
     callable giving the register tile its operands of (X1, X2)
     (:func:`kernel_cuda.tile_operand`), called only when a kernel on them
-    runs (the triangle form takes the first; K3's wide kernel none).
+    runs (the triangle form takes the first).
     """
     if not _on_card(impl, X1):
         if X1.dtype == torch.float64:
@@ -195,24 +196,33 @@ def kernel_pair(
     lengthscale,
     const_scaling=1.0,
     impl: str = "auto",
+    tile_operands=None,
 ):
     """``(c·K @ V2, c·Kᵀ @ V1)`` with ``K = k(X1, X2)``, on the exact tier, on
     the device of the operands: K evaluated once for k ≤ 16 (K4, or K6 for
     Laplace, on a card; the plain pair on the CPU), two general calls past
     that. 1-D operands give 1-D outputs. The building block of the
     symmetric half-ring of
-    :class:`rlaopt_tpu_torch.kernels.sharded.ShardedKernelLinOp`."""
+    :class:`rlaopt_tpu_torch.kernels.sharded.ShardedKernelLinOp`.
+    ``tile_operands``: None, or a callable giving the register tile's
+    operands of (X1, X2), as for :func:`kernel_matmat`; the pair kernel and
+    both general calls (the second with the two swapped) take them."""
     k = 1 if V2.ndim == 1 else V2.shape[1]
     if k > kernel_cuda.SYMMETRIC_MAX_K:
+        swapped = None if tile_operands is None else (lambda: tile_operands()[::-1])
         return (
-            kernel_matmat(kind, X1, X2, V2, lengthscale, const_scaling, impl=impl),
-            kernel_matmat(kind, X2, X1, V1, lengthscale, const_scaling, impl=impl),
+            kernel_matmat(kind, X1, X2, V2, lengthscale, const_scaling, impl=impl,
+                          tile_operands=tile_operands),
+            kernel_matmat(kind, X2, X1, V1, lengthscale, const_scaling, impl=impl,
+                          tile_operands=swapped),
         )
     if not _on_card(impl, X1):
         return kernel_plain.gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling)
     if kind == "laplace":
-        return kernel_cuda.laplace_pair(X1, X2, V2, V1, lengthscale, const_scaling)
-    return kernel_cuda.gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling)
+        return kernel_cuda.laplace_pair(X1, X2, V2, V1, lengthscale, const_scaling,
+                                        tile_operands)
+    return kernel_cuda.gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling,
+                                 tile_operands)
 
 
 def kernel_pair_tier(

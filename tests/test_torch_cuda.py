@@ -834,9 +834,9 @@ def test_cuda_lstsq_sparse_matches_the_cpu(cuda_device):
 @pytest.mark.parametrize("kind", SQDIST_KINDS + ("laplace",))
 @pytest.mark.parametrize("k", [1, 3, 16])
 def test_cuda_pair_matches_plain(cuda_device, kind, k):
-    """K4 (K6 for Laplace) against the float64 plain pair at a ragged
-    rectangle (n1 = 1000, n2 = 777, d = 3): both outputs within 2e-5 of
-    max|ref|, K2's and K5's contract."""
+    """K4 (K6 for Laplace), the register tile's pair form, against the
+    float64 plain pair at a ragged rectangle (n1 = 1000, n2 = 777, d = 3):
+    both outputs within 2e-5 of max|ref|, K2's and K5's contract."""
     X1, X2, V2 = _data(13, 1000, 777, 3, k)
     V1 = np.random.default_rng(14).standard_normal((1000, k)).astype(np.float32)
     args = [torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V2, V1)]
@@ -848,6 +848,54 @@ def test_cuda_pair_matches_plain(cuda_device, kind, k):
     torch.cuda.synchronize()
     assert o1.shape == (1000, k) and o2.shape == (777, k)
     assert _rel(o1, r1) <= 2e-5 and _rel(o2, r2) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SQDIST_KINDS + ("laplace",))
+@pytest.mark.parametrize("k", [2, 10])
+@pytest.mark.parametrize("n1,n2", [(530, 2900), (3000, 2500)])
+def test_cuda_tile_pair_matches_plain(cuda_device, kind, k, n1, n2):
+    """The register tile's pair form (K4, K6) at the HIGGS width (d = 28, a
+    ragged last chunk), n1 ≠ n2 and neither a multiple of 128, in one run
+    and in several (``tile_splits``), V1 and V2 drawn apart: out1 against
+    the float64 plain K1/K3 on (X1, X2, V2), out2 on (X2, X1, V1), 2e-5 of
+    max|ref|; on operands built beforehand (the half-ring's kept ones) the
+    same within that bound (float atomics: the last bits may move)."""
+    X1, X2, V2 = _data(19, n1, n2, 28, k)
+    V1 = np.random.default_rng(20).standard_normal((n1, k)).astype(np.float32)
+    X1, X2, V2, V1 = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V2, V1))
+    ls = 2 * 28 / np.pi**0.5 if kind == "laplace" else 28**0.5
+    pair = kernel_cuda.laplace_pair if kind == "laplace" else (
+        lambda *a: kernel_cuda.gram_pair(kind, *a))
+    o1, o2 = pair(X1, X2, V2, V1, ls, 0.9)
+    ops = (kernel_cuda.tile_operand(X1, ls), kernel_cuda.tile_operand(X2, ls))
+    k1, k2 = pair(X1, X2, V2, V1, ls, 0.9, lambda: ops)
+    r1 = kernel_plain.gram_matmat_f64(kind, X1, X2, V2, ls, 0.9)
+    r2 = kernel_plain.gram_matmat_f64(kind, X2, X1, V1, ls, 0.9)
+    torch.cuda.synchronize()
+    for got, ref in ((o1, r1), (o2, r2), (k1, r1), (k2, r2)):
+        assert _rel(got, ref) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [17, 32, 64, 200])
+@pytest.mark.parametrize("d", [3, 28, 70])
+def test_cuda_laplace_wide_matches_plain(cuda_device, k, d):
+    """K3 past 16 columns (K1's 3xTF32 kernel with the L1 step) at a ragged
+    shape against float64: 2e-5 of max|ref|, scalar and ARD lengthscales;
+    no atomics: the same bits twice, and on the operands built beforehand
+    as on those built in the call."""
+    X1, X2, V = _data(21, 1000, 777, d, k)
+    X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
+    scalar = 2 * d / np.pi**0.5
+    for ls in (scalar, torch.linspace(0.6, 1.4, d, device=cuda_device) * scalar):
+        got = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9)
+        ops = (kernel_cuda.tile_operand(X1, ls), kernel_cuda.tile_operand(X2, ls))
+        again = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9, lambda: ops)
+        ref = kernel_plain.gram_matmat_f64("laplace", X1, X2, V, ls, 0.9)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= 2e-5
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

@@ -336,7 +336,7 @@ def test_half_ring_keeps_each_shards_operand(recorded, monkeypatch, kind):
         built.append(X)
         return kernel_cuda.tile_operand(X, lengthscale)
 
-    def pair(kind_, X1, X2, V2, V1, lengthscale, const_scaling=1.0):
+    def pair(kind_, X1, X2, V2, V1, lengthscale, const_scaling=1.0, operands=None):
         return (kernel_plain.gram_matmat(kind_, X1, X2, V2, lengthscale, const_scaling),
                 kernel_plain.gram_matmat(kind_, X2, X1, V1, lengthscale, const_scaling))
 

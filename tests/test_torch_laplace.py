@@ -46,12 +46,14 @@ def _t(*arrays):
 
 # Lengthscales near the mean L1 distance of d standard-normal features
 # (2d/√π), where kernel values sit near e⁻¹, as on the slice's paths.
-@pytest.mark.parametrize("k", [1, 10, 500])
+@pytest.mark.parametrize("k", [1, 10, 17, 64, 500])
 @pytest.mark.parametrize("d", [28, 50, 70])
 def test_general_matches_pallas_interpret(d, k):
     """``_laplace_matmat`` (K3's TPU kernel; d = 70 crosses its 64-feature
-    block) against the port's float32 product: both sum |x − y| over d
-    float32 features, in other orders, so 2e-6 of max|ref|."""
+    block; past 16 columns, k = 17, 64 and 500, its "highest" contraction,
+    which the card's 3xTF32 kernel meets) against the port's float32
+    product: both sum |x − y| over d float32 features, in other orders, so
+    2e-6 of max|ref|."""
     X1, X2, V = _data(d + k, 200, 260, d, k)
     ls = 2 * d / np.sqrt(np.pi)
     ref = kernel_matmat_pallas("laplace", X1, X2, V, ls, 0.8, interpret=True)

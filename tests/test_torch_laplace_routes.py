@@ -9,10 +9,12 @@ keeps for K3's tile are checked where the tile takes them): a
 one-data-set compensated apply
 the triangle K3c (``gram_matvec_symmetric_comp``), two data sets the
 general K3c, K3 its Hopper tile (``laplace_matmat_narrow``) up to 16
-columns and the wide kernel past that. The operands the wrappers build on
-the host (K3's transposed points, the triangle's float64 points, the run
-count of the m axis) are pure functions of their inputs and are held to the
-plain versions bit for bit.
+columns and past that K1's 3xTF32 kernel (the shared wide entry
+``rl_gram_matmat_wide`` with Laplace's code), on the operands an operator
+keeps. The operands the wrappers build on the host (K3's transposed
+points, the triangle's float64 points, the run count of the m axis) are
+pure functions of their inputs and are held to the plain versions bit for
+bit.
 """
 
 import contextlib
@@ -42,7 +44,9 @@ def _points(n, d, seed):
 def recorded(monkeypatch):
     """Every Laplace product takes the card's route, through recorders of
     the wrappers that compute with the plain versions: (wrapper, k) per
-    call; the wide K3 is recorded where ``laplace_matmat`` launches it."""
+    call; the wide K3 is recorded where ``laplace_matmat`` launches it, the
+    shared wide entry (``kernel_cuda._wide``), with the family code and
+    the operands it is handed, computing from their points."""
     calls = []
 
     def triangle(kind, X, V, lengthscale, const_scaling=1.0):
@@ -60,9 +64,17 @@ def recorded(monkeypatch):
                 assert torch.equal(XT, kernel_cuda.tile_operand(X, lengthscale))
         return kernel_plain.gram_matmat("laplace", X1, X2, V, lengthscale, const_scaling)
 
-    def wide(X1, X2, V, lengthscale, const_scaling):
-        calls.append(("rl_laplace_matmat", V.shape[1]))
-        return kernel_plain.gram_matmat("laplace", X1, X2, V, lengthscale, const_scaling)
+    def wide(code, X1, X2, V, XT1, XT2, const_scaling):
+        calls.append(("rl_gram_matmat_wide", V.shape[1]))
+        assert code == kernel_cuda.KIND_CODES["laplace"]
+        (n, d), m = X1.shape, X2.shape[0]
+        wide.operands.append((XT1, XT2))
+        # the operands' points are the plain version's scaled ones, bit for bit
+        P1, P2 = (XT[:d, :r].T.contiguous() for XT, r in ((XT1, n), (XT2, m)))
+        return kernel_plain.gram_matmat("laplace", P1, P2, V, 1.0, const_scaling)
+
+    def check_dtypes(dtypes, *tensors):
+        assert all(t.dtype == dt for t, dt in zip(tensors, dtypes))
 
     def k5(X, V, lengthscale, const_scaling=1.0, operand=None):
         calls.append(("laplace_matvec_symmetric", 1 if V.ndim == 1 else V.shape[1]))
@@ -71,12 +83,13 @@ def recorded(monkeypatch):
         k5.operands.append(operand)
         return kernel_plain.gram_matvec_symmetric("laplace", X, V, lengthscale, const_scaling)
 
-    k5.operands = []
+    k5.operands, wide.operands = [], []
 
     monkeypatch.setattr(kernel_cuda, "gram_matvec_symmetric_comp", triangle)
     monkeypatch.setattr(kernel_cuda, "laplace_matmat_comp", general)
     monkeypatch.setattr(kernel_cuda, "laplace_matmat_narrow", narrow)
-    monkeypatch.setattr(kernel_cuda, "_laplace_wide", wide)
+    monkeypatch.setattr(kernel_cuda, "_wide", wide)
+    monkeypatch.setattr(kernel_cuda, "_check_tensors", check_dtypes)
     monkeypatch.setattr(kernel_cuda, "laplace_matvec_symmetric", k5)
     monkeypatch.setattr(kernel_dispatch, "_on_card", lambda impl, t: True)
     return calls
@@ -136,14 +149,14 @@ def test_compensated_dispatch_rule(recorded):
 @pytest.mark.parametrize("k,symmetric,route", [
     (1, False, "laplace_matmat_narrow"),
     (16, False, "laplace_matmat_narrow"),
-    (17, False, "rl_laplace_matmat"),
-    (500, False, "rl_laplace_matmat"),
+    (17, False, "rl_gram_matmat_wide"),
+    (500, False, "rl_gram_matmat_wide"),
     (1, True, "laplace_matvec_symmetric"),
     (16, True, "laplace_matvec_symmetric"),
-    (17, True, "rl_laplace_matmat"),
+    (17, True, "rl_gram_matmat_wide"),
 ])
 def test_k3_routes_by_width(recorded, k, symmetric, route):
-    """K3: its tile up to 16 columns, the wide kernel past 16 (the
+    """K3: its tile up to 16 columns, the 3xTF32 wide kernel past 16 (the
     Nyström sketch); one data set K5 up to 16 columns. The values are the
     plain product's."""
     X1, V = _points(50, 4, 8), _points(50, k, 9)
@@ -162,7 +175,7 @@ def test_path_b_reaches_the_triangle_at_every_boundary(recorded):
     cfg = PCGConfig(max_iters=6, rtol=1e-12, precond_config=NystromConfig(rank=20, rho=0.5))
     _, log = LinSys(K, y, reg=0.5).solve(cfg, torch.zeros((n, 1)), callback_freq=3, key=0)
     names = [c[0] for c in recorded]
-    assert ("rl_laplace_matmat", 20) in recorded
+    assert ("rl_gram_matmat_wide", 20) in recorded
     assert names.count("laplace_matvec_symmetric") >= 6
     assert names.count("gram_matvec_symmetric_comp") >= len(log)
     assert "laplace_matmat_comp" not in names and "laplace_matmat_narrow" not in names
@@ -191,8 +204,8 @@ def test_path_a_builds_the_points_operand_once(recorded, monkeypatch):
     for K3's tile: built once over the solve, where each call built it
     before; each oracle builds one of its own rows (a step's block, the
     sampled metrics' rows). A symmetric apply (K5, the tile's triangle
-    form) builds the operator's own at its first use; the wide K3 builds
-    none."""
+    form) builds the operator's own at its first use; the wide K3 takes
+    that one."""
     built = []
 
     def counted(X, lengthscale):
@@ -206,6 +219,7 @@ def test_path_a_builds_the_points_operand_once(recorded, monkeypatch):
     K @ _points(n, 1, 16)
     K @ _points(n, 20, 17)
     assert len(built) == 1 and built[0] is X
+    assert all(XT is K._tile_ops[0].get() for XT in kernel_cuda._wide.operands[0])
     sys_ = LinSys(K, y, reg=0.5, A_row_oracle=K.row_oracle, A_blk_oracle=K.blk_oracle)
     cfg = SAPConfig(max_iters=iters, rtol=1e-12, blk_sz=32,
                     precond_config=NystromConfig(rank=8, rho=0.5), accel=False)
@@ -293,7 +307,7 @@ def test_e3_half_ring_keeps_each_shards_operand(recorded, monkeypatch):
         built.append(X)
         return kernel_cuda.tile_operand(X, lengthscale)
 
-    def pair(X1, X2, V2, V1, lengthscale, const_scaling=1.0):
+    def pair(X1, X2, V2, V1, lengthscale, const_scaling=1.0, operands=None):
         return (kernel_plain.gram_matmat("laplace", X1, X2, V2, lengthscale, const_scaling),
                 kernel_plain.gram_matmat("laplace", X2, X1, V1, lengthscale, const_scaling))
 

@@ -6,7 +6,8 @@ and its ``kernel_pair`` (the streaming route, float64), on the same numpy
 inputs.
 
 Shapes are ragged on purpose: n1 = 260 and n2 = 200 against the JAX
-kernel's tile of 256, d = 5. Bounds are max abs error over max|ref|:
+kernel's tile of 256, d = 5 (and n1 = 129, n2 = 301 and the other way
+round, d = 28, in the exact tier). Bounds are max abs error over max|ref|:
 
 * exact tier, float32: 2e-5, K2's and K5's contract (the JAX kernel's
   mirror is a 6-pass MXU contraction at k ≥ 3, the port's float32 FMAs);
@@ -41,18 +42,18 @@ def _rel(got, ref):
     return np.abs(got - ref).max() / np.abs(ref).max()
 
 
-def _data(k, dtype=np.float32, seed=0):
+def _data(k, dtype=np.float32, seed=0, n1=N1, n2=N2, d=D):
     rng = np.random.default_rng(seed + k)
-    X1 = rng.standard_normal((N1, D)).astype(dtype)
-    X2 = rng.standard_normal((N2, D)).astype(dtype)
-    V2 = rng.standard_normal((N2, k)).astype(dtype)
-    V1 = rng.standard_normal((N1, k)).astype(dtype)
+    X1 = rng.standard_normal((n1, d)).astype(dtype)
+    X2 = rng.standard_normal((n2, d)).astype(dtype)
+    V2 = rng.standard_normal((n2, k)).astype(dtype)
+    V1 = rng.standard_normal((n1, k)).astype(dtype)
     return X1, X2, V2, V1
 
 
-def _pallas(kind, X1, X2, V2, V1, cd=None):
+def _pallas(kind, X1, X2, V2, V1, cd=None, ls=LS):
     return kernel_pair_matmat(
-        kind, *(jnp.asarray(a) for a in (X1, X2, V2, V1)), LS, C,
+        kind, *(jnp.asarray(a) for a in (X1, X2, V2, V1)), ls, C,
         compute_dtype=cd, tile=256, interpret=True,
     )
 
@@ -60,7 +61,7 @@ def _pallas(kind, X1, X2, V2, V1, cd=None):
 @pytest.mark.parametrize(
     "kind,k",
     [("rbf", 1), ("rbf", 2), ("rbf", 10), ("matern12", 3), ("matern32", 16),
-     ("matern52", 3), ("laplace", 1), ("laplace", 16)],
+     ("matern52", 3), ("laplace", 1), ("laplace", 3), ("laplace", 10), ("laplace", 16)],
 )
 def test_plain_pair_matches_pallas_exact_tier(kind, k):
     """K4's and K6's plain version in float32 against the JAX pair kernel:
@@ -70,6 +71,24 @@ def test_plain_pair_matches_pallas_exact_tier(kind, k):
     o1, o2 = kernel_plain.gram_pair(kind, *(torch.from_numpy(a) for a in (X1, X2, V2, V1)),
                                     LS, C)
     assert o1.shape == (N1, k) and o2.shape == (N2, k)
+    assert _rel(o1, r1) <= EXACT_BOUND
+    assert _rel(o2, r2) <= EXACT_BOUND
+
+
+@pytest.mark.parametrize("n1,n2", [(129, 301), (301, 129)])
+@pytest.mark.parametrize("kind,k", [("rbf", 3), ("matern52", 10), ("laplace", 3),
+                                    ("laplace", 10)])
+def test_plain_pair_matches_pallas_ragged(kind, k, n1, n2):
+    """The exact pair's plain version (K4, K6) at n1 ≠ n2, neither a
+    multiple of the JAX kernel's tile nor of the card's 128, at the HIGGS
+    width (d = 28, lengthscale near the mean distance: Laplace 2d/√π, the
+    others √d): both outputs within 2e-5 of max|ref|."""
+    X1, X2, V2, V1 = _data(k, seed=3, n1=n1, n2=n2, d=28)
+    ls = 2 * 28 / np.sqrt(np.pi) if kind == "laplace" else 28**0.5
+    r1, r2 = _pallas(kind, X1, X2, V2, V1, ls=ls)
+    o1, o2 = kernel_plain.gram_pair(kind, *(torch.from_numpy(a) for a in (X1, X2, V2, V1)),
+                                    ls, C)
+    assert o1.shape == (n1, k) and o2.shape == (n2, k)
     assert _rel(o1, r1) <= EXACT_BOUND
     assert _rel(o2, r2) <= EXACT_BOUND
 

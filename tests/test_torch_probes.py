@@ -225,14 +225,14 @@ def test_probe_instances_fill_whole_rounds(name, instances):
     ("laplace_forward<16>(float const*)", "laplace_matmat_narrow"),
     ("gram_comp_symmetric<4, 1>(double const*, float const*, double*, int, int, int, int, int)",
      "gram_matvec_symmetric_comp"),
-    ("gram_matmat_narrow<4, 1, 0>(GramArgs)", "laplace_matmat"),
+    ("gram_wide_tf32<4, 8, 4>(float const*, float const*, float4 const*)", "laplace_matmat"),
     ("probe_l1<float>(float const*, float const*, float*, int, int, int, int)", "probe_l1"),
     ("probe_chain<2>(float const*, float const*, float*, unsigned long)", "probe_chain"),
 ])
 def test_profile_groups_of_this_slices_kernels(name, group):
     """``chip_smoke.py`` groups K3's tile, the triangle K3c and the probes
-    by name in a profile (the shared template's narrow K3 keeps its
-    template group)."""
+    by name in a profile (K3 past 16 columns, the 3xTF32 wide kernel, by
+    its family)."""
     assert SMOKE._kernel_group("void (anonymous namespace)::" + name) == group
 
 

@@ -290,13 +290,14 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
 
 
 @pytest.mark.parametrize("name,group", [
-    ("gram_matvec_symmetric<0, 1, 0, false>(GramArgs, int)", "gram_matvec_symmetric"),
-    ("gram_matvec_symmetric<0, 1, 0, true>(GramArgs, int)", "gram_pair"),
-    ("gram_matvec_symmetric<4, 1, 0, true>(GramArgs, int)", "laplace_pair"),
-    ("gram_matvec_symmetric<4, 8, 0, false>(GramArgs, int)", "laplace_matvec_symmetric"),
-    ("gram_matvec_symmetric<0, 1, false>(GramArgs, int)", "gram_matvec_symmetric"),
-    ("gram_matvec_symmetric<1, 16, true>(GramArgs, int)", "gram_pair"),
-    ("gram_matvec_symmetric<4, 4, true>(GramArgs, int)", "laplace_pair"),
+    ("tile_triangle<0, 1>(float const*, float const*, float*, int)", "gram_matvec_symmetric"),
+    ("tile_pair<0, 1>(float const*, float const*, float const*, float const*, float*, float*, "
+     "int)", "gram_pair"),
+    ("tile_pair<4, 1>(float const*, float const*, float const*)", "laplace_pair"),
+    ("tile_triangle<4, 8>(float const*, float const*, float*, int)", "laplace_matvec_symmetric"),
+    ("tile_triangle<1, 2>(float const*)", "gram_matvec_symmetric"),
+    ("tile_pair<1, 16>(float const*, float const*)", "gram_pair"),
+    ("tile_pair<4, 4>(float const*)", "laplace_pair"),
     ("gram_tier_pair<0, 3, 1>(GramArgs, int)", "gram_pair_tier"),
     ("gram_tier_pair<3, 1, 16>(GramArgs, int)", "gram_pair_tier"),
     ("gram_comp_symmetric<0, 2, float>(double const*, float const*, double*, int, int, int, "
@@ -310,7 +311,8 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     ("gram_comp_finish<double>(double*, float*, float*, unsigned long, double)",
      "gram_matvec_symmetric_f64"),
     ("gram_matmat_narrow<0, 1, 1>(GramArgs)", "gram_matmat_comp"),
-    ("gram_matmat_wide<4>(float const*, float const*)", "laplace_matmat"),
+    ("gram_wide_tf32<4, 16, 2>(float const*, float const*, float4 const*, float*)",
+     "laplace_matmat"),
     ("gram_tier_symmetric<0, 3, 1>(GramArgs, int)", "gram_matvec_symmetric_tier"),
     ("gram_tier_symmetric<3, 1, 16>(GramArgs, int)", "gram_matvec_symmetric_tier"),
     ("gram_tier_forward<0, 3, 1>(GramArgs, int)", "gram_matmat_tier"),
@@ -335,10 +337,12 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
 ])
 def test_profile_groups_each_kernel_template(name, group):
     """``chip_smoke.py`` names each Gram kernel in a profile by its
-    template arguments (family, mode and, for the triangle template, the
-    pair flag last; the float64 triangle's V type), as demangled in the
-    device events. The triangle template's names with a mode before the
-    pair flag are those of earlier builds, grouped the same."""
+    template arguments (family, the narrow kernel's mode last; the float64
+    triangle's V type), as demangled in the
+    device events. The register tile's forms and the 3xTF32 wide kernel go
+    by family (K4 and K6 are the tile's pair form, K1 and K3 past 16
+    columns the wide kernel); K3's tile under the names of earlier builds
+    (``laplace_triangle``) is grouped the same."""
     assert SMOKE._kernel_group("void (anonymous namespace)::" + name) == group
 
 

@@ -2,7 +2,7 @@
 """Time a kernel operator's product in two checkouts on one card.
 
     python3 tools/before_after.py OTHER_TREE [--kind KIND] [--d D]
-        [--general N:K ...] [--symmetric N:K ...]
+        [--general N:K ...] [--symmetric N:K ...] [--pair N:K ...]
 
 OTHER_TREE is another checkout of the repository (for example a ``git
 archive`` of a commit unpacked into a directory that ``.gitignore``
@@ -17,18 +17,26 @@ point sets (X and a copy of it: the forward product, K1 or K3),
 ``--symmetric N:K`` on one (``A1 is A2``: the triangle up to 16 columns,
 K2 or K5). The operator is built once a shape and applied once before the
 timings, so whatever it keeps (the points' operand) is made outside them,
-as in a solve. CUDA-event medians of 5 applies after that one.
+as in a solve. ``--pair N:K`` times ``kernel_dispatch.kernel_pair`` (K4
+or K6 up to 16 columns) on two shards of N points, as the symmetric
+half-ring calls it: with the register tile's operands of both built
+beforehand where that tree's ``kernel_pair`` takes them
+(``tile_operands``), each timing over 20 calls back to back (a call takes
+a fraction of a millisecond). A shape ``N:K:KIND`` takes the family KIND
+in place of ``--kind``. CUDA-event medians of 5 after one call.
 
 With no shapes: the exact tier's products at the HIGGS surrogate of
 ``chip_smoke.py`` (D = 28), general 100,000 x K = 1, 10, 16, 500 and
 50,000 x K = 1, 32, 200 (config 5's n), symmetric 100,000 x K = 1, 10, 16.
 
 Prints one line a timing run, ``before_after {"tree": ..., "general":
-{"n=N k=K": ms}, "symmetric": {...}}``, then the card's name and power
+{"n=N k=K": ms}, "symmetric": {...}, "pair": {...}}`` (a key ends in
+`` KIND`` where the shape names one), then the card's name and power
 limit. Needs one CUDA card and ``nvcc``.
 """
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -43,11 +51,13 @@ DEFAULT_SYMMETRIC = ["100000:1", "100000:10", "100000:16"]
 
 
 def _shape(text: str):
-    n, k = text.split(":")
-    return int(n), int(k)
+    n, k, *kind = text.split(":")
+    return int(n), int(k), *kind
 
 
-def _cuda_ms(fn, reps=5):
+def _cuda_ms(fn, reps=5, inner=1):
+    """Median of ``reps`` timings after one call, each over ``inner`` calls
+    back to back (divided by it)."""
     import torch
 
     fn()
@@ -56,10 +66,11 @@ def _cuda_ms(fn, reps=5):
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -71,7 +82,7 @@ def _run(args) -> dict:
     import torch
 
     from rlaopt_tpu_torch.kernels import KernelConfig, KernelLinOp
-    from rlaopt_tpu_torch.ops import kernel_cuda
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_dispatch
 
     assert Path(kernel_cuda.__file__).resolve().is_relative_to(Path(args.tree).resolve())
     kernel_cuda.build()
@@ -79,20 +90,36 @@ def _run(args) -> dict:
         return {}
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    shapes = {"general": args.general or [], "symmetric": args.symmetric or []}
-    n_max = max(n for group in shapes.values() for n, _ in group)
+    shapes = {"general": args.general or [], "symmetric": args.symmetric or [],
+              "pair": args.pair or []}
+    n_max = max((2 if form == "pair" else 1) * shape[0]
+                for form, group in shapes.items() for shape in group)
     rng = np.random.default_rng(0)
     X = torch.from_numpy(rng.standard_normal((n_max, args.d), dtype=np.float32)).to(dev)
-    cfg = KernelConfig(lengthscale=args.d**0.5)
+    ls = args.d**0.5
+    cfg = KernelConfig(lengthscale=ls)
     gen = torch.Generator(device=dev).manual_seed(1)
+    keeps = "tile_operands" in inspect.signature(kernel_dispatch.kernel_pair).parameters
     rec = {"tree": args.tree, "kind": args.kind, "d": args.d}
     for form, group in shapes.items():
         rec[form] = {}
-        for n, k in group:
-            Xn = X[:n].contiguous()
-            A = KernelLinOp(Xn, Xn if form == "symmetric" else Xn.clone(), cfg, args.kind)
+        for n, k, *named in group:
+            kind = named[0] if named else args.kind
+            key = f"n={n} k={k}" + (f" {kind}" if named else "")
             V = torch.randn((n, k), generator=gen, device=dev)
-            rec[form][f"n={n} k={k}"] = _cuda_ms(lambda: A @ V)
+            if form == "pair":
+                X1, X2 = X[:n].contiguous(), X[n:2 * n].contiguous()
+                V1 = torch.randn((n, k), generator=gen, device=dev)
+                extra = {}
+                if keeps:
+                    ops = (kernel_cuda.tile_operand(X1, ls), kernel_cuda.tile_operand(X2, ls))
+                    extra = {"tile_operands": lambda ops=ops: ops}
+                rec[form][key] = _cuda_ms(lambda: kernel_dispatch.kernel_pair(
+                    kind, X1, X2, V, V1, ls, 1.0, **extra), inner=20)
+                continue
+            Xn = X[:n].contiguous()
+            A = KernelLinOp(Xn, Xn if form == "symmetric" else Xn.clone(), cfg, kind)
+            rec[form][key] = _cuda_ms(lambda: A @ V)
             del A, V
     return rec
 
@@ -104,19 +131,21 @@ def main() -> int:
     p.add_argument("--d", type=int, default=28)
     p.add_argument("--general", nargs="*", type=_shape)
     p.add_argument("--symmetric", nargs="*", type=_shape)
+    p.add_argument("--pair", nargs="*", type=_shape)
     p.add_argument("--tree", help=argparse.SUPPRESS)
     p.add_argument("--build-only", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.tree:
         print(json.dumps(_run(args)))
         return 0
-    if args.general is None and args.symmetric is None:
+    if args.general is None and args.symmetric is None and args.pair is None:
         args.general = [_shape(s) for s in DEFAULT_GENERAL]
         args.symmetric = [_shape(s) for s in DEFAULT_SYMMETRIC]
     shapes = []
-    for flag, group in (("--general", args.general), ("--symmetric", args.symmetric)):
+    for flag, group in (("--general", args.general), ("--symmetric", args.symmetric),
+                        ("--pair", args.pair)):
         if group:
-            shapes += [flag, *(f"{n}:{k}" for n, k in group)]
+            shapes += [flag, *(":".join(map(str, shape)) for shape in group)]
     other, this = str(Path(args.other_tree).resolve()), str(HERE)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     me = str(Path(__file__).resolve())
