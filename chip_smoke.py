@@ -11,10 +11,11 @@ straight through and exits non-zero at the first failure:
 2. build of the Gram kernels and the ceiling probes, timed, and the
    registers and spills of the kernels redesigned for Hopper (K2b, #9's
    short-row, wide and segmented schedules, K1b's forward strip and wide
-   kernel, K4b's pair strip, the float64 triangle of K1c, K3c and K7, the
-   register tile in its forward (K1, K3), triangle (K2, K5) and pair (K4,
-   K6) forms, the 3xTF32 wide kernel of K1 and K3) and of the probes from
-   the build's ``-Xptxas -v`` log;
+   kernel, K4b's pair strip, the float64 tile in its triangle (K1c, K3c
+   and K7 on one data set), forward (the general K1c, K3c and K8) and pair
+   (the certified pairs) forms, the register tile in its forward (K1, K3),
+   triangle (K2, K5) and pair (K4, K6) forms, the 3xTF32 wide kernel of K1
+   and K3) and of the probes from the build's ``-Xptxas -v`` log;
 2b. the ceilings: each probe (TPU kernels #10-#13: the L1 pair rate in
    float32 and float64, the elementwise chain, the exp chain, the exp and
    epilogue rates) against its plain version at a small size, then, with
@@ -42,7 +43,13 @@ straight through and exits non-zero at the first failure:
    4,096 rows (K1 at k = 1, 3, 16, 17, 200, 500; K2 at 1, 2, 3, 10, 16), at
    ragged shapes (d = 3, 28, 50; scalar and ARD lengthscales) and K2 at
    E2's shard shape, the forward form the same bits twice; K1 timed at
-   config 5's n (E1);
+   config 5's n (E1); the float64 tile's forward form (K1c, K3c, K8) at
+   k = 16 and 17 at the HIGGS shape, at E2's shard, E1's slab and E3's
+   shard, each the same bits twice and on sampled rows against float64,
+   timed, in every family at ragged shapes (n < 128 too; d = 3, 28, 50;
+   scalar and ARD lengthscales; k = 1, 3, 10, 17) with the certified pairs
+   (both outputs), the pairs checked and timed at E2's and E3's shard pairs,
+   and ``comp_operand``'s build timed;
 4. slice 1, config 3 whole: RBF kernel ridge regression, Nyström-PCG (rank
    500) through ``LinSys.solve`` with k = 1 and k = 10 right-hand sides,
    then the k = 1 solve again with two float64 refinement rounds; every
@@ -60,7 +67,9 @@ straight through and exits non-zero at the first failure:
    500), K2b (k = 1 and 10), K1c (both forms), K7 and K8 against their
    plain versions
    at the path's n = m = 1,000,000, on those 4,096 rows, and K2b timed
-   beside the exact K2 on the same points at k = 1 and 10;
+   beside the exact K2 on the same points at k = 1 and 10; K8 at the
+   sampled certificate's 8,192 x 1,000,000 the same bits twice, checked and
+   timed, and ``comp_operand``'s build of the 10⁶ points timed;
 7. slice 3: the Laplace kernels K3 (its Hopper tile up to 16 columns, the
    3xTF32 wide kernel past that, at k = 17, 32, 64, 200, 500), K3c
    (general and triangle) and K5 (the tile's triangle form, at k = 1, 3,
@@ -110,7 +119,10 @@ straight through and exits non-zero at the first failure:
    ``ShardedRBFLinOp`` on ``make_mesh()``, ``lanczos_eigsh``, ``hutchinson``,
    Nyström-PCG), profiled; E2, the same on a 4-position ring (the symmetric
    half-ring: K2 and K4) with one float64 refinement round; E3, the Laplace
-   half-ring on 3 positions at path B's shape (K5, K6); E4, the bf16x3 ring
+   half-ring on 3 positions at path B's shape (K5, K6), profiled; on both
+   the certified routes take the half-ring (per call P triangle and
+   P(P − 1)/2 pair launches, compensated and float64, no general launch),
+   from the path's launches and from one call of each; E4, the bf16x3 ring
    at config 6's n = 1,000,000 on 4 positions (K2b, K4b), five matvecs
    timed against K2b on the unsharded operator. Each ring matvec against
    the unsharded operator's and float64, its launches against the
@@ -171,7 +183,6 @@ SOURCES = {
     "comp": "rlaopt_tpu_torch/csrc/gram_comp.cu",
     "laplace": "rlaopt_tpu_torch/csrc/gram_laplace.cu",
     "tier": "rlaopt_tpu_torch/csrc/gram_tier.cu",
-    "f64": "rlaopt_tpu_torch/csrc/gram_f64.cu",
     "spmv": "rlaopt_tpu_torch/csrc/spmv.cu",
     "pair": "rlaopt_tpu_torch/csrc/gram_pair.cu",
     "probes": "rlaopt_tpu_torch/csrc/probes.cu",
@@ -180,8 +191,8 @@ PALLAS = "rlaopt_tpu/ops/kernel_pallas.py"
 VALUE64 = "rlaopt_tpu/ops/kernel_value64.py"
 LANED = "rlaopt_tpu/sparse/laned.py"
 # K1 and K2 are held to the exact f32 tier's contract with room for fp32
-# atomics; K1c, K7 and K8 work in float64 inside a tile, so they are held to
-# 1e-10 of the float64 plain version.
+# atomics; K1c, K3c, K7, K8 and the certified pairs work in float64, so they
+# are held to 1e-10 of the float64 plain version.
 K_BOUND, COMP_BOUND = 2e-5, 1e-10
 # K1b and K2b against the plain version of their tier: the same bf16
 # roundings, so only the order of the f32 sums and expf differ. Where the
@@ -309,8 +320,8 @@ CSR_F64_BOUND, CSR_F32_BOUND = 1e-12, 5e-5
 RES_REL, RES_ABS, RES_ABOVE = 0.01, 5e-7, 1e-5
 # The kernels redesigned for Hopper, whose registers and spills the
 # build's -Xptxas -v log reports (the `registers` line and their JSON
-# entries): the CUDA function names, by wrapper (the float64 triangle's
-# by V's type, triangle_wrapper).
+# entries): the CUDA function names, by wrapper (the float64 tile's forms
+# by family and V's type, comp_wrapper).
 REGISTERS_OF = {"gram_matmat": ("tile_forward", "gram_wide_tf32"),
                 "gram_matvec_symmetric": ("tile_triangle",),
                 "laplace_matmat": ("gram_wide_tf32",),
@@ -320,6 +331,10 @@ REGISTERS_OF = {"gram_matmat": ("tile_forward", "gram_wide_tf32"),
                 "gram_pair_tier": ("gram_tier_pair",),
                 "gram_matvec_symmetric_comp": ("gram_comp_symmetric",),
                 "gram_matvec_symmetric_f64": ("gram_comp_symmetric",),
+                "gram_matmat_comp": ("gram_comp_forward",),
+                "laplace_matmat_comp": ("gram_comp_forward",),
+                "gram_matmat_f64": ("gram_comp_forward",),
+                "gram_pair_comp": ("gram_comp_pair",), "gram_pair_f64": ("gram_comp_pair",),
                 "csr_spmv": ("csr_spmm_lanes",),
                 "csr_spmm": ("csr_spmm_lanes", "csr_spmm_wide", "csr_spmm_sum_segments"),
                 "laplace_matmat_narrow": ("tile_forward",),
@@ -327,10 +342,12 @@ REGISTERS_OF = {"gram_matmat": ("tile_forward", "gram_wide_tf32"),
                 "probe_l1": ("probe_l1",), "probe_elem": ("probe_chain",),
                 "probe_exp_chain": ("probe_chain",), "probe_vmem_chain": ("probe_chain",)}
 REDESIGNED = tuple(dict.fromkeys(f for fs in REGISTERS_OF.values() for f in fs))
-COMP_KERNELS = ("gram_matmat_comp", "gram_matvec_symmetric_comp", "laplace_matmat_comp")
-F64_KERNELS = ("gram_matmat_f64", "gram_matvec_symmetric_f64")
+COMP_KERNELS = ("gram_matmat_comp", "gram_matvec_symmetric_comp", "laplace_matmat_comp",
+                "gram_pair_comp")
+F64_KERNELS = ("gram_matmat_f64", "gram_matvec_symmetric_f64", "gram_pair_f64")
 TIER_KERNELS = ("gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_pair_tier")
-PAIR_KERNELS = ("gram_pair", "gram_pair_tier", "laplace_pair")
+PAIR_KERNELS = ("gram_pair", "gram_pair_tier", "laplace_pair", "gram_pair_comp",
+                "gram_pair_f64")
 CSR_KERNELS = ("csr_spmv", "csr_spmm")
 # The ceiling probes (rlaopt_tpu_torch/ops/probes.py), by wrapper: the TPU
 # probe each replaces (the line of its def) and the SPECS names it runs at.
@@ -377,7 +394,10 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     ``gram_matvec_symmetric_comp``) evaluate each
     of the n^2/2 values of a pair of tiles once and contract it both ways;
     the pair kernels each of the n·m values once, contracted both ways (4k),
-    reading V1 (n, k) besides V2 and writing out2 (m, k) besides out1.
+    reading V1 (n, k) besides V2 and writing out2 (m, k) besides out1. The
+    float64 tile's outputs take 8 bytes an entry: K1c's and K3c's (hi, lo),
+    K7's and K8's float64, the certified pairs' float64 sums; its V 4
+    (float32) or 8 bytes (K7, K8, ``gram_pair_f64``).
     The tiers: the cross term on the tensor cores (2 operations per feature
     of d, per pass: :func:`tier_tc_ops`), three float32 operations and the
     exponential (SFU) of epilogue per value, the
@@ -409,8 +429,9 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     if kernel in COMP_KERNELS or kernel in F64_KERNELS:
         ops["fp64"] = values * (per_feature * d + 1) + contraction
         vb = 8 if kernel in F64_KERNELS else 4
-        outs = 1 if kernel in F64_KERNELS else 2
-        nbytes = 4 * (n + (0 if sym else m)) * d + vb * m * k + vb * outs * n * k
+        nbytes = 4 * (n + (0 if sym else m)) * d + vb * m * k + 8 * n * k
+        if pair:
+            nbytes += vb * n * k + 8 * m * k
     elif kernel in TIER_KERNELS:
         passes = 3 if cd == "bf16x3" else 1
         ops["bf16_tc"] = tier_tc_ops(values, contraction, d, k, cd)
@@ -489,18 +510,34 @@ def ptxas_report(log: str, names) -> dict:
     return report
 
 
-# The float64 triangle and its finishing pass serve two wrappers, told
-# apart by V's type, their last template argument ("d" in ptxas_report's
-# keys, "double" in a demangled name): K7 where V is double, the triangle
-# K1c and K3c otherwise.
-F64_TRIANGLE = ("gram_comp_symmetric", "gram_comp_finish")
+# The float64 tile's three forms (csrc/gram_comp.cu) and their finishing
+# pass serve the wrappers of K1c, K3c, K7, K8 and the certified pairs, told
+# apart by the form (the kernel's name; the finishing pass's last template
+# argument, 0 triangle, 1 forward, 2 pair, absent in builds before the
+# forward and pair forms), V's type ("d" in ptxas_report's keys, "double"
+# in a demangled name) and the family (the forward form's first argument,
+# LAPLACE_CODE: K3c).
+COMP_FNS = ("gram_comp_symmetric", "gram_comp_forward", "gram_comp_pair", "gram_comp_finish")
+COMP_FORMS = {"gram_comp_symmetric": 0, "gram_comp_forward": 1, "gram_comp_pair": 2}
 
 
-def triangle_wrapper(args: str) -> str:
-    """The wrapper of a float64 triangle instantiation, from its template
-    arguments ``args`` (as in ``"0, 4, double"``)."""
-    last = args.split(",")[-1].strip(" >")
-    return "gram_matvec_symmetric_f64" if last in ("d", "double") else "gram_matvec_symmetric_comp"
+def comp_wrapper(fn: str, args: str) -> str:
+    """The wrapper of a float64-tile instantiation ``fn<args>`` (as in
+    ``"0, 4, double"``)."""
+    parts = [a.strip(" <>") for a in args.split(",")]
+    if fn == "gram_comp_finish":
+        vt, form = parts[0], int(parts[1]) if len(parts) > 1 else 0
+    else:
+        vt, form = parts[-1], COMP_FORMS[fn]
+    f64 = vt in ("d", "double")
+    if form == 0:
+        return "gram_matvec_symmetric_f64" if f64 else "gram_matvec_symmetric_comp"
+    if form == 2:
+        return "gram_pair_f64" if f64 else "gram_pair_comp"
+    if f64:
+        return "gram_matmat_f64"
+    laplace = fn != "gram_comp_finish" and parts[0] == str(LAPLACE_CODE)
+    return "laplace_matmat_comp" if laplace else "gram_matmat_comp"
 
 
 # The register tile's three forms and the 3xTF32 wide kernel serve the
@@ -524,7 +561,7 @@ def registers_of(kname: str, registers: dict) -> dict:
     for key, r in registers.items():
         fn, _, args = key.partition("<")
         if fn in REGISTERS_OF.get(kname, ()) and (
-                fn not in F64_TRIANGLE or triangle_wrapper(args) == kname) and (
+                fn not in COMP_FNS or comp_wrapper(fn, args) == kname) and (
                 fn not in TILE_FORMS or tile_wrapper(fn, args) == kname):
             mine[key] = r
     return mine
@@ -599,16 +636,17 @@ def plain_twosum_f32(kind, X, V, ls):
     return hi, lo
 
 
-# csrc/gram_common.cuh's template arguments: the family first (LAPLACE is 4),
-# then the narrow kernel's Mode last (COMP 1, F64 2).
+# The narrow kernel of builds before the float64 tile's forward form
+# (gram_matmat_narrow<KIND, KC, MODE>, in old profiles): the family first
+# (LAPLACE is 4), the Mode last (COMP 1, F64 2).
 _NARROW = {1: "gram_matmat_comp", 2: "gram_matmat_f64"}
 _LAPLACE = {"gram_matmat_comp": "laplace_matmat_comp"}
 LAPLACE_CODE = 4
 
 
 # Kernels of their own, by name (their template arguments do not select the
-# group): K2b, K1b's forward strip and wide kernel, K4b; the float64
-# triangle's by V's type (triangle_wrapper).
+# group): K2b, K1b's forward strip and wide kernel, K4b; the float64 tile's
+# by form, family and V's type (comp_wrapper).
 _OWN = {"gram_tier_symmetric": "gram_matvec_symmetric_tier",
         "gram_tier_forward": "gram_matmat_tier", "gram_tier_wide": "gram_matmat_tier",
         "gram_tier_pair": "gram_pair_tier"}
@@ -634,8 +672,8 @@ def _kernel_group(name: str) -> str:
     m = re.search(r"(gram_\w+)(?:<([^>]*)>)?", name)
     if m is None:
         return "other"
-    if m.group(1) in F64_TRIANGLE:
-        return triangle_wrapper(m.group(2) or "")
+    if m.group(1) in COMP_FNS:
+        return comp_wrapper(m.group(1), m.group(2) or "")
     if m.group(1) in _OWN:
         return _OWN[m.group(1)]
     if m.group(2) is None:
@@ -817,6 +855,30 @@ def north_star(dev, profile_run, compare, timings):
     compare("gram_matmat_f64", kernel_cuda.gram_matmat_f64("rbf", X[idx], X, W64, ls),
             Kr, f"{shape} k=1", COMP_BOUND)
     del KW, Kr
+    # K8 at the sampled certificate's shape (8,192 rows against the 10⁶
+    # points) on a random right-hand side: the same bits twice, checked on
+    # 1,024 of its rows, timed; and the float64 operand each K8 call builds
+    # of the 10⁶ points
+    X8 = X[torch.as_tensor(sampled_rows(N6, 8192, 7), device=dev)]
+    V8 = torch.randn((N6, 1), generator=torch.Generator(device=dev).manual_seed(8), device=dev,
+                     dtype=torch.float64)
+    certify = (lambda: kernel_cuda.gram_matmat_f64("rbf", X8, X, V8, ls))
+    one, two = certify(), certify()
+    torch.cuda.synchronize()
+    what = f"config 6 certificate n=8192 m={N6} d={D} k=1"
+    check(torch.equal(one, two), f"gram_matmat_f64 {what}: the same bits twice")
+    compare("gram_matmat_f64", one[:1024],
+            kernel_plain.gram_matmat_f64("rbf", X8[:1024], X, V8, ls, row_block=256),
+            f"{what} rows 1024", COMP_BOUND)
+    del one, two
+    ms = cuda_ms(certify, reps=3)
+    timings.setdefault("gram_matmat_f64", []).append(
+        timing_entry("gram_matmat_f64", what, ms, None, 8192, N6, D, 1))
+    print(f"time gram_matmat_f64 {what}: kernel {ms:.3f} ms, bound "
+          f"{timings['gram_matmat_f64'][-1]['bound_ms']:.3f} ms")
+    op_ms = cuda_ms(lambda: kernel_cuda.comp_operand(X, ls), reps=3)
+    print(f"time comp_operand n={N6} d={D}: {op_ms:.3f} ms")
+    del X8, V8
     P = tier_operand(X / ls, "bf16x3")
     Pr = TierOperand(P.hi[idx], P.lo[idx], P.sq[idx])
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1097,7 +1159,8 @@ def ceiling_shares(timings, rates, pipes):
     ``pipe_ms``. K3 past 16 columns (``laplace_matmat``) has no such row:
     its time goes to the TF32 contraction (``bound_ms``), not the L1 pair."""
     for kname in ("laplace_matmat_narrow", "laplace_matmat_comp",
-                  "gram_matvec_symmetric_comp", "laplace_matvec_symmetric", "laplace_pair"):
+                  "gram_matvec_symmetric_comp", "laplace_matvec_symmetric", "laplace_pair",
+                  "gram_pair_comp"):
         for e in timings.get(kname, []):
             if e.get("kind") != "laplace" or not e.get("ms"):
                 continue
@@ -1443,6 +1506,160 @@ def sqdist_kernels(dev, X, compare, timings):
         timings.setdefault("gram_matmat", []).append(entry)
         print(f"time gram_matmat E1 n={N5} d={d} k={k}: kernel {ms:.3f} ms, bound "
               f"{entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+
+
+# The float64 tile's forward form at the HIGGS shape past the k = 1 and 10
+# the kernels' main timings take: 16 columns, one slice; 17, two.
+COMP_KS = (16, 17)
+# Its ragged checks: n, m not multiples of 128, one row tile of 100, d not a
+# multiple of 16; 300 x 5,000 takes runs of X2's tiles.
+COMP_RAGGED = ((1000, 777, 3), (100, 1300, 28), (300, 5000, 50))
+
+
+def _as_tuple(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+def _comp_value(r):
+    """A float64-tile product as float64: hi + lo of K1c's and K3c's pair."""
+    return r[0].double() + r[1].double() if isinstance(r, tuple) else r
+
+
+def comp_forward(kname, kind, X1, X2, V, ls):
+    """The call of a forward-form wrapper (``gram_matmat_comp``,
+    ``laplace_matmat_comp``, ``gram_matmat_f64``) on float32 V, V cast to
+    float64 outside it for K8."""
+    from rlaopt_tpu_torch.ops import kernel_cuda
+
+    if kname == "gram_matmat_f64":
+        V64 = V.double()
+        return lambda: kernel_cuda.gram_matmat_f64(kind, X1, X2, V64, ls)
+    if kname == "laplace_matmat_comp":
+        return lambda: kernel_cuda.laplace_matmat_comp(X1, X2, V, ls)
+    return lambda: kernel_cuda.gram_matmat_comp(kind, X1, X2, V, ls)
+
+
+def comp_forms(dev, X, compare, timings):
+    """The float64 tile's forward form (the general K1c, K3c and K8) and its
+    pair form (the certified pairs of the sharded half-ring). Each timed
+    shape is run twice for the same bits (the forward form has no atomics)
+    and checked on sampled rows against the float64 plain version within
+    COMP_BOUND: K1c, K3c (ℓ = 32) and K8 at the HIGGS shape at COMP_KS,
+    K1c and K8 at E2's shard (12,500 against 12,500 other points), K1c at
+    E1's slab (50,000²), K3c at E3's shard (33,334 against 33,334). Every
+    family at COMP_RAGGED, scalar and ARD lengthscales, k = 1, 3, 10, 17,
+    forward and pair forms against float64. The pairs (float32 and float64
+    V) at E2's and E3's shard pairs, both outputs on sampled rows, timed.
+    And ``comp_operand``'s build at the HIGGS shape, which every call of
+    these wrappers makes (config 6 times it at 10⁶ points)."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+
+    t_phase = time.perf_counter()
+    ls = D**0.5
+    gen = torch.Generator(device=dev).manual_seed(40)
+
+    def timed(kname, kind, l, X1, X2, k, what):
+        n, m = X1.shape[0], X2.shape[0]
+        V = torch.randn((m, k), generator=gen, device=dev)
+        fn = comp_forward(kname, kind, X1, X2, V, l)
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(_as_tuple(got), _as_tuple(again))),
+              f"{kname} {what}: the same bits twice")
+        idx = torch.as_tensor(sampled_rows(n, min(2048, n), 42), device=dev)
+        ref = kernel_plain.gram_matmat_f64(kind, X1[idx], X2, V, l, row_block=256)
+        compare(kname, _comp_value(got)[idx], ref, f"{what} rows {idx.numel()}", COMP_BOUND)
+        del got, again, ref
+        ms = cuda_ms(fn)
+        entry = timing_entry(kname, what, ms, None, n, m, D, k, kind)
+        timings.setdefault(kname, []).append(entry)
+        print(f"time {kname} {what}: kernel {ms:.3f} ms, bound {entry['bound_ms']:.3f} ms "
+              f"({entry['bound_ms'] / ms:.1%})")
+
+    n = X.shape[0]
+    for kname, kind, l in (("gram_matmat_comp", "rbf", ls), ("laplace_matmat_comp", "laplace", LS_B),
+                           ("gram_matmat_f64", "rbf", ls)):
+        for k in COMP_KS:
+            timed(kname, kind, l, X, X, k, f"n=m={n} d={D} k={k}")
+    e2, e3 = N5 // P_RING, -(-n // P_LAPLACE)
+    for kname in ("gram_matmat_comp", "gram_matmat_f64"):
+        timed(kname, "rbf", ls, X[:e2], X[e2:2 * e2], 1, f"E2 shard n={e2} m={e2} d={D} k=1")
+    timed("gram_matmat_comp", "rbf", ls, X[:N5], X[:N5].clone(), 1, f"E1 slab n=m={N5} d={D} k=1")
+    timed("laplace_matmat_comp", "laplace", LS_B, X[:e3], X[e3:2 * e3], 1,
+          f"E3 shard n={e3} m={e3} d={D} k=1")
+    op_ms = cuda_ms(lambda: kernel_cuda.comp_operand(X, ls))
+    print(f"time comp_operand n={n} d={D}: {op_ms:.3f} ms")
+
+    # every family at the ragged shapes, forward and pair forms
+    rng = np.random.default_rng(44)
+    ks = (1, 3, 10, 17)
+    for n1, n2, d in COMP_RAGGED:
+        P1, P2 = (torch.from_numpy(rng.standard_normal((r, d)).astype(np.float32)).to(dev)
+                  for r in (n1, n2))
+        W, cw = concat_columns({k: torch.from_numpy(rng.standard_normal((n2, k)).astype(
+            np.float32)).to(dev) for k in ks})
+        S, cs = concat_columns({k: torch.from_numpy(rng.standard_normal((n1, k)).astype(
+            np.float32)).to(dev) for k in ks})
+        ard = torch.linspace(0.6, 1.8, d, dtype=torch.float64, device=dev) * d**0.5
+        for kind in SQDIST_KINDS + ("laplace",):
+            forward = "laplace_matmat_comp" if kind == "laplace" else "gram_matmat_comp"
+            for l, tag in ((1.3 * d**0.5, "scalar"), (ard, "ARD")):
+                ref1 = kernel_plain.gram_matmat_f64(kind, P1, P2, W, l, 0.9)
+                ref2 = kernel_plain.gram_matmat_f64(kind, P2, P1, S, l, 0.9)
+                for k in ks:
+                    what = f"{kind} n={n1} m={n2} d={d} k={k} {tag} lengthscale"
+                    V2, V1 = W[:, cw[k]], S[:, cs[k]]
+                    if kind == "laplace":
+                        hi, lo = kernel_cuda.laplace_matmat_comp(P1, P2, V2, l, 0.9)
+                    else:
+                        hi, lo = kernel_cuda.gram_matmat_comp(kind, P1, P2, V2, l, 0.9)
+                    compare(forward, hi.double() + lo.double(), ref1[:, cw[k]], what, COMP_BOUND)
+                    compare("gram_matmat_f64",
+                            kernel_cuda.gram_matmat_f64(kind, P1, P2, V2.double(), l, 0.9),
+                            ref1[:, cw[k]], what, COMP_BOUND)
+                    for pname, a, b in (("gram_pair_comp", V2, V1),
+                                        ("gram_pair_f64", V2.double(), V1.double())):
+                        o1, o2 = getattr(kernel_cuda, pname)(kind, P1, P2, a, b, l, 0.9)
+                        compare(pname, o1, ref1[:, cw[k]], what + " out1", COMP_BOUND)
+                        compare(pname, o2, ref2[:, cs[k]], what + " out2", COMP_BOUND)
+    print(f"phase: the float64 tile's ragged checks done at "
+          f"{time.perf_counter() - t_phase:.1f} s into it")
+
+    # the pairs at E2's and E3's shard pairs, both outputs, timed
+    for pname, kind, l, loc, k in (("gram_pair_comp", "rbf", ls, e2, 1),
+                                   ("gram_pair_f64", "rbf", ls, e2, 1),
+                                   ("gram_pair_comp", "rbf", ls, e2, 10),
+                                   ("gram_pair_comp", "laplace", LS_B, e3, 1)):
+        X1, X2 = X[:loc], X[loc:2 * loc]
+        V2 = torch.randn((X2.shape[0], k), generator=gen, device=dev)
+        V1 = torch.randn((loc, k), generator=gen, device=dev)
+        if pname == "gram_pair_f64":
+            V2, V1 = V2.double(), V1.double()
+        fn = (lambda X1=X1, X2=X2, V2=V2, V1=V1, kind=kind, l=l, pname=pname:
+              getattr(kernel_cuda, pname)(kind, X1, X2, V2, V1, l))
+        o1, o2 = fn()
+        i1 = torch.as_tensor(sampled_rows(loc, min(1024, loc), 45), device=dev)
+        i2 = torch.as_tensor(sampled_rows(X2.shape[0], min(1024, loc), 46), device=dev)
+        shard = "E3" if kind == "laplace" else "E2"
+        what = f"{shard} shard pair n1={loc} n2={X2.shape[0]} d={D} k={k}"
+        compare(pname, o1[i1], kernel_plain.gram_matmat_f64(kind, X1[i1], X2, V2, l),
+                f"{what} out1 rows {i1.numel()}", COMP_BOUND)
+        compare(pname, o2[i2], kernel_plain.gram_matmat_f64(kind, X2[i2], X1, V1, l),
+                f"{what} out2 rows {i2.numel()}", COMP_BOUND)
+        del o1, o2
+        ms = cuda_ms(fn, inner=5)
+        p_ms = None
+        if pname not in timings:  # each pair's first shape: its plain version too
+            p_ms = cuda_ms(lambda X1=X1, X2=X2, V2=V2, V1=V1, pname=pname: getattr(
+                kernel_plain, pname)(kind, X1, X2, V2, V1, l), reps=3)
+        entry = timing_entry(pname, what, ms, p_ms, loc, X2.shape[0], D, k, kind)
+        timings.setdefault(pname, []).append(entry)
+        print(f"time {pname} {what}: kernel {ms:.3f} ms, plain "
+              + ("not timed" if p_ms is None else f"{p_ms:.3f} ms")
+              + f", bound {entry['bound_ms']:.3f} ms ({entry['bound_ms'] / ms:.1%})")
+    print(f"phase: the float64 tile's forms done at {time.perf_counter() - t_phase:.1f} s into it")
 
 
 def slice3(dev, X, Xn, y):
@@ -2415,6 +2632,41 @@ def ring_vs(name, ring_out, flat_out, ref64):
     return d_flat, d_ref
 
 
+def certified_route(name, used, P, f64=True):
+    """A path's certified calls on the half-ring, from its launch counts:
+    per compensated call P triangle launches and P(P − 1)/2 pair launches,
+    per float64 call (``f64``) P K7 and P(P − 1)/2 float64 pairs, and no
+    general launch."""
+    pairs = P * (P - 1) // 2
+    routes = [("gram_matvec_symmetric_comp", "gram_pair_comp", "gram_matmat_comp")]
+    if f64:
+        routes.append(("gram_matvec_symmetric_f64", "gram_pair_f64", "gram_matmat_f64"))
+    for tri, pair, general in routes:
+        calls = used[tri] // P
+        check(calls > 0 and used[tri] == P * calls and used[pair] == pairs * calls
+              and used[general] == 0 and used.get("laplace_matmat_comp", 0) == 0,
+              f"{name}'s certified calls ran on the half-ring: {used[tri]} {tri} and "
+              f"{used[pair]} {pair} launches ({calls} calls of {P} and {pairs}), "
+              f"{used[general]} {general}")
+
+
+def certified_launches(name, K, v, P):
+    """One call of each certified route of a half-ring operator, its
+    launches against the schedule's: P triangle and P(P − 1)/2 pair
+    launches each."""
+    from rlaopt_tpu_torch.ops import kernel_cuda
+
+    pairs = P * (P - 1) // 2
+    for route, tri, pair in (("matmat_compensated", "gram_matvec_symmetric_comp",
+                              "gram_pair_comp"),
+                             ("matmat_f64", "gram_matvec_symmetric_f64", "gram_pair_f64")):
+        before = kernel_cuda.launch_counts()
+        getattr(K, route)(v)
+        used = used_since(before)
+        print(f"{name} one {route}: launches {used}")
+        check(used == {tri: P, pair: pairs}, f"{name}'s {route} launches equal the half-ring's")
+
+
 def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     """Slice 5: the sharded operators and config 5's path on positions of
     the one card (E1–E4, see the module docstring), with the pair kernels
@@ -2508,8 +2760,8 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
                   f"solve logged {last:.3e})")
             check(abs(final - indep) <= 0.01 * indep,
                   f"{name} refined rel_res_f64 within 1% of an independent float64 one")
-            check(used["gram_matvec_symmetric_f64"] > 0 and used["gram_matmat_f64"] > 0,
-                  f"{name} refinement ran through K7 and K8")
+            check(used["gram_matvec_symmetric_f64"] > 0 and used["gram_pair_f64"] > 0,
+                  f"{name} refinement ran through K7 and K8's pair form")
             rec.update({"refine": ref, "refined_independent": indep})
         return rec
 
@@ -2534,8 +2786,7 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     check(used["gram_pair"] >= pairs * (rec2["iters"] + LANCZOS5), "E2's pairs ran through K4")
     check(used["gram_matvec_symmetric"] >= P_RING * (rec2["iters"] + LANCZOS5),
           "E2's diagonal blocks ran through K2")
-    check(used["gram_matmat_comp"] >= 1 and used["gram_matvec_symmetric_comp"] == 0,
-          "E2 boundaries ran through the general K1c")
+    certified_route("E2", used, P_RING)
     check(abs(rec2["lambda_max"] - rec["lambda_max"]) <= 1e-4 * rec["lambda_max"],
           "E2's lambda_max within 1e-4 of E1's (the same start vector)")
     records["E2"] = rec2
@@ -2545,6 +2796,7 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     Kflat = RBFLinOp(X, X, KernelConfig(lengthscale=ls))
     ring_out = matvec_launches("E2", K2, v, {"gram_matvec_symmetric": P_RING,
                                              "gram_pair": pairs})
+    certified_launches("E2", K2, v, P_RING)
     ref64 = kernel_plain.gram_matmat_f64("rbf", X, X, v.double(), ls, row_block=BLOCK)
     d_flat, d_ref = ring_vs("E2", ring_out, Kflat @ v, ref64)
     check(d_ref <= K_BOUND and d_flat <= 2 * K_BOUND, "E2 ring matvec within the kernel bound")
@@ -2575,13 +2827,15 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     cfg3 = PCGConfig(max_iters=ITERS, rtol=1e-6, precond_config=NystromConfig(rank=RANK, rho=reg3))
     iterates = []
     kernel_cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    sys3 = LinSys(K3, Y100, reg=reg3)
-    _, log3 = sys3.solve(cfg3, torch.zeros((n, 1), device=dev), callback_freq=FREQ, key=0,
-                         callback_fn=lambda w, _model: iterates.append(w.clone()))
-    torch.cuda.synchronize()
-    wall3 = time.perf_counter() - t0
+    with profile_run() as prof:
+        t0 = time.perf_counter()
+        sys3 = LinSys(K3, Y100, reg=reg3)
+        _, log3 = sys3.solve(cfg3, torch.zeros((n, 1), device=dev), callback_freq=FREQ, key=0,
+                             callback_fn=lambda w, _model: iterates.append(w.clone()))
+        torch.cuda.synchronize()
+        wall3 = time.perf_counter() - t0
     used3 = kernel_cuda.launch_counts()
+    profile3 = device_breakdown(prof) if prof else {}
     lpairs = P_LAPLACE * (P_LAPLACE - 1) // 2
     # every logged iterate's float64 residual through K7 (one sweep)
     W64 = torch.cat([w.double() for w in iterates[1:]], 1)
@@ -2593,13 +2847,17 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     check(used3["laplace_pair"] >= lpairs * keys3[-1], "E3's pairs ran through K6")
     check(used3["laplace_matmat"] >= P_LAPLACE + 2 * lpairs,
           "E3's sketch ran through the wide K3 (diagonal blocks and the pairs' general calls)")
+    certified_route("E3", used3, P_LAPLACE, f64=False)
     rec3 = {"n": n, "positions": P_LAPLACE, "wall_s": wall3, "phase_walls": sys3.phase_walls,
             "iters": keys3[-1], "s_per_iter": sys3.phase_walls["train"] / keys3[-1],
             "rel_res": {i: log3[i]["metrics"]["internal_metrics"]["rel_res"].tolist()
-                        for i in keys3}, "gaps": gaps3, "launches": used3}
+                        for i in keys3}, "gaps": gaps3, "launches": used3, "profile": profile3,
+            "busy_share": (None if profile3.get("busy_ms") is None
+                           else profile3["busy_ms"] / 1e3 / wall3)}
     v = torch.randn((n, 1), generator=torch.Generator(device=dev).manual_seed(26), device=dev)
     ring_out = matvec_launches("E3", K3, v, {"laplace_matvec_symmetric": P_LAPLACE,
                                              "laplace_pair": lpairs})
+    certified_launches("E3", K3, v, P_LAPLACE)
     Kflat = LaplaceLinOp(X100, X100, KernelConfig(lengthscale=LS_B))
     ref64 = kernel_cuda.gram_matvec_symmetric_f64("laplace", X100, v.double(), LS_B)
     d_flat, d_ref = ring_vs("E3", ring_out, Kflat @ v, ref64)
@@ -2708,7 +2966,8 @@ def main() -> int:
              "gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_matmat_f64",
              "gram_matvec_symmetric_f64", "laplace_matmat", "laplace_matmat_narrow",
              "laplace_matmat_comp", "laplace_matvec_symmetric", "csr_spmv", "csr_spmm",
-             "gram_pair", "gram_pair_tier", "laplace_pair", *PROBES)
+             "gram_pair", "gram_pair_tier", "laplace_pair", "gram_pair_comp", "gram_pair_f64",
+             *PROBES)
     # (kernel, "plain" or "float64") -> [(max abs err, relative)]; "plain"
     # is the kernel's own plain version (float64 for all but the tiers)
     errors = {(kname, versus): [] for kname in names for versus in ("plain", "float64")}
@@ -2962,6 +3221,8 @@ def main() -> int:
     laplace_kernels(dev, X, compare, timings)
     print(f"phase: Laplace kernels done at {time.perf_counter() - t_start:.1f} s")
     sqdist_kernels(dev, X, compare, timings)
+    comp_forms(dev, X, compare, timings)
+    print(f"phase: the float64 tile's forms done at {time.perf_counter() - t_start:.1f} s")
     del XT
     print(f"phase: kernel checks and times done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3130,22 +3391,24 @@ def main() -> int:
              **{path: rec["launches"] for path, rec in rec5.items()}}
     for kname, source, replaces in (
         ("gram_matmat", SOURCES["gram"], f"{PALLAS}:733"),
-        ("gram_matmat_comp", SOURCES["gram"], f"{PALLAS}:733"),
+        ("gram_matmat_comp", SOURCES["comp"], f"{PALLAS}:733"),
         ("gram_matvec_symmetric_comp", SOURCES["comp"], f"{PALLAS}:733"),
         ("gram_matvec_symmetric", SOURCES["gram"], f"{PALLAS}:1366"),
         ("gram_matmat_tier", SOURCES["tier"], f"{PALLAS}:733"),
         ("gram_matvec_symmetric_tier", SOURCES["tier"], f"{PALLAS}:1366"),
         ("gram_matvec_symmetric_f64", SOURCES["comp"], f"{VALUE64}:467"),
-        ("gram_matmat_f64", SOURCES["f64"], f"{VALUE64}:684"),
+        ("gram_matmat_f64", SOURCES["comp"], f"{VALUE64}:684"),
         ("laplace_matmat_narrow", SOURCES["laplace"], f"{PALLAS}:592"),
         ("laplace_matmat", SOURCES["wide"], f"{PALLAS}:592"),
-        ("laplace_matmat_comp", SOURCES["laplace"], f"{PALLAS}:592"),
+        ("laplace_matmat_comp", SOURCES["comp"], f"{PALLAS}:592"),
         ("laplace_matvec_symmetric", SOURCES["laplace"], f"{PALLAS}:1930"),
         ("csr_spmv", SOURCES["spmv"], f"{LANED}:136"),
         ("csr_spmm", SOURCES["spmv"], f"{LANED}:136"),
         ("gram_pair", SOURCES["pair"], f"{PALLAS}:1563"),
         ("gram_pair_tier", SOURCES["tier"], f"{PALLAS}:1563"),
         ("laplace_pair", SOURCES["pair"], f"{PALLAS}:2063"),
+        ("gram_pair_comp", SOURCES["comp"], f"{PALLAS}:733"),
+        ("gram_pair_f64", SOURCES["comp"], f"{VALUE64}:684"),
         *((kname, SOURCES["probes"], tpu) for kname, (tpu, _) in PROBES.items()),
     ):
         main_t = timings[kname][0]

@@ -7,9 +7,6 @@
 //   K1  tile_forward<KIND>      replaces rlaopt_tpu/ops/kernel_pallas.py ::
 //       (k <= 16; past 16         kernel_matmat_pallas, exact tier
 //       gram_wide.cu)
-//   K1c gram_matmat (COMP)      replaces kernel_matmat_pallas(compensated=True)
-//                               for two data sets; one data set takes the
-//                               triangle of gram_comp.cu
 //   K2  tile_triangle<KIND>     replaces kernel_pallas.py ::
 //                               kernel_matvec_symmetric, exact tier
 //
@@ -32,23 +29,8 @@
 // added by float atomics). The epilogue is the family's function of the
 // distance (tile_value: __expf, the square root on the SFU).
 //
-// The compensated tier (K1c) keeps the shared narrow template: each column
-// tile's partial is TwoSum-added into a per-output (hi, lo) pair
-// (_twosum_accumulate in kernel_pallas.py), and inside a tile it works in
-// fp64, on the H100's FP64 units (half the FP32 rate): the difference of
-// two float inputs is exact in double, and the lengthscale division, the
-// squared distance, the family epilogue, the kernel value, the constant c
-// and the tile's partial carry no float rounding; the partial is split
-// into a float pair before the TwoSum. So K1c is the float64 product of
-// the float32 points, which is a different contract from the TPU kernel's
-// (float32 values of points pre-scaled in float32, TwoSum across tiles
-// only). Why: that contract sits 3.0e-7 of max|ref| from the float64
-// product at n = 100,000, d = 28 on an H100, over the 2e-7 bound; and K1c
-// computes the true residual of two data sets (the sharded slabs, the
-// oracles' submatrices), where an iterate at the floor of the f32 operator
-// needs float64 values to read its residual within 1%. Its double K tile
-// (33 KB) leaves no room for a wide V tile, so K1c with k > 16 takes
-// 16-column chunks on blockIdx.y.
+// The compensated tier (K1c, every form) and K8 run on the float64 tile of
+// gram_comp.cu.
 //
 // None of the TPU's VMEM tile budget, 128-lane padding or concat6 operand fold
 // carries over: the tiles here are sized to shared memory and registers.
@@ -57,26 +39,6 @@
 
 // Plain C interface, loaded with ctypes. Every call launches on `stream`,
 // does not synchronize, and returns cudaGetLastError() (0 on success).
-// Shapes: X1 (n, d), X2 (m, d), V (m, k), out and out_lo (n, k), all
-// contiguous float32 on one device; n, m, d, k >= 1.
-
-// K1c: out + out_lo (out_lo added last) = c * k(X1, X2) @ V, from unscaled
-// X1 and X2 and the inverse lengthscale inv_ls (d doubles).
-extern "C" int rl_gram_matmat_comp(int kind, const void* X1, const void* X2,
-                                   const void* V, const void* inv_ls,
-                                   void* out, void* out_lo, int n, int m,
-                                   int d, int k, double c, void* stream) {
-  const GramArgs a = points_args(X1, X2, inv_ls, V, out, out_lo, n, m, d, k, c);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case RBF: launch_narrow_by_k<RBF, COMP>(a, s); break;
-    case MATERN12: launch_narrow_by_k<MATERN12, COMP>(a, s); break;
-    case MATERN32: launch_narrow_by_k<MATERN32, COMP>(a, s); break;
-    case MATERN52: launch_narrow_by_k<MATERN52, COMP>(a, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
 
 // K1 at k <= 16 (tile_forward<KIND>): out = c * k(X1, X2) @ V from XT1
 // (dpad, npad) and XT2 (dpad, mpad) floats, the points divided by the

@@ -6,15 +6,12 @@
 //       (k <= 16; past 16         _laplace_matmat (plain)
 //       gram_wide.cu's 3xTF32
 //       kernel)
-//   K3c laplace_matmat (COMP)     replaces _laplace_matmat(compensated=True)
-//                                 for two data sets; one data set takes the
-//                                 triangle of gram_comp.cu
 //   K5  tile_triangle<LAPLACE>    replaces kernel_pallas.py ::
 //                                 _laplace_matvec_symmetric
 //
-// What bounds them on the H100: the FP32 instruction rate (FP64 for K3c),
-// not bytes. An L1 pair and feature costs two FADDs, d = x - y and acc +=
-// |d| with the absolute value an operand modifier: unlike RBF's FMA they do
+// What bounds them on the H100: the FP32 instruction rate, not bytes. An
+// L1 pair and feature costs two FADDs, d = x - y and acc += |d| with the
+// absolute value an operand modifier: unlike RBF's FMA they do
 // not fuse, so the FP32 pipes (128 lanes a clock per SM, one warp
 // instruction a clock per sub-partition) deliver half the data sheet's
 // 67 TFLOP/s (which counts an FMA as two) for this function, and every
@@ -32,9 +29,7 @@
 // K3 past 16 columns is gram_wide.cu's gram_wide_tf32<LAPLACE, NF>, K1's
 // 3xTF32 kernel with the L1 step (rl_gram_matmat_wide, LAPLACE's code);
 // the pair of two point sets (K6) is the tile's pair form in gram_pair.cu.
-// K3c has K1c's general schedule, from unscaled points with the inverse
-// lengthscale in float64 (the float64 product of the float32 points,
-// TwoSum-added into a float (hi, lo) pair across column tiles).
+// K3c (every form) is K1c's float64 tile with the L1 step (gram_comp.cu).
 //
 // Not carried over from the TPU kernels: the 64-feature grid axis of
 // _laplace_feature_block (the staging loops walk d 16 or 32 features at a time),
@@ -44,19 +39,6 @@
 
 // Plain C interface, loaded with ctypes. Every call launches on `stream`,
 // does not synchronize, and returns cudaGetLastError() (0 on success).
-// Shapes: X1 (n, d), X2 (m, d), V (m, k), out and out_lo (n, k), all
-// contiguous float32 on one device; n, m, d, k >= 1.
-
-// K3c: the same product as out + out_lo (out_lo added last), from unscaled
-// X1 and X2 and the inverse lengthscale inv_ls (d doubles).
-extern "C" int rl_laplace_matmat_comp(const void* X1, const void* X2,
-                                      const void* V, const void* inv_ls,
-                                      void* out, void* out_lo, int n, int m,
-                                      int d, int k, double c, void* stream) {
-  const GramArgs a = points_args(X1, X2, inv_ls, V, out, out_lo, n, m, d, k, c);
-  launch_narrow_by_k<LAPLACE, COMP>(a, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
-}
 
 // K5 (tile_triangle<LAPLACE>): out = c * k(X, X) @ V from XT (dpad, npad)
 // floats, the points divided by the lengthscale, transposed, zero past d

@@ -32,11 +32,18 @@ Mesh`; payloads are per-position lists and the collectives are
   launches (the sum is the same; the launch counts show it).
 * ``row_oracle`` is column-distributed (one psum per apply), ``blk_oracle``
   row-distributed over the gathered block.
-* ``matmat_compensated`` TwoSum-adds the per-visit partials of the ring;
-  ``matmat_f64`` (and its ``(hi, lo)`` form ``matmat_value64``) runs the
-  float64 kernels K7 (a position's own shard of one data set) and K8 over
-  the same ring, with the points where they are: the JAX package gathers
-  them to the host there (ROADMAP Queue 3).
+* The certified routes: ``matmat_compensated`` (K1c, K3c) and
+  ``matmat_f64`` (K7, K8; its ``(hi, lo)`` form ``matmat_value64``), with
+  the points where they are (the JAX package gathers them to the host for
+  value64, ROADMAP Queue 3). Where ``matvec`` takes the half-ring, both
+  take its schedule: the diagonal block through the float64 triangle (the
+  compensated one, or K7), each unordered shard pair once through the
+  float64 tile's pair form (:func:`~rlaopt_tpu_torch.ops.kernel_dispatch.
+  kernel_pair_compensated`, ``kernel_pair_f64``), the mirror sums rotated
+  home, all added in float64 and split into ``(hi, lo)`` once, at home.
+  Elsewhere the replicated slab or the general ring's visits: K1c's forward
+  form TwoSum-added across the visits, K7 where a position meets its own
+  shard of one data set and K8 elsewhere for ``matmat_f64``.
 
 Padding is not neutral for a kernel (k(x, 0) ≠ 0): a padded point's kernel
 values with real points are not zero. Every schedule relies on the
@@ -65,6 +72,8 @@ from ..ops.kernel_dispatch import (
     kernel_matmat_f64,
     kernel_matmat_tier,
     kernel_pair,
+    kernel_pair_compensated,
+    kernel_pair_f64,
     kernel_pair_tier,
 )
 from ..ops.kernel_plain import _two_sum
@@ -204,6 +213,7 @@ class ShardedKernelLinOp(ShardedLinOp):
             # first use and kept
             for entry in data:
                 entry["tile"] = _TileOperand(entry["X1"].X, entry["ls"])
+        self._sym_ring = sym_ring
         if sym_ring:
             mv = rmv = self._half_ring  # square symmetric Gram: Kᵀ = K
         elif memory_mode == "ring":
@@ -347,42 +357,56 @@ class ShardedKernelLinOp(ShardedLinOp):
         rot, _ = self._sweep([(d["X2s"], None) for d in data], [None] * len(data), visit)
         return [acc for _, acc in rot]
 
-    def _half_ring(self, data, chunks):
-        """The symmetric half-ring sweep: ~half the kernel evaluations.
+    def _half_sweep(self, V, diag, carried, pair):
+        """The symmetric half-ring's schedule over the right-hand-side
+        chunks ``V`` (2-D, one per position): ~half the kernel evaluations.
 
-        Position p starts with its own (shard, its kept tile operand,
-        right-hand side chunk, zero mirror accumulator) as the rotating
-        carry; after s forward rotations it holds shard q = p − s and
-        computes both products of the pair {p, q} from one evaluation (on
-        the kept tile operands of both shards), adding the mirror product
-        to the carried accumulator of shard q. Steps s = 1 .. ns − 1 visit each unordered
+        ``diag(p, v)`` is position p's diagonal block. Position p starts
+        with ``carried(p)`` (its shard and what goes with it), its chunk and
+        a zero mirror accumulator as the rotating carry; after s forward
+        rotations it holds shard q = p − s and ``pair(p, carried(q), V_q,
+        V_p)`` gives both products of the pair {p, q} from one evaluation,
+        the first added to p's output, the second to the carried mirror
+        accumulator of shard q. Steps s = 1 .. ns − 1 visit each unordered
         pair once (for even P the antipodal step is taken by p < P/2 only);
         then one rotation by −(ns − 1) delivers every mirror accumulator
-        home. The diagonal block runs the triangle kernel locally.
+        home. Returns each position's output, in ``diag``'s type.
         """
         mesh, ax = self.mesh, _axes(self.axis)[0]
         P = mesh.size
-        ns = P // 2 + 1 if P % 2 == 0 else (P + 1) // 2
-        squeeze = chunks[0].ndim == 1
-        V = [c[:, None] if squeeze else c for c in chunks]
-        out = [
-            self._gram(d["X1"], d["X1"], v, d["ls"], symmetric=True, tile=d.get("tile"))
-            for d, v in zip(data, V)
-        ]
-        carry = [(d["X1"], d.get("tile"), v, torch.zeros_like(v)) for d, v in zip(data, V)]
+        ns = P // 2 + 1
+        out = [diag(p, v) for p, v in enumerate(V)]
+        carry = [(carried(p), v, torch.zeros_like(o)) for p, (v, o) in enumerate(zip(V, out))]
         for s in range(1, ns):
             carry = ppermute(carry, mesh, ax)
             for p in range(P):
-                if P % 2 == 0 and not (s < ns - 1 or p < P // 2):
+                if P % 2 == 0 and s == ns - 1 and p >= P // 2:
                     continue  # the antipodal pair is taken from its other side
-                xq, tq, vq, mir = carry[p]
-                o_p, o_q = self._pair(data[p]["X1"], xq, vq, V[p], data[p]["ls"],
-                                      (data[p].get("tile"), tq))
+                moved, vq, mir = carry[p]
+                o_p, o_q = pair(p, moved, vq, V[p])
                 out[p] = out[p] + o_p
-                carry[p] = (xq, tq, vq, mir + o_q)
+                carry[p] = (moved, vq, mir + o_q)
         # the mirror of shard q sits ns - 1 hops ahead: one rotation home
-        mirrors = ppermute([c[3] for c in carry], mesh, ax, -(ns - 1))
-        out = [o + mr for o, mr in zip(out, mirrors)]
+        mirrors = ppermute([c[2] for c in carry], mesh, ax, -(ns - 1))
+        return [o + mr for o, mr in zip(out, mirrors)]
+
+    def _half_ring(self, data, chunks):
+        """The symmetric half-ring's ``K @ v`` (:meth:`_half_sweep`): the
+        diagonal block through the triangle kernel on its shard's kept tile
+        operand, each pair on the kept tile operands of both shards (the
+        rotating shard's carried with its points)."""
+        squeeze = chunks[0].ndim == 1
+        V = [c[:, None] if squeeze else c for c in chunks]
+
+        def diag(p, v):
+            d = data[p]
+            return self._gram(d["X1"], d["X1"], v, d["ls"], symmetric=True, tile=d.get("tile"))
+
+        def pair(p, moved, vq, vp):
+            (xq, tq), d = moved, data[p]
+            return self._pair(d["X1"], xq, vq, vp, d["ls"], (d.get("tile"), tq))
+
+        out = self._half_sweep(V, diag, lambda p: (data[p]["X1"], data[p].get("tile")), pair)
         return [o[:, 0] for o in out] if squeeze else out
 
     # Ring mode: both operand and output are sharded over the mesh.
@@ -419,71 +443,110 @@ class ShardedKernelLinOp(ShardedLinOp):
     # -- certified-residual routes -------------------------------------------
     def matmat_compensated(self, V: torch.Tensor):
         """``K @ V`` as a compensated ``(hi, lo)`` pair across the mesh (add
-        ``lo`` last): each position's row slab through the compensated
-        kernel (K1c, K3c on a card); in ring mode the per-visit partials are
+        ``lo`` last), in V's dtype. Where ``matvec`` takes the half-ring,
+        its schedule (:meth:`_certified_half_ring`: the compensated
+        triangle on the diagonal blocks, K1c's pair form on each pair); else
+        each position's row slab through the compensated kernel (K1c's, or
+        K3c's, forward form on a card), the ring's per-visit partials
         TwoSum-added, so the cross-shard sums do not bring back the float32
         floor the pair exists to beat."""
         self._require_full()
         squeeze = V.ndim == 1
         Vm = V[:, None] if squeeze else V
-        kind, c = self.kind, self._c
-        if self.memory_mode == "replicated":
-            parts = [
-                kernel_matmat_compensated(kind, d["X1"].X, d["X2r"].X, move(Vm, dev),
-                                          d["ls64"], c, impl=self.impl)
-                for d, dev in zip(self._data, self.mesh.devices)
-            ]
-        else:
-            chunks = self._split(self._pad_operand(Vm, self.padded_shape[1]))
-
-            def visit(p, moving, acc):
-                x2s, vs = moving
-                h, lo = kernel_matmat_compensated(
-                    kind, self._data[p]["X1"].X, x2s.X, vs, self._data[p]["ls64"], c,
-                    impl=self.impl,
-                )
-                if acc is None:
-                    return moving, (h, lo)
-                ah, al = acc
-                s, e = _two_sum(ah, h)
-                return moving, (s, al + (e + lo))
-
-            _, parts = self._sweep(
-                [(d["X2s"], ch) for d, ch in zip(self._data, chunks)],
-                [None] * len(chunks), visit,
-            )
+        kind, c, data = self.kind, self._c, self._data
         n = self.shape[0]
-        hi = self._gather([h for h, _ in parts])[:n]
-        lo = self._gather([lo for _, lo in parts])[:n]
+        if self._sym_ring:
+
+            def diag(p, v):
+                X, ls = data[p]["X1"].X, data[p]["ls64"]
+                h, lo = kernel_matmat_compensated(kind, X, X, v, ls, c, symmetric=True,
+                                                  impl=self.impl)
+                return h.double() + lo.double()
+
+            def pair(p, xq, vq, vp):
+                return kernel_pair_compensated(kind, data[p]["X1"].X, xq, vq, vp,
+                                               data[p]["ls64"], c, impl=self.impl)
+
+            s = self._certified_half_ring(Vm, diag, pair)[:n]
+            hi = s.to(Vm.dtype)
+            lo = (s - hi.double()).to(Vm.dtype)
+        else:
+            if self.memory_mode == "replicated":
+                parts = [
+                    kernel_matmat_compensated(kind, d["X1"].X, d["X2r"].X, move(Vm, dev),
+                                              d["ls64"], c, impl=self.impl)
+                    for d, dev in zip(data, self.mesh.devices)
+                ]
+            else:
+                chunks = self._split(self._pad_operand(Vm, self.padded_shape[1]))
+
+                def visit(p, moving, acc):
+                    x2s, vs = moving
+                    h, lo = kernel_matmat_compensated(
+                        kind, data[p]["X1"].X, x2s.X, vs, data[p]["ls64"], c, impl=self.impl,
+                    )
+                    if acc is None:
+                        return moving, (h, lo)
+                    ah, al = acc
+                    s, e = _two_sum(ah, h)
+                    return moving, (s, al + (e + lo))
+
+                _, parts = self._sweep(
+                    [(d["X2s"], ch) for d, ch in zip(data, chunks)], [None] * len(chunks), visit,
+                )
+            hi = self._gather([h for h, _ in parts])[:n]
+            lo = self._gather([lo for _, lo in parts])[:n]
         if squeeze:
             hi, lo = hi[:, 0], lo[:, 0]
         return self._apply_scale(hi), self._apply_scale(lo)
 
+    def _certified_half_ring(self, V, diag, pair):
+        """The half-ring's schedule (:meth:`_half_sweep`) in float64 for the
+        certified routes, each position's points carried (no tile operand):
+        ``diag(p, v)`` and ``pair(p, X_q, V_q, V_p)`` give float64 sums; the
+        outputs gathered on the first position's device, padded rows
+        included."""
+        chunks = self._split(self._pad_operand(V, self.padded_shape[1]))
+        return self._gather(self._half_sweep(chunks, diag, lambda p: self._data[p]["X1"].X, pair))
+
     def matmat_f64(self, V: torch.Tensor) -> torch.Tensor:
         """``K @ V`` with float64 kernel values and sums (float64 out, on the
-        first position's device), over the ring of the A2 shards in either
-        memory mode: K7 where a position meets its own shard of one data set,
-        K8 elsewhere (the plain float64 version on the CPU). The points stay
-        on their positions."""
+        first position's device), the points on their positions. Where
+        ``matvec`` takes the half-ring, its schedule
+        (:meth:`_certified_half_ring`: K7 on the diagonal blocks, K8's pair
+        form on each pair); else the ring of the A2 shards in either memory
+        mode: K7 where a position meets its own shard of one data set, K8
+        elsewhere (the plain float64 versions on the CPU)."""
         self._require_full()
         squeeze = V.ndim == 1
         V64 = move(V[:, None] if squeeze else V, self.mesh.home).double()
-        chunks = self._split(self._pad_operand(V64, self.padded_shape[1]))
+        kind, c, data = self.kind, self._c, self._data
+        if self._sym_ring:
 
-        def visit(p, moving, acc):
-            x2s, vs, q = moving
-            d = self._data[p]
-            part = kernel_matmat_f64(
-                self.kind, d["X1"].X, x2s.X, vs, d["ls64"], self._c,
-                symmetric=self._symmetric and q == p,
+            def diag(p, v):
+                X = data[p]["X1"].X
+                return kernel_matmat_f64(kind, X, X, v, data[p]["ls64"], c, symmetric=True)
+
+            def pair(p, xq, vq, vp):
+                return kernel_pair_f64(kind, data[p]["X1"].X, xq, vq, vp, data[p]["ls64"], c)
+
+            acc = self._certified_half_ring(V64, diag, pair)
+        else:
+            chunks = self._split(self._pad_operand(V64, self.padded_shape[1]))
+
+            def visit(p, moving, acc):
+                x2s, vs, q = moving
+                d = data[p]
+                part = kernel_matmat_f64(kind, d["X1"].X, x2s.X, vs, d["ls64"], c,
+                                         symmetric=self._symmetric and q == p)
+                return moving, part if acc is None else acc + part
+
+            _, parts = self._sweep(
+                [(d["X2s"], ch, q) for q, (d, ch) in enumerate(zip(data, chunks))],
+                [None] * len(chunks), visit,
             )
-            return moving, part if acc is None else acc + part
-
-        _, acc = self._sweep(
-            [(d["X2s"], ch, q) for q, (d, ch) in enumerate(zip(self._data, chunks))],
-            [None] * len(chunks), visit,
-        )
-        out = self._gather(acc)[: self.shape[0]] * float(self._scale)
+            acc = self._gather(parts)
+        out = acc[: self.shape[0]] * float(self._scale)
         return out[:, 0] if squeeze else out
 
     def matmat_value64(self, V: torch.Tensor):

@@ -4,14 +4,13 @@ Counterpart of ``rlaopt_tpu/ops/kernel_pallas.py`` (exact f32 tier,
 compensated tier, bf16 tiers, the Laplace kernels),
 ``rlaopt_tpu/ops/kernel_value64.py`` (float64 route) and
 ``rlaopt_tpu/sparse/laned.py`` (the sparse CSR product). The kernels live in
-``csrc/gram.cu`` (K1 up to 16 columns, K1c, K2), ``csrc/gram_wide.cu`` (K1
+``csrc/gram.cu`` (K1 up to 16 columns, K2), ``csrc/gram_wide.cu`` (K1
 and K3 past 16 columns, the 3xTF32 contraction), ``csrc/gram_comp.cu`` (the
-float64 triangle: K1c and K3c's triangle form, K7), ``csrc/gram_laplace.cu``
-(K3 up to 16 columns, K3c, K5), ``csrc/gram_pair.cu`` (the exact pair
-kernels K4, K6), the register tile of K1–K6 in its forward, triangle and
-pair forms in ``csrc/gram_tile.cuh``,
-``csrc/gram_tier.cu`` (K1b, K2b, K4b), ``csrc/gram_f64.cu`` (K8),
-with their shared
+float64 tile in its triangle, forward and pair forms: K1c, K3c, K7, K8 and
+the certified pairs), ``csrc/gram_laplace.cu`` (K3 up to 16 columns, K5),
+``csrc/gram_pair.cu`` (the exact pair kernels K4, K6), the register tile of
+K1–K6 in its forward, triangle and pair forms in ``csrc/gram_tile.cuh``,
+``csrc/gram_tier.cu`` (K1b, K2b, K4b), with their shared
 pieces in ``csrc/gram_common.cuh``, ``csrc/spmv.cu`` (the
 CSR SpMV/SpMM) and ``csrc/probes.cu`` (the ceiling probes, wrapped in
 :mod:`rlaopt_tpu_torch.ops.probes`); see the note at the top of each.
@@ -51,7 +50,10 @@ __all__ = [
     "gram_matmat",
     "gram_matmat_comp",
     "gram_matvec_symmetric_comp",
-    "symmetric_comp_operand",
+    "comp_operand",
+    "comp_run",
+    "gram_pair_comp",
+    "gram_pair_f64",
     "gram_matvec_symmetric",
     "tile_operand",
     "wide_rhs",
@@ -83,7 +85,7 @@ __all__ = [
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("gram.cu", "gram_wide.cu", "gram_comp.cu", "gram_laplace.cu", "gram_tier.cu",
-           "gram_f64.cu", "gram_pair.cu", "spmv.cu", "probes.cu")
+           "gram_pair.cu", "spmv.cu", "probes.cu")
 _HEADERS = ("gram_common.cuh", "gram_tile.cuh")
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -96,10 +98,11 @@ COMPILE_FLAGS = (
 KIND_CODES = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3, "laplace": 4}
 SYMMETRIC_MAX_K = 16
 # csrc/gram_tier.cu: K1b's forward strip takes 128 rows a block, two blocks
-# an SM; csrc/gram_comp.cu's triangle K1c tiles of 128 points and chunks of
-# 16 features.
+# an SM. csrc/gram_comp.cu's float64 tile: tiles of 128 points and chunks of
+# 16 features, one block an SM; the forward form takes 16 right-hand sides
+# a slice, the triangle and the pair 1, 2 or 4 (COMP_SLICE past 2).
 TIER_ROWS, TIER_BLOCKS_PER_SM = 128, 2
-COMP_TILE, COMP_FEAT = 128, 16
+COMP_TILE, COMP_FEAT, COMP_FORWARD_K, COMP_SLICE = 128, 16, 16, 4
 # csrc/gram_tile.cuh: the register tile of K1–K6 at k <= 16 takes 128
 # points a side, chunks of 32 features, two blocks an SM.
 TILE_POINTS, TILE_FEAT, TILE_BLOCKS_PER_SM = 128, 32, 2
@@ -136,7 +139,13 @@ _SIGNATURES = {
         _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_gram_matmat_comp": [
-        _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
+        _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
+    ],
+    "rl_gram_pair_comp": [
+        _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
+    ],
+    "rl_gram_pair_f64": [
+        _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_gram_matvec_symmetric_comp": [
         _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
@@ -150,14 +159,11 @@ _SIGNATURES = {
         _ci, _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_gram_matmat_f64": [
-        _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
+        _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_gram_matvec_symmetric_f64": [_ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
     "rl_laplace_matmat_narrow": [
         _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
-    ],
-    "rl_laplace_matmat_comp": [
-        _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_laplace_matvec_symmetric": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cd, _vp],
     "rl_tile_pair": [
@@ -251,7 +257,8 @@ def _code(kind: str, laplace: bool = False) -> int:
     """The family code; the squared-distance wrappers (K1, K1c, K2, K4 and
     the tiers) refuse Laplace, whose float32 kernels are the laplace_*
     wrappers (which pass it on to the entries they share: the wide kernel,
-    the pair), as the float64 kernels and the triangle K1c/K3c take it."""
+    the pair), as the float64 kernels, the triangle K1c/K3c and the
+    certified pairs take it."""
     if kind not in KIND_CODES:
         raise ValueError(f"Unknown kernel kind {kind!r}")
     if kind == "laplace" and not laplace:
@@ -259,7 +266,8 @@ def _code(kind: str, laplace: bool = False) -> int:
             "this kernel sums squared distances: the Laplace family takes "
             "laplace_matmat, laplace_matmat_comp, laplace_matvec_symmetric or "
             "laplace_pair (the port of kernel_pallas.py::_laplace_matmat and "
-            "its kin), or the float64 kernels and gram_matvec_symmetric_comp"
+            "its kin), or the float64 kernels, gram_matvec_symmetric_comp and the "
+            "certified pairs"
         )
     return KIND_CODES[kind]
 
@@ -291,14 +299,6 @@ def _check_shapes(X1, X2, V):
     if X1.numel() >= 2**31 or X2.numel() >= 2**31 or V2.numel() >= 2**31:
         raise ValueError("operands past 2^31 elements")
     return V2, squeeze
-
-
-def _inv_lengthscale(lengthscale, d: int, device) -> torch.Tensor:
-    """(d,) float64 inverse lengthscale for the general K1c, K3c and K8."""
-    ls = torch.as_tensor(lengthscale, dtype=torch.float64, device=device)
-    if ls.ndim > 1 or ls.numel() not in (1, d):
-        raise ValueError(f"lengthscale of shape {tuple(ls.shape)} for d = {d}")
-    return (1.0 / ls).expand(d).contiguous()
 
 
 def _raise_on(err: int, name: str):
@@ -480,41 +480,14 @@ def gram_matmat(kind, X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
     return out[:, 0] if squeeze else out
 
 
-def gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling=1.0):
-    """K1c: ``c·k(X1, X2) @ V`` as ``(hi, lo)``; consumers add ``lo`` last.
-
-    The kernel divides by the lengthscale itself, in float64: pass the
-    unscaled points and the lengthscale at full precision.
-    """
-    code = _code(kind)
-    _check_tensors((torch.float32,) * 3, X1, X2, V)
-    V2, squeeze = _check_shapes(X1, X2, V)
-    A1 = X1.contiguous()
-    A2 = A1 if X2 is X1 else X2.contiguous()
-    (n, d), (m, k) = A1.shape, V2.shape
-    inv_ls = _inv_lengthscale(lengthscale, d, A1.device)
-    build()
-    out = torch.empty((n, k), dtype=torch.float32, device=A1.device)
-    lo = torch.empty_like(out)
-    with torch.cuda.device(A1.device):
-        err = _lib["handle"].rl_gram_matmat_comp(
-            code, A1.data_ptr(), A2.data_ptr(), V2.data_ptr(), inv_ls.data_ptr(),
-            out.data_ptr(), lo.data_ptr(), n, m, d, k, float(const_scaling),
-            _stream(A1),
-        )
-    _raise_on(err, "gram_matmat_comp")
-    gram_matmat_comp.launches += 1
-    return (out[:, 0], lo[:, 0]) if squeeze else (out, lo)
-
-
-def symmetric_comp_operand(X: torch.Tensor, lengthscale) -> torch.Tensor:
-    """The points of the float64 triangle (K1c and K3c's triangle form,
-    K7): ``X / ℓ`` in float64, transposed to (dpad, npad) and zero past d
-    and n, dpad a multiple of ``COMP_FEAT`` and npad of ``COMP_TILE`` (the
-    kernel's feature chunks and tiles). The scaling is the plain versions'
-    (:func:`kernel_plain.gram_matmat_comp`,
+def comp_operand(X: torch.Tensor, lengthscale) -> torch.Tensor:
+    """The points of the float64 tile (K1c, K3c, K7, K8 and the certified
+    pairs, every form): ``X / ℓ`` in float64, transposed to (dpad, npad)
+    and zero past d and n, dpad a multiple of ``COMP_FEAT`` and npad of
+    ``COMP_TILE`` (the kernel's feature chunks and tiles). The scaling is
+    the plain versions' (:func:`kernel_plain.gram_matmat_comp`,
     :func:`kernel_plain.gram_matmat_f64`: the float64 points over the
-    float64 lengthscale)."""
+    float64 lengthscale). Built in each call, one for each point set."""
     n, d = X.shape
     ls = torch.as_tensor(lengthscale, dtype=torch.float64, device=X.device)
     if ls.ndim > 1 or ls.numel() not in (1, d):
@@ -523,6 +496,64 @@ def symmetric_comp_operand(X: torch.Tensor, lengthscale) -> torch.Tensor:
                      dtype=torch.float64, device=X.device)
     XT[:d, :n] = scale_inputs(X.double(), ls).T
     return XT
+
+
+def _comp_operands(X1, X2, lengthscale):
+    XT1 = comp_operand(X1, lengthscale)
+    return XT1, XT1 if X2 is X1 else comp_operand(X2, lengthscale)
+
+
+def comp_run(blocks: int, tiles: int, sms: int) -> int:
+    """Column tiles a block of the float64 tile's forward or pair form
+    walks, of ``tiles`` in all, when one run of them takes ``blocks`` blocks
+    (row tiles times right-hand-side slices), one block an SM: all of them
+    once the blocks fill two rounds of the card (:func:`_runs`), else the
+    tiles cut into as many runs as keep the blocks within four rounds, each
+    of at least 8 tiles. E2's 12,500-point shard at k = 1 (98 row tiles): 5
+    runs of 20 tiles, 490 blocks on the H100's 132 SMs; config 6's
+    certificate (64 row tiles of 8,192 against 7,813 of 10⁶): 8 runs."""
+    return -(-tiles // _runs(blocks, tiles, 1, sms, 8))
+
+
+def _comp_forward(entry, code, X1, X2, V, lengthscale, const_scaling, vtype):
+    """The float64 tile's forward form through ``entry`` (K1c and K3c with
+    float32 V: ``(hi, lo)``; K8 with float64 V: float64), X2's tiles in
+    :func:`comp_run` runs whose float64 partials the finishing pass adds
+    in order (the same bits on every call)."""
+    _check_tensors((torch.float32, torch.float32, vtype), X1, X2, V)
+    V2, squeeze = _check_shapes(X1, X2, V)
+    XT1, XT2 = _comp_operands(X1, X2, lengthscale)
+    (n, _), (m, k) = X1.shape, V2.shape
+    dev = V2.device
+    tiles = XT2.shape[1] // COMP_TILE
+    run = comp_run(XT1.shape[1] // COMP_TILE * -(-k // COMP_FORWARD_K), tiles, sm_count(dev))
+    part = torch.empty((-(-tiles // run), n, k), dtype=torch.float64, device=dev)
+    build()
+    out = torch.empty((n, k), dtype=vtype, device=dev)
+    lo = torch.empty_like(out) if vtype == torch.float32 else None
+    with torch.cuda.device(dev):
+        err = getattr(_lib["handle"], entry)(
+            code, XT1.data_ptr(), XT2.data_ptr(), V2.data_ptr(), part.data_ptr(), out.data_ptr(),
+            *(() if lo is None else (lo.data_ptr(),)), n, m, XT1.shape[1], XT2.shape[1],
+            XT1.shape[0], k, int(run), float(const_scaling), _stream(V2),
+        )
+    _raise_on(err, entry)
+    if lo is None:
+        return out[:, 0] if squeeze else out
+    return (out[:, 0], lo[:, 0]) if squeeze else (out, lo)
+
+
+def gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling=1.0):
+    """K1c: ``c·k(X1, X2) @ V`` as ``(hi, lo)``; consumers add ``lo`` last.
+    The float64 tile's forward form (``csrc/gram_comp.cu``) on
+    :func:`comp_operand` of each point set: values and sums in float64 from
+    the float32 points and the lengthscale at full precision, split into
+    the float32 pair once; the same bits on every call. The
+    squared-distance families (Laplace: :func:`laplace_matmat_comp`)."""
+    out = _comp_forward("rl_gram_matmat_comp", _code(kind), X1, X2, V, lengthscale,
+                        const_scaling, torch.float32)
+    gram_matmat_comp.launches += 1
+    return out
 
 
 def gram_matvec_symmetric_comp(kind, X, V, lengthscale, const_scaling=1.0):
@@ -536,7 +567,7 @@ def gram_matvec_symmetric_comp(kind, X, V, lengthscale, const_scaling=1.0):
     code = _code(kind, laplace=True)
     _check_tensors((torch.float32,) * 2, X, V)
     V2, squeeze = _check_shapes(X, X, V)
-    XT = symmetric_comp_operand(X, lengthscale)
+    XT = comp_operand(X, lengthscale)
     (n, _), k = X.shape, V2.shape[1]
     build()
     acc = torch.empty((n, k), dtype=torch.float64, device=X.device)
@@ -671,40 +702,28 @@ def gram_matvec_symmetric_tier(kind, A: TierOperand, V, const_scaling=1.0):
 
 
 def gram_matmat_f64(kind, X1, X2, V, lengthscale, const_scaling=1.0):
-    """K8: ``c·k(X1, X2) @ V`` in float64 from unscaled float32 points, a
-    float64 lengthscale (scalar or ARD) and float64 V; float64 out. All
-    five families."""
-    code = _code(kind, laplace=True)
-    _check_tensors((torch.float32, torch.float32, torch.float64), X1, X2, V)
-    V2, squeeze = _check_shapes(X1, X2, V)
-    A1 = X1.contiguous()
-    A2 = A1 if X2 is X1 else X2.contiguous()
-    (n, d), (m, k) = A1.shape, V2.shape
-    inv_ls = _inv_lengthscale(lengthscale, d, A1.device)
-    build()
-    out = torch.empty((n, k), dtype=torch.float64, device=A1.device)
-    with torch.cuda.device(A1.device):
-        err = _lib["handle"].rl_gram_matmat_f64(
-            code, A1.data_ptr(), A2.data_ptr(), inv_ls.data_ptr(), V2.data_ptr(),
-            out.data_ptr(), n, m, d, k, float(const_scaling), _stream(A1),
-        )
-    _raise_on(err, "gram_matmat_f64")
+    """K8: ``c·k(X1, X2) @ V`` in float64 from float32 points, a float64
+    lengthscale (scalar or ARD) and float64 V; float64 out. All five
+    families. The float64 tile's forward form, as :func:`gram_matmat_comp`
+    with float64 V: the same bits on every call."""
+    out = _comp_forward("rl_gram_matmat_f64", _code(kind, laplace=True), X1, X2, V, lengthscale,
+                        const_scaling, torch.float64)
     gram_matmat_f64.launches += 1
-    return out[:, 0] if squeeze else out
+    return out
 
 
 def gram_matvec_symmetric_f64(kind, X, V, lengthscale, const_scaling=1.0):
     """K7: ``c·k(X, X) @ V`` in float64 from float32 points, a float64
     lengthscale (scalar or ARD) and float64 V, float64 out; any k, every
     family. The float64 triangle of the triangle K1c
-    (``csrc/gram_comp.cu``) on :func:`symmetric_comp_operand`, each tile
+    (``csrc/gram_comp.cu``) on :func:`comp_operand`, each tile
     pair evaluated once and contracted both ways; its float64 sums go
     through atomics, so their last bits (about 1e-16 relative) change from
     run to run."""
     code = _code(kind, laplace=True)
     _check_tensors((torch.float32, torch.float64), X, V)
     V2, squeeze = _check_shapes(X, X, V)
-    XT = symmetric_comp_operand(X, lengthscale)
+    XT = comp_operand(X, lengthscale)
     (n, _), k = X.shape, V2.shape[1]
     build()
     out = torch.empty((n, k), dtype=torch.float64, device=X.device)
@@ -759,25 +778,11 @@ def laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling=1.0, operands=No
 
 def laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling=1.0):
     """K3c: the Laplace product as ``(hi, lo)`` (add ``lo`` last), K1c's
-    contract: unscaled points, the lengthscale taken in float64."""
-    _check_tensors((torch.float32,) * 3, X1, X2, V)
-    V2, squeeze = _check_shapes(X1, X2, V)
-    A1 = X1.contiguous()
-    A2 = A1 if X2 is X1 else X2.contiguous()
-    (n, d), (m, k) = A1.shape, V2.shape
-    inv_ls = _inv_lengthscale(lengthscale, d, A1.device)
-    build()
-    out = torch.empty((n, k), dtype=torch.float32, device=A1.device)
-    lo = torch.empty_like(out)
-    with torch.cuda.device(A1.device):
-        err = _lib["handle"].rl_laplace_matmat_comp(
-            A1.data_ptr(), A2.data_ptr(), V2.data_ptr(), inv_ls.data_ptr(),
-            out.data_ptr(), lo.data_ptr(), n, m, d, k, float(const_scaling),
-            _stream(A1),
-        )
-    _raise_on(err, "laplace_matmat_comp")
+    contract and kernel (:func:`gram_matmat_comp`) with Laplace's code."""
+    out = _comp_forward("rl_gram_matmat_comp", _code("laplace", laplace=True), X1, X2, V,
+                        lengthscale, const_scaling, torch.float32)
     laplace_matmat_comp.launches += 1
-    return (out[:, 0], lo[:, 0]) if squeeze else (out, lo)
+    return out
 
 
 def laplace_matvec_symmetric(X, V, lengthscale, const_scaling=1.0, operand=None):
@@ -791,14 +796,14 @@ def laplace_matvec_symmetric(X, V, lengthscale, const_scaling=1.0, operand=None)
                      operand, laplace_matvec_symmetric)
 
 
-def _check_pair(X1, X2, V2, V1):
-    """V2 (n2, k) and V1 (n1, k) as contiguous 2-D tensors with k <= 16, and
-    whether they were 1-D."""
+def _check_pair(X1, X2, V2, V1, max_k=SYMMETRIC_MAX_K):
+    """V2 (n2, k) and V1 (n1, k) as contiguous 2-D tensors with k <=
+    ``max_k`` (None: any k), and whether they were 1-D."""
     V2c, squeeze = _check_shapes(X1, X2, V2)
     V1c, squeeze1 = _check_shapes(X2, X1, V1)
     if squeeze1 != squeeze or V1c.shape[1] != V2c.shape[1]:
         raise ValueError(f"V2 {tuple(V2.shape)} and V1 {tuple(V1.shape)} differ in k")
-    if V2c.shape[1] > SYMMETRIC_MAX_K:
+    if max_k is not None and V2c.shape[1] > max_k:
         raise ValueError(f"the pair kernel takes k <= 16 columns (got {V2c.shape[1]})")
     return V2c, V1c, squeeze
 
@@ -878,6 +883,54 @@ def laplace_pair(X1, X2, V2, V1, lengthscale, const_scaling=1.0, operands=None):
     out = _tile_pair(_code("laplace", laplace=True), X1, X2, V2, V1, lengthscale,
                      const_scaling, operands)
     laplace_pair.launches += 1
+    return out
+
+
+def _comp_pair(entry, kind, X1, X2, V2, V1, lengthscale, const_scaling, vtype):
+    """The float64 tile's pair form through ``entry``: ``(c·K @ V2, c·Kᵀ @
+    V1)`` with K = k(X1, X2), each value evaluated once in float64, any k
+    (1, 2 or 4 right-hand sides a slice), X2's tiles in :func:`comp_run`
+    runs; both outputs float64, views of one (n1 + n2, k) array. Float64
+    atomics: the last bits change from run to run."""
+    code = _code(kind, laplace=True)
+    _check_tensors((torch.float32, torch.float32, vtype, vtype), X1, X2, V2, V1)
+    V2c, V1c, squeeze = _check_pair(X1, X2, V2, V1, max_k=None)
+    XT1, XT2 = _comp_operands(X1, X2, lengthscale)
+    (n1, _), (n2, k) = X1.shape, V2c.shape
+    dev = V2c.device
+    slices = 1 if k <= 2 else -(-k // COMP_SLICE)
+    run = comp_run(XT1.shape[1] // COMP_TILE * slices, XT2.shape[1] // COMP_TILE,
+                   sm_count(dev))
+    build()
+    out = torch.empty((n1 + n2, k), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        err = getattr(_lib["handle"], entry)(
+            code, XT1.data_ptr(), XT2.data_ptr(), V2c.data_ptr(), V1c.data_ptr(), out.data_ptr(),
+            n1, n2, XT1.shape[1], XT2.shape[1], XT1.shape[0], k, int(run),
+            float(const_scaling), _stream(V2c),
+        )
+    _raise_on(err, entry)
+    out1, out2 = out[:n1], out[n1:]
+    return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
+
+
+def gram_pair_comp(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0):
+    """The compensated pair (K1c's and K3c's pair form): ``(c·K @ V2, c·Kᵀ
+    @ V1)`` in float64 from float32 points and float32 V, K = k(X1, X2)
+    evaluated once (``csrc/gram_comp.cu``, ``gram_comp_pair``), every
+    family. The sharded half-ring's certified route adds its float64 sums
+    and splits them into ``(hi, lo)`` once, at home."""
+    out = _comp_pair("rl_gram_pair_comp", kind, X1, X2, V2, V1, lengthscale, const_scaling,
+                     torch.float32)
+    gram_pair_comp.launches += 1
+    return out
+
+
+def gram_pair_f64(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0):
+    """K8's pair form: :func:`gram_pair_comp` with float64 V."""
+    out = _comp_pair("rl_gram_pair_f64", kind, X1, X2, V2, V1, lengthscale, const_scaling,
+                     torch.float64)
+    gram_pair_f64.launches += 1
     return out
 
 
@@ -1093,6 +1146,8 @@ _WRAPPERS = (
     gram_pair,
     gram_pair_tier,
     laplace_pair,
+    gram_pair_comp,
+    gram_pair_f64,
     csr_spmv,
     csr_spmm,
 )

@@ -18,13 +18,17 @@ Which kernel, on a card:
   Hopper register tile up to 16 columns, past that the 3xTF32 tensor-core
   kernel; K2 and K5 are the tile's triangle form; all on the operand of the
   points an operator keeps;
-* compensated (:func:`kernel_matmat_compensated`): the triangle form of
-  K1c and K3c when symmetric (any k, every family), the general K1c (K3c
-  for Laplace) otherwise;
+* compensated (:func:`kernel_matmat_compensated`): the float64 tile's
+  triangle form of K1c and K3c when symmetric (any k, every family), its
+  forward form (K1c, K3c for Laplace) otherwise;
 * bf16 tiers (:func:`kernel_matmat_tier`): the same rule between K2b and
   K1b, on the tier parts of :mod:`rlaopt_tpu_torch.ops.kernel_tiers` that
   the operator keeps;
 * float64 (:func:`kernel_matmat_f64`): K7 when symmetric, K8 otherwise;
+* certified pairs (:func:`kernel_pair_compensated`, :func:`kernel_pair_f64`):
+  ``(c·K @ V2, c·Kᵀ @ V1)`` in float64 sums, K evaluated once in float64
+  (the float64 tile's pair form, any k, every family), for the sharded
+  half-ring's certified routes;
 * pairs (:func:`kernel_pair`, :func:`kernel_pair_tier`): ``(c·K @ V2,
   c·Kᵀ @ V1)`` with K evaluated once, through K4 (K6 for Laplace: the
   tile's pair form; K4b on the tiers) when k ≤ 16, and through two general
@@ -49,6 +53,8 @@ __all__ = [
     "kernel_matmat_f64",
     "kernel_pair",
     "kernel_pair_tier",
+    "kernel_pair_compensated",
+    "kernel_pair_f64",
 ]
 
 
@@ -246,3 +252,39 @@ def kernel_pair_tier(
     if not _on_card(impl, A.hi):
         return kernel_plain.gram_pair_tier(kind, A, B, V2, V1, const_scaling)
     return kernel_cuda.gram_pair_tier(kind, A, B, V2, V1, const_scaling)
+
+
+def kernel_pair_compensated(
+    kind: str,
+    X1: torch.Tensor,
+    X2: torch.Tensor,
+    V2: torch.Tensor,
+    V1: torch.Tensor,
+    lengthscale,
+    const_scaling=1.0,
+    impl: str = "auto",
+):
+    """``(c·K @ V2, c·Kᵀ @ V1)`` with ``K = k(X1, X2)`` as float64 sums from
+    float32 V, on the device of the operands: K1c's pair form on a card
+    (:func:`kernel_cuda.gram_pair_comp`, every family), the plain float64
+    pair on the CPU. The caller splits the sums into ``(hi, lo)``."""
+    if not _on_card(impl, X1):
+        return kernel_plain.gram_pair_comp(kind, X1, X2, V2, V1, lengthscale, const_scaling)
+    return kernel_cuda.gram_pair_comp(kind, X1, X2, V2, V1, lengthscale, const_scaling)
+
+
+def kernel_pair_f64(
+    kind: str,
+    X1: torch.Tensor,
+    X2: torch.Tensor,
+    V2: torch.Tensor,
+    V1: torch.Tensor,
+    lengthscale,
+    const_scaling=1.0,
+):
+    """:func:`kernel_pair_compensated` with float64 V (K8's pair form on a
+    card); float64 out."""
+    if not _on_card("auto", X1):
+        return kernel_plain.gram_pair_f64(kind, X1, X2, V2, V1, lengthscale, const_scaling)
+    return kernel_cuda.gram_pair_f64(kind, X1, X2, V2.double(), V1.double(), lengthscale,
+                                     const_scaling)

@@ -13,7 +13,9 @@ kernel, with the same signature as its wrapper in
   TwoSum-adds each tile's partial into a ``(hi, lo)`` pair. As in the CUDA
   kernel, the inputs are divided by the lengthscale, and a tile's kernel
   values and its partial (times the constant) are taken, in float64; the
-  partial is split into a pair of the input dtype before the TwoSum.
+  partial is split into a pair of the input dtype before the TwoSum (the
+  kernel sums all of its partials in float64 and splits once: both are
+  the float64 product to ~1e-15 relative).
 * :func:`gram_matvec_symmetric` (K2) is K1 on ``(X, X)``. Past 16
   columns the card's K1 contracts on the tensor cores in 3xTF32, each
   value and each V entry split by :func:`tf32_split` (hi + lo, ~2⁻²² of
@@ -33,6 +35,10 @@ kernel, with the same signature as its wrapper in
   dtype of the points, float64 included (its float64 tile is the one of
   :func:`gram_matmat_f64`); the tier pair contracts forward in float32 and
   the mirror tier-matched at k ≥ 3, as K2b does.
+* :func:`gram_pair_comp` and :func:`gram_pair_f64`, the certified pairs (the
+  float64 tile's pair form with float32 and float64 V): both products in
+  float64 from the float64 plain Gram product (:func:`gram_pair` on the
+  float64 points).
 * :func:`gram_matmat_f64` (K8) and :func:`gram_matvec_symmetric_f64` (K7):
   row blocks of K in float64 from the float64 casts of the points, the one
   float64 plain product. The expansion ``‖x‖² + ‖y‖² − 2·x·y`` cancels to
@@ -71,6 +77,8 @@ __all__ = [
     "gram_matvec_symmetric_f64",
     "gram_pair",
     "gram_pair_tier",
+    "gram_pair_comp",
+    "gram_pair_f64",
     "tier_contract",
     "tf32_split",
     "SYMMETRIC_TILE",
@@ -332,6 +340,38 @@ def gram_pair(
         out2 += Kb.T @ V1[s : s + bm]
     out1, out2 = out1 * const_scaling, out2 * const_scaling
     return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
+
+
+def gram_pair_f64(
+    kind: str,
+    X1: torch.Tensor,
+    X2: torch.Tensor,
+    V2: torch.Tensor,
+    V1: torch.Tensor,
+    lengthscale,
+    const_scaling=1.0,
+    row_block: Optional[int] = None,
+):
+    """K8's pair form: ``(c·K @ V2, c·Kᵀ @ V1)`` in float64 with K = k(X1,
+    X2), from the float64 points and lengthscale (:func:`gram_pair`'s
+    float64 tile, each row block of K once for both products)."""
+    return gram_pair(kind, X1.double(), X2.double(), V2.double(), V1.double(), lengthscale,
+                     const_scaling, row_block)
+
+
+def gram_pair_comp(
+    kind: str,
+    X1: torch.Tensor,
+    X2: torch.Tensor,
+    V2: torch.Tensor,
+    V1: torch.Tensor,
+    lengthscale,
+    const_scaling=1.0,
+    row_block: Optional[int] = None,
+):
+    """The compensated pair (K1c's and K3c's pair form, float32 V): the same
+    float64 products as :func:`gram_pair_f64`."""
+    return gram_pair_f64(kind, X1, X2, V2, V1, lengthscale, const_scaling, row_block)
 
 
 def gram_pair_tier(

@@ -115,6 +115,7 @@ def test_cuda_launch_counts_and_refusals(cuda_device):
         "laplace_matmat": 0, "laplace_matmat_narrow": 0, "laplace_matmat_comp": 0,
         "laplace_matvec_symmetric": 0,
         "gram_pair": 0, "gram_pair_tier": 0, "laplace_pair": 0,
+        "gram_pair_comp": 0, "gram_pair_f64": 0,
         "csr_spmv": 0, "csr_spmm": 0,
     }
     with pytest.raises(ValueError, match="k <= 16"):
@@ -532,6 +533,61 @@ def test_cuda_triangle_k3c_matches_float64(cuda_device, n, d, k):
         hi, lo = kernel_cuda.gram_matvec_symmetric_comp("laplace", X, V, ls, 0.9)
         torch.cuda.synchronize()
         assert _rel(hi.double() + lo.double(), ref) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 10, 16, 17, 40])
+@pytest.mark.parametrize("n,m,d", [(1000, 777, 3), (100, 1300, 28), (300, 5000, 50)])
+@pytest.mark.parametrize("kind", SQDIST_KINDS + ("laplace",))
+def test_cuda_comp_forward_form_matches_float64(cuda_device, kind, n, m, d, k):
+    """The float64 tile's forward form: the general K1c (K3c for Laplace)
+    and K8 against the float64 plain version at ragged shapes (n, m not
+    multiples of 128, one row tile of 100, d not a multiple of 16; 300 x
+    5,000 in runs of X2's tiles), scalar and ARD lengthscales, k up to 16
+    in one slice and past it in two or three: within 1e-10 of max|ref|,
+    the same bits twice."""
+    X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in _data(n + k + d, n, m, d, k))
+    for ls in (1.3 * d**0.5, torch.linspace(0.6, 1.8, d, dtype=torch.float64,
+                                             device=cuda_device) * d**0.5):
+        ref = kernel_plain.gram_matmat_f64(kind, X1, X2, V, ls, 0.9)
+        args = (X1, X2, V, ls, 0.9)
+        comp = kernel_cuda.laplace_matmat_comp if kind == "laplace" else (
+            lambda *a: kernel_cuda.gram_matmat_comp(kind, *a))
+        hi, lo = comp(*args)
+        hi2, lo2 = comp(*args)
+        f64 = kernel_cuda.gram_matmat_f64(kind, X1, X2, V.double(), ls, 0.9)
+        f64_2 = kernel_cuda.gram_matmat_f64(kind, X1, X2, V.double(), ls, 0.9)
+        torch.cuda.synchronize()
+        assert hi.dtype == lo.dtype == torch.float32 and f64.dtype == torch.float64
+        assert _rel(hi.double() + lo.double(), ref) <= 1e-10 and _rel(f64, ref) <= 1e-10
+        assert torch.equal(hi, hi2) and torch.equal(lo, lo2) and torch.equal(f64, f64_2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 10, 17])
+@pytest.mark.parametrize("n1,n2,d", [(1000, 777, 3), (100, 1300, 28), (2000, 1500, 50)])
+@pytest.mark.parametrize("kind", SQDIST_KINDS + ("laplace",))
+def test_cuda_comp_pair_forms_match_float64(cuda_device, kind, n1, n2, d, k):
+    """The certified pairs (``gram_pair_comp`` with float32 V,
+    ``gram_pair_f64`` with float64 V): out1 against the plain float64
+    product on (X1, X2, V2), out2 on (X2, X1, V1), within 1e-10 of max|ref|
+    each, at ragged shapes, an ARD lengthscale, k of 1 to 17 (1, 2 or 4
+    columns a slice)."""
+    rng = np.random.default_rng(n1 + n2 + k)
+    X1, X2 = (torch.from_numpy(rng.standard_normal((r, d)).astype(np.float32)).to(cuda_device)
+              for r in (n1, n2))
+    V2, V1 = (torch.from_numpy(rng.standard_normal((r, k)).astype(np.float32)).to(cuda_device)
+              for r in (n2, n1))
+    ls = torch.linspace(0.6, 1.8, d, dtype=torch.float64, device=cuda_device) * d**0.5
+    r1 = kernel_plain.gram_matmat_f64(kind, X1, X2, V2, ls, 0.9)
+    r2 = kernel_plain.gram_matmat_f64(kind, X2, X1, V1, ls, 0.9)
+    for pair, a, b in ((kernel_cuda.gram_pair_comp, V2, V1),
+                       (kernel_cuda.gram_pair_f64, V2.double(), V1.double())):
+        o1, o2 = pair(kind, X1, X2, a, b, ls, 0.9)
+        torch.cuda.synchronize()
+        assert o1.dtype == o2.dtype == torch.float64
+        assert o1.shape == (n1, k) and o2.shape == (n2, k)
+        assert _rel(o1, r1) <= 1e-10 and _rel(o2, r2) <= 1e-10
 
 
 @pytest.mark.cuda

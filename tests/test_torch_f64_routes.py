@@ -89,8 +89,9 @@ class _K7Entry:
 
 @pytest.fixture
 def card(monkeypatch):
-    """The card's routes on CPU tensors: recorders for K1, K2, K1c and K8
-    (wrapper names in ``calls``), K7's wrapper down to the emulated entry
+    """The card's routes on CPU tensors: recorders for K1, K2, K1c, K8 and
+    K8's pair form (wrapper names in ``calls``), K7's wrapper down to the
+    emulated entry
     (``"gram_matvec_symmetric_f64"`` in ``calls``, the operands in
     ``entry.calls``)."""
     calls, entry = [], _K7Entry()
@@ -116,7 +117,8 @@ def card(monkeypatch):
                         ("gram_matvec_symmetric", k2),
                         ("gram_matmat_comp", kernel_plain.gram_matmat_comp),
                         ("gram_matvec_symmetric_comp", triangle_comp),
-                        ("gram_matmat_f64", kernel_plain.gram_matmat_f64)):
+                        ("gram_matmat_f64", kernel_plain.gram_matmat_f64),
+                        ("gram_pair_f64", kernel_plain.gram_pair_f64)):
         monkeypatch.setattr(kernel_cuda, name, recorder(name, plain))
     real_k7 = kernel_cuda.gram_matvec_symmetric_f64
     monkeypatch.setattr(kernel_cuda, "gram_matvec_symmetric_f64",
@@ -233,8 +235,10 @@ def test_refinement_sweeps_reach_k7(card, residual):
 def test_sharded_sweep_reaches_k7_on_own_shards(card):
     """The sharded operator's float64 sweep (``matmat_f64``) on 4 positions:
     K7 where a position meets its own shard of one data set (4 launches,
-    each with its shard's operand), K8 on the 12 other shard pairs; two
-    data sets take K8 alone. Both equal the plain float64 product."""
+    each with its shard's operand), and on the other shard pairs K8's pair
+    form once each on the half-ring (6 launches, ring mode) or K8 on all 12
+    (the replicated mode's sweep); two data sets take K8 alone. All equal
+    the plain float64 product."""
     calls, entry = card
     X = torch.from_numpy(_points(203, 3, 7))  # ragged: shards of 51, padded
     V = torch.from_numpy(np.random.default_rng(8).standard_normal((203, 2)))
@@ -246,7 +250,10 @@ def test_sharded_sweep_reaches_k7_on_own_shards(card):
                                memory_mode=mode)
         got = K.matmat_f64(V)
         assert calls.count("gram_matvec_symmetric_f64") == 4
-        assert calls.count("gram_matmat_f64") == 12
+        if mode == "ring":
+            assert calls.count("gram_pair_f64") == 6 and "gram_matmat_f64" not in calls
+        else:
+            assert calls.count("gram_matmat_f64") == 12 and "gram_pair_f64" not in calls
         Xp = torch.cat([X, X.new_zeros((1, 3))])
         for p, call in enumerate(entry.calls):
             _assert_operand(call, Xp[51 * p: 51 * (p + 1)], torch.tensor(1.4, dtype=torch.float64))

@@ -72,7 +72,9 @@ def test_one_data_set_reaches_the_triangle_k1c(recorded):
 
 def test_two_data_sets_reach_the_general_k1c(recorded):
     """Two data sets (even of equal size and values), an oracle's
-    submatrix and the sharded operator's slabs take the general K1c."""
+    submatrix, the sharded operator's replicated slabs and the general ring
+    of two data sets take the general K1c (one data set in ring mode takes
+    the half-ring, ``tests/test_torch_comp_routes.py``)."""
     X = _points(64, 3, 4)
     W = _points(64, 2, 5)
     RBFLinOp(X, X.clone(), CFG).matmat_compensated(W)
@@ -83,8 +85,8 @@ def test_two_data_sets_reach_the_general_k1c(recorded):
     assert recorded[1:] == ["gram_matmat_comp"] * 2
     del recorded[:]
     mesh = make_mesh(devices=["cpu"] * 4)
-    for mode in ("replicated", "ring"):
-        ShardedRBFLinOp(X, X, CFG, mesh=mesh, memory_mode=mode).matmat_compensated(W)
+    ShardedRBFLinOp(X, X, CFG, mesh=mesh).matmat_compensated(W)
+    ShardedRBFLinOp(X, X.clone(), CFG, mesh=mesh, memory_mode="ring").matmat_compensated(W)
     assert recorded and set(recorded) == {"gram_matmat_comp"}
 
 
@@ -139,15 +141,16 @@ def test_split_rhs_is_the_plain_split(k, passes):
 
 @pytest.mark.parametrize("n,d,ls", [(300, 3, 0.7), (128, 16, 2.0), (1000, 28, None)])
 def test_symmetric_comp_operand(n, d, ls):
-    """The triangle K1c's points: the plain version's float64 scaling,
+    """The float64 tile's points (``comp_operand``, every form of K1c, K3c,
+    K7 and K8): the plain version's float64 scaling,
     transposed, zero past n and d, padded to whole tiles of 128 points and
     chunks of 16 features; an ARD lengthscale divides feature by feature."""
     X = _points(n, d, 8)
     ls = torch.linspace(0.5, 2.0, d, dtype=torch.float64) if ls is None else ls
-    XT = kernel_cuda.symmetric_comp_operand(X, ls)
+    XT = kernel_cuda.comp_operand(X, ls)
     assert XT.dtype == torch.float64
     assert XT.shape == (-(-d // 16) * 16, -(-n // 128) * 128)
     assert torch.equal(XT[:d, :n], scale_inputs(X.double(), ls).T)
     assert not XT[d:].any() and not XT[:, n:].any()
     with pytest.raises(ValueError, match="lengthscale"):
-        kernel_cuda.symmetric_comp_operand(X, torch.ones(d + 1))
+        kernel_cuda.comp_operand(X, torch.ones(d + 1))

@@ -119,8 +119,9 @@ def test_one_data_set_reaches_the_triangle_k3c(recorded):
 
 def test_two_data_sets_reach_the_general_k3c(recorded):
     """Two data sets (even of equal size and values), an oracle's
-    submatrix and the sharded operator's slabs (E3's ring) take the
-    general K3c."""
+    submatrix, the sharded operator's replicated slabs and the general ring
+    of two data sets take the general K3c (E3's ring, one data set, takes
+    the half-ring: ``tests/test_torch_comp_routes.py``)."""
     X, W = _points(64, 3, 4), _points(64, 2, 5)
     LaplaceLinOp(X, X.clone(), CFG).matmat_compensated(W)
     blk = torch.arange(0, 64, 3)
@@ -129,8 +130,8 @@ def test_two_data_sets_reach_the_general_k3c(recorded):
     assert recorded == [GENERAL] * 3
     del recorded[:]
     mesh = make_mesh(devices=["cpu"] * 3)
-    for mode in ("replicated", "ring"):
-        ShardedLaplaceLinOp(X, X, CFG, mesh=mesh, memory_mode=mode).matmat_compensated(W)
+    ShardedLaplaceLinOp(X, X, CFG, mesh=mesh).matmat_compensated(W)
+    ShardedLaplaceLinOp(X, X.clone(), CFG, mesh=mesh, memory_mode="ring").matmat_compensated(W)
     assert recorded and set(recorded) == {GENERAL}
 
 
@@ -252,7 +253,7 @@ def test_triangle_k3c_operand_is_the_plain_float64_scaling(ls):
     and padded: bit for bit, at the paths' lengthscales and an ARD one."""
     X = _points(300, 50, 15)
     ls = torch.linspace(6.0, 10.0, 50, dtype=torch.float64) if ls == "ard" else ls
-    XT = kernel_cuda.symmetric_comp_operand(X, ls)
+    XT = kernel_cuda.comp_operand(X, ls)
     assert XT.dtype == torch.float64 and XT.shape == (64, 384)
     assert torch.equal(XT[:50, :300], scale_inputs(X.double(), ls).T)
     assert not XT[50:].any() and not XT[:, 300:].any()

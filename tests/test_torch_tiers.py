@@ -311,6 +311,30 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     ("gram_comp_finish<double>(double*, float*, float*, unsigned long, double)",
      "gram_matvec_symmetric_f64"),
     ("gram_matmat_narrow<0, 1, 1>(GramArgs)", "gram_matmat_comp"),
+    ("gram_matmat_narrow<4, 16, 1>(GramArgs)", "laplace_matmat_comp"),
+    ("gram_matmat_narrow<2, 8, 2>(GramArgs)", "gram_matmat_f64"),
+    ("gram_comp_forward<0, 16, float>(CompArgs)", "gram_matmat_comp"),
+    ("gram_comp_forward<3, 16, float>(CompArgs)", "gram_matmat_comp"),
+    ("gram_comp_forward<4, 16, float>(CompArgs)", "laplace_matmat_comp"),
+    ("gram_comp_forward<0, 16, double>(CompArgs)", "gram_matmat_f64"),
+    ("gram_comp_forward<4, 16, double>(CompArgs)", "gram_matmat_f64"),
+    ("gram_comp_pair<0, 1, float>(CompArgs)", "gram_pair_comp"),
+    ("gram_comp_pair<4, 4, float>(CompArgs)", "gram_pair_comp"),
+    ("gram_comp_pair<1, 2, double>(CompArgs)", "gram_pair_f64"),
+    ("gram_comp_symmetric<4, 4, float>(CompArgs)", "gram_matvec_symmetric_comp"),
+    ("gram_comp_symmetric<0, 1, double>(CompArgs)", "gram_matvec_symmetric_f64"),
+    ("gram_comp_finish<float, 0>(double const*, int, unsigned long, double, void*, float*)",
+     "gram_matvec_symmetric_comp"),
+    ("gram_comp_finish<double, 0>(double const*, int, unsigned long, double, void*, float*)",
+     "gram_matvec_symmetric_f64"),
+    ("gram_comp_finish<float, 1>(double const*, int, unsigned long, double, void*, float*)",
+     "gram_matmat_comp"),
+    ("gram_comp_finish<double, 1>(double const*, int, unsigned long, double, void*, float*)",
+     "gram_matmat_f64"),
+    ("gram_comp_finish<float, 2>(double const*, int, unsigned long, double, void*, float*)",
+     "gram_pair_comp"),
+    ("gram_comp_finish<double, 2>(double const*, int, unsigned long, double, void*, float*)",
+     "gram_pair_f64"),
     ("gram_wide_tf32<4, 16, 2>(float const*, float const*, float4 const*, float*)",
      "laplace_matmat"),
     ("gram_tier_symmetric<0, 3, 1>(GramArgs, int)", "gram_matvec_symmetric_tier"),
@@ -337,8 +361,9 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
 ])
 def test_profile_groups_each_kernel_template(name, group):
     """``chip_smoke.py`` names each Gram kernel in a profile by its
-    template arguments (family, the narrow kernel's mode last; the float64
-    triangle's V type), as demangled in the
+    template arguments (family, the narrow kernel's mode last, as older
+    profiles name it; the float64 tile's form, family and V type, its
+    finishing pass's form last), as demangled in the
     device events. The register tile's forms and the 3xTF32 wide kernel go
     by family (K4 and K6 are the tile's pair form, K1 and K3 past 16
     columns the wide kernel); K3's tile under the names of earlier builds
@@ -361,6 +386,67 @@ def test_registers_of_tells_the_float64_triangles_apart():
         "gram_comp_symmetric<0,1,f>", "gram_comp_symmetric<4,16,f>"}
     assert set(SMOKE.registers_of("gram_pair_tier", reg)) == {"gram_tier_pair<0,3,1>"}
     assert SMOKE.registers_of("gram_matmat", reg) == {}
+
+
+def test_registers_of_the_float64_forms():
+    """``chip_smoke.registers_of`` gives the float64 tile's forward and pair
+    forms to their wrappers: the forward form by V's type and family (K8
+    where V is double, K3c where the family is Laplace, K1c otherwise), the
+    pair by V's type; the triangle's stay with K7 and the triangle K1c."""
+    reg = {"gram_comp_forward<0,16,f>": {"registers": 200},
+           "gram_comp_forward<4,16,f>": {"registers": 198},
+           "gram_comp_forward<2,16,d>": {"registers": 210},
+           "gram_comp_pair<1,4,f>": {"registers": 255},
+           "gram_comp_pair<4,1,d>": {"registers": 255},
+           "gram_comp_symmetric<0,1,f>": {"registers": 255}}
+    assert set(SMOKE.registers_of("gram_matmat_comp", reg)) == {"gram_comp_forward<0,16,f>"}
+    assert set(SMOKE.registers_of("laplace_matmat_comp", reg)) == {"gram_comp_forward<4,16,f>"}
+    assert set(SMOKE.registers_of("gram_matmat_f64", reg)) == {"gram_comp_forward<2,16,d>"}
+    assert set(SMOKE.registers_of("gram_pair_comp", reg)) == {"gram_comp_pair<1,4,f>"}
+    assert set(SMOKE.registers_of("gram_pair_f64", reg)) == {"gram_comp_pair<4,1,d>"}
+    assert set(SMOKE.registers_of("gram_matvec_symmetric_comp", reg)) == {
+        "gram_comp_symmetric<0,1,f>"}
+    names = SMOKE.ptxas_report(
+        "Compiling entry function '_ZN12_GLOBAL__N_117gram_comp_forwardILi4ELi16EfEEvNS_8CompArgsE'"
+        " for 'sm_90a'\n    0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 198 registers\n", SMOKE.REDESIGNED)
+    assert names == {"gram_comp_forward<4,16,f>": {"spill_stores": 0, "spill_loads": 0,
+                                                   "registers": 198}}
+
+
+@pytest.mark.parametrize("kernel,n,m,k,kind,ops,nbytes", [
+    # the forward form: each of n·m values once in float64 (3 operations a
+    # feature, 2 for Laplace's L1, 1 for the exponential), 2k of contraction
+    ("gram_matmat_comp", 12_500, 12_500, 1, "rbf", 12_500**2 * (3 * 28 + 1 + 2),
+     4 * 25_000 * 28 + 4 * 12_500 + 8 * 12_500),
+    ("laplace_matmat_comp", 33_334, 33_334, 1, "laplace", 33_334**2 * (2 * 28 + 1 + 2),
+     4 * 66_668 * 28 + 4 * 33_334 + 8 * 33_334),
+    ("gram_matmat_f64", 8_192, 1_000_000, 1, "rbf", 8_192e6 * (3 * 28 + 1 + 2),
+     4 * 1_008_192 * 28 + 8 * 1_000_000 + 8 * 8_192),
+    # the pairs: 4k of contraction, V1 read and out2 written (float64 sums)
+    ("gram_pair_comp", 12_500, 12_500, 1, "rbf", 12_500**2 * (3 * 28 + 1 + 4),
+     4 * 25_000 * 28 + 2 * 4 * 12_500 + 2 * 8 * 12_500),
+    ("gram_pair_f64", 12_500, 12_500, 10, "rbf", 12_500**2 * (3 * 28 + 1 + 40),
+     4 * 25_000 * 28 + 2 * 8 * 125_000 + 2 * 8 * 125_000),
+    ("gram_pair_comp", 33_334, 33_334, 1, "laplace", 33_334**2 * (2 * 28 + 1 + 4),
+     4 * 66_668 * 28 + 2 * 4 * 33_334 + 2 * 8 * 33_334),
+])
+def test_bound_ms_of_the_float64_forms(kernel, n, m, k, kind, ops, nbytes):
+    """``chip_smoke.bound_ms`` of the float64 tile's forward form and the
+    certified pairs: their operations on the FP64 units (34 TFLOP/s),
+    bound by operations at these shapes (their bytes: the float32 points,
+    V of 4 or 8 bytes an entry, the outputs 8 bytes an entry, and for the
+    pairs V1 read and out2 written, well under). At one row against 10⁶
+    with d = 1 the same count of bytes bounds them."""
+    assert kernel in SMOKE.COMP_KERNELS + SMOKE.F64_KERNELS
+    got, by = SMOKE.bound_ms(kernel, n, m, 28, k, kind)
+    assert by == "operations" and got == pytest.approx(ops / SMOKE.PEAK["fp64"] * 1e3)
+    assert nbytes / SMOKE.HBM_BYTES_PER_S * 1e3 < got
+    vb = 8 if kernel in SMOKE.F64_KERNELS else 4
+    pair = kernel in SMOKE.PAIR_KERNELS
+    few = 4 * (1 + 10**6) + vb * 10**6 * k + 8 * k + (vb * k + 8 * 10**6 * k if pair else 0)
+    got, by = SMOKE.bound_ms(kernel, 1, 10**6, 1, k, kind)
+    assert by == "bytes" and got == pytest.approx(few / SMOKE.HBM_BYTES_PER_S * 1e3)
 
 
 def test_registers_of_the_laplace_tile_forms_and_the_csr_schedules():
