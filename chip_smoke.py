@@ -56,6 +56,15 @@ straight through and exits non-zero at the first failure:
    kernel of the path must have launched, the residual must fall, every
    logged residual must agree within 1% with an independent float64 one,
    and the refined residual must clear 1e-6 and agree with its own;
+4b. the ported utils on slice 1's operator, counted as a path of their
+   own: a 10-iteration solve with ``checkpoint_dir``, resumed to 20 and
+   held to 1e-6 of one uninterrupted 20-iteration solve (the log holding
+   every boundary); the four ``get_sketch`` classes in both modes at s =
+   500, d = 100,000, drawn on the card by default, each apply against the
+   materialized ``Omega_mat``; ``trace`` around one K2 matvec writing a
+   trace file that names K2's kernel; ``Profiler.phase`` around one
+   reading at least its CUDA-event time; ``debug_nans`` passing a healthy
+   matvec and raising on one whose V holds a NaN;
 5. one more solve of each k under ``torch.profiler``: the card's busy time
    and each kernel's share (where the time goes);
 6. slice 2, config 6: the n = 1,000,000 north-star solve on the bf16x3
@@ -128,6 +137,16 @@ straight through and exits non-zero at the first failure:
    the unsharded operator's and float64, its launches against the
    schedule's count, every logged rel_res against an independent float64
    one, Hutchinson's trace against the exact c·n;
+9b. config 8 as written (``benchmarks/run.py::config8_accelerated_sap_
+   certified``: n = 100,000, d = 10, bf16x3 RBF, SAP with blocks of
+   12,500 and block Nyström of rank 256, true metrics every 25
+   iterations): a 50-iteration plain pilot, whose contraction gives the
+   accelerated (mu, nu), profiled; 300 plain iterations; 300 accelerated
+   ones with two evaluate-mode float64 refinement rounds on the card (K7);
+   K1b every iteration, the triangle K1c at every boundary; the refined
+   answer certified at 1e-6 by the float64 plain version (neither K7 nor
+   K8), the refinement's claim within 1% of it, and the accelerated
+   rel_res at 300 below the plain one;
 10. each Laplace kernel's share of its bound, of the probe-measured
    ceiling and of the pipes' peak rate, the kernels' JSON line (each
    with its bound, ``bound_ms``), the card line, and the result line last.
@@ -138,6 +157,7 @@ It imports nothing of JAX.
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1660,6 +1680,283 @@ def comp_forms(dev, X, compare, timings):
               + ("not timed" if p_ms is None else f"{p_ms:.3f} ms")
               + f", bound {entry['bound_ms']:.3f} ms ({entry['bound_ms'] / ms:.1%})")
     print(f"phase: the float64 tile's forms done at {time.perf_counter() - t_phase:.1f} s into it")
+
+
+# The ported utils on slice 1's operator (config 3, k = 1): checkpoint and
+# resume (10 iterations, then a resume to 20, against one uninterrupted
+# 20-iteration solve), the four sketch classes in both modes at s = 500,
+# d = 100,000 on the card, trace and Profiler around one K2 matvec,
+# debug_nans around a healthy and a NaN matvec.
+RESUME_ITERS, RESUME_FREQ, RESUME_BOUND = 20, 5, 1e-6
+SKETCH_S, SKETCH_D, SKETCH_BOUND = 500, 100_000, 1e-5
+# Config 8 (benchmarks/run.py::config8_accelerated_sap_certified) as written:
+# n = 100,000, d = 10, standard-normal X and y (numpy seed 0), reg = 1e-5·n,
+# ℓ = √10, the bf16x3 RBF operator, blocks of n/8 (auto blk_dense off:
+# 12,500² float32 values are 596 MiB, over SAP's 512 MiB budget), Nyström
+# rank 256 at rho = reg, 10 power iterations, rtol 1e-7, callback_freq 25,
+# true metrics, key 7; a 50-iteration plain pilot, 300 plain iterations, 300
+# accelerated ones with two evaluate-mode float64 refinement rounds on the
+# card, certified by the float64 plain version (not K7 or K8) at 1e-6.
+N8, D8, PILOT8, ITERS8, FREQ8, RANK8, CERT8 = 100_000, 10, 50, 300, 25, 256, 1e-6
+
+
+def ported_utils(dev, K, X, Y1, reg):
+    """The ported utils on slice 1's operator ``K`` (RBF on the HIGGS-100k
+    points ``X``), counted as one path. Returns its record."""
+    import tempfile
+
+    import torch
+
+    from rlaopt_tpu_torch.models import LinSys
+    from rlaopt_tpu_torch.ops import kernel_cuda
+    from rlaopt_tpu_torch.preconditioners import NystromConfig
+    from rlaopt_tpu_torch.sketches import get_sketch
+    from rlaopt_tpu_torch.solvers import PCGConfig
+    from rlaopt_tpu_torch.utils import Profiler, SolveCheckpointer, debug_nans, trace
+
+    n = X.shape[0]
+    record = {}
+    kernel_cuda.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    # checkpoint and resume: 10 iterations saved, resumed to 20, against one
+    # uninterrupted 20-iteration solve (rtol 1e-12: neither stops early)
+    def cfg(iters):
+        return PCGConfig(max_iters=iters, rtol=1e-12,
+                         precond_config=NystromConfig(rank=RANK, rho=reg))
+
+    W0 = torch.zeros((n, 1), device=dev)
+    W_full, log_full = LinSys(K, Y1, reg=reg).solve(cfg(RESUME_ITERS), W0, key=0,
+                                                    callback_freq=RESUME_FREQ)
+    with tempfile.TemporaryDirectory() as ckdir:
+        t0 = time.perf_counter()
+        LinSys(K, Y1, reg=reg).solve(cfg(RESUME_ITERS // 2), W0, key=0,
+                                     callback_freq=RESUME_FREQ, checkpoint_dir=ckdir)
+        ck = SolveCheckpointer(ckdir)
+        files = sorted(os.listdir(ckdir))
+        check(ck.latest_step() == RESUME_ITERS // 2,
+              f"resume: the checkpoint at iteration {RESUME_ITERS // 2}")
+        sys_r = LinSys(K, Y1, reg=reg)
+        W_res, log_res = sys_r.solve(cfg(RESUME_ITERS), W0, key=0, callback_freq=RESUME_FREQ,
+                                     checkpoint_dir=ckdir, resume=True)
+        torch.cuda.synchronize()
+        ckpt_s = time.perf_counter() - t0
+    check(W_res.is_cuda and W_res.dtype == torch.float32, "resume: W is float32 on the card")
+    diff = (torch.linalg.norm(W_res.double() - W_full.double())
+            / torch.linalg.norm(W_full.double())).item()
+    keys = int_keys(log_res)
+    # the restored entries come from the JSON sidecar: lists, not tensors
+    rel_res = [float(torch.as_tensor(log_res[i]["metrics"]["internal_metrics"]["rel_res"]).max())
+               for i in keys]
+    print(f"utils resume: files {files}; resumed log keys {keys} rel_res {rel_res}; "
+          f"relative difference of W from the uninterrupted solve {diff:.3e} "
+          f"(bound {RESUME_BOUND:.0e}); both halves {ckpt_s:.3f} s")
+    check(keys == list(range(0, RESUME_ITERS + 1, RESUME_FREQ)) and keys == int_keys(log_full),
+          "resume: the log holds every boundary from 0 to 20")
+    check(diff <= RESUME_BOUND, f"resume: W within {RESUME_BOUND:.0e} of the uninterrupted solve")
+    record["resume"] = {"relative_difference": diff, "keys": keys, "rel_res": rel_res,
+                        "files": files, "s": ckpt_s}
+
+    # the sketch classes, each apply against the materialized Omega_mat
+    gen = torch.Generator(device=dev).manual_seed(14)
+    sketches = {}
+    for name in ("gauss", "ortho", "sparse", "srht"):
+        for mode in ("left", "right"):
+            t0 = time.perf_counter()
+            sk = get_sketch(name, mode, SKETCH_S, SKETCH_D, torch.float32, key=3)
+            Om = sk.Omega_mat
+            check(Om.is_cuda, f"sketch {name} {mode}: drawn on the card by default")
+            r, c = Om.shape
+            Om64 = Om.double()
+            worst = 0.0
+            for apply, x, ref in (
+                ("_apply_left", (c, 3), lambda x: Om64 @ x),
+                ("_apply_right", (3, r), lambda x: x @ Om64),
+                ("_apply_left_trans", (r, 3), lambda x: Om64.T @ x),
+                ("_apply_right_trans", (3, c), lambda x: x @ Om64.T),
+            ):
+                xt = torch.randn(x, generator=gen, device=dev)
+                got = getattr(sk, apply)(xt)
+                want = ref(xt.double())
+                rel = ((got.double() - want).abs().max() / want.abs().max()).item()
+                worst = max(worst, rel)
+                check(got.is_cuda and tuple(got.shape) == tuple(want.shape) and rel <= SKETCH_BOUND,
+                      f"sketch {name} {mode} {apply} within {SKETCH_BOUND:.0e} of Omega_mat")
+            torch.cuda.synchronize()
+            sketches[f"{name} {mode}"] = {"rel": worst, "s": time.perf_counter() - t0}
+            print(f"utils sketch {name} {mode}: Omega_mat {tuple(Om.shape)} on {Om.device}, "
+                  f"four applies against it: worst rel {worst:.3e} (bound {SKETCH_BOUND:.0e})")
+            del sk, Om, Om64
+    record["sketches"] = sketches
+
+    # trace and Profiler around one K2 matvec (k = 1)
+    v = torch.randn((n, 1), generator=gen, device=dev)
+    kernel_ms = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        K @ v
+        b.record()
+        b.synchronize()
+        kernel_ms.append(a.elapsed_time(b))
+    with tempfile.TemporaryDirectory() as tdir:
+        with trace(tdir):
+            (K @ v).sum().item()
+        traces = [f for f in os.listdir(tdir) if f.endswith(".json")]
+        text = open(os.path.join(tdir, traces[0])).read() if traces else ""
+    named = "tile_triangle" in text
+    print(f"utils trace: files {traces}, {len(text)} bytes, names K2's kernel "
+          f"(tile_triangle): {named}")
+    check(len(traces) == 1 and named, "trace: one trace file that names K2's kernel")
+    prof = Profiler()
+    with prof.phase("k2") as out:
+        out["sync"] = K @ v
+    unblocked = Profiler(block=False)
+    with unblocked.phase("k2", result=K @ v):
+        pass
+    torch.cuda.synchronize()
+    phase_ms = prof.summary()["k2"]["total_s"] * 1e3
+    print(f"utils Profiler: phase {phase_ms:.3f} ms, K2 matvec by CUDA events "
+          f"{min(kernel_ms):.3f}-{max(kernel_ms):.3f} ms, without the sync "
+          f"{unblocked.summary()['k2']['total_s'] * 1e3:.3f} ms")
+    check(phase_ms >= min(kernel_ms), "Profiler.phase reads at least the K2 matvec's own time")
+    record["profiler"] = {"phase_ms": phase_ms, "kernel_ms": kernel_ms,
+                          "unblocked_ms": unblocked.summary()["k2"]["total_s"] * 1e3}
+
+    # debug_nans: a healthy matvec raises nothing; a V with one NaN, made
+    # outside the context, raises at the matvec or at the torch op after it
+    V = torch.randn((n, 1), generator=gen, device=dev)
+    with debug_nans():
+        torch.linalg.norm(K @ V, dim=0).item()
+    V[n // 2, 0] = float("nan")
+    raised = None
+    with debug_nans():
+        try:
+            torch.linalg.norm(K @ V, dim=0)
+        except FloatingPointError as e:
+            raised = str(e)
+    print(f"utils debug_nans: healthy matvec passed; NaN matvec raised: {raised}")
+    check(raised is not None, "debug_nans raises on the NaN matvec")
+    record["debug_nans"] = raised
+    torch.cuda.synchronize()
+    record["launches"] = kernel_cuda.launch_counts()
+    record["s"] = time.perf_counter() - t_phase
+    used = record["launches"]
+    check(used["gram_matvec_symmetric"] > 0 and used["gram_matmat"] > 0,
+          "utils: the resume ran through K2 and its sketch through K1")
+    print("utils " + json.dumps(record))
+    return record
+
+
+def config8(dev, profile_run):
+    """Config 8 as written (``benchmarks/run.py::config8_accelerated_sap_
+    certified``): a plain pilot, plain SAP and accelerated SAP with two
+    float64 refinement rounds, through the entry points a user calls,
+    counted as one path; the pilot profiled. Certified by the float64
+    plain version. Returns the path's record."""
+    import torch
+
+    from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp
+    from rlaopt_tpu_torch.models import LinSys
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+    from rlaopt_tpu_torch.preconditioners import NystromConfig
+    from rlaopt_tpu_torch.solvers import SAPConfig, sap_accel_from_pilot
+
+    n, d = N8, D8
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(dev)
+    reg = 1e-5 * n
+    ls = float(d) ** 0.5
+    blk = n // 8
+    base = dict(rtol=1e-7, blk_sz=blk, precond_config=NystromConfig(rank=RANK8, rho=reg),
+                power_iters=10)
+    kernel_cuda.reset_launch_counts()
+    K = RBFLinOp(X, X, KernelConfig(lengthscale=ls), compute_dtype="bf16x3")
+
+    def run(cfg, refine=False, prof=None):
+        before = kernel_cuda.launch_counts()
+        sys_ = LinSys(K, y, reg=reg, A_row_oracle=K.row_oracle, A_blk_oracle=K.blk_oracle)
+        kwargs = dict(f64_refine_rounds=2, f64_refine_device="accel") if refine else {}
+        with (prof or contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            W, log = sys_.solve(cfg, torch.zeros((n, 1), device=dev), callback_freq=FREQ8,
+                                key=7, metrics="true", **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        after = kernel_cuda.launch_counts()
+        traj = {i: float(torch.max(log[i]["metrics"]["internal_metrics"]["rel_res"]))
+                for i in int_keys(log)}
+        return {"W": W, "log": log, "traj": traj, "wall_s": wall, "sys": sys_,
+                "launches": {k: after[k] - before[k] for k in after}}
+
+    # the pilot profiled: its steps are the plain run's, and a profile of
+    # 300 steps (~1,200 device events each) takes a minute to read
+    t_all = time.perf_counter()
+    prof = profile_run()
+    pilot = run(SAPConfig(max_iters=PILOT8, accel=False, **base), prof=prof)
+    acc = sap_accel_from_pilot(pilot["traj"][PILOT8], PILOT8, n, blk)
+    plain = run(SAPConfig(max_iters=ITERS8, accel=False, **base))
+    accel = run(SAPConfig(max_iters=ITERS8, accel=True, accel_config=acc, **base), refine=True)
+    wall = time.perf_counter() - t_all
+    used = kernel_cuda.launch_counts()
+
+    # the certificate: the float64 plain version on the card (not K7, K8)
+    W = accel["W"]
+    check(W.dtype == torch.float64 and W.is_cuda, "config8: refined W is float64 on the card")
+    t0 = time.perf_counter()
+    y64 = y.double()[:, None]
+    KW = kernel_plain.gram_matmat_f64("rbf", X, X, W, ls, row_block=BLOCK)
+    rel_true = (torch.linalg.norm(y64 - (KW + reg * W)) / torch.linalg.norm(y64)).item()
+    cert_s = time.perf_counter() - t0
+    refine = accel["log"]["f64_refine"]
+    claimed = [max(h) for h in refine["rel_res_f64"]]
+    ratio = plain["traj"][ITERS8] / accel["traj"][ITERS8]
+    for name, r in (("pilot", pilot), ("plain", plain), ("accelerated", accel)):
+        iters = int_keys(r["log"])[-1]
+        print(f"config8 {name}: {iters} iterations, wall {r['wall_s']:.3f} s, phase_walls "
+              f"{r['sys'].phase_walls}, s/iter {r['sys'].phase_walls['train'] / iters:.5f}, "
+              f"launches {r['launches']}")
+    print(f"config8 pilot: rel_res {pilot['traj'][PILOT8]:.6e} at {PILOT8}; mu {acc.mu:.6e} "
+          f"nu {acc.nu}")
+    every50 = {name: {i: r["traj"][i] for i in r["traj"] if i % 50 == 0}
+               for name, r in (("plain", plain), ("accelerated", accel))}
+    print(f"config8 trajectories every 50: {json.dumps(every50)}")
+    print(f"config8 plain/accelerated rel_res at {ITERS8}: {ratio:.4f}; refinement claimed "
+          f"{claimed}, phase_walls {refine['phase_walls']}; independent float64 rel_res "
+          f"{rel_true:.6e} in {cert_s:.3f} s (bound {CERT8:.0e})")
+    check(accel["traj"][ITERS8] < plain["traj"][ITERS8],
+          "config8: accelerated SAP below plain SAP at 300 iterations")
+    check(rel_true <= CERT8, f"config8: independent float64 rel_res {rel_true:.3e} <= 1e-6")
+    check(abs(claimed[-1] - rel_true) <= 0.01 * rel_true,
+          "config8: the refinement's claimed rel_res within 1% of the independent one")
+    check(used["gram_matmat_tier"] >= PILOT8 + 2 * ITERS8,
+          "config8: every iteration's row oracle ran through K1b")
+    check(used["gram_matvec_symmetric_comp"] >= (PILOT8 + 2 * ITERS8) // FREQ8
+          and used["gram_matmat_comp"] == 0,
+          "config8: every boundary's true residual ran through K1c's triangle form")
+    check(accel["launches"]["gram_matvec_symmetric_f64"] >= 1, "config8: refinement ran through K7")
+    profile = device_breakdown(prof)
+    busy = profile.get("busy_ms")
+    record = {
+        "n": n, "d": d, "blk_sz": blk, "rank": RANK8, "wall_s": wall,
+        "pilot": {"iters": PILOT8, "rel_res": pilot["traj"][PILOT8], "wall_s": pilot["wall_s"],
+                  "phase_walls": pilot["sys"].phase_walls,
+                  "busy_share": None if busy is None else busy / 1e3 / pilot["wall_s"],
+                  "profile": profile},
+        "accel_params": {"mu": acc.mu, "nu": acc.nu},
+        "plain": {"wall_s": plain["wall_s"], "phase_walls": plain["sys"].phase_walls,
+                  "s_per_iter": plain["sys"].phase_walls["train"] / ITERS8},
+        "accelerated": {"wall_s": accel["wall_s"], "phase_walls": accel["sys"].phase_walls,
+                        "s_per_iter": accel["sys"].phase_walls["train"] / ITERS8,
+                        "refine_phase_walls": refine["phase_walls"]},
+        "plain_rel_res_trajectory": every50["plain"],
+        "accel_rel_res_trajectory": every50["accelerated"],
+        "accel_vs_plain_at_equal_iters": ratio, "refine_claimed": claimed,
+        "rel_res_true_f64": rel_true, "certificate_s": cert_s, "launches": used,
+    }
+    print("config8 " + json.dumps(record))
+    return record
 
 
 def slice3(dev, X, Xn, y):
@@ -3315,6 +3612,11 @@ def main() -> int:
     check(used_r["gram_matvec_symmetric_f64"] > 0, "refinement ran through K7")
     print(f"phase: slice 1 done at {time.perf_counter() - t_start:.1f} s")
 
+    # the ported utils (checkpoint and resume, sketches, trace, Profiler,
+    # debug_nans) on slice 1's operator
+    rec_utils = ported_utils(dev, K, X, Y1, reg)
+    print(f"phase: utils done at {time.perf_counter() - t_start:.1f} s")
+
     # path B: Nyström-PCG on the Laplace operator at the same shape
     counts_slice3 = slice3(dev, X, Xn, Y1)
     print(f"phase: slice 3 path B done at {time.perf_counter() - t_start:.1f} s")
@@ -3372,6 +3674,11 @@ def main() -> int:
     rec5 = slice5(dev, Xn, yn, profiled, compare, timings)
     print(f"phase: slice 5 done at {time.perf_counter() - t_start:.1f} s")
 
+    # 9b. config 8: accelerated SAP, certified
+    torch.cuda.empty_cache()
+    rec8 = config8(dev, profiled)
+    print(f"phase: config 8 done at {time.perf_counter() - t_start:.1f} s")
+
     # 10. result lines
     kernels = []
     for e in timings["gram_matmat_tier"]:
@@ -3388,7 +3695,8 @@ def main() -> int:
              "slice3": counts_slice3,
              "config4_laplace": rec_a["launches"], "config4": rec_a2["launches"],
              "slice4_sparse": rec_s["launches"], "config2": rec_c2["launches"],
-             **{path: rec["launches"] for path, rec in rec5.items()}}
+             **{path: rec["launches"] for path, rec in rec5.items()},
+             "utils": rec_utils["launches"], "config8": rec8["launches"]}
     for kname, source, replaces in (
         ("gram_matmat", SOURCES["gram"], f"{PALLAS}:733"),
         ("gram_matmat_comp", SOURCES["comp"], f"{PALLAS}:733"),

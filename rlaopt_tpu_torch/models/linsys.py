@@ -19,8 +19,6 @@ kernel operator (:class:`~rlaopt_tpu_torch.kernels.sharded.
 ShardedKernelLinOp`) refines through its own mesh routes: its float64 ring
 (``matmat_f64``: K7 and K8 at the positions, the points left where they
 are), its compensated product and its column-distributed float64 rows.
-
-Not ported yet: checkpoints (``checkpoint_dir``) and wandb logging.
 """
 
 import dataclasses
@@ -34,13 +32,14 @@ import torch
 from .model import Model, _wrap_sparse
 from ..linops.base import LinOp
 from ..linops.types import _is_linop_or_tensor
-from ..solvers import Solver, _get_solver, _is_solver_config
+from ..solvers import Solver, _get_solver, _get_solver_name, _is_solver_config
 from ..utils.checkers import (
     _as_generator,
     _is_callable,
     _is_nonneg_float,
     _is_tensor,
 )
+from ..utils.checkpoint import SolveCheckpointer
 from ..utils.linalg import hmm
 from ..utils.logger import Logger
 from ..utils.rng import fold_in
@@ -308,6 +307,16 @@ class LinSys(Model):
         seconds of solver set-up (sketch and factorization included) and of
         the iterations.
 
+        ``checkpoint_dir`` saves the solver state and the mask there every
+        ``checkpoint_freq`` (default 1) logging rounds and at convergence
+        (:class:`~rlaopt_tpu_torch.utils.checkpoint.SolveCheckpointer`);
+        ``resume=True`` continues from the latest one. A resumed solve
+        rebuilds its preconditioner from ``key`` and SAP draws its blocks
+        from ``key`` and the iteration counter, so with the same ``key`` it
+        repeats the uninterrupted solve; ``phase_walls`` then covers the
+        resumed part only. ``log_in_wandb`` mirrors every log round to
+        wandb, initialized with ``wandb_init_kwargs``.
+
         ``f64_refine_rounds > 0`` runs mixed-precision iterative refinement
         after the base solve (the reference's semantics): the residual is
         re-evaluated in float64, and correction systems are solved in the
@@ -337,11 +346,6 @@ class LinSys(Model):
             f64_refine_rounds, f64_refine_device, f64_refine_residual,
             f64_refine_certify,
         )
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: utils/checkpoint.py is not ported yet "
-                "(ROADMAP Queue 1, item 13)"
-            )
         _is_solver_config(solver_config, "solver_config")
         _is_tensor(W_init, "W_init")
         if W_init.ndim == 1:
@@ -354,10 +358,6 @@ class LinSys(Model):
         if log_in_wandb and wandb_init_kwargs is None:
             raise ValueError(
                 "wandb_init_kwargs must be specified if log_in_wandb is True"
-            )
-        if log_in_wandb:
-            raise NotImplementedError(
-                "wandb logging is not ported yet (utils/wandb_.py)"
             )
         if metrics not in ("auto", "true", "recurrence", "sampled"):
             raise ValueError(
@@ -380,11 +380,19 @@ class LinSys(Model):
         def termination_fn(internal_metrics):
             return self._check_termination_criteria(internal_metrics, atol, rtol)
 
+        wandb_kwargs = self._get_wandb_kwargs(
+            log_in_wandb=log_in_wandb,
+            wandb_init_kwargs=wandb_init_kwargs,
+            solver_name=_get_solver_name(solver_config),
+            solver_config=solver_config,
+            callback_freq=callback_freq,
+        )
         logger = Logger(
             log_freq=callback_freq,
             log_fn=self._get_log_fn(
                 callback_fn, callback_args or [], callback_kwargs or {}
             ),
+            wandb_kwargs=wandb_kwargs,
         )
 
         t_init = time.perf_counter()
@@ -405,12 +413,19 @@ class LinSys(Model):
             sampled=metrics == "sampled",
         )
 
+        checkpointer = None
+        if checkpoint_dir is not None:
+            checkpointer = SolveCheckpointer(checkpoint_dir)
+
         t_train = time.perf_counter()
         solution, log = self._train(
             logger=logger,
             termination_fn=termination_fn,
             solver=solver,
             max_iters=solver_config.max_iters,
+            checkpointer=checkpointer,
+            checkpoint_freq=checkpoint_freq or 1,
+            resume=resume,
         )
         _sync(self._B)
         phase_walls["train"] = round(time.perf_counter() - t_train, 3)

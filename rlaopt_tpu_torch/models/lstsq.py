@@ -7,8 +7,6 @@ chunked training loop. A is a dense tensor, a LinOp or a sparse tensor
 
 Termination metric: the normal-equation residual ‖Aᵀ(B − AW) − damp²W‖ per
 column (→ 0 at the least-squares solution), relative to ‖AᵀB‖.
-
-Not ported yet: checkpoints (``checkpoint_dir``) and wandb logging.
 """
 
 import time
@@ -19,8 +17,9 @@ import torch
 from .model import Model, _wrap_sparse
 from ..linops.base import LinOp
 from ..linops.types import _is_linop_or_tensor
-from ..solvers import _get_solver, _is_solver_config
+from ..solvers import _get_solver, _get_solver_name, _is_solver_config
 from ..utils.checkers import _as_generator, _is_nonneg_float, _is_tensor
+from ..utils.checkpoint import SolveCheckpointer
 from ..utils.linalg import hmm
 from ..utils.logger import Logger
 
@@ -119,22 +118,15 @@ class LstSq(Model):
         sketch and factorization. ``key`` (int seed, ``torch.Generator`` or
         None) seeds the sketch. ``model.phase_walls`` holds the wall-clock
         seconds of solver set-up (the sketch and the Cholesky included) and
-        of the iterations.
+        of the iterations. ``checkpoint_dir``, ``checkpoint_freq``,
+        ``resume``, ``log_in_wandb`` and ``wandb_init_kwargs`` are
+        :meth:`LinSys.solve`'s.
         """
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: utils/checkpoint.py is not ported yet "
-                "(ROADMAP Queue 1, item 13)"
-            )
         _is_solver_config(solver_config, "solver_config")
         _is_tensor(W_init, "W_init")
         if log_in_wandb and wandb_init_kwargs is None:
             raise ValueError(
                 "wandb_init_kwargs must be specified if log_in_wandb is True"
-            )
-        if log_in_wandb:
-            raise NotImplementedError(
-                "wandb logging is not ported yet (utils/wandb_.py)"
             )
         self._mask = torch.ones(
             (self._B.shape[1],), dtype=torch.bool, device=self._B.device
@@ -144,11 +136,19 @@ class LstSq(Model):
         def termination_fn(internal_metrics):
             return self._check_termination_criteria(internal_metrics, atol, rtol)
 
+        wandb_kwargs = self._get_wandb_kwargs(
+            log_in_wandb=log_in_wandb,
+            wandb_init_kwargs=wandb_init_kwargs,
+            solver_name=_get_solver_name(solver_config),
+            solver_config=solver_config,
+            callback_freq=callback_freq,
+        )
         logger = Logger(
             log_freq=callback_freq,
             log_fn=self._get_log_fn(
                 callback_fn, callback_args or [], callback_kwargs or {}
             ),
+            wandb_kwargs=wandb_kwargs,
         )
         t_init = time.perf_counter()
         solver = _get_solver(
@@ -157,12 +157,18 @@ class LstSq(Model):
         )
         _sync(self._B)
         phase_walls = {"solver_init": round(time.perf_counter() - t_init, 3)}
+        checkpointer = None
+        if checkpoint_dir is not None:
+            checkpointer = SolveCheckpointer(checkpoint_dir)
         t_train = time.perf_counter()
         solution, log = self._train(
             logger=logger,
             termination_fn=termination_fn,
             solver=solver,
             max_iters=solver_config.max_iters,
+            checkpointer=checkpointer,
+            checkpoint_freq=checkpoint_freq or 1,
+            resume=resume,
         )
         _sync(self._B)
         phase_walls["train"] = round(time.perf_counter() - t_train, 3)

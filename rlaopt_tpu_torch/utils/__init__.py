@@ -1,24 +1,17 @@
-"""Validation, RNG, small linear algebra and logging helpers."""
+"""Utility layer: validators, logging, RNG, profiling, checkpoints, debug
+helpers and small linear algebra."""
 
-from .rng import seed, next_generator  # noqa: F401
-from .linalg import (  # noqa: F401
-    hmm,
-    as_matmat,
-    densify,
-    cholesky_or_nan,
-    solve_tri_lower,
-    solve_tri_upper,
-)
-from .logger import Logger  # noqa: F401
+from .checkers import *  # noqa: F401,F403
+from .logger import *  # noqa: F401,F403
+from .rng import *  # noqa: F401,F403
+from .wandb_ import *  # noqa: F401,F403
+from .profiling import *  # noqa: F401,F403
+from .checkpoint import *  # noqa: F401,F403
+from .debug import *  # noqa: F401,F403
+from .linalg import *  # noqa: F401,F403
 
-__all__ = [
-    "seed",
-    "next_generator",
-    "hmm",
-    "as_matmat",
-    "densify",
-    "cholesky_or_nan",
-    "solve_tri_lower",
-    "solve_tri_upper",
-    "Logger",
-]
+from . import checkers, logger, rng, wandb_, profiling, checkpoint, debug, linalg
+
+__all__ = []
+for _m in (checkers, logger, rng, wandb_, profiling, checkpoint, debug, linalg):
+    __all__.extend(_m.__all__)

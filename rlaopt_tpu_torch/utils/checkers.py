@@ -14,11 +14,16 @@ import torch
 __all__ = [
     "_is_bool",
     "_is_callable",
+    "_is_dict",
     "_is_float",
     "_is_int",
+    "_is_list",
+    "_is_set",
     "_is_str",
     "_is_tensor",
     "_is_tensor_1d_2d",
+    "_is_dtype",
+    "_is_dtype_f32_f64",
     "_is_nonneg_float",
     "_is_pos_float",
     "_is_pos_int",
@@ -48,6 +53,10 @@ def _is_callable(param: Any, param_name: str):
         )
 
 
+def _is_dict(param: Any, param_name: str):
+    _require_type(param, param_name, dict, "a dict")
+
+
 def _is_float(param: Any, param_name: str):
     _require_type(param, param_name, float, "a float")
 
@@ -57,6 +66,14 @@ def _is_int(param: Any, param_name: str):
     if isinstance(param, bool):
         raise TypeError(f"expected {param_name} to be an int; got bool instead")
     _require_type(param, param_name, (int, np.integer), "an int")
+
+
+def _is_list(param: Any, param_name: str):
+    _require_type(param, param_name, list, "a list")
+
+
+def _is_set(param: Any, param_name: str):
+    _require_type(param, param_name, set, "a set")
 
 
 def _is_str(param: Any, param_name: str):
@@ -73,6 +90,16 @@ def _is_tensor_1d_2d(param: Any, param_name: str):
         raise ValueError(
             f"{param_name} needs 1 or 2 dimensions; this tensor has {param.ndim}"
         )
+
+
+def _is_dtype(param: Any, param_name: str):
+    _require_type(param, param_name, torch.dtype, "a torch.dtype")
+
+
+def _is_dtype_f32_f64(param: Any, param_name: str):
+    _is_dtype(param, param_name)
+    if param not in (torch.float32, torch.float64):
+        raise ValueError(f"{param_name} must be float32 or float64 (got {param})")
 
 
 def _is_nonneg_float(param: Any, param_name: str):

@@ -1,13 +1,13 @@
-"""Iteration logger with wall-clock timing.
+"""Iteration logger with wall-clock timing and optional wandb.
 
 Port of ``rlaopt_tpu/utils/logger.py``: frequency-gated logging with
-per-round and cumulative wall-clock time. The timer synchronizes the CUDA
-device before it reads the clock, so the times are device time and not
-enqueue time. wandb logging is not ported yet.
+per-round and cumulative wall-clock time, and ``wandb.init``/``log``/
+``finish`` when asked. The timer synchronizes the CUDA device before it
+reads the clock, so the times are device time and not enqueue time.
 """
 
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -21,11 +21,30 @@ class Logger:
     Args:
         log_freq: Log every ``log_freq`` iterations.
         log_fn: Called as ``log_fn(w)``; returns the metrics dict.
+        wandb_kwargs: If not None, ``wandb.init(**wandb_kwargs)`` is called
+            (``wandb`` imported here, not before) and every log round is
+            mirrored to wandb.
     """
 
-    def __init__(self, log_freq: int, log_fn: Callable):
+    def __init__(
+        self,
+        log_freq: int,
+        log_fn: Callable,
+        wandb_kwargs: Optional[dict] = None,
+    ):
         self.log_freq = log_freq
         self.log_fn = log_fn
+
+        if wandb_kwargs is not None:
+            import wandb
+
+            self._wandb = wandb
+            self.log_in_wandb = True
+            wandb.init(**wandb_kwargs)
+        else:
+            self._wandb = None
+            self.log_in_wandb = False
+
         self.start_time = time.time()
         self.iter_time = 0.0
         self.cum_time = 0.0
@@ -51,8 +70,13 @@ class Logger:
         metrics = self.log_fn(*args, **kwargs)
         log_dict = {"iter_time": self.iter_time, "cum_time": self.cum_time}
         log_dict["metrics"] = metrics
+
+        if self.log_in_wandb:
+            self._wandb.log(log_dict, step=i)
+
         self._reset_timer()
         return log_dict
 
     def _terminate(self):
-        pass
+        if self.log_in_wandb:
+            self._wandb.finish()

@@ -301,3 +301,91 @@ def test_sampled_blocks_are_distinct_and_reproducible(sampling):
         s._run_chunk(6)
         runs.append(s.W)
     assert torch.equal(runs[0], runs[1])
+
+
+def _jax_draws_from(key, steps, blk_sz, rank):
+    """``_jax_draws`` from a JAX key (the correction solves' keys)."""
+    draws = []
+    for _ in range(steps):
+        key, _k_blk, k_prec, k_pow = jax.random.split(key, 4)
+        Omega = j_right_embedding("ortho", k_prec, rank, blk_sz, jnp.float64)
+        v0 = jax.random.normal(k_pow, (blk_sz,), dtype=jnp.float64)
+        draws.append((torch.from_numpy(np.array(Omega)), torch.from_numpy(np.array(v0))))
+    return lambda t: draws[t]
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_config8_accelerated_sap_refined_matches_jax(monkeypatch, n):
+    """``benchmarks/run.py`` config 8 at a small size, in both packages: RBF
+    at ℓ = √d, d = 10, reg = 1e-5·n, blocks of n/8, Nyström rank 16 at rho =
+    reg, the same block schedule and the JAX solver's draws in every SAP
+    solve (the base solve's from its key, each correction's from the key
+    it is given, ``fold_in(key, round + 1)``). A plain pilot gives
+    (mu, nu) through ``sap_accel_from_pilot``; accelerated SAP then runs
+    with two evaluate-mode float64 refinement rounds on the host. The
+    refinement's rel_res_f64 history and W against the JAX package: 1e-10
+    (float64 round-off through 20-iteration solves); the last round no
+    worse than the first (JAX's ``test_f64_refine_forwards_oracles``)."""
+    d, key, pilot_iters, iters, freq = 10, 7, 20, 20, 10
+    blk_sz, rank = n // 8, 16
+    reg = 1e-5 * n
+    rng = np.random.default_rng(8)
+    X, y = rng.standard_normal((n, d)), rng.standard_normal(n)
+    ls = d**0.5
+    Xj, Xt = jnp.asarray(X), torch.from_numpy(X)
+    jK = JRBFLinOp(Xj, Xj, JKernelConfig(lengthscale=ls))
+    tK = RBFLinOp(Xt, Xt, KernelConfig(lengthscale=ls))
+    sched = _schedule(n, blk_sz, max(pilot_iters, iters), seed=9)
+    jkeys, made = [], {"jax": 0, "torch": 0}
+
+    def j_sap(*args, **kwargs):
+        made["jax"] += 1
+        return JSAP(*args, _block_schedule=sched, **kwargs)
+
+    def t_sap(*args, **kwargs):
+        made["torch"] += 1
+        draws = _jax_draws_from(jkeys.pop(0), max(pilot_iters, iters), blk_sz, rank)
+        return SAP(*args, _block_schedule=sched, _draws=draws, **kwargs)
+
+    monkeypatch.setattr(j_factory, "SAP", j_sap)
+
+    monkeypatch.setattr(t_factory, "SAP", t_sap)
+    base = dict(rtol=1e-7, blk_sz=blk_sz, power_iters=10)
+
+    def run(accel_cfg=None, refine=False, max_iters=iters):
+        jkey = jax.random.PRNGKey(key)
+        jkeys[:] = [jkey] + [jax.random.fold_in(jkey, r + 1) for r in range(2)]
+        kw = dict(f64_refine_rounds=2, f64_refine_device="cpu",
+                  f64_refine_residual="evaluate") if refine else {}
+        accel = accel_cfg is not None
+        jacc = None if not accel else JSAPAccelConfig(mu=accel_cfg.mu, nu=accel_cfg.nu)
+        jsys = JLinSys(jK, jnp.asarray(y), reg, jK.row_oracle, jK.blk_oracle)
+        jW, jlog = jsys.solve(
+            JSAPConfig(max_iters=max_iters, accel=accel, accel_config=jacc,
+                       precond_config=JNystromConfig(rank=rank, rho=reg), **base),
+            jnp.zeros((n, 1)), callback_freq=freq, key=key, metrics="true", **kw)
+        tsys = LinSys(tK, torch.from_numpy(y), reg, tK.row_oracle, tK.blk_oracle)
+        tW, tlog = tsys.solve(
+            SAPConfig(max_iters=max_iters, accel=accel, accel_config=accel_cfg,
+                      precond_config=NystromConfig(rank=rank, rho=reg), **base),
+            torch.zeros((n, 1), dtype=torch.float64), callback_freq=freq, key=key,
+            metrics="true", **kw)
+        return (jW, jlog), (tW, tlog)
+
+    (_, jlog), (_, tlog) = run(max_iters=pilot_iters)
+    jrel = float(jnp.max(jlog[pilot_iters]["metrics"]["internal_metrics"]["rel_res"]))
+    trel = float(torch.max(tlog[pilot_iters]["metrics"]["internal_metrics"]["rel_res"]))
+    assert abs(trel - jrel) <= 1e-10 and 0.0 < trel < 1.0
+    acc = sap_accel_from_pilot(trel, pilot_iters, n, blk_sz)
+    jacc = j_sap_accel_from_pilot(jrel, pilot_iters, n, blk_sz)
+    assert acc.mu == pytest.approx(jacc.mu, rel=1e-9) and acc.nu == jacc.nu
+
+    made.update(jax=0, torch=0)
+    (jW, jlog), (tW, tlog) = run(accel_cfg=acc, refine=True)
+    assert made["torch"] == made["jax"] == 3  # the base solve and two corrections
+    jhist, thist = jlog["f64_refine"]["rel_res_f64"], tlog["f64_refine"]["rel_res_f64"]
+    assert len(thist) == len(jhist) >= 2
+    np.testing.assert_allclose(np.asarray(thist), np.asarray(jhist), rtol=1e-10, atol=1e-12)
+    assert tW.dtype == torch.float64 and tW.device.type == "cpu"
+    assert _rel(tW, jW) <= 1e-10
+    assert max(thist[-1]) <= max(thist[0])

@@ -203,13 +203,23 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     assert offenders == []
 
 
-def test_not_yet_ported_paths_raise():
+def test_not_yet_ported_paths_raise(monkeypatch, tmp_path):
+    """The wandb mirror and checkpoints, once refused here, are ported:
+    they raise only what the JAX package raises (no ``wandb_init_kwargs``:
+    ValueError; ``wandb`` not importable: ImportError), and a checkpointed
+    solve writes its steps."""
     X, y, _ = _data(np.float64)
     Xt = torch.from_numpy(X)
     sys_ = LinSys(RBFLinOp(Xt, Xt, KernelConfig(lengthscale=LS)), torch.from_numpy(y), REG)
     cfg = PCGConfig(max_iters=2, precond_config=NystromConfig(rank=4, rho=REG))
     W0 = torch.zeros((N, 1), dtype=Xt.dtype)
-    with pytest.raises(NotImplementedError, match="wandb"):
+    with pytest.raises(ValueError, match="wandb_init_kwargs"):
+        sys_.solve(cfg, W0, log_in_wandb=True)
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    with pytest.raises(ImportError):
         sys_.solve(cfg, W0, log_in_wandb=True, wandb_init_kwargs={})
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        sys_.solve(cfg, W0, checkpoint_dir="unused")
+    _, log = sys_.solve(cfg, W0, callback_freq=1, checkpoint_dir=str(tmp_path / "ck"))
+    assert sorted(log) == [0, 1, 2]
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "step_00000001.aux.json", "step_00000001.npz",
+        "step_00000002.aux.json", "step_00000002.npz"]
