@@ -137,6 +137,19 @@ straight through and exits non-zero at the first failure:
    the unsharded operator's and float64, its launches against the
    schedule's count, every logged rel_res against an independent float64
    one, Hutchinson's trace against the exact c·n;
+9a. slice 15, the multi-process runtime: two processes that share the
+   card (two positions of ``cuda:0`` each, so gloo through pinned host
+   memory), built kernels loaded, not built again:
+   ``run_multiprocess_dryrun(2, 2)`` (the 2-D replicated and hierarchical
+   ring products, a PCG and a SAP step); then config 5 as E1 on the 2 x 2
+   ``("dcn", "i")`` mesh and as E2 on the half-ring of a 1-D mesh over
+   both processes, refined once (``python chip_smoke.py
+   --multihost-worker``), W the same bits on both ranks, each logged
+   rel_res within 1% of float64, held to the one-process E1 and E2
+   (lambda_max, the trace, rel_res, W; E2's launches summed over the ranks
+   equal one process's) and E2's certified rel_res_f64 at 1e-6; each
+   rank's walls, s/iter and seconds inside the collectives printed with
+   the transport, the children's launches its own path;
 9b. config 8 as written (``benchmarks/run.py::config8_accelerated_sap_
    certified``: n = 100,000, d = 10, bf16x3 RBF, SAP with blocks of
    12,500 and block Nyström of rank 256, true metrics every 25
@@ -196,6 +209,19 @@ C2_M, C2_N = 100_000, 1_000
 # P positions of the one card.
 N5, ITERS5, RANK5, LANCZOS5, PROBES5 = 50_000, 50, 200, 20, 32
 P_RING, P_LAPLACE = 4, 3
+# Slice 15: config 5 across 2 processes with 2 positions of the card each
+# (E1 on the 2 x 2 ("dcn", "i") mesh, E2's half-ring on the 4 positions of
+# a 1-D mesh over both); each process's seconds and the dryrun's bounded.
+MH_PROCS, MH_LOCAL, MH_TIMEOUT, MH_DRYRUN_TIMEOUT = 2, 2, 300, 150
+MH_DEVICE = "cuda:0"
+# Against the one-process E1 and E2: the products add in another order (E1's
+# slabs) or K2's atomics in another order (E2), all in float32, so lambda_max
+# and the trace within 1e-4, the final W within 1e-3 of max|W|, and each
+# logged rel_res within 1% down to the float32 floor, where both must be
+# below MH_FLOOR: config 5's solves stall at 1.3-2.3e-6 from iteration 20
+# on, and two orders of the same float32 sums land up to 43% apart there (an
+# H100, 700 W).
+MH_ESTIMATE_RTOL, MH_REL_RES_RTOL, MH_W_RTOL, MH_FLOOR = 1e-4, 0.01, 1e-3, 1e-5
 SOURCES = {
     "gram": "rlaopt_tpu_torch/csrc/gram.cu",
     "wide": "rlaopt_tpu_torch/csrc/gram_wide.cu",
@@ -2964,12 +2990,60 @@ def certified_launches(name, K, v, P):
         check(used == {tri: P, pair: pairs}, f"{name}'s {route} launches equal the half-ring's")
 
 
+def config5_solve(K, X, y, refine, profile_run=contextlib.nullcontext):
+    """Config 5 as written on operator K (``benchmarks/run.py::
+    config5_sharded_krr``): Lanczos, Hutchinson, the Nyström-PCG solve (with
+    one evaluate-mode float64 refinement round when ``refine``), counted
+    from 0 and run under ``profile_run()``. Returns the record (walls,
+    estimates, logged rel_res, launches), W, the log, the logged iterates
+    and the profile (None outside a profiler)."""
+    import torch
+
+    from rlaopt_tpu_torch.models import LinSys
+    from rlaopt_tpu_torch.ops import kernel_cuda
+    from rlaopt_tpu_torch.preconditioners import NystromConfig
+    from rlaopt_tpu_torch.solvers import PCGConfig
+    from rlaopt_tpu_torch.spectral_estimators import hutchinson, lanczos_eigsh
+
+    reg = 1e-4 * N5
+    cfg = PCGConfig(max_iters=ITERS5, rtol=1e-6,
+                    precond_config=NystromConfig(rank=RANK5, rho=reg))
+    iterates = []
+    kernel_cuda.reset_launch_counts()
+    with profile_run() as prof:
+        t0 = time.perf_counter()
+        lam = lanczos_eigsh(K, num_iters=LANCZOS5, key=0)
+        tr, var = hutchinson(K, PROBES5, "gauss", key=0)
+        torch.cuda.synchronize()
+        t_est = time.perf_counter() - t0
+        sys_ = LinSys(K, y, reg=reg)
+        extra = dict(f64_refine_rounds=1, f64_refine_device="accel") if refine else {}
+        W, log = sys_.solve(cfg, torch.zeros((N5, 1), device=X.device), callback_freq=10, key=0,
+                            callback_fn=lambda w, _model: iterates.append(w.clone()), **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    used = kernel_cuda.launch_counts()
+    keys = int_keys(log)
+    iters = keys[-1]
+    rec = {"n": N5, "positions": K.mesh.size, "memory_mode": K.memory_mode,
+           "lambda_max": float(lam[-1]), "trace": float(tr),
+           "trace_se": (float(var) / PROBES5) ** 0.5, "estimators_s": t_est,
+           "wall_s": wall, "phase_walls": sys_.phase_walls, "iters": iters,
+           "s_per_iter": sys_.phase_walls["train"] / iters,
+           "rel_res": {i: log[i]["metrics"]["internal_metrics"]["rel_res"].tolist()
+                       for i in keys}, "launches": used}
+    if refine:
+        rec["refine"] = log["f64_refine"]
+    return rec, W, log, iterates, prof
+
+
 def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     """Slice 5: the sharded operators and config 5's path on positions of
     the one card (E1–E4, see the module docstring), with the pair kernels
     checked and timed at each path's shard shape. Each path's launches are
     counted from 0 just before it and read just after. Returns the records,
-    each with its launches under ``"launches"``."""
+    each with its launches under ``"launches"``, and E1's and E2's W (on
+    the host)."""
     import torch
 
     from rlaopt_tpu_torch.kernels import (
@@ -2984,45 +3058,25 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     from rlaopt_tpu_torch.parallel import make_mesh
     from rlaopt_tpu_torch.preconditioners import NystromConfig
     from rlaopt_tpu_torch.solvers import PCGConfig
-    from rlaopt_tpu_torch.spectral_estimators import hutchinson, lanczos_eigsh
 
     ls = D**0.5
     Xn, yn = synthetic_higgs(N5)
     X = torch.from_numpy(Xn).to(dev)
     y = torch.from_numpy(yn).to(dev)
     reg = 1e-4 * N5
-    cfg = PCGConfig(max_iters=ITERS5, rtol=1e-6,
-                    precond_config=NystromConfig(rank=RANK5, rho=reg))
-    records = {}
+    records, solutions = {}, {}
     t_phase = time.perf_counter()
     pair_ragged(dev, compare)
 
     def config5(name, K, refine):
-        """Config 5 as written on operator K: Lanczos, Hutchinson, the
-        solve (with one evaluate-mode float64 refinement round when
-        ``refine``), counted from 0 and profiled; then its checks."""
-        iterates = []
-        kernel_cuda.reset_launch_counts()
-        with profile_run() as prof:
-            t0 = time.perf_counter()
-            lam = lanczos_eigsh(K, num_iters=LANCZOS5, key=0)
-            tr, var = hutchinson(K, PROBES5, "gauss", key=0)
-            torch.cuda.synchronize()
-            t_est = time.perf_counter() - t0
-            sys_ = LinSys(K, y, reg=reg)
-            extra = dict(f64_refine_rounds=1, f64_refine_device="accel") if refine else {}
-            W, log = sys_.solve(cfg, torch.zeros((N5, 1), device=dev), callback_freq=10, key=0,
-                                callback_fn=lambda w, _model: iterates.append(w.clone()),
-                                **extra)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        used = kernel_cuda.launch_counts()
-        keys = int_keys(log)
-        iters = keys[-1]
-        lam_max, trace, se = float(lam[-1]), float(tr), (float(var) / PROBES5) ** 0.5
+        """Config 5 as written on operator K (:func:`config5_solve`),
+        profiled; then its checks. Keeps W in ``solutions``."""
+        rec, W, log, iterates, prof = config5_solve(K, X, y, refine, profile_run)
+        used, iters, wall = rec["launches"], rec["iters"], rec["wall_s"]
+        lam_max, trace, se = rec["lambda_max"], rec["trace"], rec["trace_se"]
         print(f"{name}: lambda_max {lam_max:.6e} trace {trace:.6e} ± {se:.3e} (exact c·n = "
-              f"{float(N5):.1f}) estimators {t_est:.3f} s; solve wall {wall:.3f} s "
-              f"phase_walls {sys_.phase_walls} iters {iters} launches {used}")
+              f"{float(N5):.1f}) estimators {rec['estimators_s']:.3f} s; solve wall "
+              f"{wall:.3f} s phase_walls {rec['phase_walls']} iters {iters} launches {used}")
         check(np.isfinite(lam_max) and 0 < lam_max <= trace + 5 * se,
               f"{name} lambda_max finite, positive, below the trace")
         check(abs(trace - N5) <= 5 * se, f"{name} Hutchinson within 5 standard errors of c·n")
@@ -3032,21 +3086,16 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
         R = y64 - (kernel_plain.gram_matmat_f64("rbf", X, X, W64, ls, row_block=BLOCK)
                    + reg * W64)
         rel64 = (torch.linalg.norm(R, dim=0) / torch.linalg.norm(y64)).cpu().numpy()
-        gaps = residual_gaps(name, log, iterates, rel64)
+        rec["gaps"] = residual_gaps(name, log, iterates, rel64)
         first = float(log[0]["metrics"]["internal_metrics"]["rel_res"][0])
         last = float(log[iters]["metrics"]["internal_metrics"]["rel_res"][0])
         check(np.isfinite(last) and last < first, f"{name} rel_res falls")
         profile = device_breakdown(prof) if prof else {}
         busy = profile.get("busy_ms")
-        rec = {"n": N5, "positions": K.mesh.size, "memory_mode": K.memory_mode,
-               "lambda_max": lam_max, "trace": trace, "trace_se": se, "estimators_s": t_est,
-               "wall_s": wall, "phase_walls": sys_.phase_walls, "iters": iters,
-               "s_per_iter": sys_.phase_walls["train"] / iters,
-               "rel_res": {i: log[i]["metrics"]["internal_metrics"]["rel_res"].tolist()
-                           for i in keys}, "gaps": gaps, "launches": used, "profile": profile,
-               "busy_share": None if busy is None else busy / 1e3 / wall}
+        rec.update({"profile": profile, "busy_share": None if busy is None else busy / 1e3 / wall})
+        solutions[name] = W.cpu()
         if refine:
-            ref = log["f64_refine"]
+            ref = rec["refine"]
             final = ref["rel_res_f64"][-1][0]
             R = y64 - (kernel_plain.gram_matmat_f64("rbf", X, X, W, ls, row_block=BLOCK)
                        + reg * W)
@@ -3059,7 +3108,7 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
                   f"{name} refined rel_res_f64 within 1% of an independent float64 one")
             check(used["gram_matvec_symmetric_f64"] > 0 and used["gram_pair_f64"] > 0,
                   f"{name} refinement ran through K7 and K8's pair form")
-            rec.update({"refine": ref, "refined_independent": indep})
+            rec["refined_independent"] = indep
         return rec
 
     # E1: config 5 as written, one position (make_mesh() on the one card):
@@ -3202,7 +3251,209 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     loc = N6 // 4
     pair_at(dev, X6[:loc], X6[loc:2 * loc], compare, timings, "E4 shards", ls, "bf16x3", 4096)
     print(f"phase: slice 5 E4 done at {time.perf_counter() - t_phase:.1f} s into it")
-    return records
+    return records, solutions
+
+
+def multihost_worker(rank: int, world: int, port: int, out_dir: str) -> int:
+    """One process of the multihost phase (``python chip_smoke.py
+    --multihost-worker <rank> <world> <port> <dir>``): join the others with
+    ``MH_LOCAL`` positions of ``MH_DEVICE``, draw config 5's data, run config 5
+    (:func:`config5_solve`) as E1 on the 2-D ``("dcn", "i")`` mesh in
+    replicated mode and as E2 on the half-ring of a 1-D mesh over every
+    process (refined once), check that W has the same bits on every rank,
+    save W and the logged iterates to ``<dir>/<E>_rank<r>.pt`` and print one
+    ``multihost_result`` line. The kernels must be built already: it loads
+    them."""
+    import torch
+
+    from rlaopt_tpu_torch.kernels import KernelConfig, ShardedRBFLinOp
+    from rlaopt_tpu_torch.ops import kernel_cuda
+    from rlaopt_tpu_torch.parallel import (
+        initialize_multihost,
+        make_mesh,
+        make_mesh_2d,
+        shutdown_multihost,
+    )
+
+    dev = torch.device(MH_DEVICE)
+    if dev.type == "cuda" and not kernel_cuda.library_path().exists():
+        raise RuntimeError("the kernels are not built: chip_smoke.py builds them before it "
+                           "starts its processes")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    initialize_multihost(f"127.0.0.1:{port}", world, rank, local_device_ids=[dev] * MH_LOCAL,
+                         timeout=MH_TIMEOUT)
+    try:
+        Xn, yn = synthetic_higgs(N5)
+        X, y = torch.from_numpy(Xn).to(dev), torch.from_numpy(yn).to(dev)
+        ls = D**0.5
+        out = {"rank": rank, "startup_s": time.perf_counter() - t_start}
+        for name, mesh, axis, mode, refine in (
+            ("E1", make_mesh_2d(), ("dcn", "i"), "replicated", False),
+            ("E2", make_mesh(), "i", "ring", True),
+        ):
+            K = ShardedRBFLinOp(X, X, KernelConfig(lengthscale=ls), mesh=mesh, axis=axis,
+                                memory_mode=mode)
+            t = mesh.transport
+            before = (t.seconds, t.calls, t.bytes)
+            rec, W, _, iterates, _ = config5_solve(K, X, y, refine)
+            rec["transport"] = {"name": t.name, "seconds": t.seconds - before[0],
+                                "calls": t.calls - before[1], "bytes": t.bytes - before[2]}
+            rec["mesh"] = mesh.shape
+            for r, other in enumerate(t.all_gather(W)):
+                if not torch.equal(other, W):
+                    raise AssertionError(f"{name}: rank {r}'s W differs from rank {rank}'s")
+            torch.save({"W": W.cpu(), "iterates": torch.cat(iterates[1:], 1).cpu()},
+                       os.path.join(out_dir, f"{name}_rank{rank}.pt"))
+            out[name] = rec
+        print("multihost_result " + json.dumps(out), flush=True)
+    finally:
+        shutdown_multihost()
+    return 0
+
+
+def multihost(dev, rec5, sol5):
+    """Slice 15: the multi-process runtime on the card. Two processes share
+    ``cuda:0`` (gloo, staged through pinned host memory: they hold one card
+    between them), each with ``MH_LOCAL`` positions of it. First
+    ``run_multiprocess_dryrun(2, 2)`` (the 2-D replicated and hierarchical
+    ring products, a PCG step and a SAP step); then config 5 as E1 and E2
+    (:func:`multihost_worker`), held against the one-process E1 and E2 of
+    slice 5 (``rec5``, their W in ``sol5``): W the same bits on both ranks,
+    each logged rel_res within 1% of the float64 residual of its iterate,
+    lambda_max and the trace, each logged rel_res and W within the
+    ``MH_*`` tolerances of one process, E2's certified rel_res_f64 at 1e-6
+    and within 1% of an independent float64 one. Returns the record, the
+    children's launches summed under ``"launches"``."""
+    import tempfile
+
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_plain
+    from rlaopt_tpu_torch.parallel import run_multiprocess_dryrun
+    from rlaopt_tpu_torch.parallel.distributed import _free_port, run_children
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for kname, c in counts.items():
+            launches[kname] = launches.get(kname, 0) + c
+
+    t0 = time.perf_counter()
+    outputs = run_multiprocess_dryrun(n_procs=MH_PROCS, n_local=MH_LOCAL,
+                                      timeout=MH_DRYRUN_TIMEOUT)
+    t_dry = time.perf_counter() - t0
+    for r, text in enumerate(outputs):
+        lines = text.splitlines()
+        add(json.loads(next(ln for ln in lines if ln.startswith("launches "))[9:]))
+        print(f"multihost dryrun rank {r}: "
+              f"{next(ln for ln in lines if ln.startswith('transport '))} ({card})")
+    print(f"multihost dryrun: {MH_PROCS} processes x {MH_LOCAL} positions of cuda:0, "
+          f"{t_dry:.1f} s, launches {launches} ({card})")
+    rec = {"dryrun_s": t_dry, "dryrun_launches": dict(launches)}
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        port = _free_port()
+        outputs = run_children(
+            [[os.path.abspath(__file__), "--multihost-worker", str(r), str(MH_PROCS), str(port),
+              out_dir] for r in range(MH_PROCS)], MH_TIMEOUT,
+        )
+        results = [json.loads(next(ln for ln in text.splitlines()
+                                   if ln.startswith("multihost_result "))[17:])
+                   for text in outputs]
+        saved = {(name, r): torch.load(os.path.join(out_dir, f"{name}_rank{r}.pt"))
+                 for name in ("E1", "E2") for r in range(MH_PROCS)}
+    Ws = {key: got["W"] for key, got in saved.items()}
+    rec["children_s"] = time.perf_counter() - t0
+    transports = {res["E1"]["transport"]["name"] for res in results}
+    check(transports == {"gloo"}, f"two processes on one card take gloo through the host "
+          f"({transports})")
+    print(f"multihost transport: {transports.pop()} (both processes hold cuda:0), children "
+          f"{rec['children_s']:.1f} s, startup {[res['startup_s'] for res in results]} s "
+          f"({card})")
+
+    Xn, yn = synthetic_higgs(N5)
+    X, y = torch.from_numpy(Xn).to(dev), torch.from_numpy(yn).to(dev)
+    y64, ls, reg = y.double()[:, None], D**0.5, 1e-4 * N5
+    for name in ("E1", "E2"):
+        one, W1 = rec5[name], sol5[name]
+        mine = [res[name] for res in results]
+        for r in range(MH_PROCS):
+            add(mine[r]["launches"])
+            check(torch.equal(Ws[(name, r)], Ws[(name, 0)]),
+                  f"multihost {name}: rank {r}'s W has rank 0's bits")
+        got = mine[0]
+        W = Ws[(name, 0)]
+        # every logged iterate's float64 residual in one plain sweep
+        It = saved[(name, 0)]["iterates"].to(dev).double()
+        R = y64 - (kernel_plain.gram_matmat_f64("rbf", X, X, It, ls, row_block=BLOCK) + reg * It)
+        rel64 = (torch.linalg.norm(R, dim=0) / torch.linalg.norm(y64)).cpu().numpy()
+        logged = sorted(int(i) for i in got["rel_res"])[1:]
+        own = {i: abs(got["rel_res"][str(i)][0] - rel64[j]) / rel64[j]
+               for j, i in enumerate(logged)}
+        print(f"multihost {name} logged rel_res against float64 of the same iterate: {own}")
+        check(max(own.values()) <= 0.01,
+              f"multihost {name} every logged rel_res within 1% of float64")
+        for key in ("lambda_max", "trace"):
+            gap = abs(got[key] - one[key]) / abs(one[key])
+            print(f"multihost {name} {key}: {got[key]:.8e}, one process {one[key]:.8e}, "
+                  f"gap {gap:.2e}")
+            check(gap <= MH_ESTIMATE_RTOL, f"multihost {name} {key} within "
+                  f"{MH_ESTIMATE_RTOL:.0e} of one process")
+        check(got["iters"] == one["iters"] and sorted(got["rel_res"]) == sorted(
+            str(i) for i in one["rel_res"]), f"multihost {name} logged the iterations of one "
+              "process")
+        gaps, off = {}, {}
+        for i, rr in got["rel_res"].items():
+            ref = one["rel_res"][int(i)][0]
+            gaps[i] = abs(rr[0] - ref) / ref
+            if gaps[i] > MH_REL_RES_RTOL and max(rr[0], ref) >= MH_FLOOR:
+                off[i] = (rr[0], ref)
+        print(f"multihost {name} rel_res gaps to one process: {gaps}")
+        check(not off, f"multihost {name} every logged rel_res within {MH_REL_RES_RTOL:.0%} "
+              f"of one process, or both below {MH_FLOOR:.0e} ({off})")
+        w_gap = ((W.double() - W1.double()).abs().max() / W1.double().abs().max()).item()
+        print(f"multihost {name} W: {W.dtype}, gap to one process {w_gap:.3e} of max|W|")
+        check(w_gap <= MH_W_RTOL, f"multihost {name} W within {MH_W_RTOL:.0e} of one process")
+        for r in range(MH_PROCS):
+            t = mine[r]["transport"]
+            print(f"multihost {name} rank {r}: wall {mine[r]['wall_s']:.3f} s (one process "
+                  f"{one['wall_s']:.3f}), s/iter {mine[r]['s_per_iter']:.5f} (one process "
+                  f"{one['s_per_iter']:.5f}), collectives {t['calls']} in {t['seconds']:.3f} s "
+                  f"({t['bytes']} bytes sent), launches {mine[r]['launches']} ({card})")
+        rec[name] = {"ranks": mine, "one_process": {k: one[k] for k in (
+            "wall_s", "s_per_iter", "lambda_max", "trace", "iters")}, "rel_res_gaps": gaps,
+            "float64_gaps": own, "W_gap": w_gap}
+    e1, e2 = ({k: sum(res[name]["launches"][k] for res in results)
+               for k in results[0][name]["launches"]} for name in ("E1", "E2"))
+    check(e1["gram_matmat"] > 0 and e1["gram_matmat_comp"] > 0,
+          "multihost E1 ran through K1 and K1c's forward form")
+    same = {k: (e2[k], rec5["E2"]["launches"][k]) for k in e2
+            if e2[k] != rec5["E2"]["launches"][k]}
+    check(not same, f"multihost E2's launches, summed over the ranks, are one process's ({same})")
+    check(all(e2[k] > 0 for k in ("gram_matvec_symmetric", "gram_pair",
+                                  "gram_matvec_symmetric_comp", "gram_pair_comp",
+                                  "gram_pair_f64", "gram_matvec_symmetric_f64")),
+          "multihost E2 ran through K2, K4, the certified triangle and pairs (K1c, K8) and K7")
+
+    ref = results[0]["E2"]["refine"]
+    final = ref["rel_res_f64"][-1][0]
+    W = Ws[("E2", 0)].to(dev)
+    R = y64 - (kernel_plain.gram_matmat_f64("rbf", X, X, W, ls, row_block=BLOCK) + reg * W)
+    indep = (torch.linalg.norm(R) / torch.linalg.norm(y64)).item()
+    print(f"multihost E2 refined: rel_res_f64 {final:.6e}, independent float64 {indep:.6e}")
+    check(W.dtype == torch.float64 and final <= 1e-6,
+          f"multihost E2 refined rel_res_f64 {final:.3e} <= 1e-6")
+    check(abs(final - indep) <= 0.01 * indep,
+          "multihost E2 refined rel_res_f64 within 1% of an independent float64 one")
+    rec.update({"refined_independent": indep, "launches": launches,
+                "phase_s": time.perf_counter() - t_phase, "card": card})
+    print(f"multihost phase: {rec['phase_s']:.1f} s ({card})")
+    return rec
 
 
 def main() -> int:
@@ -3671,8 +3922,14 @@ def main() -> int:
 
     # 9. slice 5: the sharded operators on positions of the card (E1-E4)
     torch.cuda.empty_cache()
-    rec5 = slice5(dev, Xn, yn, profiled, compare, timings)
+    rec5, sol5 = slice5(dev, Xn, yn, profiled, compare, timings)
     print(f"phase: slice 5 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 9a. slice 15: config 5 across two processes that share the card
+    torch.cuda.empty_cache()
+    rec_mh = multihost(dev, rec5, sol5)
+    print("multihost " + json.dumps(rec_mh))
+    print(f"phase: multihost done at {time.perf_counter() - t_start:.1f} s")
 
     # 9b. config 8: accelerated SAP, certified
     torch.cuda.empty_cache()
@@ -3696,6 +3953,7 @@ def main() -> int:
              "config4_laplace": rec_a["launches"], "config4": rec_a2["launches"],
              "slice4_sparse": rec_s["launches"], "config2": rec_c2["launches"],
              **{path: rec["launches"] for path, rec in rec5.items()},
+             "multihost": rec_mh["launches"],
              "utils": rec_utils["launches"], "config8": rec8["launches"]}
     for kname, source, replaces in (
         ("gram_matmat", SOURCES["gram"], f"{PALLAS}:733"),
@@ -3763,4 +4021,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                                  sys.argv[5]))
     sys.exit(main())

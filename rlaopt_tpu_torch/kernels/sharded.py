@@ -53,6 +53,12 @@ the mirror accumulators' padded rows hold values and are dropped with them.
 A bf16 ``compute_dtype`` keeps the tier parts of each shard (and of the
 replicated A2) beside its points, made once when the operator is built, as
 :class:`~rlaopt_tpu_torch.kernels.linop.KernelLinOp` does.
+
+On a mesh that spans processes every process holds A1 and A2 whole (the
+same replicated input), keeps the shards of its own positions only, and
+runs the schedules' visits at those; the rotations, psums and gathers of
+:mod:`rlaopt_tpu_torch.parallel.mesh` cross processes, the half-ring's
+carried entries (points, tile operand, chunk, mirror accumulator) as bytes.
 """
 
 import dataclasses
@@ -79,7 +85,7 @@ from ..ops.kernel_dispatch import (
 from ..ops.kernel_plain import _two_sum
 from ..ops.kernel_tiers import TierOperand, normalize_compute_dtype, tier_operand
 from ..parallel.distributed import axis_size
-from ..parallel.mesh import make_mesh, move, pad_to_multiple, ppermute, psum
+from ..parallel.mesh import _destination, gather, make_mesh, move, pad_to_multiple, ppermute, psum
 from ..utils.checkers import _is_tensor
 
 
@@ -175,13 +181,13 @@ class ShardedKernelLinOp(ShardedLinOp):
 
         def shards(A):
             """Rows of A zero-padded to a multiple of the mesh size, cut into
-            equal blocks (with their tier parts), each on its position."""
+            equal blocks (with their tier parts), each of this process's on
+            its position."""
             Ap = points(pad_to_multiple(move(A, home), ndev)[0])
             loc = Ap.X.shape[0] // ndev
-            return [
-                move(Ap.rows(slice(p * loc, (p + 1) * loc)), dev)
-                for p, dev in enumerate(mesh.devices)
-            ], Ap.X.shape[0]
+            return mesh.map(
+                lambda p: move(Ap.rows(slice(p * loc, (p + 1) * loc)), mesh.devices[p])
+            ), Ap.X.shape[0]
 
         X1, n_pad = shards(A1)
         if symmetric:
@@ -191,8 +197,9 @@ class ShardedKernelLinOp(ShardedLinOp):
         X2r = None
         if use_full_kernel and memory_mode == "replicated":
             X2r = points(A2)
-        data = []
-        for p, dev in enumerate(mesh.devices):
+
+        def payload(p):
+            dev = mesh.devices[p]
             entry = {
                 "X1": X1[p],
                 "X2s": X2s[p],
@@ -203,7 +210,9 @@ class ShardedKernelLinOp(ShardedLinOp):
             }
             if X2r is not None:
                 entry["X2r"] = move(X2r, dev)
-            data.append(entry)
+            return entry
+
+        data = mesh.map(payload)
 
         axes = _axes(axis)
         sym_ring = memory_mode == "ring" and symmetric and len(axes) == 1 and ndev > 1
@@ -211,8 +220,8 @@ class ShardedKernelLinOp(ShardedLinOp):
             # the half-ring's diagonal blocks (K2, K5) and pairs (K4, K6)
             # take the register tile's operand of each shard, built on
             # first use and kept
-            for entry in data:
-                entry["tile"] = _TileOperand(entry["X1"].X, entry["ls"])
+            for p in mesh.local_positions:
+                data[p]["tile"] = _TileOperand(data[p]["X1"].X, data[p]["ls"])
         self._sym_ring = sym_ring
         if sym_ring:
             mv = rmv = self._half_ring  # square symmetric Gram: Kᵀ = K
@@ -244,14 +253,19 @@ class ShardedKernelLinOp(ShardedLinOp):
     # -- properties ----------------------------------------------------------
     @property
     def A1(self) -> torch.Tensor:
-        """The points of the rows, gathered on the first position's device."""
-        return torch.cat([move(d["X1"].X, self.mesh.home) for d in self._data])[: self.shape[0]]
+        """The points of the rows, gathered on the home device."""
+        return self._gather(self.mesh.map(lambda p: self._data[p]["X1"].X))[: self.shape[0]]
 
     @property
     def A2(self) -> torch.Tensor:
         if self._symmetric:
             return self.A1
-        return torch.cat([move(d["X2s"].X, self.mesh.home) for d in self._data])[: self.shape[1]]
+        return self._gather(self.mesh.map(lambda p: self._data[p]["X2s"].X))[: self.shape[1]]
+
+    @property
+    def _home_data(self) -> dict:
+        """The payload of this process's first position."""
+        return self._data[self.mesh.local_positions[0]]
 
     @property
     def kernel_config(self) -> KernelConfig:
@@ -259,8 +273,8 @@ class ShardedKernelLinOp(ShardedLinOp):
 
     @property
     def lengthscale64(self) -> torch.Tensor:
-        """The lengthscale in float64 on the first position's device."""
-        return self._data[0]["ls64"]
+        """The lengthscale in float64 on the home device."""
+        return self._home_data["ls64"]
 
     @property
     def const_scaling(self) -> float:
@@ -295,52 +309,60 @@ class ShardedKernelLinOp(ShardedLinOp):
 
     def _pair(self, L: _Points, R: _Points, V2, V1, ls, tiles=(None, None)):
         """``(c·K @ V2, c·Kᵀ @ V1)`` with K = k(L, R) on the operator's tier;
-        ``tiles``: the kept :class:`_TileOperand` of L and of R (the exact
-        tier's half-ring keeps both), or None each. R's is read where L
-        lies."""
+        ``tiles``: the kept :class:`_TileOperand` of L and R's tile operand
+        (the exact tier's half-ring keeps both, R's carried with its
+        points), or None each. R's is read where L lies."""
         if L.T is not None:
             return kernel_pair_tier(self.kind, L.T, R.T, V2, V1, self._c, self.impl)
         tl, tr = tiles
-        operands = None if tl is None else (lambda: (tl.get(), move(tr.get(), L.X.device)))
+        operands = None if tl is None else (lambda: (tl.get(), move(tr, L.X.device)))
         return kernel_pair(self.kind, L.X, R.X, V2, V1, ls, self._c, self.impl,
                            tile_operands=operands)
 
     # -- ring schedules ------------------------------------------------------
     def _sweep(self, rotating, stationary, visit):
-        """Visit every shard position once: ``visit(p, moving, staying) ->
-        (moving, staying)`` at each position before each rotation of the
+        """Visit every shard position once: ``visit(p, q, moving, staying)
+        -> (moving, staying)`` at each of this process's positions p, the
+        moving entry being shard q's, before each rotation of the
         ``rotating`` list (hierarchical on a 2-D mesh: the fast axis every
         step, the slow axis once per inner cycle). Returns both lists, the
         rotating one back home."""
         axes, mesh = _axes(self.axis), self.mesh
         fast = axes[-1]
 
-        def inner(rot, sta):
-            for _ in range(mesh.shape[fast]):
-                for p in range(mesh.size):
-                    rot[p], sta[p] = visit(p, rot[p], sta[p])
-                rot = ppermute(rot, mesh, fast)
-            return rot, sta
+        def rotate(rot, origin, axis):
+            dest = _destination(mesh, axis, 1)
+            moved = [None] * mesh.size
+            for p, q in enumerate(origin):
+                moved[dest(p)] = q
+            return ppermute(rot, mesh, axis), moved
 
-        rot, sta = list(rotating), list(stationary)
+        def inner(rot, sta, origin):
+            for _ in range(mesh.shape[fast]):
+                for p in mesh.local_positions:
+                    rot[p], sta[p] = visit(p, origin[p], rot[p], sta[p])
+                rot, origin = rotate(rot, origin, fast)
+            return rot, sta, origin
+
+        rot, sta, origin = list(rotating), list(stationary), list(range(mesh.size))
         if len(axes) == 1:
-            return inner(rot, sta)
+            return inner(rot, sta, origin)[:2]
         for _ in range(mesh.shape[axes[0]]):
-            rot, sta = inner(rot, sta)
-            rot = ppermute(rot, mesh, axes[0])
+            rot, sta, origin = inner(rot, sta, origin)
+            rot, origin = rotate(rot, origin, axes[0])
         return rot, sta
 
     def _ring_forward(self, data, chunks):
         """The general ring's ``K @ v``: (A2 shard, operand shard) pairs
         rotate; each position accumulates its output rows in place."""
 
-        def visit(p, moving, acc):
+        def visit(p, q, moving, acc):
             x2s, vs = moving
             part = self._gram(data[p]["X1"], x2s, vs, data[p]["ls"])
             return moving, part if acc is None else acc + part
 
         _, acc = self._sweep(
-            [(d["X2s"], c) for d, c in zip(data, chunks)], [None] * len(data), visit
+            self.mesh.map(lambda p: (data[p]["X2s"], chunks[p])), [None] * len(data), visit
         )
         return acc
 
@@ -349,37 +371,40 @@ class ShardedKernelLinOp(ShardedLinOp):
         pairs rotate; each position adds k(A2 shard, X1_p) @ y_p to the
         accumulator visiting it, which is home again after the sweep."""
 
-        def visit(p, moving, staying):
+        def visit(p, q, moving, staying):
             x2s, acc = moving
             part = self._gram(x2s, data[p]["X1"], chunks[p], data[p]["ls"])
             return (x2s, part if acc is None else acc + part), staying
 
-        rot, _ = self._sweep([(d["X2s"], None) for d in data], [None] * len(data), visit)
-        return [acc for _, acc in rot]
+        rot, _ = self._sweep(self.mesh.map(lambda p: (data[p]["X2s"], None)),
+                             [None] * len(data), visit)
+        return self.mesh.map(lambda p: rot[p][1])
 
     def _half_sweep(self, V, diag, carried, pair):
         """The symmetric half-ring's schedule over the right-hand-side
         chunks ``V`` (2-D, one per position): ~half the kernel evaluations.
 
         ``diag(p, v)`` is position p's diagonal block. Position p starts
-        with ``carried(p)`` (its shard and what goes with it), its chunk and
-        a zero mirror accumulator as the rotating carry; after s forward
+        with ``carried(p)`` (its shard and what goes with it: tensors, and
+        containers and dataclasses of them), its chunk and a zero mirror
+        accumulator as the rotating carry; after s forward
         rotations it holds shard q = p − s and ``pair(p, carried(q), V_q,
         V_p)`` gives both products of the pair {p, q} from one evaluation,
         the first added to p's output, the second to the carried mirror
         accumulator of shard q. Steps s = 1 .. ns − 1 visit each unordered
         pair once (for even P the antipodal step is taken by p < P/2 only);
         then one rotation by −(ns − 1) delivers every mirror accumulator
-        home. Returns each position's output, in ``diag``'s type.
+        home. Returns each position's output (None at another process's),
+        in ``diag``'s type.
         """
         mesh, ax = self.mesh, _axes(self.axis)[0]
         P = mesh.size
         ns = P // 2 + 1
-        out = [diag(p, v) for p, v in enumerate(V)]
-        carry = [(carried(p), v, torch.zeros_like(o)) for p, (v, o) in enumerate(zip(V, out))]
+        out = mesh.map(lambda p: diag(p, V[p]))
+        carry = mesh.map(lambda p: (carried(p), V[p], torch.zeros_like(out[p])))
         for s in range(1, ns):
             carry = ppermute(carry, mesh, ax)
-            for p in range(P):
+            for p in mesh.local_positions:
                 if P % 2 == 0 and s == ns - 1 and p >= P // 2:
                     continue  # the antipodal pair is taken from its other side
                 moved, vq, mir = carry[p]
@@ -387,27 +412,32 @@ class ShardedKernelLinOp(ShardedLinOp):
                 out[p] = out[p] + o_p
                 carry[p] = (moved, vq, mir + o_q)
         # the mirror of shard q sits ns - 1 hops ahead: one rotation home
-        mirrors = ppermute([c[2] for c in carry], mesh, ax, -(ns - 1))
-        return [o + mr for o, mr in zip(out, mirrors)]
+        mirrors = ppermute(mesh.map(lambda p: carry[p][2]), mesh, ax, -(ns - 1))
+        return mesh.map(lambda p: out[p] + mirrors[p])
 
     def _half_ring(self, data, chunks):
         """The symmetric half-ring's ``K @ v`` (:meth:`_half_sweep`): the
         diagonal block through the triangle kernel on its shard's kept tile
         operand, each pair on the kept tile operands of both shards (the
         rotating shard's carried with its points)."""
-        squeeze = chunks[0].ndim == 1
-        V = [c[:, None] if squeeze else c for c in chunks]
+        mesh = self.mesh
+        squeeze = chunks[mesh.local_positions[0]].ndim == 1
+        V = mesh.map(lambda p: chunks[p][:, None] if squeeze else chunks[p])
 
         def diag(p, v):
             d = data[p]
             return self._gram(d["X1"], d["X1"], v, d["ls"], symmetric=True, tile=d.get("tile"))
 
+        def carried(p):
+            tile = data[p].get("tile")
+            return data[p]["X1"], None if tile is None else tile.get()
+
         def pair(p, moved, vq, vp):
             (xq, tq), d = moved, data[p]
             return self._pair(d["X1"], xq, vq, vp, d["ls"], (d.get("tile"), tq))
 
-        out = self._half_sweep(V, diag, lambda p: (data[p]["X1"], data[p].get("tile")), pair)
-        return [o[:, 0] for o in out] if squeeze else out
+        out = self._half_sweep(V, diag, carried, pair)
+        return mesh.map(lambda p: out[p][:, 0]) if squeeze else out
 
     # Ring mode: both operand and output are sharded over the mesh.
     def _ring_apply(self, fn, x, padded_len: int, out_len: int):
@@ -471,16 +501,16 @@ class ShardedKernelLinOp(ShardedLinOp):
             hi = s.to(Vm.dtype)
             lo = (s - hi.double()).to(Vm.dtype)
         else:
+            mesh = self.mesh
             if self.memory_mode == "replicated":
-                parts = [
-                    kernel_matmat_compensated(kind, d["X1"].X, d["X2r"].X, move(Vm, dev),
-                                              d["ls64"], c, impl=self.impl)
-                    for d, dev in zip(data, self.mesh.devices)
-                ]
+                parts = mesh.map(lambda p: kernel_matmat_compensated(
+                    kind, data[p]["X1"].X, data[p]["X2r"].X, move(Vm, mesh.devices[p]),
+                    data[p]["ls64"], c, impl=self.impl,
+                ))
             else:
                 chunks = self._split(self._pad_operand(Vm, self.padded_shape[1]))
 
-                def visit(p, moving, acc):
+                def visit(p, q, moving, acc):
                     x2s, vs = moving
                     h, lo = kernel_matmat_compensated(
                         kind, data[p]["X1"].X, x2s.X, vs, data[p]["ls64"], c, impl=self.impl,
@@ -492,10 +522,10 @@ class ShardedKernelLinOp(ShardedLinOp):
                     return moving, (s, al + (e + lo))
 
                 _, parts = self._sweep(
-                    [(d["X2s"], ch) for d, ch in zip(data, chunks)], [None] * len(chunks), visit,
+                    mesh.map(lambda p: (data[p]["X2s"], chunks[p])), [None] * len(chunks), visit,
                 )
-            hi = self._gather([h for h, _ in parts])[:n]
-            lo = self._gather([lo for _, lo in parts])[:n]
+            hi = self._gather(mesh.map(lambda p: parts[p][0]))[:n]
+            lo = self._gather(mesh.map(lambda p: parts[p][1]))[:n]
         if squeeze:
             hi, lo = hi[:, 0], lo[:, 0]
         return self._apply_scale(hi), self._apply_scale(lo)
@@ -504,14 +534,13 @@ class ShardedKernelLinOp(ShardedLinOp):
         """The half-ring's schedule (:meth:`_half_sweep`) in float64 for the
         certified routes, each position's points carried (no tile operand):
         ``diag(p, v)`` and ``pair(p, X_q, V_q, V_p)`` give float64 sums; the
-        outputs gathered on the first position's device, padded rows
-        included."""
+        outputs gathered on the home device, padded rows included."""
         chunks = self._split(self._pad_operand(V, self.padded_shape[1]))
         return self._gather(self._half_sweep(chunks, diag, lambda p: self._data[p]["X1"].X, pair))
 
     def matmat_f64(self, V: torch.Tensor) -> torch.Tensor:
         """``K @ V`` with float64 kernel values and sums (float64 out, on the
-        first position's device), the points on their positions. Where
+        home device), the points on their positions. Where
         ``matvec`` takes the half-ring, its schedule
         (:meth:`_certified_half_ring`: K7 on the diagonal blocks, K8's pair
         form on each pair); else the ring of the A2 shards in either memory
@@ -534,16 +563,15 @@ class ShardedKernelLinOp(ShardedLinOp):
         else:
             chunks = self._split(self._pad_operand(V64, self.padded_shape[1]))
 
-            def visit(p, moving, acc):
-                x2s, vs, q = moving
+            def visit(p, q, moving, acc):
+                x2s, vs = moving
                 d = data[p]
                 part = kernel_matmat_f64(kind, d["X1"].X, x2s.X, vs, d["ls64"], c,
                                          symmetric=self._symmetric and q == p)
                 return moving, part if acc is None else acc + part
 
             _, parts = self._sweep(
-                [(d["X2s"], ch, q) for q, (d, ch) in enumerate(zip(data, chunks))],
-                [None] * len(chunks), visit,
+                self.mesh.map(lambda p: (data[p]["X2s"], chunks[p])), [None] * len(chunks), visit,
             )
             acc = self._gather(parts)
         out = acc[: self.shape[0]] * float(self._scale)
@@ -558,48 +586,45 @@ class ShardedKernelLinOp(ShardedLinOp):
 
     def row_matmat_f64(self, idx: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
         """``K[idx, :] @ W`` in float64 (K8 at each position on its A2
-        shard, one psum), on the first position's device."""
+        shard, one psum), on the home device."""
+        mesh = self.mesh
         xr = self._gather_rows("X1", idx).X
-        W64 = move(W[:, None] if W.ndim == 1 else W, self.mesh.home).double()
+        W64 = move(W[:, None] if W.ndim == 1 else W, mesh.home).double()
         chunks = self._split(self._pad_operand(W64, self.padded_shape[1]))
-        parts = [
-            kernel_matmat_f64(self.kind, move(xr, dev), d["X2s"].X, w, d["ls64"], self._c)
-            for d, dev, w in zip(self._data, self.mesh.devices, chunks)
-        ]
-        out = psum(parts, self.mesh.home) * float(self._scale)
+        parts = mesh.map(lambda p: kernel_matmat_f64(
+            self.kind, move(xr, mesh.devices[p]), self._data[p]["X2s"].X, chunks[p],
+            self._data[p]["ls64"], self._c,
+        ))
+        out = psum(parts, mesh) * float(self._scale)
         return out[:, 0] if W.ndim == 1 else out
 
     # -- oracles -------------------------------------------------------------
     def _gather_rows(self, key: str, blk) -> _Points:
         """Logical rows ``blk`` of the sharded points ``key`` ("X1" or
-        "X2s"), with their tier parts, on the first position's device: each
-        position's shard is read at the rows it owns (a small cross-shard
-        gather)."""
-        home = self.mesh.home
-        blk = torch.as_tensor(blk, device=home, dtype=torch.long)
-        loc = self._data[0][key].X.shape[0]
+        "X2s"), with their tier parts, on the home device: each position's
+        shard is read at the rows it owns (a small cross-shard gather)."""
+        mesh = self.mesh
+        blk = torch.as_tensor(blk, device=mesh.home, dtype=torch.long)
+        loc = self._home_data[key].X.shape[0]
         owner, local = blk // loc, blk % loc
-        out = None
-        for p, (d, dev) in enumerate(zip(self._data, self.mesh.devices)):
-            rows = move(d[key].rows(move(local, dev)), home)
-            if out is None:
-                out = rows
-            else:
-                keep = owner == p
-                out = _map_rows(
-                    lambda a, b: torch.where(keep.view(-1, *[1] * (a.ndim - 1)), a, b),
-                    rows, out,
-                )
+        rows = gather(mesh.map(lambda p: self._data[p][key].rows(move(local, mesh.devices[p]))),
+                      mesh)
+        out = rows[0]
+        for p in range(1, mesh.size):
+            keep = owner == p
+            out = _map_rows(
+                lambda a, b: torch.where(keep.view(-1, *[1] * (a.ndim - 1)), a, b),
+                rows[p], out,
+            )
         return out
 
     def row_oracle(self, blk) -> ShardedLinOp:
         """K[blk, :] as a column-distributed operator (one psum per apply)."""
+        mesh = self.mesh
         xb = self._gather_rows("X1", blk)
         b = xb.X.shape[0]
-        data = [
-            {"Xb": move(xb, dev), "X2s": d["X2s"], "ls": d["ls"]}
-            for d, dev in zip(self._data, self.mesh.devices)
-        ]
+        data = mesh.map(lambda p: {"Xb": move(xb, mesh.devices[p]), "X2s": self._data[p]["X2s"],
+                                   "ls": self._data[p]["ls"]})
 
         def mv(dd, w_loc):
             return self._gram(dd["Xb"], dd["X2s"], w_loc, dd["ls"])
@@ -617,18 +642,18 @@ class ShardedKernelLinOp(ShardedLinOp):
         """K[blk, blk] as a row-distributed operator over the mesh: the block
         of points is gathered (small), padded to a multiple of the mesh size
         and row-sharded; the other side is kept whole at every position."""
+        mesh = self.mesh
         x1b = self._gather_rows("X1", blk)
         x2b = self._gather_rows("X2s", blk)
         b = x1b.X.shape[0]
-        ndev = self.mesh.size
+        ndev = mesh.size
         x1b_p = _map_rows(lambda t: pad_to_multiple(t, ndev)[0], x1b)
         b_pad = x1b_p.X.shape[0]
         loc = b_pad // ndev
-        data = [
-            {"Xb_s": move(x1b_p.rows(slice(p * loc, (p + 1) * loc)), dev),
-             "Xb": move(x2b, dev), "ls": d["ls"]}
-            for p, (d, dev) in enumerate(zip(self._data, self.mesh.devices))
-        ]
+        data = mesh.map(lambda p: {
+            "Xb_s": move(x1b_p.rows(slice(p * loc, (p + 1) * loc)), mesh.devices[p]),
+            "Xb": move(x2b, mesh.devices[p]), "ls": self._data[p]["ls"],
+        })
 
         def mv(dd, v):
             # local rows of K[blk, blk] @ v

@@ -21,9 +21,12 @@ As in the JAX package, the sharded dim is zero-padded to a multiple of the
 mesh size and cut into equal chunks (padded rows multiply zeros, padded
 output rows are sliced off); ``gather_idx`` maps logical to physical
 indices when ragged per-position chunks leave padding inside the layout.
-Operands and results are whole tensors on the mesh's first device; a
-sharded output is gathered there (``torch.cat``), a psum adds in position
-order.
+Operands and results are whole tensors on the mesh's home device; a
+sharded output is gathered there (:func:`~rlaopt_tpu_torch.parallel.gather`
+and ``torch.cat``), a psum adds in position order. On a mesh that spans
+processes each process computes its own positions only (the payload holds
+None at the others') and the gathers and psums cross processes: every
+process ends with the same bits.
 
 ``axis`` may be a tuple naming every axis of a 2-D mesh
 (:func:`rlaopt_tpu_torch.parallel.make_mesh_2d`); the positions are then
@@ -48,7 +51,7 @@ import torch
 from .base import TwoSidedLinOp
 from .enums import _DistributionMode
 from ..parallel.distributed import axis_size
-from ..parallel.mesh import Mesh, move, pad_to_multiple, psum, shard_rows
+from ..parallel.mesh import Mesh, gather, move, pad_to_multiple, psum, shard_rows
 
 
 __all__ = [
@@ -97,21 +100,22 @@ def _row_axes(spec):
 
 def _place(data, specs, mesh: Mesh) -> list:
     """The JAX package's payload ``data`` with its partition specs
-    ``specs``: one pytree of blocks per position. A container of ``data``
-    meets a container of specs of the same length (or keys) element by
-    element; any other spec applies to every leaf below it."""
+    ``specs``: one pytree of blocks per position (None at another
+    process's). A container of ``data`` meets a container of specs of the
+    same length (or keys) element by element; any other spec applies to
+    every leaf below it."""
     if isinstance(data, dict):
         keys = list(data)
         sub = specs if isinstance(specs, dict) else dict.fromkeys(keys, specs)
         placed = {key: _place(data[key], sub[key], mesh) for key in keys}
-        return [{key: placed[key][p] for key in keys} for p in range(mesh.size)]
+        return mesh.map(lambda p: {key: placed[key][p] for key in keys})
     if isinstance(data, (tuple, list)):
         paired = isinstance(specs, (tuple, list)) and len(specs) == len(data)
         parts = [_place(x, specs[i] if paired else specs, mesh) for i, x in enumerate(data)]
-        return [type(data)(part[p] for part in parts) for p in range(mesh.size)]
+        return mesh.map(lambda p: type(data)(part[p] for part in parts))
     axes = _row_axes(specs)
     if axes is None:
-        return [move(data, dev) for dev in mesh.devices]
+        return mesh.map(lambda p: move(data, mesh.devices[p]))
     return shard_rows(data, mesh, axis=axes)
 
 
@@ -124,8 +128,9 @@ class ShardedLinOp(TwoSidedLinOp):
             matvec receives a position's payload and the full operand,
             rmatvec the position's row chunk of the operand.
         mesh: the device mesh.
-        data: one payload per position, each on its position's device; or,
-            with ``data_specs``, the JAX package's payload pytree.
+        data: one payload per position, each on its position's device (any
+            value, None for one, at another process's positions); or, with
+            ``data_specs``, the JAX package's payload pytree.
         data_specs: None, or the partition specs of ``data`` (the module's
             note): rows cut over the named axes, the rest replicated.
         mode: "row" or "column".
@@ -181,13 +186,14 @@ class ShardedLinOp(TwoSidedLinOp):
         return pad_to_multiple(x, target)[0]
 
     def _split(self, x) -> list:
-        """A padded operand cut into the positions' chunks, each moved to
-        its position's device."""
-        return [move(c, d) for c, d in zip(x.chunk(self.mesh.size, dim=0), self.mesh.devices)]
+        """A padded operand cut into the positions' chunks, each of this
+        process's moved to its position's device."""
+        chunks = x.chunk(self.mesh.size, dim=0)
+        return self.mesh.map(lambda p: move(chunks[p], self.mesh.devices[p]))
 
     def _gather(self, parts) -> torch.Tensor:
-        """Per-position outputs concatenated on the first device."""
-        return torch.cat([move(p, self.mesh.home) for p in parts], dim=0)
+        """Per-position outputs concatenated on the home device."""
+        return torch.cat(gather(parts, self.mesh), dim=0)
 
     def _collect_sharded(self, out, logical_len: int):
         """Drop padding from a sharded-dim output (slice or ragged gather)."""
@@ -197,9 +203,8 @@ class ShardedLinOp(TwoSidedLinOp):
 
     def _row_forward(self, local_fn, x):
         """Local compute on each position's shard, output sharded (concat)."""
-        out = self._gather(
-            [local_fn(d, move(x, dev)) for d, dev in zip(self._data, self.mesh.devices)]
-        )
+        mesh = self.mesh
+        out = self._gather(mesh.map(lambda p: local_fn(self._data[p], move(x, mesh.devices[p]))))
         if self.mode == _DistributionMode.ROW:
             return self._collect_sharded(out, self.shape[0])
         return out
@@ -207,8 +212,8 @@ class ShardedLinOp(TwoSidedLinOp):
     def _row_adjoint(self, local_fn, y, padded_len: int, out_len: int):
         """Operand sharded like the payload's rows, partials psum-combined."""
         chunks = self._split(self._pad_operand(y, padded_len))
-        parts = [local_fn(d, c) for d, c in zip(self._data, chunks)]
-        return psum(parts, self.mesh.home)[:out_len]
+        parts = self.mesh.map(lambda p: local_fn(self._data[p], chunks[p]))
+        return psum(parts, self.mesh)[:out_len]
 
     # -- dispatch ------------------------------------------------------------
     def matvec(self, x):
@@ -265,20 +270,24 @@ class ShardedLinOp(TwoSidedLinOp):
         them: each position's chunk is padded to the largest in the physical
         layout, and operands and outputs go through ``gather_idx``, so
         results match the unpadded concatenation exactly. A local operator
-        applies to its own rows only (the padding never reaches it).
+        applies to its own rows only (the padding never reaches it). On a
+        mesh that spans processes, ``ops`` holds this process's operators
+        (None at the others' positions); their shapes are gathered.
         """
         ndev = axis_size(mesh, axis)
         if len(ops) != ndev:
             raise ValueError(f"need one local op per device ({ndev}), got {len(ops)}")
         shard_dim = 0 if mode == "row" else 1
         other_dim = 1 - shard_dim
-        other_sizes = {op.shape[other_dim] for op in ops}
+        sizes = mesh.map(lambda p: torch.tensor(ops[p].shape, device=mesh.home))
+        shapes = [tuple(t.tolist()) for t in gather(sizes, mesh)]
+        other_sizes = {s[other_dim] for s in shapes}
         if len(other_sizes) != 1:
             raise ValueError(
                 "local ops must agree along the non-sharded dim; "
                 f"got sizes {sorted(other_sizes)}"
             )
-        loc_sizes = [op.shape[shard_dim] for op in ops]
+        loc_sizes = [s[shard_dim] for s in shapes]
         loc_max = max(loc_sizes)
         row = mode == "row"
 
@@ -295,7 +304,7 @@ class ShardedLinOp(TwoSidedLinOp):
             return _apply(op, y[:sz], True) if row else _pad_rows(_apply(op, y, True), loc_max)
 
         n_logical = sum(loc_sizes)
-        other = ops[0].shape[other_dim]
+        other = shapes[0][other_dim]
         if row:
             shape, padded_shape = (n_logical, other), (loc_max * ndev, other)
         else:
@@ -307,8 +316,9 @@ class ShardedLinOp(TwoSidedLinOp):
                 for dev, sz in enumerate(loc_sizes)
             ])
         return cls(
-            shape, mv, rmv, mesh, list(zip(ops, loc_sizes)), mode=mode, axis=axis,
-            dtype=ops[0].dtype, padded_shape=padded_shape, gather_idx=gather_idx,
+            shape, mv, rmv, mesh, mesh.map(lambda p: (ops[p], loc_sizes[p])), mode=mode,
+            axis=axis, dtype=ops[mesh.local_positions[0]].dtype, padded_shape=padded_shape,
+            gather_idx=gather_idx,
         )
 
     @classmethod
@@ -319,7 +329,8 @@ class ShardedLinOp(TwoSidedLinOp):
         ndev = axis_size(mesh, axis)
         shard_dim = 0 if mode == "row" else 1
         Mp, _ = pad_to_multiple(M, ndev, axis=shard_dim)
-        data = [move(c, d) for c, d in zip(Mp.chunk(ndev, dim=shard_dim), mesh.devices)]
+        chunks = Mp.chunk(ndev, dim=shard_dim)
+        data = mesh.map(lambda p: move(chunks[p], mesh.devices[p]))
 
         def mv(d, x):
             return d @ x

@@ -47,6 +47,7 @@ from .kernel_tiers import TierOperand, norms_and_operands, split_rhs
 
 __all__ = [
     "build",
+    "library_path",
     "gram_matmat",
     "gram_matmat_comp",
     "gram_matvec_symmetric_comp",
@@ -204,21 +205,27 @@ def _run_all(commands):
     return [(p.returncode, out) for p, out in zip(procs, outputs)]
 
 
+def library_path() -> Path:
+    """Where :func:`build` puts the library of these sources and flags
+    (``build/gram-<hash>.so``), built or not."""
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for name in SOURCES + _HEADERS:
+        digest.update(name.encode() + (_CSRC / name).read_bytes())
+    return _BUILD_DIR / f"gram-{digest.hexdigest()[:16]}.so"
+
+
 def build() -> Path:
     """Compile the CUDA sources (once per hash) and load the library.
 
     Each source is compiled by its own ``nvcc``, all started together, and
-    the objects are linked into ``build/gram-<hash>.so``. Returns the path
-    of the library. The compiler's output (``-Xptxas -v``: registers and
+    the objects are linked into :func:`library_path`. Returns the path of
+    the library. The compiler's output (``-Xptxas -v``: registers and
     shared memory per kernel) is kept beside it as ``<library>.log``.
     """
     with _lock:
         if _lib["handle"] is not None:
             return _lib["path"]
-        digest = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-        for name in SOURCES + _HEADERS:
-            digest.update(name.encode() + (_CSRC / name).read_bytes())
-        path = _BUILD_DIR / f"gram-{digest.hexdigest()[:16]}.so"
+        path = library_path()
         if not path.exists():
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tag = f"{path.stem}.{os.getpid()}"

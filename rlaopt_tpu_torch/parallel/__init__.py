@@ -1,14 +1,26 @@
-"""Device meshes: ordered positions, each a ``torch.device``, with axis names.
+"""Device meshes and the multi-process runtime: ordered positions, each a
+``torch.device``, with axis names, over one process or many.
 
-Port of ``rlaopt_tpu/parallel``'s single-process half. The multi-process
-runtime (``initialize_multihost``, ``run_multiprocess_dryrun`` and
-``_multihost_dryrun.py``) is the one part of the JAX package not ported
-yet (``ROADMAP.md``, Queue 1, item 16).
+Port of ``rlaopt_tpu/parallel``: :func:`initialize_multihost` joins
+processes over ``torch.distributed``, after which :func:`make_mesh` and
+:func:`make_mesh_2d` span every process's positions and the sharded
+operators' collectives cross processes; :func:`run_multiprocess_dryrun`
+drives that path in fresh interpreters.
 """
 
-from .distributed import axis_size, make_mesh_2d  # noqa: F401
+from .distributed import (  # noqa: F401
+    axis_size,
+    initialize_multihost,
+    make_mesh_2d,
+    process_count,
+    process_index,
+    run_multiprocess_dryrun,
+    shutdown_multihost,
+)
 from .mesh import (  # noqa: F401
     Mesh,
+    Transport,
+    gather,
     make_mesh,
     move,
     pad_to_multiple,
@@ -20,13 +32,20 @@ from .mesh import (  # noqa: F401
 
 __all__ = [
     "Mesh",
+    "Transport",
     "axis_size",
+    "gather",
+    "initialize_multihost",
     "make_mesh",
     "make_mesh_2d",
     "move",
     "pad_to_multiple",
     "ppermute",
+    "process_count",
+    "process_index",
     "psum",
     "replicate",
+    "run_multiprocess_dryrun",
     "shard_rows",
+    "shutdown_multihost",
 ]

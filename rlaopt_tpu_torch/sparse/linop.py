@@ -83,7 +83,8 @@ def sparse_shard_rows(sp: _SparseTensor, mesh, axis="i", impl: str = "auto"):
     an operator of :func:`sparse_aslinop` on its position's device (its CSR
     and the CSR of its transpose, kernel #9 on a card), and the chunks
     compose through :meth:`ShardedLinOp.from_local_ops`: the forward product
-    gathers the chunks' outputs, the adjoint psums their partials. ``impl``
+    gathers the chunks' outputs, the adjoint psums their partials. On a mesh
+    that spans processes each process builds its own positions' chunks. ``impl``
     as in :func:`sparse_aslinop`, the same for every chunk.
     """
     from ..linops.sharded import ShardedLinOp
@@ -106,12 +107,14 @@ def sparse_shard_rows(sp: _SparseTensor, mesh, axis="i", impl: str = "auto"):
             "use a smaller mesh axis"
         )
     indptr = sp.indptr.cpu()
-    local_ops = []
-    for (s, e), dev in zip(bounds, mesh.devices):
+
+    def local_op(p):
+        (s, e), dev = bounds[p], mesh.devices[p]
         lo, hi = int(indptr[s]), int(indptr[e])
         part = _SparseTensor(
             move(sp.values[lo:hi], dev), move(sp.indices[lo:hi], dev),
             move(sp.indptr[s : e + 1] - lo, dev), (e - s, n), _Layout.CSR, dev,
         )
-        local_ops.append(sparse_aslinop(part, impl=impl))
-    return ShardedLinOp.from_local_ops(local_ops, mesh, mode="row", axis=axis)
+        return sparse_aslinop(part, impl=impl)
+
+    return ShardedLinOp.from_local_ops(mesh.map(local_op), mesh, mode="row", axis=axis)
