@@ -160,6 +160,22 @@ straight through and exits non-zero at the first failure:
    answer certified at 1e-6 by the float64 plain version (neither K7 nor
    K8), the refinement's claim within 1% of it, and the accelerated
    rel_res at 300 below the plain one;
+9c. configs 7 and 9 (``benchmarks/run.py::config7_askotch_10m_reference_
+   scale`` and ``::config9_askotch_10m_converging``), the n = 10M ASkotch
+   headline at full width: X (10^7, 50) and y (10^7, 10) drawn on the
+   card, one bf16x3 RBF operator, SAP with blocks of 100,000 whose block
+   products run matrix-free through K1b, sampled metrics every 5; config 7
+   as written for 20 of its 300 iterations (mu·nu = 1: V = Y = W to
+   float32 round-off), config 9's plain pilot for 10 of its 60, (mu, nu)
+   from it, 20 of its 150 accelerated iterations certified at 10 and at
+   the end (2,048 rows through K8, the rest in float64 on the host), each
+   counted as a path; every logged rel_res within 5 sigma of an
+   independent float64 one on other rows, K1b's launches against SAP's
+   schedule and no other kernel launched but K8, the certificate's K8
+   against the float64 plain version on 64 rows, K1b at the row oracle's
+   shape against its tier's plain version and timed, K8 timed at the
+   certificate's, the peak memory under the card's; 5 accelerated
+   iterations profiled;
 10. each Laplace kernel's share of its bound, of the probe-measured
    ceiling and of the pipes' peak rate, the kernels' JSON line (each
    with its bound, ``bound_ms``), the card line, and the result line last.
@@ -1983,6 +1999,366 @@ def config8(dev, profile_run):
     }
     print("config8 " + json.dumps(record))
     return record
+
+
+# Configs 7 and 9 (benchmarks/run.py::config7_askotch_10m_reference_scale and
+# ::config9_askotch_10m_converging, with the certificate of
+# ::_value64_residual_sampled), the n = 10M ASkotch headline at full width:
+# X = N(0, 1)/√50 of (10⁷, 50) and y = N(0, 1) of (10⁷, 10), drawn on the
+# card from a torch.Generator of seed 0 (JAX's key stream cannot be matched),
+# the bf16x3 RBF operator at ℓ = 1, built once for both configs; SAP with
+# blocks of n/100 = 100,000, block Nyström of rank 100 at rho = reg, 10
+# power iterations, rtol 1e-6, sampled metrics every 5 iterations. Config 7
+# as written (reg 1e-2, accelerated with μ = 1e-2, ν = 100, key 0): 20 of its
+# 300 iterations. Config 9 (reg 1e-5·n, key 7): a plain pilot of 10 of its
+# 60 iterations, (μ, ν) from sap_accel_from_pilot or, where the pilot shows
+# no contraction, run.py's μ = 0.9·blk/n, ν = n/blk; accelerated SAP for 20
+# of its 150, certified at iteration 10 and at the end: 2,048 rows (numpy
+# seed 11), each row of K·W through kernel_matmat_value64 (K8) against all
+# 10⁷ points, the rest in float64 on the host.
+N10, D10, K10, RANK10, FREQ10 = 10_000_000, 50, 10, 100, 5
+REG7, MU7, NU7, REG9_PER_N = 1e-2, 1e-2, 100.0, 1e-5
+ITERS7, PILOT9, ITERS9, PROFILE10 = 20, 10, 20, 5
+CERT10_ROWS, CERT10_SEED, CERT10_AT, CERT10_PLAIN = 2048, 11, 10, 64
+# Each logged sampled rel_res against an independent float64 one of the same
+# iterate: 2,048 other rows (numpy seed 7) through the plain float64 version
+# (K1c's: X2 in column blocks of 2^16, so that V is read once), within 5
+# sigma of the two estimators' standard errors.
+INDEP10_ROWS, INDEP10_SEED, INDEP10_COLS = 2048, 7, 1 << 16
+# Config 7's recurrence keeps V = Y = W while mu·nu = 1 (run.py:512-518): in
+# float32 each step rounds beta·V + (1 − beta)·Y, the index_add and alpha·V +
+# (1 − alpha)·W, at most 8 float32 epsilons of max|W| a step between them,
+# added over the steps.
+INERT_EPS_PER_STEP = 8
+
+
+def sampled_final_metrics(sys_):
+    """Keep the last logged metrics of ``sys_``'s solve sampled: at the end
+    of a solve whose last boundary was an estimate, the model asks for a
+    true residual (``force_true``), which at n = 10⁷, k = 10 is 10¹⁴ kernel
+    values in float64 through the triangle K1c, about half an hour on the
+    card; here the estimator answers again, from its next rows, and the K8
+    certificate stands in for the true residual. Returns the list that
+    counts those calls."""
+    compute = sys_._compute_internal_metrics
+    forced = []
+
+    def metrics(W, force_true=False):
+        if force_true:
+            forced.append(1)
+        return compute(W)
+
+    sys_._compute_internal_metrics = metrics
+    return forced
+
+
+def value64_certificate(X, y, y_norm, W, reg, s=CERT10_ROWS, seed=CERT10_SEED):
+    """``benchmarks/run.py::_value64_residual_sampled`` through the port: s
+    rows of numpy seed ``seed`` gathered on the card, each row of K·W by
+    ``kernel_matmat_value64`` (K8, float64 values) against all of X, the
+    residual of those rows in float64 on the host. Returns ``(rel, stderr,
+    rows, KW of the rows (float64, on the card), seconds)``."""
+    import torch
+
+    from rlaopt_tpu_torch.ops.kernel_value64 import kernel_matmat_value64
+
+    n = X.shape[0]
+    t0 = time.perf_counter()
+    rows = sampled_rows(n, min(s, n), seed)
+    idx = torch.as_tensor(rows, device=X.device)
+    hi, lo = kernel_matmat_value64(X[idx], X, W.float(), 1.0, kind="rbf")
+    KW = hi.double() + lo.double()
+    r = y[idx].double().cpu() - (KW.cpu() + reg * W[idx].double().cpu())
+    rel = float(torch.linalg.norm(r) * (n / rows.size) ** 0.5 / y_norm)
+    return rel, (2.0 * rows.size) ** -0.5, idx, KW, time.perf_counter() - t0
+
+
+def independent_rel_res(X, y, iterates, reg, s=INDEP10_ROWS, seed=INDEP10_SEED):
+    """The float64 sampled rel_res of each iterate's columns, ``(len, k)``:
+    ``s`` rows of numpy seed ``seed`` (apart from the solver's) through the
+    plain float64 version of K1c against all of X, in one sweep for every
+    iterate."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_plain
+
+    n, k = y.shape
+    idx = torch.as_tensor(sampled_rows(n, min(s, n), seed), device=X.device)
+    V = torch.cat(iterates, 1)
+    hi, lo = kernel_plain.gram_matmat_comp("rbf", X[idx], X, V, 1.0,
+                                           col_block=INDEP10_COLS)
+    KW = hi.double() + lo.double()
+    R = y[idx].double().repeat(1, len(iterates)) - (KW + reg * V[idx].double())
+    norms = torch.linalg.norm(y.double(), dim=0).repeat(len(iterates))
+    rel = torch.linalg.norm(R, dim=0) * (n / idx.numel()) ** 0.5 / norms
+    return rel.reshape(len(iterates), k).cpu().numpy(), (2.0 * idx.numel()) ** -0.5
+
+
+def askotch10m(dev, profile_run, compare, timings, n=N10, d=D10, k=K10, rank=RANK10,
+               iters7=ITERS7, pilot9=PILOT9, iters9=ITERS9, freq=FREQ10,
+               profile_iters=PROFILE10, cert_rows=CERT10_ROWS, cert_at=CERT10_AT):
+    """Configs 7 and 9 at n = ``n`` through the entry points a user calls
+    (the data on the card, one bf16x3 RBF operator for both; blocks of
+    n/100), each config counted as a path of its own; then the checks: each
+    logged rel_res within 5 sigma of an independent float64 one, config 7's
+    inert acceleration, the K8 certificate against the float64 plain
+    version, the launches against SAP's schedule, the peak memory; a
+    profile of ``profile_iters`` accelerated iterations; K1b and K8 timed
+    at the path's shapes. Returns ``{"config7": record, "config9": record}``."""
+    import torch
+
+    from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp
+    from rlaopt_tpu_torch.models import LinSys
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+    from rlaopt_tpu_torch.preconditioners import NystromConfig
+    from rlaopt_tpu_torch.solvers import SAP, SAPAccelConfig, SAPConfig, sap_accel_from_pilot
+
+    blk = n // 100
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    X = torch.randn((n, d), generator=gen, device=dev) / d**0.5
+    y = torch.randn((n, k), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    K = RBFLinOp(X, X, KernelConfig(lengthscale=1.0), compute_dtype="bf16x3")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    y_norm = float(torch.linalg.norm(y.double()))
+    sms = kernel_cuda.sm_count(dev)
+    runs = {"row oracle": kernel_cuda.tier_splits(blk, n, k, sms),
+            "sampled metric": kernel_cuda.tier_splits(min(4096, n), n, k, sms),
+            "power iteration": kernel_cuda.tier_splits(blk, blk, 1, sms),
+            "tile_splits at the row oracle": kernel_cuda.tile_splits(blk, n, k, sms),
+            "K8 certificate, tiles a run": kernel_cuda.comp_run(
+                -(-min(cert_rows, n) // kernel_cuda.COMP_TILE)
+                * -(-k // kernel_cuda.COMP_FORWARD_K), -(-n // kernel_cuda.COMP_TILE), sms)}
+    print(f"askotch10m: n={n} d={d} k={k} blk={blk}: data {data_s:.3f} s, data and tier parts "
+          f"{setup_s:.3f} s; runs of the m axis {runs}")
+    base = dict(rtol=1e-6, blk_sz=blk, power_iters=10)
+
+    # a block's float32 values (40 GB at blk = 10⁵) past SAP's budget: the
+    # block sketch and the power iterations run matrix-free through K1b
+    matrix_free = blk * blk * 4 > SAP._BLK_DENSE_BUDGET
+
+    def schedule(iters, forced):
+        """K1b launches of an SAP solve of ``iters`` steps: the row oracle a
+        step, and the block sketch and the 10 power iterations where the
+        block runs matrix-free; 1 sampled metric a boundary (iteration 0
+        included), 1 for each forced final."""
+        return (12 if matrix_free else 1) * iters + (iters // freq + 1) + forced
+
+    peaks = []  # the phase's peak before each solve's own window
+
+    def run(reg, cfg, key, prof=None):
+        sys_ = LinSys(K, y, reg=reg, A_row_oracle=K.row_oracle, A_blk_oracle=K.blk_oracle)
+        forced = sampled_final_metrics(sys_)
+        iterates = {}
+
+        def keep(w, model):
+            t = model._ms.solver.state.t
+            if t > 0:
+                iterates[t] = w.clone()
+
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = kernel_cuda.launch_counts()
+        with (prof or contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            W, log = sys_.solve(cfg, torch.zeros((n, k), device=dev), callback_freq=freq,
+                                key=key, metrics="sampled", callback_fn=keep)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        after = kernel_cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        keys = int_keys(log)
+        hist = {i: log[i]["metrics"]["internal_metrics"] for i in keys}
+        used = {kn: after[kn] - before[kn] for kn in after}
+        iters = keys[-1]
+        return {"sys": sys_, "W": W, "state": sys_._ms.solver.state, "log": log,
+                "hist": hist, "iterates": iterates, "wall_s": wall, "used": used,
+                "peak_bytes": peak, "iters": iters, "forced": len(forced),
+                "s_per_iter": sys_.phase_walls["train"] / iters,
+                "traj": {i: float(torch.max(hist[i]["rel_res"])) for i in keys}}
+
+    def route(name, r, certificates=0):
+        want = schedule(r["iters"], r["forced"])
+        dense = r["sys"]._ms.solver._blk_dense_fn is not None
+        check(dense is not matrix_free, f"{name}: the block products "
+              + ("matrix-free through K1b" if matrix_free else "on the dense block"))
+        extra = {kn: c for kn, c in r["used"].items()
+                 if c and kn not in ("gram_matmat_tier", "gram_matmat_f64")}
+        print(f"{name}: launches {r['used']['gram_matmat_tier']} K1b (the schedule's {want}), "
+              f"{r['used']['gram_matmat_f64']} K8, others {extra}")
+        check(r["used"]["gram_matmat_tier"] == want,
+              f"{name}: K1b launched {want} times, SAP's schedule")
+        check(r["used"]["gram_matmat_f64"] == certificates,
+              f"{name}: K8 launched {certificates} times")
+        check(not extra, f"{name}: no other kernel (K2b, K1c, K7) launched")
+
+    def logged_vs_independent(name, reg, r):
+        its = sorted(r["iterates"])
+        rel64, se64 = independent_rel_res(X, y, [r["iterates"][i] for i in its], reg)
+        out = {}
+        for j, i in enumerate(its):
+            est = r["hist"][i]["rel_res"].cpu().numpy()
+            se = float(r["hist"][i].get("rel_stderr_est", 0.0))
+            sigma = np.sqrt((rel64[j] * se64) ** 2 + (est * se) ** 2)
+            z = np.abs(est - rel64[j]) / sigma
+            out[i] = {"logged": est.tolist(), "independent": rel64[j].tolist(),
+                      "max_sigmas": float(z.max())}
+            print(f"{name} iter {i}: logged {est.max():.6e} ({r['hist'][i].get('source')}), "
+                  f"independent float64 {rel64[j].max():.6e} (max over the {k} columns), "
+                  f"worst column {z.max():.2f} sigma")
+            check(bool(np.all(z <= 5.0)), f"{name} iter {i}: every column within 5 sigma of "
+                  "an independent float64 residual")
+        return out
+
+    def record(r, **more):
+        return {"wall_s": r["wall_s"], "phase_walls": r["sys"].phase_walls, "iters": r["iters"],
+                "s_per_iter": r["s_per_iter"], "trajectory": r["traj"],
+                "solve_peak_bytes": r["peak_bytes"], "launches": r["used"],
+                "forced_finals_sampled": r["forced"], **more}
+
+    # config 7 as written: accelerated, mu·nu = 1
+    kernel_cuda.reset_launch_counts()
+    cfg7 = SAPConfig(max_iters=iters7, accel=True, accel_config=SAPAccelConfig(mu=MU7, nu=NU7),
+                     precond_config=NystromConfig(rank=rank, rho=REG7), **base)
+    r7 = run(REG7, cfg7, key=0)
+    route("config7", r7)
+    st = r7["state"]
+    w_max = float(st.W.abs().max())
+    gaps = {"V": float((st.V - st.W).abs().max()), "Y": float((st.Y - st.W).abs().max())}
+    inert = INERT_EPS_PER_STEP * r7["iters"] * float(np.finfo(np.float32).eps) * w_max
+    print(f"config7: {r7['iters']} iterations, wall {r7['wall_s']:.3f} s, s/iter "
+          f"{r7['s_per_iter']:.4f}, max|W| {w_max:.6e}, max|V - W| {gaps['V']:.3e}, "
+          f"max|Y - W| {gaps['Y']:.3e} (bound {inert:.3e})")
+    check(gaps["V"] <= inert and gaps["Y"] <= inert,
+          "config7: mu·nu = 1 keeps V = Y = W to float32 round-off")
+    checks7 = logged_vs_independent("config7", REG7, r7)
+    rec7 = record(r7, n=n, d=d, k=k, blk_sz=blk, reg=REG7, data_s=data_s, setup_s=setup_s,
+                  accel_params={"mu": MU7, "nu": NU7, "source": "as written"},
+                  inert={"max_abs_W": w_max, **gaps, "bound": inert}, checks=checks7)
+    del r7, st
+    torch.cuda.empty_cache()
+
+    # config 9: the pilot, (mu, nu), accelerated SAP, the certificates
+    reg9 = REG9_PER_N * n
+    nys9 = NystromConfig(rank=rank, rho=reg9)
+    kernel_cuda.reset_launch_counts()
+    pilot = run(reg9, SAPConfig(max_iters=pilot9, accel=False, precond_config=nys9, **base),
+                key=7)
+    pilot_rel = pilot["traj"][pilot["iters"]]
+    try:
+        acc = sap_accel_from_pilot(pilot_rel, pilot9, n, blk)
+        source = "sap_accel_from_pilot"
+    except ValueError:
+        acc = SAPAccelConfig(mu=0.9 * blk / n, nu=n / blk)
+        source = "pilot_no_contraction_fallback_max_live_mu"
+    accel = run(reg9, SAPConfig(max_iters=iters9, accel=True, accel_config=acc,
+                                precond_config=nys9, **base), key=7)
+    certs = {}
+    for at, W in ((cert_at, accel["iterates"].get(cert_at)), (accel["iters"], accel["W"])):
+        if W is None:
+            continue
+        rel, stderr, idx, KW, cert_s = value64_certificate(X, y, y_norm, W, reg9, cert_rows)
+        certs[at] = {"rel_res": rel, "stderr": stderr, "s": cert_s}
+        print(f"config9 certificate at {at}: rel_res {rel:.8e} ± {rel * stderr:.2e} "
+              f"({idx.numel()} rows through K8) in {cert_s:.3f} s")
+        check(np.isfinite(rel), f"config9: the certificate at {at} is finite")
+    used9 = kernel_cuda.launch_counts()
+    route("config9 pilot", pilot)
+    route("config9 accelerated", accel)
+    check(used9["gram_matmat_f64"] == len(certs), "config9: K8 launched once a certificate")
+    for name, r in (("pilot", pilot), ("accelerated", accel)):
+        print(f"config9 {name}: {r['iters']} iterations, wall {r['wall_s']:.3f} s, phase_walls "
+              f"{r['sys'].phase_walls}, s/iter {r['s_per_iter']:.4f}, trajectory "
+              f"{json.dumps(r['traj'])}")
+    print(f"config9: pilot rel_res {pilot_rel:.6e} at {pilot9}; mu {acc.mu:.6e} nu {acc.nu} "
+          f"({source})")
+    checks9 = {"pilot": logged_vs_independent("config9 pilot", reg9, pilot),
+               "accelerated": logged_vs_independent("config9 accelerated", reg9, accel)}
+
+    # the certificate's K8 against the float64 plain version on its first rows
+    W_end = accel["W"]
+    some = idx[:CERT10_PLAIN]
+    ref = kernel_plain.gram_matmat_f64("rbf", X[some], X, W_end.double(), 1.0, row_block=16)
+    compare("gram_matmat_f64", KW[:CERT10_PLAIN], ref,
+            f"config 9's certificate, rows {some.numel()} of {idx.numel()} x m={n} d={d} k={k}",
+            COMP_BOUND)
+    Xc, W64 = X[idx], W_end.double()
+    cert_ms = cuda_ms(lambda: kernel_cuda.gram_matmat_f64("rbf", Xc, X, W64, 1.0),
+                      reps=3, warm=False)
+    what = f"config 9's certificate n={idx.numel()} m={n} d={d} k={k}"
+    timings.setdefault("gram_matmat_f64", []).append(timing_entry(
+        "gram_matmat_f64", what, cert_ms, None, idx.numel(), n, d, k, "rbf",
+        launches=used9["gram_matmat_f64"], tiles_a_run=runs["K8 certificate, tiles a run"]))
+    print(f"time gram_matmat_f64 {what}: kernel {cert_ms:.3f} ms, bound "
+          f"{timings['gram_matmat_f64'][-1]['bound_ms']:.3f} ms")
+    rec9 = {"n": n, "d": d, "k": k, "blk_sz": blk, "reg": reg9, "data_s": data_s,
+            "setup_s": setup_s,
+            "pilot": record(pilot, rel_res=pilot_rel),
+            "accel_params": {"mu": acc.mu, "nu": acc.nu, "source": source},
+            "accelerated": record(accel), "certificates": certs, "checks": checks9,
+            "launches": used9}
+    del pilot, accel, W_end, Xc, W64, ref
+    torch.cuda.empty_cache()
+
+    # K1b at the row oracle's shape, its m axis in runs (tier_splits), against
+    # its tier's plain version on 64 rows of a block: a random right-hand side
+    # and a positive one, whose products add up without cancelling, so that
+    # the length of each thread's float32 sum shows; then timed
+    P = K._tier[0]
+    blk_rows = torch.as_tensor(sampled_rows(n, blk, 3), device=dev)
+    Pb = P.rows(blk_rows)
+    g13 = torch.Generator(device=dev).manual_seed(13)
+    for rhs, Wr in (("random", torch.randn((n, k), generator=g13, device=dev)),
+                    ("positive", torch.rand((n, k), generator=g13, device=dev))):
+        got = kernel_cuda.gram_matmat_tier("rbf", Pb, P, Wr)[:64]
+        compare("gram_matmat_tier", got, kernel_plain.gram_matmat_tier(
+            "rbf", P.rows(blk_rows[:64]), P, Wr, row_block=64),
+            f"bf16x3 rows 64 of the row oracle n={blk} m={n} d={d} k={k} in "
+            f"{runs['row oracle']} runs, {rhs} V, vs its tier", TIER_BOUND)
+    row_ms = cuda_ms(lambda: kernel_cuda.gram_matmat_tier("rbf", Pb, P, Wr), reps=3, warm=False)
+    what = f"config 7's and 9's row oracle n={blk} m={n} d={d} k={k} bf16x3"
+    timings.setdefault("gram_matmat_tier", []).append(timing_entry(
+        "gram_matmat_tier", what, row_ms, None, blk, n, d, k, "rbf", "bf16x3",
+        launches=rec7["launches"]["gram_matmat_tier"] + used9["gram_matmat_tier"],
+        runs=runs["row oracle"]))
+    print(f"time gram_matmat_tier {what}: kernel {row_ms:.3f} ms, bound "
+          f"{timings['gram_matmat_tier'][-1]['bound_ms']:.3f} ms")
+    del Pb, Wr, got
+
+    # where the time goes: a few accelerated iterations of config 9, profiled
+    prof = profile_run()
+    prof_cfg = SAPConfig(max_iters=profile_iters, accel=True, accel_config=acc,
+                         precond_config=nys9, **base)
+    rp = run(reg9, prof_cfg, key=7, prof=prof)
+    route("config9 profiled", rp)
+    profile = {"path": "config9", "iters": rp["iters"], "wall_s": rp["wall_s"],
+               "phase_walls": rp["sys"].phase_walls, "s_per_iter": rp["s_per_iter"]}
+    profile.update(device_breakdown(prof))
+    busy = profile.get("busy_ms")
+    profile["busy_share"] = None if busy is None else busy / 1e3 / rp["wall_s"]
+    print("profile " + json.dumps(profile))
+    rec9["profile"] = profile
+    del rp
+    peak = max(peaks + [torch.cuda.max_memory_allocated(dev)])
+    for rec in (rec7, rec9):
+        rec["phase_peak_bytes"] = peak
+        rec["base_bytes"] = base_mem
+    print(f"askotch10m: peak memory {peak} bytes ({peak / 2**30:.2f} GiB) of the card's "
+          f"{total_mem} ({base_mem} allocated before the phase)")
+    check(peak < total_mem, "askotch10m: the peak memory fits the card")
+    print("config7 " + json.dumps(rec7))
+    print("config9 " + json.dumps(rec9))
+    del K, X, y
+    torch.cuda.empty_cache()
+    return {"config7": rec7, "config9": rec9}
 
 
 def slice3(dev, X, Xn, y):
@@ -3936,6 +4312,11 @@ def main() -> int:
     rec8 = config8(dev, profiled)
     print(f"phase: config 8 done at {time.perf_counter() - t_start:.1f} s")
 
+    # 9c. configs 7 and 9: the n = 10M ASkotch headline at full width
+    torch.cuda.empty_cache()
+    rec10 = askotch10m(dev, profiled, compare, timings)
+    print(f"phase: configs 7 and 9 (n = 10M) done at {time.perf_counter() - t_start:.1f} s")
+
     # 10. result lines
     kernels = []
     for e in timings["gram_matmat_tier"]:
@@ -3954,7 +4335,8 @@ def main() -> int:
              "slice4_sparse": rec_s["launches"], "config2": rec_c2["launches"],
              **{path: rec["launches"] for path, rec in rec5.items()},
              "multihost": rec_mh["launches"],
-             "utils": rec_utils["launches"], "config8": rec8["launches"]}
+             "utils": rec_utils["launches"], "config8": rec8["launches"],
+             "config7": rec10["config7"]["launches"], "config9": rec10["config9"]["launches"]}
     for kname, source, replaces in (
         ("gram_matmat", SOURCES["gram"], f"{PALLAS}:733"),
         ("gram_matmat_comp", SOURCES["comp"], f"{PALLAS}:733"),

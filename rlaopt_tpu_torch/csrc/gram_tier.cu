@@ -36,9 +36,11 @@
 // through mma.sync into registers, the epilogue and the row contraction run
 // on the fragments, and the column tiles are staged by cp.async two ahead.
 // K1b's forward form walks a run of the m axis: with few row
-// blocks (SAP's 10,000-row oracle is 79 of them on 132 SMs) the wrapper cuts
-// the m axis into runs on blockIdx.y (kernel_cuda.tier_splits), each block
-// writes its partial rows, and sum_splits adds them in a fixed order.
+// blocks (SAP's 10,000-row oracle is 79 of them on 132 SMs), or past 2^20
+// columns (2,048 tiles a run at most, so that a thread's float32 row sum
+// stays short), the wrapper cuts the m axis into runs on blockIdx.y
+// (kernel_cuda.tier_splits), each block writes its partial rows, and
+// sum_splits adds them in a fixed order.
 // K1b's wide form (gram_tier_wide) is described above it.
 //
 // Not carried over: the concat fold of the TPU kernel (one MXU pass of depth

@@ -14,9 +14,8 @@ the two packages to the same iterates):
 * :func:`pcg_state` — a :class:`PCGState` from ``(W, R, Z, P_, RZ, ok)``;
 * :func:`newton_preconditioner` — a built :class:`Newton` from its factor
   ``L`` and ``rho``;
-* :func:`sap_state` — a :class:`SAPState` from ``(W, V, Y, t)`` (the JAX
-  state's key has no counterpart: the port's solver draws from its own
-  generator);
+* :func:`sap_state` — a :class:`SAPState` from ``(W, V, Y, key, t)`` (the
+  key's words seed the port's stream, which differs from JAX's);
 * :func:`sparse_tensor` — a sparse CSR/CSC tensor from its numpy buffers
   ``(values, indices, indptr)``, shape and layout;
 * :func:`skpre_preconditioner` — a built :class:`SkPre` from its factor
@@ -146,11 +145,14 @@ def newton_preconditioner(L, rho, device=None) -> Newton:
     return P
 
 
-def sap_state(W, V, Y, t, device=None) -> SAPState:
-    """A :class:`SAPState` from the fields of the JAX package's SAPState
-    (its iteration counter ``t`` included; its key is not carried)."""
+def sap_state(W, V, Y, key, t, device=None) -> SAPState:
+    """A :class:`SAPState` from the fields of the JAX package's SAPState, in
+    its order: ``key`` is the JAX key's raw data (two 32-bit words,
+    ``jax.random.key_data`` of a typed key), kept on the host as the port's
+    key; the port then draws its own stream from those words."""
     return SAPState(
-        W=_t(W, device), V=_t(V, device), Y=_t(Y, device), t=int(np.asarray(t))
+        W=_t(W, device), V=_t(V, device), Y=_t(Y, device),
+        key=torch.as_tensor(np.asarray(key).astype(np.int64)), t=int(np.asarray(t)),
     )
 
 

@@ -9,7 +9,7 @@ from typing import Any, Union
 import numpy as np
 import torch
 
-from ..utils.checkers import _is_float
+from ..utils.checkers import _as_device, _is_float
 
 
 __all__ = ["KernelConfig", "_is_kernel_config"]
@@ -52,6 +52,20 @@ class KernelConfig:
     def lengthscale_tensor(self, dtype: torch.dtype, device) -> torch.Tensor:
         """Lengthscale as a 0-D or (d,) tensor of ``dtype`` on ``device``."""
         return torch.as_tensor(self.lengthscale, dtype=dtype, device=device)
+
+    def lengthscale_array(self, dtype, *, device=None) -> torch.Tensor:
+        """Lengthscale as a broadcastable 0-D or (d,) tensor of ``dtype`` (a
+        torch or numpy dtype), as the JAX package's ``lengthscale_array``.
+
+        It lies on the config's device: a tensor lengthscale's own, the CUDA
+        card for a float or a numpy array (raising where there is none)
+        unless ``device``, the port's own keyword, names another."""
+        if device is None:
+            ls = self.lengthscale
+            device = ls.device if isinstance(ls, torch.Tensor) else _as_device(None)
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+        return self.lengthscale_tensor(dtype, device)
 
 
 def _is_kernel_config(param: Any, param_name: str):

@@ -30,22 +30,33 @@ def scale_inputs(X: torch.Tensor, lengthscale) -> torch.Tensor:
     return X / torch.as_tensor(lengthscale, dtype=X.dtype, device=X.device)
 
 
-def sqdist_tile(Xs: torch.Tensor, Ys: torch.Tensor) -> torch.Tensor:
-    """Pairwise squared distances ‖xᵢ−yⱼ‖² via the matmul expansion, ≥ 0."""
+def sqdist_tile(Xs: torch.Tensor, Ys: torch.Tensor, precision=None) -> torch.Tensor:
+    """Pairwise squared distances ‖xᵢ−yⱼ‖² via the matmul expansion, ≥ 0.
+
+    ``precision``: the JAX package's matmul precision, taken and ignored as
+    :func:`kernel_tile` takes it (the product is full float32 or float64)."""
     xn = torch.sum(Xs * Xs, dim=1)[:, None]
     yn = torch.sum(Ys * Ys, dim=1)[None, :]
     return torch.clamp(xn + yn - 2.0 * (Xs @ Ys.T), min=0.0)
 
 
-def l1dist_tile(Xs: torch.Tensor, Ys: torch.Tensor):
-    """Pairwise L1 distances Σ_d |xᵢd − yⱼd|, summed directly.
+def l1dist_tile(Xs: torch.Tensor, Ys: torch.Tensor, chunk: int = 16):
+    """Pairwise L1 distances Σ_d |xᵢd − yⱼd|, summed directly, one feature
+    chunk of width ``chunk`` at a time (the JAX package's default 16).
 
-    ``torch.cdist`` with ``p=1`` writes the (n, m) distances and makes no
-    temporary of its own: a broadcast over a feature chunk would make an
-    (n, m, chunk) one, 6.4 GB in float32 for SAP's dense 10,000-point block
-    at a chunk of 16.
+    Each chunk is a ``torch.cdist`` with ``p=1``, which writes the (n, m)
+    distances and makes no temporary of its own: a broadcast over a chunk
+    would make an (n, m, chunk) one, 6.4 GB in float32 for SAP's dense
+    10,000-point block at a chunk of 16. :func:`kernel_tile` takes the whole
+    width as one chunk (one sweep of the output).
     """
-    return torch.cdist(Xs, Ys, p=1)
+    if chunk < 1:
+        raise ValueError(f"chunk must be a positive int, got {chunk}")
+    d = Xs.shape[1]
+    out = torch.cdist(Xs[:, :chunk], Ys[:, :chunk], p=1)
+    for s in range(chunk, d, chunk):
+        out += torch.cdist(Xs[:, s : s + chunk], Ys[:, s : s + chunk], p=1)
+    return out
 
 
 def _rbf(D2):
@@ -102,5 +113,5 @@ def kernel_tile(kind: str, Xs: torch.Tensor, Ys: torch.Tensor, precision=None) -
             f"Unknown kernel kind {kind!r}; expected one of {KERNEL_KINDS}"
         )
     if kind == "laplace":
-        return torch.exp(-l1dist_tile(Xs, Ys))
-    return kernel_from_sqdist(kind, sqdist_tile(Xs, Ys))
+        return torch.exp(-l1dist_tile(Xs, Ys, chunk=max(Xs.shape[1], 1)))
+    return kernel_from_sqdist(kind, sqdist_tile(Xs, Ys, precision))

@@ -667,3 +667,8 @@ class ShardedKernelLinOp(ShardedLinOp):
             mode="row", axis=self.axis, dtype=self.dtype, padded_shape=(b_pad, b),
             scale=self._scale,
         )
+
+    def shutdown(self):
+        """No-op, as in the JAX package (whose reference cleared per-process
+        KeOps caches and stopped workers here): the operator holds no
+        process or cache of its own to release."""

@@ -103,6 +103,12 @@ SYMMETRIC_MAX_K = 16
 # 16 features, one block an SM; the forward form takes 16 right-hand sides
 # a slice, the triangle and the pair 1, 2 or 4 (COMP_SLICE past 2).
 TIER_ROWS, TIER_BLOCKS_PER_SM = 128, 2
+# K1b's forward strip on an m axis of more than TIER_LONG_TILES 64-column
+# tiles (2^20 columns; every path but configs 7 and 9 stays within it, as
+# config 6's m = 10⁶ does in one run) walks runs of TIER_RUN_TILES tiles at
+# most (131,072 columns; SAP's row oracle at config 4's m = 10⁶ walks 1,202
+# a run).
+TIER_LONG_TILES, TIER_RUN_TILES = 16384, 2048
 COMP_TILE, COMP_FEAT, COMP_FORWARD_K, COMP_SLICE = 128, 16, 16, 4
 # csrc/gram_tile.cuh: the register tile of K1–K6 at k <= 16 takes 128
 # points a side, chunks of 32 features, two blocks an SM.
@@ -350,8 +356,16 @@ def tier_splits(n: int, m: int, k: int, sms: int) -> int:
     ``sms`` SMs (:func:`_runs`): 128-row blocks, two an SM, runs of at least
     16 column tiles of 64. SAP's row oracle (10⁴ rows, 79 blocks) takes 13
     runs, 1,027 blocks on 1,056 slot-rounds, where the one-run schedule left
-    53 of 132 SMs idle."""
-    return _runs(-(-n // TIER_ROWS), -(-m // 64), k, TIER_BLOCKS_PER_SM * sms, 16)
+    53 of 132 SMs idle. Past ``TIER_LONG_TILES`` tiles a run walks at most
+    ``TIER_RUN_TILES``: each thread sums its rows' products over the run in
+    float32, one add per column it holds, and at m = 10⁷ one run of 156,250
+    tiles put that sum 3.4e-4 off a float64 one for a positive V (the runs'
+    partials are added by ``sum_splits``)."""
+    tiles = -(-m // 64)
+    runs = _runs(-(-n // TIER_ROWS), tiles, k, TIER_BLOCKS_PER_SM * sms, 16)
+    if k > SYMMETRIC_MAX_K or tiles <= TIER_LONG_TILES:
+        return runs
+    return max(runs, -(-tiles // TIER_RUN_TILES))
 
 
 def tile_splits(n: int, m: int, k: int, sms: int) -> int:

@@ -11,7 +11,9 @@ takes the plain version on any device, ``impl="pallas"`` the CUDA kernel
 
 Which kernel, on a card:
 
-* exact tier (:func:`kernel_matmat`): the triangle kernel K2 when the
+* exact tier (:func:`kernel_matmat` without ``compute_dtype``; with a
+  bf16 tier it takes :func:`kernel_matmat_tier` on parts made for the
+  call): the triangle kernel K2 when the
   operator was built on one data set (``symmetric``) and ``k ≤ 16``, the
   general kernel K1 otherwise; for the Laplace family K5 and K3 by the same
   rule (the JAX package's gate without its VMEM window). K1 and K3 take the
@@ -42,7 +44,8 @@ package's XLA route takes the exact path for them.
 import torch
 
 from . import kernel_cuda, kernel_plain
-from .kernel_tiers import TierOperand
+from .kernel_tiers import TierOperand, normalize_compute_dtype, tier_operand
+from ..kernels.functions import scale_inputs
 
 
 __all__ = [
@@ -79,6 +82,19 @@ def _on_card(impl: str, t: torch.Tensor) -> bool:
     return impl == "pallas"
 
 
+def _tier_operands(kind, X1, X2, lengthscale, compute_dtype, symmetric):
+    """The tier parts of (X1, X2) for ``compute_dtype``, made for one call,
+    or None where the call stays on the exact tier: no tier asked for, the
+    Laplace family (no tier, as in the JAX package, whose Laplace kernel
+    takes no ``compute_dtype``) or float64 points (the exact path, as the
+    JAX package's XLA route and the operators take them)."""
+    cd = normalize_compute_dtype(compute_dtype)
+    if cd is None or kind == "laplace" or X1.dtype != torch.float32:
+        return None
+    A = tier_operand(scale_inputs(X1, lengthscale), cd)
+    return A, (A if symmetric else tier_operand(scale_inputs(X2, lengthscale), cd))
+
+
 def kernel_matmat(
     kind: str,
     X1: torch.Tensor,
@@ -86,19 +102,27 @@ def kernel_matmat(
     V: torch.Tensor,
     lengthscale,
     const_scaling=1.0,
-    symmetric: bool = False,
     impl: str = "auto",
+    compute_dtype=None,
+    symmetric: bool = False,
+    *,
     tile_operands=None,
 ) -> torch.Tensor:
-    """``c·k(X1, X2) @ V`` on the exact tier, on the device of the operands.
+    """``c·k(X1, X2) @ V`` on the device of the operands, with the JAX
+    package's parameters in its order.
 
+    ``compute_dtype``: None (the exact tier), ``"bf16x3"`` or
+    ``"bfloat16"``: a tier takes :func:`kernel_matmat_tier` on the tier
+    parts of X1 and X2, made for this call (an operator keeps its own).
     ``symmetric=True`` asserts that X1 and X2 are the same data set (the
-    operator checks object identity when it is built). The bf16 tiers go
-    through :func:`kernel_matmat_tier`. ``tile_operands``: None, or a
-    callable giving the register tile its operands of (X1, X2)
-    (:func:`kernel_cuda.tile_operand`), called only when a kernel on them
-    runs (the triangle form takes the first).
+    operator checks object identity when it is built). ``tile_operands``,
+    the port's own: None, or a callable giving the register tile its
+    operands of (X1, X2) (:func:`kernel_cuda.tile_operand`), called only
+    when a kernel on them runs (the triangle form takes the first).
     """
+    tiers = _tier_operands(kind, X1, X2, lengthscale, compute_dtype, symmetric)
+    if tiers is not None:
+        return kernel_matmat_tier(kind, *tiers, V, const_scaling, symmetric, impl)
     if not _on_card(impl, X1):
         if X1.dtype == torch.float64:
             return kernel_plain.gram_matmat_f64(
@@ -202,17 +226,25 @@ def kernel_pair(
     lengthscale,
     const_scaling=1.0,
     impl: str = "auto",
+    compute_dtype=None,
+    *,
     tile_operands=None,
 ):
-    """``(c·K @ V2, c·Kᵀ @ V1)`` with ``K = k(X1, X2)``, on the exact tier, on
-    the device of the operands: K evaluated once for k ≤ 16 (K4, or K6 for
-    Laplace, on a card; the plain pair on the CPU), two general calls past
-    that. 1-D operands give 1-D outputs. The building block of the
-    symmetric half-ring of
+    """``(c·K @ V2, c·Kᵀ @ V1)`` with ``K = k(X1, X2)``, on the device of the
+    operands, with the JAX package's parameters in its order: K evaluated
+    once for k ≤ 16 (K4, or K6 for Laplace, on a card; the plain pair on
+    the CPU), two general calls past that. 1-D operands give 1-D outputs.
+    The building block of the symmetric half-ring of
     :class:`rlaopt_tpu_torch.kernels.sharded.ShardedKernelLinOp`.
-    ``tile_operands``: None, or a callable giving the register tile's
-    operands of (X1, X2), as for :func:`kernel_matmat`; the pair kernel and
-    both general calls (the second with the two swapped) take them."""
+    ``compute_dtype``: a bf16 tier takes :func:`kernel_pair_tier` on tier
+    parts made for this call, as in :func:`kernel_matmat`.
+    ``tile_operands``, the port's own: None, or a callable giving the
+    register tile's operands of (X1, X2), as for :func:`kernel_matmat`; the
+    pair kernel and both general calls (the second with the two swapped)
+    take them."""
+    tiers = _tier_operands(kind, X1, X2, lengthscale, compute_dtype, False)
+    if tiers is not None:
+        return kernel_pair_tier(kind, *tiers, V2, V1, const_scaling, impl)
     k = 1 if V2.ndim == 1 else V2.shape[1]
     if k > kernel_cuda.SYMMETRIC_MAX_K:
         swapped = None if tile_operands is None else (lambda: tile_operands()[::-1])

@@ -33,8 +33,10 @@ def kernel_matmat_value64(
     V: torch.Tensor,
     lengthscale,
     const_scaling: float = 1.0,
+    *,
     kind: str = "rbf",
     symmetric=None,
+    devices=None,
 ):
     """``c·k(X1, X2) @ V`` with float64 kernel values, any family, as a
     ``(hi, lo)`` float32 pair (add ``lo`` last).
@@ -43,6 +45,15 @@ def kernel_matmat_value64(
     ``X1 is X2``) takes the triangle kernel; an explicit ``symmetric=True``
     with distinct buffers is checked on 16 sampled rows, since the triangle
     reads X1 only.
+
+    ``devices``: None, or a list of devices (the positions of a mesh, say)
+    over which X1's rows are spread: one chunk of rows per device in turn,
+    each against all of X2 (the forward form, K8 on a card: a slab of rows
+    is a rectangle, also of a symmetric product), X2 and V staged once per
+    device, every chunk issued before any is gathered; the result lies on
+    X1's device. The JAX package's TPU tiling knobs (``tile_m``,
+    ``tile_n``, ``chunk_rows``, ``interpret``, ``_debug_skip``) have no
+    meaning for these kernels and are not taken.
     """
     if kind not in _KINDS:
         raise ValueError(f"unknown kernel kind {kind!r}")
@@ -66,8 +77,27 @@ def kernel_matmat_value64(
                 "symmetric=True but X1 and X2 differ (checked 16 sampled "
                 "rows); pass symmetric=False (or None) for distinct data"
             )
-    out = kernel_matmat_f64(
-        kind, X1, X2, V, lengthscale, float(const_scaling), symmetric=symmetric
-    )
+    if devices:
+        out = _spread_rows(kind, X1, X2, V, lengthscale, float(const_scaling), devices)
+    else:
+        out = kernel_matmat_f64(
+            kind, X1, X2, V, lengthscale, float(const_scaling), symmetric=symmetric
+        )
     hi = out.float()
     return hi, (out - hi.double()).float()
+
+
+def _spread_rows(kind, X1, X2, V, lengthscale, c, devices):
+    """The float64 product with X1's rows in one chunk per device, round
+    robin over ``devices``, gathered on X1's device in row order."""
+    devs = [torch.device(dv) for dv in devices]
+    step = -(-X1.shape[0] // len(devs))
+    staged, parts = {}, []
+    for i, s in enumerate(range(0, X1.shape[0], step)):
+        dev = devs[i % len(devs)]
+        if dev not in staged:
+            ls = lengthscale.to(dev) if isinstance(lengthscale, torch.Tensor) else lengthscale
+            staged[dev] = (X2.to(dev), V.to(dev), ls)
+        X2d, Vd, ls = staged[dev]
+        parts.append(kernel_matmat_f64(kind, X1[s : s + step].to(dev), X2d, Vd, ls, c))
+    return torch.cat([p.to(X1.device) for p in parts])

@@ -16,9 +16,10 @@ can: the fast transform for SRHT on a dense A, and Ωᵀ drawn directly in
 (d, s) layout for an operator (``(Aᵀ Ωᵀ)ᵀ``), so Ω is never held twice.
 
 The numbers differ from the JAX package's for the same seed; tests inject
-the embedding. The three embeddings take the JAX package's parameters in
-its order, ``key`` first: a ``torch.Generator`` or an int seed (the port's
-stand-in for a JAX key); ``device``, the port's own, comes last. Every
+the embedding. Every function that draws takes the JAX package's parameters
+in its order, with ``key`` where JAX has it: a ``torch.Generator`` or an
+int seed (the port's stand-in for a JAX key); ``device``, the port's own,
+comes last. Every
 function here draws on the CUDA card unless ``device`` names another (None,
 the default, raises where there is no card).
 """
@@ -85,11 +86,11 @@ def sparse_sign_embedding(key, s: int, d: int, dtype=torch.float32, device=None)
     return Omega
 
 
-def srht_params(gen, s: int, d: int, dtype=torch.float32, device=None):
+def srht_params(key, s: int, d: int, dtype=torch.float32, device=None):
     """Draw SRHT randomness: (signs (p,), row_idx (s,)) with p = next_pow2(d)."""
     device = _as_device(device)
     p = next_pow2(d)
-    g = device_generator(gen, device)
+    g = device_generator(_as_generator(key), device)
     signs = 2.0 * torch.randint(0, 2, (p,), generator=g, device=device).to(dtype) - 1.0
     rows = torch.randperm(p, generator=g, device=device)[:s]
     return signs, rows
@@ -141,23 +142,23 @@ def srht_matrix(signs: torch.Tensor, rows: torch.Tensor, d: int) -> torch.Tensor
     return Theta[:, :d]
 
 
-def _left_embedding_t(name, gen, s: int, d: int, dtype, device=None):
+def _left_embedding_t(name, key, s: int, d: int, dtype, device=None):
     """Ωᵀ (d, s) contiguous, with the values of ``left_embedding(...).T`` for
-    the same generator: drawn in that layout for the sparse-sign and
-    orthonormal families (one (d, s) matrix), transposed for the others."""
+    the same key: drawn in that layout for the sparse-sign and orthonormal
+    families (one (d, s) matrix), transposed for the others."""
     device = _as_device(device)
     mode = _SketchMode._from_str(name, "name")
     if mode == _SketchMode.SPARSE:
-        rows, cols, vals = _sparse_sign_entries(gen, s, d, dtype, device)
+        rows, cols, vals = _sparse_sign_entries(_as_generator(key), s, d, dtype, device)
         Omega_t = torch.zeros((d, s), dtype=dtype, device=device)
         Omega_t[cols, rows] = vals
         return Omega_t
     if mode == _SketchMode.ORTHO:
-        return ortho_embedding(gen, s, d, dtype, device).contiguous()
-    return left_embedding(name, gen, s, d, dtype, device).T.contiguous()
+        return ortho_embedding(key, s, d, dtype, device).contiguous()
+    return left_embedding(name, key, s, d, dtype, device).T.contiguous()
 
 
-def sketch_apply_left(name, gen, s: int, A, dtype) -> torch.Tensor:
+def sketch_apply_left(name, key, s: int, A, dtype) -> torch.Tensor:
     """Compute Ω @ A (s, n) for the named left-mode sketch, structure-
     exploiting. ``A`` is a dense (d, n) tensor or a LinOp of d rows.
 
@@ -175,31 +176,31 @@ def sketch_apply_left(name, gen, s: int, A, dtype) -> torch.Tensor:
             raise TypeError(
                 "x @ A requires a two-sided operator (TwoSidedLinOp/SymmetricLinOp)"
             )
-        return A.rmatmat(_left_embedding_t(name, gen, s, d, dtype, device)).T
+        return A.rmatmat(_left_embedding_t(name, key, s, d, dtype, device)).T
     if mode == _SketchMode.SRHT:
-        signs, rows = srht_params(gen, s, d, dtype, device)
+        signs, rows = srht_params(key, s, d, dtype, device)
         return srht_apply(signs, rows, A)
-    return hmm(left_embedding(name, gen, s, d, dtype, device), A)
+    return hmm(left_embedding(name, key, s, d, dtype, device), A)
 
 
-def left_embedding(name, gen, s: int, d: int, dtype, device=None):
+def left_embedding(name, key, s: int, d: int, dtype, device=None):
     """Materialized left-mode (s, d) embedding for the named sketch family."""
     device = _as_device(device)
     mode = _SketchMode._from_str(name, "name")
     if mode == _SketchMode.GAUSS:
-        return gauss_embedding(gen, s, d, dtype, device)
+        return gauss_embedding(key, s, d, dtype, device)
     if mode == _SketchMode.ORTHO:
-        return ortho_embedding(gen, s, d, dtype, device).T
+        return ortho_embedding(key, s, d, dtype, device).T
     if mode == _SketchMode.SPARSE:
-        return sparse_sign_embedding(gen, s, d, dtype, device)
-    signs, rows = srht_params(gen, s, d, dtype, device)
+        return sparse_sign_embedding(key, s, d, dtype, device)
+    signs, rows = srht_params(key, s, d, dtype, device)
     return srht_matrix(signs, rows, d)
 
 
-def right_embedding(name, gen, s: int, d: int, dtype, device=None):
+def right_embedding(name, key, s: int, d: int, dtype, device=None):
     """Materialized right-mode (d, s) embedding for the named sketch family."""
     device = _as_device(device)
     mode = _SketchMode._from_str(name, "name")
     if mode == _SketchMode.ORTHO:
-        return ortho_embedding(gen, s, d, dtype, device)
-    return left_embedding(name, gen, s, d, dtype, device).T
+        return ortho_embedding(key, s, d, dtype, device)
+    return left_embedding(name, key, s, d, dtype, device).T

@@ -18,10 +18,11 @@ In PyTorch:
 * A failed factorization gives NaN factors (:func:`cholesky_or_nan`), so a
   degenerate block yields a non-finite direction and is skipped for the
   columns it touches, as in the JAX package.
-* Randomness comes from the solver's ``torch.Generator``: each step draws
+* Randomness comes from the solver's ``torch.Generator``, whose seed the
+  state carries as its ``key`` (the JAX package's field): each step draws
   its sketch and its power-iteration start from generators folded from it
   and the iteration counter, and host block sampling seeds numpy with the
-  generator's seed and the counter. The numbers differ from the JAX key
+  seed and the counter. The numbers differ from the JAX key
   stream; the test hooks ``_block_schedule`` (a fixed (T, blk_sz) block
   schedule) and ``_draws`` (``t ↦ (Ω, v0)``, the sketch and the start of
   step t) let tests give both packages the same ones.
@@ -87,10 +88,31 @@ VALID_PRECONDS = [IdentityConfig, NewtonConfig, NystromConfig]
 
 
 class SAPState(NamedTuple):
+    """The JAX package's fields in its order. ``key`` is what the draws come
+    from: the solver generator's seed as two 32-bit words in an int64 (2,)
+    tensor on the host, the layout of a JAX key (``PRNGKey(s)`` is ``[0, s]``
+    for a seed below 2³², as here). It stays fixed: each step folds ``t``
+    into it. A key read from a JAX checkpoint seeds the port's stream (the
+    two streams differ by design)."""
+
     W: torch.Tensor
     V: torch.Tensor  # momentum term (W itself when accel=False)
     Y: torch.Tensor  # acceleration point (W itself when accel=False)
+    key: torch.Tensor  # the seed of the draws, two 32-bit words
     t: int  # iteration counter (drives the block schedule and the draws)
+
+
+def _key_of(gen: torch.Generator) -> torch.Tensor:
+    """The state's ``key`` for the stream of ``gen``: its seed's two words."""
+    seed = gen.initial_seed()
+    return torch.tensor([seed >> 32, seed & 0xFFFFFFFF], dtype=torch.int64)
+
+
+def _stream(key: torch.Tensor) -> torch.Generator:
+    """A host generator seeded by the state's ``key`` (the inverse of
+    :func:`_key_of`); the step's draws fold the iteration counter into it."""
+    hi, lo = (int(w) & 0xFFFFFFFF for w in key.reshape(-1)[-2:])
+    return torch.Generator().manual_seed(hi << 32 | lo)
 
 
 class SAP(Solver):
@@ -131,7 +153,6 @@ class SAP(Solver):
             self.beta = 1 - (accel_config.mu / accel_config.nu) ** 0.5
             self.gamma = 1 / (accel_config.mu * accel_config.nu) ** 0.5
             self.alpha = 1 / (1 + self.gamma * accel_config.nu)
-        self._gen = _as_generator(key)
         self._block_schedule = (
             None if _block_schedule is None
             else torch.as_tensor(np.asarray(_block_schedule), device=W0.device)
@@ -145,7 +166,7 @@ class SAP(Solver):
         self._host_sampling = _block_schedule is None and (
             sampling == "host" or (sampling == "auto" and n >= (1 << 17))
         )
-        self.state = SAPState(W=W0, V=W0, Y=W0, t=0)
+        self.state = SAPState(W=W0, V=W0, Y=W0, key=_key_of(_as_generator(key)), t=0)
 
     def _resolve_blk_dense(self, blk_dense, dtype):
         """The per-step block-tile materializer, or None.
@@ -219,7 +240,7 @@ class SAP(Solver):
         dtype, device = W0.dtype, W0.device
         reg = self.system.reg
         B = self.system.B
-        g = fold_in(self._gen, state.t)
+        g = fold_in(_stream(state.key), state.t)
         Omega, v0 = self._draws(state.t) if self._draws is not None else (None, None)
         K_blk = None
         if self._blk_dense_fn is not None:
@@ -260,17 +281,18 @@ class SAP(Solver):
             )
             V = torch.where(mcol, Vc, state.V)
             Y = torch.where(mcol, self.alpha * V + (1 - self.alpha) * W, state.Y)
-            return SAPState(W=W, V=V, Y=Y, t=state.t + 1)
+            return SAPState(W=W, V=V, Y=Y, key=state.key, t=state.t + 1)
         W = torch.where(mcol, state.W.index_add(0, blk, -stepsize * direction), state.W)
-        return SAPState(W=W, V=W, Y=W, t=state.t + 1)
+        return SAPState(W=W, V=W, Y=W, key=state.key, t=state.t + 1)
 
     # -- sampling and chunks --------------------------------------------------
     def _sample_host_blocks(self, n_steps: int) -> torch.Tensor:
         """(n_steps, blk_sz) iid uniform without-replacement block draws,
-        seeded from the generator's seed and the iteration counter, so a
-        (key, chunk boundary) pair reproduces across runs."""
+        seeded from the state's key and the iteration counter, so a (key,
+        chunk boundary) pair reproduces across runs."""
         n = self.system.A.shape[0]
-        rng = np.random.default_rng([self._gen.initial_seed(), self.state.t])
+        seed = _stream(self.state.key).initial_seed()
+        rng = np.random.default_rng([seed, self.state.t])
         blks = np.empty((n_steps, self.blk_sz), dtype=np.int64)
         for i in range(n_steps):
             blks[i] = rng.choice(n, size=self.blk_sz, replace=False)
@@ -279,7 +301,7 @@ class SAP(Solver):
     def _device_block(self, t: int) -> torch.Tensor:
         n = self.system.A.shape[0]
         device = self.state.W.device
-        gen = device_generator(fold_in(self._gen, t), device)
+        gen = device_generator(fold_in(_stream(self.state.key), t), device)
         return torch.randperm(n, generator=gen, device=device)[: self.blk_sz]
 
     def _step(self):

@@ -9,6 +9,7 @@ from .ops import (  # noqa: F401
     csr_matvec,
     csr_transpose,
     gather_rows,
+    native_available,
 )
 from .linop import sparse_aslinop, sparse_shard_rows  # noqa: F401
 
@@ -22,4 +23,5 @@ __all__ = [
     "csc_matmat",
     "csr_transpose",
     "gather_rows",
+    "native_available",
 ]

@@ -42,6 +42,7 @@ __all__ = [
     "csc_matmat",
     "csr_transpose",
     "gather_rows",
+    "native_available",
     "PLAIN_BLOCK_BYTES",
 ]
 
@@ -72,6 +73,12 @@ def _plain(values, indptr, indices, X, n_out: int, gather_segments: bool):
 
 
 IMPLS = ("auto", "xla", "native")
+
+
+def native_available() -> bool:
+    """Whether ``impl="native"`` can run: never in the port, which does not
+    carry the JAX package's native CPU kernels (``impl="native"`` raises)."""
+    return False
 
 
 def _on_card(impl: str, *tensors) -> bool:

@@ -9,11 +9,11 @@ in the JAX package's flatten order (dict keys sorted, NamedTuple fields in
 order, list and tuple items in order), and ``step_%08d.aux.json`` the log
 and the cumulative wall-clock. No orbax (it imports JAX).
 
-So the two packages read each other's checkpoints where the states agree
-leaf for leaf: PCG's ``(W, R, Z, P_, RZ, ok)`` and LSQR's ``(Y, U, V, W,
-alpha, phibar, rhobar)``, with the mask first. SAP's do not cross: the JAX
-state carries a PRNG key that the port's has no counterpart for (the port
-draws from the solver's generator and the iteration counter).
+So the two packages read each other's checkpoints, whose states agree
+leaf for leaf: PCG's ``(W, R, Z, P_, RZ, ok)``, SAP's ``(W, V, Y, key, t)``
+and LSQR's ``(Y, U, V, W, alpha, phibar, rhobar)``, with the mask first.
+SAP's key is two 32-bit words in both (the port's seeds its own stream, so
+the draws after a resume differ between the packages by design).
 """
 
 import json

@@ -1,8 +1,9 @@
 """Checkpoint and resume in the port, on the CPU: the JAX package's own
 tests (``tests/solvers/test_checkpoint.py``) run in the port; a resumed
 PCG, SAP (plain and accelerated) or LSQR solve equal bit for bit to the
-uninterrupted one; and PCG checkpoints crossing between the packages in
-the JAX package's ``.npz`` layout (its orbax path switched off)."""
+uninterrupted one; and PCG and SAP checkpoints crossing between the
+packages in the JAX package's ``.npz`` layout (its orbax path switched
+off)."""
 
 from typing import NamedTuple
 
@@ -15,13 +16,22 @@ import torch
 from rlaopt_tpu.models import LinSys as JLinSys
 from rlaopt_tpu.preconditioners import NystromConfig as JNystromConfig
 from rlaopt_tpu.preconditioners import nystrom as j_nys
+from rlaopt_tpu.kernels import KernelConfig as JKernelConfig
+from rlaopt_tpu.kernels import RBFLinOp as JRBFLinOp
+from rlaopt_tpu.sketches.embeddings import right_embedding as j_right_embedding
 from rlaopt_tpu.solvers import PCGConfig as JPCGConfig
+from rlaopt_tpu.solvers import SAP as JSAP
+from rlaopt_tpu.solvers import SAPAccelConfig as JSAPAccelConfig
+from rlaopt_tpu.solvers import SAPConfig as JSAPConfig
+from rlaopt_tpu.solvers import factory as j_factory
+from rlaopt_tpu.solvers.sap import SAPState as JSAPState
 from rlaopt_tpu.utils import checkpoint as j_ckpt
 from rlaopt_tpu.utils.checkpoint import SolveCheckpointer as JSolveCheckpointer
 from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp
 from rlaopt_tpu_torch.models import LinSys, LstSq
 from rlaopt_tpu_torch.preconditioners import Nystrom, NystromConfig, SkPreConfig
-from rlaopt_tpu_torch.solvers import LSQRConfig, PCGConfig, SAPAccelConfig, SAPConfig
+from rlaopt_tpu_torch.solvers import LSQRConfig, PCGConfig, SAP, SAPAccelConfig, SAPConfig
+from rlaopt_tpu_torch.solvers import factory as t_factory
 from rlaopt_tpu_torch.solvers.pcg import PCGState
 from rlaopt_tpu_torch.solvers.sap import SAPState
 from rlaopt_tpu_torch.utils.checkpoint import SolveCheckpointer
@@ -79,16 +89,19 @@ def test_restore_casts_to_like_dtype_and_device(tmp_path):
     int."""
     ck = SolveCheckpointer(str(tmp_path))
     W = torch.linspace(0, 1, 6, dtype=torch.float64).reshape(3, 2)
-    state = SAPState(W=W, V=W * 2, Y=W * 3, t=7)
+    key = torch.tensor([0, 9], dtype=torch.int64)
+    state = SAPState(W=W, V=W * 2, Y=W * 3, key=key, t=7)
     ck.save(5, {"state": state, "mask": torch.tensor([True, True])},
             aux={"log": {0: {"x": torch.ones(2)}}, "cum_time": 1.5})
-    like32 = SAPState(W=W.float(), V=W.float(), Y=W.float(), t=0)
+    like32 = SAPState(W=W.float(), V=W.float(), Y=W.float(), key=key * 0, t=0)
     got, _ = ck.restore(like={"state": like32, "mask": torch.tensor([False, False])})
     assert isinstance(got["state"], SAPState)
     assert got["state"].W.dtype == torch.float32 and got["state"].t == 7
     assert isinstance(got["state"].t, int)
     assert torch.equal(got["state"].V, (W * 2).float())
-    meta = SAPState(W=torch.empty(3, 2, device="meta", dtype=torch.float64), V=W, Y=W, t=0)
+    assert torch.equal(got["state"].key, key)
+    meta = SAPState(W=torch.empty(3, 2, device="meta", dtype=torch.float64), V=W, Y=W,
+                    key=key, t=0)
     got, _ = ck.restore(like={"state": meta, "mask": torch.tensor([False, False])})
     assert got["state"].W.device.type == "meta" and got["state"].V.device.type == "cpu"
     aux = ck.restore_aux()
@@ -306,5 +319,135 @@ def test_port_pcg_checkpoint_resumes_in_jax(monkeypatch, jax_npz, tmp_path):
         assert np.abs(a - b).max() <= 1e-8 * max(np.abs(b).max(), 1.0), name
     jW, _ = jsolve(16, checkpoint_dir=str(tmp_path / "t"), resume=True)
     tW, _ = tsolve(16, checkpoint_dir=str(tmp_path / "t"), resume=True)
+    jW = np.asarray(jW)
+    assert np.abs(tW.numpy() - jW).max() <= 1e-10 * np.abs(jW).max()
+
+
+# -- SAP checkpoints cross between the packages ----------------------------------
+SAP_N, SAP_BLK, SAP_RANK, SAP_REG = 96, 24, 8, 0.05
+
+
+def _jax_sap_draws(steps):
+    """The JAX solver's (sketch, power-iteration start) of steps 0 … steps−1
+    from ``PRNGKey(0)``: ``split(state.key, 4)`` each step."""
+    key, draws = jax.random.PRNGKey(0), []
+    for _ in range(steps):
+        key, _k_blk, k_prec, k_pow = jax.random.split(key, 4)
+        Omega = j_right_embedding("ortho", k_prec, SAP_RANK, SAP_BLK, jnp.float64)
+        v0 = jax.random.normal(k_pow, (SAP_BLK,), dtype=jnp.float64)
+        draws.append((torch.from_numpy(np.array(Omega)), torch.from_numpy(np.array(v0))))
+    return draws
+
+
+def _sap_pair(monkeypatch, port_draws):
+    """Accelerated SAP with Nyström blocks on the same RBF system in both
+    packages, the same block schedule in both; the port's step t takes
+    ``port_draws(t)``."""
+    rng = np.random.default_rng(41)
+    X, B = rng.standard_normal((SAP_N, 4)), rng.standard_normal((SAP_N, 2))
+    sched = np.stack([rng.choice(SAP_N, SAP_BLK, replace=False) for _ in range(20)])
+    monkeypatch.setattr(j_factory, "SAP",
+                        lambda *a, **kw: JSAP(*a, _block_schedule=sched, **kw))
+    monkeypatch.setattr(t_factory, "SAP", lambda *a, **kw: SAP(
+        *a, _block_schedule=sched, _draws=port_draws, **kw))
+    jK = JRBFLinOp(jnp.asarray(X), jnp.asarray(X), JKernelConfig(lengthscale=1.5))
+    tK = RBFLinOp(torch.from_numpy(X), torch.from_numpy(X), KernelConfig(lengthscale=1.5))
+
+    def jsolve(iters, **kw):
+        cfg = JSAPConfig(max_iters=iters, rtol=1e-14, blk_sz=SAP_BLK, power_iters=5,
+                         accel_config=JSAPAccelConfig(mu=0.05, nu=4.0),
+                         precond_config=JNystromConfig(rank=SAP_RANK, rho=SAP_REG))
+        sys_ = JLinSys(jK, jnp.asarray(B), SAP_REG, jK.row_oracle, jK.blk_oracle)
+        return sys_.solve(cfg, jnp.zeros(B.shape), callback_freq=5, key=0, metrics="true",
+                          **kw)
+
+    def tsolve(iters, **kw):
+        cfg = SAPConfig(max_iters=iters, rtol=1e-14, blk_sz=SAP_BLK, power_iters=5,
+                        accel_config=SAPAccelConfig(mu=0.05, nu=4.0),
+                        precond_config=NystromConfig(rank=SAP_RANK, rho=SAP_REG))
+        sys_ = LinSys(tK, torch.from_numpy(B), SAP_REG, tK.row_oracle, tK.blk_oracle)
+        return sys_.solve(cfg, torch.zeros(B.shape, dtype=torch.float64), callback_freq=5,
+                          key=0, metrics="true", **kw)
+
+    return jsolve, tsolve
+
+
+def _sap_like(pkg):
+    if pkg == "jax":
+        z = jnp.zeros(1)
+        return {"state": JSAPState(z, z, z, jnp.zeros(2, jnp.uint32), jnp.asarray(0)),
+                "mask": jnp.zeros(2, bool)}
+    z = torch.zeros(1, dtype=torch.float64)
+    return {"state": SAPState(z, z, z, torch.zeros(2, dtype=torch.int64), 0),
+            "mask": torch.zeros(2, dtype=torch.bool)}
+
+
+def test_jax_sap_checkpoint_resumes_in_the_port(monkeypatch, jax_npz, tmp_path):
+    """The JAX package writes 10 accelerated SAP iterations; the port reads
+    back W, V, Y, the key and t exactly, resumes from its file and runs 5
+    more, with the block schedule and JAX's draws of steps 10–14 pinned (the
+    key streams differ by design). W, V and Y at 15 against JAX's
+    uninterrupted solve: 1e-10 of max|·|, ``test_torch_sap``'s tolerance."""
+    draws = _jax_sap_draws(15)
+    jsolve, tsolve = _sap_pair(monkeypatch, lambda t: draws[t])
+    jdir = str(tmp_path / "j")
+    jsolve(10, checkpoint_dir=jdir, checkpoint_freq=1)
+    jpay, _ = JSolveCheckpointer(jdir).restore(like=_sap_like("jax"))
+    tpay, step = SolveCheckpointer(jdir).restore(like=_sap_like("torch"))
+    assert step == 10 and tpay["state"].t == int(jpay["state"].t) == 10
+    for name in ("W", "V", "Y", "key"):
+        assert np.array_equal(getattr(tpay["state"], name).numpy(),
+                              np.asarray(getattr(jpay["state"], name))), name
+    assert np.array_equal(tpay["mask"].numpy(), np.asarray(jpay["mask"]))
+    assert not torch.equal(tpay["state"].V, tpay["state"].W)
+
+    states = {}
+    real_train = LinSys._train
+
+    def keep_state(self, logger, termination_fn, solver, *a, **kw):
+        out = real_train(self, logger, termination_fn, solver, *a, **kw)
+        states["port"] = solver.state
+        return out
+
+    monkeypatch.setattr(LinSys, "_train", keep_state)
+    tW, tlog = tsolve(15, checkpoint_dir=jdir, resume=True)
+    jstates = {}
+    real_jtrain = JLinSys._train
+
+    def keep_jstate(self, logger, termination_fn, solver, *a, **kw):
+        out = real_jtrain(self, logger, termination_fn, solver, *a, **kw)
+        jstates["jax"] = solver.state
+        return out
+
+    monkeypatch.setattr(JLinSys, "_train", keep_jstate)
+    jW, jlog = jsolve(15, checkpoint_dir=str(tmp_path / "j2"))
+    assert sorted(tlog) == sorted(i for i in jlog if isinstance(i, int)) == [0, 5, 10, 15]
+    assert states["port"].t == 15
+    for name in ("W", "V", "Y"):
+        got = getattr(states["port"], name).numpy()
+        ref = np.asarray(getattr(jstates["jax"], name))
+        assert np.abs(got - ref).max() <= 1e-10 * np.abs(ref).max(), name
+
+
+def test_port_sap_checkpoint_resumes_in_jax(monkeypatch, jax_npz, tmp_path):
+    """The reverse: the port writes 10 iterations (JAX's draws of steps 0–9
+    pinned), the JAX package reads back W, V, Y and t exactly and resumes
+    from the port's key ``[0, 0]``, which is ``PRNGKey(0)``: its steps
+    10–14 draw what its steps 0–4 drew, and the port's uninterrupted solve
+    is given those. W at 15: 1e-10 of max|W|."""
+    draws = _jax_sap_draws(10)
+    jsolve, tsolve = _sap_pair(monkeypatch, lambda t: draws[t % 10])
+    tdir = str(tmp_path / "t")
+    tsolve(10, checkpoint_dir=tdir, checkpoint_freq=1)
+    tpay, _ = SolveCheckpointer(tdir).restore(like=_sap_like("torch"))
+    jpay, step = JSolveCheckpointer(tdir).restore(like=_sap_like("jax"))
+    assert step == 10 and int(jpay["state"].t) == tpay["state"].t == 10
+    for name in ("W", "V", "Y"):
+        assert np.array_equal(np.asarray(getattr(jpay["state"], name)),
+                              getattr(tpay["state"], name).numpy()), name
+    assert np.array_equal(np.asarray(jpay["state"].key), np.asarray(jax.random.PRNGKey(0)))
+    jW, jlog = jsolve(15, checkpoint_dir=tdir, resume=True)
+    tW, tlog = tsolve(15)
+    assert sorted(i for i in jlog if isinstance(i, int)) == sorted(tlog) == [0, 5, 10, 15]
     jW = np.asarray(jW)
     assert np.abs(tW.numpy() - jW).max() <= 1e-10 * np.abs(jW).max()

@@ -121,9 +121,11 @@ def test_mid_solve_sap_state_continues_in_the_port():
     ts = SAP(tsys, torch.zeros((n, k), dtype=torch.float64), NewtonConfig(rho=reg),
              accel_config=SAPAccelConfig(mu=0.05, nu=4.0), key=0, **kw)
     ts.state = interop.sap_state(*(np.asarray(f) for f in (js.state.W, js.state.V,
-                                                           js.state.Y, js.state.t)),
+                                                           js.state.Y, js.state.key,
+                                                           js.state.t)),
                                   device="cpu")
     assert ts.state.t == 6
+    assert np.array_equal(ts.state.key.numpy(), np.asarray(js.state.key))
 
     blk = sched[6]
     jP = JNewton(JNewtonConfig(rho=reg))

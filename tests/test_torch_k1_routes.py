@@ -109,12 +109,18 @@ def test_compensated_dispatch_rule(recorded):
     (1_000, 777, 7, 1),           # 13 column tiles: no run of 16
     (1_000, 64_000, 3, 62),       # 8 row blocks; runs of 16 tiles
     (30_000, 1_000_000, 1, 4),    # 235 row blocks: 4 x 235 = 940 <= 1,056
+    (100_000, 10_000_000, 10, 77),  # config 7's and 9's row oracle: 2,048 tiles a run
+    (100_000, 1 << 20, 10, 1),    # 16,384 tiles: one run, as at m = 10⁶
+    (100_000, (1 << 20) + 64, 10, 9),
+    (4_096, 10_000_000, 10, 77),  # their sampled metric: 33 runs would walk 4,735 tiles
+    (100_000, 10_000_000, 100, 1),  # the wide kernel takes no runs
 ])
 def test_tier_splits(n, m, k, runs):
     """K1b's run count of the m axis on an H100 (132 SMs, two 128-row
     blocks an SM): one run once the row blocks fill two rounds of the 264
     slots; else as many as keep the blocks within four rounds, each run 16
-    column tiles or more; one past 16 columns."""
+    column tiles or more; past 16,384 tiles (2^20 columns) runs of at most
+    2,048 tiles; one past 16 columns."""
     assert kernel_cuda.tier_splits(n, m, k, H100_SMS) == runs
 
 

@@ -20,7 +20,15 @@ caller calls it, on the same numpy inputs:
   with ``inv_fn(pstate, R)``, the three embeddings with ``key`` first, and
   ``kernel_tile`` with ``precision=``: float64 results to 1e-12 of max|ref|
   of the JAX call's (the embeddings draw other numbers from a seed: their
-  shape, type and structure).
+  shape, type and structure);
+* nine more names: ``key`` on ``srht_params``,
+  ``left_embedding``, ``right_embedding`` and ``sketch_apply_left``;
+  ``KernelConfig.lengthscale_array``; ``sparse.native_available``;
+  ``SAPState``'s fields; ``kernel_matmat`` and ``kernel_pair`` in JAX's
+  positional order with ``compute_dtype`` (the bf16x3 tier within its
+  bound); ``precision`` and ``chunk`` on the distance tiles;
+  ``ShardedKernelLinOp.shutdown``; ``devices`` on
+  ``kernel_matmat_value64``.
 """
 
 import jax
@@ -437,3 +445,249 @@ def test_kernel_tile_takes_precision_as_jax_does(kind):
     J = j_kernel_tile(kind, jnp.asarray(Xs), jnp.asarray(Ys), jax.lax.Precision.HIGHEST)
     T = t_kernel_tile(kind, torch.from_numpy(Xs), torch.from_numpy(Ys), "highest")
     assert _rel(T.numpy(), J) <= F64_EXACT
+
+
+# -- key, lengthscale_array, native_available, SAPState, the dispatch order,
+# -- the distance tiles' keywords, shutdown, devices ----------------------------
+@pytest.mark.parametrize("how", ["keywords", "positional"])
+def test_srht_params_takes_key_as_jax_does(how):
+    """``srht_params(key, s, d, dtype)``: JAX's shapes and types, signs ±1
+    over p = next_pow2(d), s distinct rows below p; the same seed the same
+    draw."""
+    s, d = 5, 12
+    if how == "keywords":
+        js, jr = jemb.srht_params(key=jax.random.PRNGKey(0), s=s, d=d, dtype=jnp.float64)
+        ts, tr = temb.srht_params(key=3, s=s, d=d, dtype=torch.float64, device="cpu")
+    else:
+        js, jr = jemb.srht_params(jax.random.PRNGKey(0), s, d, jnp.float64)
+        ts, tr = temb.srht_params(3, s, d, torch.float64, "cpu")
+    assert ts.shape == js.shape == (16,) and tr.shape == jr.shape == (s,)
+    assert ts.dtype == torch.float64
+    for signs, rows in ((np.asarray(js), np.asarray(jr)), (ts.numpy(), tr.numpy())):
+        assert set(np.unique(signs)) <= {-1.0, 1.0}
+        assert len(set(rows.tolist())) == s and rows.min() >= 0 and rows.max() < 16
+    again = temb.srht_params(torch.Generator().manual_seed(3), s, d, torch.float64, "cpu")
+    assert torch.equal(again[0], ts) and torch.equal(again[1], tr)
+
+
+@pytest.mark.parametrize("sketch", ["gauss", "ortho", "sparse", "srht"])
+@pytest.mark.parametrize("name", ["left_embedding", "right_embedding", "sketch_apply_left"])
+def test_embedding_entry_points_take_key_as_jax_does(name, sketch):
+    """``left_embedding(name, key, s, d, dtype)``, ``right_embedding`` and
+    ``sketch_apply_left(name, key, s, A, dtype)`` with ``key=``: JAX's
+    shape and type; ``sketch_apply_left`` is the left embedding of the same
+    key times A in both packages (float64, 1e-12 of max|ref|)."""
+    s, d = 6, 16
+    A = np.random.default_rng(36).standard_normal((d, 5))
+    jkey = jax.random.PRNGKey(1)
+    if name == "sketch_apply_left":
+        J = jemb.sketch_apply_left(sketch, key=jkey, s=s, A=jnp.asarray(A), dtype=jnp.float64)
+        T = temb.sketch_apply_left(sketch, key=4, s=s, A=torch.from_numpy(A),
+                                   dtype=torch.float64)
+        jO = jemb.left_embedding(sketch, jkey, s, d, jnp.float64)
+        tO = temb.left_embedding(sketch, 4, s, d, torch.float64, "cpu")
+        assert _rel(J, np.asarray(jO) @ A) <= F64_EXACT
+        assert _rel(T.numpy(), tO.numpy() @ A) <= F64_EXACT
+    else:
+        J = getattr(jemb, name)(sketch, key=jkey, s=s, d=d, dtype=jnp.float64)
+        T = getattr(temb, name)(sketch, key=4, s=s, d=d, dtype=torch.float64, device="cpu")
+        again = getattr(temb, name)(sketch, torch.Generator().manual_seed(4), s, d,
+                                    torch.float64, "cpu")
+        assert torch.equal(T, again)
+    assert T.shape == J.shape and T.dtype == torch.float64
+
+
+@pytest.mark.parametrize("ls", [0.7, np.array([0.5, 1.5, 2.5])], ids=["scalar", "ARD"])
+def test_lengthscale_array_as_jax(monkeypatch, ls):
+    """``KernelConfig.lengthscale_array(dtype)``: JAX's values and shape for
+    a float and an ARD lengthscale, of the dtype asked for (a numpy dtype as
+    JAX callers pass, or a torch one). A tensor lengthscale's array lies on
+    its device; a float or a numpy array on the card, the host where the
+    caller names it."""
+    J = jk.KernelConfig(lengthscale=ls).lengthscale_array(jnp.float64)
+    cfg = tk.KernelConfig(lengthscale=ls)
+    for dtype in (np.float64, torch.float64):
+        T = cfg.lengthscale_array(dtype, device="cpu")
+        assert T.dtype == torch.float64 and T.shape == J.shape
+        assert np.array_equal(T.numpy(), np.asarray(J))
+    assert cfg.lengthscale_array(np.float32, device="cpu").dtype == torch.float32
+    if isinstance(ls, np.ndarray):
+        on = tk.KernelConfig(lengthscale=torch.from_numpy(ls)).lengthscale_array(jnp.float32)
+        assert on.device.type == "cpu" and on.dtype == torch.float32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cfg.lengthscale_array(np.float64)
+
+
+def test_native_available_agrees_with_impl_native():
+    """``sparse.native_available()`` in both ``__all__``s, a bool that says
+    whether ``impl="native"`` runs: the port never carries the native
+    kernels, so False, and its ``"native"`` raises; JAX's answer holds for
+    its own ``"native"`` the same way."""
+    assert "native_available" in jsp.__all__ and "native_available" in tsp.__all__
+    M, v, p, c = _csr()
+    x = np.ones(M.shape[1])
+    for pkg, arrays in ((jsp, (jnp.asarray(v), jnp.asarray(p), jnp.asarray(c),
+                               jnp.asarray(x))),
+                        (tsp, (torch.from_numpy(v), torch.from_numpy(p), torch.from_numpy(c),
+                               torch.from_numpy(x)))):
+        available = pkg.native_available()
+        assert isinstance(available, bool)
+        if available:
+            got = pkg.csr_matvec(*arrays, M.shape[0], "native")
+            assert _rel(np.asarray(got), M @ x) <= F64_EXACT
+        else:
+            with pytest.raises(RuntimeError, match="native sparse kernels unavailable"):
+                pkg.csr_matvec(*arrays, M.shape[0], "native")
+    assert tsp.native_available() is False
+
+
+def test_sap_state_has_the_jax_fields():
+    """``SAPState(W, V, Y, key, t)`` positionally binds as JAX's does, and a
+    solver's key has a JAX key's layout: ``PRNGKey(s)``'s two words for an
+    int seed s (the streams drawn from it differ by design)."""
+    assert tsolvers.SAPState._fields == jsolvers.SAPState._fields == ("W", "V", "Y", "key", "t")
+    W = torch.ones((4, 1), dtype=torch.float64)
+    key = torch.tensor([0, 5])
+    st = tsolvers.SAPState(W, 2 * W, 3 * W, key, 7)
+    assert st.key is key and st.t == 7 and torch.equal(st.Y, 3 * W)
+    X = np.random.default_rng(37).standard_normal((32, 3))
+    B = np.random.default_rng(38).standard_normal((32, 1))
+    K = tk.RBFLinOp(torch.from_numpy(X), torch.from_numpy(X), tk.KernelConfig(lengthscale=1.0))
+    from rlaopt_tpu_torch.models import LinSys
+    from rlaopt_tpu_torch.preconditioners import NewtonConfig
+
+    sys_ = LinSys(K, torch.from_numpy(B), 0.1, K.row_oracle, K.blk_oracle)
+    solver = tsolvers.SAP(sys_, torch.zeros((32, 1), dtype=torch.float64),
+                          NewtonConfig(rho=0.1), blk_sz=8, accel=False, accel_config=None,
+                          power_iters=3, key=5)
+    assert np.array_equal(solver.state.key.numpy(), np.asarray(jax.random.PRNGKey(5)))
+    solver._run_chunk(2)
+    assert solver.state.t == 2 and torch.equal(solver.state.key, torch.tensor([0, 5]))
+
+
+def _tier_bound(form, kind):
+    """The bf16x3 tier's bound against the exact product on the ragged data:
+    3x the JAX tier's own error there against float64 (``chip_smoke.py``'s
+    ``JAX_TIER_ERR``, which holds K1b, K2b and K4b to the same)."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return 3 * smoke.JAX_TIER_ERR[("ragged", "bf16x3", form, kind)], smoke
+
+
+@pytest.mark.parametrize("kind", ["rbf", "matern32"])
+def test_kernel_matmat_takes_jax_positional_order(monkeypatch, kind):
+    """``kernel_matmat(kind, X1, X2, V, ls, c, impl, compute_dtype,
+    symmetric)`` positionally: ``"bf16x3"`` in eighth place takes the tier
+    route (parts made for the call) and meets the tier's bound against
+    JAX's call (exact here: off the TPU JAX's XLA route takes no tier);
+    None there is the exact tier, 1e-5 of JAX's (float32); ``True`` in
+    ninth place is ``symmetric``, the triangle's plain version."""
+    bound, smoke = _tier_bound("gen", kind)
+    A1, A2, W, S = smoke.ragged_data()
+    ls, c = 1.3, 0.9
+    calls = []
+    real = tops.kernel_dispatch.kernel_matmat_tier
+    monkeypatch.setattr(tops.kernel_dispatch, "kernel_matmat_tier",
+                        lambda *a, **k: calls.append(a[0]) or real(*a, **k))
+    J = jops.kernel_dispatch.kernel_matmat(kind, jnp.asarray(A1), jnp.asarray(A2),
+                                           jnp.asarray(W), ls, c, "auto", "bf16x3")
+    T = tops.kernel_dispatch.kernel_matmat(kind, torch.from_numpy(A1), torch.from_numpy(A2),
+                                           torch.from_numpy(W), ls, c, "auto", "bf16x3")
+    assert calls == [kind] and T.dtype == torch.float32
+    assert _rel(T.numpy(), J) <= bound
+    T = tops.kernel_dispatch.kernel_matmat(kind, torch.from_numpy(A1), torch.from_numpy(A2),
+                                           torch.from_numpy(W), ls, c, "xla", None)
+    assert len(calls) == 1 and _rel(T.numpy(), J) <= 1e-5
+    X = torch.from_numpy(A1)
+    Js = jops.kernel_dispatch.kernel_matmat(kind, jnp.asarray(A1), jnp.asarray(A1),
+                                            jnp.asarray(S), ls, c, "auto", None, True)
+    Ts = tops.kernel_dispatch.kernel_matmat(kind, X, X, torch.from_numpy(S), ls, c, "auto",
+                                            None, True)
+    assert _rel(Ts.numpy(), Js) <= 1e-5
+    with pytest.raises(TypeError):
+        tops.kernel_dispatch.kernel_matmat(kind, X, X, torch.from_numpy(S), ls, c, "auto",
+                                           None, True, None)
+
+
+@pytest.mark.parametrize("kind", ["rbf", "matern12"])
+def test_kernel_pair_takes_jax_positional_order(monkeypatch, kind):
+    """``kernel_pair(kind, X1, X2, V2, V1, ls, c, impl, compute_dtype)``
+    positionally: ``"bf16x3"`` in ninth place takes the tier pair, both
+    outputs within the tier's bound of JAX's call (exact off the TPU);
+    ``tile_operands``, the port's own, only by keyword."""
+    bound, smoke = _tier_bound("pair", kind)
+    A1, A2, _, _ = smoke.ragged_data()
+    V2, V1 = smoke.pair_ragged_rhs(3)
+    calls = []
+    real = tops.kernel_dispatch.kernel_pair_tier
+    monkeypatch.setattr(tops.kernel_dispatch, "kernel_pair_tier",
+                        lambda *a, **k: calls.append(a[0]) or real(*a, **k))
+    J = jops.kernel_dispatch.kernel_pair(kind, *(jnp.asarray(a) for a in (A1, A2, V2, V1)),
+                                         1.3, 0.9, "auto", "bf16x3")
+    T = tops.kernel_dispatch.kernel_pair(kind, *(torch.from_numpy(a) for a in (A1, A2, V2, V1)),
+                                         1.3, 0.9, "auto", "bf16x3")
+    assert calls == [kind]
+    for t, j in zip(T, J):
+        assert t.shape == j.shape and _rel(t.numpy(), j) <= bound
+    with pytest.raises(TypeError):
+        tops.kernel_dispatch.kernel_pair(kind, *(torch.from_numpy(a) for a in (A1, A2, V2, V1)),
+                                         1.3, 0.9, "auto", None, None)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 16, 64])
+def test_distance_tiles_take_precision_and_chunk_as_jax_does(chunk):
+    """``sqdist_tile(Xs, Ys, precision)`` and ``l1dist_tile(Xs, Ys,
+    chunk)``: JAX's values (float64, 1e-12 of max|ref|) at every chunk
+    width, below, at and past d = 20."""
+    from rlaopt_tpu.kernels.functions import l1dist_tile as j_l1, sqdist_tile as j_sq
+    from rlaopt_tpu_torch.kernels.functions import l1dist_tile as t_l1, sqdist_tile as t_sq
+
+    rng = np.random.default_rng(39)
+    Xs, Ys = rng.standard_normal((9, 20)), rng.standard_normal((7, 20))
+    J = j_sq(jnp.asarray(Xs), jnp.asarray(Ys), precision=jax.lax.Precision.HIGHEST)
+    T = t_sq(torch.from_numpy(Xs), torch.from_numpy(Ys), precision="highest")
+    assert _rel(T.numpy(), J) <= F64_EXACT
+    J = j_l1(jnp.asarray(Xs), jnp.asarray(Ys), chunk=chunk)
+    T = t_l1(torch.from_numpy(Xs), torch.from_numpy(Ys), chunk=chunk)
+    assert _rel(T.numpy(), J) <= F64_EXACT
+    assert _rel(t_l1(torch.from_numpy(Xs), torch.from_numpy(Ys), chunk).numpy(), J) <= F64_EXACT
+
+
+def test_sharded_kernel_operator_shutdown_as_jax():
+    """``ShardedKernelLinOp.shutdown()``: a no-op returning None in both;
+    the operator still applies JAX's product afterwards."""
+    X1, X2, V2, _ = _data()
+    J = _sharded("jax", "RBF", jnp.asarray(X1), jnp.asarray(X2))
+    T = _sharded("torch", "RBF", torch.from_numpy(X1), torch.from_numpy(X2))
+    assert J.shutdown() is None and T.shutdown() is None
+    assert _rel((T @ torch.from_numpy(V2)).numpy(), J @ jnp.asarray(V2)) <= F64
+
+
+def test_value64_takes_devices_as_jax_does():
+    """``kernel_matmat_value64(..., devices=[...])`` spreads X1's rows over
+    the devices: on two host positions the bits of ``devices=None``; JAX's
+    call with its two CPU devices within its ~3e-9 contract of the port's
+    float64 product; the TPU tiling knobs are not taken."""
+    from rlaopt_tpu.ops.kernel_value64 import kernel_matmat_value64 as j_v64
+    from rlaopt_tpu_torch.ops.kernel_value64 import kernel_matmat_value64 as t_v64
+
+    rng = np.random.default_rng(40)
+    X1 = rng.standard_normal((300, 5)).astype(np.float32)
+    X2 = rng.standard_normal((280, 5)).astype(np.float32)
+    V = rng.standard_normal((280, 3)).astype(np.float32)
+    args = (torch.from_numpy(X1), torch.from_numpy(X2), torch.from_numpy(V), 1.6, 0.8)
+    ref = t_v64(*args, kind="matern32")
+    got = t_v64(*args, kind="matern32", devices=[torch.device("cpu")] * 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    jhi, jlo = j_v64(jnp.asarray(X1), jnp.asarray(X2), V, 1.6, 0.8, kind="matern32",
+                     interpret=True, devices=jax.devices("cpu")[:2])
+    J = np.asarray(jhi, np.float64) + np.asarray(jlo, np.float64)
+    assert _rel(got[0].double() + got[1].double(), J) <= 3e-9
+    with pytest.raises(TypeError):
+        t_v64(*args, kind="matern32", tile_m=64)
