@@ -31,6 +31,7 @@ from ..ops.kernel_dispatch import (
 from ..ops.kernel_cuda import tile_operand
 from ..ops.kernel_tiers import normalize_compute_dtype, tier_operand
 from ..utils.checkers import _is_tensor
+from ..utils.profiling import traced
 
 
 __all__ = ["KernelLinOp"]
@@ -93,6 +94,7 @@ class KernelLinOp(TwoSidedLinOp):
         fwd = None if ops is None else (lambda: (ops[0].get(), ops[1].get()))
         adj = None if ops is None else (lambda: (ops[1].get(), ops[0].get()))
 
+        @traced("rlaopt.linop.matmat")
         def mv(v):
             if self._tier is not None:
                 P1, P2 = self._tier
@@ -161,6 +163,7 @@ class KernelLinOp(TwoSidedLinOp):
             raise ValueError("A1 and A2 must be on the same device.")
         _is_kernel_config(kernel_config, "kernel_config")
 
+    @traced("rlaopt.linop.matmat_compensated")
     def matmat_compensated(self, V: torch.Tensor):
         """``K @ V`` as a compensated ``(hi, lo)`` pair (add ``lo`` last).
 

@@ -42,6 +42,7 @@ from ..utils.checkers import (
 from ..utils.checkpoint import SolveCheckpointer
 from ..utils.linalg import hmm
 from ..utils.logger import Logger
+from ..utils.profiling import annotate, annotate_sync, count, traced
 from ..utils.rng import fold_in
 
 
@@ -167,14 +168,22 @@ class LinSys(Model):
     def _tol(self, ms: _MetricsState):
         return torch.clamp(ms.rtol * self._b_norms(), min=ms.atol)
 
+    @traced("rlaopt.linsys.metrics")
     def _compute_internal_metrics(self, W: torch.Tensor, force_true: bool = False):
+        """A boundary's residual metrics. Counters: ``rlaopt.metrics.recurrence``
+        and ``.sampled`` (an estimate reported), ``.true`` (a true residual),
+        ``.confirm`` (a true residual that checked an estimate's claim) and
+        ``.stall`` (the stall certificate)."""
         ms = self._ms
         est_abs = None
         raw_abs = None  # estimator before the gap adjustment (stall evidence)
         if not force_true and ms.recurrence:
             raw_abs = torch.linalg.norm(ms.solver.residual(), dim=0)
             abs_res = raw_abs * ms.gap
-            if not bool(torch.all(abs_res * ms.backoff <= self._tol(ms))):
+            with annotate_sync("rlaopt.sync.metrics", abs_res):
+                claimed = bool(torch.all(abs_res * ms.backoff <= self._tol(ms)))
+            if not claimed:
+                count("rlaopt.metrics.recurrence")
                 return {
                     "abs_res": abs_res,
                     "rel_res": abs_res / self._b_norms(),
@@ -188,9 +197,10 @@ class LinSys(Model):
             s = min(4096, n)
             ms.sample_round += 1
             rng = np.random.default_rng((0x5A17 << 32) ^ ms.sample_round)
-            idx = torch.as_tensor(
-                np.sort(rng.choice(n, size=s, replace=False)), device=W.device
-            )
+            with annotate_sync("rlaopt.sync.metrics", W):
+                idx = torch.as_tensor(
+                    np.sort(rng.choice(n, size=s, replace=False)), device=W.device
+                )
             if self._A_row_oracle is not None:
                 Kr = self._A_row_oracle(idx) @ W
             else:  # dense operand (validated at solve time)
@@ -198,7 +208,10 @@ class LinSys(Model):
             r = self._B[idx] - (Kr + self._reg * W[idx])
             raw_abs = torch.linalg.norm(r, dim=0) * (n / s) ** 0.5
             abs_est = raw_abs * ms.gap
-            if not bool(torch.all(abs_est * 0.7 * ms.backoff <= self._tol(ms))):
+            with annotate_sync("rlaopt.sync.metrics", abs_est):
+                claimed = bool(torch.all(abs_est * 0.7 * ms.backoff <= self._tol(ms)))
+            if not claimed:
+                count("rlaopt.metrics.sampled")
                 return {
                     "abs_res": abs_est,
                     "rel_res": abs_est / self._b_norms(),
@@ -207,7 +220,9 @@ class LinSys(Model):
                 }
             est_abs = abs_est
         m = self._true_internal_metrics(W)
+        count("rlaopt.metrics.true")
         if est_abs is not None:
+            count("rlaopt.metrics.confirm")
             self._record_confirm(ms, m, est_abs, raw_abs, W.dtype)
         return m
 
@@ -221,18 +236,23 @@ class LinSys(Model):
         The last true metrics then carry ``stalled: True``.
         """
         ratio = m["abs_res"] / torch.clamp(est_abs, min=torch.finfo(dtype).tiny)
-        ms.gap = max(ms.gap * float(torch.max(ratio)), 1.0)
+        with annotate_sync("rlaopt.sync.metrics", ratio):
+            ms.gap = max(ms.gap * float(torch.max(ratio)), 1.0)
         tol = self._tol(ms)
-        failed = not bool(torch.all(m["abs_res"] <= tol))
-        cur = float(torch.max(m["abs_res"]))
+        with annotate_sync("rlaopt.sync.metrics", tol):
+            failed = not bool(torch.all(m["abs_res"] <= tol))
+        with annotate_sync("rlaopt.sync.metrics", tol):
+            cur = float(torch.max(m["abs_res"]))
         prev = ms.last_confirm_true
         if failed and prev is not None and cur > 0.77 * prev:
             ms.backoff = min(ms.backoff * 2.0, 64.0)
             ms.stall_confirms += 1
-            raw_far_below = raw_abs is not None and bool(
-                torch.all(raw_abs <= 0.1 * tol)
-            )
+            raw_far_below = False
+            if raw_abs is not None:
+                with annotate_sync("rlaopt.sync.metrics", raw_abs):
+                    raw_far_below = bool(torch.all(raw_abs <= 0.1 * tol))
             if (ms.stall_confirms >= 2 and raw_far_below) or ms.stall_confirms >= 4:
+                count("rlaopt.metrics.stall")
                 ms.stalled = True
                 m["stalled"] = True
         else:
@@ -267,8 +287,10 @@ class LinSys(Model):
             return True
         if estimated:
             return False
-        return bool(torch.all(abs_res <= comp_tol))
+        with annotate_sync("rlaopt.sync.termination", abs_res):
+            return bool(torch.all(abs_res <= comp_tol))
 
+    @traced("rlaopt.linsys.solve")
     def solve(
         self,
         solver_config,
@@ -396,11 +418,12 @@ class LinSys(Model):
         )
 
         t_init = time.perf_counter()
-        solver = _get_solver(
-            model=self, W_init=W_init, solver_config=solver_config,
-            key=_as_generator(key), preconditioner=preconditioner,
-        )
-        _sync(self._B)
+        with annotate("rlaopt.linsys.init"):
+            solver = _get_solver(
+                model=self, W_init=W_init, solver_config=solver_config,
+                key=_as_generator(key), preconditioner=preconditioner,
+            )
+            _sync(self._B)
         phase_walls = {"solver_init": round(time.perf_counter() - t_init, 3)}
         self._ms = _MetricsState(
             solver=solver,
@@ -459,7 +482,8 @@ class LinSys(Model):
         if op is not None:
             if device == "accel":
                 return self._value64_matmat(op)
-            X1, X2, ls = op.A1.cpu(), op.A2.cpu(), op.lengthscale64.cpu()
+            with annotate_sync("rlaopt.sync.refine", op.A1):
+                X1, X2, ls = op.A1.cpu(), op.A2.cpu(), op.lengthscale64.cpu()
             symmetric = op.A1 is op.A2
             from ..ops.kernel_dispatch import kernel_matmat_f64
 
@@ -473,7 +497,7 @@ class LinSys(Model):
         if not isinstance(self._A, LinOp):
             A64 = self._A.double()
             if device != "accel":
-                A64 = A64.cpu()
+                A64 = _moved(A64, "cpu", torch.float64)
             return lambda W64: A64 @ W64.to(A64.device)
         return None
 
@@ -502,6 +526,7 @@ class LinSys(Model):
         if isinstance(op, ShardedKernelLinOp):
             return op.matmat_f64
 
+        @traced("rlaopt.linop.matmat_f64")
         def mm(W64):
             return kernel_matmat_f64(
                 op.kind, op.A1, op.A2, W64.to(op.device, torch.float64),
@@ -533,20 +558,20 @@ class LinSys(Model):
             s = int(np.clip(4e8 // max(m, 1), 64, 4096))
         s = min(s, n)
         idx = torch.as_tensor(self._sample_rows(0xF64C, n, s))
-        W = W64.double().cpu()
+        W = _moved(W64, "cpu", torch.float64)
         op = self._kernel_op()
         if op is not None:
             from ..ops.kernel_plain import gram_matmat_f64
 
-            K_rows_W = gram_matmat_f64(
-                op.kind, op.A1.cpu()[idx], op.A2.cpu(), W,
-                op.lengthscale64.cpu(), op.const_scaling,
-            )
+            with annotate_sync("rlaopt.sync.refine", op.A1):
+                X1, X2, ls = op.A1.cpu(), op.A2.cpu(), op.lengthscale64.cpu()
+            K_rows_W = gram_matmat_f64(op.kind, X1[idx], X2, W, ls, op.const_scaling)
         elif not isinstance(self._A, LinOp):
-            K_rows_W = self._A.double().cpu()[idx] @ W
+            K_rows_W = _moved(self._A, "cpu", torch.float64)[idx] @ W
         else:
             return None
-        r = self._B.double().cpu()[idx] - (K_rows_W + float(self._reg) * W[idx])
+        B = _moved(self._B, "cpu", torch.float64)
+        r = B[idx] - (K_rows_W + float(self._reg) * W[idx])
         est = torch.linalg.norm(r, dim=0).numpy() * (n / s) ** 0.5
         return est, (2.0 / s) ** 0.5
 
@@ -568,7 +593,7 @@ class LinSys(Model):
             return None
         n = self._B.shape[0]
         s = min(s, n)
-        idx = torch.as_tensor(self._sample_rows(seed, n, s), device=op.device)
+        idx = _moved(torch.as_tensor(self._sample_rows(seed, n, s)), op.device, torch.int64)
         W = W64.to(op.device, torch.float64)
         if isinstance(op, ShardedKernelLinOp):
             rows = op.row_matmat_f64(idx, W)
@@ -577,14 +602,19 @@ class LinSys(Model):
                 op.kind, op.A1[idx], op.A2, W, op.lengthscale64, op.const_scaling
             )
         r = self._B[idx].double() - (rows + float(self._reg) * W[idx])
-        est = torch.linalg.norm(r, dim=0).cpu().numpy() * (n / s) ** 0.5
+        with annotate_sync("rlaopt.sync.refine", r):
+            est = torch.linalg.norm(r, dim=0).cpu().numpy() * (n / s) ** 0.5
         return est, (2.0 * s) ** -0.5
 
+    @traced("rlaopt.refine")
     def _refine_f64(
         self, W, solver_config, refine: _RefineConfig, atol, rtol,
         callback_freq, key, preconditioner=None,
     ):
-        """Refinement loop (see ``solve``); returns (W64, per-round log)."""
+        """Refinement loop (see ``solve``); returns (W64, per-round log).
+        Spans: each float64 residual (``rlaopt.refine.residual``) and each
+        correction solve (``rlaopt.refine.correction``), from where its
+        ``phase_walls`` entry starts to where it is taken."""
         device, certify = refine.device, refine.certify
         mm64 = self._f64_matmat(device)
         if mm64 is None:
@@ -615,14 +645,16 @@ class LinSys(Model):
             (op.device if op is not None else self._A.device)
             if device == "accel" else torch.device("cpu")
         )
-        B64 = self._B.to(home, torch.float64)
+        B64 = _moved(self._B, home, torch.float64)
         reg = float(self._reg)
-        b_norms = torch.linalg.norm(B64, dim=0).cpu().numpy()
-        tol_abs = np.maximum(rtol * b_norms, atol)
-        W64 = W.to(home, torch.float64)
 
         def col_norms(R):
-            return torch.linalg.norm(R, dim=0).cpu().numpy()
+            with annotate_sync("rlaopt.sync.refine", R):
+                return torch.linalg.norm(R, dim=0).cpu().numpy()
+
+        b_norms = col_norms(B64)
+        tol_abs = np.maximum(rtol * b_norms, atol)
+        W64 = _moved(W, home, torch.float64)
 
         def since(t0):
             """Seconds since t0, once the work queued on ``home`` is done
@@ -647,31 +679,32 @@ class LinSys(Model):
         src = None
         sampled_claim = None
         for rnd in range(refine.rounds):
-            t0 = time.perf_counter()
-            if rnd == 0 and hybrid:
-                # The first residual only steers: the compensated exact-f32
-                # residual resolves the f32 operator floor; the next round's
-                # full evaluation certifies.
-                R64 = B64 - (mm_update(W64.to(W.dtype)) + reg * W64)
-                src = "compensated_f32"
-            elif need_eval or mm_update is None:
-                if certify == "sampled" and rnd > 0:
-                    sampled_claim = certificate()
-                    if sampled_claim is not None:
-                        est = sampled_claim[0]
-                        src = "value64_sampled"
-                        sources.append(src)
-                        walls["residual_f64"].append(since(t0))
-                        hist.append((est / b_norms).tolist())
-                        need_eval = False
-                        break
-                R64 = B64 - (mm64(W64) + reg * W64)
-                src = "evaluate"
-            else:
-                src = "update"  # R64 was residual-updated below
-            need_eval = False
-            sources.append(src)
-            walls["residual_f64"].append(since(t0))
+            with annotate("rlaopt.refine.residual"):
+                t0 = time.perf_counter()
+                if rnd == 0 and hybrid:
+                    # The first residual only steers: the compensated exact-f32
+                    # residual resolves the f32 operator floor; the next round's
+                    # full evaluation certifies.
+                    R64 = B64 - (mm_update(W64.to(W.dtype)) + reg * W64)
+                    src = "compensated_f32"
+                elif need_eval or mm_update is None:
+                    if certify == "sampled" and rnd > 0:
+                        sampled_claim = certificate()
+                        if sampled_claim is not None:
+                            est = sampled_claim[0]
+                            src = "value64_sampled"
+                            sources.append(src)
+                            walls["residual_f64"].append(since(t0))
+                            hist.append((est / b_norms).tolist())
+                            need_eval = False
+                            break
+                    R64 = B64 - (mm64(W64) + reg * W64)
+                    src = "evaluate"
+                else:
+                    src = "update"  # R64 was residual-updated below
+                need_eval = False
+                sources.append(src)
+                walls["residual_f64"].append(since(t0))
             res = col_norms(R64)
             rel = res / b_norms
             hist.append(rel.tolist())
@@ -685,7 +718,7 @@ class LinSys(Model):
             # solve's factor is reused.
             corr = LinSys(
                 self._A,
-                R64.to(W.device, W.dtype),
+                _moved(R64, W.device, W.dtype),
                 reg=reg,
                 A_row_oracle=self._A_row_oracle,
                 A_blk_oracle=self._A_blk_oracle,
@@ -697,17 +730,18 @@ class LinSys(Model):
             corr_cfg = dataclasses.replace(
                 solver_config, rtol=float(np.clip(needed, 1e-7, 0.5)), atol=0.0
             )
-            t0 = time.perf_counter()
-            delta, _ = corr.solve(
-                corr_cfg,
-                torch.zeros_like(corr.B),
-                callback_freq=callback_freq,
-                key=fold_in(_as_generator(key), rnd + 1),
-                preconditioner=preconditioner,
-            )
-            _sync(delta)
-            walls["correction_solve"].append(since(t0))
-            delta64 = delta.to(home, torch.float64)
+            with annotate("rlaopt.refine.correction"):
+                t0 = time.perf_counter()
+                delta, _ = corr.solve(
+                    corr_cfg,
+                    torch.zeros_like(corr.B),
+                    callback_freq=callback_freq,
+                    key=fold_in(_as_generator(key), rnd + 1),
+                    preconditioner=preconditioner,
+                )
+                _sync(delta)
+                walls["correction_solve"].append(since(t0))
+            delta64 = _moved(delta, home, torch.float64)
             W64 = W64 + delta64
             if mm_update is None or (hybrid and src == "compensated_f32") or (
                 certify == "sampled"
@@ -718,21 +752,23 @@ class LinSys(Model):
             else:
                 # R_new = b − A(W+δ) = R − (A δ + reg δ), A δ through K1c:
                 # its f32 kernel-value error enters scaled by ‖A δ‖ ≈ ‖R‖.
-                t0 = time.perf_counter()
-                R64 = R64 - (mm_update(delta) + reg * delta64)
-                walls["residual_f64"].append(since(t0))
+                with annotate("rlaopt.refine.residual"):
+                    t0 = time.perf_counter()
+                    R64 = R64 - (mm_update(delta) + reg * delta64)
+                    walls["residual_f64"].append(since(t0))
                 src = "update"
         if need_eval and certify == "sampled" and sampled_claim is None:
             # out of rounds right after a correction: try the certificate
             # before paying for the full evaluation
-            t0 = time.perf_counter()
-            sampled_claim = certificate()
-            if sampled_claim is not None:
-                src = "value64_sampled"
-                sources.append(src)
-                walls["residual_f64"].append(since(t0))
-                hist.append((sampled_claim[0] / b_norms).tolist())
-                need_eval = False
+            with annotate("rlaopt.refine.residual"):
+                t0 = time.perf_counter()
+                sampled_claim = certificate()
+                if sampled_claim is not None:
+                    src = "value64_sampled"
+                    sources.append(src)
+                    walls["residual_f64"].append(since(t0))
+                    hist.append((sampled_claim[0] / b_norms).tolist())
+                    need_eval = False
         out = {"rel_res_f64": hist, "residual_sources": sources, "phase_walls": walls}
         if sampled_claim is not None:
             # Independent host float64 second opinion (other rows, other
@@ -751,9 +787,10 @@ class LinSys(Model):
                 if bool(np.any(h_est > margin * np.maximum(est, 1e-300))) or not bool(
                     np.all(h_est * (1.0 - 5.0 * h_stderr) <= tol_abs)
                 ):
-                    t0 = time.perf_counter()
-                    R64 = B64 - (mm64(W64) + reg * W64)
-                    walls["residual_f64"].append(since(t0))
+                    with annotate("rlaopt.refine.residual"):
+                        t0 = time.perf_counter()
+                        R64 = B64 - (mm64(W64) + reg * W64)
+                        walls["residual_f64"].append(since(t0))
                     cert_log["refreshed"] = True
                     sources.append("evaluate")
                     hist.append((col_norms(R64) / b_norms).tolist())
@@ -762,9 +799,10 @@ class LinSys(Model):
             out["sampled_certificate"] = cert_log
             return W64, out
         if need_eval:
-            t0 = time.perf_counter()
-            R64 = B64 - (mm64(W64) + reg * W64)
-            walls["residual_f64"].append(since(t0))
+            with annotate("rlaopt.refine.residual"):
+                t0 = time.perf_counter()
+                R64 = B64 - (mm64(W64) + reg * W64)
+                walls["residual_f64"].append(since(t0))
             src = "evaluate"
         if src == "update":
             # The update carries its own error (~1e-7·Σ|K||δ|); guard the
@@ -783,9 +821,10 @@ class LinSys(Model):
                     "wall_s": since(t0),
                 }
                 if bool(np.any(est_abs > margin * np.maximum(claim, 1e-300))):
-                    t0 = time.perf_counter()
-                    R64 = B64 - (mm64(W64) + reg * W64)
-                    walls["residual_f64"].append(since(t0))
+                    with annotate("rlaopt.refine.residual"):
+                        t0 = time.perf_counter()
+                        R64 = B64 - (mm64(W64) + reg * W64)
+                        walls["residual_f64"].append(since(t0))
                     check_log["refreshed"] = True
                     src = "evaluate"
                 else:
@@ -796,6 +835,17 @@ class LinSys(Model):
         return W64, out
 
 
+def _moved(t: torch.Tensor, device, dtype) -> torch.Tensor:
+    """``t.to(device, dtype)``; a move between the host and a card waits for
+    the card (a span of the refinement's host syncs)."""
+    device = torch.device(device)
+    if t.device.type == device.type:
+        return t.to(device, dtype)
+    with annotate_sync("rlaopt.sync.refine", t if t.is_cuda else device):
+        return t.to(device, dtype)
+
+
 def _sync(t: torch.Tensor):
     if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+        with annotate_sync("rlaopt.sync.linsys", t):
+            torch.cuda.synchronize(t.device)

@@ -12,6 +12,7 @@ from warnings import warn
 
 from ..solvers import Solver, SolverConfig
 from ..utils.logger import Logger
+from ..utils.profiling import annotate
 
 
 __all__ = ["Model"]
@@ -136,31 +137,37 @@ class Model(ABC):
                 log.update({int(k): v for k, v in aux.get("log", {}).items()})
                 logger.cum_time = float(aux.get("cum_time", 0.0))
 
-        log[i] = logger._compute_log(0, solver.W)
-        if termination_fn(log[i]["metrics"]["internal_metrics"]):
+        # Spans: each chunk of steps, and each logging boundary from the
+        # chunk's return to the termination decision.
+        with annotate("rlaopt.model.boundary"):
+            log[i] = logger._compute_log(0, solver.W)
+            converged = termination_fn(log[i]["metrics"]["internal_metrics"])
+        if converged:
             return solver.W, log
 
         rounds = 0
         while i < max_iters:
             n_steps = min(logger.log_freq, max_iters - i)
-            solver._run_chunk(n_steps)
+            with annotate("rlaopt.model.chunk"):
+                solver._run_chunk(n_steps)
             i += n_steps
             rounds += 1
-            # force: a partial last chunk is still logged and checked.
-            log_i = logger._compute_log(i, solver.W, force=(i >= max_iters))
-            if log_i is not None:
-                log[i] = log_i
-                converged = termination_fn(log_i["metrics"]["internal_metrics"])
-                if checkpointer is not None and checkpoint_freq and (
-                    rounds % checkpoint_freq == 0 or converged
-                ):
-                    checkpointer.save(
-                        i,
-                        {"state": solver.state, "mask": self._mask},
-                        aux={"log": log, "cum_time": logger.cum_time},
-                    )
-                if converged:
-                    break
+            with annotate("rlaopt.model.boundary"):
+                # force: a partial last chunk is still logged and checked.
+                log_i = logger._compute_log(i, solver.W, force=(i >= max_iters))
+                if log_i is not None:
+                    log[i] = log_i
+                    converged = termination_fn(log_i["metrics"]["internal_metrics"])
+                    if checkpointer is not None and checkpoint_freq and (
+                        rounds % checkpoint_freq == 0 or converged
+                    ):
+                        checkpointer.save(
+                            i,
+                            {"state": solver.state, "mask": self._mask},
+                            aux={"log": log, "cum_time": logger.cum_time},
+                        )
+                    if converged:
+                        break
 
         logger._terminate()
         # Estimator-sourced final metrics are replaced by a true residual:
@@ -170,9 +177,10 @@ class Model(ABC):
             final is not None
             and final["metrics"]["internal_metrics"].get("source") is not None
         ):
-            final["metrics"]["internal_metrics"] = self._compute_internal_metrics(
-                solver.W, force_true=True
-            )
+            with annotate("rlaopt.model.boundary"):
+                final["metrics"]["internal_metrics"] = self._compute_internal_metrics(
+                    solver.W, force_true=True
+                )
         return solver.W, log
 
     @abstractmethod

@@ -22,7 +22,8 @@ or loaded on import.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises if
-the launch reports an error, and adds one to its ``launches`` counter. It
+the launch reports an error, and adds one to its ``launches`` counter (and,
+while tracing is on, its host time and calls to the program's counters). It
 takes CUDA tensors only: everything else raises (the dispatchers in
 :mod:`rlaopt_tpu_torch.ops.kernel_dispatch` and
 :mod:`rlaopt_tpu_torch.sparse.ops` send CPU tensors to the plain versions).
@@ -42,6 +43,7 @@ from typing import Optional
 import torch
 
 from ..kernels.functions import scale_inputs
+from ..utils.profiling import host_counted
 from .kernel_tiers import TierOperand, norms_and_operands, split_rhs
 
 
@@ -285,6 +287,13 @@ def _code(kind: str, laplace: bool = False) -> int:
     return KIND_CODES[kind]
 
 
+def _counted(fn):
+    """A checked wrapper whose host nanoseconds, from entry to the launch's
+    return, and calls go to the counters ``rlaopt.cuda.<wrapper>.host_ns``
+    and ``.calls`` while tracing is on (:mod:`rlaopt_tpu_torch.utils.profiling`)."""
+    return host_counted(f"rlaopt.cuda.{fn.__name__}")(fn)
+
+
 def _check_tensors(dtypes, *tensors: torch.Tensor):
     """Every tensor on one CUDA device, each of the dtype at its place."""
     dev = tensors[0].device
@@ -479,6 +488,7 @@ def _wide(code, X1, X2, V2, XT1, XT2, const_scaling):
     return out
 
 
+@_counted
 def gram_matmat(kind, X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
     """K1: ``c·k(X1, X2) @ V`` (n, k) on the card, exact f32 tier, the
     squared-distance families. Up to 16 columns the register tile's forward
@@ -564,6 +574,7 @@ def _comp_forward(entry, code, X1, X2, V, lengthscale, const_scaling, vtype):
     return (out[:, 0], lo[:, 0]) if squeeze else (out, lo)
 
 
+@_counted
 def gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling=1.0):
     """K1c: ``c·k(X1, X2) @ V`` as ``(hi, lo)``; consumers add ``lo`` last.
     The float64 tile's forward form (``csrc/gram_comp.cu``) on
@@ -577,6 +588,7 @@ def gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling=1.0):
     return out
 
 
+@_counted
 def gram_matvec_symmetric_comp(kind, X, V, lengthscale, const_scaling=1.0):
     """The triangle form of K1c and K3c: ``c·k(X, X) @ V`` as ``(hi, lo)``
     (add ``lo`` last), each tile pair evaluated once in float64 and
@@ -605,6 +617,7 @@ def gram_matvec_symmetric_comp(kind, X, V, lengthscale, const_scaling=1.0):
     return (out[:, 0], lo[:, 0]) if squeeze else (out, lo)
 
 
+@_counted
 def gram_matvec_symmetric(kind, X, V, lengthscale, const_scaling=1.0, operand=None):
     """K2: ``c·k(X, X) @ V`` for at most 16 columns, the register tile's
     triangle form (``csrc/gram_tile.cuh``): each pair of 128-point tiles
@@ -660,6 +673,7 @@ def _check_tier(kind, *operands: TierOperand):
     return code
 
 
+@_counted
 def gram_matmat_tier(kind, A: TierOperand, B: TierOperand, V, const_scaling=1.0):
     """K1b: ``c·k(X1, X2) @ V`` on a bf16 tier from the parts of X1 (A) and
     X2 (B) (:func:`rlaopt_tpu_torch.ops.kernel_tiers.tier_operand`): the
@@ -698,6 +712,7 @@ def gram_matmat_tier(kind, A: TierOperand, B: TierOperand, V, const_scaling=1.0)
     return out[:, 0] if squeeze else out
 
 
+@_counted
 def gram_matvec_symmetric_tier(kind, A: TierOperand, V, const_scaling=1.0):
     """K2b: ``c·k(X, X) @ V`` on a bf16 tier for at most 16 columns."""
     code = _check_tier(kind, A)
@@ -722,6 +737,7 @@ def gram_matvec_symmetric_tier(kind, A: TierOperand, V, const_scaling=1.0):
     return out[:, 0] if squeeze else out
 
 
+@_counted
 def gram_matmat_f64(kind, X1, X2, V, lengthscale, const_scaling=1.0):
     """K8: ``c·k(X1, X2) @ V`` in float64 from float32 points, a float64
     lengthscale (scalar or ARD) and float64 V; float64 out. All five
@@ -733,6 +749,7 @@ def gram_matmat_f64(kind, X1, X2, V, lengthscale, const_scaling=1.0):
     return out
 
 
+@_counted
 def gram_matvec_symmetric_f64(kind, X, V, lengthscale, const_scaling=1.0):
     """K7: ``c·k(X, X) @ V`` in float64 from float32 points, a float64
     lengthscale (scalar or ARD) and float64 V, float64 out; any k, every
@@ -758,6 +775,7 @@ def gram_matvec_symmetric_f64(kind, X, V, lengthscale, const_scaling=1.0):
     return out[:, 0] if squeeze else out
 
 
+@_counted
 def laplace_matmat(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
     """K3: ``c·exp(−‖x − y‖₁/ℓ) @ V`` (n, k) on the card, float32. Up to 16
     columns :func:`laplace_matmat_narrow` (the Hopper tile, counted there);
@@ -778,6 +796,7 @@ def laplace_matmat(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
     return out
 
 
+@_counted
 def laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
     """K3 at k ≤ 16: the register tile's forward form
     (``csrc/gram_tile.cuh``), tiles of 128 x 128 points, an 8 x 8 register
@@ -797,6 +816,7 @@ def laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling=1.0, operands=No
     return out[:, 0] if squeeze else out
 
 
+@_counted
 def laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling=1.0):
     """K3c: the Laplace product as ``(hi, lo)`` (add ``lo`` last), K1c's
     contract and kernel (:func:`gram_matmat_comp`) with Laplace's code."""
@@ -806,6 +826,7 @@ def laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling=1.0):
     return out
 
 
+@_counted
 def laplace_matvec_symmetric(X, V, lengthscale, const_scaling=1.0, operand=None):
     """K5: the Laplace ``c·k(X, X) @ V`` for at most 16 columns, the
     register tile's triangle form (``csrc/gram_tile.cuh``), as K2: each pair
@@ -857,6 +878,7 @@ def _tile_pair(code, X1, X2, V2, V1, lengthscale, const_scaling, operands):
     return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
 
 
+@_counted
 def gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0, operands=None):
     """K4: ``(c·K @ V2, c·Kᵀ @ V1)`` with K = k(X1, X2) evaluated once, exact
     f32 tier, k ≤ 16; the squared-distance families. The register tile's
@@ -869,6 +891,7 @@ def gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0, operands=Non
     return out
 
 
+@_counted
 def gram_pair_tier(kind, A: TierOperand, B: TierOperand, V2, V1, const_scaling=1.0):
     """K4b: ``(c·K @ V2, c·Kᵀ @ V1)`` on a bf16 tier from the parts of X1 (A)
     and X2 (B), k ≤ 16; the mirror contraction is tier-matched at k ≥ 3.
@@ -897,6 +920,7 @@ def gram_pair_tier(kind, A: TierOperand, B: TierOperand, V2, V1, const_scaling=1
     return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
 
 
+@_counted
 def laplace_pair(X1, X2, V2, V1, lengthscale, const_scaling=1.0, operands=None):
     """K6: the Laplace ``(c·K @ V2, c·Kᵀ @ V1)``, one L1/exp tile for both
     products, k ≤ 16: :func:`gram_pair`'s kernel and operands with
@@ -935,6 +959,7 @@ def _comp_pair(entry, kind, X1, X2, V2, V1, lengthscale, const_scaling, vtype):
     return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
 
 
+@_counted
 def gram_pair_comp(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0):
     """The compensated pair (K1c's and K3c's pair form): ``(c·K @ V2, c·Kᵀ
     @ V1)`` in float64 from float32 points and float32 V, K = k(X1, X2)
@@ -947,6 +972,7 @@ def gram_pair_comp(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0):
     return out
 
 
+@_counted
 def gram_pair_f64(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0):
     """K8's pair form: :func:`gram_pair_comp` with float64 V."""
     out = _comp_pair("rl_gram_pair_f64", kind, X1, X2, V2, V1, lengthscale, const_scaling,
@@ -1129,6 +1155,7 @@ def _csr_launch(values, indptr, indices, X, n_rows: int, plan: Optional[CSRPlan]
     return out
 
 
+@_counted
 def csr_spmv(values, indptr, indices, x, n_rows: int, plan: Optional[CSRPlan] = None):
     """#9 at one right-hand side: ``y = A @ x`` for CSR A, x of shape
     (n_cols,) or (n_cols, 1); y of the same rank. ``plan``: the CSR's
@@ -1141,6 +1168,7 @@ def csr_spmv(values, indptr, indices, x, n_rows: int, plan: Optional[CSRPlan] = 
     return out[:, 0] if squeeze else out
 
 
+@_counted
 def csr_spmm(values, indptr, indices, X, n_rows: int, plan: Optional[CSRPlan] = None):
     """#9 at k ≥ 1 right-hand sides: ``Y = A @ X`` for CSR A, X (n_cols,
     k). ``plan`` as for :func:`csr_spmv`."""

@@ -32,6 +32,7 @@ from ..utils.linalg import (
     solve_tri_lower,
     solve_tri_upper,
 )
+from ..utils.profiling import annotate_sync, traced
 
 
 __all__ = [
@@ -96,12 +97,17 @@ def nystrom_update(
     # eigh and svd raise on NaN: factor a stand-in and return NaN factors
     ok = torch.all(torch.isfinite(B))
     B = torch.where(ok, B, torch.zeros_like(B))
-    nan = torch.tensor(float("nan"), dtype=dtype, device=Core.device)
+    # On a card the copy of a host value and the factorizations' error
+    # checks wait for the device.
+    with annotate_sync("rlaopt.sync.nystrom", Core):
+        nan = torch.tensor(float("nan"), dtype=dtype, device=Core.device)
     use_eigh = n > 64 * rank if _route is None else _route == "eigh"
     if use_eigh:
         # B Bᵀ = V diag(σ²) Vᵀ  ⇒  U = Bᵀ V diag(1/σ): one (r, r) eigh and
         # one extra (n, r) product instead of an (n, r) SVD.
-        evals, V = torch.linalg.eigh(hmm(B, B.T) + torch.where(ok, 0.0, 1.0) * eye)
+        G = hmm(B, B.T) + torch.where(ok, 0.0, 1.0) * eye
+        with annotate_sync("rlaopt.sync.nystrom", G):
+            evals, V = torch.linalg.eigh(G)
         evals = torch.flip(evals, (0,))
         V = torch.flip(V, (1,))
         sig = torch.sqrt(torch.clamp(evals, min=0.0))
@@ -111,7 +117,8 @@ def nystrom_update(
         U = hmm(B.T, V * inv_sig[None, :])
         S = torch.clamp(evals - shift, min=0.0)
         return NystromFactors(U=torch.where(ok, U, nan), S=torch.where(ok, S, nan))
-    U, Svals, _ = torch.linalg.svd(B.T, full_matrices=False)
+    with annotate_sync("rlaopt.sync.nystrom", B):
+        U, Svals, _ = torch.linalg.svd(B.T, full_matrices=False)
     S = torch.clamp(Svals**2 - shift, min=0.0)
     return NystromFactors(U=torch.where(ok, U, nan), S=torch.where(ok, S, nan))
 
@@ -181,6 +188,7 @@ class Nystrom(Preconditioner):
         self.low_precision = False
         self.L = None
 
+    @traced("rlaopt.nystrom.build")
     def _update(self, A, *args, key=None, Omega=None, **kwargs):
         dtype = A.dtype
         self.low_precision = dtype != torch.float64
@@ -202,10 +210,12 @@ class Nystrom(Preconditioner):
         if self.low_precision and self.L is None:
             self.L = nystrom_inv_chol(self.U, self.S, self.rho)
 
+    @traced("rlaopt.nystrom.apply")
     def _inverse_matmul_1d(self, x):
         self._ensure_L()
         return nystrom_apply_inv(self._factors(), self.rho, x, self.L)
 
+    @traced("rlaopt.nystrom.apply")
     def _inverse_matmul_2d(self, x):
         self._ensure_L()
         return nystrom_apply_inv(self._factors(), self.rho, x, self.L)

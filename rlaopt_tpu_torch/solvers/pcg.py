@@ -26,6 +26,7 @@ from ..linops.base import LinOp
 from ..preconditioners import PreconditionerConfig, _get_precond
 from ..utils.checkers import _as_generator
 from ..utils.linalg import hmm
+from ..utils.profiling import annotate_sync, count, traced
 
 if TYPE_CHECKING:
     from ..models import LinSys
@@ -52,7 +53,8 @@ def _op_mm(A, X):
 
 def _is_zero(W: torch.Tensor) -> bool:
     """Whether the init iterate is exactly zero (one host sync)."""
-    return not bool(torch.any(W != 0))
+    with annotate_sync("rlaopt.sync.is_zero", W):
+        return not bool(torch.any(W != 0))
 
 
 def pcg_init(A, B, reg, W, inv_fn, pstate, w_zero: bool = False) -> PCGState:
@@ -86,14 +88,17 @@ def _safe_solve(M, B):
 
     Near convergence the small k×k systems become numerically singular in
     f32; the eps·max|diag| ridge keeps the solve finite while perturbing
-    well-conditioned systems at rounding level.
+    well-conditioned systems at rounding level. On a card
+    ``torch.linalg.solve`` waits for the device (its singularity check).
     """
     k = M.shape[0]
     delta = torch.finfo(M.dtype).eps * torch.max(torch.abs(torch.diagonal(M)))
     eye = torch.eye(k, dtype=M.dtype, device=M.device)
-    return torch.linalg.solve(M + delta * eye, B)
+    with annotate_sync("rlaopt.sync.safe_solve", M):
+        return torch.linalg.solve(M + delta * eye, B)
 
 
+@traced("rlaopt.pcg.step")
 def pcg_step(A, reg, inv_fn, pstate, state: PCGState, mask) -> PCGState:
     """One masked PCG iteration (full-width, mask-frozen columns).
 
@@ -187,6 +192,7 @@ class PCG(Solver):
     def _resync(self):
         """Restart from the current iterate with a freshly computed residual
         (residual replacement): one extra operator apply."""
+        count("rlaopt.pcg.resyncs")
         self.state = pcg_init(
             self.system.A, self.system.B, self._reg, self.state.W, self._inv_fn, self._pstate
         )
@@ -196,5 +202,7 @@ class PCG(Solver):
         for _ in range(n_steps):
             self.state = pcg_step(A, self._reg, self._inv_fn, self._pstate, self.state, mask)
         # Breakdown in any active column → restart with a true residual.
-        if not bool(torch.all(self.state.ok | ~mask)):
+        with annotate_sync("rlaopt.sync.breakdown", mask):
+            healthy = bool(torch.all(self.state.ok | ~mask))
+        if not healthy:
             self._resync()

@@ -3,7 +3,9 @@
 Port of ``rlaopt_tpu/utils/logger.py``: frequency-gated logging with
 per-round and cumulative wall-clock time, and ``wandb.init``/``log``/
 ``finish`` when asked. The timer synchronizes the CUDA device before it
-reads the clock, so the times are device time and not enqueue time.
+reads the clock, so the times are device time and not enqueue time. The
+clock is ``time.perf_counter``, the monotonic clock of the program's spans
+(:mod:`rlaopt_tpu_torch.utils.profiling`).
 """
 
 import time
@@ -11,6 +13,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .profiling import annotate_sync
 
 __all__ = ["Logger"]
 
@@ -45,15 +48,15 @@ class Logger:
             self._wandb = None
             self.log_in_wandb = False
 
-        self.start_time = time.time()
+        self.start_time = time.perf_counter()
         self.iter_time = 0.0
         self.cum_time = 0.0
 
     def _reset_timer(self):
-        self.start_time = time.time()
+        self.start_time = time.perf_counter()
 
     def _update_cum_time(self):
-        self.iter_time = time.time() - self.start_time
+        self.iter_time = time.perf_counter() - self.start_time
         self.cum_time += self.iter_time
 
     def _compute_log(self, i: int, *args: Any, force: bool = False, **kwargs: Any):
@@ -65,7 +68,8 @@ class Logger:
         if i % self.log_freq != 0 and not force:
             return None
         if args and isinstance(args[0], torch.Tensor) and args[0].is_cuda:
-            torch.cuda.synchronize(args[0].device)
+            with annotate_sync("rlaopt.sync.logger", args[0]):
+                torch.cuda.synchronize(args[0].device)
         self._update_cum_time()
         metrics = self.log_fn(*args, **kwargs)
         log_dict = {"iter_time": self.iter_time, "cum_time": self.cum_time}

@@ -4,15 +4,32 @@ Port of ``rlaopt_tpu/utils/profiling.py`` onto ``torch.profiler``:
 
 * :func:`trace` records a trace of the host and, where a CUDA card is
   present, of the card, and writes it as a Chrome trace file that opens in
-  Perfetto (``ui.perfetto.dev``) or ``chrome://tracing``;
-* :func:`annotate` names a span in that trace (``record_function``);
+  Perfetto (``ui.perfetto.dev``) or ``chrome://tracing``, with the
+  program's spans and counters beside it;
+* :func:`annotate` names a span of the program: in that trace
+  (``record_function``) and in an in-memory record;
 * :class:`Profiler` accumulates named wall-clock phases, synchronizing the
   card at the end of each phase so that a phase's time holds the work it
   queued there and not only the time it took to queue it.
+
+Tracing is on exactly while a ``torch.profiler`` profile records in this
+process (``trace`` opens one). Then every span of the program opens a
+``record_function`` range, so that it sits in the profiler's trace on the
+clock of the card's kernels, and appends one record: its name, start and
+end (``time.perf_counter_ns``), its id, its parent's id and the id of the
+outermost ``rlaopt.linsys.solve`` it belongs to (correction solves share
+their outer solve's). Counters (:func:`count`, :func:`add_ns`) sit beside
+the spans. :func:`spans`, :func:`counters` and :func:`summary` read the
+record; :func:`reset` clears it. Off, a span or a counter costs one flag
+check: no allocation, no ``record_function``.
 """
 
 import contextlib
+import functools
+import itertools
+import json
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict
@@ -24,6 +41,193 @@ from ._tree import leaves
 
 __all__ = ["Profiler", "trace", "annotate"]
 
+# ``torch.profiler`` sets this flag while a profile records in the process.
+_ap = torch.autograd.profiler
+_OFF = contextlib.nullcontext()
+
+SOLVE = "rlaopt.linsys.solve"
+MAX_SPANS = 1_000_000  # raw span records kept; the summary and counters stay exact
+
+
+class _Record:
+    """The spans and counters recorded since the last :func:`reset`."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.ids = itertools.count(1)
+        self.spans = []  # (name, start_ns, end_ns, id, parent, solve, device, error)
+        self.dropped = 0
+        self.counters = defaultdict(int)
+        self.summary = {}  # name -> [calls, total_ns, self_ns]
+
+
+_record = _Record()
+_local = threading.local()  # each thread's stack of open spans
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Span:
+    """One open span (see the module's docstring)."""
+
+    __slots__ = ("name", "device", "id", "solve", "_up", "_rf", "_start", "_child_ns")
+
+    def __init__(self, name: str, device=None):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        stack = _stack()
+        up = self._up = stack[-1] if stack else None
+        self.id = next(_record.ids)
+        self.solve = up.solve if up is not None else None
+        if self.solve is None and self.name == SOLVE:
+            self.solve = self.id
+        self._child_ns = 0
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        stack.append(self)
+        self._start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        end = time.perf_counter_ns()
+        _stack().pop()  # spans nest: ``with`` closes them in turn
+        self._rf.__exit__(exc_type, exc, tb)
+        ns = end - self._start
+        up = self._up
+        if up is not None:
+            up._child_ns += ns
+        row = (self.name, self._start, end, self.id, None if up is None else up.id,
+               self.solve, self.device, exc_type is not None)
+        with _record.lock:
+            s = _record.summary.get(self.name)
+            if s is None:
+                s = _record.summary[self.name] = [0, 0, 0]
+            s[0] += 1
+            s[1] += ns
+            s[2] += ns - self._child_ns
+            if len(_record.spans) < MAX_SPANS:
+                _record.spans.append(row)
+            else:
+                _record.dropped += 1
+        return False
+
+
+def annotate(name: str):
+    """A named span of the program (a context manager): a profiler range and
+    a record while tracing is on, nothing otherwise."""
+    if not _ap._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def annotate_sync(name: str, t):
+    """The span of a host read that waits for the device of tensor ``t`` (or
+    for the device ``t``), named ``rlaopt.sync.<site>`` and recorded with
+    that device's type."""
+    if not _ap._is_profiler_enabled:
+        return _OFF
+    return _Span(name, getattr(t, "device", t).type)
+
+
+def traced(name: str):
+    """Decorator: each call of the function is a span named ``name``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _ap._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _Span(name):
+                return fn(*args, **kwargs)
+
+        return spanned
+
+    return wrap
+
+
+def host_counted(prefix: str):
+    """Decorator: while tracing is on, each call adds its host nanoseconds,
+    from entry to return, to the counter ``<prefix>.host_ns`` and one to
+    ``<prefix>.calls``."""
+    host_ns, calls = f"{prefix}.host_ns", f"{prefix}.calls"
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def counted(*args, **kwargs):
+            if not _ap._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                add_ns(host_ns, time.perf_counter_ns() - t0)
+                count(calls)
+
+        return counted
+
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on."""
+    if _ap._is_profiler_enabled:
+        with _record.lock:
+            _record.counters[name] += n
+
+
+def add_ns(name: str, ns: int) -> None:
+    """Add ``ns`` nanoseconds to the counter ``name`` while tracing is on."""
+    count(name, ns)
+
+
+def spans() -> list:
+    """The recorded spans, in the order they closed: dicts of ``name``,
+    ``start_ns``, ``end_ns``, ``id``, ``parent`` and ``solve`` (ids, None
+    where there is none), ``device`` (a sync span's device type, else None)
+    and ``error`` (closed by an exception)."""
+    keys = ("name", "start_ns", "end_ns", "id", "parent", "solve", "device", "error")
+    with _record.lock:
+        rows = list(_record.spans)
+    return [dict(zip(keys, row)) for row in rows]
+
+
+def dropped() -> int:
+    """Spans closed past ``MAX_SPANS`` and so left out of :func:`spans`."""
+    return _record.dropped
+
+
+def counters() -> dict:
+    with _record.lock:
+        return dict(_record.counters)
+
+
+def summary() -> dict:
+    """Per span name: ``calls``, ``total_s`` and ``self_s`` (the spans'
+    seconds less those of the spans directly inside them), exact past
+    ``MAX_SPANS``."""
+    with _record.lock:
+        return {name: {"calls": c, "total_s": t / 1e9, "self_s": s / 1e9}
+                for name, (c, t, s) in _record.summary.items()}
+
+
+def reset() -> None:
+    """Clear the record; spans still open close into the cleared one. Span
+    ids keep counting, so they stay unique in the process."""
+    with _record.lock:
+        _record.spans, _record.dropped = [], 0
+        _record.counters, _record.summary = defaultdict(int), {}
+
+
+def _dump() -> dict:
+    return {"spans": spans(), "dropped": dropped(), "counters": counters(),
+            "summary": summary()}
+
 
 @contextlib.contextmanager
 def trace(log_dir: str, *, create_perfetto_link: bool = False):
@@ -34,27 +238,28 @@ def trace(log_dir: str, *, create_perfetto_link: bool = False):
         with rlaopt_tpu_torch.utils.trace("/tmp/rlaopt_trace"):
             model.solve(...)
 
-    On exit a Chrome trace file (``trace_<pid>_<ns>.json``) is written under
-    ``log_dir``; it opens in Perfetto. ``create_perfetto_link`` is taken
-    for the JAX package's callers and changes nothing: the file is the link.
+    On entry the record of spans and counters is cleared. On exit a Chrome
+    trace file (``trace_<pid>_<ns>.json``) is written under ``log_dir``; it
+    opens in Perfetto. Beside it ``spans_<pid>_<ns>.json`` holds the
+    program's spans, counters and per-name summary. ``create_perfetto_link``
+    is taken for the JAX package's callers and changes nothing: the file is
+    the link.
     """
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     prof = torch.profiler.profile(activities=activities)
+    reset()
     prof.__enter__()
     try:
         yield
     finally:
         prof.__exit__(None, None, None)
-        path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
-        prof.export_chrome_trace(path)
-
-
-def annotate(name: str):
-    """A named span in profiler traces (a context manager)."""
-    return torch.profiler.record_function(name)
+        stamp = f"{os.getpid()}_{time.time_ns()}"
+        prof.export_chrome_trace(os.path.join(log_dir, f"trace_{stamp}.json"))
+        with open(os.path.join(log_dir, f"spans_{stamp}.json"), "w") as f:
+            json.dump(_dump(), f)
 
 
 def _sync(tree) -> None:

@@ -233,14 +233,17 @@ def test_annotate_context():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     """JAX's ``test_profiler_trace``: a file under the directory; here a
-    Chrome trace (Perfetto opens it) naming the annotated span."""
+    Chrome trace (Perfetto opens it) naming the annotated span, and beside it
+    the program's record of spans, which holds the same span."""
     with trace(str(tmp_path / "tr"), create_perfetto_link=True):
         with annotate("rlaopt-span"):
             _ = (torch.ones(8) * 2).sum()
-    files = list((tmp_path / "tr").rglob("*.json"))
+    files = list((tmp_path / "tr").rglob("trace_*.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any(e.get("name") == "rlaopt-span" for e in events)
+    (record,) = (tmp_path / "tr").rglob("spans_*.json")
+    assert [s["name"] for s in json.loads(record.read_text())["spans"]] == ["rlaopt-span"]
 
 
 # -- wandb ---------------------------------------------------------------------
