@@ -49,7 +49,11 @@ straight through and exits non-zero at the first failure:
    timed, in every family at ragged shapes (n < 128 too; d = 3, 28, 50;
    scalar and ARD lengthscales; k = 1, 3, 10, 17) with the certified pairs
    (both outputs), the pairs checked and timed at E2's and E3's shard pairs,
-   and ``comp_operand``'s build timed;
+   and ``comp_operand``'s build timed; K2b's sweep (``k2b_sweep``): n = 1,
+   63, 64, 127, 1,000, 100,037 and 10⁶ (on sampled rows), k = 1, 2, 3, 10,
+   16, RBF and Matérn-3/2, both tiers, against the plain version of its
+   tier, each call on the route its k selects (``route_counts``), and K2b
+   timed at 10⁶ on both tiers at k = 1 and 10;
 4. slice 1, config 3 whole: RBF kernel ridge regression, Nyström-PCG (rank
    500) through ``LinSys.solve`` with k = 1 and k = 10 right-hand sides,
    then the k = 1 solve again with two float64 refinement rounds; every
@@ -388,7 +392,7 @@ REGISTERS_OF = {"gram_matmat": ("tile_forward", "gram_wide_tf32"),
                 "gram_matvec_symmetric": ("tile_triangle",),
                 "laplace_matmat": ("gram_wide_tf32",),
                 "gram_pair": ("tile_pair",), "laplace_pair": ("tile_pair",),
-                "gram_matvec_symmetric_tier": ("gram_tier_symmetric",),
+                "gram_matvec_symmetric_tier": ("gram_tier_symmetric", "gram_tier_triangle"),
                 "gram_matmat_tier": ("gram_tier_forward", "gram_tier_wide"),
                 "gram_pair_tier": ("gram_tier_pair",),
                 "gram_matvec_symmetric_comp": ("gram_comp_symmetric",),
@@ -710,6 +714,7 @@ LAPLACE_CODE = 4
 # group): K2b, K1b's forward strip and wide kernel, K4b; the float64 tile's
 # by form, family and V's type (comp_wrapper).
 _OWN = {"gram_tier_symmetric": "gram_matvec_symmetric_tier",
+        "gram_tier_triangle": "gram_matvec_symmetric_tier",
         "gram_tier_forward": "gram_matmat_tier", "gram_tier_wide": "gram_matmat_tier",
         "gram_tier_pair": "gram_pair_tier"}
 # Kernels whose names hold no gram_ prefix: the probes, and K3's tile in its
@@ -1844,12 +1849,15 @@ def ported_utils(dev, K, X, Y1, reg):
     with tempfile.TemporaryDirectory() as tdir:
         with trace(tdir):
             (K @ v).sum().item()
-        traces = [f for f in os.listdir(tdir) if f.endswith(".json")]
+        files = sorted(f for f in os.listdir(tdir) if f.endswith(".json"))
+        traces = [f for f in files if f.startswith("trace_")]
+        spans = [f for f in files if f.startswith("spans_")]
         text = open(os.path.join(tdir, traces[0])).read() if traces else ""
     named = "tile_triangle" in text
-    print(f"utils trace: files {traces}, {len(text)} bytes, names K2's kernel "
+    print(f"utils trace: files {files}, {len(text)} bytes, names K2's kernel "
           f"(tile_triangle): {named}")
-    check(len(traces) == 1 and named, "trace: one trace file that names K2's kernel")
+    check(len(traces) == 1 and named and len(spans) == 1,
+          "trace: one Chrome trace file that names K2's kernel, the spans' record beside it")
     prof = Profiler()
     with prof.phase("k2") as out:
         out["sync"] = K @ v
@@ -3097,6 +3105,100 @@ def config2(dev, profiled):
 PAIR_KS = (1, 2, 3, 10, 16)
 
 
+# K2b's sweep (k2b_sweep): sizes around the warp-specialised kernel's tiles
+# (64 column points, 128 row points a block), a ragged 100,000 + 37 and
+# config 6's 10⁶ (past K2B_FULL held on K2B_ROWS sampled rows of the plain
+# version, k2b_rows_ref: a full plain product at 10⁶ takes hours), every k
+# on each route (warpgroup to 2, strip past it), RBF and Matérn-3/2, both
+# tiers.
+K2B_NS = (1, 63, 64, 127, 1000, 100_037, 1_000_000)
+K2B_KS = (1, 2, 3, 10, 16)
+K2B_ROWS, K2B_FULL = 4096, 200_000
+
+
+def k2b_rows_ref(kind, P, V, c, idx, block=256):
+    """Rows ``idx`` of the plain K2b (``kernel_plain.gram_matvec_symmetric_tier``
+    at its tile) without the whole product: each row's forward contraction
+    in float32 over the columns from its tile on, and its mirror rows, the
+    columns of earlier tiles, tier-matched past two columns."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_plain
+
+    k = V.shape[1]
+    mode = "f32" if k <= 2 else ("split" if P.passes == 3 else "fast")
+    tiles = torch.arange(V.shape[0], device=V.device) // kernel_plain.SYMMETRIC_TILE
+    out = torch.empty((idx.numel(), k), dtype=torch.float32, device=V.device)
+    for s in range(0, idx.numel(), block):
+        rows = idx[s : s + block]
+        K = kernel_plain._tier_values(kind, P, P, rows)
+        later = tiles[None, :] >= tiles[rows, None]
+        out[s : s + block] = (torch.where(later, K, 0.0) @ V
+                              + kernel_plain.tier_contract(torch.where(later, 0.0, K), V, mode))
+    return out * c
+
+
+def k2b_sweep(dev, compare, timings):
+    """K2b against the plain version of its tier at every (n, k, family,
+    tier) of the sweep, each call's route read from ``route_counts``; at
+    10⁶ the one-pass tier past two columns (the strip, whose mirror
+    re-rounds to bf16 where the general product does not) is left out, and
+    K2b is timed there on both tiers at k = 1 and 10."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
+
+    t0 = time.perf_counter()
+    rng = torch.Generator(device=dev).manual_seed(20)
+    for n in K2B_NS:
+        X = torch.randn((n, D), generator=rng, device=dev) / D**0.5
+        idx = (torch.as_tensor(sampled_rows(n, K2B_ROWS, 20), device=dev)
+               if n > K2B_FULL else None)
+        for cd in TIERS:
+            P = tier_operand(X, cd)
+            for kind in ("rbf", "matern32"):
+                for k in K2B_KS:
+                    if idx is not None and cd == "bfloat16" and k >= 3:
+                        continue
+                    V = torch.randn((n, k), generator=rng, device=dev)
+                    kernel_cuda.reset_launch_counts()
+                    got = kernel_cuda.gram_matvec_symmetric_tier(kind, P, V, 0.9)
+                    route = "warpgroup" if k <= 2 else "strip"
+                    check(kernel_cuda.route_counts()[f"gram_matvec_symmetric_tier.{route}"] == 1
+                          and sum(kernel_cuda.route_counts().values()) == 1,
+                          f"K2b n={n} k={k}: one launch on the {route} route")
+                    what = f"{cd} {kind} n={n} d={D} k={k} ({route}) vs its tier"
+                    if idx is None:
+                        ref = kernel_plain.gram_matvec_symmetric_tier(kind, P, V, 0.9,
+                                                                      row_block=BLOCK)
+                        reround = cd == "bfloat16" and k >= 3
+                        compare("gram_matvec_symmetric_tier", got, ref, what,
+                                reround_bound(V, ref, 0.9) if reround else TIER_BOUND)
+                    else:
+                        ref = k2b_rows_ref(kind, P, V, 0.9, idx)
+                        compare("gram_matvec_symmetric_tier", got[idx], ref,
+                                f"{what}, rows {K2B_ROWS}", TIER_BOUND)
+                    del got, ref, V
+            if n == 1_000_000:
+                for k in (1, 10):
+                    V = torch.randn((n, k), generator=rng, device=dev)
+                    ms = cuda_ms(lambda: kernel_cuda.gram_matvec_symmetric_tier("rbf", P, V),
+                                 reps=3)
+                    what = f"n={n} d={D} k={k}"
+                    timings.setdefault("gram_matvec_symmetric_tier", []).append(
+                        timing_entry("gram_matvec_symmetric_tier", f"{what} {cd}", ms, None, n,
+                                     n, D, k, "rbf", cd))
+                    print(f"time gram_matvec_symmetric_tier {what} {cd}: kernel {ms:.3f} ms, "
+                          f"bound {timings['gram_matvec_symmetric_tier'][-1]['bound_ms']:.3f} "
+                          f"ms")
+                    del V
+            del P
+        del X
+    kernel_cuda.reset_launch_counts()
+    print(f"phase: K2b sweep {time.perf_counter() - t0:.1f} s")
+
+
 def pair_name(kind: str) -> str:
     return "laplace_pair" if kind == "laplace" else "gram_pair"
 
@@ -4147,6 +4249,7 @@ def main() -> int:
     sqdist_kernels(dev, X, compare, timings)
     comp_forms(dev, X, compare, timings)
     print(f"phase: the float64 tile's forms done at {time.perf_counter() - t_start:.1f} s")
+    k2b_sweep(dev, compare, timings)
     del XT
     print(f"phase: kernel checks and times done at {time.perf_counter() - t_start:.1f} s")
 

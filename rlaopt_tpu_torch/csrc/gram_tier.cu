@@ -6,9 +6,11 @@
 //       (PASSES = 3: _cross_split, _body_split) or "bfloat16" (PASSES = 1:
 //       _cross_bf16, _body_bf16), and _acc_update's tier-matched "split" and
 //       "fast" contractions for k > 16
-//   K2b gram_tier_symmetric<KIND, PASSES, KC>  replaces kernel_pallas.py ::
+//   K2b gram_tier_triangle<KIND, PASSES, KC>  replaces kernel_pallas.py ::
 //       kernel_matvec_symmetric with the same tiers (_sym_epilogue,
-//       _sym_tier_params, _sym_mirror_mode)
+//       _sym_tier_params, _sym_mirror_mode) past two columns or a padded
+//       depth of 128 (rl_gram_tier_triangle); below both, K2b is the
+//       warp-specialised gram_tier_symmetric of gram_tier_sym.cu
 //   K4b gram_tier_pair<KIND, PASSES, KC>  replaces kernel_pallas.py ::
 //       kernel_pair_matmat with the same tiers: (out1, out2) = (c K @ V2,
 //       c K^T @ V1) with K = k(X1, X2) evaluated once, the off-diagonal
@@ -31,10 +33,11 @@
 // of depth 64 per tile and column on the tensor cores, 18x the cross term at
 // d = 28.
 //
-// K1b, K2b and K4b share one strip body (tier_strip, below): a block owns
-// 128 rows, 8 warps of 16, and walks 64-column tiles; the cross term goes
-// through mma.sync into registers, the epilogue and the row contraction run
-// on the fragments, and the column tiles are staged by cp.async two ahead.
+// K1b, K2b's strip route and K4b share one strip body (tier_strip, below):
+// a block owns 128 rows, 8 warps of 16, and walks 64-column tiles; the
+// cross term goes through mma.sync into registers, the epilogue and the row
+// contraction run on the fragments, and the column tiles are staged by
+// cp.async two ahead.
 // K1b's forward form walks a run of the m axis: with few row
 // blocks (SAP's 10,000-row oracle is 79 of them on 132 SMs), or past 2^20
 // columns (2,048 tiles a run at most, so that a thread's float32 row sum
@@ -46,9 +49,11 @@
 // Not carried over: the concat fold of the TPU kernel (one MXU pass of depth
 // 3d on [xh|xh|xl].[yh;yl;yh]), a trade of the TPU's 128-lane padding; the
 // same three product terms are computed here as separate tensor-core steps.
-// wgmma, TMA and warp specialisation are later work.
+// The strip's triangle form stays for k >= 3, whose tier-matched mirror
+// runs on the tensor cores; wgmma and warp specialisation for that mirror,
+// for K1b and for K4b are later work.
 
-#include "gram_common.cuh"
+#include "gram_tier.cuh"
 
 namespace {
 
@@ -143,7 +148,6 @@ constexpr int kSymThreads = 32 * kSymStrips;    // 256
 constexpr int kSymStrip = 16;                   // column tiles a block walks
 constexpr int kSymStages = 3;  // column-tile loads in flight: 2 ahead
 constexpr int kMirLd = kTile + 4;  // row stride of the mirror sums (floats)
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of one launch, by the padded depth dp and KC: byte offsets.
 struct SymLayout {
@@ -198,18 +202,6 @@ __device__ __forceinline__ float bf16_value(uint16_t bits) {
   return __bfloat162float(__ushort_as_bfloat16(bits));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 // All but the newest kSymStages - 2 groups of cp.async have landed.
 __device__ __forceinline__ void cp_async_wait_stage() {
@@ -229,22 +221,6 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 a, __nv_bfloat16 b) 
   return (uint32_t)__bfloat16_as_ushort(a) | ((uint32_t)__bfloat16_as_ushort(b) << 16);
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Four 8 x 8 bf16 matrices from shared memory in the mma fragment layout:
-// lanes 8q .. 8q + 7 give the row addresses of matrix q, and r[q] holds
-// row lane / 4, elements 2 (lane % 4) and 2 (lane % 4) + 1 of it.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* row) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
 // The same, each matrix transposed: r[q] holds elements (2 (lane % 4),
 // lane / 4) and (2 (lane % 4) + 1, lane / 4) of matrix q, the B operand of
 // an mma from a row-major (k, n) tile.
@@ -262,27 +238,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The kernel value of the tier from its cross term; for RBF hx and hy come
-// times log2 e.
-template <int KIND>
-__device__ __forceinline__ float sym_value(float cross, float hx, float hy) {
-  if constexpr (KIND == RBF) {
-    return ex2(fmaf(cross, kLog2e, -(hx + hy)));
-  } else {
-    const float d2 = fmaxf(hx + hy - 2.0f * cross, 0.0f);
-    const float r = sqrtf(d2);
-    if constexpr (KIND == MATERN12) {
-      return ex2(-kLog2e * r);
-    } else if constexpr (KIND == MATERN32) {
-      const float s3 = 1.7320508075688772f;
-      return (1.0f + s3 * r) * ex2((-s3 * kLog2e) * r);
-    } else {
-      const float s5 = 2.23606797749979f;
-      return (1.0f + s5 * r + (5.0f / 3.0f) * d2) * ex2((-s5 * kLog2e) * r);
-    }
-  }
 }
 
 // Rows [row0, row0 + rows) of the (n, dp) bf16 part P, features f0 .. f0
@@ -660,7 +615,7 @@ __device__ __forceinline__ void tier_strip(const GramArgs& a, int nt) {
 
 template <int KIND, int PASSES, int KC>
 __global__ void __launch_bounds__(kSymThreads, 2)
-    gram_tier_symmetric(const GramArgs a, int nt) {
+    gram_tier_triangle(const GramArgs a, int nt) {
   tier_strip<KIND, PASSES, KC, TRIANGLE>(a, nt);
 }
 
@@ -982,7 +937,7 @@ template <int KIND, int PASSES, int KC, bool PAIR>
 int launch_tier_mirror_kc(const GramArgs& a, cudaStream_t s) {
   const SymLayout L = sym_layout(a.d, KC, true);
   void (*kernel)(const GramArgs, int) =
-      PAIR ? gram_tier_pair<KIND, PASSES, KC> : gram_tier_symmetric<KIND, PASSES, KC>;
+      PAIR ? gram_tier_pair<KIND, PASSES, KC> : gram_tier_triangle<KIND, PASSES, KC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return (int)err;
@@ -1067,17 +1022,14 @@ extern "C" int rl_gram_matmat_tier(int kind, int passes, const void* X1h,
   return (int)cudaErrorInvalidValue;
 }
 
-// K2b: the triangle form for one data set, V (n, k) with k <= 16; out is
-// zeroed here first.
-extern "C" int rl_gram_matvec_symmetric_tier(int kind, int passes,
-                                             const void* Xh, const void* Xl,
-                                             const void* hx, const void* V,
-                                             void* out, int n, int dp, int k,
-                                             double c, void* stream) {
+// K2b's strip route (gram_tier_sym.cu's rl_gram_matvec_symmetric_tier
+// takes it past two columns or a padded depth of 128): the triangle form
+// for one data set, V (n, k) with k <= 16, into out, zeroed by the caller.
+extern "C" int rl_gram_tier_triangle(int kind, int passes, const void* Xh, const void* Xl,
+                                     const void* hx, const void* V, void* out, int n,
+                                     int dp, int k, double c, void* stream) {
   if (dp % kDepth != 0 || k < 1 || k > 16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * (size_t)n * k, s);
-  if (err != cudaSuccess) return (int)err;
   const GramArgs a = tier_args(Xh, Xl, hx, Xh, Xl, hx, V, out, n, n, dp, k, c);
   if (passes == 3) return tier_mirror_by_kind<3, false>(kind, a, s);
   if (passes == 1) return tier_mirror_by_kind<1, false>(kind, a, s);

@@ -10,8 +10,9 @@ float64 tile in its triangle, forward and pair forms: K1c, K3c, K7, K8 and
 the certified pairs), ``csrc/gram_laplace.cu`` (K3 up to 16 columns, K5),
 ``csrc/gram_pair.cu`` (the exact pair kernels K4, K6), the register tile of
 K1–K6 in its forward, triangle and pair forms in ``csrc/gram_tile.cuh``,
-``csrc/gram_tier.cu`` (K1b, K2b, K4b), with their shared
-pieces in ``csrc/gram_common.cuh``, ``csrc/spmv.cu`` (the
+``csrc/gram_tier.cu`` (K1b, K4b, K2b past two columns) and
+``csrc/gram_tier_sym.cu`` (K2b), with their shared pieces in
+``csrc/gram_common.cuh`` and ``csrc/gram_tier.cuh``, ``csrc/spmv.cu`` (the
 CSR SpMV/SpMM) and ``csrc/probes.cu`` (the ceiling probes, wrapped in
 :mod:`rlaopt_tpu_torch.ops.probes`); see the note at the top of each.
 :func:`build` compiles
@@ -43,7 +44,7 @@ from typing import Optional
 import torch
 
 from ..kernels.functions import scale_inputs
-from ..utils.profiling import host_counted
+from ..utils.profiling import count, host_counted
 from .kernel_tiers import TierOperand, norms_and_operands, split_rhs
 
 
@@ -62,6 +63,8 @@ __all__ = [
     "wide_rhs",
     "gram_matmat_tier",
     "gram_matvec_symmetric_tier",
+    "symmetric_tier_route",
+    "route_counts",
     "gram_matmat_f64",
     "gram_matvec_symmetric_f64",
     "laplace_matmat",
@@ -88,8 +91,8 @@ __all__ = [
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("gram.cu", "gram_wide.cu", "gram_comp.cu", "gram_laplace.cu", "gram_tier.cu",
-           "gram_pair.cu", "spmv.cu", "probes.cu")
-_HEADERS = ("gram_common.cuh", "gram_tile.cuh")
+           "gram_tier_sym.cu", "gram_pair.cu", "spmv.cu", "probes.cu")
+_HEADERS = ("gram_common.cuh", "gram_tile.cuh", "gram_tier.cuh")
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (
@@ -111,6 +114,11 @@ TIER_ROWS, TIER_BLOCKS_PER_SM = 128, 2
 # most (131,072 columns; SAP's row oracle at config 4's m = 10⁶ walks 1,202
 # a run).
 TIER_LONG_TILES, TIER_RUN_TILES = 16384, 2048
+# csrc/gram_tier_sym.cu: K2b's warp-specialised kernel takes up to
+# SYMMETRIC_TIER_WS_K columns (the float32 mirror) at a padded depth up to
+# SYMMETRIC_TIER_WS_DEPTH (its shared memory); the rest takes the strip's
+# triangle form in csrc/gram_tier.cu (symmetric_tier_route).
+SYMMETRIC_TIER_WS_K, SYMMETRIC_TIER_WS_DEPTH = 2, 128
 COMP_TILE, COMP_FEAT, COMP_FORWARD_K, COMP_SLICE = 128, 16, 16, 4
 # csrc/gram_tile.cuh: the register tile of K1–K6 at k <= 16 takes 128
 # points a side, chunks of 32 features, two blocks an SM.
@@ -712,9 +720,22 @@ def gram_matmat_tier(kind, A: TierOperand, B: TierOperand, V, const_scaling=1.0)
     return out[:, 0] if squeeze else out
 
 
+def symmetric_tier_route(k: int, dp: int) -> str:
+    """The kernel ``rl_gram_matvec_symmetric_tier`` takes for k columns at
+    the padded depth dp: ``"warpgroup"`` (``gram_tier_symmetric``, the
+    warp-specialised kernel) or ``"strip"`` (the strip's triangle form,
+    ``gram_tier_triangle``)."""
+    if k <= SYMMETRIC_TIER_WS_K and dp <= SYMMETRIC_TIER_WS_DEPTH:
+        return "warpgroup"
+    return "strip"
+
+
 @_counted
 def gram_matvec_symmetric_tier(kind, A: TierOperand, V, const_scaling=1.0):
-    """K2b: ``c·k(X, X) @ V`` on a bf16 tier for at most 16 columns."""
+    """K2b: ``c·k(X, X) @ V`` on a bf16 tier for at most 16 columns; each
+    route's launches (:func:`symmetric_tier_route`) are counted in
+    ``gram_matvec_symmetric_tier.routes`` and, while tracing is on, in the
+    counters ``rlaopt.cuda.gram_matvec_symmetric_tier.<route>.launches``."""
     code = _check_tier(kind, A)
     _check_tensors((torch.float32,), V)
     V2, squeeze = _check_shapes(A.hi, A.hi, V)
@@ -724,6 +745,10 @@ def gram_matvec_symmetric_tier(kind, A: TierOperand, V, const_scaling=1.0):
     if k > SYMMETRIC_MAX_K:
         raise ValueError(f"the triangle kernel takes k <= 16 columns (got {k})")
     _, hx, _ = norms_and_operands(kind, A, A)
+    route = symmetric_tier_route(k, dp)
+    if route == "warpgroup":
+        # the kernel reads V and the norms by TMA, from 16-byte aligned starts
+        V2, hx = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (V2, hx))
     build()
     out = torch.empty((n, k), dtype=torch.float32, device=V2.device)
     with torch.cuda.device(V2.device):
@@ -734,6 +759,8 @@ def gram_matvec_symmetric_tier(kind, A: TierOperand, V, const_scaling=1.0):
         )
     _raise_on(err, "gram_matvec_symmetric_tier")
     gram_matvec_symmetric_tier.launches += 1
+    gram_matvec_symmetric_tier.routes[route] += 1
+    count(f"rlaopt.cuda.gram_matvec_symmetric_tier.{route}.launches")
     return out[:, 0] if squeeze else out
 
 
@@ -1205,10 +1232,18 @@ _WRAPPERS = (
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
+    gram_matvec_symmetric_tier.routes = {"warpgroup": 0, "strip": 0}
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in _WRAPPERS}
+
+
+def route_counts() -> dict:
+    """K2b's launches by route (:func:`symmetric_tier_route`), as
+    ``{"gram_matvec_symmetric_tier.warpgroup": .., ".strip": ..}``."""
+    return {f"gram_matvec_symmetric_tier.{route}": launches
+            for route, launches in gram_matvec_symmetric_tier.routes.items()}
 
 
 reset_launch_counts()

@@ -10,6 +10,7 @@ k = 3), whose hi/lo split of the kernel values moves with their float32
 round-off.
 """
 
+import ctypes
 import importlib.util
 import json
 import os
@@ -339,6 +340,12 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
      "laplace_matmat"),
     ("gram_tier_symmetric<0, 3, 1>(GramArgs, int)", "gram_matvec_symmetric_tier"),
     ("gram_tier_symmetric<3, 1, 16>(GramArgs, int)", "gram_matvec_symmetric_tier"),
+    ("gram_tier_symmetric<0, 3, 1, 32>(GramArgs, int, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st)", "gram_matvec_symmetric_tier"),
+    ("gram_tier_symmetric<2, 1, 2, 64>(GramArgs, int, CUtensorMap_st)",
+     "gram_matvec_symmetric_tier"),
+    ("gram_tier_triangle<0, 3, 4>(GramArgs, int)", "gram_matvec_symmetric_tier"),
+    ("gram_tier_triangle<3, 1, 16>(GramArgs, int)", "gram_matvec_symmetric_tier"),
     ("gram_tier_forward<0, 3, 1>(GramArgs, int)", "gram_matmat_tier"),
     ("gram_tier_forward<2, 1, 16>(GramArgs, int)", "gram_matmat_tier"),
     ("gram_tier_wide<1, 3, 16>(GramArgs, int)", "gram_matmat_tier"),
@@ -540,3 +547,78 @@ def test_bound_counts_the_exponential_on_the_sfu():
     assert ms == pytest.approx((values * 3 * d + 2 * n * n) / SMOKE.PEAK["fp32"] * 1e3)
     ms, _ = SMOKE.bound_ms("gram_matvec_symmetric_f64", n, n, d, 1)
     assert ms == pytest.approx((values * (3 * d + 1) + 2 * n * n) / SMOKE.PEAK["fp64"] * 1e3)
+
+
+class _K2bEntry:
+    """K2b's C entry emulated on the host with the arguments of its ctypes
+    signature: it writes the plain version of the tier into ``out`` (read
+    through the pointers) and records each call."""
+
+    def __init__(self, P, c):
+        self.P, self.c, self.calls = P, c, []
+
+    def rl_gram_matvec_symmetric_tier(self, *args):
+        from rlaopt_tpu_torch.ops import kernel_cuda
+
+        assert len(args) == len(kernel_cuda._SIGNATURES["rl_gram_matvec_symmetric_tier"])
+        code, passes, xh, xl, hx, v, out, n, dp, k, c, _s = args
+        assert (xh, xl, passes) == (self.P.hi.data_ptr(), kernel_cuda._ptr(self.P.lo),
+                                    self.P.passes)
+        V = torch.from_numpy(np.ctypeslib.as_array(
+            ctypes.cast(v, ctypes.POINTER(ctypes.c_float)), shape=(n, k)).copy())
+        kind = {code: kind for kind, code in kernel_cuda.KIND_CODES.items()}[code]
+        ref = kernel_plain.gram_matvec_symmetric_tier(kind, self.P, V, c)
+        np.ctypeslib.as_array(ctypes.cast(out, ctypes.POINTER(ctypes.c_float)),
+                              shape=(n, k))[:] = ref.numpy()
+        self.calls.append({"n": n, "dp": dp, "k": k, "c": c})
+        return 0
+
+
+@pytest.mark.parametrize("d,k,route", [
+    (28, 1, "warpgroup"), (28, 2, "warpgroup"), (28, 3, "strip"), (28, 10, "strip"),
+    (28, 16, "strip"), (128, 1, "warpgroup"), (129, 1, "strip"), (129, 2, "strip"),
+    (10, 2, "warpgroup"), (28, 17, None), (28, 0, None),
+])
+def test_k2b_wrapper_contract_and_route(d, k, route, monkeypatch):
+    """``kernel_cuda.gram_matvec_symmetric_tier`` down to its emulated C
+    entry: the operands and shapes it hands over, k ≤ 16 (a wider or an empty
+    V raises before any launch), and the route ``symmetric_tier_route`` picks
+    by k and the padded depth alone (the warp-specialised kernel up to two
+    columns at a depth up to 128, the strip's triangle past either), counted
+    per route beside the wrapper's launches."""
+    import contextlib
+
+    from rlaopt_tpu_torch.ops import kernel_cuda
+
+    X = np.random.default_rng(d).standard_normal((150, d)).astype(np.float32)
+    P = tier_operand(torch.from_numpy(X) / d**0.5, "bf16x3")
+    V = torch.from_numpy(np.random.default_rng(k).standard_normal((150, max(k, 0)))
+                         .astype(np.float32))
+    entry = _K2bEntry(P, C)
+    monkeypatch.setattr(kernel_cuda, "_check_tensors", lambda dtypes, *ts: None)
+    monkeypatch.setattr(kernel_cuda, "build", lambda: None)
+    monkeypatch.setattr(kernel_cuda, "_stream", lambda t: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setitem(kernel_cuda._lib, "handle", entry)
+    kernel_cuda.reset_launch_counts()
+    if route is None:
+        with pytest.raises(ValueError):
+            kernel_cuda.gram_matvec_symmetric_tier("rbf", P, V, C)
+        assert entry.calls == [] and kernel_cuda.launch_counts()["gram_matvec_symmetric_tier"] == 0
+        return
+    got = kernel_cuda.gram_matvec_symmetric_tier("rbf", P, V, C)
+    dp = -(-d // 16) * 16
+    assert entry.calls == [{"n": 150, "dp": dp, "k": k, "c": C}]
+    assert kernel_cuda.symmetric_tier_route(k, dp) == route
+    assert got.shape == (150, k)
+    assert _rel(got, kernel_plain.gram_matvec_symmetric_tier("rbf", P, V, C)) == 0
+    assert kernel_cuda.launch_counts()["gram_matvec_symmetric_tier"] == 1
+    assert kernel_cuda.route_counts() == {
+        "gram_matvec_symmetric_tier.warpgroup": int(route == "warpgroup"),
+        "gram_matvec_symmetric_tier.strip": int(route == "strip")}
+    with pytest.raises(ValueError, match="does not match"):  # V's rows must match X's
+        kernel_cuda.gram_matvec_symmetric_tier("rbf", P, V[:149], C)
+    bad = type(P)(P.hi[:, :-1].contiguous(), P.lo[:, :-1].contiguous(), P.sq)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kernel_cuda.gram_matvec_symmetric_tier("rbf", bad, V, C)
+    assert len(entry.calls) == 1
