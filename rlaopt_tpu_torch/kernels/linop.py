@@ -61,11 +61,15 @@ class KernelLinOp(TwoSidedLinOp):
         compute_dtype=None,
         _tier=None,
         _tile=None,
+        _ls=None,
     ):
         """``_tier``: the tier parts of (A1, A2), gathered by the oracles
         from their parent's; None makes them here. ``_tile``: the register
         tile's operands of (A1, A2) as :class:`_TileOperand`, passed on by
-        the oracles; None makes them here."""
+        the oracles; None makes them here. ``_ls``: the lengthscale on the
+        device in the points' dtype and in float64, passed on by the
+        oracles (making it copies a host value to the card, which waits for
+        the card); None makes it here."""
         self._check_inputs(A1, A2, kernel_config)
         compute_dtype = normalize_compute_dtype(compute_dtype)
         self.kind = kind
@@ -73,9 +77,10 @@ class KernelLinOp(TwoSidedLinOp):
         self.compute_dtype = compute_dtype
         self._kernel_config = kernel_config
         self._X1, self._X2 = A1, A2
-        self._ls = kernel_config.lengthscale_tensor(A1.dtype, A1.device)
         # The compensated apply divides by the lengthscale in float64.
-        self._ls64 = kernel_config.lengthscale_tensor(torch.float64, A1.device)
+        self._ls, self._ls64 = _ls if _ls is not None else (
+            kernel_config.lengthscale_tensor(A1.dtype, A1.device),
+            kernel_config.lengthscale_tensor(torch.float64, A1.device))
         self._c = float(kernel_config.const_scaling)
         # One data set on both sides: the apply may take the triangle kernel.
         symmetric = self._symmetric = A1 is A2
@@ -202,7 +207,7 @@ class KernelLinOp(TwoSidedLinOp):
             )
         return KernelLinOp(
             A1, A2, self._kernel_config, self.kind, self.impl, self.compute_dtype,
-            _tier=tier, _tile=ops,
+            _tier=tier, _tile=ops, _ls=(self._ls, self._ls64),
         )
 
     def row_oracle(self, blk: torch.Tensor) -> "KernelLinOp":

@@ -26,6 +26,19 @@ In PyTorch:
   stream; the test hooks ``_block_schedule`` (a fixed (T, blk_sz) block
   schedule) and ``_draws`` (``t ↦ (Ω, v0)``, the sketch and the start of
   step t) let tests give both packages the same ones.
+
+Spans (while a profiler records; :mod:`rlaopt_tpu_torch.utils.profiling`):
+``rlaopt.sap.step`` around each step, and inside it ``rlaopt.sap.precond``
+(the block preconditioner, built from ``A_blk_oracle(blk)``),
+``rlaopt.sap.stepsize`` (the power iteration), ``rlaopt.sap.row_oracle``
+(the block gradient: one ``A_row_oracle(blk)`` apply) and
+``rlaopt.sap.update`` (P⁻¹ of the gradient, the finite-direction test and
+the recurrence), each with the card's time inside it on a card;
+``rlaopt.sync.sap_blocks`` around the upload of a chunk's host-drawn
+blocks, which waits for the card. Counters
+``rlaopt.sap.steps`` and ``rlaopt.sap.degenerate_blocks`` (steps whose
+direction is not finite in an active column, so skipped there; counted
+on the card and read with the counters).
 """
 
 import math
@@ -53,6 +66,7 @@ from ..preconditioners.nystrom import (
 from ..spectral_estimators.spectral_norm import randomized_powering
 from ..utils.checkers import _as_generator
 from ..utils.linalg import hmm
+from ..utils.profiling import annotate, annotate_sync, count, recording
 from ..utils.rng import device_generator, fold_in
 
 if TYPE_CHECKING:
@@ -235,6 +249,16 @@ class SAP(Solver):
         )
         return 1.0 / max_eig
 
+    def _blk_products(self, blk):
+        """``(Z ↦ A[blk, blk] @ Z, the dense tile or None)``."""
+        if self._blk_dense_fn is not None:
+            # one tile evaluation; the sketch and every power iteration
+            # become dense products on the resident block
+            K_blk = self._blk_dense_fn(blk)
+            return (lambda Z: hmm(K_blk, Z)), K_blk
+        blk_op = self.system.A_blk_oracle(blk)
+        return (lambda Z: blk_op @ Z), None
+
     def _step_fn(self, state: SAPState, mask, blk) -> SAPState:
         W0 = state.W
         dtype, device = W0.dtype, W0.device
@@ -242,36 +266,29 @@ class SAP(Solver):
         B = self.system.B
         g = fold_in(_stream(state.key), state.t)
         Omega, v0 = self._draws(state.t) if self._draws is not None else (None, None)
-        K_blk = None
-        if self._blk_dense_fn is not None:
-            # one tile evaluation; the sketch and every power iteration
-            # below become dense products on the resident block
-            K_blk = self._blk_dense_fn(blk)
-
-            def blk_mm(Z):
-                return hmm(K_blk, Z)
-
-        else:
-            blk_op = self.system.A_blk_oracle(blk)
-
-            def blk_mm(Z):
-                return blk_op @ Z
-
-        apply_inv, exact = self._get_precond(
-            blk_mm, dtype, device, fold_in(g, 1), Omega=Omega, K_blk=K_blk
-        )
-        stepsize = self._get_stepsize(
-            apply_inv, exact, blk_mm, dtype, device, fold_in(g, 2), v0=v0
-        )
+        with annotate("rlaopt.sap.precond", device):
+            blk_mm, K_blk = self._blk_products(blk)
+            apply_inv, exact = self._get_precond(
+                blk_mm, dtype, device, fold_in(g, 1), Omega=Omega, K_blk=K_blk
+            )
+        with annotate("rlaopt.sap.stepsize", device):
+            stepsize = self._get_stepsize(
+                apply_inv, exact, blk_mm, dtype, device, fold_in(g, 2), v0=v0
+            )
 
         eval_pt = state.Y if self.accel else state.W
-        grad = self.system.A_row_oracle(blk) @ eval_pt + reg * eval_pt[blk] - B[blk]
-        direction = apply_inv(grad)
+        with annotate("rlaopt.sap.row_oracle", device):
+            grad = self.system.A_row_oracle(blk) @ eval_pt + reg * eval_pt[blk] - B[blk]
+        with annotate("rlaopt.sap.update", device):
+            return self._update(state, mask, blk, apply_inv(grad), stepsize)
 
+    def _update(self, state: SAPState, mask, blk, direction, stepsize) -> SAPState:
         # A degenerate block (failed factorization, divergent power
         # iteration) gives a non-finite direction: those columns skip the
         # update instead of poisoning the iterate.
         dir_ok = torch.all(torch.isfinite(direction), dim=0) & torch.isfinite(stepsize)
+        if recording():
+            count("rlaopt.sap.degenerate_blocks", torch.any(mask & ~dir_ok))
         mcol = (mask & dir_ok)[None, :]
         if self.accel:
             Wc = state.Y.index_add(0, blk, -stepsize * direction)
@@ -296,7 +313,9 @@ class SAP(Solver):
         blks = np.empty((n_steps, self.blk_sz), dtype=np.int64)
         for i in range(n_steps):
             blks[i] = rng.choice(n, size=self.blk_sz, replace=False)
-        return torch.from_numpy(blks).to(self.state.W.device)
+        device = self.state.W.device
+        with annotate_sync("rlaopt.sync.sap_blocks", device):
+            return torch.from_numpy(blks).to(device)
 
     def _device_block(self, t: int) -> torch.Tensor:
         n = self.system.A.shape[0]
@@ -318,4 +337,6 @@ class SAP(Solver):
                 blk = self._block_schedule[t % self._block_schedule.shape[0]]
             else:
                 blk = self._device_block(t)
-            self.state = self._step_fn(self.state, mask, blk)
+            count("rlaopt.sap.steps")
+            with annotate("rlaopt.sap.step", self.state.W):
+                self.state = self._step_fn(self.state, mask, blk)

@@ -18,8 +18,14 @@ process (``trace`` opens one). Then every span of the program opens a
 clock of the card's kernels, and appends one record: its name, start and
 end (``time.perf_counter_ns``), its id, its parent's id and the id of the
 outermost ``rlaopt.linsys.solve`` it belongs to (correction solves share
-their outer solve's). Counters (:func:`count`, :func:`add_ns`) sit beside
-the spans. :func:`spans`, :func:`counters` and :func:`summary` read the
+their outer solve's). A span opened on a CUDA device
+(``annotate(name, device)``) also records a CUDA event on the device's
+current stream at its entry and at its exit: its record carries the
+device's milliseconds between the two (its work and any idle gap inside
+it), read when the spans are. Counters (:func:`count`, :func:`add_ns`)
+sit beside the spans; an increment that is a tensor on the card is kept as
+it is and added when the counters are read, so that counting never waits
+for the card. :func:`spans`, :func:`counters` and :func:`summary` read the
 record; :func:`reset` clears it. Off, a span or a counter costs one flag
 check: no allocation, no ``record_function``.
 """
@@ -55,9 +61,11 @@ class _Record:
     def __init__(self):
         self.lock = threading.Lock()
         self.ids = itertools.count(1)
-        self.spans = []  # (name, start_ns, end_ns, id, parent, solve, device, error)
+        # (name, start_ns, end_ns, id, parent, solve, device, error, events)
+        self.spans = []
         self.dropped = 0
         self.counters = defaultdict(int)
+        self.pending = defaultdict(list)  # name -> increments held as tensors
         self.summary = {}  # name -> [calls, total_ns, self_ns]
 
 
@@ -75,10 +83,11 @@ def _stack() -> list:
 class _Span:
     """One open span (see the module's docstring)."""
 
-    __slots__ = ("name", "device", "id", "solve", "_up", "_rf", "_start", "_child_ns")
+    __slots__ = ("name", "device", "id", "solve", "_up", "_rf", "_start", "_child_ns",
+                 "_events")
 
-    def __init__(self, name: str, device=None):
-        self.name, self.device = name, device
+    def __init__(self, name: str, device=None, events=None):
+        self.name, self.device, self._events = name, device, events
 
     def __enter__(self):
         stack = _stack()
@@ -91,11 +100,15 @@ class _Span:
         self._rf = torch.profiler.record_function(self.name)
         self._rf.__enter__()
         stack.append(self)
+        if self._events is not None:
+            self._events[0].record(self._events[2])
         self._start = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         end = time.perf_counter_ns()
+        if self._events is not None:
+            self._events[1].record(self._events[2])
         _stack().pop()  # spans nest: ``with`` closes them in turn
         self._rf.__exit__(exc_type, exc, tb)
         ns = end - self._start
@@ -103,7 +116,7 @@ class _Span:
         if up is not None:
             up._child_ns += ns
         row = (self.name, self._start, end, self.id, None if up is None else up.id,
-               self.solve, self.device, exc_type is not None)
+               self.solve, self.device, exc_type is not None, self._events)
         with _record.lock:
             s = _record.summary.get(self.name)
             if s is None:
@@ -118,12 +131,18 @@ class _Span:
         return False
 
 
-def annotate(name: str):
+def annotate(name: str, device=None):
     """A named span of the program (a context manager): a profiler range and
-    a record while tracing is on, nothing otherwise."""
+    a record while tracing is on, nothing otherwise. On a CUDA ``device``
+    (or a tensor's) the record also carries the device's time inside it."""
     if not _ap._is_profiler_enabled:
         return _OFF
-    return _Span(name)
+    device = getattr(device, "device", device)
+    if device is None or torch.device(device).type != "cuda":
+        return _Span(name)
+    events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True),
+              torch.cuda.current_stream(device))
+    return _Span(name, events=events)
 
 
 def annotate_sync(name: str, t):
@@ -174,11 +193,20 @@ def host_counted(prefix: str):
     return wrap
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` while tracing is on."""
+def recording() -> bool:
+    """Whether tracing is on: a ``torch.profiler`` profile records."""
+    return _ap._is_profiler_enabled
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on. ``n`` may be
+    a 0-d tensor (on the card): it is read when the counters are."""
     if _ap._is_profiler_enabled:
         with _record.lock:
-            _record.counters[name] += n
+            if isinstance(n, torch.Tensor):
+                _record.pending[name].append(n)
+            else:
+                _record.counters[name] += n
 
 
 def add_ns(name: str, ns: int) -> None:
@@ -189,12 +217,23 @@ def add_ns(name: str, ns: int) -> None:
 def spans() -> list:
     """The recorded spans, in the order they closed: dicts of ``name``,
     ``start_ns``, ``end_ns``, ``id``, ``parent`` and ``solve`` (ids, None
-    where there is none), ``device`` (a sync span's device type, else None)
-    and ``error`` (closed by an exception)."""
+    where there is none), ``device`` (a sync span's device type, else None),
+    ``error`` (closed by an exception) and ``device_ms`` (a span opened on a
+    CUDA device: the device's milliseconds between its entry and its exit,
+    waited for here; else None)."""
     keys = ("name", "start_ns", "end_ns", "id", "parent", "solve", "device", "error")
     with _record.lock:
         rows = list(_record.spans)
-    return [dict(zip(keys, row)) for row in rows]
+    return [dict(zip(keys, row), device_ms=_elapsed_ms(row[-1])) for row in rows]
+
+
+def _elapsed_ms(events):
+    """Milliseconds between a span's two CUDA events, once the second has
+    completed; None for a span without them."""
+    if events is None:
+        return None
+    events[1].synchronize()
+    return events[0].elapsed_time(events[1])
 
 
 def dropped() -> int:
@@ -203,8 +242,14 @@ def dropped() -> int:
 
 
 def counters() -> dict:
+    """Each counter's total, its increments held as tensors read (and so
+    waited for) here."""
     with _record.lock:
-        return dict(_record.counters)
+        out = dict(_record.counters)
+        pending = {name: list(ts) for name, ts in _record.pending.items()}
+    for name, ts in pending.items():
+        out[name] = out.get(name, 0) + sum(int(t) for t in ts)
+    return out
 
 
 def summary() -> dict:
@@ -222,6 +267,7 @@ def reset() -> None:
     with _record.lock:
         _record.spans, _record.dropped = [], 0
         _record.counters, _record.summary = defaultdict(int), {}
+        _record.pending = defaultdict(list)
 
 
 def _dump() -> dict:

@@ -20,9 +20,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp
+from rlaopt_tpu_torch.linops import aslinop
 from rlaopt_tpu_torch.models import LinSys
-from rlaopt_tpu_torch.preconditioners import Nystrom, NystromConfig
-from rlaopt_tpu_torch.solvers import PCGConfig
+from rlaopt_tpu_torch.preconditioners import NewtonConfig, Nystrom, NystromConfig
+from rlaopt_tpu_torch.solvers import SAP, PCGConfig, SAPAccelConfig, SAPConfig
 from rlaopt_tpu_torch.utils import profiling, trace
 
 N, D, RANK = 512, 8, 32
@@ -240,6 +241,127 @@ def test_the_raw_spans_are_capped_and_the_summary_stays_exact(monkeypatch):
     assert profiling.counters() == {"rlaopt.n": 10, "rlaopt.t": 35}
 
 
+# -- SAP -----------------------------------------------------------------------
+
+SAP_PHASES = ("rlaopt.sap.precond", "rlaopt.sap.stepsize", "rlaopt.sap.row_oracle",
+              "rlaopt.sap.update")
+
+
+def _sap_system(device="cpu", n=N, k=2):
+    g = torch.Generator().manual_seed(1)
+    X = torch.randn((n, D), generator=g).to(device)
+    y = torch.randn((n, k), generator=g).to(device)
+    K = RBFLinOp(X, X, KernelConfig(lengthscale=D**0.5))
+    return LinSys(K, y, REG, A_row_oracle=K.row_oracle, A_blk_oracle=K.blk_oracle)
+
+
+def _sap_cfg(iters, **kw):
+    return SAPConfig(max_iters=iters, rtol=1e-9, blk_sz=64, power_iters=4, accel=True,
+                     accel_config=SAPAccelConfig(mu=1e-3, nu=N / 64),
+                     precond_config=NystromConfig(rank=8, rho=REG), **kw)
+
+
+def test_sap_records_each_phase_once_a_step_the_block_uploads_and_both_counters():
+    """Ten accelerated SAP steps in chunks of 5 with host-drawn blocks and
+    sampled metrics: one ``rlaopt.sap.step`` a step under the model's chunk,
+    each phase once inside every step, the row oracle's one operator apply
+    inside its span, one ``rlaopt.sync.sap_blocks`` (the CPU's) a chunk,
+    and the counters: 10 steps, no degenerate block."""
+    system = _sap_system()
+    steps = 10
+    _, spans = _traced(lambda: _solve(system, _sap_cfg(steps, sampling="host"),
+                                      callback_freq=5, metrics="sampled"))
+    by_id = _check_nesting(spans)
+    step = [s for s in spans if s["name"] == "rlaopt.sap.step"]
+    assert len(step) == steps
+    assert {by_id[s["parent"]]["name"] for s in step} == {"rlaopt.model.chunk"}
+    for name in SAP_PHASES:
+        mine = [s for s in spans if s["name"] == name]
+        assert sorted(s["parent"] for s in mine) == sorted(s["id"] for s in step), name
+    oracle = {s["id"] for s in spans if s["name"] == "rlaopt.sap.row_oracle"}
+    applies = [s for s in spans if s["name"] == "rlaopt.linop.matmat" and s["parent"] in oracle]
+    assert sorted(s["parent"] for s in applies) == sorted(oracle)
+    uploads = [s for s in spans if s["name"] == "rlaopt.sync.sap_blocks"]
+    assert len(uploads) == steps // 5 and {s["device"] for s in uploads} == {"cpu"}
+    assert {by_id[s["parent"]]["name"] for s in uploads} == {"rlaopt.model.chunk"}
+    assert all(s["device_ms"] is None for s in spans)  # no card: no device time
+    c = profiling.counters()
+    assert c["rlaopt.sap.steps"] == steps and c["rlaopt.sap.degenerate_blocks"] == 0
+    # boundaries 0, 5 and 10; the last one's estimate is then replaced by a true residual
+    assert c["rlaopt.metrics.sampled"] == 3 and c["rlaopt.metrics.true"] == 1
+
+
+def test_sap_counts_a_degenerate_block():
+    """The skip path of ``test_torch_sap.py::test_degenerate_block_is_skipped_not_fatal``
+    (Newton at rho 0 on an indefinite first block): one degenerate block in
+    two steps, counted on the tensor and read with the counters."""
+    n, blk_sz = 40, 10
+    rng = torch.Generator().manual_seed(6)
+    G = torch.randn((n, n), generator=rng, dtype=torch.float64)
+    A = G @ G.T / n + torch.eye(n, dtype=torch.float64)
+    A[0, 0] = -1.0
+    system = LinSys(A, torch.randn((n, 1), generator=rng, dtype=torch.float64), 0.0,
+                    lambda blk: aslinop(A[blk, :]), lambda blk: aslinop(A[blk][:, blk]))
+    sched = torch.stack([torch.arange(0, 10), torch.arange(10, 20)])
+    solver = SAP(system, torch.zeros((n, 1), dtype=torch.float64), NewtonConfig(rho=0.0),
+                 blk_sz=blk_sz, accel=False, accel_config=None, power_iters=5,
+                 _block_schedule=sched)
+    with profile(activities=[ProfilerActivity.CPU]):
+        solver._run_chunk(2)
+    assert profiling.counters() == {"rlaopt.sap.steps": 2, "rlaopt.sap.degenerate_blocks": 1}
+    assert torch.all(solver.W[:10] == 0) and torch.any(solver.W[10:20] != 0)
+
+
+def test_sap_iterates_are_bit_equal_traced_and_not_and_untraced_records_nothing():
+    """The same SAP solve with no profile and under one: equal bits in W and
+    every logged rel_res; with no profile no span and no counter."""
+    def run():
+        W, log = _solve(_sap_system(), _sap_cfg(10), callback_freq=5, metrics="sampled")
+        return W, [log[i]["metrics"]["internal_metrics"]["rel_res"] for i in (0, 5, 10)]
+
+    W0, rel0 = run()
+    assert profiling.spans() == [] and profiling.counters() == {}
+    (W1, rel1), spans = _traced(run)
+    assert sum(s["name"] == "rlaopt.sap.step" for s in spans) == 10
+    assert torch.equal(W0, W1) and all(torch.equal(a, b) for a, b in zip(rel0, rel1))
+
+
+def test_oracles_take_the_parent_lengthscale_and_copy_nothing_to_the_card(monkeypatch):
+    """A row or block oracle takes its parent's lengthscale tensors: making
+    them anew copies a host value to the card, a wait for the card at every
+    SAP step (found by the card test below)."""
+    from rlaopt_tpu_torch.kernels.configs import KernelConfig as Config
+
+    made = []
+    real = Config.lengthscale_tensor
+    monkeypatch.setattr(Config, "lengthscale_tensor",
+                        lambda self, *a, **k: made.append(a) or real(self, *a, **k))
+    K = _sap_system().A
+    made.clear()
+    blk = torch.arange(0, N, 7)
+    for op in (K.row_oracle(blk), K.blk_oracle(blk)):
+        assert op.lengthscale is K.lengthscale and op.lengthscale64 is K.lengthscale64
+    assert made == []
+    ones = torch.ones((N, 1))
+    assert torch.allclose(K.row_oracle(blk) @ ones, (K @ ones)[blk], rtol=1e-5)
+
+
+def test_counters_hold_tensor_increments_until_read():
+    """A 0-d tensor increment is kept and added when the counters are read;
+    with no profile it is not kept."""
+    profiling.count("rlaopt.t", torch.tensor(True))
+    assert profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert profiling.recording()
+        profiling.count("rlaopt.t", torch.tensor(True))
+        profiling.count("rlaopt.t", torch.tensor(0))
+        profiling.count("rlaopt.t", 2)
+    assert not profiling.recording()
+    assert profiling.counters() == {"rlaopt.t": 3}
+    profiling.reset()
+    assert profiling.counters() == {}
+
+
 # -- on a card -------------------------------------------------------------------
 
 @pytest.fixture
@@ -305,3 +427,56 @@ def test_every_synchronizing_operation_lies_in_a_sync_span(cuda_device, case):
     print(f"{case}: {len(reports)} reported, {syncs} sync spans on cuda over {steps} steps, "
           f"{len(on_card)} rlaopt ranges on the card, "
           f"by site {json.dumps({k: v['calls'] for k, v in profiling.summary().items() if k.startswith('rlaopt.sync.')})}")
+
+
+@pytest.mark.cuda
+def test_every_synchronizing_operation_of_sap_lies_in_a_sync_span(cuda_device):
+    """Config 9's path at a small size on the card (bf16x3 operator,
+    matrix-free blocks, host-drawn blocks, accelerated, sampled metrics):
+    each synchronizing operation that ``set_sync_debug_mode("warn")``
+    reports is inside an ``rlaopt.sync.*`` span, one block upload a chunk
+    among them; each step and phase span carries the card's time, the
+    phases' within their step's."""
+    n, k, blk = 1 << 17, 3, 2048
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    X = torch.randn((n, 50), generator=g, device=cuda_device) / 50**0.5
+    y = torch.randn((n, k), generator=g, device=cuda_device)
+    K = RBFLinOp(X, X, KernelConfig(lengthscale=1.0), compute_dtype="bf16x3")
+    system = LinSys(K, y, 1e-5 * n, A_row_oracle=K.row_oracle, A_blk_oracle=K.blk_oracle)
+    cfg = SAPConfig(max_iters=10, rtol=1e-9, blk_sz=blk, power_iters=10, blk_dense=False,
+                    accel=True, accel_config=SAPAccelConfig(mu=1e-3, nu=n / blk),
+                    precond_config=NystromConfig(rank=100, rho=1e-5 * n))
+    kw = {"callback_freq": 5, "metrics": "sampled"}
+    _solve(system, cfg, **kw)  # warm: the library's build and load
+    torch.cuda.synchronize()
+    reports = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            inside = any(s.name.startswith("rlaopt.sync.") for s in profiling._stack())
+            reports.append((inside, traceback.format_stack()))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _solve(system, cfg, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    spans = profiling.spans()
+    outside = [_frames(stack) for inside, stack in reports if not inside]
+    assert not outside, "synchronizing outside any rlaopt.sync span:\n" + "\n".join(outside)
+    uploads = [s for s in spans if s["name"] == "rlaopt.sync.sap_blocks"]
+    assert len(uploads) == 2 and {s["device"] for s in uploads} == {"cuda"}
+    steps = sum(s["name"] == "rlaopt.sap.step" for s in spans)
+    syncs = sum(1 for s in spans if s["name"].startswith("rlaopt.sync.") and s["device"] == "cuda")
+    assert steps == 10 and profiling.counters()["rlaopt.sap.degenerate_blocks"] == 0
+    timed = [s for s in spans if s["name"] in SAP_PHASES + ("rlaopt.sap.step",)]
+    assert len(timed) == 50 and all(s["device_ms"] > 0 for s in timed)
+    step_ms = sum(s["device_ms"] for s in timed if s["name"] == "rlaopt.sap.step")
+    assert sum(s["device_ms"] for s in timed if s["name"] in SAP_PHASES) <= 1.01 * step_ms
+    sites = {k: v["calls"] for k, v in profiling.summary().items() if k.startswith("rlaopt.sync.")}
+    print(f"sap: {len(reports)} reported, {syncs} sync spans on cuda over {steps} steps, "
+          f"by site {json.dumps(sites)}")
