@@ -249,6 +249,7 @@ SOURCES = {
     "comp": "rlaopt_tpu_torch/csrc/gram_comp.cu",
     "laplace": "rlaopt_tpu_torch/csrc/gram_laplace.cu",
     "tier": "rlaopt_tpu_torch/csrc/gram_tier.cu",
+    "tier_rows": "rlaopt_tpu_torch/csrc/gram_tier_rows.cu",
     "spmv": "rlaopt_tpu_torch/csrc/spmv.cu",
     "pair": "rlaopt_tpu_torch/csrc/gram_pair.cu",
     "probes": "rlaopt_tpu_torch/csrc/probes.cu",
@@ -393,7 +394,7 @@ REGISTERS_OF = {"gram_matmat": ("tile_forward", "gram_wide_tf32"),
                 "laplace_matmat": ("gram_wide_tf32",),
                 "gram_pair": ("tile_pair",), "laplace_pair": ("tile_pair",),
                 "gram_matvec_symmetric_tier": ("gram_tier_symmetric", "gram_tier_triangle"),
-                "gram_matmat_tier": ("gram_tier_forward", "gram_tier_wide"),
+                "gram_matmat_tier": ("gram_tier_rows", "gram_tier_forward", "gram_tier_wide"),
                 "gram_pair_tier": ("gram_tier_pair",),
                 "gram_matvec_symmetric_comp": ("gram_comp_symmetric",),
                 "gram_matvec_symmetric_f64": ("gram_comp_symmetric",),
@@ -711,10 +712,12 @@ LAPLACE_CODE = 4
 
 
 # Kernels of their own, by name (their template arguments do not select the
-# group): K2b, K1b's forward strip and wide kernel, K4b; the float64 tile's
-# by form, family and V's type (comp_wrapper).
+# group): K2b, K1b's three (the warp-specialised kernel, the forward strip,
+# the wide kernel), K4b; the float64 tile's by form, family and V's type
+# (comp_wrapper).
 _OWN = {"gram_tier_symmetric": "gram_matvec_symmetric_tier",
         "gram_tier_triangle": "gram_matvec_symmetric_tier",
+        "gram_tier_rows": "gram_matmat_tier",
         "gram_tier_forward": "gram_matmat_tier", "gram_tier_wide": "gram_matmat_tier",
         "gram_tier_pair": "gram_pair_tier"}
 # Kernels whose names hold no gram_ prefix: the probes, and K3's tile in its
@@ -2137,9 +2140,10 @@ def askotch10m(dev, profile_run, compare, timings, n=N10, d=D10, k=K10, rank=RAN
     setup_s = time.perf_counter() - t0
     y_norm = float(torch.linalg.norm(y.double()))
     sms = kernel_cuda.sm_count(dev)
-    runs = {"row oracle": kernel_cuda.tier_splits(blk, n, k, sms),
-            "sampled metric": kernel_cuda.tier_splits(min(4096, n), n, k, sms),
-            "power iteration": kernel_cuda.tier_splits(blk, blk, 1, sms),
+    dp = K._tier[0].hi.shape[1]
+    runs = {"row oracle": kernel_cuda.tier_splits(blk, n, k, dp, sms),
+            "sampled metric": kernel_cuda.tier_splits(min(4096, n), n, k, dp, sms),
+            "power iteration": kernel_cuda.tier_splits(blk, blk, 1, dp, sms),
             "tile_splits at the row oracle": kernel_cuda.tile_splits(blk, n, k, sms),
             "K8 certificate, tiles a run": kernel_cuda.comp_run(
                 -(-min(cert_rows, n) // kernel_cuda.COMP_TILE)
@@ -3199,6 +3203,82 @@ def k2b_sweep(dev, compare, timings):
     print(f"phase: K2b sweep {time.perf_counter() - t0:.1f} s")
 
 
+# K1b's warp-specialised kernel at the shapes of the paths that take it, (n,
+# m, d, k): configs 7 and 9's row oracle, config 4's, config 8's (d = 10),
+# and the k = 1 power iterations on a block of 10^5 (configs 7 and 9).
+K1B_ROWS_SHAPES = ((100_000, 10_000_000, 50, 10), (10_000, 1_000_000, 50, 10),
+                   (12_500, 100_000, 10, 10), (100_000, 100_000, 50, 1))
+K1B_ROWS_CHECKED = 64
+
+
+def k1b_rows(dev, compare, timings, registers, shapes=K1B_ROWS_SHAPES):
+    """K1b's warp-specialised kernel (``forward_tier_route`` "warpgroup")
+    at ``shapes``, with its own contraction (``forward_contraction``) and
+    with the other one (float32 or the split, forced in the kernel's wrapper
+    and its plain version alike), beside the strip's forward form (the
+    route forced; float32): the bf16x3 parts of X = N(0, 1)/sqrt(d) of (m,
+    d), n rows of them sampled against all m, random V; each variant's first ``K1B_ROWS_CHECKED`` rows held against the plain
+    version of its contraction, then each timed, with bound_ms, share and
+    the kernel's registers (``time``, ``share`` lines)."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+    from rlaopt_tpu_torch.ops.kernel_tiers import forward_contraction, tier_operand
+
+    t0 = time.perf_counter()
+    route, contraction = kernel_cuda.forward_tier_route, forward_contraction
+    gen = torch.Generator(device=dev).manual_seed(22)
+    for n, m, d, k in shapes:
+        X = torch.randn((m, d), generator=gen, device=dev) / d**0.5
+        P = tier_operand(X, "bf16x3")
+        del X
+        idx = torch.as_tensor(sampled_rows(m, n, 22), device=dev)
+        Pb, Pc = P.rows(idx), P.rows(idx[:K1B_ROWS_CHECKED])
+        V = torch.randn((m, k), generator=gen, device=dev)
+        dp = P.hi.shape[1]
+        shape = f"n={n} m={m} d={d} k={k} bf16x3"
+        check(route(k, dp) == "warpgroup", f"K1b {shape} takes the warp-specialised kernel")
+        own = forward_contraction(k, dp, 3)
+        other = "f32" if own == "split" else "split"
+        rec = {}
+        for name, path, mode in (("own", "warpgroup", own), ("other", "warpgroup", other),
+                                 ("strip", "strip", "f32")):
+            kernel_cuda.forward_tier_route = lambda k, dp, r=path: r
+            kernel_cuda.forward_contraction = kernel_plain.forward_contraction = (
+                lambda k, dp, passes, c=mode: c)
+            try:
+                got = kernel_cuda.gram_matmat_tier("rbf", Pb, P, V)[:K1B_ROWS_CHECKED]
+                ref = kernel_plain.gram_matmat_tier("rbf", Pc, P, V, row_block=16)
+                compare("gram_matmat_tier", got, ref,
+                        f"{shape} ({path}, {mode}) rows {K1B_ROWS_CHECKED} vs its tier",
+                        TIER_BOUND)
+                del got, ref
+                big = n * m >= 10**12
+                rec[name] = cuda_ms(lambda: kernel_cuda.gram_matmat_tier("rbf", Pb, P, V),
+                                    reps=2 if big else 5, warm=not big)
+            finally:
+                kernel_cuda.forward_tier_route = route
+                kernel_cuda.forward_contraction = kernel_plain.forward_contraction = contraction
+        bn, bf, ch = (128, 32, 1) if dp <= 32 else (128, 64, 1) if dp <= 64 else (64, 64, 2)
+        kc = 16 if own == "split" or k > 8 else 1 if k == 1 else 8
+        regs = registers.get(f"gram_tier_rows<0,3,{bn},{bf},{ch},{kc},{int(own == 'split')}>", {})
+        entry = timing_entry("gram_matmat_tier", f"{shape} (warp-specialised, {own})",
+                             rec["own"], None, n, m, d, k, "rbf", "bf16x3", contraction=own,
+                             other_ms=rec["other"], strip_ms=rec["strip"], registers=regs,
+                             runs=kernel_cuda.tier_splits(n, m, k, dp, kernel_cuda.sm_count(dev)))
+        timings.setdefault("gram_matmat_tier", []).append(entry)
+        print(f"time gram_matmat_tier {shape}: warp-specialised {rec['own']:.3f} ms ({own}), "
+              f"{rec['other']:.3f} ms ({other}), strip {rec['strip']:.3f} ms, bound "
+              f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}), {entry['runs']} runs")
+        print(f"share gram_matmat_tier {shape}: warp-specialised "
+              f"{entry['bound_ms'] / rec['own']:.1%} ({own}), "
+              f"{entry['bound_ms'] / rec['other']:.1%} ({other}), strip "
+              f"{entry['bound_ms'] / rec['strip']:.1%} of bound_ms; registers {json.dumps(regs)}")
+        del P, Pb, Pc, V, idx
+        torch.cuda.empty_cache()
+    print(f"phase: K1b rows {time.perf_counter() - t0:.1f} s")
+
+
 def pair_name(kind: str) -> str:
     return "laplace_pair" if kind == "laplace" else "gram_pair"
 
@@ -4250,6 +4330,7 @@ def main() -> int:
     comp_forms(dev, X, compare, timings)
     print(f"phase: the float64 tile's forms done at {time.perf_counter() - t_start:.1f} s")
     k2b_sweep(dev, compare, timings)
+    k1b_rows(dev, compare, timings, registers)
     del XT
     print(f"phase: kernel checks and times done at {time.perf_counter() - t_start:.1f} s")
 

@@ -1,11 +1,12 @@
 // The bf16 accuracy tiers of the fused Gram products, for Hopper (sm_90a).
 //
-//   K1b gram_tier_forward<KIND, PASSES, KC> (k <= 16) and
-//       gram_tier_wide<KIND, PASSES, NF> (k > 16)  replace rlaopt_tpu/ops/
-//       kernel_pallas.py :: kernel_matmat_pallas with compute_dtype="bf16x3"
-//       (PASSES = 3: _cross_split, _body_split) or "bfloat16" (PASSES = 1:
-//       _cross_bf16, _body_bf16), and _acc_update's tier-matched "split" and
-//       "fast" contractions for k > 16
+//   K1b gram_tier_forward<KIND, PASSES, KC> (k <= 16 past a padded depth of
+//       128; below it, K1b is the warp-specialised gram_tier_rows of
+//       gram_tier_rows.cu) and gram_tier_wide<KIND, PASSES, NF> (k > 16)
+//       replace rlaopt_tpu/ops/kernel_pallas.py :: kernel_matmat_pallas with
+//       compute_dtype="bf16x3" (PASSES = 3: _cross_split, _body_split) or
+//       "bfloat16" (PASSES = 1: _cross_bf16, _body_bf16), and _acc_update's
+//       tier-matched "split" and "fast" contractions for k > 16
 //   K2b gram_tier_triangle<KIND, PASSES, KC>  replaces kernel_pallas.py ::
 //       kernel_matvec_symmetric with the same tiers (_sym_epilogue,
 //       _sym_tier_params, _sym_mirror_mode) past two columns or a padded
@@ -38,10 +39,11 @@
 // cross term goes through mma.sync into registers, the epilogue and the row
 // contraction run on the fragments, and the column tiles are staged by
 // cp.async two ahead.
-// K1b's forward form walks a run of the m axis: with few row
-// blocks (SAP's 10,000-row oracle is 79 of them on 132 SMs), or past 2^20
-// columns (2,048 tiles a run at most, so that a thread's float32 row sum
-// stays short), the wrapper cuts the m axis into runs on blockIdx.y
+// K1b's forward form walks a run of the m axis, a row's products added to
+// its float32 sum a tile at a time: with few row blocks (10,000 rows are
+// 79 of them on 132 SMs), or past 2^20 columns (2,048 tiles a run at most,
+// so that a thread's float32 row sum stays short), the wrapper cuts the m
+// axis into runs on blockIdx.y
 // (kernel_cuda.tier_splits), each block writes its partial rows, and
 // sum_splits adds them in a fixed order.
 // K1b's wide form (gram_tier_wide) is described above it.
@@ -51,7 +53,7 @@
 // same three product terms are computed here as separate tensor-core steps.
 // The strip's triangle form stays for k >= 3, whose tier-matched mirror
 // runs on the tensor cores; wgmma and warp specialisation for that mirror,
-// for K1b and for K4b are later work.
+// for K1b past 16 columns and for K4b are later work.
 
 #include "gram_tier.cuh"
 
@@ -229,15 +231,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const uint16_t* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
-}
-
-// c += a . b on the tensor cores: a 16 x 16 (row), b 16 x 8 (col), bf16.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Rows [row0, row0 + rows) of the (n, dp) bf16 part P, features f0 .. f0
@@ -470,7 +463,7 @@ __device__ __forceinline__ void tier_strip(const GramArgs& a, int nt) {
     const int jb = (J - J0) % kSymStages;
     const int col0 = J * kTile;
     if (active) {
-      // epilogue and row contraction, on the fragments
+      // epilogue, on the fragments
 #pragma unroll
       for (int f = 0; f < 8; ++f) {
         const int col = 8 * f + 2 * t;
@@ -482,16 +475,26 @@ __device__ __forceinline__ void tier_strip(const GramArgs& a, int nt) {
           const bool inside = row0 + 16 * warp + g + 8 * h < n && col0 + col + cc < m;
           C[f][i] = inside ? sym_value<KIND>(C[f][i], hx_r[h], hy[cc]) : 0.0f;
         }
+      }
+      // row contraction: a row's 16 products of the tile summed apart and
+      // added to its float32 sum once a tile (one add a product put K1b's
+      // rows 1.59e-5 of max|ref| off over one run of 10^5 columns at k = 1)
 #pragma unroll
-        for (int c = 0; c < KC; ++c) {
-          if (c >= k) break;
-          const float2 v = *reinterpret_cast<const float2*>(vj_s + (jb * KC + c) * kTile + col);
+      for (int c = 0; c < KC; ++c) {
+        if (c >= k) break;
+        float p[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int f = 0; f < 8; ++f) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(vj_s + (jb * KC + c) * kTile + 8 * f + 2 * t);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            acc[h][c] = fmaf(C[f][2 * h], v.x, acc[h][c]);
-            acc[h][c] = fmaf(C[f][2 * h + 1], v.y, acc[h][c]);
+            p[h] = fmaf(C[f][2 * h], v.x, p[h]);
+            p[h] = fmaf(C[f][2 * h + 1], v.y, p[h]);
           }
         }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) acc[h][c] += p[h];
       }
     }
     if constexpr (kMirror) {

@@ -1,7 +1,8 @@
 // Shared pieces of the bf16 tier kernels: the strip of gram_tier.cu (K1b,
 // K4b and K2b past two columns) and K2b's warp-specialised kernel in
-// gram_tier_sym.cu: the 16- and 4-byte cp.async stages, ldmatrix, the SFU
-// exponential and the tier's kernel value from its cross term.
+// gram_tier_sym.cu, and K1b's in gram_tier_rows.cu: the 16- and 4-byte
+// cp.async stages, ldmatrix, the bf16 mma, the SFU exponential and the
+// tier's kernel value from its cross term.
 //
 // Both include this header, which includes gram_common.cuh; everything
 // here has internal linkage.
@@ -40,6 +41,15 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* row) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
+}
+
+// c += a . b on the tensor cores: a 16 x 16 (row), b 16 x 8 (col), bf16.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The kernel value of the tier from its cross term; for RBF hx and hy come

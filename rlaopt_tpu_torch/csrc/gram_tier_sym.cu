@@ -77,10 +77,7 @@
 // two blocks an SM leave, and an ordered turn at the tensor cores cost
 // more in mbarrier hand-offs than it saved.
 
-#include <cuda.h>          // CUtensorMap and its enums (no driver call is linked)
-#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
-
-#include "gram_tier.cuh"
+#include "gram_tma.cuh"
 
 namespace {
 
@@ -156,121 +153,6 @@ __device__ __forceinline__ bool ws_decode(int nt, int& r, int& s) {
   s -= s1;
   r = x2;
   return x2 > x && s < ws_strips(nt, x2);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// Waits until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// This thread's arrival, and bytes more to land before the phase completes.
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// TMA: the box of the tensor map at (x, y) (1-D: x) into shared memory,
-// its bytes counted on bar.
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int x, int y,
-                                       uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"((uint64_t)map), "r"(x), "r"(y), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_1d(void* dst, const CUtensorMap* map, int x, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2}], [%3];\n" ::"r"(smem_u32(dst)),
-      "l"((uint64_t)map), "r"(x), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// True in one lane of the (converged) warp.
-__device__ __forceinline__ bool elect_one() {
-  uint32_t one;
-  asm volatile("{\n.reg .pred p;\nelect.sync _|p, 0xffffffff;\nselp.u32 %0, 1, 0, p;\n}\n"
-               : "=r"(one));
-  return one != 0;
-}
-
-// The 128 threads of warpgroup w (named barrier 1 + w).
-__device__ __forceinline__ void group_sync(int w) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
-}
-
-// A K-major wgmma operand of BF-feature rows swizzled over the row (BF =
-// 64: 128 bytes, layout 1; 32: 64 bytes, layout 2), 8-row groups 8 rows
-// apart; a k-step of 16 features moves the start 32 bytes on.
-template <int BF>
-__device__ __forceinline__ uint64_t wgmma_desc(const void* smem) {
-  constexpr uint64_t layout = BF == 64 ? 1 : 2, sbo = 8 * BF * 2;
-  return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) | (1ull << 16) | ((sbo >> 4) << 32) |
-         (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of the accumulator across
-// the asynchronous product.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// acc (+)= A . B on the tensor cores for the warpgroup: A 64 x 16 and B 16 x 64
-// bf16, both K-major in shared memory through their descriptors;
-// accumulate false overwrites acc.
-__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // The producer warp: the row tiles, then column tiles J0 .. J1 - 1 into the
@@ -477,7 +359,7 @@ __global__ void __launch_bounds__(kWsThreads, KC == 1 ? 2 : 1)
         }
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_acc(acc);
       if (J > RT) {
         ws_epilogue<KIND, KC, true>(acc, hx4, vi4, fwd, hy0, hy1, vj0, vj1, mir);
@@ -528,52 +410,15 @@ __global__ void __launch_bounds__(kWsThreads, KC == 1 ? 2 : 1)
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, through the runtime (no link to
-// libcuda); null where the driver has none.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }();
-  return encode;
-}
-
 // The launch's four tensor maps: X's parts (dp x n bf16, boxes of BF x 64,
 // swizzled over the box's row), hx (n floats) and V (n k floats), boxes of
 // 64 points; zeros past the ends. False where a map cannot be made.
 bool ws_tensor_maps(const GramArgs& a, int box, CUtensorMap (&maps)[4]) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint32_t unit[2] = {1, 1};
-  const cuuint64_t dims[2] = {(cuuint64_t)a.d, (cuuint64_t)a.n};
-  const cuuint64_t strides[1] = {(cuuint64_t)a.d * 2};
-  const cuuint32_t tile[2] = {(cuuint32_t)box, (cuuint32_t)kTile};
-  const CUtensorMapSwizzle swizzle =
-      box == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   const void* parts[2] = {a.X1h, a.X1l != nullptr ? a.X1l : a.X1h};
-  for (int p = 0; p < 2; ++p) {
-    if (encode(&maps[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(parts[p]), dims,
-               strides, tile, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
-        CUDA_SUCCESS)
-      return false;
-  }
-  const cuuint64_t lens[2] = {(cuuint64_t)a.n, (cuuint64_t)a.n * a.k};
-  const cuuint32_t boxes[2] = {(cuuint32_t)kTile, (cuuint32_t)(kTile * a.k)};
-  const void* vecs[2] = {a.hx, a.V};
-  for (int v = 0; v < 2; ++v) {
-    if (encode(&maps[2 + v], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(vecs[v]),
-               &lens[v], strides, &boxes[v], unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return false;
-  }
-  return true;
+  for (int p = 0; p < 2; ++p)
+    if (!bf16_tensor_map(&maps[p], parts[p], a.n, a.d, box, kTile)) return false;
+  return f32_tensor_map(&maps[2], a.hx, (size_t)a.n, kTile) &&
+         f32_tensor_map(&maps[3], a.V, (size_t)a.n * a.k, kTile * a.k);
 }
 
 template <int KIND, int PASSES, int KC, int BF, int CH>

@@ -10,9 +10,11 @@ float64 tile in its triangle, forward and pair forms: K1c, K3c, K7, K8 and
 the certified pairs), ``csrc/gram_laplace.cu`` (K3 up to 16 columns, K5),
 ``csrc/gram_pair.cu`` (the exact pair kernels K4, K6), the register tile of
 K1–K6 in its forward, triangle and pair forms in ``csrc/gram_tile.cuh``,
-``csrc/gram_tier.cu`` (K1b, K4b, K2b past two columns) and
+``csrc/gram_tier.cu`` (K1b past a depth of 128 and past 16 columns, K4b,
+K2b past two columns), ``csrc/gram_tier_rows.cu`` (K1b) and
 ``csrc/gram_tier_sym.cu`` (K2b), with their shared pieces in
-``csrc/gram_common.cuh`` and ``csrc/gram_tier.cuh``, ``csrc/spmv.cu`` (the
+``csrc/gram_common.cuh``, ``csrc/gram_tier.cuh`` and ``csrc/gram_tma.cuh``,
+``csrc/spmv.cu`` (the
 CSR SpMV/SpMM) and ``csrc/probes.cu`` (the ceiling probes, wrapped in
 :mod:`rlaopt_tpu_torch.ops.probes`); see the note at the top of each.
 :func:`build` compiles
@@ -45,7 +47,14 @@ import torch
 
 from ..kernels.functions import scale_inputs
 from ..utils.profiling import count, host_counted
-from .kernel_tiers import TierOperand, norms_and_operands, split_rhs
+from .kernel_tiers import (
+    TierOperand,
+    forward_contraction,
+    norms_and_operands,
+    rhs_t,
+    split_rhs,
+    split_rhs_t,
+)
 
 
 __all__ = [
@@ -64,6 +73,7 @@ __all__ = [
     "gram_matmat_tier",
     "gram_matvec_symmetric_tier",
     "symmetric_tier_route",
+    "forward_tier_route",
     "route_counts",
     "gram_matmat_f64",
     "gram_matvec_symmetric_f64",
@@ -91,8 +101,8 @@ __all__ = [
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("gram.cu", "gram_wide.cu", "gram_comp.cu", "gram_laplace.cu", "gram_tier.cu",
-           "gram_tier_sym.cu", "gram_pair.cu", "spmv.cu", "probes.cu")
-_HEADERS = ("gram_common.cuh", "gram_tile.cuh", "gram_tier.cuh")
+           "gram_tier_sym.cu", "gram_tier_rows.cu", "gram_pair.cu", "spmv.cu", "probes.cu")
+_HEADERS = ("gram_common.cuh", "gram_tile.cuh", "gram_tier.cuh", "gram_tma.cuh")
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (
@@ -104,21 +114,30 @@ COMPILE_FLAGS = (
 KIND_CODES = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3, "laplace": 4}
 SYMMETRIC_MAX_K = 16
 # csrc/gram_tier.cu: K1b's forward strip takes 128 rows a block, two blocks
-# an SM. csrc/gram_comp.cu's float64 tile: tiles of 128 points and chunks of
-# 16 features, one block an SM; the forward form takes 16 right-hand sides
-# a slice, the triangle and the pair 1, 2 or 4 (COMP_SLICE past 2).
+# an SM; csrc/gram_tier_rows.cu, K1b's warp-specialised kernel, 128 rows a
+# block, one block an SM. csrc/gram_comp.cu's float64 tile: tiles of 128
+# points and chunks of 16 features, one block an SM; the forward form takes
+# 16 right-hand sides a slice, the triangle and the pair 1, 2 or 4
+# (COMP_SLICE past 2).
 TIER_ROWS, TIER_BLOCKS_PER_SM = 128, 2
-# K1b's forward strip on an m axis of more than TIER_LONG_TILES 64-column
-# tiles (2^20 columns; every path but configs 7 and 9 stays within it, as
-# config 6's m = 10⁶ does in one run) walks runs of TIER_RUN_TILES tiles at
-# most (131,072 columns; SAP's row oracle at config 4's m = 10⁶ walks 1,202
-# a run).
+TIER_WS_BLOCKS_PER_SM = 1
+# K1b at k <= 16 on an m axis of more than TIER_LONG_TILES 64-column tiles
+# (2^20 columns; every path but configs 7 and 9 stays within it, as config
+# 6's m = 10⁶ does in one run) walks runs of TIER_RUN_TILES tiles at most
+# (131,072 columns; SAP's row oracle at config 4's m = 10⁶ walks 2,605 a
+# run).
 TIER_LONG_TILES, TIER_RUN_TILES = 16384, 2048
 # csrc/gram_tier_sym.cu: K2b's warp-specialised kernel takes up to
 # SYMMETRIC_TIER_WS_K columns (the float32 mirror) at a padded depth up to
 # SYMMETRIC_TIER_WS_DEPTH (its shared memory); the rest takes the strip's
 # triangle form in csrc/gram_tier.cu (symmetric_tier_route).
 SYMMETRIC_TIER_WS_K, SYMMETRIC_TIER_WS_DEPTH = 2, 128
+# csrc/gram_tier_rows.cu: K1b's warp-specialised kernel takes up to
+# SYMMETRIC_MAX_K columns (W padded to 16, the contraction's width) at a
+# padded depth up to FORWARD_TIER_WS_DEPTH (its shared memory); deeper
+# parts take the strip's forward form, wider V the wide kernel
+# (forward_tier_route).
+FORWARD_TIER_WS_DEPTH = 128
 COMP_TILE, COMP_FEAT, COMP_FORWARD_K, COMP_SLICE = 128, 16, 16, 4
 # csrc/gram_tile.cuh: the register tile of K1–K6 at k <= 16 takes 128
 # points a side, chunks of 32 features, two blocks an SM.
@@ -171,6 +190,10 @@ _SIGNATURES = {
     "rl_gram_matmat_tier": [
         _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
         _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
+    ],
+    "rl_gram_matmat_tier_rows": [
+        _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+        _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_gram_matvec_symmetric_tier": [
         _ci, _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _cd, _vp,
@@ -368,18 +391,24 @@ def _runs(rows: int, tiles: int, k: int, slots: int, min_tiles: int) -> int:
     return max(1, min(4 * slots // rows, tiles // min_tiles))
 
 
-def tier_splits(n: int, m: int, k: int, sms: int) -> int:
-    """Runs of the m axis for K1b's forward strip (k ≤ 16) on a card of
-    ``sms`` SMs (:func:`_runs`): 128-row blocks, two an SM, runs of at least
-    16 column tiles of 64. SAP's row oracle (10⁴ rows, 79 blocks) takes 13
-    runs, 1,027 blocks on 1,056 slot-rounds, where the one-run schedule left
-    53 of 132 SMs idle. Past ``TIER_LONG_TILES`` tiles a run walks at most
-    ``TIER_RUN_TILES``: each thread sums its rows' products over the run in
-    float32, one add per column it holds, and at m = 10⁷ one run of 156,250
-    tiles put that sum 3.4e-4 off a float64 one for a positive V (the runs'
-    partials are added by ``sum_splits``)."""
+def tier_splits(n: int, m: int, k: int, dp: int, sms: int) -> int:
+    """Runs of the m axis for K1b at k ≤ 16 and the padded depth dp on a
+    card of ``sms`` SMs (:func:`_runs`), by its route
+    (:func:`forward_tier_route`): 128-row blocks, one an SM on the
+    warp-specialised kernel (runs of at least 32 column tiles of 64: its
+    ring fills once a run; SAP's row oracle at 10⁴ rows, 79 blocks, takes
+    6 runs), two an SM on the strip past a depth of 128 (runs of at least 16
+    tiles; 79 blocks take 13 runs, 1,027 blocks on 1,056 slot-rounds, where
+    one run would leave 53 of 132 SMs idle). Past ``TIER_LONG_TILES`` tiles
+    a run walks at most ``TIER_RUN_TILES``: each thread adds its rows'
+    products to a float32 sum over the run, and at m = 10⁷ one run of
+    156,250 tiles put that sum 3.4e-4 off a float64 one for a positive V
+    (the runs' partials are added by ``sum_splits``)."""
     tiles = -(-m // 64)
-    runs = _runs(-(-n // TIER_ROWS), tiles, k, TIER_BLOCKS_PER_SM * sms, 16)
+    if forward_tier_route(k, dp) == "warpgroup":
+        runs = _runs(-(-n // TIER_ROWS), tiles, k, TIER_WS_BLOCKS_PER_SM * sms, 32)
+    else:
+        runs = _runs(-(-n // TIER_ROWS), tiles, k, TIER_BLOCKS_PER_SM * sms, 16)
     if k > SYMMETRIC_MAX_K or tiles <= TIER_LONG_TILES:
         return runs
     return max(runs, -(-tiles // TIER_RUN_TILES))
@@ -681,14 +710,42 @@ def _check_tier(kind, *operands: TierOperand):
     return code
 
 
+def forward_tier_route(k: int, dp: int) -> str:
+    """The kernel K1b takes for k columns at the padded depth dp:
+    ``"warpgroup"`` (``gram_tier_rows``, the warp-specialised kernel) up to
+    16 columns and a depth of 128, ``"strip"`` (the strip's forward form
+    ``gram_tier_forward``) past that depth, and ``"wide"``
+    (``gram_tier_wide``) past 16 columns. Each contracts as
+    :func:`rlaopt_tpu_torch.ops.kernel_tiers.forward_contraction` says (the
+    strip, past a depth of 80, in float32)."""
+    if k > SYMMETRIC_MAX_K:
+        return "wide"
+    return "warpgroup" if dp <= FORWARD_TIER_WS_DEPTH else "strip"
+
+
+def _tma_aligned(*tensors):
+    """Each tensor as it is where it starts 16-byte aligned (TMA reads it),
+    else a copy."""
+    return [t if t is None or t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
+
+
 @_counted
 def gram_matmat_tier(kind, A: TierOperand, B: TierOperand, V, const_scaling=1.0):
     """K1b: ``c·k(X1, X2) @ V`` on a bf16 tier from the parts of X1 (A) and
-    X2 (B) (:func:`rlaopt_tpu_torch.ops.kernel_tiers.tier_operand`): the
-    forward strip with a float32 contraction for k ≤ 16, the m axis in
-    :func:`tier_splits` runs; past that the wide kernel, the tier-matched
-    contraction on the tensor cores, with V's bf16 parts split here once
-    (:func:`rlaopt_tpu_torch.ops.kernel_tiers.split_rhs`)."""
+    X2 (B) (:func:`rlaopt_tpu_torch.ops.kernel_tiers.tier_operand`), by
+    :func:`forward_tier_route`: up to 16 columns the warp-specialised kernel
+    or, past a padded depth of 128, the forward strip, the m axis in
+    :func:`tier_splits` runs; past 16 columns the wide kernel, the
+    tier-matched contraction on the tensor cores, with V's bf16 parts split
+    here once (:func:`rlaopt_tpu_torch.ops.kernel_tiers.split_rhs`). The
+    contraction is that of
+    :func:`rlaopt_tpu_torch.ops.kernel_tiers.forward_contraction`, as in the
+    plain version: on the warp-specialised kernel from V transposed here
+    once, float32 (:func:`rlaopt_tpu_torch.ops.kernel_tiers.rhs_t`) or its
+    bf16 parts (:func:`rlaopt_tpu_torch.ops.kernel_tiers.split_rhs_t`). Each
+    route's launches are counted in ``gram_matmat_tier.routes`` and, while
+    tracing is on, in the counters
+    ``rlaopt.cuda.gram_matmat_tier.<route>.launches``."""
     code = _check_tier(kind, A, B)
     _check_tensors((torch.float32,), V)
     V2, squeeze = _check_shapes(A.hi, B.hi, V)
@@ -697,26 +754,40 @@ def gram_matmat_tier(kind, A: TierOperand, B: TierOperand, V, const_scaling=1.0)
     _, hx, hy = norms_and_operands(kind, A, B)
     (n, dp), (m, k) = A.hi.shape, V2.shape
     dev = V2.device
+    route = forward_tier_route(k, dp)
     Vh = Vl = part = None
     splits, kp = 1, k
-    if k > SYMMETRIC_MAX_K:
+    if route == "wide":
         Vh, Vl = split_rhs(V2, A.passes)
         kp = Vh.shape[1]
     else:
-        splits = tier_splits(n, m, k, sm_count(dev))
+        splits = tier_splits(n, m, k, dp, sm_count(dev))
         if splits > 1:
             part = torch.empty((splits, n, k), dtype=torch.float32, device=dev)
     build()
     out = torch.empty((n, k), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _lib["handle"].rl_gram_matmat_tier(
-            code, A.passes, A.hi.data_ptr(), _ptr(A.lo), hx.data_ptr(),
-            B.hi.data_ptr(), _ptr(B.lo), hy.data_ptr(), V2.data_ptr(), _ptr(Vh),
-            _ptr(Vl), _ptr(part), out.data_ptr(), n, m, dp, k, kp, int(splits),
-            float(const_scaling), _stream(V2),
-        )
+        if route == "warpgroup":
+            split = forward_contraction(k, dp, A.passes) == "split"
+            Vh, Vl = split_rhs_t(V2) if split else (rhs_t(V2), None)
+            x1h, x1l, x2h, x2l, hx, hy = _tma_aligned(A.hi, A.lo, B.hi, B.lo, hx, hy)
+            err = _lib["handle"].rl_gram_matmat_tier_rows(
+                code, A.passes, x1h.data_ptr(), _ptr(x1l), hx.data_ptr(), x2h.data_ptr(),
+                _ptr(x2l), hy.data_ptr(), Vh.data_ptr(), _ptr(Vl), _ptr(part),
+                out.data_ptr(), n, m, Vh.shape[1], dp, k, int(split), int(splits),
+                float(const_scaling), _stream(V2),
+            )
+        else:
+            err = _lib["handle"].rl_gram_matmat_tier(
+                code, A.passes, A.hi.data_ptr(), _ptr(A.lo), hx.data_ptr(),
+                B.hi.data_ptr(), _ptr(B.lo), hy.data_ptr(), V2.data_ptr(), _ptr(Vh),
+                _ptr(Vl), _ptr(part), out.data_ptr(), n, m, dp, k, kp, int(splits),
+                float(const_scaling), _stream(V2),
+            )
     _raise_on(err, "gram_matmat_tier")
     gram_matmat_tier.launches += 1
+    gram_matmat_tier.routes[route] += 1
+    count(f"rlaopt.cuda.gram_matmat_tier.{route}.launches")
     return out[:, 0] if squeeze else out
 
 
@@ -748,7 +819,7 @@ def gram_matvec_symmetric_tier(kind, A: TierOperand, V, const_scaling=1.0):
     route = symmetric_tier_route(k, dp)
     if route == "warpgroup":
         # the kernel reads V and the norms by TMA, from 16-byte aligned starts
-        V2, hx = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (V2, hx))
+        V2, hx = _tma_aligned(V2, hx)
     build()
     out = torch.empty((n, k), dtype=torch.float32, device=V2.device)
     with torch.cuda.device(V2.device):
@@ -1233,6 +1304,7 @@ def reset_launch_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
     gram_matvec_symmetric_tier.routes = {"warpgroup": 0, "strip": 0}
+    gram_matmat_tier.routes = {"warpgroup": 0, "strip": 0, "wide": 0}
 
 
 def launch_counts() -> dict:
@@ -1240,10 +1312,12 @@ def launch_counts() -> dict:
 
 
 def route_counts() -> dict:
-    """K2b's launches by route (:func:`symmetric_tier_route`), as
-    ``{"gram_matvec_symmetric_tier.warpgroup": .., ".strip": ..}``."""
-    return {f"gram_matvec_symmetric_tier.{route}": launches
-            for route, launches in gram_matvec_symmetric_tier.routes.items()}
+    """K2b's and K1b's launches by route (:func:`symmetric_tier_route`,
+    :func:`forward_tier_route`), as ``{"gram_matvec_symmetric_tier.warpgroup":
+    .., ..., "gram_matmat_tier.wide": ..}``."""
+    return {f"{fn.__name__}.{route}": launches
+            for fn in (gram_matvec_symmetric_tier, gram_matmat_tier)
+            for route, launches in fn.routes.items()}
 
 
 reset_launch_counts()

@@ -23,9 +23,11 @@ kernel, with the same signature as its wrapper in
 * :func:`gram_matmat_tier` (K1b) and :func:`gram_matvec_symmetric_tier`
   (K2b): the bf16 tiers of :mod:`rlaopt_tpu_torch.ops.kernel_tiers`, cross
   term from the bf16 parts, kernel values and contraction in float32. The
-  contraction takes K1b's engine: float32 for k ≤ 16, the tier-matched
-  bf16 passes for k > 16 (``"split"``, three passes of hi/lo for bf16x3;
-  ``"fast"``, one bf16 pass, for bfloat16). The triangle reproduces K2b's
+  contraction of K1b takes the JAX package's engine, as the card does
+  (:func:`rlaopt_tpu_torch.ops.kernel_tiers.forward_contraction`): float32,
+  or the tier-matched bf16 passes past 16 columns and on bf16x3 at 9 to 16
+  columns and a depth up to 80 (``"split"``, three passes of hi/lo for
+  bf16x3; ``"fast"``, one bf16 pass, for bfloat16). The triangle reproduces K2b's
   schedule: row tile I contracts the tiles J ≥ I forward in float32 and
   serves the rows of every tile J > I through the mirror, which at k ≥ 3
   takes the tier-matched contraction (``_sym_mirror_mode``).
@@ -61,6 +63,7 @@ from ..kernels.functions import kernel_from_sqdist, kernel_tile, scale_inputs
 from .kernel_tiers import (
     TierOperand,
     finish_dot,
+    forward_contraction,
     norms_and_operands,
     split_bf16,
     tier_products,
@@ -82,15 +85,12 @@ __all__ = [
     "tier_contract",
     "tf32_split",
     "SYMMETRIC_TILE",
-    "NARROW_MAX_K",
 ]
 
 # Elements in one streamed tile, the JAX package's budget (kernel_xla.py).
 _TILE_ELEMENTS = 1 << 23
 # Rows of the CUDA triangle kernels' tiles (csrc/gram_common.cuh kTile).
 SYMMETRIC_TILE = 64
-# Widest right-hand side contracted in float32 by the tier kernels.
-NARROW_MAX_K = 16
 
 
 def _block(requested: Optional[int], other: int) -> int:
@@ -217,10 +217,12 @@ def gram_matmat_tier(
     row_block: Optional[int] = None,
 ) -> torch.Tensor:
     """K1b: ``c·k(X1, X2) @ V`` on a bf16 tier, from the parts of X1 (A) and
-    X2 (B), with float32 V."""
+    X2 (B), with float32 V. The contraction is the JAX package's engine for
+    the shape (:func:`rlaopt_tpu_torch.ops.kernel_tiers.forward_contraction`),
+    as on the card."""
     V, squeeze = _as_2d(V)
     n, k = A.hi.shape[0], V.shape[1]
-    mode = "f32" if k <= NARROW_MAX_K else _wide_mode(A)
+    mode = forward_contraction(k, A.hi.shape[1], A.passes)
     bm = _block(row_block, B.hi.shape[0])
     out = torch.empty((n, k), dtype=torch.float32, device=V.device)
     for s in range(0, n, bm):

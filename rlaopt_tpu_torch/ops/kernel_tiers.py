@@ -33,6 +33,9 @@ __all__ = [
     "normalize_compute_dtype",
     "split_bf16",
     "split_rhs",
+    "split_rhs_t",
+    "rhs_t",
+    "forward_contraction",
     "tier_operand",
     "norms_and_operands",
     "finish_dot",
@@ -42,6 +45,28 @@ __all__ = [
 TIERS = ("bf16x3", "bfloat16")
 # Depth multiple of the parts: the k-extent of one bf16 tensor-core product.
 DEPTH_MULTIPLE = 16
+# K1b's contraction below 17 columns is the JAX package's dispatch
+# (kernel_matmat_pallas): the tier-matched "split" on bf16x3 at 9 to 16
+# columns where its three passes fold into one operand of depth 256 or less
+# (d <= 85), the float32 one elsewhere. The padded depth stands for d:
+# SPLIT_MAX_DEPTH = 80 (at d = 81 to 85 the port keeps float32, the more
+# precise engine).
+SPLIT_MIN_K, SPLIT_MAX_K, SPLIT_MAX_DEPTH = 9, 16, 80
+
+
+def forward_contraction(k: int, dp: int, passes: int) -> str:
+    """The contraction of K1b's ``c·k(X1, X2) @ V`` for k columns at the
+    padded depth dp on the tier of ``passes`` (3 or 1), on the card and in
+    the plain version alike: ``"f32"`` (float32), ``"split"`` (hi·hi + hi·lo
+    + lo·hi of the values' and V's bf16 parts) or ``"fast"`` (one bf16
+    pass), the JAX package's choice (``SPLIT_MAX_DEPTH``): past 16 columns
+    tier-matched, on bf16x3 at 9 to 16 columns and a depth up to 80
+    ``"split"``, else float32."""
+    if k > SPLIT_MAX_K:
+        return "split" if passes == 3 else "fast"
+    if passes == 3 and k >= SPLIT_MIN_K and dp <= SPLIT_MAX_DEPTH:
+        return "split"
+    return "f32"
 
 
 def normalize_compute_dtype(cd):
@@ -80,6 +105,37 @@ def split_rhs(V: torch.Tensor, passes: int):
     if passes == 1:
         return vh, None
     return vh, (Vp - vh.float()).to(torch.bfloat16).contiguous()
+
+
+def split_rhs_t(V: torch.Tensor):
+    """The right-hand side of K1b's warp-specialised kernel for its split
+    contraction (bf16x3, k ≤ 16): ``(vh, vl)``, V's bf16 parts transposed,
+    each (16, mpad) with mpad the row count rounded up to a multiple of 8,
+    zero past V's columns and rows, so that each row of the parts is a whole
+    number of 16-byte pieces (the kernel reads them by TMA). Bit for bit the
+    parts :func:`split_bf16` gives, as :func:`split_rhs`."""
+    if V.ndim != 2 or V.dtype != torch.float32 or V.shape[1] > DEPTH_MULTIPLE:
+        raise ValueError(f"split_rhs_t takes a 2-D float32 V of at most {DEPTH_MULTIPLE} "
+                         f"columns, got {V.dtype} {tuple(V.shape)}")
+    vh = V.to(torch.bfloat16)
+    return _transposed(vh), _transposed((V - vh.float()).to(torch.bfloat16))
+
+
+def rhs_t(V: torch.Tensor):
+    """The right-hand side of K1b's warp-specialised kernel for its float32
+    contraction: V transposed, (16, mpad) float32, zero past V's columns
+    and rows (mpad as :func:`split_rhs_t`'s)."""
+    if V.ndim != 2 or V.dtype != torch.float32 or V.shape[1] > DEPTH_MULTIPLE:
+        raise ValueError(f"rhs_t takes a 2-D float32 V of at most {DEPTH_MULTIPLE} "
+                         f"columns, got {V.dtype} {tuple(V.shape)}")
+    return _transposed(V)
+
+
+def _transposed(V: torch.Tensor):
+    m, k = V.shape
+    t = torch.zeros((DEPTH_MULTIPLE, -(-m // 8) * 8), dtype=V.dtype, device=V.device)
+    t[:k, :m] = V.T
+    return t
 
 
 @dataclass(frozen=True)

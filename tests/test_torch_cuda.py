@@ -133,9 +133,10 @@ def test_cuda_launch_counts_and_refusals(cuda_device):
 @pytest.mark.parametrize("k", [1, 3, 16, 70])
 def test_cuda_tiers_match_their_plain_versions(cuda_device, cd, kind, k):
     """K1b and K2b against the plain version of their tier (float32 on the
-    card): 1e-5 of max|ref| where both contract in float32; where the
-    one-pass tier re-rounds kernel values to bf16 (k > 16, and K2b's
-    mirror at k >= 3), two bf16 steps of a product in a row
+    card; K1b's contraction ``forward_contraction``'s, as the card's): 1e-5
+    of max|ref| where both contract alike; where the one-pass tier re-rounds
+    kernel values to bf16 (k > 16, and K2b's mirror at k >= 3), two bf16
+    steps of a product in a row
     (:func:`_reround_bound`). K2b on Matérn-1/2: its diagonal values are
     the square root of a cancelled float sum (measured 7.8e-5 on an H100),
     so the whole product is held to 1e-3, and the rows whose own row of V
@@ -177,10 +178,10 @@ def test_cuda_tiers_match_their_plain_versions(cuda_device, cd, kind, k):
 @pytest.mark.parametrize("k", [1, 2, 3, 8, 16, 17, 64, 129, 500])
 def test_cuda_k1b_ragged_every_width(cuda_device, cd, kind, k, monkeypatch):
     """K1b against the plain version of its tier on ragged n and m (not
-    whole 64-row tiles), every width of both schedules: the forward strip
-    (k <= 16) with one run of the m axis and with three (the partials summed
-    by a second launch), and the wide kernel at 64 and 128 columns a block
-    with a ragged last block. Bounds as in
+    whole 64-row tiles), every width of its schedules: the warp-specialised
+    kernel (k <= 16 at d = 28) with one run of the m axis and with three
+    (the partials summed by a second launch), and the wide kernel at 64 and
+    128 columns a block with a ragged last block. Bounds as in
     :func:`test_cuda_tiers_match_their_plain_versions`."""
     from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
 
@@ -196,6 +197,100 @@ def test_cuda_k1b_ragged_every_width(cuda_device, cd, kind, k, monkeypatch):
         torch.cuda.synchronize()
         assert got.shape == (333, k)
         assert _rel(got, ref) <= bound, runs
+
+
+# K1b against float64: the bf16x3 tier's error is the cross term's and, at
+# 9 to 16 columns up to a depth of 80, the split contraction's, each 2^-17
+# of a product that sums with the products' signs (measured up to 1.04e-5
+# of max|ref| at k = 1 on an H100, both contracting tier-matched); the
+# one-pass tier's cross term is 2^-8 of one.
+K1B_F64_BOUND = {"bf16x3": 4e-5, "bfloat16": 2.0**-6}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["bf16x3", "bfloat16"])
+@pytest.mark.parametrize("kind", ["rbf", "matern32"])
+@pytest.mark.parametrize("k", [1, 2, 3, 10, 16])
+@pytest.mark.parametrize("d", [10, 28, 50, 100])
+def test_cuda_k1b_warpgroup_route(cuda_device, cd, kind, k, d):
+    """K1b's warp-specialised kernel (every padded depth from 16 to 112, k
+    <= 16: the float32 contraction on 1, 8 and 16 of W's columns, and the
+    split, ``forward_contraction``) on ragged n and m against the plain
+    version of its tier (1e-5) and the float64 product (``K1B_F64_BOUND``),
+    on random V of both signs; two calls give the same bits, and the
+    route's counter moved once a call."""
+    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
+
+    X1, X2, V = _data(41 + d, 333, 1201, d, k)
+    X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
+    A, B = tier_operand(X1 / d**0.5, cd), tier_operand(X2 / d**0.5, cd)
+    assert kernel_cuda.forward_tier_route(k, A.hi.shape[1]) == "warpgroup"
+    kernel_cuda.reset_launch_counts()
+    got = kernel_cuda.gram_matmat_tier(kind, A, B, V, 0.8)
+    again = kernel_cuda.gram_matmat_tier(kind, A, B, V, 0.8)
+    torch.cuda.synchronize()
+    assert kernel_cuda.route_counts()["gram_matmat_tier.warpgroup"] == 2
+    assert torch.equal(got, again)
+    ref = kernel_plain.gram_matmat_tier(kind, A, B, V, 0.8)
+    assert _rel(got, ref) <= 1e-5
+    f64 = kernel_plain.gram_matmat_f64(kind, X1.double(), X2.double(), V.double(), d**0.5, 0.8)
+    assert _rel(got, f64) <= K1B_F64_BOUND[cd]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["bf16x3", "bfloat16"])
+def test_cuda_k1b_warpgroup_runs_past_long_tiles(cuda_device, cd):
+    """Past ``TIER_LONG_TILES`` 64-column tiles (2^20 columns) the kernel
+    walks the m axis in runs of at most ``TIER_RUN_TILES`` tiles, whose
+    partials ``sum_splits`` adds in a fixed order: against the plain
+    version and float64 as above, the same bits twice."""
+    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
+
+    n, m, d, k = 200, kernel_cuda.TIER_LONG_TILES * 64 + 1_000, 28, 3
+    X1, X2, V = _data(43, n, m, d, k)
+    X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
+    A, B = tier_operand(X1 / 5.3, cd), tier_operand(X2 / 5.3, cd)
+    dp = A.hi.shape[1]
+    runs = kernel_cuda.tier_splits(n, m, k, dp, kernel_cuda.sm_count(cuda_device))
+    assert kernel_cuda.forward_tier_route(k, dp) == "warpgroup"
+    assert -(-m // 64) > kernel_cuda.TIER_LONG_TILES and runs > 1
+    got = kernel_cuda.gram_matmat_tier("rbf", A, B, V, 0.8)
+    again = kernel_cuda.gram_matmat_tier("rbf", A, B, V, 0.8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = kernel_plain.gram_matmat_tier("rbf", A, B, V, 0.8)
+    assert _rel(got, ref) <= 1e-5
+    f64 = kernel_plain.gram_matmat_f64("rbf", X1.double(), X2.double(), V.double(), 5.3, 0.8)
+    assert _rel(got, f64) <= K1B_F64_BOUND[cd]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", ["bf16x3", "bfloat16"])
+@pytest.mark.parametrize("kind", ["rbf", "matern32"])
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_cuda_k1b_strip_past_depth_128(cuda_device, cd, kind, k, monkeypatch):
+    """K1b past a padded depth of 128 (d = 150) takes the strip's forward
+    form: on ragged n and m, with one run of the m axis and with three,
+    against the plain version of its tier (1e-5) and the float64 product
+    (``K1B_F64_BOUND``); the strip's counter moved once a call."""
+    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
+
+    d = 150
+    X1, X2, V = _data(47 + k, 333, 1201, d, k)
+    X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
+    A, B = tier_operand(X1 / d**0.5, cd), tier_operand(X2 / d**0.5, cd)
+    assert kernel_cuda.forward_tier_route(k, A.hi.shape[1]) == "strip"
+    ref = kernel_plain.gram_matmat_tier(kind, A, B, V, 0.8)
+    f64 = kernel_plain.gram_matmat_f64(kind, X1.double(), X2.double(), V.double(), d**0.5, 0.8)
+    for runs in (1, 3):
+        monkeypatch.setattr(kernel_cuda, "tier_splits", lambda *a, runs=runs: runs)
+        kernel_cuda.reset_launch_counts()
+        got = kernel_cuda.gram_matmat_tier(kind, A, B, V, 0.8)
+        torch.cuda.synchronize()
+        assert kernel_cuda.route_counts()["gram_matmat_tier.strip"] == 1
+        assert got.shape == (333, k)
+        assert _rel(got, ref) <= 1e-5, runs
+        assert _rel(got, f64) <= K1B_F64_BOUND[cd], runs
 
 
 @pytest.mark.cuda

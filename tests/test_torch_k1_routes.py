@@ -17,7 +17,7 @@ from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp, ShardedRBFLinOp
 from rlaopt_tpu_torch.kernels.functions import scale_inputs
 from rlaopt_tpu_torch.models import LinSys
 from rlaopt_tpu_torch.ops import kernel_cuda, kernel_dispatch, kernel_plain
-from rlaopt_tpu_torch.ops.kernel_tiers import split_bf16, split_rhs
+from rlaopt_tpu_torch.ops.kernel_tiers import rhs_t, split_bf16, split_rhs
 from rlaopt_tpu_torch.parallel import make_mesh
 
 H100_SMS = 132
@@ -100,28 +100,29 @@ def test_compensated_dispatch_rule(recorded):
     assert recorded == ["gram_matvec_symmetric_comp", "gram_matmat_comp", "gram_matmat_comp"]
 
 
-@pytest.mark.parametrize("n,m,k,runs", [
-    (10_000, 1_000_000, 1, 13),   # SAP's row oracle (config 4): 79 row blocks
-    (10_000, 1_000_000, 16, 13),
-    (1_000_000, 1_000_000, 1, 1),   # config 6's n: 7,813 row blocks
-    (1_000_000, 1_000_000, 500, 1),  # config 6's sketch: the wide kernel
-    (100_000, 100_000, 1, 1),     # 782 row blocks, three rounds of 264
-    (1_000, 777, 7, 1),           # 13 column tiles: no run of 16
-    (1_000, 64_000, 3, 62),       # 8 row blocks; runs of 16 tiles
-    (30_000, 1_000_000, 1, 4),    # 235 row blocks: 4 x 235 = 940 <= 1,056
-    (100_000, 10_000_000, 10, 77),  # config 7's and 9's row oracle: 2,048 tiles a run
-    (100_000, 1 << 20, 10, 1),    # 16,384 tiles: one run, as at m = 10⁶
-    (100_000, (1 << 20) + 64, 10, 9),
-    (4_096, 10_000_000, 10, 77),  # their sampled metric: 33 runs would walk 4,735 tiles
-    (100_000, 10_000_000, 100, 1),  # the wide kernel takes no runs
+@pytest.mark.parametrize("n,m,k,dp,runs", [
+    (10_000, 1_000_000, 1, 64, 6),     # SAP's row oracle (config 4): 79 row blocks
+    (10_000, 1_000_000, 16, 64, 6),
+    (1_000_000, 1_000_000, 1, 32, 1),    # config 6's n: 7,813 row blocks
+    (1_000_000, 1_000_000, 500, 32, 1),  # config 6's sketch: the wide kernel
+    (100_000, 100_000, 1, 64, 1),      # 782 row blocks, past two rounds of 132
+    (1_000, 777, 7, 160, 1),           # the strip: 13 column tiles, no run of 16
+    (1_000, 64_000, 3, 160, 62),       # 8 row blocks; runs of 16 tiles
+    (30_000, 1_000_000, 1, 160, 4),    # 235 row blocks: 4 x 235 = 940 <= 1,056
+    (100_000, 10_000_000, 10, 64, 77),  # config 7's and 9's row oracle: 2,048 tiles a run
+    (100_000, 1 << 20, 10, 160, 1),    # 16,384 tiles: one run, as at m = 10⁶
+    (100_000, (1 << 20) + 64, 10, 160, 9),
+    (4_096, 10_000_000, 10, 64, 77),   # their sampled metric: 33 runs would walk 4,735 tiles
+    (100_000, 10_000_000, 100, 64, 1),  # the wide kernel takes no runs
 ])
-def test_tier_splits(n, m, k, runs):
-    """K1b's run count of the m axis on an H100 (132 SMs, two 128-row
-    blocks an SM): one run once the row blocks fill two rounds of the 264
-    slots; else as many as keep the blocks within four rounds, each run 16
-    column tiles or more; past 16,384 tiles (2^20 columns) runs of at most
-    2,048 tiles; one past 16 columns."""
-    assert kernel_cuda.tier_splits(n, m, k, H100_SMS) == runs
+def test_tier_splits(n, m, k, dp, runs):
+    """K1b's run count of the m axis on an H100 (132 SMs) by its route: on
+    the warp-specialised kernel (one 128-row block an SM) and on the strip
+    past a depth of 128 (two an SM), one run once the row blocks fill two
+    rounds of the slots; else as many as keep the blocks within four rounds,
+    each run 32 (16 on the strip) column tiles or more; past 16,384 tiles
+    (2^20 columns) runs of at most 2,048 tiles; one past 16 columns."""
+    assert kernel_cuda.tier_splits(n, m, k, dp, H100_SMS) == runs
 
 
 @pytest.mark.parametrize("k", [1, 16, 17, 64, 500])
@@ -143,6 +144,19 @@ def test_split_rhs_is_the_plain_split(k, passes):
     else:
         assert vl.shape == (300, kp) and not vl[:, k:].any()
         assert torch.equal(vl[:, :k].float(), lo)
+
+
+@pytest.mark.parametrize("m,k", [(300, 1), (301, 8), (1001, 16)])
+def test_rhs_t_is_v_transposed(m, k):
+    """K1b's warp-specialised kernel's float32 right-hand side: V itself,
+    transposed to (16, m rounded up to 8), zero past its columns and rows;
+    more than 16 columns are refused."""
+    V = torch.from_numpy(np.random.default_rng(m).standard_normal((m, k)).astype(np.float32))
+    Vt = rhs_t(V)
+    assert Vt.dtype == torch.float32 and Vt.shape == (16, -(-m // 8) * 8)
+    assert torch.equal(Vt[:k, :m], V.T) and not Vt[k:].any() and not Vt[:, m:].any()
+    with pytest.raises(ValueError, match="at most 16"):
+        rhs_t(torch.zeros((m, 17)))
 
 
 @pytest.mark.parametrize("n,d,ls", [(300, 3, 0.7), (128, 16, 2.0), (1000, 28, None)])

@@ -27,7 +27,7 @@ from rlaopt_tpu.ops.kernel_pallas import (
     kernel_matvec_symmetric,
     kernel_pair_matmat,
 )
-from rlaopt_tpu_torch.ops import kernel_plain
+from rlaopt_tpu_torch.ops import kernel_plain, kernel_tiers
 from rlaopt_tpu_torch.ops.kernel_tiers import (
     normalize_compute_dtype,
     split_bf16,
@@ -115,6 +115,104 @@ def matmat_errors():
                           text=True, env=env, timeout=900, check=False)
     assert done.returncode == 0, done.stderr[-4000:]
     return dict(zip(MATMAT_CASES, json.loads(done.stdout.strip().splitlines()[-1])))
+
+
+# Config 9's row oracle in small: RBF, X = N(0, 1)/sqrt(50), k = 10.
+SPLIT_N, SPLIT_M, SPLIT_D, SPLIT_K = 128, 1024, 50, 10
+
+
+# (tier, d, k) where the JAX package's forward dispatch is held against
+# ``kernel_tiers.forward_contraction``: the split at config 9's width and
+# up to d = 80, float32 at 8 columns, past its fold (d = 90) and on the
+# one-pass tier.
+DISPATCH_CASES = [("bf16x3", 50, 10), ("bf16x3", 50, 8), ("bf16x3", 28, 16), ("bf16x3", 80, 12),
+                  ("bf16x3", 90, 12), ("bfloat16", 50, 10)]
+
+
+def _dispatch_case(cd, d, k):
+    """Whether the JAX package's forward kernel with its own contraction
+    gives the bits it gives with the one ``forward_contraction`` names for
+    the port (``"vpu"`` for float32), on 128 x 1024 points."""
+    from rlaopt_tpu_torch.ops.kernel_tiers import forward_contraction
+
+    rng = np.random.default_rng(d + k)
+    X1, X2 = ((rng.standard_normal((n, d)) / d**0.5).astype(np.float32) for n in (128, 1024))
+    V = rng.standard_normal((1024, k)).astype(np.float32)
+    mode = forward_contraction(k, -(-d // 16) * 16, 3 if cd == "bf16x3" else 1)
+    own, named = (np.asarray(kernel_matmat_pallas(
+        "rbf", jnp.asarray(X1), jnp.asarray(X2), jnp.asarray(V), 1.0, 1.0, compute_dtype=cd,
+        interpret=True, acc_mode=acc)) for acc in (None, {"f32": "vpu"}.get(mode, mode)))
+    return bool(np.array_equal(own, named))
+
+
+def _split_case():
+    """The JAX package's bf16x3 forward kernel in interpret mode with its
+    tier-matched contraction (``acc_mode="split"``) and with the float32 one
+    (``"vpu"``), each against the float64 product, the port's plain version
+    (whose contraction at this shape is the split) against the first, and
+    :func:`_dispatch_case` on each of ``DISPATCH_CASES``."""
+    from rlaopt_tpu_torch.ops.kernel_plain import gram_matmat_f64
+
+    rng = np.random.default_rng(SPLIT_D)
+    X1, X2 = ((rng.standard_normal((n, SPLIT_D)) / SPLIT_D**0.5).astype(np.float32)
+              for n in (SPLIT_N, SPLIT_M))
+    V = rng.standard_normal((SPLIT_M, SPLIT_K)).astype(np.float32)
+    ref = gram_matmat_f64("rbf", torch.from_numpy(X1), torch.from_numpy(X2),
+                          torch.from_numpy(V).double(), 1.0, 1.0)
+    out = {}
+    for mode in ("split", "vpu"):
+        got = kernel_matmat_pallas("rbf", jnp.asarray(X1), jnp.asarray(X2), jnp.asarray(V), 1.0,
+                                   1.0, compute_dtype="bf16x3", interpret=True, acc_mode=mode)
+        out[mode] = _rel(got, ref)
+        if mode == "split":
+            split = got
+    A, B = (tier_operand(torch.from_numpy(X), "bf16x3") for X in (X1, X2))
+    plain = kernel_plain.gram_matmat_tier("rbf", A, B, torch.from_numpy(V), 1.0)
+    out["plain"] = _rel(plain, split)
+    out["dispatch"] = [_dispatch_case(*case) for case in DISPATCH_CASES]
+    return out
+
+
+_SPLIT_SCRIPT = _CASES_SCRIPT.replace(
+    "[T._matmat_case(*case) for case in T.MATMAT_CASES]", "T._split_case()")
+
+
+@pytest.fixture(scope="module")
+def split_errors():
+    """:func:`_split_case` in a process of its own, as :func:`matmat_errors`."""
+    env = {key: val for key, val in os.environ.items() if not key.startswith("JAX_COMPILATION")}
+    env["JAX_PLATFORMS"] = "cpu"
+    done = subprocess.run([sys.executable, "-c", _SPLIT_SCRIPT, REPO], capture_output=True,
+                          text=True, env=env, timeout=900, check=False)
+    assert done.returncode == 0, done.stderr[-4000:]
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def test_jax_split_contraction_within_the_tier_bound(split_errors):
+    """The error budget K1b inherits where its contraction is tier-matched
+    (hi·hi + hi·lo + lo·hi of the values' and W's bf16 parts), the JAX
+    package's ``acc_mode="split"``. At config 9's
+    width (d = 50, k = 10) that forward product stays within the bf16x3
+    tier's bound against float64 (``chip_smoke.py``'s ``BF16X3_F64_BOUND``,
+    which holds K1b on the card), as the float32 contraction does (the
+    split's error, measured 7.0e-6 of max|ref|, is the tier's: the bf16 hi
+    and lo of values and W leave 2⁻¹⁷ of each product, which sums with the
+    products' signs as the products do; the float32 contraction's is
+    ~1e-6), and the port's plain version of the kernel meets it at the
+    parity of the split contraction past 16 columns
+    (:func:`test_plain_tier_matmat_matches_pallas`: 3e-6)."""
+    assert split_errors["split"] <= SMOKE.BF16X3_F64_BOUND
+    assert split_errors["vpu"] <= SMOKE.BF16X3_F64_BOUND
+    assert split_errors["plain"] <= 3e-6
+
+
+@pytest.mark.parametrize("case", range(len(DISPATCH_CASES)))
+def test_forward_contraction_is_the_jax_dispatch(case, split_errors):
+    """K1b's contraction (``kernel_tiers.forward_contraction``, on the card
+    and in the plain version) is the one the JAX package's forward kernel
+    picks for the shape: its default output is bit for bit its output with
+    that contraction named."""
+    assert split_errors["dispatch"][case], DISPATCH_CASES[case]
 
 
 @pytest.mark.parametrize("cd", TIERS)
@@ -349,6 +447,10 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     ("gram_tier_forward<0, 3, 1>(GramArgs, int)", "gram_matmat_tier"),
     ("gram_tier_forward<2, 1, 16>(GramArgs, int)", "gram_matmat_tier"),
     ("gram_tier_wide<1, 3, 16>(GramArgs, int)", "gram_matmat_tier"),
+    ("gram_tier_rows<0, 3, 128, 64, 1, 2>(GramArgs, int, CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st)",
+     "gram_matmat_tier"),
+    ("gram_tier_rows<3, 1, 64, 64, 2, 1>(GramArgs, int, CUtensorMap_st)", "gram_matmat_tier"),
     ("gram_comp_symmetric<0, 1>(double const*, float const*, double*, int, int, int, int, int)",
      "gram_matvec_symmetric_comp"),
     ("gram_comp_finish(double const*, float*, float*, unsigned long, double)",
@@ -613,7 +715,8 @@ def test_k2b_wrapper_contract_and_route(d, k, route, monkeypatch):
     assert got.shape == (150, k)
     assert _rel(got, kernel_plain.gram_matvec_symmetric_tier("rbf", P, V, C)) == 0
     assert kernel_cuda.launch_counts()["gram_matvec_symmetric_tier"] == 1
-    assert kernel_cuda.route_counts() == {
+    assert {key: n for key, n in kernel_cuda.route_counts().items()
+            if key.startswith("gram_matvec_symmetric_tier.")} == {
         "gram_matvec_symmetric_tier.warpgroup": int(route == "warpgroup"),
         "gram_matvec_symmetric_tier.strip": int(route == "strip")}
     with pytest.raises(ValueError, match="does not match"):  # V's rows must match X's
@@ -622,3 +725,160 @@ def test_k2b_wrapper_contract_and_route(d, k, route, monkeypatch):
     with pytest.raises(ValueError, match="multiple of 16"):
         kernel_cuda.gram_matvec_symmetric_tier("rbf", bad, V, C)
     assert len(entry.calls) == 1
+
+
+def _from_ptr(ptr, shape, ctype=ctypes.c_float):
+    return np.ctypeslib.as_array(ctypes.cast(ptr, ctypes.POINTER(ctype)), shape=shape)
+
+
+class _K1bEntry:
+    """The two C entries of ``kernel_cuda.gram_matmat_tier`` emulated on
+    the CPU: the operands read through their pointers, the product computed
+    from them by the plain version of the route (the warp-specialised
+    kernel's contraction from W transposed: tier-matched from its bf16
+    parts, or float32; the strip's and the wide kernel's through
+    ``kernel_plain``)."""
+
+    def __init__(self, A, B):
+        self.A, self.B, self.calls = A, B, []
+
+    def _kind(self, code):
+        from rlaopt_tpu_torch.ops import kernel_cuda
+
+        return {code: kind for kind, code in kernel_cuda.KIND_CODES.items()}[code]
+
+    def rl_gram_matmat_tier_rows(self, *args):
+        from rlaopt_tpu_torch.ops import kernel_cuda
+
+        assert len(args) == len(kernel_cuda._SIGNATURES["rl_gram_matmat_tier_rows"])
+        (code, passes, x1h, x1l, hx, x2h, x2l, hy, wh, wl, part, out, n, m, mpad, dp, k,
+         split, splits, c, _s) = args
+        assert (x1h, x1l, x2h, x2l, passes) == (
+            self.A.hi.data_ptr(), kernel_cuda._ptr(self.A.lo), self.B.hi.data_ptr(),
+            kernel_cuda._ptr(self.B.lo), self.A.passes)
+        assert (part is None) == (splits == 1) and mpad % 8 == 0 and mpad - 8 < m <= mpad
+        assert (wl is None) == (not split) and (passes == 3 or not split)
+
+        def parts(ptr):
+            bits = _from_ptr(ptr, (16, mpad), ctypes.c_uint16).astype(np.int32) << 16
+            return torch.from_numpy(bits.view(np.float32).copy())
+
+        if split:
+            W = [parts(wh), parts(wl)]
+        else:
+            W = [torch.from_numpy(_from_ptr(wh, (16, mpad)).copy())]
+        assert all(float(w[k:].abs().sum() + w[:, m:].abs().sum()) == 0 for w in W)
+        kind = self._kind(code)
+        vals = kernel_plain._tier_values(kind, self.A, self.B)
+        if split:
+            kh, kl = split_bf16(vals)
+            got = kh @ W[0][:k, :m].T + kh @ W[1][:k, :m].T + kl @ W[0][:k, :m].T
+        else:
+            got = vals @ W[0][:k, :m].T
+        _from_ptr(out, (n, k))[:] = (got * c).numpy()
+        self.calls.append({"route": "warpgroup", "n": n, "m": m, "dp": dp, "k": k,
+                           "splits": splits, "c": c,
+                           "contraction": "split" if split else "f32"})
+        return 0
+
+    def rl_gram_matmat_tier(self, *args):
+        from rlaopt_tpu_torch.ops import kernel_cuda
+
+        assert len(args) == len(kernel_cuda._SIGNATURES["rl_gram_matmat_tier"])
+        (code, passes, x1h, x1l, hx, x2h, x2l, hy, v, vh, vl, part, out, n, m, dp, k, kp,
+         splits, c, _s) = args
+        assert (x1h, x2h, passes) == (self.A.hi.data_ptr(), self.B.hi.data_ptr(), self.A.passes)
+        assert (vh is None) == (k <= 16)
+        V = torch.from_numpy(_from_ptr(v, (m, k)).copy())
+        ref = kernel_plain.gram_matmat_tier(self._kind(code), self.A, self.B, V, c)
+        _from_ptr(out, (n, k))[:] = ref.numpy()
+        self.calls.append({"route": "wide" if k > 16 else "strip", "n": n, "m": m, "dp": dp,
+                           "k": k, "splits": splits, "c": c,
+                           "contraction": kernel_tiers.forward_contraction(k, dp, passes)})
+        return 0
+
+
+@pytest.mark.parametrize("d,k,route", [
+    (28, 1, "warpgroup"), (28, 10, "warpgroup"), (50, 16, "warpgroup"), (128, 3, "warpgroup"),
+    (10, 2, "warpgroup"), (18, 5, "warpgroup"), (100, 12, "warpgroup"), (129, 3, "strip"),
+    (150, 16, "strip"), (28, 17, "wide"), (28, 0, None),
+])
+@pytest.mark.parametrize("cd", TIERS)
+def test_k1b_wrapper_contract_and_route(d, k, route, cd, monkeypatch):
+    """``kernel_cuda.gram_matmat_tier`` down to its emulated C entries: the
+    route ``forward_tier_route`` picks by k and the padded depth alone (the
+    warp-specialised kernel up to 16 columns at a depth up to 128, the
+    strip's forward form past that depth, the wide kernel past 16 columns),
+    the operands each entry takes (the warp-specialised kernel W transposed
+    to (16, m rounded up to 8), zero past V: its bf16 parts where
+    ``forward_contraction`` names the split, else float32; and the runs of
+    ``tier_splits`` for its route), the plain version's product bit for
+    bit, and each
+    route's launches counted beside the wrapper's, in the tracing counter
+    ``rlaopt.cuda.gram_matmat_tier.<route>.launches`` too."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rlaopt_tpu_torch.ops import kernel_cuda
+    from rlaopt_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(d + k)
+    A = tier_operand(torch.from_numpy(rng.standard_normal((150, d)).astype(np.float32)) / d**0.5,
+                     cd)
+    B = tier_operand(torch.from_numpy(rng.standard_normal((1001, d)).astype(np.float32)) / d**0.5,
+                     cd)
+    V = torch.from_numpy(rng.standard_normal((1001, max(k, 0))).astype(np.float32))
+    entry = _K1bEntry(A, B)
+    monkeypatch.setattr(kernel_cuda, "_check_tensors", lambda dtypes, *ts: None)
+    monkeypatch.setattr(kernel_cuda, "build", lambda: None)
+    monkeypatch.setattr(kernel_cuda, "_stream", lambda t: None)
+    monkeypatch.setattr(kernel_cuda, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setitem(kernel_cuda._lib, "handle", entry)
+    kernel_cuda.reset_launch_counts()
+    if route is None:
+        with pytest.raises(ValueError):
+            kernel_cuda.gram_matmat_tier("rbf", A, B, V, C)
+        assert entry.calls == [] and kernel_cuda.launch_counts()["gram_matmat_tier"] == 0
+        return
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = kernel_cuda.gram_matmat_tier("rbf", A, B, V, C)
+    dp = -(-d // 16) * 16
+    splits = kernel_cuda.tier_splits(150, 1001, k, dp, 132) if k <= 16 else 1
+    assert kernel_cuda.forward_tier_route(k, dp) == route
+    assert entry.calls == [{"route": route, "n": 150, "m": 1001, "dp": dp, "k": k,
+                            "splits": splits, "c": C,
+                            "contraction": kernel_tiers.forward_contraction(k, dp, A.passes)}]
+    assert got.shape == (150, k)
+    ref = kernel_plain.gram_matmat_tier("rbf", A, B, V, C)
+    assert _rel(got, ref) == 0
+    assert kernel_cuda.launch_counts()["gram_matmat_tier"] == 1
+    assert {key: n for key, n in kernel_cuda.route_counts().items()
+            if key.startswith("gram_matmat_tier.")} == {
+        f"gram_matmat_tier.{r}": int(r == route) for r in ("warpgroup", "strip", "wide")}
+    assert profiling.counters()[f"rlaopt.cuda.gram_matmat_tier.{route}.launches"] == 1
+    with pytest.raises(ValueError, match="does not match"):  # V's rows must match X2's
+        kernel_cuda.gram_matmat_tier("rbf", A, B, V[:1000], C)
+    assert len(entry.calls) == 1
+
+
+@pytest.mark.parametrize("n,m,k,dp,runs", [
+    (100_000, 10_000_000, 10, 64, 77), (10_000, 1_000_000, 10, 64, 6),
+    (4_096, 10_000_000, 10, 64, 77), (100_000, 100_000, 1, 64, 1), (12_500, 100_000, 10, 16, 5),
+    (150, 1001, 10, 32, 1),
+])
+def test_k1b_warpgroup_runs(n, m, k, dp, runs):
+    """The runs of the m axis the warp-specialised kernel takes (one block
+    of 128 rows an SM on 132 SMs): one where the row blocks fill two rounds
+    of the card, more where they do not (config 4's 10⁴-row oracle, config
+    8's 12,500 rows), and past 2²⁰ columns runs of at most 131,072 (configs 7
+    and 9, and SAP's 4,096 sampled rows, at 10⁷)."""
+    from rlaopt_tpu_torch.ops import kernel_cuda
+
+    assert kernel_cuda.forward_tier_route(k, dp) == "warpgroup"
+    assert kernel_cuda.tier_splits(n, m, k, dp, 132) == runs
+    tiles = -(-m // 64)
+    assert -(-tiles // runs) <= kernel_cuda.TIER_RUN_TILES or tiles <= kernel_cuda.TIER_LONG_TILES
+

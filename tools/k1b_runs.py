@@ -8,14 +8,18 @@ The row oracle of configs 7 and 9 (``chip_smoke.py::askotch10m``): the
 bf16x3 tier parts of X = N(0, 1)/sqrt(50) of (m, 50) drawn on the card from
 a ``torch.Generator`` of seed 0, ``n`` rows of them against all m, k
 right-hand sides. For a random normal V and a positive (uniform) one, K1b
-(``kernel_cuda.gram_matmat_tier``) runs once with the m axis in one run and
-once in the runs of ``tier_splits``; the first ``rows`` rows of each are
-held against the float64 sum of the same float32 kernel values that the
-tier's plain version computes (``kernel_plain._tier_values``), beside that
-plain version's own float32 product. Prints one ``k1b_runs {...}`` line (for
-each V and schedule: the max error over max|ref| and over the largest sum
-of magnitudes, sum_j |K_ij||V_jc|, and the kernel's time), then the card's
-name and power limit. Needs one CUDA card and ``nvcc``.
+(``kernel_cuda.gram_matmat_tier``, on the route ``forward_tier_route``
+gives: the warp-specialised kernel) runs once with the m axis in one run
+and once in the runs of ``tier_splits``; the first ``rows`` rows of each
+are held against the float64 sum of the same float32 kernel values that
+the tier's plain version computes (``kernel_plain._tier_values``), beside
+that plain version's own products: float32 (``plain``) and tier-matched
+(``plain_tier_matched``); the kernel contracts as ``forward_contraction``
+says (the split at k = 10, float32 up to 8 columns). Prints one
+``k1b_runs {...}`` line (for each V and schedule: the max error over
+max|ref| and over the largest sum of magnitudes, sum_j |K_ij||V_jc|, and
+the kernel's time), then the card's name and power limit. Needs one CUDA
+card and ``nvcc``.
 """
 
 import argparse
@@ -54,16 +58,20 @@ def main() -> int:
     del X
     rows = torch.as_tensor(smoke.sampled_rows(m, n, 3), device=dev)
     Pb, Pr = P.rows(rows), P.rows(rows[:args.rows])
-    runs = kernel_cuda.tier_splits(n, m, k, kernel_cuda.sm_count(dev))
+    route = kernel_cuda.forward_tier_route(k, P.hi.shape[1])
+    runs = kernel_cuda.tier_splits(n, m, k, P.hi.shape[1], kernel_cuda.sm_count(dev))
+    contraction = kernel_cuda.forward_contraction(k, P.hi.shape[1], P.passes)
     tier_splits = kernel_cuda.tier_splits
     gen = torch.Generator(device=dev).manual_seed(13)
-    out = {"n": n, "m": m, "k": k, "rows": args.rows, "runs": runs}
+    out = {"n": n, "m": m, "k": k, "rows": args.rows, "route": route,
+           "contraction": contraction, "runs": runs}
     for name, V in (("random", torch.randn((m, k), generator=gen, device=dev)),
                     ("positive", torch.rand((m, k), generator=gen, device=dev))):
         vals = kernel_plain._tier_values("rbf", Pr, P)
         ref = vals.double() @ V.double()
         mag = (vals.double().abs() @ V.double().abs()).max().item()
         plain = (vals @ V).double()
+        plain_tm = kernel_plain.tier_contract(vals, V, "split").double()
         del vals
         rec = {"max_abs_ref": ref.abs().max().item(), "max_magnitude_sum": mag}
 
@@ -72,6 +80,7 @@ def main() -> int:
             return {"of_max_ref": e / rec["max_abs_ref"], "of_magnitudes": e / mag}
 
         rec["plain"] = err(plain)
+        rec["plain_tier_matched"] = err(plain_tm)
         for label, count in (("one run", 1), ("tier_splits", runs)):
             kernel_cuda.tier_splits = lambda *a, c=count: c
             try:
