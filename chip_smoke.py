@@ -247,7 +247,6 @@ SOURCES = {
     "wide": "rlaopt_tpu_torch/csrc/gram_wide.cu",
     "tile": "rlaopt_tpu_torch/csrc/gram_tile.cuh",
     "comp": "rlaopt_tpu_torch/csrc/gram_comp.cu",
-    "laplace": "rlaopt_tpu_torch/csrc/gram_laplace.cu",
     "tier": "rlaopt_tpu_torch/csrc/gram_tier.cu",
     "tier_rows": "rlaopt_tpu_torch/csrc/gram_tier_rows.cu",
     "spmv": "rlaopt_tpu_torch/csrc/spmv.cu",
@@ -391,30 +390,24 @@ RES_REL, RES_ABS, RES_ABOVE = 0.01, 5e-7, 1e-5
 # by family and V's type, comp_wrapper).
 REGISTERS_OF = {"gram_matmat": ("tile_forward", "gram_wide_tf32"),
                 "gram_matvec_symmetric": ("tile_triangle",),
-                "laplace_matmat": ("gram_wide_tf32",),
-                "gram_pair": ("tile_pair",), "laplace_pair": ("tile_pair",),
+                "gram_pair": ("tile_pair",),
                 "gram_matvec_symmetric_tier": ("gram_tier_symmetric", "gram_tier_triangle"),
                 "gram_matmat_tier": ("gram_tier_rows", "gram_tier_forward", "gram_tier_wide"),
                 "gram_pair_tier": ("gram_tier_pair",),
                 "gram_matvec_symmetric_comp": ("gram_comp_symmetric",),
                 "gram_matvec_symmetric_f64": ("gram_comp_symmetric",),
                 "gram_matmat_comp": ("gram_comp_forward",),
-                "laplace_matmat_comp": ("gram_comp_forward",),
                 "gram_matmat_f64": ("gram_comp_forward",),
                 "gram_pair_comp": ("gram_comp_pair",), "gram_pair_f64": ("gram_comp_pair",),
                 "csr_spmv": ("csr_spmm_lanes",),
                 "csr_spmm": ("csr_spmm_lanes", "csr_spmm_wide", "csr_spmm_sum_segments"),
-                "laplace_matmat_narrow": ("tile_forward",),
-                "laplace_matvec_symmetric": ("tile_triangle",),
                 "probe_l1": ("probe_l1",), "probe_elem": ("probe_chain",),
                 "probe_exp_chain": ("probe_chain",), "probe_vmem_chain": ("probe_chain",)}
 REDESIGNED = tuple(dict.fromkeys(f for fs in REGISTERS_OF.values() for f in fs))
-COMP_KERNELS = ("gram_matmat_comp", "gram_matvec_symmetric_comp", "laplace_matmat_comp",
-                "gram_pair_comp")
+COMP_KERNELS = ("gram_matmat_comp", "gram_matvec_symmetric_comp", "gram_pair_comp")
 F64_KERNELS = ("gram_matmat_f64", "gram_matvec_symmetric_f64", "gram_pair_f64")
 TIER_KERNELS = ("gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_pair_tier")
-PAIR_KERNELS = ("gram_pair", "gram_pair_tier", "laplace_pair", "gram_pair_comp",
-                "gram_pair_f64")
+PAIR_KERNELS = ("gram_pair", "gram_pair_tier", "gram_pair_comp", "gram_pair_f64")
 CSR_KERNELS = ("csr_spmv", "csr_spmm")
 # The ceiling probes (rlaopt_tpu_torch/ops/probes.py), by wrapper: the TPU
 # probe each replaces (the line of its def) and the SPECS names it runs at.
@@ -450,7 +443,7 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
     SFU operation (and one more for the Matérn square root) where the
     epilogue is float32, one float64 operation in K1c, K3c, K7 and K8; 2k
     for the contraction, except K1 and K3 past 16 columns (``gram_matmat``
-    and ``laplace_matmat`` at k > 16, float32), which contract on the TF32
+    at k > 16, float32), which contract on the TF32
     tensor cores in three passes (hi·hi, hi·lo, lo·hi: 6k operations a
     value, ``PEAK["tf32_tc"]``), their distance (squared, or K3's L1 at 2
     operations a feature) and exponential counted once a value as for any
@@ -505,7 +498,7 @@ def bound_ms(kernel, n, m, d, k, kind="rbf", cd=None, nnz=None):
         ops["fp32"] = values * 3 + (contraction if k <= 16 else 0)
         parts = 2 * d * (2 if passes == 3 else 1) + 4
         nbytes = parts * (n + (0 if sym else m)) + 4 * m * k + 4 * n * k + vk
-    elif kernel in ("gram_matmat", "laplace_matmat") and k > 16:
+    elif kernel == "gram_matmat" and k > 16:
         ops["fp32"] = values * per_feature * d
         ops["tf32_tc"] = 3 * contraction
         nbytes = 4 * (n + m) * d + 4 * m * k + 4 * n * k
@@ -581,9 +574,8 @@ def ptxas_report(log: str, names) -> dict:
 # pass serve the wrappers of K1c, K3c, K7, K8 and the certified pairs, told
 # apart by the form (the kernel's name; the finishing pass's last template
 # argument, 0 triangle, 1 forward, 2 pair, absent in builds before the
-# forward and pair forms), V's type ("d" in ptxas_report's keys, "double"
-# in a demangled name) and the family (the forward form's first argument,
-# LAPLACE_CODE: K3c).
+# forward and pair forms) and V's type ("d" in ptxas_report's keys, "double"
+# in a demangled name).
 COMP_FNS = ("gram_comp_symmetric", "gram_comp_forward", "gram_comp_pair", "gram_comp_finish")
 COMP_FORMS = {"gram_comp_symmetric": 0, "gram_comp_forward": 1, "gram_comp_pair": 2}
 
@@ -601,25 +593,13 @@ def comp_wrapper(fn: str, args: str) -> str:
         return "gram_matvec_symmetric_f64" if f64 else "gram_matvec_symmetric_comp"
     if form == 2:
         return "gram_pair_f64" if f64 else "gram_pair_comp"
-    if f64:
-        return "gram_matmat_f64"
-    laplace = fn != "gram_comp_finish" and parts[0] == str(LAPLACE_CODE)
-    return "laplace_matmat_comp" if laplace else "gram_matmat_comp"
+    return "gram_matmat_f64" if f64 else "gram_matmat_comp"
 
 
 # The register tile's three forms and the 3xTF32 wide kernel serve the
-# squared-distance wrappers (K1, K2, K4) and the Laplace ones (K3, K5, K6),
-# told apart by the family, their first template argument (LAPLACE_CODE).
-TILE_FORMS = {"tile_forward": ("gram_matmat", "laplace_matmat_narrow"),
-              "tile_triangle": ("gram_matvec_symmetric", "laplace_matvec_symmetric"),
-              "tile_pair": ("gram_pair", "laplace_pair"),
-              "gram_wide_tf32": ("gram_matmat", "laplace_matmat")}
-
-
-def tile_wrapper(fn: str, args: str) -> str:
-    """The wrapper of a register-tile instantiation ``fn<args>``."""
-    family = args.strip(" <>").split(",")[0].strip()
-    return TILE_FORMS[fn][family == str(LAPLACE_CODE)]
+# wrappers of every family (K1 and K3, K2 and K5, K4 and K6).
+TILE_FORMS = {"tile_forward": "gram_matmat", "tile_triangle": "gram_matvec_symmetric",
+              "tile_pair": "gram_pair", "gram_wide_tf32": "gram_matmat"}
 
 
 def registers_of(kname: str, registers: dict) -> dict:
@@ -629,7 +609,7 @@ def registers_of(kname: str, registers: dict) -> dict:
         fn, _, args = key.partition("<")
         if fn in REGISTERS_OF.get(kname, ()) and (
                 fn not in COMP_FNS or comp_wrapper(fn, args) == kname) and (
-                fn not in TILE_FORMS or tile_wrapper(fn, args) == kname):
+                fn not in TILE_FORMS or TILE_FORMS[fn] == kname):
             mine[key] = r
     return mine
 
@@ -707,8 +687,6 @@ def plain_twosum_f32(kind, X, V, ls):
 # (gram_matmat_narrow<KIND, KC, MODE>, in old profiles): the family first
 # (LAPLACE is 4), the Mode last (COMP 1, F64 2).
 _NARROW = {1: "gram_matmat_comp", 2: "gram_matmat_f64"}
-_LAPLACE = {"gram_matmat_comp": "laplace_matmat_comp"}
-LAPLACE_CODE = 4
 
 
 # Kernels of their own, by name (their template arguments do not select the
@@ -722,10 +700,9 @@ _OWN = {"gram_tier_symmetric": "gram_matvec_symmetric_tier",
         "gram_tier_pair": "gram_pair_tier"}
 # Kernels whose names hold no gram_ prefix: the probes, and K3's tile in its
 # two forms as earlier builds named them (K3, K5); the register tile's forms
-# and the wide kernel by family (TILE_FORMS).
-_OWN_NAMED = {"laplace_forward": "laplace_matmat_narrow",
-              "laplace_triangle": "laplace_matvec_symmetric", "probe_l1": "probe_l1",
-              "probe_chain": "probe_chain"}
+# and the wide kernel (TILE_FORMS).
+_OWN_NAMED = {"laplace_forward": "gram_matmat", "laplace_triangle": "gram_matvec_symmetric",
+              "probe_l1": "probe_l1", "probe_chain": "probe_chain"}
 
 
 def _kernel_group(name: str) -> str:
@@ -733,9 +710,9 @@ def _kernel_group(name: str) -> str:
         return "sum_splits"
     if "csr_spmm" in name:
         return "csr_spmm"
-    m = re.search(r"(tile_forward|tile_triangle|tile_pair|gram_wide_tf32)<([^>]*)>", name)
+    m = re.search(r"(tile_forward|tile_triangle|tile_pair|gram_wide_tf32)<", name)
     if m:
-        return tile_wrapper(m.group(1), m.group(2))
+        return TILE_FORMS[m.group(1)]
     for own, group in _OWN_NAMED.items():
         if own in name:
             return group
@@ -751,11 +728,9 @@ def _kernel_group(name: str) -> str:
     args = [a.strip() for a in m.group(2).split(",")]
     # gram_matmat_narrow<KIND, KC, MODE> ends in MODE
     try:
-        family = int(args[0])
-        group = _NARROW.get(int(args[-1]), "other")
+        return _NARROW.get(int(args[-1]), "other")
     except (ValueError, IndexError):
         return "other"
-    return _LAPLACE.get(group, group) if family == LAPLACE_CODE else group
 
 
 def device_breakdown(prof) -> dict:
@@ -1226,13 +1201,14 @@ def ceiling_shares(timings, rates, pipes):
     triangles) over the L1 probe's rate (float64 for the compensated
     kernels), kept in the entry as ``ceiling_ms``, and over the FP32 (FP64)
     pipes' pair rate at the SM clock read during the probe, as
-    ``pipe_ms``. K3 past 16 columns (``laplace_matmat``) has no such row:
-    its time goes to the TF32 contraction (``bound_ms``), not the L1 pair."""
-    for kname in ("laplace_matmat_narrow", "laplace_matmat_comp",
-                  "gram_matvec_symmetric_comp", "laplace_matvec_symmetric", "laplace_pair",
-                  "gram_pair_comp"):
+    ``pipe_ms``. K3 past 16 columns (``gram_matmat`` at k > 16) has no such
+    row: its time goes to the TF32 contraction (``bound_ms``), not the L1
+    pair."""
+    for kname in ("gram_matmat", "gram_matmat_comp", "gram_matvec_symmetric_comp",
+                  "gram_matvec_symmetric", "gram_pair", "gram_pair_comp"):
         for e in timings.get(kname, []):
-            if e.get("kind") != "laplace" or not e.get("ms"):
+            if e.get("kind") != "laplace" or not e.get("ms") or (
+                    kname == "gram_matmat" and e["k"] > 16):
                 continue
             n, m, d = e["n"], e["m"], e["d"]
             pairs = (n * n / 2 if "symmetric" in kname else float(n) * m) * d
@@ -1285,54 +1261,55 @@ def laplace_kernels(dev, X, compare, timings):
     print(f"laplace float64 reference, 4096 rows: {time.perf_counter() - t0:.3f} s")
     shape = f"rows 4096 of n=m={n} d={D}"
     for k in (1, 10, 16):
-        compare("laplace_matmat_narrow", kernel_cuda.laplace_matmat(X, X, Vs[k], LS_B)[idx],
-                ref[:, cols[k]], f"{shape} k={k}", K_BOUND)
+        compare("gram_matmat", kernel_cuda.gram_matmat("laplace", X, X, Vs[k], LS_B)[idx],
+                ref[:, cols[k]], f"laplace {shape} k={k}", K_BOUND)
     # past 16 columns on the operand an operator keeps (path B's sketch), and
     # at path A's lengthscale; no atomics: the same bits twice, and on an
     # operand built in the call
     XT = kernel_cuda.tile_operand(X, LS_B)
-    kept = (lambda: (XT, XT))
+    kept = (XT, XT)
     Wa, cols_a = concat_columns({k: Vs[k] for k in WIDE_KS})
     ref_a = kernel_plain.gram_matmat_f64("laplace", X[idx], X, Wa, LS_A, row_block=512)
     del Wa
     for k in WIDE_KS:
-        got = kernel_cuda.laplace_matmat(X, X, Vs[k], LS_B, 1.0, kept)
-        compare("laplace_matmat", got[idx], ref[:, cols[k]], f"{shape} k={k}", K_BOUND)
+        got = kernel_cuda.gram_matmat("laplace", X, X, Vs[k], LS_B, 1.0, *kept)
+        compare("gram_matmat", got[idx], ref[:, cols[k]], f"laplace {shape} k={k}", K_BOUND)
         if k in (17, RANK):
-            again = kernel_cuda.laplace_matmat(X, X, Vs[k], LS_B, 1.0, kept)
-            built = kernel_cuda.laplace_matmat(X, X, Vs[k], LS_B)
+            again = kernel_cuda.gram_matmat("laplace", X, X, Vs[k], LS_B, 1.0, *kept)
+            built = kernel_cuda.gram_matmat("laplace", X, X, Vs[k], LS_B)
             torch.cuda.synchronize()
             check(torch.equal(got, again) and torch.equal(got, built),
-                  f"laplace_matmat k={k}: the same bits twice, and on an operand built in "
-                  "the call")
+                  f"gram_matmat laplace k={k}: the same bits twice, and on an operand built "
+                  "in the call")
             del again, built
         del got
-        compare("laplace_matmat", kernel_cuda.laplace_matmat(X, X, Vs[k], LS_A)[idx],
-                ref_a[:, cols_a[k]], f"{shape} k={k} lengthscale {LS_A}", K_BOUND)
+        compare("gram_matmat", kernel_cuda.gram_matmat("laplace", X, X, Vs[k], LS_A)[idx],
+                ref_a[:, cols_a[k]], f"laplace {shape} k={k} lengthscale {LS_A}", K_BOUND)
     del ref_a
     for k in (1, 10, 16):
-        compare("laplace_matvec_symmetric",
-                kernel_cuda.laplace_matvec_symmetric(X, Vs[k], LS_B)[idx],
-                ref[:, cols[k]], f"{shape} k={k}", K_BOUND)
+        compare("gram_matvec_symmetric",
+                kernel_cuda.gram_matvec_symmetric("laplace", X, Vs[k], LS_B)[idx],
+                ref[:, cols[k]], f"laplace {shape} k={k}", K_BOUND)
     for k in (1, 10):
         hi, lo = kernel_cuda.gram_matvec_symmetric_comp("laplace", X, Vs[k], LS_B)
         compare("gram_matvec_symmetric_comp", (hi.double() + lo.double())[idx], ref[:, cols[k]],
                 f"laplace {shape} k={k} (hi+lo)", COMP_BOUND)
-    hi, lo = kernel_cuda.laplace_matmat_comp(X, X, Vs[1], LS_B)
-    compare("laplace_matmat_comp", (hi.double() + lo.double())[idx], ref[:, cols[1]],
-            f"{shape} k=1 (hi+lo)", COMP_BOUND)
+    hi, lo = kernel_cuda.gram_matmat_comp("laplace", X, X, Vs[1], LS_B)
+    compare("gram_matmat_comp", (hi.double() + lo.double())[idx], ref[:, cols[1]],
+            f"laplace {shape} k=1 (hi+lo)", COMP_BOUND)
     del ref, hi, lo
     A1, A2, W7, S7 = (torch.from_numpy(a).to(dev) for a in ragged_data())
     ref = kernel_plain.gram_matmat_f64("laplace", A1, A2, W7, 1.3, 0.9)
-    rel = compare("laplace_matmat_narrow", kernel_cuda.laplace_matmat(A1, A2, W7, 1.3, 0.9),
-                  ref, "n=1000 m=777 d=3 k=7", K_BOUND)
-    hi, lo = kernel_cuda.laplace_matmat_comp(A1, A2, W7, 1.3, 0.9)
-    rel_c = compare("laplace_matmat_comp", hi.double() + lo.double(), ref,
-                    "n=1000 m=777 d=3 k=7 (hi+lo)", COMP_BOUND)
-    check(rel_c <= rel, "laplace_matmat_comp ragged no worse than laplace_matmat")
+    rel = compare("gram_matmat", kernel_cuda.gram_matmat("laplace", A1, A2, W7, 1.3, 0.9),
+                  ref, "laplace n=1000 m=777 d=3 k=7", K_BOUND)
+    hi, lo = kernel_cuda.gram_matmat_comp("laplace", A1, A2, W7, 1.3, 0.9)
+    rel_c = compare("gram_matmat_comp", hi.double() + lo.double(), ref,
+                    "laplace n=1000 m=777 d=3 k=7 (hi+lo)", COMP_BOUND)
+    check(rel_c <= rel, "gram_matmat_comp laplace ragged no worse than gram_matmat")
     ref_s = kernel_plain.gram_matmat_f64("laplace", A1, A1, S7, 1.3, 0.9)
-    compare("laplace_matvec_symmetric", kernel_cuda.laplace_matvec_symmetric(A1, S7, 1.3, 0.9),
-            ref_s, "n=1000 d=3 k=7", K_BOUND)
+    compare("gram_matvec_symmetric",
+            kernel_cuda.gram_matvec_symmetric("laplace", A1, S7, 1.3, 0.9),
+            ref_s, "laplace n=1000 d=3 k=7", K_BOUND)
     hi, lo = kernel_cuda.gram_matvec_symmetric_comp("laplace", A1, S7, 1.3, 0.9)
     compare("gram_matvec_symmetric_comp", hi.double() + lo.double(), ref_s,
             "laplace n=1000 d=3 k=7 (hi+lo)", COMP_BOUND)
@@ -1347,17 +1324,17 @@ def laplace_kernels(dev, X, compare, timings):
         for k in (1, 2, 3, 5, 16):
             V = torch.from_numpy(rng.standard_normal((m1, k)).astype(np.float32)).to(dev)
             for ls, tag in ((2 * d / np.pi**0.5, "scalar"), (ard, "ARD")):
-                compare("laplace_matmat_narrow", kernel_cuda.laplace_matmat(P1, P2, V, ls, 0.9),
+                compare("gram_matmat", kernel_cuda.gram_matmat("laplace", P1, P2, V, ls, 0.9),
                         kernel_plain.gram_matmat_f64("laplace", P1, P2, V, ls, 0.9),
-                        f"n={n1} m={m1} d={d} k={k} {tag} lengthscale", K_BOUND)
+                        f"laplace n={n1} m={m1} d={d} k={k} {tag} lengthscale", K_BOUND)
         # K5, the tile's triangle form, on P1 at every KC it takes
         for k in (1, 3, 10, 16):
             W = torch.from_numpy(rng5.standard_normal((n1, k)).astype(np.float32)).to(dev)
             for ls, tag in ((2 * d / np.pi**0.5, "scalar"), (ard, "ARD")):
-                compare("laplace_matvec_symmetric",
-                        kernel_cuda.laplace_matvec_symmetric(P1, W, ls, 0.9),
+                compare("gram_matvec_symmetric",
+                        kernel_cuda.gram_matvec_symmetric("laplace", P1, W, ls, 0.9),
                         kernel_plain.gram_matmat_f64("laplace", P1, P1, W, ls, 0.9),
-                        f"n={n1} d={d} k={k} {tag} lengthscale", K_BOUND)
+                        f"laplace n={n1} d={d} k={k} {tag} lengthscale", K_BOUND)
         S = torch.from_numpy(rng.standard_normal((n1, 3)).astype(np.float32)).to(dev)
         hi, lo = kernel_cuda.gram_matvec_symmetric_comp("laplace", P1, S, ard.double(), 0.9)
         compare("gram_matvec_symmetric_comp", hi.double() + lo.double(),
@@ -1375,58 +1352,60 @@ def laplace_kernels(dev, X, compare, timings):
         for ls, tag in ((2 * d / np.pi**0.5, "scalar"), (ard, "ARD")):
             refw = kernel_plain.gram_matmat_f64("laplace", P1, P2, W, ls, 0.9)
             for k in WIDE_KS:
-                compare("laplace_matmat", kernel_cuda.laplace_matmat(P1, P2, W[:, cw[k]], ls, 0.9),
-                        refw[:, cw[k]], f"n={n1} m={m1} d={d} k={k} {tag} lengthscale", K_BOUND)
+                compare("gram_matmat",
+                        kernel_cuda.gram_matmat("laplace", P1, P2, W[:, cw[k]], ls, 0.9),
+                        refw[:, cw[k]], f"laplace n={n1} m={m1} d={d} k={k} {tag} lengthscale",
+                        K_BOUND)
     # the m axis in runs: the same bits on two calls
     P1 = torch.from_numpy(rng.standard_normal((1000, 50)).astype(np.float32)).to(dev)
     P2 = torch.from_numpy(rng.standard_normal((300_000, 50)).astype(np.float32)).to(dev)
     V = torch.from_numpy(rng.standard_normal((300_000, 3)).astype(np.float32)).to(dev)
     runs = kernel_cuda.tile_splits(1000, 300_000, 3, torch.cuda.get_device_properties(
         dev).multi_processor_count)
-    one, two = (kernel_cuda.laplace_matmat(P1, P2, V, 8.0) for _ in range(2))
+    one, two = (kernel_cuda.gram_matmat("laplace", P1, P2, V, 8.0) for _ in range(2))
     torch.cuda.synchronize()
     check(runs > 1 and torch.equal(one, two),
-          f"laplace_matmat_narrow in {runs} runs gives the same bits twice")
-    compare("laplace_matmat_narrow", one[:256],
+          f"gram_matmat laplace in {runs} runs gives the same bits twice")
+    compare("gram_matmat", one[:256],
             kernel_plain.gram_matmat_f64("laplace", P1[:256], P2, V, 8.0, row_block=256),
-            f"rows 256 of n=1000 m=300000 d=50 k=3, {runs} runs", K_BOUND)
+            f"laplace rows 256 of n=1000 m=300000 d=50 k=3, {runs} runs", K_BOUND)
     del P1, P2, V, one, two
 
     # K5's plain version is K3's on (X, X), the same call, and the
     # triangle K3c's the general one's: timed once per k
     plain_ms = {}
-    for kernel, k in (("laplace_matmat", RANK), ("laplace_matmat", 17), ("laplace_matmat", 64),
-                      ("laplace_matmat_narrow", 1),
-                      ("laplace_matmat_narrow", 10), ("laplace_matmat_narrow", 16),
-                      ("laplace_matvec_symmetric", 1), ("laplace_matvec_symmetric", 10),
-                      ("laplace_matvec_symmetric", 16),
-                      ("laplace_matmat_comp", 1), ("laplace_matmat_comp", 10),
+    for kernel, k in (("gram_matmat", RANK), ("gram_matmat", 17), ("gram_matmat", 64),
+                      ("gram_matmat", 1), ("gram_matmat", 10), ("gram_matmat", 16),
+                      ("gram_matvec_symmetric", 1), ("gram_matvec_symmetric", 10),
+                      ("gram_matvec_symmetric", 16),
+                      ("gram_matmat_comp", 1), ("gram_matmat_comp", 10),
                       ("gram_matvec_symmetric_comp", 1), ("gram_matvec_symmetric_comp", 10)):
         V = Vs[k]
         extra = {}
-        if kernel == "laplace_matmat_comp":
-            ms = cuda_ms(lambda: kernel_cuda.laplace_matmat_comp(X, X, V, LS_B))
+        if kernel == "gram_matmat_comp":
+            ms = cuda_ms(lambda: kernel_cuda.gram_matmat_comp("laplace", X, X, V, LS_B))
             p_ms = cuda_ms(lambda: kernel_plain.gram_matmat_comp(
                 "laplace", X, X, V, LS_B, col_block=BLOCK), reps=1, warm=False) if k == 1 else None
             plain_ms[("comp", k)] = p_ms
         elif kernel == "gram_matvec_symmetric_comp":
             ms = cuda_ms(lambda: kernel_cuda.gram_matvec_symmetric_comp("laplace", X, V, LS_B))
             p_ms = plain_ms[("comp", k)]
-            extra["general_ms"] = next(t["ms"] for t in timings["laplace_matmat_comp"]
-                                       if t["k"] == k and t["n"] == n)
+            extra["general_ms"] = next(t["ms"] for t in timings["gram_matmat_comp"]
+                                       if t["k"] == k and t["n"] == n and t["kind"] == "laplace")
         else:
-            if kernel == "laplace_matvec_symmetric":
+            if kernel == "gram_matvec_symmetric":
                 # on the operand an operator keeps (path B, E3)
-                ms = cuda_ms(lambda: kernel_cuda.laplace_matvec_symmetric(X, V, LS_B, 1.0, XT))
-            elif kernel == "laplace_matmat":
-                ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(X, X, V, LS_B, 1.0, kept))
+                ms = cuda_ms(lambda: kernel_cuda.gram_matvec_symmetric("laplace", X, V, LS_B, 1.0,
+                                                                       XT))
+            elif k > 16:
+                ms = cuda_ms(lambda: kernel_cuda.gram_matmat("laplace", X, X, V, LS_B, 1.0, *kept))
             else:
-                ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(X, X, V, LS_B))
+                ms = cuda_ms(lambda: kernel_cuda.gram_matmat("laplace", X, X, V, LS_B))
             if k not in plain_ms and k in (1, 10, RANK):
                 plain_ms[k] = cuda_ms(lambda: kernel_plain.gram_matmat(
                     "laplace", X, X, V, LS_B, row_block=BLOCK), reps=1, warm=False)
             p_ms = plain_ms.get(k)
-        what = ("laplace " if kernel == "gram_matvec_symmetric_comp" else "") + f"n={n} d={D} k={k}"
+        what = f"laplace n={n} d={D} k={k}"
         entry = timing_entry(kernel, what, ms, p_ms, n, n, D, k, "laplace", **extra)
         timings.setdefault(kernel, []).append(entry)
         line = (f"time {kernel} {what}: kernel {ms:.3f} ms, plain "
@@ -1441,18 +1420,18 @@ def laplace_kernels(dev, X, compare, timings):
     X1, X2 = X[:loc], X[loc:2 * loc]
     XT1, XT2 = kernel_cuda.tile_operand(X1, LS_B), kernel_cuda.tile_operand(X2, LS_B)
     V = torch.randn((X2.shape[0], RANK), generator=gen, device=dev)
-    got = kernel_cuda.laplace_matmat(X1, X2, V, LS_B, 1.0, lambda: (XT1, XT2))
+    got = kernel_cuda.gram_matmat("laplace", X1, X2, V, LS_B, 1.0, XT1, XT2)
     i3 = torch.as_tensor(sampled_rows(loc, 4096, 8), device=dev)
-    what = f"E3 shards n1={loc} n2={X2.shape[0]} d={D} k={RANK}"
-    compare("laplace_matmat", got[i3],
+    what = f"laplace E3 shards n1={loc} n2={X2.shape[0]} d={D} k={RANK}"
+    compare("gram_matmat", got[i3],
             kernel_plain.gram_matmat_f64("laplace", X1[i3], X2, V, LS_B, row_block=512),
             f"{what} rows 4096", K_BOUND)
-    ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(X1, X2, V, LS_B, 1.0, lambda: (XT1, XT2)))
+    ms = cuda_ms(lambda: kernel_cuda.gram_matmat("laplace", X1, X2, V, LS_B, 1.0, XT1, XT2))
     p_ms = cuda_ms(lambda: kernel_plain.gram_matmat("laplace", X1, X2, V, LS_B, row_block=BLOCK),
                    reps=1, warm=False)
-    entry = timing_entry("laplace_matmat", what, ms, p_ms, loc, X2.shape[0], D, RANK, "laplace")
-    timings["laplace_matmat"].append(entry)
-    print(f"time laplace_matmat {what}: kernel {ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+    entry = timing_entry("gram_matmat", what, ms, p_ms, loc, X2.shape[0], D, RANK, "laplace")
+    timings["gram_matmat"].append(entry)
+    print(f"time gram_matmat {what}: kernel {ms:.3f} ms, plain {p_ms:.3f} ms, bound "
           f"{entry['bound_ms']:.3f} ms")
 
 
@@ -1491,7 +1470,7 @@ def sqdist_kernels(dev, X, compare, timings):
     Vall, cols = concat_columns({**{("k1", k): V1[k] for k in k1s},
                                  **{("k2", k): V2[k] for k in k2s}})
     XT = kernel_cuda.tile_operand(X, ls)
-    ops = (lambda: (XT, XT))
+    ops = (XT, XT)
     shape = f"rows 4096 of n=m={n} d={d}"
     for kind in SQDIST_KINDS:
         t0 = time.perf_counter()
@@ -1500,11 +1479,11 @@ def sqdist_kernels(dev, X, compare, timings):
         print(f"{kind} float64 reference, 4096 rows, {Vall.shape[1]} columns: "
               f"{time.perf_counter() - t0:.3f} s")
         for k in k1s:
-            got = kernel_cuda.gram_matmat(kind, X, X, V1[k], ls, 1.0, ops)
+            got = kernel_cuda.gram_matmat(kind, X, X, V1[k], ls, 1.0, *ops)
             compare("gram_matmat", got[idx], ref[:, cols[("k1", k)]], f"{kind} {shape} k={k}",
                     K_BOUND)
             if k in (3, 500):
-                again = kernel_cuda.gram_matmat(kind, X, X, V1[k], ls, 1.0, ops)
+                again = kernel_cuda.gram_matmat(kind, X, X, V1[k], ls, 1.0, *ops)
                 torch.cuda.synchronize()
                 check(torch.equal(got, again), f"gram_matmat {kind} k={k}: the same bits twice")
             del got
@@ -1570,8 +1549,7 @@ def sqdist_kernels(dev, X, compare, timings):
     XT5 = kernel_cuda.tile_operand(X5, ls)
     for k in (1, 32, RANK5):
         V = torch.randn((N5, k), generator=gen, device=dev)
-        ms = cuda_ms(lambda: kernel_cuda.gram_matmat("rbf", X5, X5, V, ls, 1.0,
-                                                     lambda: (XT5, XT5)))
+        ms = cuda_ms(lambda: kernel_cuda.gram_matmat("rbf", X5, X5, V, ls, 1.0, XT5, XT5))
         entry = timing_entry("gram_matmat", f"E1 n={N5} d={d} k={k}", ms, None, N5, N5, d, k)
         timings.setdefault("gram_matmat", []).append(entry)
         print(f"time gram_matmat E1 n={N5} d={d} k={k}: kernel {ms:.3f} ms, bound "
@@ -1597,15 +1575,13 @@ def _comp_value(r):
 
 def comp_forward(kname, kind, X1, X2, V, ls):
     """The call of a forward-form wrapper (``gram_matmat_comp``,
-    ``laplace_matmat_comp``, ``gram_matmat_f64``) on float32 V, V cast to
-    float64 outside it for K8."""
+    ``gram_matmat_f64``) on float32 V, V cast to float64 outside it for
+    K8."""
     from rlaopt_tpu_torch.ops import kernel_cuda
 
     if kname == "gram_matmat_f64":
         V64 = V.double()
         return lambda: kernel_cuda.gram_matmat_f64(kind, X1, X2, V64, ls)
-    if kname == "laplace_matmat_comp":
-        return lambda: kernel_cuda.laplace_matmat_comp(X1, X2, V, ls)
     return lambda: kernel_cuda.gram_matmat_comp(kind, X1, X2, V, ls)
 
 
@@ -1649,16 +1625,16 @@ def comp_forms(dev, X, compare, timings):
               f"({entry['bound_ms'] / ms:.1%})")
 
     n = X.shape[0]
-    for kname, kind, l in (("gram_matmat_comp", "rbf", ls), ("laplace_matmat_comp", "laplace", LS_B),
+    for kname, kind, l in (("gram_matmat_comp", "rbf", ls), ("gram_matmat_comp", "laplace", LS_B),
                            ("gram_matmat_f64", "rbf", ls)):
         for k in COMP_KS:
-            timed(kname, kind, l, X, X, k, f"n=m={n} d={D} k={k}")
+            timed(kname, kind, l, X, X, k, f"{kind} n=m={n} d={D} k={k}")
     e2, e3 = N5 // P_RING, -(-n // P_LAPLACE)
     for kname in ("gram_matmat_comp", "gram_matmat_f64"):
         timed(kname, "rbf", ls, X[:e2], X[e2:2 * e2], 1, f"E2 shard n={e2} m={e2} d={D} k=1")
     timed("gram_matmat_comp", "rbf", ls, X[:N5], X[:N5].clone(), 1, f"E1 slab n=m={N5} d={D} k=1")
-    timed("laplace_matmat_comp", "laplace", LS_B, X[:e3], X[e3:2 * e3], 1,
-          f"E3 shard n={e3} m={e3} d={D} k=1")
+    timed("gram_matmat_comp", "laplace", LS_B, X[:e3], X[e3:2 * e3], 1,
+          f"laplace E3 shard n={e3} m={e3} d={D} k=1")
     op_ms = cuda_ms(lambda: kernel_cuda.comp_operand(X, ls))
     print(f"time comp_operand n={n} d={D}: {op_ms:.3f} ms")
 
@@ -1674,18 +1650,14 @@ def comp_forms(dev, X, compare, timings):
             np.float32)).to(dev) for k in ks})
         ard = torch.linspace(0.6, 1.8, d, dtype=torch.float64, device=dev) * d**0.5
         for kind in SQDIST_KINDS + ("laplace",):
-            forward = "laplace_matmat_comp" if kind == "laplace" else "gram_matmat_comp"
             for l, tag in ((1.3 * d**0.5, "scalar"), (ard, "ARD")):
                 ref1 = kernel_plain.gram_matmat_f64(kind, P1, P2, W, l, 0.9)
                 ref2 = kernel_plain.gram_matmat_f64(kind, P2, P1, S, l, 0.9)
                 for k in ks:
                     what = f"{kind} n={n1} m={n2} d={d} k={k} {tag} lengthscale"
                     V2, V1 = W[:, cw[k]], S[:, cs[k]]
-                    if kind == "laplace":
-                        hi, lo = kernel_cuda.laplace_matmat_comp(P1, P2, V2, l, 0.9)
-                    else:
-                        hi, lo = kernel_cuda.gram_matmat_comp(kind, P1, P2, V2, l, 0.9)
-                    compare(forward, hi.double() + lo.double(), ref1[:, cw[k]], what, COMP_BOUND)
+                    hi, lo = kernel_cuda.gram_matmat_comp(kind, P1, P2, V2, l, 0.9)
+                    compare("gram_matmat_comp", hi.double() + lo.double(), ref1[:, cw[k]], what, COMP_BOUND)
                     compare("gram_matmat_f64",
                             kernel_cuda.gram_matmat_f64(kind, P1, P2, V2.double(), l, 0.9),
                             ref1[:, cw[k]], what, COMP_BOUND)
@@ -2140,7 +2112,7 @@ def askotch10m(dev, profile_run, compare, timings, n=N10, d=D10, k=K10, rank=RAN
     setup_s = time.perf_counter() - t0
     y_norm = float(torch.linalg.norm(y.double()))
     sms = kernel_cuda.sm_count(dev)
-    dp = K._tier[0].hi.shape[1]
+    dp = K._points[0].tier.hi.shape[1]
     runs = {"row oracle": kernel_cuda.tier_splits(blk, n, k, dp, sms),
             "sampled metric": kernel_cuda.tier_splits(min(4096, n), n, k, dp, sms),
             "power iteration": kernel_cuda.tier_splits(blk, blk, 1, dp, sms),
@@ -2324,7 +2296,7 @@ def askotch10m(dev, profile_run, compare, timings, n=N10, d=D10, k=K10, rank=RAN
     # its tier's plain version on 64 rows of a block: a random right-hand side
     # and a positive one, whose products add up without cancelling, so that
     # the length of each thread's float32 sum shows; then timed
-    P = K._tier[0]
+    P = K._points[0].tier
     blk_rows = torch.as_tensor(sampled_rows(n, blk, 3), device=dev)
     Pb = P.rows(blk_rows)
     g13 = torch.Generator(device=dev).manual_seed(13)
@@ -2384,7 +2356,7 @@ def slice3(dev, X, Xn, y):
     claim against a full K7 sweep. Returns the launch counts."""
     import torch
 
-    from rlaopt_tpu_torch.kernels import KernelConfig, LaplaceLinOp, linop
+    from rlaopt_tpu_torch.kernels import KernelConfig, LaplaceLinOp
     from rlaopt_tpu_torch.models import LinSys
     from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
     from rlaopt_tpu_torch.preconditioners import NystromConfig
@@ -2395,17 +2367,14 @@ def slice3(dev, X, Xn, y):
     Y10 = torch.cat([y[:, None], torch.from_numpy(extra_targets(Xn, 10)).to(dev)], 1)
     cfg = PCGConfig(max_iters=ITERS, rtol=1e-6,
                     precond_config=NystromConfig(rank=RANK, rho=reg))
-    built = {"kept": 0, "in a call": 0}
+    built = []
+    build_fn = kernel_cuda.tile_operand
 
-    def counted(fn, key):
-        def build(*args):
-            built[key] += 1
-            return fn(*args)
-        return build
+    def counted(*args):
+        built.append(args[0].shape)
+        return build_fn(*args)
 
-    kept_fn, call_fn = linop.tile_operand, kernel_cuda.tile_operand
-    linop.tile_operand = counted(kept_fn, "kept")
-    kernel_cuda.tile_operand = counted(call_fn, "in a call")
+    kernel_cuda.tile_operand = counted
     kernel_cuda.reset_launch_counts()
     K = LaplaceLinOp(X, X, KernelConfig(lengthscale=LS_B))
     solves = []
@@ -2430,10 +2399,11 @@ def slice3(dev, X, Xn, y):
     wall_r = time.perf_counter() - t0
     counts = kernel_cuda.launch_counts()
     used_r = {c: counts[c] - before[c] for c in counts}
-    linop.tile_operand, kernel_cuda.tile_operand = kept_fn, call_fn
+    kernel_cuda.tile_operand = build_fn
     print(f"slice3 tile operands built: {built}")
-    check(built == {"kept": 1, "in a call": 0},
-          "slice3 the operator's tile operand built once, taken by K5 and the wide K3 sketch")
+    check(len(built) == 1 and K._points[0].tile is not None,
+          "slice3 the operator's tile operand built once, kept on its point set and taken "
+          "by K5 and the wide K3 sketch")
 
     # every logged iterate's float64 residual in one plain sweep
     W64s, B64s, where = [], [], []
@@ -2459,12 +2429,11 @@ def slice3(dev, X, Xn, y):
               f"s/iter {s_iter:.4f} launches {used}")
         first, last = np.array(hist[0]), np.array(hist[iters])
         check(np.all(np.isfinite(last)) and np.all(last < first), f"slice3 k={k} rel_res falls")
-        check(used["laplace_matmat"] > 0 and used["laplace_matmat_narrow"] == 0,
-              f"slice3 k={k} sketch ran through laplace_matmat past 16 columns")
-        check(used["gram_matvec_symmetric_comp"] >= len(log) and used["laplace_matmat_comp"] == 0,
+        check(used["gram_matmat"] > 0, f"slice3 k={k} sketch ran through gram_matmat")
+        check(used["gram_matvec_symmetric_comp"] >= len(log) and used["gram_matmat_comp"] == 0,
               f"slice3 k={k} every boundary ran through the triangle K3c")
-        check(used["laplace_matvec_symmetric"] >= iters,
-              f"slice3 k={k} every PCG step ran through laplace_matvec_symmetric")
+        check(used["gram_matvec_symmetric"] >= iters,
+              f"slice3 k={k} every PCG step ran through gram_matvec_symmetric (K5)")
         gaps = {}
         for kk, i, j in where:
             if kk == k:
@@ -2544,9 +2513,9 @@ def config4(dev, X, y, profile_run, compare, timings, laplace):
     check(hist[iters].get("source") is None and np.isfinite(final) and final < 1.0,
           f"{name} final true rel_res {final:.4e} finite and below 1")
     if laplace:
-        check(used["laplace_matmat_narrow"] >= iters,
+        check(used["gram_matmat"] >= iters,
               f"{name}: every iteration's row oracle ran through K3's tile")
-        check(used["gram_matvec_symmetric_comp"] >= 1 and used["laplace_matmat_comp"] == 0,
+        check(used["gram_matvec_symmetric_comp"] >= 1 and used["gram_matmat_comp"] == 0,
               f"{name}: the final residual ran through the triangle K3c")
     else:
         check(used["gram_matmat_tier"] >= iters, f"{name}: every iteration ran through K1b")
@@ -2597,31 +2566,32 @@ def config4(dev, X, y, profile_run, compare, timings, laplace):
         # the path's call: LaplaceLinOp's row oracle keeps the operand of
         # the N4 points on its parent and builds its block's
         XT = kernel_cuda.tile_operand(X, ls)
-        kept = (lambda: (kernel_cuda.tile_operand(Xb, ls), XT))
-        got, again = (kernel_cuda.laplace_matmat(Xb, X, Wf, ls) for _ in range(2))
+        XTb = kernel_cuda.tile_operand(Xb, ls)
+        got, again = (kernel_cuda.gram_matmat("laplace", Xb, X, Wf, ls) for _ in range(2))
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"{name} row oracle: the same bits twice")
-        check(torch.equal(got, kernel_cuda.laplace_matmat(Xb, X, Wf, ls, operands=kept)),
+        check(torch.equal(got, kernel_cuda.gram_matmat("laplace", Xb, X, Wf, ls, 1.0, XTb, XT)),
               f"{name} row oracle: the same bits with the operator's kept operand")
-        compare("laplace_matmat_narrow", got[:s], ref, f"{shape} runs {splits}", K_BOUND)
+        compare("gram_matmat", got[:s], ref, f"laplace {shape} runs {splits}", K_BOUND)
         del got, again
-        hi, lo = kernel_cuda.laplace_matmat_comp(X[idx], X, Wf, ls)
-        compare("laplace_matmat_comp", hi.double() + lo.double(), ref, f"{shape} (hi+lo)",
+        hi, lo = kernel_cuda.gram_matmat_comp("laplace", X[idx], X, Wf, ls)
+        compare("gram_matmat_comp", hi.double() + lo.double(), ref, f"laplace {shape} (hi+lo)",
                 COMP_BOUND)
-        ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(Xb, X, Wf, ls, operands=kept))
-        built_ms = cuda_ms(lambda: kernel_cuda.laplace_matmat(Xb, X, Wf, ls))
+        ms = cuda_ms(lambda: kernel_cuda.gram_matmat("laplace", Xb, X, Wf, ls, 1.0,
+                                                     kernel_cuda.tile_operand(Xb, ls), XT))
+        built_ms = cuda_ms(lambda: kernel_cuda.gram_matmat("laplace", Xb, X, Wf, ls))
         operand_ms = cuda_ms(lambda: kernel_cuda.tile_operand(X, ls))
-        del XT
+        del XT, XTb
         p_ms = cuda_ms(lambda: kernel_plain.gram_matmat("laplace", Xb, X, Wf, ls, row_block=64),
                        reps=1, warm=False)
-        what = f"row oracle n={BLK4} m={N4} d={D4} k=1"
-        timings.setdefault("laplace_matmat_narrow", []).insert(0, timing_entry(
-            "laplace_matmat_narrow", f"{what} runs {splits}", ms, p_ms, BLK4, N4, D4, 1,
+        what = f"laplace row oracle n={BLK4} m={N4} d={D4} k=1"
+        timings.setdefault("gram_matmat", []).append(timing_entry(
+            "gram_matmat", f"{what} runs {splits}", ms, p_ms, BLK4, N4, D4, 1,
             "laplace", splits=splits, operand_ms=operand_ms, built_ms=built_ms))
-        print(f"time laplace_matmat_narrow {what}: runs {splits} {ms:.3f} ms with the operand "
+        print(f"time gram_matmat {what}: runs {splits} {ms:.3f} ms with the operand "
               f"of the {N4} points kept (building it in the call {built_ms:.3f} ms; it alone "
               f"{operand_ms:.3f} ms, once an operator), plain {p_ms:.3f} ms, bound "
-              f"{timings['laplace_matmat_narrow'][0]['bound_ms']:.3f} ms")
+              f"{timings['gram_matmat'][-1]['bound_ms']:.3f} ms")
         record["row_oracle_ms"] = {"runs": splits, "ms": ms, "built_ms": built_ms,
                                    "operand_ms": operand_ms, "plain_ms": p_ms}
         # the final residual's product at path A's n: the triangle K3c on a
@@ -2633,13 +2603,14 @@ def config4(dev, X, y, profile_run, compare, timings, laplace):
         compare("gram_matvec_symmetric_comp", (hi.double() + lo.double())[idx], ref,
                 f"laplace rows {s} of n=m={N4} d={D4} k=1 (hi+lo)", COMP_BOUND)
         del hi, lo
-        gen_ms = cuda_ms(lambda: kernel_cuda.laplace_matmat_comp(X, X, Wf, ls), reps=1, warm=False)
+        gen_ms = cuda_ms(lambda: kernel_cuda.gram_matmat_comp("laplace", X, X, Wf, ls), reps=1,
+                         warm=False)
         what = f"path A's final residual n=m={N4} d={D4} k=1"
         timings.setdefault("gram_matvec_symmetric_comp", []).append(timing_entry(
             "gram_matvec_symmetric_comp", f"laplace {what}", tri_ms, None, N4, N4, D4, 1,
             "laplace", general_ms=gen_ms))
-        timings.setdefault("laplace_matmat_comp", []).append(timing_entry(
-            "laplace_matmat_comp", what, gen_ms, None, N4, N4, D4, 1, "laplace"))
+        timings.setdefault("gram_matmat_comp", []).append(timing_entry(
+            "gram_matmat_comp", f"laplace {what}", gen_ms, None, N4, N4, D4, 1, "laplace"))
         print(f"time gram_matvec_symmetric_comp laplace {what}: triangle {tri_ms:.3f} ms, "
               f"general K3c {gen_ms:.3f} ms, bound "
               f"{timings['gram_matvec_symmetric_comp'][-1]['bound_ms']:.3f} ms")
@@ -2659,7 +2630,7 @@ def config4(dev, X, y, profile_run, compare, timings, laplace):
               f"operands, the tile itself {Kb.numel() * Kb.element_size()} bytes")
         del Kb
     else:
-        P = K._tier[0]
+        P = K._points[0].tier
         Pb = P.rows(blk)
         got = kernel_cuda.gram_matmat_tier("rbf", Pb, P, Wf)[:s]
         compare("gram_matmat_tier", got, kernel_plain.gram_matmat_tier(
@@ -3279,19 +3250,6 @@ def k1b_rows(dev, compare, timings, registers, shapes=K1B_ROWS_SHAPES):
     print(f"phase: K1b rows {time.perf_counter() - t0:.1f} s")
 
 
-def pair_name(kind: str) -> str:
-    return "laplace_pair" if kind == "laplace" else "gram_pair"
-
-
-def exact_pair(kind, X1, X2, V2, V1, ls, c=1.0, operands=None):
-    """K4, or K6 for Laplace."""
-    from rlaopt_tpu_torch.ops import kernel_cuda
-
-    if kind == "laplace":
-        return kernel_cuda.laplace_pair(X1, X2, V2, V1, ls, c, operands)
-    return kernel_cuda.gram_pair(kind, X1, X2, V2, V1, ls, c, operands)
-
-
 def pair_checks(dev, compare, X1, X2, ls, what, c=1.0, seed=22, rows=None):
     """K4 and K6 in every family at ``PAIR_KS`` against float64: out1
     against the plain K1/K3 on (X1, X2, V2), out2 against it on (X2, X1,
@@ -3299,7 +3257,7 @@ def pair_checks(dev, compare, X1, X2, ls, what, c=1.0, seed=22, rows=None):
     at V1 = V2); all rows, or ``rows`` sampled rows of each output."""
     import torch
 
-    from rlaopt_tpu_torch.ops import kernel_plain
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
 
     n1, n2 = X1.shape[0], X2.shape[0]
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3316,10 +3274,10 @@ def pair_checks(dev, compare, X1, X2, ls, what, c=1.0, seed=22, rows=None):
         r1 = kernel_plain.gram_matmat_f64(kind, X1[i1], X2, W2, ls, c, row_block=1024)
         r2 = kernel_plain.gram_matmat_f64(kind, X2[i2], X1, W1, ls, c, row_block=1024)
         for k in PAIR_KS:
-            o1, o2 = exact_pair(kind, X1, X2, W2[:, cols[k]], W1[:, cols[k]], ls, c)
+            o1, o2 = kernel_cuda.gram_pair(kind, X1, X2, W2[:, cols[k]], W1[:, cols[k]], ls, c)
             shape = f"{kind} {what} n1={n1} n2={n2} d={X1.shape[1]} k={k}"
-            compare(pair_name(kind), o1[i1], r1[:, cols[k]], f"{shape} out1", K_BOUND)
-            compare(pair_name(kind), o2[i2], r2[:, cols[k]], f"{shape} out2", K_BOUND)
+            compare("gram_pair", o1[i1], r1[:, cols[k]], f"{shape} out1", K_BOUND)
+            compare("gram_pair", o2[i2], r2[:, cols[k]], f"{shape} out2", K_BOUND)
 
 
 def pair_ragged(dev, compare):
@@ -3396,7 +3354,7 @@ def pair_timed(dev, X1, X2, compare, timings, what, kind, ls, ks, rows=None):
 
     t0 = time.perf_counter()
     pair_checks(dev, compare, X1, X2, ls, what, rows=rows)
-    kname = pair_name(kind)
+    kname = "gram_pair"
     n1, n2 = X1.shape[0], X2.shape[0]
     XT1, XT2 = kernel_cuda.tile_operand(X1, ls), kernel_cuda.tile_operand(X2, ls)
     gen = torch.Generator(device=dev).manual_seed(29)
@@ -3404,7 +3362,7 @@ def pair_timed(dev, X1, X2, compare, timings, what, kind, ls, ks, rows=None):
         V2 = torch.randn((n2, k), generator=gen, device=dev)
         V1 = torch.randn((n1, k), generator=gen, device=dev)
         # 20 calls a timing: a call of a fraction of a millisecond
-        ms = cuda_ms(lambda: exact_pair(kind, X1, X2, V2, V1, ls, 1.0, lambda: (XT1, XT2)),
+        ms = cuda_ms(lambda: kernel_cuda.gram_pair(kind, X1, X2, V2, V1, ls, 1.0, XT1, XT2),
                      inner=20)
         p_ms = None
         if k == ks[0]:
@@ -3525,7 +3483,7 @@ def certified_route(name, used, P, f64=True):
     for tri, pair, general in routes:
         calls = used[tri] // P
         check(calls > 0 and used[tri] == P * calls and used[pair] == pairs * calls
-              and used[general] == 0 and used.get("laplace_matmat_comp", 0) == 0,
+              and used[general] == 0,
               f"{name}'s certified calls ran on the half-ring: {used[tri]} {tri} and "
               f"{used[pair]} {pair} launches ({calls} calls of {P} and {pairs}), "
               f"{used[general]} {general}")
@@ -3748,8 +3706,8 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
     rel64 = (torch.linalg.norm(R, dim=0) / torch.linalg.norm(y64)).cpu().numpy()
     gaps3 = residual_gaps("E3", log3, iterates, rel64)
     keys3 = int_keys(log3)
-    check(used3["laplace_pair"] >= lpairs * keys3[-1], "E3's pairs ran through K6")
-    check(used3["laplace_matmat"] >= P_LAPLACE + 2 * lpairs,
+    check(used3["gram_pair"] >= lpairs * keys3[-1], "E3's pairs ran through K6")
+    check(used3["gram_matmat"] >= P_LAPLACE + 2 * lpairs,
           "E3's sketch ran through the wide K3 (diagonal blocks and the pairs' general calls)")
     certified_route("E3", used3, P_LAPLACE, f64=False)
     rec3 = {"n": n, "positions": P_LAPLACE, "wall_s": wall3, "phase_walls": sys3.phase_walls,
@@ -3759,8 +3717,8 @@ def slice5(dev, Xn100, yn100, profile_run, compare, timings):
             "busy_share": (None if profile3.get("busy_ms") is None
                            else profile3["busy_ms"] / 1e3 / wall3)}
     v = torch.randn((n, 1), generator=torch.Generator(device=dev).manual_seed(26), device=dev)
-    ring_out = matvec_launches("E3", K3, v, {"laplace_matvec_symmetric": P_LAPLACE,
-                                             "laplace_pair": lpairs})
+    ring_out = matvec_launches("E3", K3, v, {"gram_matvec_symmetric": P_LAPLACE,
+                                             "gram_pair": lpairs})
     certified_launches("E3", K3, v, P_LAPLACE)
     Kflat = LaplaceLinOp(X100, X100, KernelConfig(lengthscale=LS_B))
     ref64 = kernel_cuda.gram_matvec_symmetric_f64("laplace", X100, v.double(), LS_B)
@@ -4070,9 +4028,8 @@ def main() -> int:
     names = ("gram_matmat", "gram_matmat_comp", "gram_matvec_symmetric_comp",
              "gram_matvec_symmetric",
              "gram_matmat_tier", "gram_matvec_symmetric_tier", "gram_matmat_f64",
-             "gram_matvec_symmetric_f64", "laplace_matmat", "laplace_matmat_narrow",
-             "laplace_matmat_comp", "laplace_matvec_symmetric", "csr_spmv", "csr_spmm",
-             "gram_pair", "gram_pair_tier", "laplace_pair", "gram_pair_comp", "gram_pair_f64",
+             "gram_matvec_symmetric_f64", "csr_spmv", "csr_spmm",
+             "gram_pair", "gram_pair_tier", "gram_pair_comp", "gram_pair_f64",
              *PROBES)
     # (kernel, "plain" or "float64") -> [(max abs err, relative)]; "plain"
     # is the kernel's own plain version (float64 for all but the tiers)
@@ -4239,8 +4196,7 @@ def main() -> int:
         P = parts.get(cd)
         V64 = V.double()
         return {
-            "gram_matmat": (lambda: kernel_cuda.gram_matmat("rbf", X, X, V, ls, 1.0,
-                                                            lambda: (XT, XT)),
+            "gram_matmat": (lambda: kernel_cuda.gram_matmat("rbf", X, X, V, ls, 1.0, XT, XT),
                             lambda: kernel_plain.gram_matmat("rbf", X, X, V, ls, row_block=BLOCK)),
             "gram_matvec_symmetric": (
                 lambda: kernel_cuda.gram_matvec_symmetric("rbf", X, V, ls, 1.0, XT),
@@ -4530,15 +4486,10 @@ def main() -> int:
         ("gram_matvec_symmetric_tier", SOURCES["tier"], f"{PALLAS}:1366"),
         ("gram_matvec_symmetric_f64", SOURCES["comp"], f"{VALUE64}:467"),
         ("gram_matmat_f64", SOURCES["comp"], f"{VALUE64}:684"),
-        ("laplace_matmat_narrow", SOURCES["laplace"], f"{PALLAS}:592"),
-        ("laplace_matmat", SOURCES["wide"], f"{PALLAS}:592"),
-        ("laplace_matmat_comp", SOURCES["comp"], f"{PALLAS}:592"),
-        ("laplace_matvec_symmetric", SOURCES["laplace"], f"{PALLAS}:1930"),
         ("csr_spmv", SOURCES["spmv"], f"{LANED}:136"),
         ("csr_spmm", SOURCES["spmv"], f"{LANED}:136"),
         ("gram_pair", SOURCES["pair"], f"{PALLAS}:1563"),
         ("gram_pair_tier", SOURCES["tier"], f"{PALLAS}:1563"),
-        ("laplace_pair", SOURCES["pair"], f"{PALLAS}:2063"),
         ("gram_pair_comp", SOURCES["comp"], f"{PALLAS}:733"),
         ("gram_pair_f64", SOURCES["comp"], f"{VALUE64}:684"),
         *((kname, SOURCES["probes"], tpu) for kname, (tpu, _) in PROBES.items()),
@@ -4570,8 +4521,7 @@ def main() -> int:
             kernels[-1]["matmul_tflops"] = mm_rate / 1e12
         if kname == "gram_matmat":
             kernels[-1]["sources"] = [SOURCES["gram"], SOURCES["wide"], SOURCES["tile"]]
-        if kname in ("gram_matvec_symmetric", "laplace_matmat_narrow", "laplace_matmat",
-                     "laplace_matvec_symmetric", "gram_pair", "laplace_pair"):
+        if kname in ("gram_matvec_symmetric", "gram_pair"):
             kernels[-1]["sources"] = [source, SOURCES["tile"]]
         mine = registers_of(kname, registers)
         if mine:

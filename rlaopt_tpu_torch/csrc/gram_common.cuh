@@ -1,13 +1,12 @@
 // Shared pieces of the fused Gram-matrix kernels (gram_tier.cu, gram_comp.cu,
 // through gram_tier.cuh gram_tier_sym.cu and gram_tier_rows.cu, and through
-// gram_tile.cuh gram.cu, gram_laplace.cu, gram_wide.cu and
-// gram_pair.cu): the constants, the family codes, the operands of a tier
-// launch, the float64 value of a distance and the fixed-order sum of a
-// split product's partials.
+// gram_tile.cuh gram.cu, gram_wide.cu and gram_pair.cu): the constants, the
+// family codes, the operands of a tier launch, the float64 value of a
+// distance and the fixed-order sum of a split product's partials.
 //
 // K1, K2, K3, K4, K5 and K6 run on the register tile of gram_tile.cuh
-// (its forward, triangle and pair forms: gram.cu, gram_laplace.cu,
-// gram_pair.cu), K1 and K3 past 16 columns on gram_wide.cu; K1b (past a
+// (its forward, triangle and pair forms: gram.cu, gram_pair.cu), K1 and K3
+// past 16 columns on gram_wide.cu; K1b (past a
 // padded depth of 128 or 16 columns), K2b (past two columns) and K4b on the
 // strip of gram_tier.cu, K1b and K2b below those on the warp-specialised
 // kernels of gram_tier_rows.cu and gram_tier_sym.cu; K1c, K3c, K7 and K8 on

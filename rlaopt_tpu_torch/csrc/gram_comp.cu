@@ -5,8 +5,8 @@
 //     K1c (VT float)  replaces rlaopt_tpu/ops/kernel_pallas.py ::
 //         kernel_matmat_pallas(compensated=True) when X2 is X1 (the true
 //         residual of a solve, the refinement's updates)
-//     K3c (LAPLACE)   replaces kernel_pallas.py :: _laplace_matmat(
-//         compensated=True) when X2 is X1 (path A's final residual, path
+//     K3c (LAPLACE)   replaces kernel_pallas.py:592, the Laplace matmat
+//         (compensated=True) when X2 is X1 (path A's final residual, path
 //         B's boundaries)
 //     K7 (VT double)  replaces rlaopt_tpu/ops/kernel_value64.py ::
 //         _value64_symmetric (the certified float64 sweep)

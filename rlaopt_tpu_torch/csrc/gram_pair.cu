@@ -8,8 +8,8 @@
 //   K4  tile_pair<KIND != LAPLACE>  replaces rlaopt_tpu/ops/kernel_pallas.py
 //       (kernel_cuda.gram_pair)     :: kernel_pair_matmat (_body_pair),
 //                                   exact tier
-//   K6  tile_pair<LAPLACE>          replaces kernel_pallas.py ::
-//       (kernel_cuda.laplace_pair)  _laplace_pair_matmat (_body_pair_laplace)
+//   K6  tile_pair<LAPLACE>          replaces kernel_pallas.py:2063, the
+//       (kernel_cuda.gram_pair)     Laplace pair (_body_pair_laplace)
 //
 // The bf16 tiers of kernel_pair_matmat (K4b) are the pair form of the tier
 // strip, in gram_tier.cu.
@@ -50,7 +50,7 @@
 // Not carried over: the TPU body's software-pipelined epilogue (tile j-1's
 // exp under tile j's MXU pass), the resident VMEM mirror window and its
 // transposed (k_pad, T) layout, the MXU "highest" mirror contraction of the
-// exact tier (here float32 FMAs), and _laplace_pair_matmat's 64-feature
+// exact tier (here float32 FMAs), and the Laplace pair's 64-feature
 // grid axis (the staging loop walks d 32 features at a time).
 
 #include "gram_tile.cuh"

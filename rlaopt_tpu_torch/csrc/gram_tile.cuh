@@ -1,8 +1,8 @@
 // The register tile of the float32 Gram products for k <= 16, for Hopper
 // (sm_90a), in every family: K3's tile, generalised over the kernel
-// family. gram_laplace.cu instantiates it for Laplace (K3, K5), gram.cu for
-// the squared-distance families (K1, K2), gram_pair.cu every family's pair
-// (K4, K6); the three forms:
+// family. gram.cu instantiates it for every family's forward and triangle
+// forms (K1, K2; K3, K5 for Laplace), gram_pair.cu every family's pair (K4,
+// K6); the three forms:
 //
 //   tile_forward<KIND, KC>   c * k(X1, X2) @ V for two point sets (K1, K3)
 //   tile_triangle<KIND, KC>  c * k(X, X) @ V, each pair of tiles once (K2, K5)

@@ -7,7 +7,7 @@
 //                                 distance on the MXU and its contraction at
 //                                 Precision.HIGHEST (the Nystrom sketch at
 //                                 k = 500, config 5's at k = 200)
-//   K3  gram_wide_tf32<LAPLACE,   replaces kernel_pallas.py :: _laplace_matmat
+//   K3  gram_wide_tf32<LAPLACE,   replaces kernel_pallas.py:592, the Laplace matmat,
 //       NF> (k > 16)              past 16 columns: the L1 distance on the
 //                                 VPU, the contraction at "highest" (path
 //                                 B's sketch at k = 500, E3's sketches)

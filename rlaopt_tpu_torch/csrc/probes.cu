@@ -25,7 +25,7 @@
 // instruction a clock per sub-partition, so every other instruction takes
 // a FADD's slot) and the SFU (#11, #13: one MUFU.EX2 an exp, 16 a clock per
 // SM). The exp is __expf (an FMUL by log2 e and MUFU.EX2), as in K3's tile
-// (gram_laplace.cu). #12's elementwise chain reads and writes 12 bytes an
+// (gram_tile.cuh). #12's elementwise chain reads and writes 12 bytes an
 // element for 128 FADDs, about as long in bytes as in FADDs on this card;
 // the TPU held its tiles in VMEM the same way. #13's 64 exps an element
 // keep it on the SFU.
@@ -45,7 +45,7 @@
 //     Y's columns as float4, then adds 8 x 8 pairs a feature. The sums stay
 //     in registers across the nb feature blocks, as the TPU body keeps them
 //     in a VMEM scratch, and add feature after feature in the plain
-//     version's order. It does not share K3's staging (gram_laplace.cu
+//     version's order. It does not share K3's staging (gram_tile.cuh
 //     stages 32 features at a time and transposes X element by element),
 //     so its rate is the card's for the pair, against which K3's tile is
 //     read. T = double is the FP64 ceiling of the float64 tiles (K3c, K1c's

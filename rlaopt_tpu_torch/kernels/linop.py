@@ -2,17 +2,16 @@
 
 Port of ``rlaopt_tpu/kernels/linop.py``. The operator holds the data (X1,
 X2), the lengthscale and the scale; its applies stream kernel tiles through
-:func:`rlaopt_tpu_torch.ops.kernel_dispatch.kernel_matmat` (the CUDA kernels
-for CUDA tensors, the plain versions for CPU tensors). K is never
-materialized, except by :meth:`KernelLinOp.blk_dense` for a block. A bf16
-``compute_dtype`` keeps the tier parts of the points (bf16 hi/lo and norm
-vectors, :mod:`rlaopt_tpu_torch.ops.kernel_tiers`) on the operator, made
-once when it is built; the row and block oracles gather theirs from it.
-An operator on float32 points on the exact tier (every family) keeps the
-register tile's operand of each point set
-(:func:`rlaopt_tpu_torch.ops.kernel_cuda.tile_operand`: K1, K2, K3, K5),
-built the first time a kernel takes it; a row oracle shares its parent's
-for the columns.
+:func:`rlaopt_tpu_torch.ops.kernel_dispatch.kernel_matmat_points` (the CUDA
+kernels for CUDA tensors, the plain versions for CPU tensors). K is never
+materialized, except by :meth:`KernelLinOp.blk_dense` for a block. The
+operator keeps each data set as a
+:class:`~rlaopt_tpu_torch.ops.kernel_dispatch.PointSet`: on a bf16
+``compute_dtype`` with its tier parts, made once when it is built, and on
+the exact tier with the register tile's operand, built the first time a
+kernel takes it. The row and block oracles gather their tier parts from
+the parent's, and a row oracle shares its parent's point set for the
+columns.
 """
 
 from typing import Optional
@@ -24,12 +23,11 @@ from .functions import kernel_tile, scale_inputs
 from ..linops.base import TwoSidedLinOp
 from ..ops.kernel_dispatch import (
     check_impl,
-    kernel_matmat,
     kernel_matmat_compensated,
-    kernel_matmat_tier,
+    kernel_matmat_points,
+    point_set,
 )
-from ..ops.kernel_cuda import tile_operand
-from ..ops.kernel_tiers import normalize_compute_dtype, tier_operand
+from ..ops.kernel_tiers import normalize_compute_dtype
 from ..utils.checkers import _is_tensor
 from ..utils.profiling import traced
 
@@ -59,17 +57,14 @@ class KernelLinOp(TwoSidedLinOp):
         kind: str,
         impl: str = "auto",
         compute_dtype=None,
-        _tier=None,
-        _tile=None,
+        _points=None,
         _ls=None,
     ):
-        """``_tier``: the tier parts of (A1, A2), gathered by the oracles
-        from their parent's; None makes them here. ``_tile``: the register
-        tile's operands of (A1, A2) as :class:`_TileOperand`, passed on by
-        the oracles; None makes them here. ``_ls``: the lengthscale on the
-        device in the points' dtype and in float64, passed on by the
-        oracles (making it copies a host value to the card, which waits for
-        the card); None makes it here."""
+        """``_points``: the point sets of (A1, A2), passed on by the oracles
+        (their tier parts gathered from their parent's); None makes them
+        here. ``_ls``: the lengthscale on the device in the points' dtype
+        and in float64, passed on by the oracles (making it copies a host
+        value to the card, which waits for the card); None makes it here."""
         self._check_inputs(A1, A2, kernel_config)
         compute_dtype = normalize_compute_dtype(compute_dtype)
         self.kind = kind
@@ -84,40 +79,18 @@ class KernelLinOp(TwoSidedLinOp):
         self._c = float(kernel_config.const_scaling)
         # One data set on both sides: the apply may take the triangle kernel.
         symmetric = self._symmetric = A1 is A2
-        self._tier = _tier  # (parts of X1, parts of X2) on a bf16 tier
-        if (_tier is None and compute_dtype is not None and kind != "laplace"
-                and A1.dtype == torch.float32):
-            P1 = tier_operand(scale_inputs(A1, self._ls), compute_dtype)
-            P2 = P1 if symmetric else tier_operand(scale_inputs(A2, self._ls), compute_dtype)
-            self._tier = (P1, P2)
-        # the tile's operands of (A1, A2), each built on first use
-        self._tile_ops = _tile
-        if _tile is None and self._tier is None and A1.dtype == torch.float32:
-            L1 = _TileOperand(A1, self._ls)
-            self._tile_ops = (L1, L1 if symmetric else _TileOperand(A2, self._ls))
-        ops = self._tile_ops
-        fwd = None if ops is None else (lambda: (ops[0].get(), ops[1].get()))
-        adj = None if ops is None else (lambda: (ops[1].get(), ops[0].get()))
+        if _points is None:
+            P = point_set(A1, self._ls, kind, compute_dtype)
+            _points = (P, P if symmetric else point_set(A2, self._ls, kind, compute_dtype))
+        self._points = P1, P2 = _points
 
         @traced("rlaopt.linop.matmat")
         def mv(v):
-            if self._tier is not None:
-                P1, P2 = self._tier
-                return kernel_matmat_tier(kind, P1, P2, v, self._c, symmetric, impl)
-            return kernel_matmat(
-                kind, A1, A2, v, self._ls, self._c, symmetric=symmetric, impl=impl,
-                tile_operands=fwd,
-            )
+            return kernel_matmat_points(kind, P1, P2, v, self._ls, self._c, symmetric, impl)
 
         def rmv(v):
             # k is symmetric in its arguments: Kᵀ = k(X2, X1)
-            if self._tier is not None:
-                P1, P2 = self._tier
-                return kernel_matmat_tier(kind, P2, P1, v, self._c, symmetric, impl)
-            return kernel_matmat(
-                kind, A2, A1, v, self._ls, self._c, symmetric=symmetric, impl=impl,
-                tile_operands=adj,
-            )
+            return kernel_matmat_points(kind, P2, P1, v, self._ls, self._c, symmetric, impl)
 
         super().__init__(
             shape=(A1.shape[0], A2.shape[0]),
@@ -189,25 +162,14 @@ class KernelLinOp(TwoSidedLinOp):
     ) -> "KernelLinOp":
         """Operator over gathered subsets of the data points; on a bf16 tier
         its parts are the rows of the parent's, not a new split."""
-        A1 = self._X1 if idx1 is None else self._X1[idx1]
-        A2 = self._X2 if idx2 is None else self._X2[idx2]
-        tier = None
-        if self._tier is not None:
-            P1, P2 = self._tier
-            tier = (
-                P1 if idx1 is None else P1.rows(idx1),
-                P2 if idx2 is None else P2.rows(idx2),
-            )
-        ops = None
-        if self._tile_ops is not None:
-            L1, L2 = self._tile_ops
-            ops = (
-                L1 if idx1 is None else _TileOperand(A1, self._ls),
-                L2 if idx2 is None else _TileOperand(A2, self._ls),
-            )
+        P1, P2 = self._points
+        if idx1 is not None:
+            P1 = P1.rows(idx1)
+        if idx2 is not None:
+            P2 = P2.rows(idx2)
         return KernelLinOp(
-            A1, A2, self._kernel_config, self.kind, self.impl, self.compute_dtype,
-            _tier=tier, _tile=ops, _ls=(self._ls, self._ls64),
+            P1.X, P2.X, self._kernel_config, self.kind, self.impl, self.compute_dtype,
+            _points=(P1, P2), _ls=(self._ls, self._ls64),
         )
 
     def row_oracle(self, blk: torch.Tensor) -> "KernelLinOp":
@@ -225,15 +187,3 @@ class KernelLinOp(TwoSidedLinOp):
         Ys = scale_inputs(self._X2[blk], self._ls)
         return self._apply_scale(kernel_tile(self.kind, Xs, Ys) * self._c)
 
-
-class _TileOperand:
-    """The register tile's operand of one point set (``tile_operand(X, ℓ)``:
-    the scaled points transposed and padded), built on first use and kept."""
-
-    def __init__(self, X: torch.Tensor, lengthscale: torch.Tensor):
-        self._X, self._ls, self._XT = X, lengthscale, None
-
-    def get(self) -> torch.Tensor:
-        if self._XT is None:
-            self._XT = tile_operand(self._X, self._ls)
-        return self._XT

@@ -20,13 +20,13 @@ Mesh`; payloads are per-position lists and the collectives are
   ring mode on a 1-D mesh of P ≥ 2 positions visits each unordered shard
   pair {p, q} once: one kernel evaluation of K_pq serves K_pq V_q → out_p
   and K_pqᵀ V_p → out_q (:func:`~rlaopt_tpu_torch.ops.kernel_dispatch.
-  kernel_pair`: on a card for k ≤ 16 K4 or K6, the register tile's pair
-  form, or K4b on a bf16 tier; two general calls past 16), the diagonal
-  block runs the triangle kernel (K2, K5, K2b), and one rotation by ns − 1
-  hops brings every mirror accumulator home. On the exact tier each shard
-  keeps the register tile's operand of its points, built once: its own
-  diagonal block and every pair take it, the rotating shard's carried
-  with its points. For even P the antipodal step would cover its pairs
+  kernel_pair_points`: on a card for k ≤ 16 K4 or K6, the register tile's
+  pair form, or K4b on a bf16 tier; two general calls past 16), the
+  diagonal block runs the triangle kernel (K2, K5, K2b), and one rotation
+  by ns − 1 hops brings every mirror accumulator home. On the exact tier
+  each shard's point set keeps the register tile's operand of its points,
+  built by its diagonal block: every pair takes it, the rotating shard's
+  carried with its points. For even P the antipodal step would cover its pairs
   twice, and only the positions p < P/2 take it: where the JAX package
   multiplies the other half's operands by zero, the port skips their
   launches (the sum is the same; the launch counts show it).
@@ -50,9 +50,13 @@ values with real points are not zero. Every schedule relies on the
 OPERAND's padded rows being zero, and slices the padded output rows away;
 the mirror accumulators' padded rows hold values and are dropped with them.
 
-A bf16 ``compute_dtype`` keeps the tier parts of each shard (and of the
-replicated A2) beside its points, made once when the operator is built, as
-:class:`~rlaopt_tpu_torch.kernels.linop.KernelLinOp` does.
+Each shard (and the replicated A2) is kept as a
+:class:`~rlaopt_tpu_torch.ops.kernel_dispatch.PointSet`, as
+:class:`~rlaopt_tpu_torch.kernels.linop.KernelLinOp` keeps its points: a
+bf16 ``compute_dtype`` makes its tier parts once, when the operator is
+built, and on the exact tier the register tile's operand is built by the
+first product on a card that takes it, then kept (and carried with a
+rotating shard).
 
 On a mesh that spans processes every process holds A1 and A2 whole (the
 same replicated input), keeps the shards of its own positions only, and
@@ -61,29 +65,23 @@ runs the schedules' visits at those; the rotations, psums and gathers of
 carried entries (points, tile operand, chunk, mirror accumulator) as bytes.
 """
 
-import dataclasses
-from dataclasses import dataclass
-from typing import Optional
-
 import torch
 
 from .configs import KernelConfig, _is_kernel_config
-from .functions import scale_inputs
-from .linop import _TileOperand
 from ..linops.sharded import ShardedLinOp, _axes
 from ..ops.kernel_dispatch import (
+    PointSet,
     check_impl,
-    kernel_matmat,
     kernel_matmat_compensated,
     kernel_matmat_f64,
-    kernel_matmat_tier,
-    kernel_pair,
+    kernel_matmat_points,
     kernel_pair_compensated,
     kernel_pair_f64,
-    kernel_pair_tier,
+    kernel_pair_points,
+    point_set,
 )
 from ..ops.kernel_plain import _two_sum
-from ..ops.kernel_tiers import TierOperand, normalize_compute_dtype, tier_operand
+from ..ops.kernel_tiers import TierOperand, normalize_compute_dtype
 from ..parallel.distributed import axis_size
 from ..parallel.mesh import _destination, gather, make_mesh, move, pad_to_multiple, ppermute, psum
 from ..utils.checkers import _is_tensor
@@ -92,33 +90,14 @@ from ..utils.checkers import _is_tensor
 __all__ = ["ShardedKernelLinOp"]
 
 
-@dataclass(frozen=True)
-class _Points:
-    """A block of points and, on a bf16 tier, their parts."""
-
-    X: torch.Tensor
-    T: Optional[TierOperand] = None
-
-    def rows(self, idx) -> "_Points":
-        return _Points(self.X[idx], None if self.T is None else self.T.rows(idx))
-
-    def tensors(self):
-        return [getattr(self, f.name) for f in dataclasses.fields(self)]
-
-
-def _map_rows(fn, *blocks: _Points) -> _Points:
-    """``fn`` applied field by field (tier parts included) to row blocks of
-    one layout."""
-
-    def one(*ts):
-        if ts[0] is None:
-            return None
-        if isinstance(ts[0], TierOperand):
-            return TierOperand(*(one(*parts) for parts in zip(*(
-                (t.hi, t.lo, t.sq) for t in ts))))
-        return fn(*ts)
-
-    return _Points(*(one(*fs) for fs in zip(*(b.tensors() for b in blocks))))
+def _map_rows(fn, *blocks: PointSet) -> PointSet:
+    """``fn`` applied to the points and the tier parts of gathered row blocks
+    of one layout (which have no tile operand)."""
+    tier = None
+    if blocks[0].tier is not None:
+        parts = zip(*((b.tier.hi, b.tier.lo, b.tier.sq) for b in blocks))
+        tier = TierOperand(*(None if p[0] is None else fn(*p) for p in parts))
+    return PointSet(fn(*(b.X for b in blocks)), tier)
 
 
 class ShardedKernelLinOp(ShardedLinOp):
@@ -165,19 +144,14 @@ class ShardedKernelLinOp(ShardedLinOp):
         # on own shards, and in ring mode on a 1-D mesh the half-ring.
         symmetric = A1 is A2
         self._symmetric = symmetric
-        tier = compute_dtype is not None and kind != "laplace" and A1.dtype == torch.float32
 
         n, d = A1.shape
         m = A2.shape[0]
         home = mesh.home
+        ls_home = kernel_config.lengthscale_tensor(A1.dtype, home)
 
-        def points(A) -> _Points:
-            A = move(A, home)
-            T = None
-            if tier:
-                ls = kernel_config.lengthscale_tensor(A.dtype, home)
-                T = tier_operand(scale_inputs(A, ls), compute_dtype)
-            return _Points(A, T)
+        def points(A) -> PointSet:
+            return point_set(move(A, home), ls_home, kind, compute_dtype)
 
         def shards(A):
             """Rows of A zero-padded to a multiple of the mesh size, cut into
@@ -216,12 +190,6 @@ class ShardedKernelLinOp(ShardedLinOp):
 
         axes = _axes(axis)
         sym_ring = memory_mode == "ring" and symmetric and len(axes) == 1 and ndev > 1
-        if sym_ring and not tier and A1.dtype == torch.float32:
-            # the half-ring's diagonal blocks (K2, K5) and pairs (K4, K6)
-            # take the register tile's operand of each shard, built on
-            # first use and kept
-            for p in mesh.local_positions:
-                data[p]["tile"] = _TileOperand(data[p]["X1"].X, data[p]["ls"])
         self._sym_ring = sym_ring
         if sym_ring:
             mv = rmv = self._half_ring  # square symmetric Gram: Kᵀ = K
@@ -298,26 +266,10 @@ class ShardedKernelLinOp(ShardedLinOp):
             )
 
     # -- the local products --------------------------------------------------
-    def _gram(self, L: _Points, R: _Points, V, ls, symmetric: bool = False, tile=None):
-        """``c·k(L, R) @ V`` on the operator's tier; ``tile``: the kept
-        :class:`_TileOperand` of L = R for the triangle (K2, K5), or None."""
-        if L.T is not None:
-            return kernel_matmat_tier(self.kind, L.T, R.T, V, self._c, symmetric, self.impl)
-        operands = None if tile is None else (lambda: (tile.get(), tile.get()))
-        return kernel_matmat(self.kind, L.X, R.X, V, ls, self._c, symmetric=symmetric,
-                             impl=self.impl, tile_operands=operands)
-
-    def _pair(self, L: _Points, R: _Points, V2, V1, ls, tiles=(None, None)):
-        """``(c·K @ V2, c·Kᵀ @ V1)`` with K = k(L, R) on the operator's tier;
-        ``tiles``: the kept :class:`_TileOperand` of L and R's tile operand
-        (the exact tier's half-ring keeps both, R's carried with its
-        points), or None each. R's is read where L lies."""
-        if L.T is not None:
-            return kernel_pair_tier(self.kind, L.T, R.T, V2, V1, self._c, self.impl)
-        tl, tr = tiles
-        operands = None if tl is None else (lambda: (tl.get(), move(tr, L.X.device)))
-        return kernel_pair(self.kind, L.X, R.X, V2, V1, ls, self._c, self.impl,
-                           tile_operands=operands)
+    def _gram(self, L: PointSet, R: PointSet, V, ls, symmetric: bool = False):
+        """``c·k(L, R) @ V`` on the operator's tier."""
+        return kernel_matmat_points(self.kind, L, R, V, ls, self._c, symmetric=symmetric,
+                                    impl=self.impl)
 
     # -- ring schedules ------------------------------------------------------
     def _sweep(self, rotating, stationary, visit):
@@ -417,26 +369,24 @@ class ShardedKernelLinOp(ShardedLinOp):
 
     def _half_ring(self, data, chunks):
         """The symmetric half-ring's ``K @ v`` (:meth:`_half_sweep`): the
-        diagonal block through the triangle kernel on its shard's kept tile
-        operand, each pair on the kept tile operands of both shards (the
-        rotating shard's carried with its points)."""
+        diagonal block through the triangle kernel, which on the exact tier
+        builds its shard's tile operand and keeps it on the shard's point
+        set before the set is carried; each pair on both shards' sets (the
+        rotating shard's tile operand carried with its points)."""
         mesh = self.mesh
         squeeze = chunks[mesh.local_positions[0]].ndim == 1
         V = mesh.map(lambda p: chunks[p][:, None] if squeeze else chunks[p])
 
         def diag(p, v):
             d = data[p]
-            return self._gram(d["X1"], d["X1"], v, d["ls"], symmetric=True, tile=d.get("tile"))
-
-        def carried(p):
-            tile = data[p].get("tile")
-            return data[p]["X1"], None if tile is None else tile.get()
+            return self._gram(d["X1"], d["X1"], v, d["ls"], symmetric=True)
 
         def pair(p, moved, vq, vp):
-            (xq, tq), d = moved, data[p]
-            return self._pair(d["X1"], xq, vq, vp, d["ls"], (d.get("tile"), tq))
+            d = data[p]
+            return kernel_pair_points(self.kind, d["X1"], moved, vq, vp, d["ls"], self._c,
+                                      impl=self.impl)
 
-        out = self._half_sweep(V, diag, carried, pair)
+        out = self._half_sweep(V, diag, lambda p: data[p]["X1"], pair)
         return mesh.map(lambda p: out[p][:, 0]) if squeeze else out
 
     # Ring mode: both operand and output are sharded over the mesh.
@@ -599,7 +549,7 @@ class ShardedKernelLinOp(ShardedLinOp):
         return out[:, 0] if W.ndim == 1 else out
 
     # -- oracles -------------------------------------------------------------
-    def _gather_rows(self, key: str, blk) -> _Points:
+    def _gather_rows(self, key: str, blk) -> PointSet:
         """Logical rows ``blk`` of the sharded points ``key`` ("X1" or
         "X2s"), with their tier parts, on the home device: each position's
         shard is read at the rows it owns (a small cross-shard gather)."""

@@ -4,12 +4,12 @@ Counterpart of ``rlaopt_tpu/ops/kernel_pallas.py`` (exact f32 tier,
 compensated tier, bf16 tiers, the Laplace kernels),
 ``rlaopt_tpu/ops/kernel_value64.py`` (float64 route) and
 ``rlaopt_tpu/sparse/laned.py`` (the sparse CSR product). The kernels live in
-``csrc/gram.cu`` (K1 up to 16 columns, K2), ``csrc/gram_wide.cu`` (K1
-and K3 past 16 columns, the 3xTF32 contraction), ``csrc/gram_comp.cu`` (the
-float64 tile in its triangle, forward and pair forms: K1c, K3c, K7, K8 and
-the certified pairs), ``csrc/gram_laplace.cu`` (K3 up to 16 columns, K5),
-``csrc/gram_pair.cu`` (the exact pair kernels K4, K6), the register tile of
-K1–K6 in its forward, triangle and pair forms in ``csrc/gram_tile.cuh``,
+``csrc/gram.cu`` (K1 and K3 up to 16 columns, K2, K5), ``csrc/gram_wide.cu``
+(K1 and K3 past 16 columns, the 3xTF32 contraction), ``csrc/gram_comp.cu``
+(the float64 tile in its triangle, forward and pair forms: K1c, K3c, K7, K8
+and the certified pairs), ``csrc/gram_pair.cu`` (the exact pair kernels K4,
+K6), the register tile of K1–K6 in its forward, triangle and pair forms in
+``csrc/gram_tile.cuh``,
 ``csrc/gram_tier.cu`` (K1b past a depth of 128 and past 16 columns, K4b,
 K2b past two columns), ``csrc/gram_tier_rows.cu`` (K1b) and
 ``csrc/gram_tier_sym.cu`` (K2b), with their shared pieces in
@@ -22,6 +22,10 @@ each source with ``nvcc`` for ``sm_90a`` in parallel and links them into
 one shared library with a plain C interface, cached under ``build/`` at the
 repository root by a hash of the sources and the flags. Nothing is compiled
 or loaded on import.
+
+The family is an argument (``kind``) of every Gram wrapper: the Laplace
+kernels are the same entries with Laplace's code, except the bf16 tiers,
+which have none (as in the JAX package).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on the current CUDA stream, raises if
@@ -77,13 +81,8 @@ __all__ = [
     "route_counts",
     "gram_matmat_f64",
     "gram_matvec_symmetric_f64",
-    "laplace_matmat",
-    "laplace_matmat_narrow",
-    "laplace_matmat_comp",
-    "laplace_matvec_symmetric",
     "gram_pair",
     "gram_pair_tier",
-    "laplace_pair",
     "csr_spmv",
     "csr_spmm",
     "CSRPlan",
@@ -100,17 +99,15 @@ __all__ = [
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("gram.cu", "gram_wide.cu", "gram_comp.cu", "gram_laplace.cu", "gram_tier.cu",
-           "gram_tier_sym.cu", "gram_tier_rows.cu", "gram_pair.cu", "spmv.cu", "probes.cu")
+SOURCES = ("gram.cu", "gram_wide.cu", "gram_comp.cu", "gram_tier.cu", "gram_tier_sym.cu",
+           "gram_tier_rows.cu", "gram_pair.cu", "spmv.cu", "probes.cu")
 _HEADERS = ("gram_common.cuh", "gram_tile.cuh", "gram_tier.cuh", "gram_tma.cuh")
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c",
 )
-# Kernel family codes of csrc/gram_common.cuh. The float32 Laplace kernels
-# have wrappers of their own (laplace_*), which hand the shared entries
-# (the wide kernel, the pair) this code; the float64 ones take the code.
+# Kernel family codes of csrc/gram_common.cuh.
 KIND_CODES = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3, "laplace": 4}
 SYMMETRIC_MAX_K = 16
 # csrc/gram_tier.cu: K1b's forward strip takes 128 rows a block, two blocks
@@ -202,10 +199,6 @@ _SIGNATURES = {
         _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_gram_matvec_symmetric_f64": [_ci, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _cd, _vp],
-    "rl_laplace_matmat_narrow": [
-        _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
-    ],
-    "rl_laplace_matvec_symmetric": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cd, _vp],
     "rl_tile_pair": [
         _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
@@ -299,22 +292,10 @@ def build() -> Path:
         return path
 
 
-def _code(kind: str, laplace: bool = False) -> int:
-    """The family code; the squared-distance wrappers (K1, K1c, K2, K4 and
-    the tiers) refuse Laplace, whose float32 kernels are the laplace_*
-    wrappers (which pass it on to the entries they share: the wide kernel,
-    the pair), as the float64 kernels, the triangle K1c/K3c and the
-    certified pairs take it."""
+def _code(kind: str) -> int:
+    """The family code of ``kind``; ``ValueError`` for an unknown family."""
     if kind not in KIND_CODES:
         raise ValueError(f"Unknown kernel kind {kind!r}")
-    if kind == "laplace" and not laplace:
-        raise NotImplementedError(
-            "this kernel sums squared distances: the Laplace family takes "
-            "laplace_matmat, laplace_matmat_comp, laplace_matvec_symmetric or "
-            "laplace_pair (the port of kernel_pallas.py::_laplace_matmat and "
-            "its kin), or the float64 kernels, gram_matvec_symmetric_comp and the "
-            "certified pairs"
-        )
     return KIND_CODES[kind]
 
 
@@ -450,36 +431,17 @@ def _check_tile_operand(XT, X, device):
                          f"tile_operand gives float32 {want} on {device}")
 
 
-def _tile_operands(X1, X2, lengthscale, device, operands):
-    """The tile's operands of (X1, X2): ``operands()`` checked, or built
-    here when ``operands`` is None."""
-    if operands is None:
+def _kept_or_built(X1, X2, lengthscale, device, XT1, XT2):
+    """The tile's operands of (X1, X2): each one given checked, or built
+    here when None (once when X2 is X1)."""
+    for XT, X in ((XT1, X1), (XT2, X2)):
+        if XT is not None:
+            _check_tile_operand(XT, X, device)
+    if XT1 is None:
         XT1 = tile_operand(X1, lengthscale)
-        return XT1, XT1 if X2 is X1 else tile_operand(X2, lengthscale)
-    XT1, XT2 = operands()
-    _check_tile_operand(XT1, X1, device)
-    _check_tile_operand(XT2, X2, device)
+    if XT2 is None:
+        XT2 = XT1 if X2 is X1 else tile_operand(X2, lengthscale)
     return XT1, XT2
-
-
-def _tile_forward(entry, lead, X1, X2, V2, XT1, XT2, const_scaling):
-    """The register tile's forward form (K1, K3 at k ≤ 16) through ``entry``
-    (``lead``: the arguments before the pointers), the m axis in
-    :func:`tile_splits` runs; the (n, k) output."""
-    (n, d), (m, k) = X1.shape, V2.shape
-    dev = V2.device
-    splits = tile_splits(n, m, k, sm_count(dev))
-    part = torch.empty((splits, n, k), dtype=torch.float32, device=dev) if splits > 1 else None
-    build()
-    out = torch.empty((n, k), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(_lib["handle"], entry)(
-            *lead, XT1.data_ptr(), XT2.data_ptr(), V2.data_ptr(), out.data_ptr(), _ptr(part),
-            n, m, XT1.shape[1], XT2.shape[1], d, XT1.shape[0], k, int(splits),
-            float(const_scaling), _stream(V2),
-        )
-    _raise_on(err, entry)
-    return out
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -526,24 +488,36 @@ def _wide(code, X1, X2, V2, XT1, XT2, const_scaling):
 
 
 @_counted
-def gram_matmat(kind, X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
-    """K1: ``c·k(X1, X2) @ V`` (n, k) on the card, exact f32 tier, the
-    squared-distance families. Up to 16 columns the register tile's forward
+def gram_matmat(kind, X1, X2, V, lengthscale, const_scaling=1.0, XT1=None, XT2=None):
+    """K1 (K3 for Laplace): ``c·k(X1, X2) @ V`` (n, k) on the card, exact
+    f32 tier, every family. Up to 16 columns the register tile's forward
     form (``csrc/gram_tile.cuh``), the m axis in :func:`tile_splits` runs
     summed in a fixed order (the same bits on every call); past 16 the
     3xTF32 tensor-core kernel (``csrc/gram_wide.cu``) on V's TF32 parts
-    (:func:`wide_rhs`). The points go in as :func:`tile_operand`:
-    ``operands()``, the pair for (X1, X2) built beforehand (an operator
-    keeps them), or None to build them here."""
+    (:func:`wide_rhs`), the contraction float32-accurate, as the JAX
+    kernels' "highest". The points go in as :func:`tile_operand`: ``XT1``
+    and ``XT2``, built beforehand (an operator keeps them), or None to
+    build them here."""
     code = _code(kind)
     _check_tensors((torch.float32,) * 3, X1, X2, V)
     V2, squeeze = _check_shapes(X1, X2, V)
-    XT1, XT2 = _tile_operands(X1, X2, lengthscale, V2.device, operands)
-    if V2.shape[1] <= SYMMETRIC_MAX_K:
-        out = _tile_forward("rl_gram_matmat_narrow", (code,), X1, X2, V2, XT1, XT2,
-                            const_scaling)
-    else:
+    XT1, XT2 = _kept_or_built(X1, X2, lengthscale, V2.device, XT1, XT2)
+    (n, d), (m, k) = X1.shape, V2.shape
+    if k > SYMMETRIC_MAX_K:
         out = _wide(code, X1, X2, V2, XT1, XT2, const_scaling)
+    else:
+        dev = V2.device
+        splits = tile_splits(n, m, k, sm_count(dev))
+        part = torch.empty((splits, n, k), dtype=torch.float32, device=dev) if splits > 1 else None
+        build()
+        out = torch.empty((n, k), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = _lib["handle"].rl_gram_matmat_narrow(
+                code, XT1.data_ptr(), XT2.data_ptr(), V2.data_ptr(), out.data_ptr(),
+                _ptr(part), n, m, XT1.shape[1], XT2.shape[1], d, XT1.shape[0], k, int(splits),
+                float(const_scaling), _stream(V2),
+            )
+        _raise_on(err, "rl_gram_matmat_narrow")
     gram_matmat.launches += 1
     return out[:, 0] if squeeze else out
 
@@ -617,8 +591,8 @@ def gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling=1.0):
     The float64 tile's forward form (``csrc/gram_comp.cu``) on
     :func:`comp_operand` of each point set: values and sums in float64 from
     the float32 points and the lengthscale at full precision, split into
-    the float32 pair once; the same bits on every call. The
-    squared-distance families (Laplace: :func:`laplace_matmat_comp`)."""
+    the float32 pair once; the same bits on every call. Every family (K3c
+    for Laplace)."""
     out = _comp_forward("rl_gram_matmat_comp", _code(kind), X1, X2, V, lengthscale,
                         const_scaling, torch.float32)
     gram_matmat_comp.launches += 1
@@ -630,11 +604,11 @@ def gram_matvec_symmetric_comp(kind, X, V, lengthscale, const_scaling=1.0):
     """The triangle form of K1c and K3c: ``c·k(X, X) @ V`` as ``(hi, lo)``
     (add ``lo`` last), each tile pair evaluated once in float64 and
     contracted both ways, any k, every family (Laplace included). The
-    function and contract of :func:`gram_matmat_comp` and
-    :func:`laplace_matmat_comp` on ``(X, X)``; the float64 sums go through
+    function and contract of :func:`gram_matmat_comp` on ``(X, X)``; the
+    float64 sums go through
     atomics, so their last bits (about 1e-16 relative) change from run to
     run."""
-    code = _code(kind, laplace=True)
+    code = _code(kind)
     _check_tensors((torch.float32,) * 2, X, V)
     V2, squeeze = _check_shapes(X, X, V)
     XT = comp_operand(X, lengthscale)
@@ -655,46 +629,44 @@ def gram_matvec_symmetric_comp(kind, X, V, lengthscale, const_scaling=1.0):
 
 
 @_counted
-def gram_matvec_symmetric(kind, X, V, lengthscale, const_scaling=1.0, operand=None):
-    """K2: ``c·k(X, X) @ V`` for at most 16 columns, the register tile's
-    triangle form (``csrc/gram_tile.cuh``): each pair of 128-point tiles
-    evaluated once and contracted both ways, the mirror added by float
-    atomics, so the last bits change from run to run. The points go in as
-    :func:`tile_operand`: ``operand``, built beforehand (an operator keeps
-    it), or None to build it here."""
+def gram_matvec_symmetric(kind, X, V, lengthscale, const_scaling=1.0, XT=None):
+    """K2 (K5 for Laplace): ``c·k(X, X) @ V`` for at most 16 columns, every
+    family, the register tile's triangle form (``csrc/gram_tile.cuh``):
+    each pair of 128-point tiles evaluated once and contracted both ways,
+    the mirror added by float atomics, so the last bits change from run to
+    run. The points go in as :func:`tile_operand`: ``XT``, built
+    beforehand (an operator keeps it), or None to build it here."""
     code = _code(kind)
-    return _triangle("rl_gram_matvec_symmetric", (code,), X, V, lengthscale, const_scaling,
-                     operand, gram_matvec_symmetric)
-
-
-def _triangle(entry, lead, X, V, lengthscale, const_scaling, operand, wrapper):
-    """The register tile's triangle form (K2, K5) through ``entry``; counted
-    on ``wrapper``."""
     _check_tensors((torch.float32,) * 2, X, V)
     V2, squeeze = _check_shapes(X, X, V)
     n, d = X.shape
     k = V2.shape[1]
     if k > SYMMETRIC_MAX_K:
         raise ValueError(f"the triangle kernel takes k <= 16 columns (got {k})")
-    if operand is None:
-        XT = tile_operand(X, lengthscale)
-    else:
-        XT = operand
-        _check_tile_operand(XT, X, V2.device)
+    XT, _ = _kept_or_built(X, X, lengthscale, V2.device, XT, None)
     build()
     out = torch.empty((n, k), dtype=torch.float32, device=V2.device)
     with torch.cuda.device(V2.device):
-        err = getattr(_lib["handle"], entry)(
-            *lead, XT.data_ptr(), V2.data_ptr(), out.data_ptr(), n, XT.shape[1], d, XT.shape[0],
-            k, float(const_scaling), _stream(V2),
+        err = _lib["handle"].rl_gram_matvec_symmetric(
+            code, XT.data_ptr(), V2.data_ptr(), out.data_ptr(), n, XT.shape[1], d,
+            XT.shape[0], k, float(const_scaling), _stream(V2),
         )
-    _raise_on(err, entry)
-    wrapper.launches += 1
+    _raise_on(err, "rl_gram_matvec_symmetric")
+    gram_matvec_symmetric.launches += 1
     return out[:, 0] if squeeze else out
 
 
 def _check_tier(kind, *operands: TierOperand):
+    """The family code of a tier product on ``operands``: the squared-distance
+    families only, since the Laplace family has no bf16 tier (nor has the
+    JAX package's Laplace kernel a ``compute_dtype``)."""
     code = _code(kind)
+    if kind == "laplace":
+        raise NotImplementedError(
+            "the bf16 tiers sum squared distances: the Laplace family has no tier; "
+            "its exact kernels take kind='laplace' (gram_matmat, gram_matvec_symmetric, "
+            "gram_pair, gram_matmat_comp) as the float64 ones do"
+        )
     tensors, dtypes = [], []
     for A in operands:
         parts = (A.hi,) if A.lo is None else (A.hi, A.lo)
@@ -841,7 +813,7 @@ def gram_matmat_f64(kind, X1, X2, V, lengthscale, const_scaling=1.0):
     lengthscale (scalar or ARD) and float64 V; float64 out. All five
     families. The float64 tile's forward form, as :func:`gram_matmat_comp`
     with float64 V: the same bits on every call."""
-    out = _comp_forward("rl_gram_matmat_f64", _code(kind, laplace=True), X1, X2, V, lengthscale,
+    out = _comp_forward("rl_gram_matmat_f64", _code(kind), X1, X2, V, lengthscale,
                         const_scaling, torch.float64)
     gram_matmat_f64.launches += 1
     return out
@@ -856,7 +828,7 @@ def gram_matvec_symmetric_f64(kind, X, V, lengthscale, const_scaling=1.0):
     pair evaluated once and contracted both ways; its float64 sums go
     through atomics, so their last bits (about 1e-16 relative) change from
     run to run."""
-    code = _code(kind, laplace=True)
+    code = _code(kind)
     _check_tensors((torch.float32, torch.float64), X, V)
     V2, squeeze = _check_shapes(X, X, V)
     XT = comp_operand(X, lengthscale)
@@ -873,69 +845,6 @@ def gram_matvec_symmetric_f64(kind, X, V, lengthscale, const_scaling=1.0):
     return out[:, 0] if squeeze else out
 
 
-@_counted
-def laplace_matmat(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
-    """K3: ``c·exp(−‖x − y‖₁/ℓ) @ V`` (n, k) on the card, float32. Up to 16
-    columns :func:`laplace_matmat_narrow` (the Hopper tile, counted there);
-    past 16 K1's 3xTF32 kernel (``csrc/gram_wide.cu``) with the L1 step,
-    counted here: the contraction float32-accurate, as the JAX kernel's
-    "highest". The points go in as :func:`tile_operand`: ``operands()``,
-    the pair for (X1, X2) built beforehand (a callable: an operator keeps
-    its points' operand and builds it on first use), or None to build them
-    here."""
-    if (1 if V.ndim == 1 else V.shape[1]) <= SYMMETRIC_MAX_K:
-        return laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling,
-                                     None if operands is None else operands())
-    _check_tensors((torch.float32,) * 3, X1, X2, V)
-    V2, _ = _check_shapes(X1, X2, V)
-    XT1, XT2 = _tile_operands(X1, X2, lengthscale, V2.device, operands)
-    out = _wide(_code("laplace", laplace=True), X1, X2, V2, XT1, XT2, const_scaling)
-    laplace_matmat.launches += 1
-    return out
-
-
-@_counted
-def laplace_matmat_narrow(X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
-    """K3 at k ≤ 16: the register tile's forward form
-    (``csrc/gram_tile.cuh``), tiles of 128 x 128 points, an 8 x 8 register
-    tile a thread, the m axis in :func:`tile_splits` runs summed in a fixed
-    order (the same bits on every call). The points go in as
-    :func:`tile_operand`: ``operands``, the pair for (X1, X2) built
-    beforehand, or None to build them here."""
-    _check_tensors((torch.float32,) * 3, X1, X2, V)
-    V2, squeeze = _check_shapes(X1, X2, V)
-    k = V2.shape[1]
-    if k > SYMMETRIC_MAX_K:
-        raise ValueError(f"laplace_matmat_narrow takes k <= 16 columns (got {k})")
-    XT1, XT2 = _tile_operands(X1, X2, lengthscale, V2.device,
-                              None if operands is None else (lambda: operands))
-    out = _tile_forward("rl_laplace_matmat_narrow", (), X1, X2, V2, XT1, XT2, const_scaling)
-    laplace_matmat_narrow.launches += 1
-    return out[:, 0] if squeeze else out
-
-
-@_counted
-def laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling=1.0):
-    """K3c: the Laplace product as ``(hi, lo)`` (add ``lo`` last), K1c's
-    contract and kernel (:func:`gram_matmat_comp`) with Laplace's code."""
-    out = _comp_forward("rl_gram_matmat_comp", _code("laplace", laplace=True), X1, X2, V,
-                        lengthscale, const_scaling, torch.float32)
-    laplace_matmat_comp.launches += 1
-    return out
-
-
-@_counted
-def laplace_matvec_symmetric(X, V, lengthscale, const_scaling=1.0, operand=None):
-    """K5: the Laplace ``c·k(X, X) @ V`` for at most 16 columns, the
-    register tile's triangle form (``csrc/gram_tile.cuh``), as K2: each pair
-    of 128-point tiles evaluated once and contracted both ways, the mirror
-    added by float atomics, so the last bits change from run to run. The
-    points go in as :func:`tile_operand`: ``operand``, built beforehand (an
-    operator keeps it), or None to build it here."""
-    return _triangle("rl_laplace_matvec_symmetric", (), X, V, lengthscale, const_scaling,
-                     operand, laplace_matvec_symmetric)
-
-
 def _check_pair(X1, X2, V2, V1, max_k=SYMMETRIC_MAX_K):
     """V2 (n2, k) and V1 (n1, k) as contiguous 2-D tensors with k <=
     ``max_k`` (None: any k), and whether they were 1-D."""
@@ -948,18 +857,23 @@ def _check_pair(X1, X2, V2, V1, max_k=SYMMETRIC_MAX_K):
     return V2c, V1c, squeeze
 
 
-def _tile_pair(code, X1, X2, V2, V1, lengthscale, const_scaling, operands):
-    """K4 or K6: the register tile's pair form (``csrc/gram_pair.cu``,
-    ``rl_tile_pair``) for the family ``code`` on the tile's operands of (X1,
-    X2) (``operands()``, or built here when None), the column tiles of X2 in
-    :func:`tile_splits` runs: the forward form's rule suits the pair, whose
-    blocks are the forward form's with the mirror added (E2's 12,500-point
-    shards: 98 x 98 tiles in 10 runs, 980 blocks on the H100's 264 slots);
-    ``(out1, out2)``."""
+@_counted
+def gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0, XT1=None, XT2=None):
+    """K4 (K6 for Laplace): ``(c·K @ V2, c·Kᵀ @ V1)`` with K = k(X1, X2)
+    evaluated once, exact f32 tier, k ≤ 16, every family. The register
+    tile's pair form (``csrc/gram_pair.cu``, ``rl_tile_pair``), the column
+    tiles of X2 in :func:`tile_splits` runs: the forward form's rule suits
+    the pair, whose blocks are the forward form's with the mirror added
+    (E2's 12,500-point shards: 98 x 98 tiles in 10 runs, 980 blocks on the
+    H100's 264 slots); float atomics, so the last bits change from run to
+    run. The points go in as :func:`tile_operand`: ``XT1`` and ``XT2``,
+    built beforehand (the half-ring keeps each shard's), or None to build
+    them here."""
+    code = _code(kind)
     _check_tensors((torch.float32,) * 4, X1, X2, V2, V1)
     V2c, V1c, squeeze = _check_pair(X1, X2, V2, V1)
     dev = V2c.device
-    XT1, XT2 = _tile_operands(X1, X2, lengthscale, dev, operands)
+    XT1, XT2 = _kept_or_built(X1, X2, lengthscale, dev, XT1, XT2)
     (n1, d), (n2, k) = X1.shape, V2c.shape
     tiles = -(-n2 // TILE_POINTS)
     run = -(-tiles // tile_splits(n1, n2, k, sm_count(dev)))  # column tiles a block
@@ -973,20 +887,8 @@ def _tile_pair(code, X1, X2, V2, V1, lengthscale, const_scaling, operands):
             XT1.shape[0], k, int(run), float(const_scaling), _stream(V2c),
         )
     _raise_on(err, "rl_tile_pair")
-    return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
-
-
-@_counted
-def gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling=1.0, operands=None):
-    """K4: ``(c·K @ V2, c·Kᵀ @ V1)`` with K = k(X1, X2) evaluated once, exact
-    f32 tier, k ≤ 16; the squared-distance families. The register tile's
-    pair form: float atomics, so the last bits change from run to run. The
-    points go in as :func:`tile_operand`: ``operands()``, the pair for (X1,
-    X2) built beforehand (the half-ring keeps each shard's), or None to
-    build them here."""
-    out = _tile_pair(_code(kind), X1, X2, V2, V1, lengthscale, const_scaling, operands)
     gram_pair.launches += 1
-    return out
+    return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
 
 
 @_counted
@@ -1018,24 +920,13 @@ def gram_pair_tier(kind, A: TierOperand, B: TierOperand, V2, V1, const_scaling=1
     return (out1[:, 0], out2[:, 0]) if squeeze else (out1, out2)
 
 
-@_counted
-def laplace_pair(X1, X2, V2, V1, lengthscale, const_scaling=1.0, operands=None):
-    """K6: the Laplace ``(c·K @ V2, c·Kᵀ @ V1)``, one L1/exp tile for both
-    products, k ≤ 16: :func:`gram_pair`'s kernel and operands with
-    Laplace's code."""
-    out = _tile_pair(_code("laplace", laplace=True), X1, X2, V2, V1, lengthscale,
-                     const_scaling, operands)
-    laplace_pair.launches += 1
-    return out
-
-
 def _comp_pair(entry, kind, X1, X2, V2, V1, lengthscale, const_scaling, vtype):
     """The float64 tile's pair form through ``entry``: ``(c·K @ V2, c·Kᵀ @
     V1)`` with K = k(X1, X2), each value evaluated once in float64, any k
     (1, 2 or 4 right-hand sides a slice), X2's tiles in :func:`comp_run`
     runs; both outputs float64, views of one (n1 + n2, k) array. Float64
     atomics: the last bits change from run to run."""
-    code = _code(kind, laplace=True)
+    code = _code(kind)
     _check_tensors((torch.float32, torch.float32, vtype, vtype), X1, X2, V2, V1)
     V2c, V1c, squeeze = _check_pair(X1, X2, V2, V1, max_k=None)
     XT1, XT2 = _comp_operands(X1, X2, lengthscale)
@@ -1286,13 +1177,8 @@ _WRAPPERS = (
     gram_matvec_symmetric_tier,
     gram_matmat_f64,
     gram_matvec_symmetric_f64,
-    laplace_matmat,
-    laplace_matmat_narrow,
-    laplace_matmat_comp,
-    laplace_matvec_symmetric,
     gram_pair,
     gram_pair_tier,
-    laplace_pair,
     gram_pair_comp,
     gram_pair_f64,
     csr_spmv,

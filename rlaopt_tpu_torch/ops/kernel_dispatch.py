@@ -1,4 +1,4 @@
-"""Routing of the streaming kernel matmat to a kernel or its plain version.
+"""Routing of the streaming kernel products to a kernel or its plain version.
 
 Port of ``rlaopt_tpu/ops/kernel_dispatch.py``. The rule (``impl="auto"``)
 is the tensor's device and nothing else: CPU tensors go to the plain
@@ -9,37 +9,39 @@ version. The caller may ask otherwise, as in the JAX package: ``impl="xla"``
 takes the plain version on any device, ``impl="pallas"`` the CUDA kernel
 (and raises on a CPU tensor); any other value raises ``ValueError``.
 
-Which kernel, on a card:
+The operators hand their points to the kernels as :class:`PointSet`: the
+points, their bf16 tier parts (made with the set, by :func:`point_set`) and
+the register tile's operand (built by the first exact-tier product on a
+card that takes it, then kept). Which kernel, on a card:
 
-* exact tier (:func:`kernel_matmat` without ``compute_dtype``; with a
-  bf16 tier it takes :func:`kernel_matmat_tier` on parts made for the
-  call): the triangle kernel K2 when the
-  operator was built on one data set (``symmetric``) and ``k ≤ 16``, the
-  general kernel K1 otherwise; for the Laplace family K5 and K3 by the same
-  rule (the JAX package's gate without its VMEM window). K1 and K3 take the
-  Hopper register tile up to 16 columns, past that the 3xTF32 tensor-core
-  kernel; K2 and K5 are the tile's triangle form; all on the operand of the
-  points an operator keeps;
+* products (:func:`kernel_matmat_points`): on a bf16 tier K2b when the
+  operator was built on one data set (``symmetric``) and ``k ≤ 16``, K1b
+  otherwise; on the exact tier, every family, the triangle K2 by the same
+  rule (the JAX package's gate without its VMEM window), the general K1
+  otherwise: the Hopper register tile up to 16 columns, past that the
+  3xTF32 tensor-core kernel. Laplace is the family code of the same
+  kernels (K5, K3);
+* pairs (:func:`kernel_pair_points`): ``(c·K @ V2, c·Kᵀ @ V1)`` with K
+  evaluated once, through K4b on a tier and the tile's pair form K4 (K6 for
+  Laplace) on the exact tier when k ≤ 16, and through two general products
+  past that, as the JAX package's ``kernel_pair`` does;
 * compensated (:func:`kernel_matmat_compensated`): the float64 tile's
   triangle form of K1c and K3c when symmetric (any k, every family), its
   forward form (K1c, K3c for Laplace) otherwise;
-* bf16 tiers (:func:`kernel_matmat_tier`): the same rule between K2b and
-  K1b, on the tier parts of :mod:`rlaopt_tpu_torch.ops.kernel_tiers` that
-  the operator keeps;
 * float64 (:func:`kernel_matmat_f64`): K7 when symmetric, K8 otherwise;
 * certified pairs (:func:`kernel_pair_compensated`, :func:`kernel_pair_f64`):
   ``(c·K @ V2, c·Kᵀ @ V1)`` in float64 sums, K evaluated once in float64
   (the float64 tile's pair form, any k, every family), for the sharded
-  half-ring's certified routes;
-* pairs (:func:`kernel_pair`, :func:`kernel_pair_tier`): ``(c·K @ V2,
-  c·Kᵀ @ V1)`` with K evaluated once, through K4 (K6 for Laplace: the
-  tile's pair form; K4b on the tiers) when k ≤ 16, and through two general
-  calls past that, as the JAX package's ``kernel_pair`` does; both on the
-  operands of the two point sets the half-ring keeps.
+  half-ring's certified routes.
 
-On the CPU, float64 points take the float64 plain product, as the JAX
-package's XLA route takes the exact path for them.
+:func:`kernel_matmat` and :func:`kernel_pair` take the JAX package's
+parameters in its order and route through the same two functions on point
+sets made for the call. On the CPU, float64 points take the float64 plain
+product, as the JAX package's XLA route takes the exact path for them.
 """
+
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -50,12 +52,14 @@ from ..kernels.functions import scale_inputs
 
 __all__ = [
     "check_impl",
+    "PointSet",
+    "point_set",
+    "kernel_matmat_points",
+    "kernel_pair_points",
     "kernel_matmat",
-    "kernel_matmat_tier",
     "kernel_matmat_compensated",
     "kernel_matmat_f64",
     "kernel_pair",
-    "kernel_pair_tier",
     "kernel_pair_compensated",
     "kernel_pair_f64",
 ]
@@ -82,17 +86,121 @@ def _on_card(impl: str, t: torch.Tensor) -> bool:
     return impl == "pallas"
 
 
-def _tier_operands(kind, X1, X2, lengthscale, compute_dtype, symmetric):
-    """The tier parts of (X1, X2) for ``compute_dtype``, made for one call,
-    or None where the call stays on the exact tier: no tier asked for, the
-    Laplace family (no tier, as in the JAX package, whose Laplace kernel
-    takes no ``compute_dtype``) or float64 points (the exact path, as the
-    JAX package's XLA route and the operators take them)."""
+@dataclass
+class PointSet:
+    """One set of points in the formats the kernels take.
+
+    X: (n, d) the points. tier: their bf16 tier parts
+    (:class:`~rlaopt_tpu_torch.ops.kernel_tiers.TierOperand`) on a bf16
+    tier, else None. tile: the register tile's operand
+    (:func:`kernel_cuda.tile_operand`), None until the first exact-tier
+    product on a card that takes it builds it; kept from then on. Every
+    field is a tensor, a dataclass of tensors or None, so that
+    :mod:`rlaopt_tpu_torch.parallel.mesh` moves a set and carries it across
+    processes as it is.
+    """
+
+    X: torch.Tensor
+    tier: Optional[TierOperand] = None
+    tile: Optional[torch.Tensor] = None
+
+    def rows(self, idx) -> "PointSet":
+        """The points ``idx``: their tier parts gathered from these, not a
+        new split; their tile operand built when a kernel takes it."""
+        return PointSet(self.X[idx], None if self.tier is None else self.tier.rows(idx))
+
+
+def point_set(X: torch.Tensor, lengthscale, kind: str, compute_dtype=None) -> PointSet:
+    """The point set of ``X`` for ``kind`` at ``compute_dtype`` (None,
+    ``"bf16x3"``, ``"bfloat16"``): with tier parts of ``X / ℓ`` made here on
+    a bf16 tier, except for the Laplace family (no tier, as in the JAX
+    package, whose Laplace kernel takes no ``compute_dtype``) and float64
+    points (the exact path, as the JAX package's XLA route takes them)."""
     cd = normalize_compute_dtype(compute_dtype)
-    if cd is None or kind == "laplace" or X1.dtype != torch.float32:
-        return None
-    A = tier_operand(scale_inputs(X1, lengthscale), cd)
-    return A, (A if symmetric else tier_operand(scale_inputs(X2, lengthscale), cd))
+    if cd is None or kind == "laplace" or X.dtype != torch.float32:
+        return PointSet(X)
+    return PointSet(X, tier_operand(scale_inputs(X, lengthscale), cd))
+
+
+def _tile(P: PointSet, lengthscale) -> Optional[torch.Tensor]:
+    """The register tile's operand of float32 points, built on first use
+    and kept on ``P``; None for other points (which the kernels refuse)."""
+    if P.tile is None and P.X.dtype == torch.float32:
+        P.tile = kernel_cuda.tile_operand(P.X, lengthscale)
+    return P.tile
+
+
+def kernel_matmat_points(
+    kind: str,
+    L: PointSet,
+    R: PointSet,
+    V: torch.Tensor,
+    lengthscale,
+    const_scaling=1.0,
+    symmetric: bool = False,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """``c·k(L, R) @ V`` on the device of the points, on L's tier.
+    ``symmetric=True`` asserts that L and R are one data set: K2b or K2
+    (K5) for k ≤ 16, on the plain version of the tier or the general plain
+    product on the CPU; K1b or K1 (K3) otherwise."""
+    k = 1 if V.ndim == 1 else V.shape[1]
+    triangle = (symmetric and L.X.shape[0] == R.X.shape[0]
+                and k <= kernel_cuda.SYMMETRIC_MAX_K)
+    card = _on_card(impl, L.X)
+    if L.tier is not None:
+        ops = kernel_cuda if card else kernel_plain
+        if triangle:
+            return ops.gram_matvec_symmetric_tier(kind, L.tier, V, const_scaling)
+        return ops.gram_matmat_tier(kind, L.tier, R.tier, V, const_scaling)
+    if not card:
+        if L.X.dtype == torch.float64:
+            return kernel_plain.gram_matmat_f64(kind, L.X, R.X, V, lengthscale, const_scaling)
+        return kernel_plain.gram_matmat(kind, L.X, R.X, V, lengthscale, const_scaling)
+    if triangle:
+        return kernel_cuda.gram_matvec_symmetric(kind, L.X, V, lengthscale, const_scaling,
+                                                 _tile(L, lengthscale))
+    return kernel_cuda.gram_matmat(kind, L.X, R.X, V, lengthscale, const_scaling,
+                                   _tile(L, lengthscale), _tile(R, lengthscale))
+
+
+def kernel_pair_points(
+    kind: str,
+    L: PointSet,
+    R: PointSet,
+    V2: torch.Tensor,
+    V1: torch.Tensor,
+    lengthscale,
+    const_scaling=1.0,
+    impl: str = "auto",
+):
+    """``(c·K @ V2, c·Kᵀ @ V1)`` with ``K = k(L, R)``, on the device of the
+    points, on L's tier: K evaluated once for k ≤ 16 (K4b, or K4 and K6 on
+    the tile's operands of both sets, on a card; the plain pairs on the
+    CPU), two general products past that. 1-D operands give 1-D outputs.
+    The building block of the symmetric half-ring of
+    :class:`rlaopt_tpu_torch.kernels.sharded.ShardedKernelLinOp`."""
+    k = 1 if V2.ndim == 1 else V2.shape[1]
+    if k > kernel_cuda.SYMMETRIC_MAX_K:
+        return (
+            kernel_matmat_points(kind, L, R, V2, lengthscale, const_scaling, impl=impl),
+            kernel_matmat_points(kind, R, L, V1, lengthscale, const_scaling, impl=impl),
+        )
+    card = _on_card(impl, L.X)
+    if L.tier is not None:
+        ops = kernel_cuda if card else kernel_plain
+        return ops.gram_pair_tier(kind, L.tier, R.tier, V2, V1, const_scaling)
+    if not card:
+        return kernel_plain.gram_pair(kind, L.X, R.X, V2, V1, lengthscale, const_scaling)
+    return kernel_cuda.gram_pair(kind, L.X, R.X, V2, V1, lengthscale, const_scaling,
+                                 _tile(L, lengthscale), _tile(R, lengthscale))
+
+
+def _point_sets(kind, X1, X2, lengthscale, compute_dtype, symmetric):
+    """Point sets of (X1, X2) made for one call; one set when they are one
+    data set."""
+    L = point_set(X1, lengthscale, kind, compute_dtype)
+    return L, L if symmetric or X2 is X1 else point_set(X2, lengthscale, kind, compute_dtype)
 
 
 def kernel_matmat(
@@ -105,66 +213,15 @@ def kernel_matmat(
     impl: str = "auto",
     compute_dtype=None,
     symmetric: bool = False,
-    *,
-    tile_operands=None,
 ) -> torch.Tensor:
     """``c·k(X1, X2) @ V`` on the device of the operands, with the JAX
-    package's parameters in its order.
-
+    package's parameters in its order: :func:`kernel_matmat_points` on
+    point sets made for this call (an operator keeps its own).
     ``compute_dtype``: None (the exact tier), ``"bf16x3"`` or
-    ``"bfloat16"``: a tier takes :func:`kernel_matmat_tier` on the tier
-    parts of X1 and X2, made for this call (an operator keeps its own).
-    ``symmetric=True`` asserts that X1 and X2 are the same data set (the
-    operator checks object identity when it is built). ``tile_operands``,
-    the port's own: None, or a callable giving the register tile its
-    operands of (X1, X2) (:func:`kernel_cuda.tile_operand`), called only
-    when a kernel on them runs (the triangle form takes the first).
-    """
-    tiers = _tier_operands(kind, X1, X2, lengthscale, compute_dtype, symmetric)
-    if tiers is not None:
-        return kernel_matmat_tier(kind, *tiers, V, const_scaling, symmetric, impl)
-    if not _on_card(impl, X1):
-        if X1.dtype == torch.float64:
-            return kernel_plain.gram_matmat_f64(
-                kind, X1, X2, V, lengthscale, const_scaling
-            )
-        return kernel_plain.gram_matmat(kind, X1, X2, V, lengthscale, const_scaling)
-    k = 1 if V.ndim == 1 else V.shape[1]
-    laplace = kind == "laplace"
-    if symmetric and X1.shape[0] == X2.shape[0] and k <= kernel_cuda.SYMMETRIC_MAX_K:
-        operand = None if tile_operands is None else tile_operands()[0]
-        if laplace:
-            return kernel_cuda.laplace_matvec_symmetric(X1, V, lengthscale, const_scaling,
-                                                        operand)
-        return kernel_cuda.gram_matvec_symmetric(kind, X1, V, lengthscale, const_scaling,
-                                                 operand)
-    if laplace:
-        return kernel_cuda.laplace_matmat(X1, X2, V, lengthscale, const_scaling,
-                                          tile_operands)
-    return kernel_cuda.gram_matmat(kind, X1, X2, V, lengthscale, const_scaling, tile_operands)
-
-
-def kernel_matmat_tier(
-    kind: str,
-    A: TierOperand,
-    B: TierOperand,
-    V: torch.Tensor,
-    const_scaling=1.0,
-    symmetric: bool = False,
-    impl: str = "auto",
-) -> torch.Tensor:
-    """``c·k(X1, X2) @ V`` on a bf16 tier from the parts of X1 (A) and X2
-    (B), on their device: K2b when ``symmetric`` and k ≤ 16, K1b otherwise,
-    the plain versions of the tier on the CPU."""
-    k = 1 if V.ndim == 1 else V.shape[1]
-    triangle = symmetric and k <= kernel_cuda.SYMMETRIC_MAX_K
-    if not _on_card(impl, A.hi):
-        if triangle:
-            return kernel_plain.gram_matvec_symmetric_tier(kind, A, V, const_scaling)
-        return kernel_plain.gram_matmat_tier(kind, A, B, V, const_scaling)
-    if triangle:
-        return kernel_cuda.gram_matvec_symmetric_tier(kind, A, V, const_scaling)
-    return kernel_cuda.gram_matmat_tier(kind, A, B, V, const_scaling)
+    ``"bfloat16"``. ``symmetric=True`` asserts that X1 and X2 are the same
+    data set (the operator checks object identity when it is built)."""
+    L, R = _point_sets(kind, X1, X2, lengthscale, compute_dtype, symmetric)
+    return kernel_matmat_points(kind, L, R, V, lengthscale, const_scaling, symmetric, impl)
 
 
 def kernel_matmat_compensated(
@@ -181,16 +238,14 @@ def kernel_matmat_compensated(
     last), on the device of the operands. ``symmetric=True`` asserts that
     X1 and X2 are one data set: on a card the triangle form of K1c and K3c
     evaluates each tile pair once, in every family (the same function; its
-    plain version is the general one). Two data sets take the general K1c,
-    or K3c for Laplace."""
+    plain version is the general one). Two data sets take the forward form
+    (K1c, K3c for Laplace)."""
     if not _on_card(impl, X1):
         return kernel_plain.gram_matmat_comp(
             kind, X1, X2, V, lengthscale, const_scaling
         )
     if symmetric and X1.shape[0] == X2.shape[0]:
         return kernel_cuda.gram_matvec_symmetric_comp(kind, X1, V, lengthscale, const_scaling)
-    if kind == "laplace":
-        return kernel_cuda.laplace_matmat_comp(X1, X2, V, lengthscale, const_scaling)
     return kernel_cuda.gram_matmat_comp(kind, X1, X2, V, lengthscale, const_scaling)
 
 
@@ -227,63 +282,12 @@ def kernel_pair(
     const_scaling=1.0,
     impl: str = "auto",
     compute_dtype=None,
-    *,
-    tile_operands=None,
 ):
     """``(c·K @ V2, c·Kᵀ @ V1)`` with ``K = k(X1, X2)``, on the device of the
-    operands, with the JAX package's parameters in its order: K evaluated
-    once for k ≤ 16 (K4, or K6 for Laplace, on a card; the plain pair on
-    the CPU), two general calls past that. 1-D operands give 1-D outputs.
-    The building block of the symmetric half-ring of
-    :class:`rlaopt_tpu_torch.kernels.sharded.ShardedKernelLinOp`.
-    ``compute_dtype``: a bf16 tier takes :func:`kernel_pair_tier` on tier
-    parts made for this call, as in :func:`kernel_matmat`.
-    ``tile_operands``, the port's own: None, or a callable giving the
-    register tile's operands of (X1, X2), as for :func:`kernel_matmat`; the
-    pair kernel and both general calls (the second with the two swapped)
-    take them."""
-    tiers = _tier_operands(kind, X1, X2, lengthscale, compute_dtype, False)
-    if tiers is not None:
-        return kernel_pair_tier(kind, *tiers, V2, V1, const_scaling, impl)
-    k = 1 if V2.ndim == 1 else V2.shape[1]
-    if k > kernel_cuda.SYMMETRIC_MAX_K:
-        swapped = None if tile_operands is None else (lambda: tile_operands()[::-1])
-        return (
-            kernel_matmat(kind, X1, X2, V2, lengthscale, const_scaling, impl=impl,
-                          tile_operands=tile_operands),
-            kernel_matmat(kind, X2, X1, V1, lengthscale, const_scaling, impl=impl,
-                          tile_operands=swapped),
-        )
-    if not _on_card(impl, X1):
-        return kernel_plain.gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling)
-    if kind == "laplace":
-        return kernel_cuda.laplace_pair(X1, X2, V2, V1, lengthscale, const_scaling,
-                                        tile_operands)
-    return kernel_cuda.gram_pair(kind, X1, X2, V2, V1, lengthscale, const_scaling,
-                                 tile_operands)
-
-
-def kernel_pair_tier(
-    kind: str,
-    A: TierOperand,
-    B: TierOperand,
-    V2: torch.Tensor,
-    V1: torch.Tensor,
-    const_scaling=1.0,
-    impl: str = "auto",
-):
-    """:func:`kernel_pair` on a bf16 tier from the parts of X1 (A) and X2 (B):
-    K4b for k ≤ 16 on a card (the plain tier pair on the CPU), two K1b calls
-    past that."""
-    k = 1 if V2.ndim == 1 else V2.shape[1]
-    if k > kernel_cuda.SYMMETRIC_MAX_K:
-        return (
-            kernel_matmat_tier(kind, A, B, V2, const_scaling, impl=impl),
-            kernel_matmat_tier(kind, B, A, V1, const_scaling, impl=impl),
-        )
-    if not _on_card(impl, A.hi):
-        return kernel_plain.gram_pair_tier(kind, A, B, V2, V1, const_scaling)
-    return kernel_cuda.gram_pair_tier(kind, A, B, V2, V1, const_scaling)
+    operands, with the JAX package's parameters in its order:
+    :func:`kernel_pair_points` on point sets made for this call."""
+    L, R = _point_sets(kind, X1, X2, lengthscale, compute_dtype, False)
+    return kernel_pair_points(kind, L, R, V2, V1, lengthscale, const_scaling, impl)
 
 
 def kernel_pair_compensated(

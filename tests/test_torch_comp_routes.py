@@ -226,10 +226,9 @@ def test_forward_reaches_its_entry(entries, kind, k, n, m, d, ard, vtype):
         got = wrapper(kind, X1, X2, V, ls, 0.8)
         assert got.dtype == torch.float64
     else:
-        wrapper = kernel_cuda.laplace_matmat_comp if kind == "laplace" else kernel_cuda.gram_matmat_comp
+        wrapper = kernel_cuda.gram_matmat_comp
         before = wrapper.launches
-        args = (X1, X2, V, ls, 0.8)
-        hi, lo = wrapper(*args) if kind == "laplace" else wrapper(kind, *args)
+        hi, lo = wrapper(kind, X1, X2, V, ls, 0.8)
         assert hi.dtype == lo.dtype == torch.float32
         got = hi.double() + lo.double()
     assert wrapper.launches == before + 1

@@ -13,6 +13,7 @@ import torch
 from rlaopt_tpu_torch import interop
 from rlaopt_tpu_torch.models import LstSq
 from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
 from rlaopt_tpu_torch.preconditioners import SkPreConfig
 from rlaopt_tpu_torch.solvers import LSQRConfig
 from rlaopt_tpu_torch.sparse import SparseCSRTensor
@@ -112,9 +113,7 @@ def test_cuda_launch_counts_and_refusals(cuda_device):
         "gram_matvec_symmetric": 0,
         "gram_matmat_tier": 0, "gram_matvec_symmetric_tier": 0,
         "gram_matmat_f64": 0, "gram_matvec_symmetric_f64": 0,
-        "laplace_matmat": 0, "laplace_matmat_narrow": 0, "laplace_matmat_comp": 0,
-        "laplace_matvec_symmetric": 0,
-        "gram_pair": 0, "gram_pair_tier": 0, "laplace_pair": 0,
+        "gram_pair": 0, "gram_pair_tier": 0,
         "gram_pair_comp": 0, "gram_pair_f64": 0,
         "csr_spmv": 0, "csr_spmm": 0,
     }
@@ -122,9 +121,11 @@ def test_cuda_launch_counts_and_refusals(cuda_device):
         kernel_cuda.gram_matvec_symmetric("rbf", X, V, 1.0)
     with pytest.raises(NotImplementedError, match="takes torch.float32"):
         kernel_cuda.gram_matmat("rbf", X.double(), X.double(), V.double(), 1.0)
-    with pytest.raises(NotImplementedError, match="_laplace_matmat"):
-        kernel_cuda.gram_matmat("laplace", X, X, V, 1.0)
+    parts = tier_operand(X, "bf16x3")
+    with pytest.raises(NotImplementedError, match="Laplace family has no tier"):
+        kernel_cuda.gram_matmat_tier("laplace", parts, parts, V, 1.0)
     assert kernel_cuda.launch_counts()["gram_matvec_symmetric"] == 0
+    assert kernel_cuda.launch_counts()["gram_matmat_tier"] == 0
 
 
 @pytest.mark.cuda
@@ -141,8 +142,6 @@ def test_cuda_tiers_match_their_plain_versions(cuda_device, cd, kind, k):
     the square root of a cancelled float sum (measured 7.8e-5 on an H100),
     so the whole product is held to 1e-3, and the rows whose own row of V
     is zero, which hold no diagonal value, to the regular bound."""
-    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
-
     X1, X2, V = _data(11, 700, 530, 28, k)
     X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
     A, B = tier_operand(X1 / 5.3, cd), tier_operand(X2 / 5.3, cd)
@@ -183,8 +182,6 @@ def test_cuda_k1b_ragged_every_width(cuda_device, cd, kind, k, monkeypatch):
     (the partials summed by a second launch), and the wide kernel at 64 and
     128 columns a block with a ragged last block. Bounds as in
     :func:`test_cuda_tiers_match_their_plain_versions`."""
-    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
-
     X1, X2, V = _data(31, 333, 1201, 28, k)
     X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
     A, B = tier_operand(X1 / 5.3, cd), tier_operand(X2 / 5.3, cd)
@@ -219,8 +216,6 @@ def test_cuda_k1b_warpgroup_route(cuda_device, cd, kind, k, d):
     version of its tier (1e-5) and the float64 product (``K1B_F64_BOUND``),
     on random V of both signs; two calls give the same bits, and the
     route's counter moved once a call."""
-    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
-
     X1, X2, V = _data(41 + d, 333, 1201, d, k)
     X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
     A, B = tier_operand(X1 / d**0.5, cd), tier_operand(X2 / d**0.5, cd)
@@ -244,8 +239,6 @@ def test_cuda_k1b_warpgroup_runs_past_long_tiles(cuda_device, cd):
     walks the m axis in runs of at most ``TIER_RUN_TILES`` tiles, whose
     partials ``sum_splits`` adds in a fixed order: against the plain
     version and float64 as above, the same bits twice."""
-    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
-
     n, m, d, k = 200, kernel_cuda.TIER_LONG_TILES * 64 + 1_000, 28, 3
     X1, X2, V = _data(43, n, m, d, k)
     X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
@@ -273,8 +266,6 @@ def test_cuda_k1b_strip_past_depth_128(cuda_device, cd, kind, k, monkeypatch):
     form: on ragged n and m, with one run of the m axis and with three,
     against the plain version of its tier (1e-5) and the float64 product
     (``K1B_F64_BOUND``); the strip's counter moved once a call."""
-    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
-
     d = 150
     X1, X2, V = _data(47 + k, 333, 1201, d, k)
     X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
@@ -404,12 +395,12 @@ def test_cuda_laplace_matches_plain(cuda_device, k, monkeypatch):
     ard = torch.linspace(6.0, 10.0, 50, device=cuda_device)
     for ls in (8.0, ard):
         ref = kernel_plain.gram_matmat_f64("laplace", X1, X2, V, ls, 0.9)
-        got = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9)
+        got = kernel_cuda.gram_matmat("laplace", X1, X2, V, ls, 0.9)
         with monkeypatch.context() as mp:
             mp.setattr(kernel_cuda, "tile_splits", lambda *a: 1)
-            one = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9)
+            one = kernel_cuda.gram_matmat("laplace", X1, X2, V, ls, 0.9)
         ls64 = ls.double() if torch.is_tensor(ls) else ls
-        hi, lo = kernel_cuda.laplace_matmat_comp(X1, X2, V, ls64, 0.9)
+        hi, lo = kernel_cuda.gram_matmat_comp("laplace", X1, X2, V, ls64, 0.9)
         torch.cuda.synchronize()
         assert _rel(got, ref) <= 2e-5
         assert _rel(one, ref) <= 2e-5
@@ -425,7 +416,7 @@ def test_cuda_laplace_symmetric_matches_plain(cuda_device, k):
     X = torch.from_numpy(rng.standard_normal((1300, 28)).astype(np.float32)).to(cuda_device)
     V = torch.from_numpy(rng.standard_normal((1300, k)).astype(np.float32)).to(cuda_device)
     ref = kernel_plain.gram_matmat_f64("laplace", X, X, V, 32.0, 1.1)
-    got = kernel_cuda.laplace_matvec_symmetric(X, V, 32.0, 1.1)
+    got = kernel_cuda.gram_matvec_symmetric("laplace", X, V, 32.0, 1.1)
     torch.cuda.synchronize()
     assert _rel(got, ref) <= 2e-5
 
@@ -443,9 +434,9 @@ def test_cuda_k5_triangle_tile_matches_float64(cuda_device, n, d, k):
     V = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(cuda_device)
     for ls in (2 * d / np.pi**0.5, torch.linspace(0.6, 1.4, d, device=cuda_device) * d):
         ref = kernel_plain.gram_matmat_f64("laplace", X, X, V, ls, 0.9)
-        got = kernel_cuda.laplace_matvec_symmetric(X, V, ls, 0.9)
-        kept = kernel_cuda.laplace_matvec_symmetric(X, V, ls, 0.9,
-                                                    kernel_cuda.tile_operand(X, ls))
+        got = kernel_cuda.gram_matvec_symmetric("laplace", X, V, ls, 0.9)
+        kept = kernel_cuda.gram_matvec_symmetric("laplace", X, V, ls, 0.9,
+                                                 kernel_cuda.tile_operand(X, ls))
         torch.cuda.synchronize()
         assert _rel(got, ref) <= 2e-5
         assert _rel(kept, got.double()) <= 1e-6
@@ -464,15 +455,15 @@ def test_cuda_k5_takes_the_operators_operand(cuda_device):
     K = LaplaceLinOp(X, X, KernelConfig(lengthscale=32.0, const_scaling=1.1))
     kernel_cuda.reset_launch_counts()
     got = [K @ V for _ in range(2)]
-    assert kernel_cuda.launch_counts()["laplace_matvec_symmetric"] == 2
-    assert K._tile_ops[0].get() is K._tile_ops[0].get()
-    want = kernel_cuda.laplace_matvec_symmetric(X, V, 32.0, 1.1)
+    assert kernel_cuda.launch_counts()["gram_matvec_symmetric"] == 2
+    assert K._points[0].tile is K._points[1].tile is not None
+    want = kernel_cuda.gram_matvec_symmetric("laplace", X, V, 32.0, 1.1)
     torch.cuda.synchronize()
     for g in got:
         assert _rel(g, want.double()) <= 1e-6
     with pytest.raises(ValueError, match="tile's operand"):
-        kernel_cuda.laplace_matvec_symmetric(X, V, 32.0, 1.1,
-                                             kernel_cuda.tile_operand(X[:500], 32.0))
+        kernel_cuda.gram_matvec_symmetric("laplace", X, V, 32.0, 1.1,
+                                          kernel_cuda.tile_operand(X[:500], 32.0))
 
 
 @pytest.mark.cuda
@@ -488,10 +479,7 @@ def test_cuda_column_splits(cuda_device, kind, monkeypatch):
     V = torch.from_numpy(rng.standard_normal((200_000, 2)).astype(np.float32)).to(cuda_device)
     assert kernel_cuda.tile_splits(300, 200_000, 2, 132) > 1
     ls = 3.0 if kind == "rbf" else 9.0
-    if kind == "rbf":
-        fn = lambda: kernel_cuda.gram_matmat("rbf", X1, X2, V, ls)  # noqa: E731
-    else:
-        fn = lambda: kernel_cuda.laplace_matmat(X1, X2, V, ls)  # noqa: E731
+    fn = lambda: kernel_cuda.gram_matmat(kind, X1, X2, V, ls)  # noqa: E731
     ref = kernel_plain.gram_matmat_f64(kind, X1, X2, V, ls)
     split, again = fn(), fn()
     monkeypatch.setattr(kernel_cuda, "tile_splits", lambda *a: 1)
@@ -507,7 +495,7 @@ def test_cuda_column_splits(cuda_device, kind, monkeypatch):
 @pytest.mark.parametrize("n,m,d", [(1000, 777, 3), (1000, 777, 28), (300, 1300, 50),
                                    (129, 4000, 17)])
 def test_cuda_k3_tile_matches_plain(cuda_device, n, m, d, k):
-    """K3's tile (``laplace_matmat_narrow``) at ragged shapes (n and m not
+    """K3's tile (``gram_matmat("laplace", ...)`` up to 16 columns) at ragged shapes (n and m not
     multiples of 128, d with a ragged last chunk) at every right-hand-side
     count of its instantiations, scalar and ARD lengthscales, against the
     float64 plain version: 2e-5 of max|ref|; the same bits twice."""
@@ -515,9 +503,9 @@ def test_cuda_k3_tile_matches_plain(cuda_device, n, m, d, k):
     for ls in (2 * d / np.pi**0.5, torch.linspace(0.6, 1.4, d, device=cuda_device) * d):
         ref = kernel_plain.gram_matmat_f64("laplace", X1, X2, V, ls, 0.9)
         kernel_cuda.reset_launch_counts()
-        got, again = (kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9) for _ in range(2))
+        got, again = (kernel_cuda.gram_matmat("laplace", X1, X2, V, ls, 0.9) for _ in range(2))
         torch.cuda.synchronize()
-        assert kernel_cuda.launch_counts()["laplace_matmat_narrow"] == 2
+        assert kernel_cuda.launch_counts()["gram_matmat"] == 2
         assert torch.equal(got, again)
         assert _rel(got, ref) <= 2e-5
 
@@ -533,18 +521,18 @@ def test_cuda_k3_tile_takes_an_operators_operands(cuda_device):
     X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in _data(41, 300, 1300, 50, 3))
     ls = 7.5
     ops = (kernel_cuda.tile_operand(X1, ls), kernel_cuda.tile_operand(X2, ls))
-    want = kernel_cuda.laplace_matmat_narrow(X1, X2, V, ls, 0.9)
-    assert torch.equal(kernel_cuda.laplace_matmat_narrow(X1, X2, V, ls, 0.9, ops), want)
-    assert torch.equal(kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9, lambda: ops), want)
+    want = kernel_cuda.gram_matmat("laplace", X1, X2, V, ls, 0.9)
+    assert torch.equal(kernel_cuda.gram_matmat("laplace", X1, X2, V, ls, 0.9, *ops), want)
+    assert torch.equal(kernel_cuda.gram_matmat("laplace", X1, X2, V, ls, 0.9, ops[0]), want)
     with pytest.raises(ValueError, match="operand"):
-        kernel_cuda.laplace_matmat_narrow(X1, X2, V, ls, 0.9, ops[::-1])
+        kernel_cuda.gram_matmat("laplace", X1, X2, V, ls, 0.9, *ops[::-1])
     K = LaplaceLinOp(X2, X2, KernelConfig(lengthscale=ls, const_scaling=0.9))
     blk = torch.arange(0, 1300, 7, device=cuda_device)
     W = V[:, :1]
     for _ in range(2):
         got = K.row_oracle(blk) @ W
         torch.cuda.synchronize()
-        assert torch.equal(got, kernel_cuda.laplace_matmat(X2[blk], X2, W, ls, 0.9))
+        assert torch.equal(got, kernel_cuda.gram_matmat("laplace", X2[blk], X2, W, ls, 0.9))
 
 
 @pytest.mark.cuda
@@ -606,7 +594,7 @@ def test_cuda_k1_k2_take_the_operators_operand(cuda_device):
     sym, wide = K @ V[:, :3], K @ V
     counts = kernel_cuda.launch_counts()
     assert counts["gram_matvec_symmetric"] == 1 and counts["gram_matmat"] == 1
-    assert K._tile_ops[0].get() is K._tile_ops[1].get()
+    assert K._points[0].tile is K._points[1].tile is not None
     torch.cuda.synchronize()
     assert _rel(sym, kernel_cuda.gram_matvec_symmetric("rbf", X, V[:, :3], 5.3, 1.1).double()) <= 1e-6
     assert torch.equal(wide, kernel_cuda.gram_matmat("rbf", X, X, V, 5.3, 1.1))
@@ -645,11 +633,9 @@ def test_cuda_comp_forward_form_matches_float64(cuda_device, kind, n, m, d, k):
     for ls in (1.3 * d**0.5, torch.linspace(0.6, 1.8, d, dtype=torch.float64,
                                              device=cuda_device) * d**0.5):
         ref = kernel_plain.gram_matmat_f64(kind, X1, X2, V, ls, 0.9)
-        args = (X1, X2, V, ls, 0.9)
-        comp = kernel_cuda.laplace_matmat_comp if kind == "laplace" else (
-            lambda *a: kernel_cuda.gram_matmat_comp(kind, *a))
-        hi, lo = comp(*args)
-        hi2, lo2 = comp(*args)
+        args = (kind, X1, X2, V, ls, 0.9)
+        hi, lo = kernel_cuda.gram_matmat_comp(*args)
+        hi2, lo2 = kernel_cuda.gram_matmat_comp(*args)
         f64 = kernel_cuda.gram_matmat_f64(kind, X1, X2, V.double(), ls, 0.9)
         f64_2 = kernel_cuda.gram_matmat_f64(kind, X1, X2, V.double(), ls, 0.9)
         torch.cuda.synchronize()
@@ -880,8 +866,6 @@ def test_cuda_k2b_matches_its_tier(cuda_device, cd, kind, k, n, d):
     contract in float32, two bf16 steps where the one-pass tier's mirror
     re-rounds (k ≥ 3), Matérn-1/2's diagonal rows at 1e-3 and the rows off
     it at the regular bound."""
-    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
-
     X, _, V = _data(13, n, n, d, k)
     X, V = torch.from_numpy(X).to(cuda_device), torch.from_numpy(V).to(cuda_device)
     A = tier_operand(X / d**0.5, cd)
@@ -991,10 +975,7 @@ def test_cuda_pair_matches_plain(cuda_device, kind, k):
     X1, X2, V2 = _data(13, 1000, 777, 3, k)
     V1 = np.random.default_rng(14).standard_normal((1000, k)).astype(np.float32)
     args = [torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V2, V1)]
-    if kind == "laplace":
-        o1, o2 = kernel_cuda.laplace_pair(*args, 1.3, 0.9)
-    else:
-        o1, o2 = kernel_cuda.gram_pair(kind, *args, 1.3, 0.9)
+    o1, o2 = kernel_cuda.gram_pair(kind, *args, 1.3, 0.9)
     r1, r2 = kernel_plain.gram_pair(kind, *(a.double() for a in args), 1.3, 0.9)
     torch.cuda.synchronize()
     assert o1.shape == (1000, k) and o2.shape == (777, k)
@@ -1016,11 +997,9 @@ def test_cuda_tile_pair_matches_plain(cuda_device, kind, k, n1, n2):
     V1 = np.random.default_rng(20).standard_normal((n1, k)).astype(np.float32)
     X1, X2, V2, V1 = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V2, V1))
     ls = 2 * 28 / np.pi**0.5 if kind == "laplace" else 28**0.5
-    pair = kernel_cuda.laplace_pair if kind == "laplace" else (
-        lambda *a: kernel_cuda.gram_pair(kind, *a))
-    o1, o2 = pair(X1, X2, V2, V1, ls, 0.9)
+    o1, o2 = kernel_cuda.gram_pair(kind, X1, X2, V2, V1, ls, 0.9)
     ops = (kernel_cuda.tile_operand(X1, ls), kernel_cuda.tile_operand(X2, ls))
-    k1, k2 = pair(X1, X2, V2, V1, ls, 0.9, lambda: ops)
+    k1, k2 = kernel_cuda.gram_pair(kind, X1, X2, V2, V1, ls, 0.9, *ops)
     r1 = kernel_plain.gram_matmat_f64(kind, X1, X2, V2, ls, 0.9)
     r2 = kernel_plain.gram_matmat_f64(kind, X2, X1, V1, ls, 0.9)
     torch.cuda.synchronize()
@@ -1040,9 +1019,9 @@ def test_cuda_laplace_wide_matches_plain(cuda_device, k, d):
     X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V))
     scalar = 2 * d / np.pi**0.5
     for ls in (scalar, torch.linspace(0.6, 1.4, d, device=cuda_device) * scalar):
-        got = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9)
+        got = kernel_cuda.gram_matmat("laplace", X1, X2, V, ls, 0.9)
         ops = (kernel_cuda.tile_operand(X1, ls), kernel_cuda.tile_operand(X2, ls))
-        again = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9, lambda: ops)
+        again = kernel_cuda.gram_matmat("laplace", X1, X2, V, ls, 0.9, *ops)
         ref = kernel_plain.gram_matmat_f64("laplace", X1, X2, V, ls, 0.9)
         torch.cuda.synchronize()
         assert _rel(got, ref) <= 2e-5
@@ -1060,8 +1039,6 @@ def test_cuda_pair_tier_matches_plain(cuda_device, cd, kind, k):
     k ≤ 2); the one-pass tier's mirror at k ≥ 3 re-rounds kernel values to
     bf16 (:func:`_reround_bound`). Two distinct point sets hold no
     coincident points, so Matérn-1/2 has no cusp here."""
-    from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
-
     X1, X2, V2 = _data(15, 700, 530, 28, k)
     V1 = np.random.default_rng(16).standard_normal((700, k)).astype(np.float32)
     X1, X2, V2, V1 = (torch.from_numpy(a).to(cuda_device) for a in (X1, X2, V2, V1))
@@ -1080,10 +1057,11 @@ def test_cuda_pair_refusals(cuda_device):
     V = torch.randn((300, 17), device=cuda_device)
     with pytest.raises(ValueError, match="k <= 16"):
         kernel_cuda.gram_pair("rbf", X, X, V, V, 1.0)
-    with pytest.raises(NotImplementedError, match="laplace"):
-        kernel_cuda.gram_pair("laplace", X, X, V[:, :2], V[:, :2], 1.0)
+    parts = tier_operand(X, "bf16x3")
+    with pytest.raises(NotImplementedError, match="Laplace family has no tier"):
+        kernel_cuda.gram_pair_tier("laplace", parts, parts, V[:, :2], V[:, :2], 1.0)
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        kernel_cuda.laplace_pair(X.cpu(), X.cpu(), V[:, :2].cpu(), V[:, :2].cpu(), 1.0)
+        kernel_cuda.gram_pair("laplace", X.cpu(), X.cpu(), V[:, :2].cpu(), V[:, :2].cpu(), 1.0)
     with pytest.raises(ValueError, match="differ in k"):
         kernel_cuda.gram_pair("rbf", X, X, V[:, :2], V[:, :3], 1.0)
 
@@ -1112,7 +1090,7 @@ def test_cuda_half_ring_launches_and_matches(cuda_device, kind, P, cd):
     used = kernel_cuda.launch_counts()
     tri, pair = {
         ("rbf", None): ("gram_matvec_symmetric", "gram_pair"),
-        ("laplace", None): ("laplace_matvec_symmetric", "laplace_pair"),
+        ("laplace", None): ("gram_matvec_symmetric", "gram_pair"),
         ("rbf", "bf16x3"): ("gram_matvec_symmetric_tier", "gram_pair_tier"),
         ("matern32", None): ("gram_matvec_symmetric", "gram_pair"),
     }[(kind, cd)]

@@ -107,10 +107,10 @@ def card(monkeypatch):
         return kernel_plain.gram_matmat_comp(kind, X, X, V, lengthscale, const_scaling)
 
     # K1 and K2 take the register tile's operands besides (an operator keeps them)
-    def k1(kind, X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
+    def k1(kind, X1, X2, V, lengthscale, const_scaling=1.0, XT1=None, XT2=None):
         return kernel_plain.gram_matmat(kind, X1, X2, V, lengthscale, const_scaling)
 
-    def k2(kind, X, V, lengthscale, const_scaling=1.0, operand=None):
+    def k2(kind, X, V, lengthscale, const_scaling=1.0, XT=None):
         return kernel_plain.gram_matvec_symmetric(kind, X, V, lengthscale, const_scaling)
 
     for name, plain in (("gram_matmat", k1),

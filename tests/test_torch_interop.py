@@ -74,7 +74,7 @@ def test_tier_operator_applies_like_jax(cd):
     d_ = jA._data
     tA = interop.kernel_operator(d_["X1"], d_["ls"], d_["scale"], jA.kind,
                                  device="cpu", compute_dtype=jA.compute_dtype)
-    assert tA.compute_dtype == cd and tA._tier is not None
+    assert tA.compute_dtype == cd and tA._points[0].tier is not None
     import rlaopt_tpu_torch.ops.kernel_plain as kp
 
     ref = kernel_matvec_symmetric(

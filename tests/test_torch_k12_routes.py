@@ -1,16 +1,16 @@
-"""Routing and the host-side operands of K1 and K2, the exact tier's RBF and
-Matérn kernels, on the CPU.
+"""Routing and the host-side operands of the exact tier's kernels K1 and K2
+(K3 and K5 for the Laplace family: the same wrappers and entries with
+Laplace's code), on the CPU.
 
 The kernels run only on a card (``tests/test_torch_cuda.py``, marked
 ``cuda``). Here each wrapper runs down to its C entry, emulated on the host
 with the arguments of its ctypes signature (the operands read through their
-pointers), as ``tests/test_torch_laplace_routes.py`` does for K5; or the
-wrappers are replaced by recorders that compute with the plain versions and
-``kernel_dispatch._on_card`` is forced true, so that each caller shows which
-kernel it reaches. K2 takes the register tile's triangle form up to 16
-columns; K1 its forward form up to 16 columns (in ``tile_splits`` runs of
-the m axis) and the 3xTF32 tensor-core kernel past 16, on V's TF32 parts
-(``wide_rhs``). The operands the wrappers build on the host are pure
+pointers); or the wrappers are replaced by recorders that compute with the
+plain versions and ``kernel_dispatch._on_card`` is forced true, so that
+each caller shows which kernel it reaches. K2 takes the register tile's
+triangle form up to 16 columns; K1 its forward form up to 16 columns (in
+``tile_splits`` runs of the m axis) and the 3xTF32 tensor-core kernel past
+16, on V's TF32 parts (``wide_rhs``). The operands the wrappers build on the host are pure
 functions of their inputs and are held to the plain versions bit for bit;
 the emulated products, in float64 from those operands, to 1e-6 of max|ref|
 (V's TF32 parts carry V to 2^-22 of its size).
@@ -24,14 +24,18 @@ import pytest
 import torch
 
 import rlaopt_tpu_torch.kernels as tk
-from rlaopt_tpu_torch.kernels import KernelConfig, KernelLinOp, RBFLinOp, linop
+from rlaopt_tpu_torch.kernels import KernelConfig, KernelLinOp, RBFLinOp
 from rlaopt_tpu_torch.kernels.functions import scale_inputs
 from rlaopt_tpu_torch.ops import kernel_cuda, kernel_dispatch, kernel_plain
 from rlaopt_tpu_torch.parallel import make_mesh
 
 SQDIST_KINDS = ("rbf", "matern12", "matern32", "matern52")
+KINDS = SQDIST_KINDS + ("laplace",)
 H100_SMS = 132
 KIND_OF = {code: kind for kind, code in kernel_cuda.KIND_CODES.items()}
+# the tile's operand as the wrappers build it (the tests below count the
+# builds by replacing kernel_cuda.tile_operand)
+TILE_OPERAND = kernel_cuda.tile_operand
 
 
 def _points(n, d, seed):
@@ -124,7 +128,7 @@ def _ard(d):
 
 
 @pytest.mark.parametrize("k", [1, 3, 16, 17, 40, 130])
-@pytest.mark.parametrize("kind", SQDIST_KINDS)
+@pytest.mark.parametrize("kind", KINDS)
 def test_k1_routes_by_width_down_to_its_entry(entries, kind, k):
     """K1 up to 16 columns: the tile's forward entry, the points as
     ``tile_operand`` bit for bit; past 16 the wide entry, V as
@@ -149,7 +153,7 @@ def test_k1_routes_by_width_down_to_its_entry(entries, kind, k):
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 10, 16])
-@pytest.mark.parametrize("kind", SQDIST_KINDS)
+@pytest.mark.parametrize("kind", KINDS)
 def test_k2_hands_its_entry_the_tiles_operand(entries, kind, k):
     """K2's wrapper hands the triangle entry the tile's operand, built in
     the call or given (its pointer passed on); more than 16 columns raise
@@ -170,19 +174,23 @@ def test_k2_hands_its_entry_the_tiles_operand(entries, kind, k):
     assert len(entries.calls) == 2
 
 
-def test_k1_and_k2_refuse_a_wrong_operand(entries):
+@pytest.mark.parametrize("kind", ["rbf", "laplace"])
+def test_k1_and_k2_refuse_a_wrong_operand(entries, kind):
     """The tile refuses an operand that ``tile_operand`` would not give for
-    its points (another set's shape, float64, not contiguous), in both
-    forms and both widths; nothing launches."""
+    its points (another set's shape, another depth, float64, not
+    contiguous), in both forms and both widths, on either side; nothing
+    launches."""
     X, V = _points(300, 28, 7), _points(300, 2, 8)
     XT = kernel_cuda.tile_operand(X, 5.0)
-    wrong = (kernel_cuda.tile_operand(X[:100], 5.0), XT.double(), XT.T.contiguous().T)
+    wrong = (kernel_cuda.tile_operand(X[:100], 5.0), kernel_cuda.tile_operand(
+        _points(300, 40, 26), 5.0), XT.double(), XT.T.contiguous().T)
     for op in wrong:
         with pytest.raises(ValueError, match="tile's operand"):
-            kernel_cuda.gram_matvec_symmetric("rbf", X, V, 5.0, 1.0, op)
+            kernel_cuda.gram_matvec_symmetric(kind, X, V, 5.0, 1.0, op)
         for W in (V, _points(300, 20, 9)):
-            with pytest.raises(ValueError, match="tile's operand"):
-                kernel_cuda.gram_matmat("rbf", X, X, W, 5.0, 1.0, lambda op=op: (XT, op))
+            for ops in ((XT, op), (op, XT)):
+                with pytest.raises(ValueError, match="tile's operand"):
+                    kernel_cuda.gram_matmat(kind, X, X, W, 5.0, 1.0, *ops)
     assert entries.calls == []
 
 
@@ -241,19 +249,19 @@ def recorded(monkeypatch):
     they were given: (wrapper, k) per call."""
     calls = []
 
-    def k1(kind, X1, X2, V, lengthscale, const_scaling=1.0, operands=None):
+    def k1(kind, X1, X2, V, lengthscale, const_scaling=1.0, XT1=None, XT2=None):
         calls.append(("gram_matmat", 1 if V.ndim == 1 else V.shape[1]))
-        if operands is not None:  # an operator's kept operands: the wrapper's own, bit for bit
-            for XT, X in zip(operands(), (X1, X2)):
-                assert torch.equal(XT, kernel_cuda.tile_operand(X, lengthscale))
-        k1.operands.append(operands)
+        for XT, X in ((XT1, X1), (XT2, X2)):
+            if XT is not None:  # an operator's kept operand: the wrapper's own, bit for bit
+                assert torch.equal(XT, TILE_OPERAND(X, lengthscale))
+        k1.operands.append((XT1, XT2))
         return kernel_plain.gram_matmat(kind, X1, X2, V, lengthscale, const_scaling)
 
-    def k2(kind, X, V, lengthscale, const_scaling=1.0, operand=None):
+    def k2(kind, X, V, lengthscale, const_scaling=1.0, XT=None):
         calls.append(("gram_matvec_symmetric", 1 if V.ndim == 1 else V.shape[1]))
-        if operand is not None:
-            assert torch.equal(operand, kernel_cuda.tile_operand(X, lengthscale))
-        k2.operands.append(operand)
+        if XT is not None:
+            assert torch.equal(XT, TILE_OPERAND(X, lengthscale))
+        k2.operands.append(XT)
         return kernel_plain.gram_matvec_symmetric(kind, X, V, lengthscale, const_scaling)
 
     k1.operands, k2.operands = [], []
@@ -268,13 +276,14 @@ def recorded(monkeypatch):
     (16, True, "gram_matvec_symmetric"),
     (17, True, "gram_matmat"),
     (1, False, "gram_matmat"),
+    (16, False, "gram_matmat"),
     (500, False, "gram_matmat"),
 ])
-@pytest.mark.parametrize("kind", SQDIST_KINDS)
+@pytest.mark.parametrize("kind", KINDS)
 def test_k1_k2_dispatch_rule(recorded, kind, k, symmetric, route):
-    """``kernel_matmat``: one data set up to 16 columns takes K2, anything
-    else K1 (its forward tile or its wide kernel by width); the values are
-    the plain product's."""
+    """``kernel_matmat``: one data set up to 16 columns takes K2 (K5),
+    anything else K1 (K3: its forward tile or its wide kernel by width);
+    the values are the plain product's."""
     X, V = _points(50, 4, 14), _points(50, k, 15)
     got = kernel_dispatch.kernel_matmat(kind, X, X, V, 2.0, 0.7, symmetric=symmetric)
     assert recorded == [(route, k)]
@@ -292,55 +301,66 @@ def test_operator_builds_its_operand_once(recorded, monkeypatch, kind):
 
     def counted(X, lengthscale):
         built.append(X)
-        return kernel_cuda.tile_operand(X, lengthscale)
+        return TILE_OPERAND(X, lengthscale)
 
-    monkeypatch.setattr(linop, "tile_operand", counted)
+    monkeypatch.setattr(kernel_cuda, "tile_operand", counted)
     X = _points(200, 6, 16)
     K = KernelLinOp(X, X, KernelConfig(lengthscale=2.5), kind)
     K @ _points(200, 1, 17)
     K @ _points(200, 20, 18)
     assert len(built) == 1 and built[0] is X
-    XT = K._tile_ops[0].get()
+    XT = K._points[0].tile
     assert torch.equal(XT[:6, :200], scale_inputs(X, K.lengthscale).T)
     assert recorded == [("gram_matvec_symmetric", 1), ("gram_matmat", 20)]
     assert kernel_cuda.gram_matvec_symmetric.operands[0] is XT
-    assert all(op is XT for op in kernel_cuda.gram_matmat.operands[0]())
+    assert all(op is XT for op in kernel_cuda.gram_matmat.operands[0])
     blk = torch.arange(0, 200, 7)
     for _ in range(2):
         K.row_oracle(blk) @ _points(200, 1, 19)
     assert len(built) == 3
-    assert kernel_cuda.gram_matmat.operands[-1]()[1] is XT
+    assert kernel_cuda.gram_matmat.operands[-1][1] is XT
     K.blk_oracle(blk) @ _points(len(blk), 2, 20)
     assert len(built) == 5
 
 
-def test_tier_and_float64_operators_keep_no_tile_operand():
-    """The bf16 tiers keep their own parts, and float64 points take the
-    float64 plain product: neither keeps the tile's operand."""
+def test_tier_and_float64_operators_keep_no_tile_operand(recorded, monkeypatch):
+    """On the card's route the bf16 tiers take their own parts, and float64
+    points are handed no tile operand (the float32 kernels refuse them):
+    neither builds one; a float32 exact-tier operator builds and keeps its
+    own."""
+    monkeypatch.setattr(kernel_cuda, "gram_matvec_symmetric_tier",
+                        kernel_plain.gram_matvec_symmetric_tier)
     X = _points(64, 3, 21)
     cfg = KernelConfig(lengthscale=1.5)
-    assert RBFLinOp(X, X, cfg, compute_dtype="bf16x3")._tile_ops is None
-    assert RBFLinOp(X.double(), X.double(), cfg)._tile_ops is None
-    assert RBFLinOp(X, X, cfg)._tile_ops is not None
+    T = RBFLinOp(X, X, cfg, compute_dtype="bf16x3")
+    Xd = X.double()
+    F = RBFLinOp(Xd, Xd, cfg)
+    E = RBFLinOp(X, X, cfg)
+    for K in (T, F, E):
+        K @ K.A1[:, :1]
+    assert T._points[0].tier is not None and T._points[0].tile is None
+    assert F._points[0].tier is None and F._points[0].tile is None
+    assert kernel_cuda.gram_matvec_symmetric.operands[0] is None
+    assert E._points[0].tile is kernel_cuda.gram_matvec_symmetric.operands[1] is not None
 
 
-@pytest.mark.parametrize("kind", ["RBF", "Matern32"])
+@pytest.mark.parametrize("kind", ["RBF", "Matern32", "Laplace"])
 def test_half_ring_keeps_each_shards_operand(recorded, monkeypatch, kind):
-    """E2's half-ring (one data set, ring mode, 3 positions): each
-    position's diagonal block (K2) takes the operand of its own shard,
-    built once per operator over two matvecs; the ring's product is the
-    plain one's."""
+    """E2's half-ring (one data set, ring mode, 3 positions; E3's for
+    Laplace): each position's diagonal block (K2, K5) takes the operand of
+    its own shard, built once per operator over two matvecs; the ring's
+    product is the plain one's."""
     built = []
 
     def counted(X, lengthscale):
         built.append(X)
-        return kernel_cuda.tile_operand(X, lengthscale)
+        return TILE_OPERAND(X, lengthscale)
 
-    def pair(kind_, X1, X2, V2, V1, lengthscale, const_scaling=1.0, operands=None):
+    def pair(kind_, X1, X2, V2, V1, lengthscale, const_scaling=1.0, XT1=None, XT2=None):
         return (kernel_plain.gram_matmat(kind_, X1, X2, V2, lengthscale, const_scaling),
                 kernel_plain.gram_matmat(kind_, X2, X1, V1, lengthscale, const_scaling))
 
-    monkeypatch.setattr(linop, "tile_operand", counted)
+    monkeypatch.setattr(kernel_cuda, "tile_operand", counted)
     monkeypatch.setattr(kernel_cuda, "gram_pair", pair)
     cfg = KernelConfig(lengthscale=2.5, const_scaling=1.1)
     X, v = _points(90, 3, 22), _points(90, 1, 23)[:, 0]

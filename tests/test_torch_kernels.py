@@ -217,11 +217,18 @@ def test_cuda_wrappers_refuse_what_they_cannot_take():
     t = torch.zeros((4, 2))
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel_cuda.gram_matmat("rbf", t, t, t[:, :1], 1.0)
-    with pytest.raises(NotImplementedError, match="_laplace_matmat"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         kernel_cuda.gram_matmat("laplace", t, t, t[:, :1], 1.0)
     parts = tier_operand(t, "bf16x3")
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel_cuda.gram_matmat_tier("rbf", parts, parts, t[:, :1], 1.0)
+    for tier_product in (lambda: kernel_cuda.gram_matmat_tier("laplace", parts, parts, t[:, :1]),
+                         lambda: kernel_cuda.gram_matvec_symmetric_tier("laplace", parts,
+                                                                        t[:, :1]),
+                         lambda: kernel_cuda.gram_pair_tier("laplace", parts, parts, t[:, :1],
+                                                            t[:, :1])):
+        with pytest.raises(NotImplementedError, match="Laplace family has no tier"):
+            tier_product()
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel_cuda.gram_matmat_f64("rbf", t, t, t[:, :1].double(), 1.0)
     from rlaopt_tpu_torch.kernels import KernelConfig, RBFLinOp

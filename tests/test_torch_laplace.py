@@ -16,6 +16,7 @@ from rlaopt_tpu_torch.kernels import KernelConfig, LaplaceLinOp
 from rlaopt_tpu_torch.kernels.functions import l1dist_tile
 from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
 from rlaopt_tpu_torch.ops.kernel_dispatch import kernel_matmat, kernel_matmat_compensated
+from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
 
 
 def _data(seed, n, m, d, k):
@@ -127,18 +128,19 @@ def test_l1dist_is_the_broadcast_sum():
 
 def test_laplace_wrappers_take_cuda_tensors_only():
     """On the CPU the dispatcher never reaches the Laplace kernels, and
-    their wrappers refuse CPU tensors; the squared-distance kernels refuse
-    the Laplace family."""
+    their wrappers (the exact tier's, with ``kind="laplace"``) refuse CPU
+    tensors; the bf16 tiers' kernels refuse the Laplace family."""
     t = torch.zeros((4, 2))
     kernel_cuda.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kernel_cuda.laplace_matmat(t, t, t[:, :1], 1.0)
+        kernel_cuda.gram_matmat("laplace", t, t, t[:, :1], 1.0)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kernel_cuda.laplace_matmat_comp(t, t, t[:, :1], 1.0)
+        kernel_cuda.gram_matmat_comp("laplace", t, t, t[:, :1], 1.0)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kernel_cuda.laplace_matvec_symmetric(t, t[:, :1], 1.0)
-    with pytest.raises(NotImplementedError, match="laplace_matmat"):
         kernel_cuda.gram_matvec_symmetric("laplace", t, t[:, :1], 1.0)
+    parts = tier_operand(t, "bf16x3")
+    with pytest.raises(NotImplementedError, match="Laplace family has no tier"):
+        kernel_cuda.gram_matvec_symmetric_tier("laplace", parts, t[:, :1], 1.0)
     X = torch.randn((40, 3))
     op = LaplaceLinOp(X, X, KernelConfig(lengthscale=2.0))
     op @ torch.randn(40)

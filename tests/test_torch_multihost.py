@@ -444,16 +444,18 @@ def test_one_process_mesh_is_all_local():
 
 # -- the pieces, in one process ------------------------------------------------
 def test_entries_cross_as_aligned_bytes():
-    """An entry (a ``_Points`` with bf16 tier parts, a tuple, a dict, None,
-    tensors of mixed widths) packs into one byte buffer, each tensor at an
-    aligned offset, and unpacks from its template to the same bits; a value
-    that is not a tensor cannot cross."""
-    from rlaopt_tpu_torch.kernels.sharded import _Points
+    """An entry (a ``PointSet`` with bf16 tier parts, one with the tile's
+    operand, a tuple, a dict, None, tensors of mixed widths) packs into one
+    byte buffer, each tensor at an aligned offset, and unpacks from its
+    template to the same bits; a value that is not a tensor cannot cross."""
+    from rlaopt_tpu_torch.ops.kernel_cuda import tile_operand
+    from rlaopt_tpu_torch.ops.kernel_dispatch import PointSet
     from rlaopt_tpu_torch.ops.kernel_tiers import tier_operand
     from rlaopt_tpu_torch.parallel import mesh as t_mesh
 
     X = torch.from_numpy(_points(5, 3, 30, "float32"))
-    entry = ((_Points(X, tier_operand(X, "bf16x3")), None),
+    entry = ((PointSet(X, tier_operand(X, "bf16x3")), None,
+              PointSet(X, tile=tile_operand(X, 2.0))),
              {"v": torch.arange(3, dtype=torch.float64), "i": torch.tensor([7])},
              torch.ones(1, dtype=torch.bool))
     buf = t_mesh._pack(entry, torch.device("cpu"))
@@ -461,7 +463,8 @@ def test_entries_cross_as_aligned_bytes():
     assert buf.numel() % t_mesh._ALIGN == 0
     got = t_mesh._unpack(buf.clone(), entry, torch.device("cpu"))
     want, back = t_mesh._leaves(entry), t_mesh._leaves(got)
-    assert len(back) == len(want) == 7 and got[0][1] is None
+    assert len(back) == len(want) == 9 and got[0][1] is None
+    assert got[0][0].tile is None and got[0][2].tier is None
     for a, b in zip(back, want):
         assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
     with pytest.raises(TypeError, match="cannot cross"):

@@ -131,7 +131,7 @@ def test_pair_routing_past_16_columns_and_1d(monkeypatch):
     pair; 1-D operands come back 1-D, equal to the first column of the 2-D
     product."""
     calls = {"pair": 0, "matmat": 0}
-    real_pair, real_mm = kernel_plain.gram_pair, kernel_dispatch.kernel_matmat
+    real_pair, real_mm = kernel_plain.gram_pair, kernel_dispatch.kernel_matmat_points
 
     def pair(*a, **kw):
         calls["pair"] += 1
@@ -142,7 +142,7 @@ def test_pair_routing_past_16_columns_and_1d(monkeypatch):
         return real_mm(*a, **kw)
 
     monkeypatch.setattr(kernel_plain, "gram_pair", pair)
-    monkeypatch.setattr(kernel_dispatch, "kernel_matmat", mm)
+    monkeypatch.setattr(kernel_dispatch, "kernel_matmat_points", mm)
     X1, X2, V2, V1 = _data(20, np.float64, seed=3)
     args = [torch.from_numpy(a) for a in (X1, X2, V2, V1)]
     o1, o2 = kernel_dispatch.kernel_pair("matern32", *args, LS, C)
@@ -169,7 +169,9 @@ def test_pair_tier_routing_and_triangle_identity():
     V = torch.from_numpy(rng.standard_normal((256, 2)).astype(np.float32))
     P = tier_operand(X / LS, "bf16x3")
     top, bot = P.rows(slice(0, 128)), P.rows(slice(128, 256))
-    o_top, o_bot = kernel_dispatch.kernel_pair_tier("rbf", top, bot, V[128:], V[:128], C)
+    o_top, o_bot = kernel_dispatch.kernel_pair_points(
+        "rbf", kernel_dispatch.PointSet(X[:128], top), kernel_dispatch.PointSet(X[128:], bot),
+        V[128:], V[:128], LS, C)
     d_top = kernel_plain.gram_matvec_symmetric_tier("rbf", top, V[:128], C)
     d_bot = kernel_plain.gram_matvec_symmetric_tier("rbf", bot, V[128:], C)
     got = torch.cat([d_top + o_top, d_bot + o_bot])

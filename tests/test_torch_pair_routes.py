@@ -1,5 +1,6 @@
 """Routing and the host-side operands of K3 past 16 columns and of the exact
-pair kernels K4 and K6, on the CPU.
+pair kernels K4 and K6 (the wrappers ``gram_matmat`` and ``gram_pair``
+with the family as ``kind``), on the CPU.
 
 The kernels run only on a card (``tests/test_torch_cuda.py``, marked
 ``cuda``). Here each wrapper runs down to its C entry, emulated on the host
@@ -26,13 +27,17 @@ import numpy as np
 import pytest
 import torch
 
-from rlaopt_tpu_torch.kernels import KernelConfig, ShardedKernelLinOp, linop
+from rlaopt_tpu_torch.kernels import KernelConfig, ShardedKernelLinOp
 from rlaopt_tpu_torch.ops import kernel_cuda, kernel_dispatch, kernel_plain
+from rlaopt_tpu_torch.ops.kernel_dispatch import PointSet
 from rlaopt_tpu_torch.parallel import make_mesh
 
 KINDS = ("rbf", "matern12", "matern32", "matern52", "laplace")
 H100_SMS = 132
 KIND_OF = {code: kind for kind, code in kernel_cuda.KIND_CODES.items()}
+# the tile's operand as the wrappers build it (the half-ring's test counts
+# the builds by replacing kernel_cuda.tile_operand)
+TILE_OPERAND = kernel_cuda.tile_operand
 
 
 def _points(n, d, seed):
@@ -136,10 +141,10 @@ def test_k3_past_16_reaches_the_wide_entry(entries, k, given):
     X1, X2, V = _points(130, 5, 1), _points(257, 5, 2), _points(257, k, 3)
     ls = _ard(5)
     XT1, XT2 = kernel_cuda.tile_operand(X1, ls), kernel_cuda.tile_operand(X2, ls)
-    before = kernel_cuda.laplace_matmat.launches
-    ops = (lambda: (XT1, XT2)) if given else None
-    got = kernel_cuda.laplace_matmat(X1, X2, V, ls, 0.9, ops)
-    assert kernel_cuda.laplace_matmat.launches == before + 1
+    before = kernel_cuda.gram_matmat.launches
+    ops = (XT1, XT2) if given else (None, None)
+    got = kernel_cuda.gram_matmat("laplace", X1, X2, V, ls, 0.9, *ops)
+    assert kernel_cuda.gram_matmat.launches == before + 1
     (call,) = entries.calls
     assert call["entry"] == "wide" and call["kind"] == "laplace"
     assert np.array_equal(call["XT1"], XT1.numpy()) and np.array_equal(call["XT2"], XT2.numpy())
@@ -170,10 +175,7 @@ def test_pair_reaches_the_tile_pair_entry(entries, kind, k):
     X1, X2 = _points(301, 6, 4), _points(1100, 6, 5)
     V2, V1 = _points(1100, k, 6), _points(301, k, 7)
     ls = _ard(6)
-    if kind == "laplace":
-        o1, o2 = kernel_cuda.laplace_pair(X1, X2, V2, V1, ls, 0.8)
-    else:
-        o1, o2 = kernel_cuda.gram_pair(kind, X1, X2, V2, V1, ls, 0.8)
+    o1, o2 = kernel_cuda.gram_pair(kind, X1, X2, V2, V1, ls, 0.8)
     (call,) = entries.calls
     assert call["entry"] == "pair" and call["kind"] == kind
     assert np.array_equal(call["XT1"], kernel_cuda.tile_operand(X1, ls).numpy())
@@ -223,32 +225,26 @@ def test_pair_hands_its_entry_the_given_operands(entries, kind):
     X1, X2 = _points(200, 28, 12), _points(300, 28, 13)
     V2, V1 = _points(300, 3, 14), _points(200, 3, 15)
     XT1, XT2 = kernel_cuda.tile_operand(X1, 5.0), kernel_cuda.tile_operand(X2, 5.0)
-
-    def pair(*args):
-        if kind == "laplace":
-            return kernel_cuda.laplace_pair(*args)
-        return kernel_cuda.gram_pair(kind, *args)
-
-    pair(X1, X2, V2, V1, 5.0, 1.0, lambda: (XT1, XT2))
+    kernel_cuda.gram_pair(kind, X1, X2, V2, V1, 5.0, 1.0, XT1, XT2)
     assert entries.calls[-1]["ptrs"] == (XT1.data_ptr(), XT2.data_ptr())
     for wrong in ((XT2, XT1), (XT1, XT2.double()), (XT1, XT2.T.contiguous().T)):
         with pytest.raises(ValueError, match="tile's operand"):
-            pair(X1, X2, V2, V1, 5.0, 1.0, lambda wrong=wrong: wrong)
+            kernel_cuda.gram_pair(kind, X1, X2, V2, V1, 5.0, 1.0, *wrong)
     assert len(entries.calls) == 1
 
 
 @pytest.mark.parametrize("kind", ["rbf", "matern32", "laplace"])
 def test_pair_past_16_makes_two_general_calls_on_the_same_operands(entries, monkeypatch, kind):
-    """``kernel_pair`` past 16 columns: two general calls (the wide entry),
-    the first on the operands of (X1, X2), the second on the same two
-    swapped; the outputs are the plain pair's. At k ≤ 16 one pair call on
-    them."""
+    """``kernel_pair_points`` past 16 columns: two general calls (the wide
+    entry), the first on the kept operands of (X1, X2), the second on the
+    same two swapped; the outputs are the plain pair's. At k ≤ 16 one pair
+    call on them."""
     monkeypatch.setattr(kernel_dispatch, "_on_card", lambda impl, t: True)
     X1, X2 = _points(200, 7, 16), _points(150, 7, 17)
     XT1, XT2 = kernel_cuda.tile_operand(X1, 3.0), kernel_cuda.tile_operand(X2, 3.0)
+    L, R = PointSet(X1, tile=XT1), PointSet(X2, tile=XT2)
     V2, V1 = _points(150, 20, 18), _points(200, 20, 19)
-    o1, o2 = kernel_dispatch.kernel_pair(kind, X1, X2, V2, V1, 3.0, 0.7,
-                                         tile_operands=lambda: (XT1, XT2))
+    o1, o2 = kernel_dispatch.kernel_pair_points(kind, L, R, V2, V1, 3.0, 0.7)
     assert [(c["entry"], c["kind"], c["ptrs"]) for c in entries.calls] == [
         ("wide", kind, (XT1.data_ptr(), XT2.data_ptr())),
         ("wide", kind, (XT2.data_ptr(), XT1.data_ptr())),
@@ -256,8 +252,7 @@ def test_pair_past_16_makes_two_general_calls_on_the_same_operands(entries, monk
     r1, r2 = kernel_plain.gram_pair(kind, X1.double(), X2.double(), V2.double(), V1.double(),
                                     3.0, 0.7)
     assert _rel(o1, r1) <= 1e-6 and _rel(o2, r2) <= 1e-6
-    kernel_dispatch.kernel_pair(kind, X1, X2, V2[:, :4], V1[:, :4], 3.0, 0.7,
-                                tile_operands=lambda: (XT1, XT2))
+    kernel_dispatch.kernel_pair_points(kind, L, R, V2[:, :4], V1[:, :4], 3.0, 0.7)
     assert entries.calls[-1]["entry"] == "pair"
     assert entries.calls[-1]["ptrs"] == (XT1.data_ptr(), XT2.data_ptr())
 
@@ -269,39 +264,27 @@ def ring(monkeypatch):
     operands each was handed; the operand builds of the operator counted."""
     rec = {"pairs": [], "general": [], "triangles": [], "built": []}
 
-    def gram_pair(kind, X1, X2, V2, V1, ls, c=1.0, operands=None):
-        rec["pairs"].append((X1, X2, operands()))
+    def gram_pair(kind, X1, X2, V2, V1, ls, c=1.0, XT1=None, XT2=None):
+        rec["pairs"].append((X1, X2, (XT1, XT2)))
         return kernel_plain.gram_pair(kind, X1, X2, V2, V1, ls, c)
 
-    def laplace_pair(X1, X2, V2, V1, ls, c=1.0, operands=None):
-        return gram_pair("laplace", X1, X2, V2, V1, ls, c, operands)
-
-    def general(kind, X1, X2, V, ls, c=1.0, operands=None):
-        rec["general"].append((X1, X2, operands()))
+    def general(kind, X1, X2, V, ls, c=1.0, XT1=None, XT2=None):
+        rec["general"].append((X1, X2, (XT1, XT2)))
         return kernel_plain.gram_matmat(kind, X1, X2, V, ls, c)
 
-    def laplace_general(X1, X2, V, ls, c=1.0, operands=None):
-        return general("laplace", X1, X2, V, ls, c, operands)
-
-    def triangle(kind, X, V, ls, c=1.0, operand=None):
-        rec["triangles"].append((X, operand))
+    def triangle(kind, X, V, ls, c=1.0, XT=None):
+        rec["triangles"].append((X, XT))
         return kernel_plain.gram_matvec_symmetric(kind, X, V, ls, c)
-
-    def laplace_triangle(X, V, ls, c=1.0, operand=None):
-        return triangle("laplace", X, V, ls, c, operand)
 
     def counted(X, lengthscale):
         rec["built"].append(X)
-        return kernel_cuda.tile_operand(X, lengthscale)
+        return TILE_OPERAND(X, lengthscale)
 
     monkeypatch.setattr(kernel_cuda, "gram_pair", gram_pair)
-    monkeypatch.setattr(kernel_cuda, "laplace_pair", laplace_pair)
     monkeypatch.setattr(kernel_cuda, "gram_matmat", general)
-    monkeypatch.setattr(kernel_cuda, "laplace_matmat", laplace_general)
     monkeypatch.setattr(kernel_cuda, "gram_matvec_symmetric", triangle)
-    monkeypatch.setattr(kernel_cuda, "laplace_matvec_symmetric", laplace_triangle)
     monkeypatch.setattr(kernel_dispatch, "_on_card", lambda impl, t: True)
-    monkeypatch.setattr(linop, "tile_operand", counted)
+    monkeypatch.setattr(kernel_cuda, "tile_operand", counted)
     return rec
 
 
@@ -327,7 +310,7 @@ def test_half_ring_hands_each_pair_both_shards_kept_operands(ring, kind, P):
     v, W = _points(n, 2, 21), _points(n, 20, 22)
     outs = [K @ v, K @ v, K @ W]
     assert len(ring["built"]) == P and all(any(b is S for S in shards) for b in ring["built"])
-    kept = [d["tile"].get() for d in K._data]
+    kept = [d["X1"].tile for d in K._data]
     assert [which(X_) for X_, _ in ring["triangles"]] == list(range(P)) * 2
     assert all(op is kept[which(X_)] for X_, op in ring["triangles"])
     assert len(ring["pairs"]) == 2 * P * (P - 1) // 2
@@ -358,14 +341,14 @@ def _chip_smoke():
 @pytest.mark.parametrize("kernel,n,m,k,kind,ms", [
     # past 16 columns the contraction on the TF32 tensor cores, 6k operations
     # a value at 495 TFLOP/s, for K1 and K3 alike: 60.6 ms at 100k², k = 500
-    ("laplace_matmat", 100_000, 100_000, 500, "laplace", 3 * 2 * 500 * 1e10 / 495e12 * 1e3),
+    ("gram_matmat", 100_000, 100_000, 500, "laplace", 3 * 2 * 500 * 1e10 / 495e12 * 1e3),
     ("gram_matmat", 100_000, 100_000, 500, "rbf", 3 * 2 * 500 * 1e10 / 495e12 * 1e3),
     # E3's shard pair past 16 columns: one general call
-    ("laplace_matmat", 33_334, 33_334, 500, "laplace", 3 * 2 * 500 * 33_334**2 / 495e12 * 1e3),
+    ("gram_matmat", 33_334, 33_334, 500, "laplace", 3 * 2 * 500 * 33_334**2 / 495e12 * 1e3),
     # the pair: each of n1·n2 values once, its distance (3 or 2 operations a
     # feature) and 4k of contraction on the FP32 cores
     ("gram_pair", 12_500, 12_500, 1, "rbf", 12_500**2 * (3 * 28 + 4) / 67e12 * 1e3),
-    ("laplace_pair", 33_334, 33_334, 10, "laplace", 33_334**2 * (2 * 28 + 40) / 67e12 * 1e3),
+    ("gram_pair", 33_334, 33_334, 10, "laplace", 33_334**2 * (2 * 28 + 40) / 67e12 * 1e3),
 ])
 def test_bound_ms_of_the_wide_k3_and_the_pair(kernel, n, m, k, kind, ms):
     """``chip_smoke.bound_ms`` counts K3 past 16 columns as K1's 3xTF32
@@ -381,8 +364,8 @@ def test_ceiling_shares_skip_the_wide_k3():
     smoke = _chip_smoke()
     rates = {"vpu_peak float32": 1e13, "vpu_peak float64": 5e12}
     pipes = {"float32": 1.6e13, "float64": 8e12}
-    t = {kname: [smoke.timing_entry(kname, "a", 50.0, None, 100_000, 100_000, 28, k, "laplace")]
-         for kname, k in (("laplace_matmat", 500), ("laplace_matmat_narrow", 1))}
+    t = {"gram_matmat": [smoke.timing_entry("gram_matmat", "a", 50.0, None, 100_000, 100_000,
+                                            28, k, "laplace") for k in (500, 1)]}
     smoke.ceiling_shares(t, rates, pipes)
-    assert "ceiling_ms" not in t["laplace_matmat"][0]
-    assert "ceiling_ms" in t["laplace_matmat_narrow"][0]
+    assert "ceiling_ms" not in t["gram_matmat"][0]
+    assert "ceiling_ms" in t["gram_matmat"][1]

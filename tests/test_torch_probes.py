@@ -221,18 +221,18 @@ def test_probe_instances_fill_whole_rounds(name, instances):
 
 @pytest.mark.parametrize("name,group", [
     ("laplace_forward<1>(float const*, float const*, float const*, float*, float*, int, int, "
-     "int, int, int, int, int, double)", "laplace_matmat_narrow"),
-    ("laplace_forward<16>(float const*)", "laplace_matmat_narrow"),
+     "int, int, int, int, int, double)", "gram_matmat"),
+    ("laplace_forward<16>(float const*)", "gram_matmat"),
     ("gram_comp_symmetric<4, 1>(double const*, float const*, double*, int, int, int, int, int)",
      "gram_matvec_symmetric_comp"),
-    ("gram_wide_tf32<4, 8, 4>(float const*, float const*, float4 const*)", "laplace_matmat"),
+    ("gram_wide_tf32<4, 8, 4>(float const*, float const*, float4 const*)", "gram_matmat"),
     ("probe_l1<float>(float const*, float const*, float*, int, int, int, int)", "probe_l1"),
     ("probe_chain<2>(float const*, float const*, float*, unsigned long)", "probe_chain"),
 ])
 def test_profile_groups_of_this_slices_kernels(name, group):
-    """``chip_smoke.py`` groups K3's tile, the triangle K3c and the probes
-    by name in a profile (K3 past 16 columns, the 3xTF32 wide kernel, by
-    its family)."""
+    """``chip_smoke.py`` groups K3's tile (under the names of earlier builds
+    too), the triangle K3c and the probes by name in a profile, K3 with
+    the wrapper of every family (past 16 columns the 3xTF32 wide kernel)."""
     assert SMOKE._kernel_group("void (anonymous namespace)::" + name) == group
 
 
@@ -244,16 +244,16 @@ def test_ceiling_shares_read_each_laplace_row():
     skipped."""
     rates = {"vpu_peak float32": 1e13, "vpu_peak float64": 5e12}
     pipes = {"float32": 1.6e13, "float64": 8e12}
-    t = {"laplace_matmat_narrow": [SMOKE.timing_entry("laplace_matmat_narrow", "a", 50.0, None,
-                                                      10_000, 1_000_000, 50, 1, "laplace")],
+    t = {"gram_matmat": [SMOKE.timing_entry("gram_matmat", "a", 50.0, None,
+                                            10_000, 1_000_000, 50, 1, "laplace")],
          "gram_matvec_symmetric_comp": [
              SMOKE.timing_entry("gram_matvec_symmetric_comp", "b", 40.0, None, 100_000, 100_000,
                                 28, 1, "laplace"),
              SMOKE.timing_entry("gram_matvec_symmetric_comp", "c", 40.0, None, 100_000, 100_000,
                                 28, 1, "rbf")]}
     SMOKE.ceiling_shares(t, rates, pipes)
-    assert t["laplace_matmat_narrow"][0]["ceiling_ms"] == pytest.approx(1e4 * 1e6 * 50 / 1e13 * 1e3)
-    assert t["laplace_matmat_narrow"][0]["pipe_ms"] == pytest.approx(1e4 * 1e6 * 50 / 1.6e13 * 1e3)
+    assert t["gram_matmat"][0]["ceiling_ms"] == pytest.approx(1e4 * 1e6 * 50 / 1e13 * 1e3)
+    assert t["gram_matmat"][0]["pipe_ms"] == pytest.approx(1e4 * 1e6 * 50 / 1.6e13 * 1e3)
     tri = t["gram_matvec_symmetric_comp"]
     assert tri[0]["ceiling_ms"] == pytest.approx(1e10 / 2 * 28 / 5e12 * 1e3)
     assert tri[0]["pipe_ms"] == pytest.approx(1e10 / 2 * 28 / 8e12 * 1e3)

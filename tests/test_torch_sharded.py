@@ -83,7 +83,7 @@ def _points(n, d=4, seed=0, dtype=np.float64):
 def pair_calls(monkeypatch):
     """Counts of the sharded operator's pair and triangle products."""
     calls = {"pair": 0, "triangle": 0}
-    real_pair, real_mm = t_sharded.kernel_pair, t_sharded.kernel_matmat
+    real_pair, real_mm = t_sharded.kernel_pair_points, t_sharded.kernel_matmat_points
 
     def pair(*a, **kw):
         calls["pair"] += 1
@@ -93,8 +93,8 @@ def pair_calls(monkeypatch):
         calls["triangle"] += bool(symmetric)
         return real_mm(*a, symmetric=symmetric, **kw)
 
-    monkeypatch.setattr(t_sharded, "kernel_pair", pair)
-    monkeypatch.setattr(t_sharded, "kernel_matmat", mm)
+    monkeypatch.setattr(t_sharded, "kernel_pair_points", pair)
+    monkeypatch.setattr(t_sharded, "kernel_matmat_points", mm)
     return calls
 
 

@@ -31,6 +31,8 @@ caller calls it, on the same numpy inputs:
   ``kernel_matmat_value64``.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -584,7 +586,8 @@ def _tier_bound(form, kind):
 def test_kernel_matmat_takes_jax_positional_order(monkeypatch, kind):
     """``kernel_matmat(kind, X1, X2, V, ls, c, impl, compute_dtype,
     symmetric)`` positionally: ``"bf16x3"`` in eighth place takes the tier
-    route (parts made for the call) and meets the tier's bound against
+    route (parts made for the call: the plain tier product here) and meets
+    the tier's bound against
     JAX's call (exact here: off the TPU JAX's XLA route takes no tier);
     None there is the exact tier, 1e-5 of JAX's (float32); ``True`` in
     ninth place is ``symmetric``, the triangle's plain version."""
@@ -592,8 +595,8 @@ def test_kernel_matmat_takes_jax_positional_order(monkeypatch, kind):
     A1, A2, W, S = smoke.ragged_data()
     ls, c = 1.3, 0.9
     calls = []
-    real = tops.kernel_dispatch.kernel_matmat_tier
-    monkeypatch.setattr(tops.kernel_dispatch, "kernel_matmat_tier",
+    real = tops.kernel_plain.gram_matmat_tier
+    monkeypatch.setattr(tops.kernel_plain, "gram_matmat_tier",
                         lambda *a, **k: calls.append(a[0]) or real(*a, **k))
     J = jops.kernel_dispatch.kernel_matmat(kind, jnp.asarray(A1), jnp.asarray(A2),
                                            jnp.asarray(W), ls, c, "auto", "bf16x3")
@@ -619,14 +622,14 @@ def test_kernel_matmat_takes_jax_positional_order(monkeypatch, kind):
 def test_kernel_pair_takes_jax_positional_order(monkeypatch, kind):
     """``kernel_pair(kind, X1, X2, V2, V1, ls, c, impl, compute_dtype)``
     positionally: ``"bf16x3"`` in ninth place takes the tier pair, both
-    outputs within the tier's bound of JAX's call (exact off the TPU);
-    ``tile_operands``, the port's own, only by keyword."""
+    outputs within the tier's bound of JAX's call (exact off the TPU); no
+    parameter past JAX's."""
     bound, smoke = _tier_bound("pair", kind)
     A1, A2, _, _ = smoke.ragged_data()
     V2, V1 = smoke.pair_ragged_rhs(3)
     calls = []
-    real = tops.kernel_dispatch.kernel_pair_tier
-    monkeypatch.setattr(tops.kernel_dispatch, "kernel_pair_tier",
+    real = tops.kernel_plain.gram_pair_tier
+    monkeypatch.setattr(tops.kernel_plain, "gram_pair_tier",
                         lambda *a, **k: calls.append(a[0]) or real(*a, **k))
     J = jops.kernel_dispatch.kernel_pair(kind, *(jnp.asarray(a) for a in (A1, A2, V2, V1)),
                                          1.3, 0.9, "auto", "bf16x3")
@@ -638,6 +641,9 @@ def test_kernel_pair_takes_jax_positional_order(monkeypatch, kind):
     with pytest.raises(TypeError):
         tops.kernel_dispatch.kernel_pair(kind, *(torch.from_numpy(a) for a in (A1, A2, V2, V1)),
                                          1.3, 0.9, "auto", None, None)
+    for name in ("kernel_matmat", "kernel_pair"):
+        assert (list(inspect.signature(getattr(tops.kernel_dispatch, name)).parameters)
+                == list(inspect.signature(getattr(jops.kernel_dispatch, name)).parameters))
 
 
 @pytest.mark.parametrize("chunk", [1, 3, 16, 64])

@@ -366,7 +366,7 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     gathered points exactly, and the row oracle's equals the operator's
     apply restricted to ``blk`` to the float32 order of the triangle's sums
     (2e-6 of max|ref|; k = 2, below the tier-matched mirror of k ≥ 3)."""
-    import rlaopt_tpu_torch.kernels.linop as linop
+    import rlaopt_tpu_torch.ops.kernel_dispatch as dispatch
     from rlaopt_tpu_torch.kernels import KernelConfig, KernelLinOp, RBFLinOp
 
     rng = np.random.default_rng(31)
@@ -375,12 +375,12 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     cfg = KernelConfig(lengthscale=LS)
     K = RBFLinOp(X, X, cfg, compute_dtype=cd)
     splits = []
-    real = linop.tier_operand
-    monkeypatch.setattr(linop, "tier_operand", lambda *a: splits.append(1) or real(*a))
+    real = dispatch.tier_operand
+    monkeypatch.setattr(dispatch, "tier_operand", lambda *a: splits.append(1) or real(*a))
     blk = torch.from_numpy(rng.choice(300, 70, replace=False))
     R, Bk = K.row_oracle(blk), K.blk_oracle(blk)
     assert splits == []
-    assert R._tier[1] is K._tier[1]
+    assert R._points[1] is K._points[1] and R._points[1].tier is not None
     got = R @ W
     assert torch.equal(got, KernelLinOp(X[blk], X, cfg, "rbf", compute_dtype=cd) @ W)
     assert torch.equal(Bk @ W[blk], KernelLinOp(X[blk], X[blk], cfg, "rbf", compute_dtype=cd) @ W[blk])
@@ -392,11 +392,11 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     ("tile_triangle<0, 1>(float const*, float const*, float*, int)", "gram_matvec_symmetric"),
     ("tile_pair<0, 1>(float const*, float const*, float const*, float const*, float*, float*, "
      "int)", "gram_pair"),
-    ("tile_pair<4, 1>(float const*, float const*, float const*)", "laplace_pair"),
-    ("tile_triangle<4, 8>(float const*, float const*, float*, int)", "laplace_matvec_symmetric"),
+    ("tile_pair<4, 1>(float const*, float const*, float const*)", "gram_pair"),
+    ("tile_triangle<4, 8>(float const*, float const*, float*, int)", "gram_matvec_symmetric"),
     ("tile_triangle<1, 2>(float const*)", "gram_matvec_symmetric"),
     ("tile_pair<1, 16>(float const*, float const*)", "gram_pair"),
-    ("tile_pair<4, 4>(float const*)", "laplace_pair"),
+    ("tile_pair<4, 4>(float const*)", "gram_pair"),
     ("gram_tier_pair<0, 3, 1>(GramArgs, int)", "gram_pair_tier"),
     ("gram_tier_pair<3, 1, 16>(GramArgs, int)", "gram_pair_tier"),
     ("gram_comp_symmetric<0, 2, float>(double const*, float const*, double*, int, int, int, "
@@ -410,11 +410,11 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     ("gram_comp_finish<double>(double*, float*, float*, unsigned long, double)",
      "gram_matvec_symmetric_f64"),
     ("gram_matmat_narrow<0, 1, 1>(GramArgs)", "gram_matmat_comp"),
-    ("gram_matmat_narrow<4, 16, 1>(GramArgs)", "laplace_matmat_comp"),
+    ("gram_matmat_narrow<4, 16, 1>(GramArgs)", "gram_matmat_comp"),
     ("gram_matmat_narrow<2, 8, 2>(GramArgs)", "gram_matmat_f64"),
     ("gram_comp_forward<0, 16, float>(CompArgs)", "gram_matmat_comp"),
     ("gram_comp_forward<3, 16, float>(CompArgs)", "gram_matmat_comp"),
-    ("gram_comp_forward<4, 16, float>(CompArgs)", "laplace_matmat_comp"),
+    ("gram_comp_forward<4, 16, float>(CompArgs)", "gram_matmat_comp"),
     ("gram_comp_forward<0, 16, double>(CompArgs)", "gram_matmat_f64"),
     ("gram_comp_forward<4, 16, double>(CompArgs)", "gram_matmat_f64"),
     ("gram_comp_pair<0, 1, float>(CompArgs)", "gram_pair_comp"),
@@ -435,7 +435,7 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     ("gram_comp_finish<double, 2>(double const*, int, unsigned long, double, void*, float*)",
      "gram_pair_f64"),
     ("gram_wide_tf32<4, 16, 2>(float const*, float const*, float4 const*, float*)",
-     "laplace_matmat"),
+     "gram_matmat"),
     ("gram_tier_symmetric<0, 3, 1>(GramArgs, int)", "gram_matvec_symmetric_tier"),
     ("gram_tier_symmetric<3, 1, 16>(GramArgs, int)", "gram_matvec_symmetric_tier"),
     ("gram_tier_symmetric<0, 3, 1, 32>(GramArgs, int, CUtensorMap_st, CUtensorMap_st, "
@@ -459,12 +459,12 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     ("csr_spmm_wide<float, 1, 8>(long const*, long const*)", "csr_spmm"),
     ("csr_spmm_sum_segments<double>(double const*, long const*)", "csr_spmm"),
     ("laplace_triangle<16>(float const*, float const*, float*, int)",
-     "laplace_matvec_symmetric"),
+     "gram_matvec_symmetric"),
     ("tile_forward<0, 1>(float const*, float const*, float const*, float*, float*, int)",
      "gram_matmat"),
-    ("tile_forward<4, 16>(float const*)", "laplace_matmat_narrow"),
+    ("tile_forward<4, 16>(float const*)", "gram_matmat"),
     ("tile_triangle<3, 8>(float const*, float const*, float*, int)", "gram_matvec_symmetric"),
-    ("tile_triangle<4, 1>(float const*)", "laplace_matvec_symmetric"),
+    ("tile_triangle<4, 1>(float const*)", "gram_matvec_symmetric"),
     ("gram_wide_tf32<2, 16, 2>(float const*, float const*, float4 const*, float*)",
      "gram_matmat"),
 ])
@@ -474,8 +474,9 @@ def test_profile_groups_each_kernel_template(name, group):
     profiles name it; the float64 tile's form, family and V type, its
     finishing pass's form last), as demangled in the
     device events. The register tile's forms and the 3xTF32 wide kernel go
-    by family (K4 and K6 are the tile's pair form, K1 and K3 past 16
-    columns the wide kernel); K3's tile under the names of earlier builds
+    to the one wrapper of every family (K4 and K6 are the tile's pair form,
+    K1 and K3 past 16 columns the wide kernel), as the float64 tile's
+    forms do; K3's tile under the names of earlier builds
     (``laplace_triangle``) is grouped the same."""
     assert SMOKE._kernel_group("void (anonymous namespace)::" + name) == group
 
@@ -499,17 +500,17 @@ def test_registers_of_tells_the_float64_triangles_apart():
 
 def test_registers_of_the_float64_forms():
     """``chip_smoke.registers_of`` gives the float64 tile's forward and pair
-    forms to their wrappers: the forward form by V's type and family (K8
-    where V is double, K3c where the family is Laplace, K1c otherwise), the
-    pair by V's type; the triangle's stay with K7 and the triangle K1c."""
+    forms to their wrappers: the forward form by V's type (K8 where V is
+    double, K1c and K3c, the Laplace family's, otherwise), the pair by V's
+    type; the triangle's stay with K7 and the triangle K1c."""
     reg = {"gram_comp_forward<0,16,f>": {"registers": 200},
            "gram_comp_forward<4,16,f>": {"registers": 198},
            "gram_comp_forward<2,16,d>": {"registers": 210},
            "gram_comp_pair<1,4,f>": {"registers": 255},
            "gram_comp_pair<4,1,d>": {"registers": 255},
            "gram_comp_symmetric<0,1,f>": {"registers": 255}}
-    assert set(SMOKE.registers_of("gram_matmat_comp", reg)) == {"gram_comp_forward<0,16,f>"}
-    assert set(SMOKE.registers_of("laplace_matmat_comp", reg)) == {"gram_comp_forward<4,16,f>"}
+    assert set(SMOKE.registers_of("gram_matmat_comp", reg)) == {"gram_comp_forward<0,16,f>",
+                                                                "gram_comp_forward<4,16,f>"}
     assert set(SMOKE.registers_of("gram_matmat_f64", reg)) == {"gram_comp_forward<2,16,d>"}
     assert set(SMOKE.registers_of("gram_pair_comp", reg)) == {"gram_comp_pair<1,4,f>"}
     assert set(SMOKE.registers_of("gram_pair_f64", reg)) == {"gram_comp_pair<4,1,d>"}
@@ -528,7 +529,7 @@ def test_registers_of_the_float64_forms():
     # feature, 2 for Laplace's L1, 1 for the exponential), 2k of contraction
     ("gram_matmat_comp", 12_500, 12_500, 1, "rbf", 12_500**2 * (3 * 28 + 1 + 2),
      4 * 25_000 * 28 + 4 * 12_500 + 8 * 12_500),
-    ("laplace_matmat_comp", 33_334, 33_334, 1, "laplace", 33_334**2 * (2 * 28 + 1 + 2),
+    ("gram_matmat_comp", 33_334, 33_334, 1, "laplace", 33_334**2 * (2 * 28 + 1 + 2),
      4 * 66_668 * 28 + 4 * 33_334 + 8 * 33_334),
     ("gram_matmat_f64", 8_192, 1_000_000, 1, "rbf", 8_192e6 * (3 * 28 + 1 + 2),
      4 * 1_008_192 * 28 + 8 * 1_000_000 + 8 * 8_192),
@@ -561,8 +562,8 @@ def test_bound_ms_of_the_float64_forms(kernel, n, m, k, kind, ops, nbytes):
 def test_registers_of_the_laplace_tile_forms_and_the_csr_schedules():
     """The register tile is one body in two kernels (forward, triangle),
     instantiated for Laplace (K3, K5) and the squared-distance families
-    (K1, K2): each wrapper is given its own instantiations by the family,
-    the first template argument; K1 also its wide kernel. ``csr_spmm`` gets
+    (K1, K2): each wrapper, which takes every family, is given its form's
+    instantiations of every family; K1 also its wide kernel. ``csr_spmm`` gets
     the short-row, wide and segment-sum kernels of #9's schedules,
     ``csr_spmv`` the short-row kernel it runs at k = 1."""
     reg = {"tile_forward<4,1>": {"registers": 128}, "tile_triangle<4,16>": {"registers": 128},
@@ -570,11 +571,10 @@ def test_registers_of_the_laplace_tile_forms_and_the_csr_schedules():
            "gram_wide_tf32<1,16,2>": {"registers": 255},
            "csr_spmm_lanes<f,1,4>": {"registers": 40}, "csr_spmm_wide<f,1,8>": {"registers": 48},
            "csr_spmm_sum_segments<d>": {"registers": 32}}
-    assert set(SMOKE.registers_of("laplace_matmat_narrow", reg)) == {"tile_forward<4,1>"}
-    assert set(SMOKE.registers_of("laplace_matvec_symmetric", reg)) == {"tile_triangle<4,16>"}
-    assert set(SMOKE.registers_of("gram_matmat", reg)) == {"tile_forward<0,16>",
-                                                           "gram_wide_tf32<1,16,2>"}
-    assert set(SMOKE.registers_of("gram_matvec_symmetric", reg)) == {"tile_triangle<3,2>"}
+    assert set(SMOKE.registers_of("gram_matmat", reg)) == {
+        "tile_forward<4,1>", "tile_forward<0,16>", "gram_wide_tf32<1,16,2>"}
+    assert set(SMOKE.registers_of("gram_matvec_symmetric", reg)) == {"tile_triangle<4,16>",
+                                                                     "tile_triangle<3,2>"}
     assert set(SMOKE.registers_of("csr_spmm", reg)) == {
         "csr_spmm_lanes<f,1,4>", "csr_spmm_wide<f,1,8>", "csr_spmm_sum_segments<d>"}
     assert set(SMOKE.registers_of("csr_spmv", reg)) == {"csr_spmm_lanes<f,1,4>"}

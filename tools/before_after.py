@@ -19,11 +19,10 @@ point sets (X and a copy of it: the forward product, K1 or K3),
 K2 or K5). The operator is built once a shape and applied once before the
 timings, so whatever it keeps (the points' operand) is made outside them,
 as in a solve. ``--pair N:K`` times ``kernel_dispatch.kernel_pair`` (K4
-or K6 up to 16 columns) on two shards of N points, as the symmetric
-half-ring calls it: with the register tile's operands of both built
-beforehand where that tree's ``kernel_pair`` takes them
-(``tile_operands``), each timing over 20 calls back to back (a call takes
-a fraction of a millisecond). ``--comp N:K`` times
+or K6 up to 16 columns) on two shards of N points, the JAX package's
+signature in either tree, which builds the register tile's operands of
+both in each call, each timing over 20 calls back to back (a call takes a
+fraction of a millisecond). ``--comp N:K`` times
 ``kernel_dispatch.kernel_matmat_compensated`` and ``--f64 N:K``
 ``kernel_dispatch.kernel_matmat_f64`` (V in float64) on X and a copy of it
 (the general K1c or K3c, and K8); ``--triangle N:K`` the compensated
@@ -47,7 +46,6 @@ then the card's name and power limit. Needs one CUDA card and ``nvcc``.
 """
 
 import argparse
-import inspect
 import json
 import os
 import statistics
@@ -146,7 +144,6 @@ def _run(args) -> dict:
     ls = args.d**0.5
     cfg = KernelConfig(lengthscale=ls)
     gen = torch.Generator(device=dev).manual_seed(1)
-    keeps = "tile_operands" in inspect.signature(kernel_dispatch.kernel_pair).parameters
     rec = {"tree": args.tree, "kind": args.kind, "d": args.d}
     for form, group in shapes.items():
         rec[form] = {}
@@ -160,12 +157,8 @@ def _run(args) -> dict:
             if form == "pair":
                 X1, X2 = X[:n].contiguous(), X[n:2 * n].contiguous()
                 V1 = torch.randn((n, k), generator=gen, device=dev)
-                extra = {}
-                if keeps:
-                    ops = (kernel_cuda.tile_operand(X1, ls), kernel_cuda.tile_operand(X2, ls))
-                    extra = {"tile_operands": lambda ops=ops: ops}
                 rec[form][key] = _cuda_ms(lambda: kernel_dispatch.kernel_pair(
-                    kind, X1, X2, V, V1, ls, 1.0, **extra), inner=20)
+                    kind, X1, X2, V, V1, ls, 1.0), inner=20)
                 continue
             Xn = X[:n].contiguous()
             if form in ("comp", "triangle", "f64"):
