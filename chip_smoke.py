@@ -14,8 +14,9 @@ straight through and exits non-zero at the first failure:
    kernel, K4b's pair strip, the float64 tile in its triangle (K1c, K3c
    and K7 on one data set), forward (the general K1c, K3c and K8) and pair
    (the certified pairs) forms, the register tile in its forward (K1, K3),
-   triangle (K2, K5) and pair (K4, K6) forms, the 3xTF32 wide kernel of K1
-   and K3) and of the probes from the build's ``-Xptxas -v`` log;
+   triangle (K2, K5) and pair (K4, K6) forms, the 3xTF32 wide kernels of
+   K1 and K3, the warpgroup form and the ``mma.sync`` one) and of the
+   probes from the build's ``-Xptxas -v`` log;
 2b. the ceilings: each probe (TPU kernels #10-#13: the L1 pair rate in
    float32 and float64, the elementwise chain, the exp chain, the exp and
    epilogue rates) against its plain version at a small size, then, with
@@ -38,14 +39,20 @@ straight through and exits non-zero at the first failure:
    a certified residual); kernel and plain version timed (median of 5, CUDA
    events), the triangle K1c beside the general one, and a bf16
    ``torch.matmul`` of 8192^3 timed as the tensor cores' measured rate;
-   K1 (its tile up to 16 columns, the 3xTF32 kernel past that) and K2 in
-   every squared-distance family against float64 at the HIGGS shape on
-   4,096 rows (K1 at k = 1, 3, 16, 17, 200, 500; K2 at 1, 2, 3, 10, 16), at
-   ragged shapes (d = 3, 28, 50; scalar and ARD lengthscales) and K2 at
-   E2's shard shape, the forward form the same bits twice; K1 timed at
-   config 5's n (E1); the float64 tile's forward form (K1c, K3c, K8) at
-   k = 16 and 17 at the HIGGS shape, at E2's shard, E1's slab and E3's
-   shard, each the same bits twice and on sampled rows against float64,
+   K1 (its tile up to 16 columns, the 3xTF32 kernels past that by
+   ``wide_route``) and K2 in every squared-distance family against float64
+   at the HIGGS shape on 4,096 rows (K1 at k = 1, 3, 16, 17, 32, 64, 200,
+   500; K2 at 1, 2, 3, 10, 16), at ragged shapes (d = 3, 28, 50, 130;
+   scalar and ARD lengthscales) and K2 at E2's shard shape, the forward
+   form the same bits twice; K1 timed at config 5's n (E1); both wide
+   kernels forced in turn (``wide_forms``): at k = 500 against float64 on
+   all rows, the same inputs, and in RBF, Matern-5/2 and Laplace at k =
+   17, 32, 64, 200, 500 against float64 on 4,096 rows, the warpgroup form
+   the same bits twice, both timed, the warpgroup form's Laplace also at
+   path A's lengthscale and at E3's shard pair; the float64 tile's forward
+   form (K1c, K3c, K8) at k = 16 and 17 at the HIGGS shape, at E2's
+   shard, E1's slab and E3's shard, each the same bits twice and on
+   sampled rows against float64,
    timed, in every family at ragged shapes (n < 128 too; d = 3, 28, 50;
    scalar and ARD lengthscales; k = 1, 3, 10, 17) with the certified pairs
    (both outputs), the pairs checked and timed at E2's and E3's shard pairs,
@@ -84,11 +91,11 @@ straight through and exits non-zero at the first failure:
    sampled certificate's 8,192 x 1,000,000 the same bits twice, checked and
    timed, and ``comp_operand``'s build of the 10⁶ points timed;
 7. slice 3: the Laplace kernels K3 (its Hopper tile up to 16 columns, the
-   3xTF32 wide kernel past that, at k = 17, 32, 64, 200, 500), K3c
+   3xTF32 wide kernels past that, at k = 17, 32, 64, 200, 500), K3c
    (general and triangle) and K5 (the tile's triangle form, at k = 1, 3,
    10 and 16) against the float64 plain version at the HIGGS shape (on
    4,096 rows; the wide K3 also at path A's lengthscale) and at ragged
-   shapes (n, m not multiples of 128; d = 3, 28, 50, 70; an ARD
+   shapes (n, m not multiples of 128; d = 3, 28, 50, 70, 130; an ARD
    lengthscale), the tile's split product and the wide K3 the same bits
    twice, timed (the wide K3 also at E3's shard pair), the triangle K3c
    beside the general;
@@ -245,6 +252,7 @@ MH_ESTIMATE_RTOL, MH_REL_RES_RTOL, MH_W_RTOL, MH_FLOOR = 1e-4, 0.01, 1e-3, 1e-5
 SOURCES = {
     "gram": "rlaopt_tpu_torch/csrc/gram.cu",
     "wide": "rlaopt_tpu_torch/csrc/gram_wide.cu",
+    "wide_ws": "rlaopt_tpu_torch/csrc/gram_wide_ws.cu",
     "tile": "rlaopt_tpu_torch/csrc/gram_tile.cuh",
     "comp": "rlaopt_tpu_torch/csrc/gram_comp.cu",
     "tier": "rlaopt_tpu_torch/csrc/gram_tier.cu",
@@ -388,7 +396,7 @@ RES_REL, RES_ABS, RES_ABOVE = 0.01, 5e-7, 1e-5
 # build's -Xptxas -v log reports (the `registers` line and their JSON
 # entries): the CUDA function names, by wrapper (the float64 tile's forms
 # by family and V's type, comp_wrapper).
-REGISTERS_OF = {"gram_matmat": ("tile_forward", "gram_wide_tf32"),
+REGISTERS_OF = {"gram_matmat": ("tile_forward", "gram_wide_ws", "gram_wide_tf32"),
                 "gram_matvec_symmetric": ("tile_triangle",),
                 "gram_pair": ("tile_pair",),
                 "gram_matvec_symmetric_tier": ("gram_tier_symmetric", "gram_tier_triangle"),
@@ -544,16 +552,20 @@ def ptxas_report(log: str, names) -> dict:
     """Registers and spills of each instantiation of the kernels ``names``,
     from the build's ``-Xptxas -v`` log: ``{"name<args>": {"registers": R,
     "spill_stores": bytes, "spill_loads": bytes}}``; the template arguments
-    read from the mangled name (f float, d double, integers)."""
+    read from the mangled name (f float, d double, integers). A name is
+    matched with its length prefix, as the mangling writes it, so that a
+    namespace named after its source file (``_gram_wide_ws_cu_``) does not
+    count as the kernel."""
     report, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             key = None
             for name in names:
-                at = m.group(1).find(name)
+                token = f"{len(name)}{name}"
+                at = m.group(1).find(token)
                 if at >= 0:
-                    tail = m.group(1)[at + len(name):].split("EE")[0]
+                    tail = m.group(1)[at + len(token):].split("EE")[0]
                     args = [a or b for a, b in re.findall(r"I?([fd])|Li(\d+)E?", tail)]
                     key = f"{name}<{','.join(args)}>"
                     report[key] = {}
@@ -596,10 +608,12 @@ def comp_wrapper(fn: str, args: str) -> str:
     return "gram_matmat_f64" if f64 else "gram_matmat_comp"
 
 
-# The register tile's three forms and the 3xTF32 wide kernel serve the
-# wrappers of every family (K1 and K3, K2 and K5, K4 and K6).
+# The register tile's three forms and the 3xTF32 wide kernels (the
+# warpgroup form and the mma.sync one) serve the wrappers of every family
+# (K1 and K3, K2 and K5, K4 and K6).
 TILE_FORMS = {"tile_forward": "gram_matmat", "tile_triangle": "gram_matvec_symmetric",
-              "tile_pair": "gram_pair", "gram_wide_tf32": "gram_matmat"}
+              "tile_pair": "gram_pair", "gram_wide_ws": "gram_matmat",
+              "gram_wide_tf32": "gram_matmat"}
 
 
 def registers_of(kname: str, registers: dict) -> dict:
@@ -710,7 +724,7 @@ def _kernel_group(name: str) -> str:
         return "sum_splits"
     if "csr_spmm" in name:
         return "csr_spmm"
-    m = re.search(r"(tile_forward|tile_triangle|tile_pair|gram_wide_tf32)<", name)
+    m = re.search(r"(tile_forward|tile_triangle|tile_pair|gram_wide_ws|gram_wide_tf32)<", name)
     if m:
         return TILE_FORMS[m.group(1)]
     for own, group in _OWN_NAMED.items():
@@ -1340,10 +1354,12 @@ def laplace_kernels(dev, X, compare, timings):
         compare("gram_matvec_symmetric_comp", hi.double() + lo.double(),
                 kernel_plain.gram_matmat_f64("laplace", P1, P1, S, ard.double(), 0.9),
                 f"laplace n={n1} d={d} k=3 ARD lengthscale (hi+lo)", COMP_BOUND)
-    # the wide K3 at ragged shapes: d = 3, 28, 50 and 70 (one, two and three
-    # chunks of 32 features, ragged last ones), every width of WIDE_KS
+    # the wide K3 at ragged shapes: d = 3, 28, 50, 70 and 130 (one to five
+    # chunks of 32 features, ragged last ones; d = 130 past the warpgroup
+    # form's depth, on the mma.sync kernel), every width of WIDE_KS
     rngw = np.random.default_rng(43)
-    for n1, m1, d in ((1000, 777, 3), (1000, 777, 28), (300, 1300, 50), (777, 1000, 70)):
+    for n1, m1, d in ((1000, 777, 3), (1000, 777, 28), (300, 1300, 50), (777, 1000, 70),
+                      (300, 777, 130)):
         P1 = torch.from_numpy(rngw.standard_normal((n1, d)).astype(np.float32)).to(dev)
         P2 = torch.from_numpy(rngw.standard_normal((m1, d)).astype(np.float32)).to(dev)
         W, cw = concat_columns({k: torch.from_numpy(rngw.standard_normal((m1, k)).astype(
@@ -1448,13 +1464,17 @@ def concat_columns(Vs: dict):
 
 def sqdist_kernels(dev, X, compare, timings):
     """K1 (the register tile's forward form up to 16 columns, the 3xTF32
-    wide kernel past 16) and K2 (the tile's triangle form) in every
+    wide kernels past 16 by ``wide_route``: the warpgroup form from 33
+    columns, the mma.sync kernel at 17 to 32 and past a padded depth of
+    128) and K2 (the tile's triangle form) in every
     squared-distance family against the float64 plain version: at the
     HIGGS shape on 4,096 sampled rows (lengthscale sqrt(28), K1 at k = 1,
-    3, 16, 17, 200, 500, K2 at 1, 2, 3, 10, 16), at ragged shapes (n, m not
-    multiples of 128; d = 3, 28, 50; a scalar and an ARD lengthscale), K2
+    3, 16, 17, 32, 64, 200, 500, K2 at 1, 2, 3, 10, 16), at ragged shapes
+    (n, m not multiples of 128; d = 3, 28, 50, 130; a scalar and an ARD
+    lengthscale), K2
     at E2's shard shape (12,500 points of the half-ring, d = 28); the
-    forward form the same bits twice (also in runs of the m axis); and K1
+    forward form the same bits twice (also in runs of the m axis; the wide
+    K1 at k = 17 and 500); and K1
     timed at config 5's (E1's) shapes, n = m = 50,000: k = 1, 32, 200."""
     import torch
 
@@ -1464,7 +1484,7 @@ def sqdist_kernels(dev, X, compare, timings):
     ls = d**0.5
     idx = torch.as_tensor(sampled_rows(n, 4096, 6), device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
-    k1s, k2s = (1, 3, 16, 17, 200, 500), (1, 2, 3, 10, 16)
+    k1s, k2s = (1, 3, 16) + WIDE_KS, (1, 2, 3, 10, 16)
     V1 = {k: torch.randn((n, k), generator=gen, device=dev) for k in k1s}
     V2 = {k: torch.randn((n, k), generator=gen, device=dev) for k in k2s}
     Vall, cols = concat_columns({**{("k1", k): V1[k] for k in k1s},
@@ -1482,7 +1502,7 @@ def sqdist_kernels(dev, X, compare, timings):
             got = kernel_cuda.gram_matmat(kind, X, X, V1[k], ls, 1.0, *ops)
             compare("gram_matmat", got[idx], ref[:, cols[("k1", k)]], f"{kind} {shape} k={k}",
                     K_BOUND)
-            if k in (3, 500):
+            if k in (3, 17, 500):
                 again = kernel_cuda.gram_matmat(kind, X, X, V1[k], ls, 1.0, *ops)
                 torch.cuda.synchronize()
                 check(torch.equal(got, again), f"gram_matmat {kind} k={k}: the same bits twice")
@@ -1493,10 +1513,11 @@ def sqdist_kernels(dev, X, compare, timings):
                     ref[:, cols[("k2", k)]], f"{kind} {shape} k={k}", K_BOUND)
         del ref
     del Vall, V1, V2
-    # ragged shapes: n, m not multiples of 128, the last feature chunk 3, 28
-    # and 18 features, a scalar and an ARD lengthscale
+    # ragged shapes: n, m not multiples of 128, the last feature chunk 3, 28,
+    # 18 and 2 features, a scalar and an ARD lengthscale; past a padded
+    # depth of 128 (d = 130) the wide K1 takes the mma.sync kernel
     rng = np.random.default_rng(41)
-    for n1, m1, dd in ((1000, 777, 3), (1000, 777, 28), (300, 1300, 50)):
+    for n1, m1, dd in ((1000, 777, 3), (1000, 777, 28), (300, 1300, 50), (300, 777, 130)):
         P1 = torch.from_numpy(rng.standard_normal((n1, dd)).astype(np.float32)).to(dev)
         P2 = torch.from_numpy(rng.standard_normal((m1, dd)).astype(np.float32)).to(dev)
         W1, c1 = concat_columns({k: torch.from_numpy(rng.standard_normal((m1, k)).astype(
@@ -1554,6 +1575,109 @@ def sqdist_kernels(dev, X, compare, timings):
         timings.setdefault("gram_matmat", []).append(entry)
         print(f"time gram_matmat E1 n={N5} d={d} k={k}: kernel {ms:.3f} ms, bound "
               f"{entry['bound_ms']:.3f} ms ({entry['bound_by']})")
+
+
+@contextlib.contextmanager
+def wide_route_forced(route: str):
+    """``kernel_cuda.wide_route`` swapped for one that names ``route``."""
+    from rlaopt_tpu_torch.ops import kernel_cuda
+
+    kept = kernel_cuda.wide_route
+    kernel_cuda.wide_route = lambda k, dp: route
+    try:
+        yield
+    finally:
+        kernel_cuda.wide_route = kept
+
+
+def wide_forms(dev, X, V, ref, compare, timings):
+    """K1 and K3 past 16 columns on both kernels at the HIGGS shape, each
+    route forced in turn on the operand an operator keeps: RBF at k = 500
+    (V, and its float64 product ref) against float64 on all rows, both
+    kernels on the same inputs; then in RBF, Matern-5/2 and Laplace
+    (lengthscale 32) at k = 17, 32, 64, 200, 500 against float64 on 4,096
+    rows, the warpgroup form the same bits twice, both timed, each timing
+    with the route ``wide_route`` takes there; Laplace's warpgroup form also
+    at path A's lengthscale and at E3's shard pair (33,334 points a side, k
+    = 500)."""
+    import torch
+
+    from rlaopt_tpu_torch.ops import kernel_cuda, kernel_plain
+
+    n, d = X.shape
+    ls = d**0.5
+    XT = kernel_cuda.tile_operand(X, ls)
+    rels = {}
+    for route in ("warpgroup", "wide"):
+        with wide_route_forced(route):
+            got = kernel_cuda.gram_matmat("rbf", X, X, V, ls, 1.0, XT, XT)
+            rels[route] = compare("gram_matmat", got, ref,
+                                  f"{route} n=m={n} d={d} k={V.shape[1]}", K_BOUND)
+            del got
+    print(f"wide forms at k={V.shape[1]}: warpgroup rel={rels['warpgroup']:.3e}, "
+          f"mma.sync rel={rels['wide']:.3e}")
+    idx = torch.as_tensor(sampled_rows(n, 4096, 9), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    Ws, cols = concat_columns({k: torch.randn((n, k), generator=gen, device=dev)
+                               for k in WIDE_KS})
+    shape = f"rows 4096 of n=m={n} d={d}"
+    for kind, lk in (("rbf", ls), ("matern52", ls), ("laplace", LS_B)):
+        XK = XT if lk == ls else kernel_cuda.tile_operand(X, lk)
+        refk = kernel_plain.gram_matmat_f64(kind, X[idx], X, Ws, lk, row_block=512)
+        for k in WIDE_KS:
+            W = Ws[:, cols[k]].contiguous()
+            ms = {}
+            for route in ("warpgroup", "wide"):
+                with wide_route_forced(route):
+                    def call():
+                        return kernel_cuda.gram_matmat(kind, X, X, W, lk, 1.0, XK, XK)
+                    got = call()
+                    compare("gram_matmat", got[idx], refk[:, cols[k]],
+                            f"{route} {kind} {shape} k={k}", K_BOUND)
+                    if route == "warpgroup":
+                        again = call()
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, again),
+                              f"gram_matmat warpgroup {kind} k={k}: the same bits twice")
+                        del again
+                    del got
+                    ms[route] = cuda_ms(call)
+            taken = kernel_cuda.wide_route(k, XK.shape[0])
+            what = f"{kind} n=m={n} d={d} k={k}"
+            for route, t in ms.items():
+                entry = timing_entry("gram_matmat", f"{what} {route}", t, None, n, n, d, k, kind,
+                                     route=route, taken=route == taken)
+                timings.setdefault("gram_matmat", []).append(entry)
+            print(f"time gram_matmat {what}: warpgroup {ms['warpgroup']:.3f} ms, mma.sync "
+                  f"{ms['wide']:.3f} ms, bound {entry['bound_ms']:.3f} ms, wide_route takes "
+                  f"{taken}")
+            del W
+        del refk
+    # Laplace's warpgroup form at path A's lengthscale and at E3's shard pair
+    refa = kernel_plain.gram_matmat_f64("laplace", X[idx], X, Ws, LS_A, row_block=512)
+    XA = kernel_cuda.tile_operand(X, LS_A)
+    with wide_route_forced("warpgroup"):
+        for k in WIDE_KS:
+            got = kernel_cuda.gram_matmat("laplace", X, X, Ws[:, cols[k]].contiguous(), LS_A,
+                                          1.0, XA, XA)
+            compare("gram_matmat", got[idx], refa[:, cols[k]],
+                    f"warpgroup laplace {shape} k={k} lengthscale {LS_A}", K_BOUND)
+            del got
+        del refa, XA
+        loc = -(-n // P_LAPLACE)
+        X1, X2 = X[:loc], X[loc:2 * loc]
+        XT1, XT2 = kernel_cuda.tile_operand(X1, LS_B), kernel_cuda.tile_operand(X2, LS_B)
+        W = Ws[loc:2 * loc, cols[RANK]].contiguous()
+        i3 = torch.as_tensor(sampled_rows(loc, 4096, 8), device=dev)
+        got = kernel_cuda.gram_matmat("laplace", X1, X2, W, LS_B, 1.0, XT1, XT2)
+        compare("gram_matmat", got[i3],
+                kernel_plain.gram_matmat_f64("laplace", X1[i3], X2, W, LS_B, row_block=512),
+                f"warpgroup laplace E3 shards n1={loc} n2={X2.shape[0]} d={d} k={RANK} "
+                "rows 4096", K_BOUND)
+        del got
+        ms = cuda_ms(lambda: kernel_cuda.gram_matmat("laplace", X1, X2, W, LS_B, 1.0, XT1, XT2))
+    print(f"time gram_matmat laplace E3 shards k={RANK}: warpgroup {ms:.3f} ms")
+    del Ws
 
 
 # The float64 tile's forward form at the HIGGS shape past the k = 1 and 10
@@ -4185,6 +4309,7 @@ def main() -> int:
                         kernel_cuda.gram_matvec_symmetric_f64(kind, A1, V7, ls7, 0.9),
                         kernel_plain.gram_matmat_f64(kind, A1, A1, V7, ls7, 0.9),
                         f"{kind} n=1000 d=3 k={k} {ls_name} lengthscale", COMP_BOUND)
+    ref500 = refs[500]  # for the wide forms' comparison (wide_forms)
     del refs
 
     # The first shape of each kernel is the one its JSON entry reports. K1
@@ -4283,6 +4408,8 @@ def main() -> int:
     laplace_kernels(dev, X, compare, timings)
     print(f"phase: Laplace kernels done at {time.perf_counter() - t_start:.1f} s")
     sqdist_kernels(dev, X, compare, timings)
+    wide_forms(dev, X, Vs[500], ref500, compare, timings)
+    del ref500
     comp_forms(dev, X, compare, timings)
     print(f"phase: the float64 tile's forms done at {time.perf_counter() - t_start:.1f} s")
     k2b_sweep(dev, compare, timings)
@@ -4520,7 +4647,8 @@ def main() -> int:
         if kname == "gram_matmat_tier":
             kernels[-1]["matmul_tflops"] = mm_rate / 1e12
         if kname == "gram_matmat":
-            kernels[-1]["sources"] = [SOURCES["gram"], SOURCES["wide"], SOURCES["tile"]]
+            kernels[-1]["sources"] = [SOURCES["gram"], SOURCES["wide_ws"], SOURCES["wide"],
+                                      SOURCES["tile"]]
         if kname in ("gram_matvec_symmetric", "gram_pair"):
             kernels[-1]["sources"] = [source, SOURCES["tile"]]
         mine = registers_of(kname, registers)

@@ -1,11 +1,12 @@
-// Shared pieces of the warp-specialised tier kernels for Hopper (sm_90a):
-// K2b's gram_tier_symmetric (gram_tier_sym.cu) and K1b's row kernel
-// gram_tier_rows (gram_tier_rows.cu). The mbarriers of a TMA ring, the TMA
-// copies, the wgmma operand descriptor and the asynchronous products from
-// shared memory, and the driver's tensor-map encoder reached through the
-// runtime (no link to libcuda).
+// Shared pieces of the warp-specialised kernels for Hopper (sm_90a): K2b's
+// gram_tier_symmetric (gram_tier_sym.cu), K1b's row kernel gram_tier_rows
+// (gram_tier_rows.cu) and K1's wide kernel gram_wide_ws (gram_wide_ws.cu).
+// The mbarriers of a TMA ring, the TMA copies, the wgmma operand descriptor
+// and the asynchronous products from shared memory, and the tensor-map
+// encoder (cuTensorMapEncodeTiled) reached through the runtime (no link to
+// libcuda).
 //
-// Both include this header, which includes gram_tier.cuh; everything here
+// Each includes this header, which includes gram_tier.cuh; everything here
 // has internal linkage.
 
 #pragma once
@@ -169,10 +170,11 @@ inline bool bf16_tensor_map(CUtensorMap* map, const void* base, int rows, int co
 }
 
 // A tensor map of a row-major (rows, cols) float32 array (row stride cols,
-// times 4 a multiple of 16 bytes), unswizzled boxes of box_cols x box_rows,
-// zeros past the ends.
+// times 4 a multiple of 16 bytes), boxes of box_cols x box_rows, zeros past
+// the ends; unswizzled, or with swizzle128 swizzled over the box's row of
+// 128 bytes (box_cols 32) as the tensor cores read a K-major tf32 operand.
 inline bool f32_tensor_map_2d(CUtensorMap* map, const void* base, int rows, int cols,
-                              int box_cols, int box_rows) {
+                              int box_cols, int box_rows, bool swizzle128 = false) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint32_t unit[2] = {1, 1};
@@ -180,7 +182,8 @@ inline bool f32_tensor_map_2d(CUtensorMap* map, const void* base, int rows, int 
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
   const cuuint32_t tile[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
-                strides, tile, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                strides, tile, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

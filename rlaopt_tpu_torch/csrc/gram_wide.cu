@@ -1,5 +1,8 @@
 // K1 and K3 past 16 columns, for Hopper (sm_90a): out = c * k(X1, X2) @ V
-// for every family, the contraction on the tensor cores in 3xTF32.
+// for every family, the contraction on the tensor cores in 3xTF32, by
+// mma.sync. kernel_cuda.wide_route gives it k = 17 .. 32 and every k past a
+// padded depth of 128; the rest (the sketch at k = 500, config 5's k = 200)
+// takes the warpgroup form of gram_wide_ws.cu, 1.8x faster at k = 500.
 //
 //   K1  gram_wide_tf32<KIND, NF>  replaces rlaopt_tpu/ops/kernel_pallas.py ::
 //       (KIND != LAPLACE,         kernel_matmat_pallas, exact tier, past 16

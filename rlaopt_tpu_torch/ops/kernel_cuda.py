@@ -4,8 +4,9 @@ Counterpart of ``rlaopt_tpu/ops/kernel_pallas.py`` (exact f32 tier,
 compensated tier, bf16 tiers, the Laplace kernels),
 ``rlaopt_tpu/ops/kernel_value64.py`` (float64 route) and
 ``rlaopt_tpu/sparse/laned.py`` (the sparse CSR product). The kernels live in
-``csrc/gram.cu`` (K1 and K3 up to 16 columns, K2, K5), ``csrc/gram_wide.cu``
-(K1 and K3 past 16 columns, the 3xTF32 contraction), ``csrc/gram_comp.cu``
+``csrc/gram.cu`` (K1 and K3 up to 16 columns, K2, K5), ``csrc/gram_wide_ws.cu``
+and ``csrc/gram_wide.cu`` (K1 and K3 past 16 columns, the 3xTF32
+contraction by ``wgmma`` and by ``mma.sync``: :func:`wide_route`), ``csrc/gram_comp.cu``
 (the float64 tile in its triangle, forward and pair forms: K1c, K3c, K7, K8
 and the certified pairs), ``csrc/gram_pair.cu`` (the exact pair kernels K4,
 K6), the register tile of K1–K6 in its forward, triangle and pair forms in
@@ -74,6 +75,9 @@ __all__ = [
     "gram_matvec_symmetric",
     "tile_operand",
     "wide_rhs",
+    "wide_ws_rhs",
+    "wide_route",
+    "wide_ws_cols",
     "gram_matmat_tier",
     "gram_matvec_symmetric_tier",
     "symmetric_tier_route",
@@ -99,8 +103,8 @@ __all__ = [
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("gram.cu", "gram_wide.cu", "gram_comp.cu", "gram_tier.cu", "gram_tier_sym.cu",
-           "gram_tier_rows.cu", "gram_pair.cu", "spmv.cu", "probes.cu")
+SOURCES = ("gram.cu", "gram_wide.cu", "gram_wide_ws.cu", "gram_comp.cu", "gram_tier.cu",
+           "gram_tier_sym.cu", "gram_tier_rows.cu", "gram_pair.cu", "spmv.cu", "probes.cu")
 _HEADERS = ("gram_common.cuh", "gram_tile.cuh", "gram_tier.cuh", "gram_tma.cuh")
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -144,6 +148,12 @@ TILE_POINTS, TILE_FEAT, TILE_BLOCKS_PER_SM = 128, 32, 2
 # columns) have 64 or fewer: each width measured the faster on its side
 # (gram_wide.cu).
 WIDE_COLS = 128
+# csrc/gram_wide_ws.cu: the warpgroup form of K1 and K3 past 16 columns
+# takes a padded depth up to WIDE_WS_DEPTH (the row tile's points stay in
+# shared memory) from WIDE_WS_MIN_K columns on, the rest stays on
+# csrc/gram_wide.cu (wide_route); a block covers one of WIDE_WS_COLS output
+# columns (wide_ws_cols).
+WIDE_WS_DEPTH, WIDE_WS_MIN_K, WIDE_WS_COLS = 128, 33, (64, 128, 168)
 # csrc/spmv.cu keeps up to 16 right-hand sides of a row in registers.
 CSR_NARROW_MAX_K = 16
 # Its short-row schedule: L lanes a row, L a power of two in [2, 32], about
@@ -170,6 +180,9 @@ _SIGNATURES = {
     ],
     "rl_gram_matmat_wide": [
         _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
+    ],
+    "rl_gram_matmat_wide_ws": [
+        _ci, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
     ],
     "rl_gram_matmat_comp": [
         _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _cd, _vp,
@@ -466,8 +479,46 @@ def wide_rhs(V: torch.Tensor, mpad: int, kp: int) -> torch.Tensor:
     return torch.stack((hi[0::2], hi[1::2], lo[0::2], lo[1::2]), dim=-1)
 
 
+def wide_ws_rhs(V: torch.Tensor, mpad: int):
+    """K1's right-hand side on the warpgroup form (``csrc/gram_wide_ws.cu``):
+    V (m, k) float32, zero-padded to mpad rows, split into TF32 parts hi =
+    tf32(v), lo = tf32(v − hi) (:func:`kernel_plain.tf32_split` in bit
+    operations), each transposed to (k, mpad): K-major, as ``wgmma`` reads
+    a tf32 operand. Made once per call."""
+    m, k = V.shape
+    Vp = torch.zeros((mpad, k), dtype=torch.float32, device=V.device)
+    Vp[:m] = V
+    hi = _tf32(Vp)
+    lo = _tf32(Vp - hi)
+    return hi.T.contiguous(), lo.T.contiguous()
+
+
+def wide_ws_cols(k: int) -> int:
+    """Output columns a block of the warpgroup form covers for k columns of
+    V: the fewest groups of at most 168 (each evaluates every kernel value
+    once), each the narrowest width of ``WIDE_WS_COLS`` that holds its share:
+    64 up to 64 columns, 128 up to 128 and at 129–256 (two groups), 168 at
+    k = 500 (three)."""
+    groups = -(-k // WIDE_WS_COLS[-1])
+    share = -(-k // groups)
+    return next(bn for bn in WIDE_WS_COLS if bn >= share)
+
+
+def wide_route(k: int, dp: int) -> str:
+    """The kernel K1 (K3) takes for k columns of V at the tile operand's
+    padded depth dp: ``"tile"`` (the register tile's forward form) up to 16
+    columns, ``"warpgroup"`` (``csrc/gram_wide_ws.cu``) from
+    ``WIDE_WS_MIN_K`` columns at a depth up to ``WIDE_WS_DEPTH``, and
+    ``"wide"`` (``csrc/gram_wide.cu``) otherwise."""
+    if k <= SYMMETRIC_MAX_K:
+        return "tile"
+    if k >= WIDE_WS_MIN_K and dp <= WIDE_WS_DEPTH:
+        return "warpgroup"
+    return "wide"
+
+
 def _wide(code, X1, X2, V2, XT1, XT2, const_scaling):
-    """K1 and K3 past 16 columns: the 3xTF32 kernel (``csrc/gram_wide.cu``)
+    """K1 and K3 past 16 columns on the mma.sync kernel (``csrc/gram_wide.cu``)
     for the family ``code`` on the tile's operands and V's TF32 parts
     (:func:`wide_rhs`), 128 output columns a block past kp = 64, else 64;
     the (n, k) output."""
@@ -487,23 +538,50 @@ def _wide(code, X1, X2, V2, XT1, XT2, const_scaling):
     return out
 
 
+def _wide_ws(code, X1, X2, V2, XT1, XT2, const_scaling):
+    """K1 and K3 past 16 columns on the warpgroup form
+    (``csrc/gram_wide_ws.cu``) for the family ``code`` on the tile's
+    operands (16-byte aligned for TMA) and V's parts (:func:`wide_ws_rhs`),
+    :func:`wide_ws_cols` output columns a block; the (n, k) output."""
+    (n, d), (m, k) = X1.shape, V2.shape
+    XT1, XT2 = _tma_aligned(XT1, XT2)
+    Vh, Vl = wide_ws_rhs(V2, XT2.shape[1])
+    bn = wide_ws_cols(k)
+    build()
+    out = torch.empty((n, k), dtype=torch.float32, device=V2.device)
+    with torch.cuda.device(V2.device):
+        err = _lib["handle"].rl_gram_matmat_wide_ws(
+            code, XT1.data_ptr(), XT2.data_ptr(), Vh.data_ptr(), Vl.data_ptr(), out.data_ptr(),
+            n, m, XT1.shape[1], XT2.shape[1], d, XT1.shape[0], k, bn, float(const_scaling),
+            _stream(V2),
+        )
+    _raise_on(err, "rl_gram_matmat_wide_ws")
+    return out
+
+
 @_counted
 def gram_matmat(kind, X1, X2, V, lengthscale, const_scaling=1.0, XT1=None, XT2=None):
     """K1 (K3 for Laplace): ``c·k(X1, X2) @ V`` (n, k) on the card, exact
-    f32 tier, every family. Up to 16 columns the register tile's forward
-    form (``csrc/gram_tile.cuh``), the m axis in :func:`tile_splits` runs
-    summed in a fixed order (the same bits on every call); past 16 the
-    3xTF32 tensor-core kernel (``csrc/gram_wide.cu``) on V's TF32 parts
-    (:func:`wide_rhs`), the contraction float32-accurate, as the JAX
-    kernels' "highest". The points go in as :func:`tile_operand`: ``XT1``
-    and ``XT2``, built beforehand (an operator keeps them), or None to
-    build them here."""
+    f32 tier, every family, by :func:`wide_route`: up to 16 columns the
+    register tile's forward form (``csrc/gram_tile.cuh``), the m axis in
+    :func:`tile_splits` runs summed in a fixed order (the same bits on every
+    call); past 16 the 3xTF32 tensor-core kernels on V's TF32 parts, the
+    contraction float32-accurate, as the JAX kernels' "highest": the
+    warpgroup form (``csrc/gram_wide_ws.cu``, V as :func:`wide_ws_rhs`) or
+    the ``mma.sync`` one (``csrc/gram_wide.cu``, V as :func:`wide_rhs`). The
+    points go in as :func:`tile_operand`: ``XT1`` and ``XT2``, built
+    beforehand (an operator keeps them), or None to build them here. Each
+    route's launches are counted in ``gram_matmat.routes`` and, while
+    tracing is on, in the counters ``rlaopt.cuda.gram_matmat.<route>.launches``."""
     code = _code(kind)
     _check_tensors((torch.float32,) * 3, X1, X2, V)
     V2, squeeze = _check_shapes(X1, X2, V)
     XT1, XT2 = _kept_or_built(X1, X2, lengthscale, V2.device, XT1, XT2)
     (n, d), (m, k) = X1.shape, V2.shape
-    if k > SYMMETRIC_MAX_K:
+    route = wide_route(k, XT1.shape[0])
+    if route == "warpgroup":
+        out = _wide_ws(code, X1, X2, V2, XT1, XT2, const_scaling)
+    elif route == "wide":
         out = _wide(code, X1, X2, V2, XT1, XT2, const_scaling)
     else:
         dev = V2.device
@@ -519,6 +597,8 @@ def gram_matmat(kind, X1, X2, V, lengthscale, const_scaling=1.0, XT1=None, XT2=N
             )
         _raise_on(err, "rl_gram_matmat_narrow")
     gram_matmat.launches += 1
+    gram_matmat.routes[route] += 1
+    count(f"rlaopt.cuda.gram_matmat.{route}.launches")
     return out[:, 0] if squeeze else out
 
 
@@ -1189,6 +1269,7 @@ _WRAPPERS = (
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
+    gram_matmat.routes = {"tile": 0, "warpgroup": 0, "wide": 0}
     gram_matvec_symmetric_tier.routes = {"warpgroup": 0, "strip": 0}
     gram_matmat_tier.routes = {"warpgroup": 0, "strip": 0, "wide": 0}
 
@@ -1198,11 +1279,11 @@ def launch_counts() -> dict:
 
 
 def route_counts() -> dict:
-    """K2b's and K1b's launches by route (:func:`symmetric_tier_route`,
-    :func:`forward_tier_route`), as ``{"gram_matvec_symmetric_tier.warpgroup":
-    .., ..., "gram_matmat_tier.wide": ..}``."""
+    """K1's, K2b's and K1b's launches by route (:func:`wide_route`,
+    :func:`symmetric_tier_route`, :func:`forward_tier_route`), as
+    ``{"gram_matmat.tile": .., ..., "gram_matmat_tier.wide": ..}``."""
     return {f"{fn.__name__}.{route}": launches
-            for fn in (gram_matvec_symmetric_tier, gram_matmat_tier)
+            for fn in (gram_matmat, gram_matvec_symmetric_tier, gram_matmat_tier)
             for route, launches in fn.routes.items()}
 
 

@@ -540,11 +540,12 @@ def test_cuda_k3_tile_takes_an_operators_operands(cuda_device):
 @pytest.mark.parametrize("n,m,d", [(1000, 777, 3), (300, 1300, 50), (129, 4000, 28)])
 @pytest.mark.parametrize("kind", SQDIST_KINDS)
 def test_cuda_k1_tile_and_wide_match_float64(cuda_device, kind, n, m, d, k):
-    """K1 on the register tile up to 16 columns and on the 3xTF32 wide
-    kernel past 16 (64 columns a block up to 64, 128 beyond), at ragged
-    shapes (n, m not multiples of 128, a last feature chunk of 3, 18 and 28
-    features), scalar and ARD lengthscales, every family: 2e-5 of max|ref|
-    against the float64 plain version; the same bits twice."""
+    """K1 on the register tile up to 16 columns and past 16 on the 3xTF32
+    kernel ``wide_route`` names (the ``mma.sync`` kernel at 17, the
+    warpgroup form from 33), at ragged shapes (n, m not multiples of 128,
+    a last feature chunk of 3, 18 and 28 features), scalar and ARD
+    lengthscales, every family: 2e-5 of max|ref| against the float64 plain
+    version; the same bits twice."""
     X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in _data(n + m + k, n, m, d, k))
     for ls in (d**0.5, torch.linspace(0.5, 1.5, d, device=cuda_device) * d**0.5):
         ref = kernel_plain.gram_matmat_f64(kind, X1, X2, V, ls, 0.9)
@@ -1008,10 +1009,32 @@ def test_cuda_tile_pair_matches_plain(cuda_device, kind, k, n1, n2):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["warpgroup", "wide"])
+@pytest.mark.parametrize("k", [17, 33, 64, 65, 168, 169, 500])
+@pytest.mark.parametrize("d", [3, 70])
+@pytest.mark.parametrize("kind", ["rbf", "matern32", "laplace"])
+def test_cuda_k1_both_wide_kernels_match_float64(cuda_device, monkeypatch, kind, d, k, route):
+    """Past 16 columns both kernels, each forced through ``wide_route``:
+    the warpgroup form (every block width: 64, 128 and 168 columns) and the
+    ``mma.sync`` kernel, at a ragged shape against float64, 2e-5 of
+    max|ref|, the same bits twice; the launches counted on that route."""
+    monkeypatch.setattr(kernel_cuda, "wide_route", lambda k, dp: route)
+    X1, X2, V = (torch.from_numpy(a).to(cuda_device) for a in _data(k + d, 300, 2100, d, k))
+    ls = torch.linspace(0.6, 1.4, d, device=cuda_device) * d**0.5
+    kernel_cuda.reset_launch_counts()
+    got, again = (kernel_cuda.gram_matmat(kind, X1, X2, V, ls, 0.9) for _ in range(2))
+    ref = kernel_plain.gram_matmat_f64(kind, X1, X2, V, ls, 0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel(got, ref) <= 2e-5
+    assert kernel_cuda.gram_matmat.routes[route] == 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [17, 32, 64, 200])
 @pytest.mark.parametrize("d", [3, 28, 70])
 def test_cuda_laplace_wide_matches_plain(cuda_device, k, d):
-    """K3 past 16 columns (K1's 3xTF32 kernel with the L1 step) at a ragged
+    """K3 past 16 columns (K1's 3xTF32 kernels with the L1 step) at a ragged
     shape against float64: 2e-5 of max|ref|, scalar and ARD lengthscales;
     no atomics: the same bits twice, and on the operands built beforehand
     as on those built in the call."""

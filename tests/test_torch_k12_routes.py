@@ -9,8 +9,10 @@ pointers); or the wrappers are replaced by recorders that compute with the
 plain versions and ``kernel_dispatch._on_card`` is forced true, so that
 each caller shows which kernel it reaches. K2 takes the register tile's
 triangle form up to 16 columns; K1 its forward form up to 16 columns (in
-``tile_splits`` runs of the m axis) and the 3xTF32 tensor-core kernel past
-16, on V's TF32 parts (``wide_rhs``). The operands the wrappers build on the host are pure
+``tile_splits`` runs of the m axis) and past 16 one of the 3xTF32
+tensor-core kernels, by ``wide_route``: the warpgroup form on V's parts as
+``wide_ws_rhs`` lays them out, or the ``mma.sync`` kernel on ``wide_rhs``'s
+pieces. The operands the wrappers build on the host are pure
 functions of their inputs and are held to the plain versions bit for bit;
 the emulated products, in float64 from those operands, to 1e-6 of max|ref|
 (V's TF32 parts carry V to 2^-22 of its size).
@@ -57,6 +59,12 @@ def _gram64(kind, P1, P2, V, c):
     return c * kernel_plain.gram_matmat_f64(kind, *t, 1.0).numpy()
 
 
+def _from_ws_layout(VT):
+    """(mpad, k) rows from the warpgroup form's (k, mpad) layout of V's parts
+    (K-major: V transposed)."""
+    return np.ascontiguousarray(VT.T)
+
+
 class _Entries:
     """K1's and K2's C entries emulated on the host, with the arguments of
     their ctypes signatures."""
@@ -94,6 +102,22 @@ class _Entries:
                            "mpad": mpad, "d": d, "dpad": dpad, "k": k, "kp": kp, "nf": nf})
         return 0
 
+    def rl_gram_matmat_wide_ws(self, *args):
+        self._check("rl_gram_matmat_wide_ws", args)
+        code, xt1, xt2, vth, vtl, out, n, m, npad, mpad, d, dpad, k, bn, c, _s = args
+        assert npad % 128 == 0 and mpad % 128 == 0 and dpad % 32 == 0
+        assert bn in kernel_cuda.WIDE_WS_COLS
+        XT1, XT2 = _host(xt1, (dpad, npad)).copy(), _host(xt2, (dpad, mpad)).copy()
+        VTh, VTl = _host(vth, (k, mpad)).copy(), _host(vtl, (k, mpad)).copy()
+        V = _from_ws_layout(VTh).astype(np.float64) + _from_ws_layout(VTl)
+        _host(out, (n, k))[:] = _gram64(KIND_OF[code], XT1[:d, :n].T, XT2[:d, :m].T,
+                                         V[:m], c)
+        self.calls.append({"entry": "warpgroup", "kind": KIND_OF[code], "XT1": XT1,
+                           "XT2": XT2, "ptrs": (xt1, xt2), "VTh": VTh, "VTl": VTl, "n": n,
+                           "m": m, "npad": npad, "mpad": mpad, "d": d, "dpad": dpad, "k": k,
+                           "bn": bn})
+        return 0
+
     def rl_gram_matvec_symmetric(self, *args):
         self._check("rl_gram_matvec_symmetric", args)
         code, xt, v, out, n, npad, d, dpad, k, c, _s = args
@@ -127,29 +151,130 @@ def _ard(d):
     return torch.linspace(0.5, 2.0, d) * d**0.5
 
 
+@pytest.mark.parametrize("d", [5, 130])
 @pytest.mark.parametrize("k", [1, 3, 16, 17, 40, 130])
 @pytest.mark.parametrize("kind", KINDS)
-def test_k1_routes_by_width_down_to_its_entry(entries, kind, k):
+def test_k1_routes_by_width_down_to_its_entry(entries, kind, k, d):
     """K1 up to 16 columns: the tile's forward entry, the points as
-    ``tile_operand`` bit for bit; past 16 the wide entry, V as
-    ``wide_rhs`` (kp the next multiple of 8, 128 columns a block past 64,
-    else 64). The emulated product is the plain float64 one's."""
-    X1, X2, V = _points(130, 5, 1), _points(257, 5, 2), _points(257, k, 3)
-    ls = _ard(5)
+    ``tile_operand`` bit for bit; past 16 the entry ``wide_route`` names:
+    the warpgroup form from ``WIDE_WS_MIN_K`` columns up to a padded depth
+    of 128, V as ``wide_ws_rhs``
+    (``wide_ws_cols`` output columns a block), the ``mma.sync`` kernel
+    deeper or narrower, V as ``wide_rhs`` (kp the next multiple of 8, 128
+    columns a block past 64, else 64). The emulated product is the plain
+    float64 one's."""
+    X1, X2, V = _points(130, d, 1), _points(257, d, 2), _points(257, k, 3)
+    ls = _ard(d)
+    dpad = -(-d // 32) * 32
+    route = kernel_cuda.wide_route(k, dpad)
+    assert route == ("tile" if k <= 16 else "wide" if d > 128 or k < kernel_cuda.WIDE_WS_MIN_K
+                     else "warpgroup")
     got = kernel_cuda.gram_matmat(kind, X1, X2, V, ls, 0.9)
     call = entries.calls[-1]
-    assert call["entry"] == ("narrow" if k <= 16 else "wide") and call["kind"] == kind
+    assert call["entry"] == {"tile": "narrow"}.get(route, route) and call["kind"] == kind
     assert np.array_equal(call["XT1"], kernel_cuda.tile_operand(X1, ls).numpy())
     assert np.array_equal(call["XT2"], kernel_cuda.tile_operand(X2, ls).numpy())
-    assert (call["n"], call["m"], call["d"], call["k"]) == (130, 257, 5, k)
-    assert (call["npad"], call["mpad"], call["dpad"]) == (256, 384, 32)
-    if k > 16:
+    assert (call["n"], call["m"], call["d"], call["k"]) == (130, 257, d, k)
+    assert (call["npad"], call["mpad"], call["dpad"]) == (256, 384, dpad)
+    if route == "wide":
         kp = -(-k // 8) * 8
         assert call["kp"] == kp and call["nf"] == (16 if kp > 64 else 8)
         want = kernel_cuda.wide_rhs(V, 384, kp).numpy()
         assert np.array_equal(call["VP"].view(np.int32), want.view(np.int32))
+    if route == "warpgroup":
+        assert call["bn"] == kernel_cuda.wide_ws_cols(k)
+        for got_part, want in zip((call["VTh"], call["VTl"]), kernel_cuda.wide_ws_rhs(V, 384)):
+            assert np.array_equal(got_part.view(np.int32), want.numpy().view(np.int32))
     ref = kernel_plain.gram_matmat_f64(kind, X1, X2, V, ls.double(), 0.9)
     assert got.shape == (130, k) and _rel(got, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("k,dp,route", [
+    (1, 32, "tile"), (16, 32, "tile"), (16, 160, "tile"),
+    (kernel_cuda.WIDE_WS_MIN_K - 1, 32, "tile" if kernel_cuda.WIDE_WS_MIN_K == 17 else "wide"),
+    (kernel_cuda.WIDE_WS_MIN_K, 32, "warpgroup"),
+    (kernel_cuda.WIDE_WS_MIN_K, 128, "warpgroup"), (kernel_cuda.WIDE_WS_MIN_K, 160, "wide"),
+    (500, 32, "warpgroup"), (500, 128, "warpgroup"), (500, 160, "wide"),
+])
+def test_wide_route_at_its_boundaries(k, dp, route):
+    """``wide_route``: the tile up to 16 columns at any depth; the warpgroup
+    form from ``WIDE_WS_MIN_K`` columns at a padded depth up to 128 (its row
+    tile stays in shared memory); the ``mma.sync`` kernel past that depth
+    and below ``WIDE_WS_MIN_K``."""
+    assert kernel_cuda.wide_route(k, dp) == route
+
+
+@pytest.mark.parametrize("k,bn", [(17, 64), (64, 64), (65, 128), (128, 128), (129, 168),
+                                  (168, 168), (169, 128), (200, 128), (256, 128), (257, 168),
+                                  (500, 168), (505, 128)])
+def test_wide_ws_cols_takes_the_fewest_groups(k, bn):
+    """The warpgroup form covers k columns in the fewest groups of at most
+    168 output columns (each group evaluates every kernel value once), each
+    the narrowest of 64, 128 and 168 that holds its share: three groups of
+    168 at the sketch's k = 500, two of 128 at config 5's k = 200."""
+    assert kernel_cuda.wide_ws_cols(k) == bn
+    groups = -(-k // bn)
+    assert groups == -(-k // 168) and (groups - 1) * bn < k <= groups * bn
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-30, 1e30, 1e-40])
+def test_wide_ws_rhs_holds_the_plain_split_k_major(scale):
+    """The warpgroup form's right-hand side: V's TF32 parts transposed to
+    (k, mpad), K-major as ``wgmma`` reads a tf32 operand, zero past m; they
+    are ``kernel_plain.tf32_split``'s hi and lo bit for bit (normal and
+    subnormal scales)."""
+    V = _points(301, 19, 31).double().mul(scale).float()
+    hi, lo = kernel_plain.tf32_split(V)
+    for part, want in zip(kernel_cuda.wide_ws_rhs(V, 384), (hi, lo)):
+        assert part.shape == (19, 384) and part.is_contiguous()
+        assert torch.equal(part[:, :301].view(torch.int32), want.T.view(torch.int32))
+        assert not part[:, 301:].any()
+
+
+@pytest.mark.parametrize("kind", ["rbf", "matern32", "laplace"])
+def test_wide_ws_entry_takes_the_kept_operands(entries, kind):
+    """The warpgroup entry takes the family's code, an operator's kept
+    operands as they are (their pointers) and V's parts; the launch is
+    counted on the wrapper and on its route, and while tracing records in
+    ``rlaopt.cuda.gram_matmat.warpgroup.launches``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rlaopt_tpu_torch.utils import profiling
+
+    X1, X2, V = _points(300, 28, 32), _points(200, 28, 33), _points(200, 500, 34)
+    XT1, XT2 = kernel_cuda.tile_operand(X1, 5.0), kernel_cuda.tile_operand(X2, 5.0)
+    kernel_cuda.reset_launch_counts()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = kernel_cuda.gram_matmat(kind, X1, X2, V, 5.0, 1.2, XT1, XT2)
+    (call,) = entries.calls
+    assert call["entry"] == "warpgroup" and call["kind"] == kind and call["bn"] == 168
+    assert call["ptrs"] == (XT1.data_ptr(), XT2.data_ptr())
+    hi, lo = kernel_plain.tf32_split(V)
+    assert np.array_equal(_from_ws_layout(call["VTh"])[:200], hi.numpy())
+    assert np.array_equal(_from_ws_layout(call["VTl"])[:200], lo.numpy())
+    assert kernel_cuda.launch_counts()["gram_matmat"] == 1
+    assert {key: n for key, n in kernel_cuda.route_counts().items()
+            if key.startswith("gram_matmat.")} == {
+        "gram_matmat.tile": 0, "gram_matmat.warpgroup": 1, "gram_matmat.wide": 0}
+    assert profiling.counters()["rlaopt.cuda.gram_matmat.warpgroup.launches"] == 1
+    assert _rel(got, kernel_plain.gram_matmat_f64(kind, X1, X2, V, 5.0, 1.2)) <= 1e-6
+
+
+@pytest.mark.parametrize("k,d,route", [(3, 28, "tile"), (40, 28, "warpgroup"),
+                                       (40, 130, "wide")])
+def test_k1_counts_each_route(entries, k, d, route):
+    """``gram_matmat.routes`` counts each launch on the route it took, and
+    ``reset_launch_counts`` clears them."""
+    kernel_cuda.reset_launch_counts()
+    X = _points(150, d, 35)
+    for _ in range(2):
+        kernel_cuda.gram_matmat("rbf", X, X, _points(150, k, 36), 4.0)
+    assert kernel_cuda.gram_matmat.routes == {r: 2 * (r == route)
+                                              for r in ("tile", "warpgroup", "wide")}
+    assert entries.calls[-1]["entry"] == {"tile": "narrow"}.get(route, route)
+    kernel_cuda.reset_launch_counts()
+    assert not any(kernel_cuda.gram_matmat.routes.values())
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 10, 16])

@@ -8,8 +8,9 @@ with the arguments of its ctypes signature (the operands read through their
 pointers), as ``tests/test_torch_k12_routes.py`` does for K1 and K2; or the
 wrappers are replaced by recorders that compute with the plain versions and
 ``kernel_dispatch._on_card`` is forced true, so that each caller shows what
-it hands the kernels. K3 past 16 columns takes K1's 3xTF32 entry
-(``rl_gram_matmat_wide``) with Laplace's code; K4 and K6 take the register
+it hands the kernels. K3 past 16 columns takes K1's 3xTF32 entries
+(``rl_gram_matmat_wide_ws`` or ``rl_gram_matmat_wide``, by
+``kernel_cuda.wide_route``) with Laplace's code; K4 and K6 take the register
 tile's pair form (``rl_tile_pair``) on the tile's operands of both point
 sets, the column tiles of X2 in ``tile_splits`` runs. The operands the
 wrappers build are pure functions of their inputs and are held to the plain
@@ -59,12 +60,31 @@ def _gram64(kind, P1, P2, V, c):
     return c * kernel_plain.gram_matmat_f64(kind, *t, 1.0).numpy()
 
 
+def _from_ws_layout(VT):
+    """(mpad, k) rows from the warpgroup form's (k, mpad) layout of V's parts
+    (K-major: V transposed)."""
+    return np.ascontiguousarray(VT.T)
+
+
 class _Entries:
-    """The wide entry and the pair entry emulated on the host, with the
+    """The wide entries and the pair entry emulated on the host, with the
     arguments of their ctypes signatures."""
 
     def __init__(self):
         self.calls = []
+
+    def rl_gram_matmat_wide_ws(self, *args):
+        assert len(args) == len(kernel_cuda._SIGNATURES["rl_gram_matmat_wide_ws"])
+        code, xt1, xt2, vth, vtl, out, n, m, npad, mpad, d, dpad, k, bn, c, _s = args
+        XT1, XT2 = _host(xt1, (dpad, npad)).copy(), _host(xt2, (dpad, mpad)).copy()
+        VTh, VTl = _host(vth, (k, mpad)).copy(), _host(vtl, (k, mpad)).copy()
+        V = _from_ws_layout(VTh).astype(np.float64) + _from_ws_layout(VTl)
+        _host(out, (n, k))[:] = _gram64(KIND_OF[code], XT1[:d, :n].T, XT2[:d, :m].T, V[:m], c)
+        self.calls.append({"entry": "warpgroup", "kind": KIND_OF[code], "XT1": XT1,
+                           "XT2": XT2, "ptrs": (xt1, xt2), "VTh": VTh, "VTl": VTl, "n": n,
+                           "m": m, "npad": npad, "mpad": mpad, "d": d, "dpad": dpad, "k": k,
+                           "bn": bn})
+        return 0
 
     def rl_gram_matmat_wide(self, *args):
         assert len(args) == len(kernel_cuda._SIGNATURES["rl_gram_matmat_wide"])
@@ -129,37 +149,52 @@ def _ard(d):
     return torch.linspace(0.5, 2.0, d) * d
 
 
+@pytest.mark.parametrize("d", [5, 130])
 @pytest.mark.parametrize("k", [17, 40, 64, 65, 130, 500])
 @pytest.mark.parametrize("given", [False, True])
-def test_k3_past_16_reaches_the_wide_entry(entries, k, given):
-    """K3 past 16 columns: the shared wide entry with Laplace's code, on the
-    tile's operands (built in the call, or given: their pointers passed on)
-    bit for bit, K1's rule of output columns (kp the next multiple of 8,
-    128 columns a block past kp = 64, else 64) and V as ``wide_rhs``'s
-    TF32 parts, bit for bit against the plain split. The emulated product
-    is the plain float64 one's; the wrapper counts the launch."""
-    X1, X2, V = _points(130, 5, 1), _points(257, 5, 2), _points(257, k, 3)
-    ls = _ard(5)
+def test_k3_past_16_reaches_the_wide_entry(entries, k, given, d):
+    """K3 past 16 columns: the wide entry ``wide_route`` names, with
+    Laplace's code, on the tile's operands (built in the call, or given:
+    their pointers passed on) bit for bit. From ``WIDE_WS_MIN_K`` columns up
+    to a padded depth of 128 the warpgroup form: ``wide_ws_cols`` output
+    columns a block, V's parts as ``wide_ws_rhs`` lays them out; deeper or
+    narrower the ``mma.sync`` kernel, K1's
+    rule of output columns (kp the next multiple of 8, 128 columns a block
+    past kp = 64, else 64) and V as ``wide_rhs``'s pieces. Either way the
+    parts are the plain split's bit for bit. The emulated product is the
+    plain float64 one's; the wrapper counts the launch."""
+    X1, X2, V = _points(130, d, 1), _points(257, d, 2), _points(257, k, 3)
+    ls = _ard(d)
+    dpad = -(-d // 32) * 32
     XT1, XT2 = kernel_cuda.tile_operand(X1, ls), kernel_cuda.tile_operand(X2, ls)
     before = kernel_cuda.gram_matmat.launches
     ops = (XT1, XT2) if given else (None, None)
     got = kernel_cuda.gram_matmat("laplace", X1, X2, V, ls, 0.9, *ops)
     assert kernel_cuda.gram_matmat.launches == before + 1
     (call,) = entries.calls
-    assert call["entry"] == "wide" and call["kind"] == "laplace"
+    route = "warpgroup" if d == 5 and k >= kernel_cuda.WIDE_WS_MIN_K else "wide"
+    assert kernel_cuda.wide_route(k, dpad) == route
+    assert call["entry"] == route and call["kind"] == "laplace"
     assert np.array_equal(call["XT1"], XT1.numpy()) and np.array_equal(call["XT2"], XT2.numpy())
     if given:
         assert call["ptrs"] == (XT1.data_ptr(), XT2.data_ptr())
-    assert (call["n"], call["m"], call["d"], call["k"]) == (130, 257, 5, k)
-    assert (call["npad"], call["mpad"], call["dpad"]) == (256, 384, 32)
-    kp = -(-k // 8) * 8
-    assert call["kp"] == kp and call["nf"] == (16 if kp > 64 else 8)
+    assert (call["n"], call["m"], call["d"], call["k"]) == (130, 257, d, k)
+    assert (call["npad"], call["mpad"], call["dpad"]) == (256, 384, dpad)
     hi, lo = kernel_plain.tf32_split(V)
-    for first, part in ((0, hi), (2, lo)):
-        rows = np.zeros((384, kp), np.float32)
-        rows[0::2], rows[1::2] = call["VP"][..., first], call["VP"][..., first + 1]
-        assert np.array_equal(rows[:257, :k].view(np.int32), part.numpy().view(np.int32))
-        assert not rows[257:].any() and not rows[:, k:].any()
+    if route == "warpgroup":
+        assert call["bn"] == kernel_cuda.wide_ws_cols(k)
+        for VT, part in ((call["VTh"], hi), (call["VTl"], lo)):
+            rows = _from_ws_layout(VT)
+            assert np.array_equal(rows[:257].view(np.int32), part.numpy().view(np.int32))
+            assert not rows[257:].any()
+    else:
+        kp = -(-k // 8) * 8
+        assert call["kp"] == kp and call["nf"] == (16 if kp > 64 else 8)
+        for first, part in ((0, hi), (2, lo)):
+            rows = np.zeros((384, kp), np.float32)
+            rows[0::2], rows[1::2] = call["VP"][..., first], call["VP"][..., first + 1]
+            assert np.array_equal(rows[:257, :k].view(np.int32), part.numpy().view(np.int32))
+            assert not rows[257:].any() and not rows[:, k:].any()
     ref = kernel_plain.gram_matmat_f64("laplace", X1, X2, V, ls.double(), 0.9)
     assert got.shape == (130, k) and _rel(got, ref) <= 1e-6
 
@@ -236,18 +271,19 @@ def test_pair_hands_its_entry_the_given_operands(entries, kind):
 @pytest.mark.parametrize("kind", ["rbf", "matern32", "laplace"])
 def test_pair_past_16_makes_two_general_calls_on_the_same_operands(entries, monkeypatch, kind):
     """``kernel_pair_points`` past 16 columns: two general calls (the wide
-    entry), the first on the kept operands of (X1, X2), the second on the
-    same two swapped; the outputs are the plain pair's. At k ≤ 16 one pair
-    call on them."""
+    entry ``wide_route`` names), the first on the kept operands of (X1,
+    X2), the second on the same two swapped; the outputs are the plain
+    pair's. At k ≤ 16 one pair call on them."""
     monkeypatch.setattr(kernel_dispatch, "_on_card", lambda impl, t: True)
     X1, X2 = _points(200, 7, 16), _points(150, 7, 17)
     XT1, XT2 = kernel_cuda.tile_operand(X1, 3.0), kernel_cuda.tile_operand(X2, 3.0)
     L, R = PointSet(X1, tile=XT1), PointSet(X2, tile=XT2)
     V2, V1 = _points(150, 20, 18), _points(200, 20, 19)
     o1, o2 = kernel_dispatch.kernel_pair_points(kind, L, R, V2, V1, 3.0, 0.7)
+    route = kernel_cuda.wide_route(20, 32)
     assert [(c["entry"], c["kind"], c["ptrs"]) for c in entries.calls] == [
-        ("wide", kind, (XT1.data_ptr(), XT2.data_ptr())),
-        ("wide", kind, (XT2.data_ptr(), XT1.data_ptr())),
+        (route, kind, (XT1.data_ptr(), XT2.data_ptr())),
+        (route, kind, (XT2.data_ptr(), XT1.data_ptr())),
     ]
     r1, r2 = kernel_plain.gram_pair(kind, X1.double(), X2.double(), V2.double(), V1.double(),
                                     3.0, 0.7)

@@ -467,6 +467,9 @@ def test_oracles_gather_the_parents_tier_parts(cd, monkeypatch):
     ("tile_triangle<4, 1>(float const*)", "gram_matvec_symmetric"),
     ("gram_wide_tf32<2, 16, 2>(float const*, float const*, float4 const*, float*)",
      "gram_matmat"),
+    ("gram_wide_ws<0, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "float*, int, int, int, int, int, double)", "gram_matmat"),
+    ("gram_wide_ws<4, 64>(CUtensorMap_st)", "gram_matmat"),
 ])
 def test_profile_groups_each_kernel_template(name, group):
     """``chip_smoke.py`` names each Gram kernel in a profile by its
@@ -559,6 +562,17 @@ def test_bound_ms_of_the_float64_forms(kernel, n, m, k, kind, ops, nbytes):
     assert by == "bytes" and got == pytest.approx(few / SMOKE.HBM_BYTES_PER_S * 1e3)
 
 
+def test_registers_of_gives_k1_both_wide_kernels():
+    """``gram_matmat`` (K1 and K3) is given the ``-Xptxas -v`` entries of
+    both kernels past 16 columns, the warpgroup form and the ``mma.sync``
+    one, in every family; no other wrapper is."""
+    reg = {"gram_wide_ws<0,128>": {"registers": 224}, "gram_wide_ws<4,64>": {"registers": 200},
+           "gram_wide_tf32<1,16,2>": {"registers": 255}}
+    assert set(SMOKE.registers_of("gram_matmat", reg)) == set(reg)
+    assert SMOKE.registers_of("gram_matmat_tier", reg) == {}
+    assert SMOKE.registers_of("gram_pair", reg) == {}
+
+
 def test_registers_of_the_laplace_tile_forms_and_the_csr_schedules():
     """The register tile is one body in two kernels (forward, triangle),
     instantiated for Laplace (K3, K5) and the squared-distance families
@@ -584,6 +598,20 @@ def test_registers_of_the_laplace_tile_forms_and_the_csr_schedules():
         "ptxas info    : Used 128 registers\n", SMOKE.REDESIGNED)
     assert names == {"tile_triangle<4,16>": {"spill_stores": 4, "spill_loads": 8,
                                              "registers": 128}}
+
+
+def test_ptxas_report_reads_the_kernel_not_its_files_namespace():
+    """The warpgroup form's translation unit names its anonymous namespace
+    after the file (``_gram_wide_ws_cu_``): ``ptxas_report`` reads the
+    kernel's template arguments from the kernel's own (length-prefixed)
+    name and leaves the file's ``sum_splits`` out."""
+    log = ("Compiling entry function '_ZN48_GLOBAL__N__0d3a753c_15_gram_wide_ws_cu_80454602"
+           "12gram_wide_wsILi4ELi168EEEv14CUtensorMap_stS1_S1_S1_Pfiiiiid' for 'sm_90a'\n"
+           "    16 bytes spill stores, 16 bytes spill loads\nptxas info    : Used 168 registers\n"
+           "Compiling entry function '_ZN48_GLOBAL__N__0d3a753c_15_gram_wide_ws_cu_80454602"
+           "10sum_splitsEPKfPfimd' for 'sm_90a'\nptxas info    : Used 32 registers\n")
+    assert SMOKE.ptxas_report(log, SMOKE.REDESIGNED) == {
+        "gram_wide_ws<4,168>": {"spill_stores": 16, "spill_loads": 16, "registers": 168}}
 
 
 def test_reround_steps_tell_a_rounding_flip_from_a_fault():
