@@ -29,7 +29,7 @@ from ..ops.kernel_dispatch import (
 )
 from ..ops.kernel_tiers import normalize_compute_dtype
 from ..utils.checkers import _is_tensor
-from ..utils.profiling import traced
+from ..utils.profiling import annotate, traced
 
 
 __all__ = ["KernelLinOp"]
@@ -182,8 +182,10 @@ class KernelLinOp(TwoSidedLinOp):
 
     def blk_dense(self, blk: torch.Tensor) -> torch.Tensor:
         """K[blk, blk] materialized as a dense (|blk|, |blk|) tensor, in the
-        payload dtype (a small dense tile, outside the Gram kernels)."""
-        Xs = scale_inputs(self._X1[blk], self._ls)
-        Ys = scale_inputs(self._X2[blk], self._ls)
-        return self._apply_scale(kernel_tile(self.kind, Xs, Ys) * self._c)
+        payload dtype (a small dense tile, outside the Gram kernels). Its
+        span, ``rlaopt.linop.blk_dense``, carries the card's time on a card."""
+        with annotate("rlaopt.linop.blk_dense", self._X1):
+            Xs = scale_inputs(self._X1[blk], self._ls)
+            Ys = scale_inputs(self._X2[blk], self._ls)
+            return self._apply_scale(kernel_tile(self.kind, Xs, Ys) * self._c)
 

@@ -29,14 +29,17 @@ In PyTorch:
 
 Spans (while a profiler records; :mod:`rlaopt_tpu_torch.utils.profiling`):
 ``rlaopt.sap.step`` around each step, and inside it ``rlaopt.sap.precond``
-(the block preconditioner, built from ``A_blk_oracle(blk)``),
-``rlaopt.sap.stepsize`` (the power iteration), ``rlaopt.sap.row_oracle``
-(the block gradient: one ``A_row_oracle(blk)`` apply) and
-``rlaopt.sap.update`` (P⁻¹ of the gradient, the finite-direction test and
-the recurrence), each with the card's time inside it on a card;
+(the block preconditioner, built from ``A_blk_oracle(blk)``, or from the
+block's dense tile, whose materialization is the operator's
+``rlaopt.linop.blk_dense`` span inside it), ``rlaopt.sap.stepsize`` (the
+power iteration), ``rlaopt.sap.row_oracle`` (the block gradient: one
+``A_row_oracle(blk)`` apply) and ``rlaopt.sap.update`` (P⁻¹ of the
+gradient, the finite-direction test and the recurrence), each with the
+card's time inside it on a card;
 ``rlaopt.sync.sap_blocks`` around the upload of a chunk's host-drawn
 blocks, which waits for the card. Counters
-``rlaopt.sap.steps`` and ``rlaopt.sap.degenerate_blocks`` (steps whose
+``rlaopt.sap.steps``, ``rlaopt.sap.dense_blocks`` (steps whose block tile
+was materialized) and ``rlaopt.sap.degenerate_blocks`` (steps whose
 direction is not finite in an active column, so skipped there; counted
 on the card and read with the counters).
 """
@@ -254,6 +257,7 @@ class SAP(Solver):
         if self._blk_dense_fn is not None:
             # one tile evaluation; the sketch and every power iteration
             # become dense products on the resident block
+            count("rlaopt.sap.dense_blocks")
             K_blk = self._blk_dense_fn(blk)
             return (lambda Z: hmm(K_blk, Z)), K_blk
         blk_op = self.system.A_blk_oracle(blk)

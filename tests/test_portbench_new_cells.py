@@ -48,7 +48,9 @@ def test_both_cells_load_with_the_metrics_benchmark_json_names():
         "precond_s.solve", "iters.solve", "sketch_roofline.solve", "idle_share.solve"}
     for name in SAP_METRICS:
         entry = next(m for m in bench["per_layer"] if m["name"] == name)
-        assert entry["workloads"] == [SAP_CELL] and entry["moves"] == "iter_s"
+        # config 4's Laplace cell reads SAP's metrics too
+        assert entry["workloads"] == [SAP_CELL, "krr1m-laplace-askotch-iters"]
+        assert entry["moves"] == "iter_s"
     # the widths of config 9 as published
     c = sap.config
     assert (c["n"], c["d"], c["k"], c["solver"]["blk_sz"], c["preconditioner"]["rank"],

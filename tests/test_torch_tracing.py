@@ -312,6 +312,29 @@ def test_sap_counts_a_degenerate_block():
     assert torch.all(solver.W[:10] == 0) and torch.any(solver.W[10:20] != 0)
 
 
+@pytest.mark.parametrize("blk_dense", [None, False], ids=["dense_block", "matrix_free"])
+def test_sap_dense_block_span_nests_in_precond_and_is_counted(blk_dense):
+    """Ten SAP steps, blocks of 64 (a tile that fits SAP's budget, so
+    materialized by default) or matrix-free: on the dense path one
+    ``rlaopt.linop.blk_dense`` inside each step's ``rlaopt.sap.precond`` and
+    ``rlaopt.sap.dense_blocks`` equal to the steps; matrix-free, neither."""
+    steps = 10
+    _, spans = _traced(lambda: _solve(_sap_system(), _sap_cfg(steps, blk_dense=blk_dense),
+                                      callback_freq=5, metrics="sampled"))
+    by_id = _check_nesting(spans)
+    dense = [s for s in spans if s["name"] == "rlaopt.linop.blk_dense"]
+    c = profiling.counters()
+    assert c["rlaopt.sap.steps"] == steps
+    if blk_dense is False:
+        assert dense == [] and "rlaopt.sap.dense_blocks" not in c
+        return
+    precond = [s for s in spans if s["name"] == "rlaopt.sap.precond"]
+    assert sorted(s["parent"] for s in dense) == sorted(s["id"] for s in precond)
+    assert len(precond) == steps and {by_id[s["parent"]]["name"] for s in precond} == {
+        "rlaopt.sap.step"}
+    assert c["rlaopt.sap.dense_blocks"] == steps
+
+
 def test_sap_iterates_are_bit_equal_traced_and_not_and_untraced_records_nothing():
     """The same SAP solve with no profile and under one: equal bits in W and
     every logged rel_res; with no profile no span and no counter."""

@@ -1,28 +1,28 @@
 #!/usr/bin/env python3
 """Config 9 of ``benchmarks/run.py`` whole, through the port, on one card.
 
-    python3 tools/config10m.py [--pilot 60] [--iters 150] [--every 50]
+    python3 tools/config10m.py [--iters 150] [--every 50]
 
 The recipe of ``chip_smoke.py::askotch10m`` at its full depth: X =
 N(0, 1)/sqrt(50) of (10^7, 50) and y = N(0, 1) of (10^7, 10) drawn on the
 card from a ``torch.Generator`` of seed 0, ``RBFLinOp(X, X,
 KernelConfig(lengthscale=1.0), compute_dtype="bf16x3")``, reg = 1e-5 n;
 SAP with blocks of 100,000, block Nyström of rank 100 at rho = reg, 10
-power iterations, rtol 1e-6, sampled metrics every 5 iterations, key 7: a
-plain pilot of ``--pilot`` iterations, (mu, nu) from
-``sap_accel_from_pilot`` (run.py's fallback mu = 0.9 blk/n, nu = n/blk
-where the pilot shows no contraction), then ``--iters`` accelerated
+power iterations, rtol 1e-6, sampled metrics every 5 iterations, key 7,
+accelerated with the (mu, nu) of the benchmark's configuration
+``portbench/configs/synth10m-rbf-askotch.json`` (a plain pilot's, which
+``tools/sap_pilot.py --workload krr10m-askotch-iters`` runs): ``--iters``
 iterations, certified every ``--every`` iterations and at the end by
 ``chip_smoke.value64_certificate`` (2,048 rows of numpy seed 11, K8
 against all 10^7 points, the rest in float64 on the host). As in the
 smoke, a solve's last metrics stay sampled (a true residual at this size
 is 10^14 float64 kernel values, about half an hour on the card).
 
-Prints the pilot's and the accelerated run's walls, s/iter and sampled
-trajectories, (mu, nu) with their source, each certificate with its
-standard error and wall, and the peak memory, as one ``config10m {...}``
-line, then the card's name and power limit. Needs one CUDA card and
-``nvcc``; takes about 15 minutes on an H100.
+Prints the accelerated run's wall, s/iter and sampled trajectory, (mu,
+nu), each certificate with its standard error and wall, and the peak
+memory, as one ``config10m {...}`` line, then the card's name and power
+limit. Needs one CUDA card and ``nvcc``; takes about 12 minutes on an
+H100.
 """
 
 import argparse
@@ -35,10 +35,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as smoke  # noqa: E402
 
+CONFIG9 = Path(__file__).resolve().parent.parent / "portbench/configs/synth10m-rbf-askotch.json"
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--pilot", type=int, default=60)
     ap.add_argument("--iters", type=int, default=150)
     ap.add_argument("--every", type=int, default=50)
     args = ap.parse_args()
@@ -52,7 +53,7 @@ def main() -> int:
     from rlaopt_tpu_torch.models import LinSys
     from rlaopt_tpu_torch.ops import kernel_cuda
     from rlaopt_tpu_torch.preconditioners import NystromConfig
-    from rlaopt_tpu_torch.solvers import SAPAccelConfig, SAPConfig, sap_accel_from_pilot
+    from rlaopt_tpu_torch.solvers import SAPAccelConfig, SAPConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -95,16 +96,8 @@ def main() -> int:
         return W, {"wall_s": wall, "phase_walls": sys_.phase_walls, "iters": its[-1],
                    "s_per_iter": sys_.phase_walls["train"] / its[-1], "trajectory": traj}
 
-    _, pilot = solve(SAPConfig(max_iters=args.pilot, accel=False, **base))
-    pilot_rel = pilot["trajectory"][pilot["iters"]]
-    try:
-        acc = sap_accel_from_pilot(pilot_rel, args.pilot, n, blk)
-        source = "sap_accel_from_pilot"
-    except ValueError:
-        acc = SAPAccelConfig(mu=0.9 * blk / n, nu=n / blk)
-        source = "pilot_no_contraction_fallback_max_live_mu"
-    print(f"config10m pilot: {json.dumps(pilot)}; mu {acc.mu} nu {acc.nu} ({source})",
-          flush=True)
+    solver = json.loads(CONFIG9.read_text())["solver"]
+    acc = SAPAccelConfig(mu=solver["mu"], nu=solver["nu"])
     snaps = {}
     W, accel = solve(SAPConfig(max_iters=args.iters, accel=True, accel_config=acc, **base),
                      snaps)
@@ -117,8 +110,7 @@ def main() -> int:
         print(f"config10m certificate at {i}: {rel:.8e} ± {rel * stderr:.2e} in {cert_s:.3f} s",
               flush=True)
     record = {"n": n, "d": d, "k": k, "blk_sz": blk, "reg": reg, "build_s": build_s,
-              "setup_s": setup_s, "pilot": pilot,
-              "accel_params": {"mu": acc.mu, "nu": acc.nu, "source": source},
+              "setup_s": setup_s, "accel_params": {"mu": acc.mu, "nu": acc.nu},
               "accelerated": accel, "certificates": certs,
               "wall_s": time.perf_counter() - t_all,
               "peak_bytes": torch.cuda.max_memory_allocated(dev)}

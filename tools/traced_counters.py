@@ -6,9 +6,10 @@
 Runs the cell once as ``portbench/run.py --trace 1`` does
 (``portbench.harness.run``: set-up, warm-up, the window under the profiler,
 the check) and prints one ``traced_counters {...}`` line: the run's
-``correct`` and per-layer metrics, the counters the port recorded in the
-window (``rlaopt_tpu_torch.utils.profiling.counters()``: each wrapper's
-calls and host time, each route's launches, such as
+``correct``, per-layer metrics, device record, breakdown and checks, the
+counters the port recorded in the window
+(``rlaopt_tpu_torch.utils.profiling.counters()``: each wrapper's calls and
+host time, each route's launches, such as
 ``rlaopt.cuda.gram_matmat_tier.warpgroup.launches``) and the number of
 each span, such as SAP's ``rlaopt.sap.row_oracle``; then the card's name
 and power limit. Needs the cell's CUDA card(s) and ``nvcc``.
@@ -48,7 +49,9 @@ def main() -> int:
     spans = collections.Counter(s["name"] for s in profiling.spans())
     print("traced_counters " + json.dumps({
         "workload": args.workload, "seed": args.seed, "correct": result["correct"],
-        "metrics": result["metrics"], "counters": profiling.counters(),
+        "metrics": result["metrics"], "device": result["device"],
+        "breakdown": result.get("breakdown"), "checks": result["checks"],
+        "counters": profiling.counters(),
         "spans": dict(sorted(spans.items())), "spans_dropped": profiling.dropped()}))
     print(smoke.card_line())
     return 0
